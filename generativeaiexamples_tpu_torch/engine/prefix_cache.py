@@ -1,0 +1,268 @@
+"""Host-side radix index over token-id prefixes -> parked KV segments.
+
+The cross-request half of the scheduler's prefix cache (the paged-KV
+prefix-reuse capability the reference delegates to TRT-LLM, SURVEY.md
+§2.8; the technique is vLLM's PagedAttention prefix caching / SGLang's
+RadixAttention, host-side only here): every parked slot whose cache rows
+hold KV for a token history registers that history as a *segment*, and an
+incoming prompt asks for the segment sharing its longest token prefix.
+The scheduler then grafts the matched rows into the admitted slot and
+prefills only the suffix.
+
+Pure host bookkeeping — no JAX in this module.  The trie is
+edge-compressed (labels are token runs, split lazily on divergence), so a
+lookup costs O(prompt length) regardless of how many segments are
+registered; a linear scan over 320 slots x 1.5k-token histories would
+cost ~0.5M comparisons per admission on the pathological all-shared
+workload this cache exists to serve.
+
+Segments are reference-counted (:meth:`pin`/:meth:`unpin`) so the
+scheduler's LRU slot reclaim can never evict the segment an in-flight
+graft is copying from, and recency-tracked (:meth:`touch`) so matches
+prefer the most recently used candidate at equal depth.
+
+Under speculative decoding the registration invariant tightens in one
+way that matters to correctness: a parked slot's history — and hence
+its registered segment — contains only *verified* tokens (accepted by
+the target's batched verify, or emitted by the target itself).
+Rejected draft proposals exist solely as phantom KV rows past the
+slot's accounted length and are never registered here, so a graft from
+a segment can never replay a token the target would not have produced
+(``tests/test_spec_serving.py`` pins this).
+
+Two owners use this index with different bounds: the scheduler's own
+index is implicitly bounded by its slot count (a segment per parked
+slot), while the router keeps a *mirror* index per replica to predict
+which replica holds a prompt's prefix — mirrors pass ``max_segments``
+so the prediction state stays bounded no matter how many requests flow
+through (least-recently-used unpinned segments are dropped past the
+cap).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional, Sequence
+
+
+class _Node:
+    __slots__ = ("edges", "segs")
+
+    def __init__(self) -> None:
+        # first_token -> (label run, child).  ``segs`` holds every segment
+        # whose history passes through this node (dict for O(1) removal
+        # with stable iteration order).
+        self.edges: dict[int, tuple[list[int], "_Node"]] = {}
+        self.segs: dict[int, None] = {}
+
+
+class PrefixCacheIndex:
+    """Longest-prefix lookup from token ids to registered segment ids.
+
+    Invariant: a segment's path through the trie always ends on a node
+    boundary (inserts split edges as needed), and every node on the path
+    lists the segment in ``segs`` — so the deepest node reached while
+    matching a query immediately yields candidates sharing exactly that
+    many tokens.
+    """
+
+    def __init__(self, max_segments: Optional[int] = None) -> None:
+        if max_segments is not None and max_segments < 1:
+            raise ValueError(f"max_segments must be >= 1, got {max_segments}")
+        self.max_segments = max_segments
+        self._root = _Node()
+        self._tokens: dict[int, list[int]] = {}
+        self._pages: dict[int, list[int]] = {}
+        self._pins: dict[int, int] = {}
+        self._used: dict[int, int] = {}
+        self._clock = 0
+
+    def __len__(self) -> int:
+        return len(self._tokens)
+
+    def __contains__(self, seg_id: int) -> bool:
+        return seg_id in self._tokens
+
+    def segments(self) -> Iterator[int]:
+        return iter(self._tokens)
+
+    def tokens(self, seg_id: int) -> Optional[list[int]]:
+        return self._tokens.get(seg_id)
+
+    def pages(self, seg_id: int) -> list[int]:
+        """The pool page ids this parked segment OWNS (references held
+        on the segment's behalf; the scheduler releases them back to the
+        pool when the segment is consumed or evicted).  Empty when the
+        owner runs the contiguous cache or registered tokens only."""
+        return self._pages.get(seg_id, [])
+
+    def total_pages(self) -> int:
+        """Pages held across registered segments — the paged pool's
+        parked footprint as this index sees it (a page shared by two
+        segments counts once per holder, mirroring its refcount)."""
+        return sum(len(p) for p in self._pages.values())
+
+    def lru_order(self) -> list[int]:
+        """Registered segment ids, least recently used first — the
+        pool-pressure eviction scan order (callers skip pinned ids)."""
+        return sorted(self._tokens, key=lambda s: self._used.get(s, 0))
+
+    # -- mutation ----------------------------------------------------------
+
+    def insert(
+        self,
+        seg_id: int,
+        tokens: Sequence[int],
+        pages: Optional[Sequence[int]] = None,
+    ) -> None:
+        """Register ``tokens`` as segment ``seg_id`` (replacing any prior
+        registration of the same id).  Empty histories cache nothing.
+        When ``max_segments`` is set, the least-recently-used unpinned
+        segment is evicted to make room (the fresh segment never evicts
+        itself, so a cap of 1 keeps the newest).
+
+        ``pages`` records the pool page ids the parked segment OWNS
+        (exactly ``ceil(len / page_tokens)`` of them) — true-length
+        accounting, never the padded ``kv_bucket`` row the contiguous
+        cache would charge.  The index only bookkeeps the ids; the
+        scheduler moves the refcounts.  ``None`` (contiguous cache, or
+        a router mirror that tracks tokens only) holds no pages."""
+        if seg_id in self._tokens:
+            self.remove(seg_id)
+        toks = [int(t) for t in tokens]
+        if not toks:
+            return
+        self._tokens[seg_id] = toks
+        if pages is not None:
+            self._pages[seg_id] = [int(p) for p in pages]
+        self.touch(seg_id)
+        self._insert_path(seg_id, toks)
+        if self.max_segments is not None:
+            while len(self._tokens) > self.max_segments:
+                victim = min(
+                    (
+                        s
+                        for s in self._tokens
+                        if s != seg_id and not self.pinned(s)
+                    ),
+                    key=lambda s: self._used.get(s, 0),
+                    default=None,
+                )
+                if victim is None:
+                    break
+                self.remove(victim)
+
+    def _insert_path(self, seg_id: int, toks: list[int]) -> None:
+        node = self._root
+        node.segs[seg_id] = None
+        i = 0
+        while i < len(toks):
+            first = toks[i]
+            edge = node.edges.get(first)
+            if edge is None:
+                child = _Node()
+                child.segs[seg_id] = None
+                node.edges[first] = (toks[i:], child)
+                return
+            label, child = edge
+            n = min(len(label), len(toks) - i)
+            j = 0
+            while j < n and label[j] == toks[i + j]:
+                j += 1
+            if j == len(label):
+                child.segs[seg_id] = None
+                node = child
+                i += j
+                continue
+            # Diverged (or ran out of tokens) inside the label: split the
+            # edge at j so both the existing subtree and the new segment
+            # end/branch on a node boundary.
+            mid = _Node()
+            mid.segs.update(child.segs)
+            mid.segs[seg_id] = None
+            mid.edges[label[j]] = (label[j:], child)
+            node.edges[first] = (label[:j], mid)
+            if i + j < len(toks):
+                tail = _Node()
+                tail.segs[seg_id] = None
+                mid.edges[toks[i + j]] = (toks[i + j :], tail)
+            return
+
+    def remove(self, seg_id: int) -> None:
+        """Drop a segment; edges left with no segments are pruned."""
+        toks = self._tokens.pop(seg_id, None)
+        self._pages.pop(seg_id, None)
+        self._pins.pop(seg_id, None)
+        self._used.pop(seg_id, None)
+        if toks is None:
+            return
+        node = self._root
+        node.segs.pop(seg_id, None)
+        i = 0
+        while i < len(toks):
+            edge = node.edges.get(toks[i])
+            if edge is None:  # defensive: never true for a registered path
+                return
+            label, child = edge
+            child.segs.pop(seg_id, None)
+            if not child.segs:
+                del node.edges[toks[i]]
+                return
+            node = child
+            i += len(label)
+
+    def clear(self) -> None:
+        self.__init__(self.max_segments)
+
+    # -- lookup ------------------------------------------------------------
+
+    def match(self, tokens: Sequence[int]) -> tuple[Optional[int], int]:
+        """Longest-prefix match: returns ``(seg_id, common_len)`` for the
+        segment sharing the most leading tokens with ``tokens`` (most
+        recently used wins ties), or ``(None, 0)``."""
+
+        def pick(segs: dict[int, None], depth: int):
+            if not segs or depth == 0:
+                return None, 0
+            sid = max(segs, key=lambda s: self._used.get(s, 0))
+            return sid, depth
+
+        node = self._root
+        i = 0
+        while i < len(tokens):
+            edge = node.edges.get(tokens[i])
+            if edge is None:
+                return pick(node.segs, i)
+            label, child = edge
+            n = min(len(label), len(tokens) - i)
+            j = 0
+            while j < n and label[j] == tokens[i + j]:
+                j += 1
+            if j < len(label):
+                # Stopped inside the edge: anything through it shares the
+                # first i+j tokens.
+                if j > 0:
+                    return pick(child.segs, i + j)
+                return pick(node.segs, i)
+            node = child
+            i += j
+        return pick(node.segs, i)
+
+    # -- refcounts / recency ----------------------------------------------
+
+    def pin(self, seg_id: int) -> None:
+        """Guard a segment against eviction while a graft reads it."""
+        self._pins[seg_id] = self._pins.get(seg_id, 0) + 1
+
+    def unpin(self, seg_id: int) -> None:
+        n = self._pins.get(seg_id, 0) - 1
+        if n > 0:
+            self._pins[seg_id] = n
+        else:
+            self._pins.pop(seg_id, None)
+
+    def pinned(self, seg_id: int) -> bool:
+        return self._pins.get(seg_id, 0) > 0
+
+    def touch(self, seg_id: int) -> None:
+        self._clock += 1
+        self._used[seg_id] = self._clock

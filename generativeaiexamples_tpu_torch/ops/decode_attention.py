@@ -1,0 +1,183 @@
+"""One-token decode attention over the stacked int8 KV cache (port of the
+contiguous half of ``ops/decode_attention.py``).
+
+Semantics: for one layer ``li`` of the head-major cache, row ``b`` attends
+cache slots ``[0, min(kv_lengths[b], window))`` and then the decode
+chunk's append-buffer slots ``[0, count)``.  int8 k/v never dequantize
+into a wide copy: the per-(token, head) scales fold into the scores and
+the softmax weights, and a row with no visible slot gives exact zeros.
+
+Cache layout (``models.llama.init_kv_cache``): values ``(L, KH, B, T, HD)``
+int8, scales ``(L, KH, B, T)`` bf16; the append buffer is
+``(L, KH, B, C, HD)`` / ``(L, KH, B, C)``.
+
+On a CUDA tensor :func:`decode_gqa_attention` launches
+``csrc/decode_attention.cu``; on a CPU tensor it runs the plain version,
+:func:`decode_gqa_attention_plain` (the reference's
+``decode_gqa_attention_xla``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from generativeaiexamples_tpu_torch.ops import _cuda
+
+_NEG_INF = -1e30
+
+
+def flush_clip_start(max_len: int, chunk: int) -> int:
+    """First cache position the chunk-end append-buffer flush can
+    garbage-write for a lane that cannot advance.
+
+    ``engine.decode._flush_append_buffer`` clips each row's flush start to
+    ``max_len - chunk``, so lanes pinned at ``max_len - 1`` take ``chunk``
+    slots of garbage in ``[max_len - chunk, max_len)``.  Every producer of
+    KV that must survive such a flush (parked histories, same-tick
+    admission prefills, grafted prefixes) stays strictly below this
+    position; the scheduler derives its parking margin and admission
+    length bound from it.
+    """
+    return max_len - chunk
+
+
+def _window_attention_plain(q, k_w, v_w, ks_w, vs_w, kv_lengths, append_w, buf_base):
+    """The reference's window core (``_window_buffer_attention_core``):
+    q (B, S, n_q, HD); window values (KH, B, W, HD) with (KH, B, W)
+    scales; window slot ``t`` visible iff ``t < kv_lengths[b]``, append
+    slot ``j`` visible to query ``i`` iff ``j <= buf_base + i``."""
+    b, s, n_q, hd = q.shape
+    n_kv = k_w.shape[0]
+    g = n_q // n_kv
+    scale = hd**-0.5
+    window = k_w.shape[2]
+    qg = q.reshape(b, s, n_kv, g, hd).float()
+
+    def scores_part(kpart, kspart):
+        sc = torch.einsum("bsngh,nbth->bngst", qg, kpart.float()) * scale
+        return sc * kspart.permute(1, 0, 2).float()[:, :, None, None, :]
+
+    t_idx = torch.arange(window, dtype=torch.int32, device=q.device)
+    mask_w = (t_idx[None, :] < kv_lengths[:, None])[:, None, None, None, :]
+    sc_w = scores_part(k_w, ks_w)
+    sc_w = torch.where(mask_w, sc_w, torch.full_like(sc_w, _NEG_INF))
+    parts = [(sc_w, mask_w.expand(sc_w.shape))]
+    vals = [(v_w, vs_w)]
+    if append_w is not None:
+        k_ab, v_ab, ks_ab, vs_ab = append_w
+        c = k_ab.shape[2]
+        j_idx = torch.arange(c, dtype=torch.int32, device=q.device)
+        s_idx = torch.arange(s, dtype=torch.int32, device=q.device)
+        visible = (j_idx[None, :] <= buf_base + s_idx[:, None])[None, None, None, :, :]
+        sc_b = scores_part(k_ab, ks_ab)
+        sc_b = torch.where(visible, sc_b, torch.full_like(sc_b, _NEG_INF))
+        parts.append((sc_b, visible.expand(sc_b.shape)))
+        vals.append((v_ab, vs_ab))
+
+    scores = torch.cat([p[0] for p in parts], dim=-1)
+    masks = torch.cat([p[1] for p in parts], dim=-1)
+    m = scores.amax(dim=-1, keepdim=True)
+    weights = torch.exp(scores - m) * masks
+    weights = weights / weights.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.zeros((b, n_kv, g, s, hd), dtype=torch.float32, device=q.device)
+    off = 0
+    for vpart, vspart in vals:
+        t = vpart.shape[2]
+        w = weights[..., off : off + t] * vspart.permute(1, 0, 2).float()[:, :, None, None, :]
+        out = out + torch.einsum("bngst,nbth->bngsh", w.to(q.dtype).float(), vpart.float())
+        off += t
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, n_q, hd).to(q.dtype)
+
+
+def decode_gqa_attention_plain(
+    q, k8, v8, ks, vs, layer: int, kv_lengths, append=None, *, window: int
+) -> torch.Tensor:
+    """Plain version of the kernel: slice layer ``layer``'s first
+    ``window`` slots (and its append buffer) and run the window core."""
+    append_w, buf_base = None, 0
+    if append is not None:
+        k_ab, v_ab, ks_ab, vs_ab, count = append
+        append_w = (k_ab[layer], v_ab[layer], ks_ab[layer], vs_ab[layer])
+        buf_base = int(count) - 1
+    return _window_attention_plain(
+        q[:, None],
+        k8[layer, :, :, :window],
+        v8[layer, :, :, :window],
+        ks[layer, :, :, :window],
+        vs[layer, :, :, :window],
+        kv_lengths,
+        append_w,
+        buf_base,
+    )[:, 0]
+
+
+_DECODE_ARGS = [_cuda.c_ptr] * 11 + [_cuda.c_int] * 8 + [_cuda.c_float, _cuda.c_ptr]
+
+
+def decode_attention_cuda(q, k8, v8, ks, vs, layer: int, kv_lengths, append, window: int):
+    """Launch ``csrc/decode_attention.cu`` on CUDA tensors."""
+    b, n_q, hd = q.shape
+    n_layers, n_kv, cb, t, chd = k8.shape
+    g = n_q // n_kv
+    tensors = [("q", q), ("k8", k8), ("v8", v8), ("ks", ks), ("vs", vs)]
+    if append is not None:
+        k_ab, v_ab, ks_ab, vs_ab, count = append
+        tensors += [("k_ab", k_ab), ("v_ab", v_ab), ("ks_ab", ks_ab), ("vs_ab", vs_ab)]
+        c, count = k_ab.shape[3], int(count)
+        _cuda.require(
+            tuple(k_ab.shape) == (n_layers, n_kv, b, c, hd) and tuple(v_ab.shape) == tuple(k_ab.shape)
+            and tuple(ks_ab.shape) == (n_layers, n_kv, b, c) and tuple(vs_ab.shape) == tuple(ks_ab.shape),
+            "decode_attention: append buffer shapes",
+        )
+        _cuda.require(0 <= count <= c <= 64, f"decode_attention: append count {count} / width {c}")
+    else:
+        k_ab = v_ab = ks_ab = vs_ab = None
+        c, count = 0, 0
+    for name, x in tensors:
+        _cuda.require(x.is_cuda and x.is_contiguous(), f"decode_attention: {name} must be a contiguous CUDA tensor")
+    _cuda.require(q.dtype == torch.bfloat16, f"decode_attention: q must be bf16, got {q.dtype}")
+    _cuda.require(k8.dtype == torch.int8 and v8.dtype == torch.int8, "decode_attention: cache values must be int8")
+    _cuda.require(ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16, "decode_attention: scales must be bf16")
+    _cuda.require(hd == 128 and chd == 128 and cb == b, "decode_attention: head_dim 128 and matching batch")
+    _cuda.require(n_q % n_kv == 0 and 1 <= g <= 8, f"decode_attention: group size {g} not in [1, 8]")
+    _cuda.require(tuple(v8.shape) == tuple(k8.shape) and tuple(ks.shape) == (n_layers, n_kv, b, t)
+                  and tuple(vs.shape) == tuple(ks.shape), "decode_attention: cache shapes")
+    _cuda.require(0 <= layer < n_layers and 0 < window <= t, f"decode_attention: layer {layer} / window {window}")
+    kv_lengths = kv_lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    fn = _cuda.function("decode_attention", "decode_attention_launch", _DECODE_ARGS)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    err = fn(
+        q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        kv_lengths.data_ptr(), ptr(k_ab), ptr(v_ab), ptr(ks_ab), ptr(vs_ab), out.data_ptr(),
+        int(layer), b, n_kv, g, t, c, count, int(window), hd**-0.5, _cuda.stream_ptr(q),
+    )
+    _cuda.check("decode_attention", err)
+    _cuda.LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_gqa_attention(
+    q: torch.Tensor,
+    k8: torch.Tensor,
+    v8: torch.Tensor,
+    ks: torch.Tensor,
+    vs: torch.Tensor,
+    layer: int,
+    kv_lengths: torch.Tensor,
+    append: Optional[tuple] = None,
+    *,
+    window: int,
+) -> torch.Tensor:
+    """Decode attention for one layer of the stacked cache.
+
+    q (B, n_q, HD) with rope applied; k8/v8 (L, KH, B, T, HD) int8;
+    ks/vs (L, KH, B, T) bf16; ``layer`` an int; kv_lengths (B,) int32;
+    ``append`` optional ``(k_ab, v_ab, ks_ab, vs_ab, count)``; ``window``
+    caps the cache slots read.  Returns (B, n_q, HD) in q's dtype.
+    """
+    if _cuda.on_cuda(q):
+        return decode_attention_cuda(q, k8, v8, ks, vs, layer, kv_lengths, append, window)
+    return decode_gqa_attention_plain(q, k8, v8, ks, vs, layer, kv_lengths, append, window=window)

@@ -38,6 +38,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running sweep, excluded from tier-1 runs"
     )
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of the PyTorch port; skips without a card"
+    )
 
 
 @pytest.fixture
