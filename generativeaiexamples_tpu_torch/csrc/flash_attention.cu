@@ -12,14 +12,20 @@
 // without materialising the broadcast.
 //
 // Bound on this card: at the prefill shapes of the serving path (s = 256,
-// head_dim 128) the bf16 tensor-core rate bounds it.  Design: one block per
-// (64-row query tile, query head, batch row), four warps of 16 query rows;
-// Q stays in registers as mma fragments, K/V tiles of 64 slots stream
-// through shared memory, S = QK^T and O += PV run on bf16 mma.sync m16n8k16
-// with f32 accumulation, and the score fragments are reused in registers as
-// the PV operand.  The kv loop stops at min(max query position + 1, kv_len),
-// skipping tiles wholly in the future.  No cp.async/TMA, no wgmma, no
-// warp specialisation: this is the simple first kernel.
+// head_dim 128) device-memory bandwidth bounds it: moving q, k, v and the
+// output takes longer than the bf16 products at the tensor-core rate.  The
+// tensor-core rate bounds it only at much longer prompts, where the work
+// grows with s^2 and the bytes with s.  Design: the kv loop stops at
+// min(max query position + 1, kv_len), so no block reads K/V slots that no
+// query of its tile can see, and tiles wholly in the future are skipped.
+// One block per (64-row query tile, query head, batch row), four warps of
+// 16 query rows; Q stays in registers as mma fragments, K/V tiles of 64
+// slots stream through shared memory, S = QK^T and O += PV run on bf16
+// mma.sync m16n8k16 with f32 accumulation, and the score fragments are
+// reused in registers as the PV operand.  The query heads of a GQA group
+// and the query tiles of a row each read the row's K/V (the repeats mostly
+// hit L2).  No cp.async/TMA, no wgmma, no warp specialisation: this is the
+// simple first kernel.
 #include "common.cuh"
 
 namespace {

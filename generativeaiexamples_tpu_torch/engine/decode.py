@@ -30,38 +30,29 @@ def prepare_params(
     *,
     device,
     generator: Optional[torch.Generator] = None,
-    quantize: bool = False,
-    pack: bool = False,
 ):
-    """Init (if needed), optionally quantize and pack, then lay out for
-    serving.
+    """Lay params out for W8A8 serving, the one layout the port serves.
 
-    ``params=None`` builds random weights from ``generator`` (int8-born
-    with ``quantize``).  ``pack`` fuses qkv and gate/up.  Every int8
-    projection is then blocked once for the W8A8 kernel
-    (``engine.weights.preblock_llama_params``), and an int8 head keeps its
-    values as f32 for the f32-accumulating logits product.
+    ``params=None`` builds random int8 weights from ``generator``.  Float
+    leaves are quantized (projections, head and embedding; int8 leaves
+    pass through), qkv and gate/up are fused, every projection is blocked
+    once for the W8A8 kernel (``engine.weights.preblock_llama_params``),
+    and the int8 head is held in the compute dtype for the logits product
+    (``engine.weights.head_for_logits``).
     """
-    from generativeaiexamples_tpu_torch.engine.weights import preblock_llama_params
+    from generativeaiexamples_tpu_torch.engine.weights import head_for_logits, preblock_llama_params
 
     if params is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        if quantize:
-            logger.info("initializing random int8 llama params (%s)", cfg)
-            params = init_random_int8_params(cfg, generator, device)
-        else:
-            logger.info("initializing random llama params (%s)", cfg)
-            params = llama.init_params(cfg, generator, device)
-    elif quantize:
-        params = quantize_llama_params(params, include_embed=True)
-    if pack:
-        params = llama.pack_for_serving(params)
+        logger.info("initializing random int8 llama params (%s)", cfg)
+        params = init_random_int8_params(cfg, generator, device)
+    # One step at a time, so each step's input is freed before the next
+    # copies it (the unpacked and packed projections never both stay alive
+    # through the blocking).
+    params = llama.pack_for_serving(quantize_llama_params(params, include_embed=True))
     params = preblock_llama_params(params)
-    head = params["lm_head"]
-    if isinstance(head, QuantizedMatrix) and head.q.dtype == torch.int8:
-        params = {**params, "lm_head": QuantizedMatrix(head.q.float(), head.scale)}
-    return params
+    return head_for_logits(params, cfg)
 
 
 def init_random_int8_params(cfg: llama.LlamaConfig, generator: torch.Generator, device):

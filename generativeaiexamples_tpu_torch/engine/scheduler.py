@@ -46,7 +46,6 @@ from generativeaiexamples_tpu_torch.engine.prefix_cache import PrefixCacheIndex
 from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams, sample
 from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops.decode_attention import flush_clip_start
-from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
 from generativeaiexamples_tpu_torch.utils.buckets import bucket_size
 
 logger = get_logger(__name__)
@@ -141,8 +140,9 @@ class Scheduler:
     Runs on ``device`` (default ``cuda``; pass ``device="cpu"`` for the
     plain versions of the kernels).  ``params`` are the port's params
     (``engine.weights.params_from_numpy`` or
-    ``engine.decode.init_random_int8_params``); int8 projections are
-    blocked once here for the W8A8 kernel.
+    ``engine.decode.init_random_int8_params``; ``None`` builds random int8
+    weights), laid out once here for the W8A8 kernel
+    (``engine.decode.prepare_params``).
     """
 
     # Minimum shared-prefix length for the suffix-prefill path.
@@ -181,11 +181,7 @@ class Scheduler:
         with torch.inference_mode():
             self.params = prepare_params(cfg, params, device=self.device, generator=self._gen)
             self._cache = prepare_cache(cfg, max_batch, self.max_len, self.device)
-        self.matmul_kernel = (
-            "w8a8"
-            if any(isinstance(leaf, BlockedQuantizedMatrix) for leaf in self.params["layers"].values())
-            else "plain"
-        )
+        self.matmul_kernel = "w8a8"  # the one projection path the port serves
         self._decode_chunk = make_decode_chunk_fn(cfg, self.max_len)
         self.prefix_cache = prefix_cache
         self._prefix_index = PrefixCacheIndex()

@@ -357,10 +357,8 @@ def metrics_text(scheduler) -> str:
     lines = []
     for name, kind, value in series:
         lines += [f"# TYPE {name} {kind}", f"{name} {value}"]
-    active = getattr(scheduler, "matmul_kernel", "plain")
     lines.append("# TYPE engine_matmul_kernel gauge")
-    for kernel in ("plain", "w8a8"):
-        lines.append(f'engine_matmul_kernel{{kernel="{kernel}"}} {1 if kernel == active else 0}')
+    lines.append(f'engine_matmul_kernel{{kernel="{scheduler.matmul_kernel}"}} 1')
     return "\n".join(lines) + "\n"
 
 
@@ -426,7 +424,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     logger.warning("no checkpoint loading in the port yet: serving random int8 weights (seed %d)", args.seed)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.inference_mode():
-        params = prepare_params(cfg, None, device=device, generator=gen, quantize=True, pack=True)
+        params = prepare_params(cfg, None, device=device, generator=gen)
     engine = Scheduler(
         cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
         decode_chunk_size=args.decode_chunk_size, seed=args.seed,

@@ -16,20 +16,28 @@ from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix
 
 logger = get_logger(__name__)
 
-# Per-layer projection leaves the W8A8 kernel consumes, packed or not.
-PREBLOCK_TARGETS = ("wqkv", "w_gu", "wq", "wk", "wv", "w_gate", "w_up", "w_down", "wo")
+# Per-layer projection leaves the W8A8 kernel consumes (packed layout).
+PREBLOCK_TARGETS = ("wqkv", "w_gu", "w_down", "wo")
 
 
 def preblock_llama_params(params):
     """Block every int8 projection leaf once, at load, into the W8A8
-    kernel's layout (``ops.qmm.block_matrix``); float leaves and blocked
-    leaves pass through, so this is idempotent."""
+    kernel's layout (``ops.qmm.block_matrix``); blocked leaves pass
+    through, so this is idempotent."""
     layers = dict(params["layers"])
     for name in PREBLOCK_TARGETS:
-        leaf = layers.get(name)
-        if isinstance(leaf, QuantizedMatrix):
-            layers[name] = block_matrix(leaf)
+        layers[name] = block_matrix(layers[name])
     return {**params, "layers": layers}
+
+
+def head_for_logits(params, cfg):
+    """Hold an int8 head's values in the compute dtype, once, at load:
+    int8 -> bf16 (or f32) is exact, and ``models.llama.logits`` multiplies
+    them with f32 accumulation, as the reference's convert-in-the-dot does."""
+    head = params.get("lm_head")
+    if isinstance(head, QuantizedMatrix) and head.q.dtype == torch.int8:
+        params = {**params, "lm_head": QuantizedMatrix(head.q.to(cfg.compute_dtype), head.scale)}
+    return params
 
 
 def resolve_model_preset(model_name: str) -> str:
@@ -85,8 +93,8 @@ def params_from_numpy(tree, cfg, device) -> dict:
     Plain arrays become tensors, ``QuantizedMatrix(q, scale)`` the port's
     QuantizedMatrix, and ``BlockedQuantizedMatrix(tiles, scale, k, n)`` the
     port's K-contiguous blocked layout (the same int8 values and scales).
-    An int8 head keeps its values as f32 for the logits product, as
-    ``engine.decode.prepare_params`` does.
+    An int8 head is held in the compute dtype (:func:`head_for_logits`),
+    as ``engine.decode.prepare_params`` does.
     """
     embed_rows = np.shape(getattr(tree["embed"], "q", tree["embed"]))[0]
     depth = np.shape(np.asarray(tree["layers"]["attn_norm"]))[0]
@@ -97,10 +105,7 @@ def params_from_numpy(tree, cfg, device) -> dict:
         )
     out = {k: _leaf(v, device) for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: _leaf(v, device) for k, v in tree["layers"].items()}
-    head = out.get("lm_head")
-    if isinstance(head, QuantizedMatrix):
-        out["lm_head"] = QuantizedMatrix(head.q.float(), head.scale)
-    return out
+    return head_for_logits(out, cfg)
 
 
 def cache_from_numpy(cache, device) -> tuple:

@@ -19,8 +19,10 @@ cache the scheduler uses:
   decode chunk's append buffer, and attention reads the cache window plus
   the buffer through the decode kernel (``ops.decode_attention``).
 
-Every projection goes through ``ops.quant.q_dot``, so pre-blocked int8
-weights run the W8A8 kernel (``ops.qmm``).  The cache is updated in place.
+The projections are packed (``wqkv``, ``w_gu``) and pre-blocked int8
+(``engine.decode.prepare_params``), and each goes through
+``ops.quant.q_dot`` to the W8A8 kernel (``ops.qmm``).  The cache is
+updated in place.
 """
 
 from __future__ import annotations
@@ -146,18 +148,16 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device) -> Params:
 
 def pack_for_serving(params: Params) -> Params:
     """Fuse ``wq|wk|wv -> wqkv`` and ``w_gate|w_up -> w_gu`` on the output
-    axis (raw tensors or QuantizedMatrix leaves); idempotent."""
+    axis (QuantizedMatrix leaves); idempotent."""
     layers = dict(params["layers"])
     if "wqkv" in layers:
         return params
 
     def cat(*ms):
-        if isinstance(ms[0], QuantizedMatrix):
-            return QuantizedMatrix(
-                q=torch.cat([m.q for m in ms], dim=-1),
-                scale=torch.cat([m.scale for m in ms], dim=-1),
-            )
-        return torch.cat(ms, dim=-1)
+        return QuantizedMatrix(
+            q=torch.cat([m.q for m in ms], dim=-1),
+            scale=torch.cat([m.scale for m in ms], dim=-1),
+        )
 
     layers["wqkv"] = cat(layers.pop("wq"), layers.pop("wk"), layers.pop("wv"))
     layers["w_gu"] = cat(layers.pop("w_gate"), layers.pop("w_up"))
@@ -280,15 +280,10 @@ def forward(
     for li in range(cfg.n_layers):
         lp = _layer_params(params["layers"], li)
         h = block_norm(x, cfg, lp, "attn_norm")
-        if "wqkv" in lp:
-            qkv = q_dot(h, lp["wqkv"], "wqkv")
-            q = qkv[..., : n_q * hd].reshape(b, s, n_q, hd)
-            k = qkv[..., n_q * hd : (n_q + n_kv) * hd].reshape(b, s, n_kv, hd)
-            v = qkv[..., (n_q + n_kv) * hd :].reshape(b, s, n_kv, hd)
-        else:
-            q = q_dot(h, lp["wq"], "wq").reshape(b, s, n_q, hd)
-            k = q_dot(h, lp["wk"], "wk").reshape(b, s, n_kv, hd)
-            v = q_dot(h, lp["wv"], "wv").reshape(b, s, n_kv, hd)
+        qkv = q_dot(h, lp["wqkv"], "wqkv")
+        q = qkv[..., : n_q * hd].reshape(b, s, n_q, hd)
+        k = qkv[..., n_q * hd : (n_q + n_kv) * hd].reshape(b, s, n_kv, hd)
+        v = qkv[..., (n_q + n_kv) * hd :].reshape(b, s, n_kv, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         k8, ks = _quantize_kv(k)
@@ -336,11 +331,8 @@ def forward(
         x = x + q_dot(attn.reshape(b, s, n_q * hd), lp["wo"], "wo")
 
         h = block_norm(x, cfg, lp, "mlp_norm")
-        if "w_gu" in lp:
-            gu = q_dot(h, lp["w_gu"], "w_gu")
-            gated = F.silu(gu[..., : cfg.d_ff]) * gu[..., cfg.d_ff :]
-        else:
-            gated = F.silu(q_dot(h, lp["w_gate"], "w_gate")) * q_dot(h, lp["w_up"], "w_up")
+        gu = q_dot(h, lp["w_gu"], "w_gu")
+        gated = F.silu(gu[..., : cfg.d_ff]) * gu[..., cfg.d_ff :]
         x = x + q_dot(gated, lp["w_down"], "w_down")
 
     x = apply_final_norm(x, cfg, params)
@@ -352,11 +344,16 @@ def forward(
 def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """Project hidden states to f32 vocab logits (f32 accumulation).
 
-    An int8 head may be held with its int8 values stored as f32
-    (``engine.decode.prepare_params`` does so once at load): int8 -> f32 is
-    exact, so the product equals the reference's convert-in-the-dot."""
+    An int8 head is held with its values in the compute dtype
+    (``engine.weights.head_for_logits``, once at load): int8 -> bf16 is
+    exact, so the product equals the reference's convert-in-the-dot.  On
+    the card a bf16 x bf16 product runs with f32 accumulation and f32
+    output; elsewhere the operands go to f32."""
     head = params["lm_head"]
-    if isinstance(head, QuantizedMatrix):
-        w = head.q if head.q.dtype == torch.float32 else head.q.float()
-        return torch.matmul(hidden.float(), w) * head.scale[..., 0, :]
-    return torch.matmul(hidden.float(), head.float())
+    w, scale = (head.q, head.scale[..., 0, :]) if isinstance(head, QuantizedMatrix) else (head, None)
+    if hidden.is_cuda and hidden.dtype == w.dtype == torch.bfloat16:
+        out = torch.mm(hidden.reshape(-1, hidden.shape[-1]), w, out_dtype=torch.float32)
+        out = out.reshape(*hidden.shape[:-1], w.shape[-1])
+    else:
+        out = torch.matmul(hidden.float(), w.float())
+    return out if scale is None else out * scale

@@ -70,36 +70,25 @@ def _validate_q_dot(x: torch.Tensor, w: Any, name: Optional[str]) -> None:
         )
     if not x.is_floating_point():
         raise ValueError(f"{who}: activations must be floating point, got {x.dtype}")
-    if isinstance(w, QuantizedMatrix):
-        if w.q.dtype != torch.int8:
-            raise ValueError(f"{who}: QuantizedMatrix values must be int8, got {w.q.dtype}")
-        if w.scale.shape[-1] != w.q.shape[-1] or w.scale.shape[-2] != 1:
-            raise ValueError(
-                f"{who}: scale shape {tuple(w.scale.shape)} does not "
-                f"broadcast against int8 weight {tuple(w.q.shape)} "
-                "(expected (..., 1, d_out))"
-            )
 
 
 def q_dot(x: torch.Tensor, w: Any, name: Optional[str] = None) -> torch.Tensor:
-    """``x @ w`` for plain tensors, QuantizedMatrix, or pre-blocked W8A8.
+    """``x @ w`` for a pre-blocked W8A8 projection
+    (:class:`~generativeaiexamples_tpu_torch.ops.qmm.BlockedQuantizedMatrix`):
+    per-token-quantized W8A8 through the CUDA kernel on the card, or its
+    bit-identical plain version on the CPU (``ops.qmm.q_matmul``).
 
-    * :class:`~generativeaiexamples_tpu_torch.ops.qmm.BlockedQuantizedMatrix`:
-      per-token-quantized W8A8 through the CUDA kernel on the card, or its
-      bit-identical plain version on the CPU (``ops.qmm.q_matmul``).
-    * QuantizedMatrix: int8 weight converted to f32 in the product, f32
-      accumulation, per-column scale on the output.
-    * Plain tensors: a product with f32 accumulation.
+    The reference's weight-only int8 and float products are not ported:
+    other weights raise (``engine.decode.prepare_params`` lays params out).
     """
     from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix, q_matmul
 
     _validate_q_dot(x, w, name)
-    if isinstance(w, BlockedQuantizedMatrix):
-        return q_matmul(x, w)
-    if isinstance(w, QuantizedMatrix):
-        out = torch.matmul(x.float(), w.q.float())
-        return (out * w.scale[..., 0, :]).to(x.dtype)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    if not isinstance(w, BlockedQuantizedMatrix):
+        raise TypeError(
+            f"projection {name!r}: the port serves pre-blocked W8A8 weights, got {type(w).__name__}"
+        )
+    return q_matmul(x, w)
 
 
 # Per-layer projection weights that serving quantizes to int8.
@@ -109,15 +98,20 @@ QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 def quantize_llama_params(
     params: dict, *, include_lm_head: bool = True, include_embed: bool = False
 ) -> dict:
-    """Quantize every layer matmul weight (and optionally head/embedding);
-    norm gains stay in their storage dtype."""
+    """Quantize every float layer matmul weight (and optionally the
+    head/embedding); leaves that are already int8 pass through, and norm
+    gains stay in their storage dtype."""
+
+    def quant(leaf, fn):
+        return fn(leaf) if isinstance(leaf, torch.Tensor) else leaf
+
     layers = dict(params["layers"])
     for name in QUANT_TARGETS:
         if name in layers:
-            layers[name] = quantize_matrix(layers[name])
+            layers[name] = quant(layers[name], quantize_matrix)
     out = {**params, "layers": layers}
     if include_lm_head:
-        out["lm_head"] = quantize_matrix(params["lm_head"])
+        out["lm_head"] = quant(params["lm_head"], quantize_matrix)
     if include_embed:
-        out["embed"] = quantize_embedding(params["embed"])
+        out["embed"] = quant(params["embed"], quantize_embedding)
     return out

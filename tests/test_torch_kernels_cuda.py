@@ -76,3 +76,19 @@ def test_flash_attention_close(dev):
     ref = fa.flash_gqa_attention_plain(q, k, v, pos, lengths)
     torch.testing.assert_close(out, ref, atol=1e-2, rtol=2e-2)
     assert not out[1, 60:].any() and not out[2].any()
+
+
+def test_logits_bf16_head_accumulates_in_f32(dev):
+    """The bf16 head copy (exact int8 values) with f32 accumulation and f32
+    output gives the f32 product of the same values."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q8 = torch.randint(-127, 128, (512, 1000), dtype=torch.int8, device=dev, generator=g)
+    scale = torch.rand(1, 1000, device=dev, generator=g) * 1e-3
+    hidden = torch.randn(2, 3, 512, device=dev, generator=g).to(torch.bfloat16)
+    out = llama.logits({"lm_head": QuantizedMatrix(q8.to(torch.bfloat16), scale)}, hidden)
+    ref = (hidden.double() @ q8.double()).float() * scale[0]
+    assert out.dtype == torch.float32 and out.shape == (2, 3, 1000)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)

@@ -129,3 +129,19 @@ def test_append_buffer_step_and_decode_chunks(both_params, cold, monkeypatch):
         jtok, ttok = jtoks[-1], ttoks[-1]
         jlen = jlen + 2
     _assert_cache_close(jcache, tcache)
+
+
+def test_prepare_params_lays_out_a_float_tree_as_the_reference(both_params):
+    """A float tree through the port's prepare_params (quantize, pack,
+    block) gives the same int8 leaves as the reference's prepare_params."""
+    _, tp = both_params
+    raw = params_from_numpy(jax.tree.map(np.asarray, jllama.init_params(JCFG, jax.random.PRNGKey(0))), TCFG, "cpu")
+    assert isinstance(raw["layers"]["wq"], torch.Tensor)
+    out = tdecode.prepare_params(TCFG, raw, device="cpu")
+    for name in ("wqkv", "wo", "w_gu", "w_down"):
+        assert torch.equal(out["layers"][name].w, tp["layers"][name].w), name
+        assert torch.equal(out["layers"][name].scale, tp["layers"][name].scale), name
+    for name in ("embed", "lm_head"):
+        assert torch.equal(out[name].q, tp[name].q) and torch.equal(out[name].scale, tp[name].scale), name
+    assert out["lm_head"].q.dtype == TCFG.compute_dtype
+    assert tdecode.prepare_params(TCFG, out, device="cpu")["layers"]["wo"] is out["layers"]["wo"]

@@ -115,3 +115,13 @@ def test_q_dot_names_projection():
         tquant.q_dot(torch.zeros(2, 48), qm, "wqkv")
     with pytest.raises(ValueError, match="projection 'w_gu'"):
         tquant.q_dot(torch.zeros(2, 48), tqmm.block_matrix(qm), "w_gu")
+
+
+def test_q_dot_takes_only_blocked_weights():
+    qm = tquant.quantize_matrix(torch.randn(48, 96))
+    with pytest.raises(TypeError, match="projection 'wo'.*pre-blocked"):
+        tquant.q_dot(torch.zeros(2, 48), qm, "wo")
+    with pytest.raises(TypeError, match="pre-blocked"):
+        tquant.q_dot(torch.zeros(2, 48), torch.zeros(48, 96), "wo")
+    out = tquant.q_dot(torch.ones(2, 48), tqmm.block_matrix(qm), "wo")
+    assert out.shape == (2, 96) and out.dtype == torch.float32

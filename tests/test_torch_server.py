@@ -25,7 +25,7 @@ PROMPT = "hello port"
 @pytest.fixture(scope="module")
 def served():
     gen = torch.Generator().manual_seed(1)
-    params = prepare_params(CFG, None, device="cpu", generator=gen, quantize=True, pack=True)
+    params = prepare_params(CFG, None, device="cpu", generator=gen)
     sched = Scheduler(
         CFG, params, device="cpu", max_batch=4, max_len=128, decode_chunk_size=2,
         prefill_chunk_tokens=8, prefix_cache="off",
