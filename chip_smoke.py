@@ -6,22 +6,34 @@
 Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and CUDA.
-2. ``build``: nvcc builds the three kernels from ``csrc/`` in parallel.
+2. ``build``: nvcc builds the four kernels from ``csrc/`` in parallel.
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (W8A8 matmul bitwise; the attention kernels
-   within stated bf16 tolerances), with kernel, plain and library times
-   and the least time the card could take (its bound).
+   within stated bf16 tolerances; the paged decode kernel also bit for bit
+   equal to the contiguous one on mirrored content at page sizes 16, 32,
+   64 and 128), with kernel, plain and library times and the least time
+   the card could take (its bound).
 4. ``reference``: a small bf16 model (head_dim 128) run through the
    kernels on the card and through the plain versions on the CPU: the
    cold-prefill logits and one append-buffer decode step's logits agree
    element by element within a stated tolerance.
 5. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
-   a seed, int8 KV), served by the port's Scheduler and HTTP front on
-   127.0.0.1: eight concurrent completions, a streaming chat, models,
-   health and metrics.  Launch counts are zeroed just before and read just
-   after; every kernel must have launched.  Then ``profile``: one decode
-   chunk at batch 32 traced with torch.profiler (device time by kernel,
-   the device's busy share).
+   a seed, int8 contiguous KV), served by the port's Scheduler and HTTP
+   front on 127.0.0.1: eight concurrent completions, a streaming chat, two
+   prompts sent alone, models, health and metrics.  Launch counts are
+   zeroed just before and read just after; every kernel of the path must
+   have launched.  Then one decode chunk at batch 32 is timed, untraced.
+6. ``serve_paged``: the same on the paged KV pool (page 64, same params),
+   plus a shared-prefix group (a 300-token prompt, then four extensions of
+   it): the paged decode kernel must have launched, grafts must be host
+   table copies, the shared boundary page must be copied on write, the
+   prompts sent alone must give the contiguous server's greedy text, and
+   the pool must be all free once the parked segments are dropped.
+7. ``profile`` and ``profile_paged``: the decode chunk of each layout
+   traced with torch.profiler (device time by kernel, and the device's
+   busy share of the traced call's own span).  The traces come after
+   every untraced measurement: a trace leaves the process's later host
+   work slower.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +43,7 @@ package beside it; without either it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -60,7 +73,8 @@ REFERENCE_TOL = dict(atol=5e-2, rtol=2e-2)
 REPLACES = {
     "qmm": "generativeaiexamples_tpu/ops/qmm.py:264",
     "decode_attention": "generativeaiexamples_tpu/ops/decode_attention.py:689",
-    "flash_attention": "generativeaiexamples_tpu/ops/flash_attention.py:125",
+    "flash_attention": "generativeaiexamples_tpu/ops/flash_attention.py:126",
+    "paged_decode_attention": "generativeaiexamples_tpu/ops/decode_attention.py:1030",
 }
 
 
@@ -211,6 +225,116 @@ def check_decode(torch, dev):
     return summary
 
 
+def paged_mirror(torch, cache, own, pt, gen, share=None):
+    """Pool leaves and a table holding each row's first ``own[b]`` slots
+    (whole pages) of the contiguous ``cache`` on pool pages taken in a
+    shuffled order; the rest of each table row is the garbage page 0.
+    ``share=(src, dst, m)`` points row dst's first m entries at row src's
+    pages (the contiguous rows must agree there)."""
+    k8 = cache[0]
+    n_layers, n_kv, b, t, _ = k8.shape
+    n_slot = -(-t // pt)
+    total = b * n_slot + 1
+    perm = (torch.randperm(total - 1, generator=gen) + 1).tolist()
+    table = torch.zeros(b, n_slot, dtype=torch.int32)
+    for r in range(b):
+        n_pages = -(-own[r] // pt)
+        table[r, :n_pages] = torch.tensor(perm[:n_pages], dtype=torch.int32)
+        del perm[:n_pages]
+    if share is not None:
+        src, dst, m = share
+        table[dst, :m] = table[src, :m]
+    leaves = [torch.zeros((n_layers, n_kv, total * pt) + tuple(c.shape[4:]), dtype=c.dtype, device=c.device)
+              for c in cache]
+    for r in range(b):
+        n = -(-own[r] // pt) * pt
+        pos = torch.arange(n)
+        flat = (table[r, pos // pt].long() * pt + pos % pt).to(k8.device)
+        for leaf, c in zip(leaves, cache):
+            leaf[:, :, flat] = c[:, :, r, :n]
+    return leaves, table.to(k8.device)
+
+
+def check_paged_decode(torch, dev):
+    """K3 at the serving shapes, at page sizes 16, 32, 64 and 128: within
+    DECODE_TOL of its plain version, and equal bit for bit to K2 on the
+    same content mirrored into a contiguous cache."""
+    from generativeaiexamples_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    L, KH, B, T, HD, G, C = 4, 8, 32, 2048, 128, 4, 8
+    window, count = 1024, 5
+    q = torch.randn(B, KH * G, HD, device=dev, generator=gen).to(torch.bfloat16)
+    cache = [
+        torch.randint(-127, 128, (L, KH, B, T, HD), dtype=torch.int8, device=dev, generator=gen),
+        torch.randint(-127, 128, (L, KH, B, T, HD), dtype=torch.int8, device=dev, generator=gen),
+        (torch.rand(L, KH, B, T, device=dev, generator=gen) * 0.015 + 0.005).to(torch.bfloat16),
+        (torch.rand(L, KH, B, T, device=dev, generator=gen) * 0.015 + 0.005).to(torch.bfloat16),
+    ]
+    ab = (
+        torch.randint(-127, 128, (L, KH, B, C, HD), dtype=torch.int8, device=dev, generator=gen),
+        torch.randint(-127, 128, (L, KH, B, C, HD), dtype=torch.int8, device=dev, generator=gen),
+        (torch.rand(L, KH, B, C, device=dev, generator=gen) * 0.015 + 0.005).to(torch.bfloat16),
+        (torch.rand(L, KH, B, C, device=dev, generator=gen) * 0.015 + 0.005).to(torch.bfloat16),
+    )
+    lengths = torch.randint(1, window - C, (B,), device=dev, generator=gen, dtype=torch.int32)
+    lengths[0] = 0  # an empty lane
+    lengths[1] = T - 1  # pinned at max_len - 1: owns only its window's pages
+    lengths[2] = window
+    lengths[3], lengths[4] = 600, 700  # rows sharing their first pages
+    for c in cache:
+        c[:, :, 4] = c[:, :, 3]
+    own = lengths.clamp(max=window).tolist()
+    shared_tokens = 384
+    summary = None
+    for pt in (16, 32, 64, 128):
+        leaves, table = paged_mirror(torch, cache, own, pt, torch.Generator().manual_seed(pt),
+                                     share=(3, 4, shared_tokens // pt))
+        for with_ab in ((False, True) if pt == 64 else (True,)):
+            append = (*ab, count) if with_ab else None
+            out = da.paged_decode_attention_cuda(q, *leaves, 1, lengths, table, append, window, pt)
+            ref = da.paged_decode_gqa_attention_plain(q, *leaves, 1, lengths, table, append,
+                                                      window=window, page_tokens=pt)
+            k2 = da.decode_attention_cuda(q, *cache, 1, lengths, append, window)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            use = tolerance_use(out, ref, **DECODE_TOL)
+            torch.testing.assert_close(out, ref, **DECODE_TOL)
+            if not torch.equal(out, k2):
+                diff = (out.float() - k2.float()).abs().max().item()
+                raise AssertionError(f"paged_decode_attention page {pt}: differs from K2 on mirrored content ({diff})")
+            if not with_ab and out[0].any():
+                raise AssertionError("paged_decode_attention: an empty lane must give exact zeros")
+            k_ms = time_ms(lambda i: da.paged_decode_attention_cuda(q, *leaves, i, lengths, table, append, window, pt),
+                           L, 50)
+            k2_ms = time_ms(lambda i: da.decode_attention_cuda(q, *cache, i, lengths, append, window), L, 50)
+            p_ms = time_ms(lambda i: da.paged_decode_gqa_attention_plain(
+                q, *leaves, i, lengths, table, append, window=window, page_tokens=pt), L, 5, 1)
+            # Bytes: each distinct pool slot the rows read, once (rows 3 and
+            # 4 share pages), each row's table entries, the append buffer,
+            # q and the output.  Operations: every row's visible slots.
+            visible = lengths.clamp(0, window)
+            read = torch.arange(window, device=dev)[None, :] < visible[:, None]
+            pool_slots = da.paged_window_index(table, window, pt)[read].unique().numel()
+            ab_slots = B * count if with_ab else 0
+            table_entries = ((visible + pt - 1) // pt).sum().item()
+            nbytes = (pool_slots + ab_slots) * KH * (2 * HD + 2 * 2) + table_entries * 4 + q.numel() * 2 * 2 + B * 4
+            b_ms, b_by = bound(nbytes, 4.0 * (visible.sum().item() + ab_slots) * G * KH * HD, BF16_FLOPS)
+            row = dict(page_tokens=pt, append=with_ab, b=B, max_len=T, window=window, pool_slots_read=pool_slots,
+                       row_slots_read=visible.sum().item(), ms=k_ms, k2_ms=k2_ms,
+                       plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                       tolerance=DECODE_TOL, tolerance_use=use, equal_to_k2=True)
+            emit("kernel", kernel="paged_decode_attention", **row)
+            if pt == 64 and with_ab:
+                summary = dict(row, shape=f"B={B} KH={KH} G={G} max_len={T} window={window} page {pt}, shuffled "
+                                          f"pages, append C={C} count={count}")
+        del leaves, table
+        torch.cuda.empty_cache()
+    del cache, ab
+    torch.cuda.empty_cache()
+    return summary
+
+
 def check_flash(torch, dev):
     import torch.nn.functional as F
 
@@ -336,58 +460,101 @@ def _get(url, timeout=60):
         return resp.status, resp.read().decode()
 
 
-def serve(torch, dev, _cuda):
+SERVE_KW = dict(max_batch=32, max_len=2048, decode_chunk_size=8, prefill_chunk_tokens=256, seed=0)
+# Kernels each serving path must launch, and the decode kernel of the other
+# layout, which it must not.
+PATH_KERNELS = {
+    "contiguous": (("qmm", "decode_attention", "flash_attention"), "paged_decode_attention"),
+    "paged": (("qmm", "paged_decode_attention", "flash_attention"), "decode_attention"),
+}
+
+
+def make_prompts() -> dict:
+    """The serve phases' prompts, the same for both layouts (byte
+    tokenizer: BOS + one token per ASCII byte)."""
     import random
 
-    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    rng = random.Random(0)
+
+    def prompt(n_tokens):
+        return "".join(rng.choice("abcdefghijklmnopqrstuvwxyz ,.") for _ in range(n_tokens - 1))
+
+    lengths = [20, 48, 140, 180, 220, 250, 450, 650]
+    out = dict(warmup=prompt(24), lengths=lengths)
+    out["completions"] = [prompt(n) for n in lengths]
+    out["chat"] = prompt(60)
+    # A 300-token prompt and four extensions by distinct 20-token suffixes:
+    # 300 is not a multiple of the page size, so the boundary page is
+    # shared and every extension's first write copies it.
+    out["shared"] = prompt(300)
+    out["extensions"] = [out["shared"] + prompt(21) for _ in range(4)]
+    return out
+
+
+def _complete(base, prompt, max_tokens=32):
+    status, body = _post(base + "/v1/completions", {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0})
+    out = json.loads(body)
+    if status != 200 or not out["choices"][0]["text"]:
+        raise AssertionError(f"completion of a {len(prompt) + 1}-token prompt failed: {status} {body[:300]}")
+    return out
+
+
+def _concurrent(base, prompts):
+    results: dict[int, dict] = {}
+
+    def one(i):
+        results[i] = _complete(base, prompts[i])
+
+    workers = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for w in workers:
+        w.start()
+    return workers, results
+
+
+def make_scheduler(cfg, params, dev, kv_layout):
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+
+    paged = dict(kv_layout="paged", kv_page_size=64) if kv_layout == "paged" else {}
+    return Scheduler(cfg, params, device=dev, **SERVE_KW, **paged)
+
+
+def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
+    """Serve Llama-3-8B through the port's HTTP front on one KV layout.
+
+    Launch counts are zeroed just before the requests and read just after:
+    eight concurrent completions with a streaming chat beside them, then
+    the 20- and 650-token prompts each sent alone (their greedy text must
+    equal ``expect``, the other layout's, when given), and on the paged
+    layout a shared-prefix group.  Then the engine stops and one decode
+    chunk is timed, untraced.  Returns (launches, texts of the prompts sent
+    alone, the chunk's timing)."""
+    from generativeaiexamples_tpu_torch.engine.paged_kv import PAGE_EVENTS
     from generativeaiexamples_tpu_torch.engine.server import create_engine_app
     from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
-    from generativeaiexamples_tpu_torch.models import llama
 
-    cfg = llama.llama3_8b(kv_dtype="int8")
+    paged = kv_layout == "paged"
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    with torch.inference_mode():
-        params = prepare_params(cfg, None, device=dev, generator=gen)
-    sched = Scheduler(cfg, params, device=dev, max_batch=32, max_len=2048, decode_chunk_size=8,
-                      prefill_chunk_tokens=256, seed=0)
+    sched = make_scheduler(cfg, params, dev, kv_layout)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    weight_gb = torch.cuda.memory_allocated(dev) / 1e9
+    built_gb = torch.cuda.memory_allocated(dev) / 1e9
     server = create_engine_app(sched, get_tokenizer("llama3-8b"), "llama3-8b", "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     sched.start()
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
-    rng = random.Random(0)
-
-    def prompt(n_tokens):  # byte tokenizer: BOS + one token per ASCII byte
-        return "".join(rng.choice("abcdefghijklmnopqrstuvwxyz ,.") for _ in range(n_tokens - 1))
-
+    phase = "serve_paged" if paged else "serve"
     try:
-        # Warm-up request (first CUDA allocations, cuBLAS handles).
-        status, _ = _post(base + "/v1/completions", {"prompt": prompt(24), "max_tokens": 4, "temperature": 0})
-        assert status == 200
-        lengths = [20, 48, 140, 180, 220, 250, 450, 650]
-        prompts = [prompt(n) for n in lengths]
+        _complete(base, prompts["warmup"], 4)  # first CUDA allocations, cuBLAS handles
         n_ttft0 = len(sched.stats.ttft_recent)
         snap0 = sched.stats.snapshot()
+        events0 = dict(PAGE_EVENTS)
         _cuda.reset_launch_counts()
-        results: dict[int, tuple] = {}
-
-        def one(i):
-            t = time.perf_counter()
-            status, body = _post(base + "/v1/completions", {"prompt": prompts[i], "max_tokens": 32, "temperature": 0})
-            results[i] = (status, json.loads(body), time.perf_counter() - t)
-
         t_wall = time.perf_counter()
-        workers = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
-        for w in workers:
-            w.start()
-        # One streaming chat while the completions run.
+        workers, results = _concurrent(base, prompts["completions"])
         status, body = _post(base + "/v1/chat/completions", {
-            "messages": [{"role": "user", "content": prompt(60)}], "max_tokens": 32,
+            "messages": [{"role": "user", "content": prompts["chat"]}], "max_tokens": 32,
             "temperature": 0, "stream": True})
         for w in workers:
             w.join(timeout=900)
@@ -396,91 +563,156 @@ def serve(torch, dev, _cuda):
         chat_text = "".join(json.loads(e)["choices"][0]["delta"].get("content", "") for e in events[:-1])
         if status != 200 or events[-1] != "[DONE]" or not chat_text:
             raise AssertionError(f"streaming chat failed: {status} {body[:300]}")
+        if len(results) != len(prompts["completions"]):
+            raise AssertionError("a completion did not return")
+        snap1 = sched.stats.snapshot()
+        n_tokens = sum(out["usage"]["completion_tokens"] for out in results.values())
+        ttfts = sorted(list(sched.stats.ttft_recent)[n_ttft0:])
+        # Sent alone, so the batch shapes are the same on both layouts.  The
+        # shortest prompt (below the shared-prefix minimum) must also give
+        # the text it gave in the batch.
+        alone = {n: _complete(base, prompts["completions"][prompts["lengths"].index(n)])["choices"][0]["text"]
+                 for n in (20, 650)}
+        if alone[20] != results[0]["choices"][0]["text"]:
+            raise AssertionError(f"re-sent prompt diverged:\n{results[0]['choices'][0]['text']!r}\n{alone[20]!r}")
+        if expect is not None and alone != expect:
+            raise AssertionError(f"{kv_layout} greedy text differs from the other layout's:\n{alone}\n{expect}")
+        shared_fields = {}
+        if paged:
+            hits0 = sched.stats.snapshot()["shared_prefix_hits"]
+            _complete(base, prompts["shared"])
+            workers, ext = _concurrent(base, prompts["extensions"])
+            for w in workers:
+                w.join(timeout=900)
+            if len(ext) != len(prompts["extensions"]):
+                raise AssertionError("a shared-prefix completion did not return")
+            shared_fields["shared_prefix_hits"] = sched.stats.snapshot()["shared_prefix_hits"] - hits0
         for path in ("/v1/models", "/health", "/metrics"):
             st, txt = _get(base + path)
             if st != 200 or not txt:
                 raise AssertionError(f"{path} returned {st}")
         launches = dict(_cuda.LAUNCHES)
-        snap1 = sched.stats.snapshot()
-        if len(results) != len(prompts):
-            raise AssertionError("a completion did not return")
-        texts = {}
-        n_tokens = 0
-        for i, (st, out, _) in results.items():
-            text = out["choices"][0]["text"]
-            if st != 200 or not text:
-                raise AssertionError(f"completion {i} ({lengths[i]} tokens) failed: {st} {out}")
-            texts[i] = (text, out["usage"]["completion_tokens"])
-            n_tokens += out["usage"]["completion_tokens"]
-        ttfts = sorted(list(sched.stats.ttft_recent)[n_ttft0:])
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched while serving: {missing} ({launches})")
-        # The shortest prompt (below the shared-prefix minimum, so it cannot
-        # graft its own parked history) re-sent alone: same greedy tokens.
-        st, body2 = _post(base + "/v1/completions", {"prompt": prompts[0], "max_tokens": 32, "temperature": 0})
-        again = json.loads(body2)["choices"][0]["text"]
-        if again != texts[0][0]:
-            raise AssertionError(f"re-sent prompt diverged:\n{texts[0][0]!r}\n{again!r}")
+        want, other = PATH_KERNELS[kv_layout]
+        missing = [k for k in want if launches[k] == 0]
+        if missing or launches[other]:
+            raise AssertionError(f"{kv_layout} path launches: {launches} (missing {missing}, {other} must be 0)")
+        snap2 = sched.stats.snapshot()
+        page_events = {k: PAGE_EVENTS[k] - events0[k] for k in PAGE_EVENTS}
+        if paged:
+            if page_events["device_graft_dispatch"] or not page_events["host_grafts"]:
+                raise AssertionError(f"paged grafts must be host-only: {page_events}")
+            if not page_events["cow_copies"]:
+                raise AssertionError(f"no copy-on-write on the shared boundary page: {page_events}")
+            if shared_fields["shared_prefix_hits"] < 4:
+                raise AssertionError(f"shared-prefix hits {shared_fields['shared_prefix_hits']} < 4")
         decode_tokens = (snap1["tokens_total"] - snap0["tokens_total"]) - (snap1["requests_total"] - snap0["requests_total"])
         decode_s = snap1["decode_s"] - snap0["decode_s"]
+        sched.stop()
+        pool_fields = {}
+        if paged:
+            # Every request has finished: dropping the parked segments must
+            # leave every page but the garbage page free.
+            pool = sched._pool
+            pool_fields = {k: snap2[k] for k in ("kv_pages_total", "kv_pages_free", "kv_pages_parked",
+                                                  "kv_pages_shared", "kv_cow_breaks", "kv_page_evictions")}
+            for seg in list(sched._prefix_index.segments()):
+                sched._drop_segment(seg)
+            if pool.pages_free != pool.total_pages - 1 or int(pool._refcount.sum()) != 1:
+                raise AssertionError(f"pages leaked: {pool.pages_free} free of {pool.total_pages}")
+            pool_fields["all_free_after_drain"] = True
         emit(
-            "serve", model="llama3-8b", layers=cfg.n_layers, d_model=cfg.d_model, weights="random int8, seed 0",
-            kv="int8 contiguous", max_batch=32, max_len=2048, decode_chunk_size=8, prefill_chunk_tokens=256,
-            build_s=build_s, device_gb_after_build=weight_gb, requests=len(prompts) + 1,
-            prompt_tokens=lengths, completion_tokens=n_tokens, wall_s=wall,
+            phase, model="llama3-8b", layers=cfg.n_layers, d_model=cfg.d_model, weights="random int8, seed 0",
+            kv=f"int8 {kv_layout}" + (", page 64" if paged else ""), **SERVE_KW, cache_build_s=build_s,
+            device_gb_after_build=built_gb, requests=len(prompts["completions"]) + 1,
+            prompt_tokens=prompts["lengths"], completion_tokens=n_tokens, wall_s=wall,
             ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None,
             ttft_max_ms=ttfts[-1] * 1e3 if ttfts else None,
             tokens_per_s=n_tokens / wall, decode_tokens_per_s=decode_tokens / decode_s if decode_s else None,
             decode_chunks=snap1["decode_chunks"] - snap0["decode_chunks"],
             prefill_chunks=snap1["prefill_chunks"] - snap0["prefill_chunks"],
-            launches=launches, resend_equal=True,
+            launches=launches, alone_equal_to_other_layout=True if expect is not None else None,
+            resend_equal=True, page_events=page_events if paged else None, **shared_fields, **pool_fields,
             peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
         )
-        sched.stop()
-        profile_decode(torch, dev, sched)
-        return launches
+        return launches, alone, time_chunk(torch, decode_chunk(torch, dev, sched))
     finally:
         server.shutdown()
         server.server_close()
         sched.stop()
         thread.join(timeout=30)
+        sched._cache = sched._pool = None  # free the KV memory for the next phase
 
 
-def profile_decode(torch, dev, sched, steps: int = 8, length: int = 512, window: int = 1024) -> None:
-    """Where a decode chunk's time goes: one chunk of ``steps`` steps with
-    every lane live at ``length``, timed by host clock and CUDA events,
-    then traced with torch.profiler (device time by kernel name, and the
-    device's busy share of the wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+PROFILE_STEPS, PROFILE_LENGTH, PROFILE_WINDOW = 8, 512, 1024
 
+
+def decode_chunk(torch, dev, sched):
+    """One decode chunk of PROFILE_STEPS steps with every lane live at
+    PROFILE_LENGTH, as a closure over fixed inputs.  On the paged layout
+    every lane first takes private pages for its window."""
     b = sched.max_batch
     gen = torch.Generator(device=dev).manual_seed(5)
     tokens = torch.randint(0, sched.cfg.vocab_size, (b,), device=dev, generator=gen, dtype=torch.int32)
-    lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+    lengths = torch.full((b,), PROFILE_LENGTH, dtype=torch.int32, device=dev)
     temp = torch.zeros(b, device=dev)
     top_p = torch.ones(b, device=dev)
     top_k = torch.zeros(b, dtype=torch.int32, device=dev)
+    cache_args: tuple = (sched._cache,)
+    if sched._pool is not None:
+        for i in range(b):
+            sched._pool.make_writable(i, 0, PROFILE_LENGTH + PROFILE_STEPS + 1)
+        cache_args = (sched._cache, sched._pool.device_table())
 
     def chunk():
-        return sched._decode_chunk(sched.params, sched._cache, tokens, lengths, gen, temp, top_p, top_k, steps, window)
+        with torch.inference_mode():
+            return sched._decode_chunk(sched.params, *cache_args, tokens, lengths, gen, temp, top_p, top_k,
+                                       PROFILE_STEPS, PROFILE_WINDOW)
 
-    with torch.inference_mode():
+    return chunk
+
+
+def time_chunk(torch, chunk) -> dict:
+    """One warm-up call, then one call timed by host clock (dispatch, and
+    wall to the end of its device work) and by CUDA events."""
+    chunk()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    chunk()
+    host_ms = (time.perf_counter() - t0) * 1e3  # dispatch time: the host's share
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    span_ms = start.elapsed_time(end)
+    return dict(host_dispatch_ms=host_ms, wall_ms=wall_ms, event_span_ms=span_ms,
+                ms_per_step=span_ms / PROFILE_STEPS)
+
+
+def profile_decode(torch, dev, cfg, params, kv_layout: str, timing: dict) -> None:
+    """Where a decode chunk's time goes, on a fresh scheduler of one layout:
+    the chunk traced with torch.profiler (device time by kernel name), with
+    the busy share taken as the traced call's device time over that same
+    call's CUDA-event span.  ``timing`` is the chunk timed untraced after
+    the serve, before any trace of the run: a trace leaves the process's
+    later host work slower (``PERF.md``, PR 2 run 5)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sched = make_scheduler(cfg, params, dev, kv_layout)
+    try:
+        chunk = decode_chunk(torch, dev, sched)
         chunk()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        chunk()
-        host_ms = (time.perf_counter() - t0) * 1e3  # dispatch time: the host's share
-        end.record()
-        end.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        span_ms = start.elapsed_time(end)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
             chunk()
-            torch.cuda.synchronize()
+            end.record()
+            end.synchronize()
+    finally:
+        sched._cache = sched._pool = None
+    traced_span_ms = start.elapsed_time(end)
     # Kernel-level events only: an operator's device time is its kernels'.
     by_name: dict[str, float] = {}
     for ev in prof.key_averages():
@@ -494,10 +726,11 @@ def profile_decode(torch, dev, sched, steps: int = 8, length: int = 512, window:
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     emit(
-        "profile", what=f"one decode chunk, {steps} steps, batch {b} all live at {length}, window {window}",
-        host_dispatch_ms=host_ms, wall_ms=wall_ms, event_span_ms=span_ms,
-        ms_per_step=span_ms / steps, traced_device_ms=device_ms,
-        device_busy_share=device_ms / span_ms if span_ms else None,
+        "profile_paged" if kv_layout == "paged" else "profile",
+        what=f"one decode chunk, {PROFILE_STEPS} steps, batch {sched.max_batch} all live at {PROFILE_LENGTH}, "
+             f"window {PROFILE_WINDOW}",
+        **timing, traced_device_ms=device_ms, traced_event_span_ms=traced_span_ms,
+        device_busy_share=device_ms / traced_span_ms if traced_span_ms else None,
         top_kernels_ms={k[:80]: v for k, v in top},
     )
 
@@ -540,14 +773,37 @@ def main() -> int:
     summary = {
         "qmm": check_qmm(torch, dev, log),
         "decode_attention": check_decode(torch, dev),
+        "paged_decode_attention": check_paged_decode(torch, dev),
         "flash_attention": check_flash(torch, dev),
     }
     if log:
         emit("notes", notes=log)
     check_reference(torch, dev)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    launches = serve(torch, dev, _cuda)
+
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.models import llama
+
+    # Llama-3-8B at full width and depth, random int8 weights from a seed,
+    # shared by both serving layouts.
+    cfg = llama.llama3_8b(kv_dtype="int8")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = prepare_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit("params", model="llama3-8b", seconds=time.perf_counter() - t0,
+         device_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    prompts = make_prompts()
+    launches, alone, timing = serve(torch, dev, _cuda, cfg, params, prompts, "contiguous")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged_launches, _, paged_timing = serve(torch, dev, _cuda, cfg, params, prompts, "paged", expect=alone)
+    # Each kernel's launches come from the path that runs it.
+    launches["paged_decode_attention"] = paged_launches["paged_decode_attention"]
+    for kv_layout, t in (("contiguous", timing), ("paged", paged_timing)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        profile_decode(torch, dev, cfg, params, kv_layout, t)
 
     kernels = []
     for name, s in summary.items():

@@ -24,3 +24,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def host_to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Host tensor -> ``device`` without a host sync (pinned, non-blocking
+    on CUDA).  The caller must not write ``host`` afterwards: the copy may
+    still be in flight."""
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)

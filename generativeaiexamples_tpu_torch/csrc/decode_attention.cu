@@ -22,98 +22,11 @@
 // memory in 64-slot tiles with 16-byte loads; online softmax in f32.  No
 // multi-stage pipelining and no split over T: this is the simple first
 // kernel, and rows with long contexts are not split across SMs yet.
-#include "common.cuh"
+#include "decode_tile.cuh"
 
 namespace {
 
-constexpr int HD = 128;
-constexpr int TILE = 64;
-constexpr int MAX_G = 8;
-// Words per shared-memory row: 32 words of data + 1 so that lanes reading
-// the same word of different rows hit different banks.
-constexpr int ROWW = HD / 4 + 1;
-
-struct Smem {
-  int k[TILE * ROWW];
-  int v[TILE * ROWW];
-  float kscale[TILE];
-  float vscale[TILE];
-  float q[MAX_G][HD];
-  float pv[MAX_G][TILE];
-};
-
-__device__ __forceinline__ void stage(Smem& sm, const int8_t* kp, const int8_t* vp,
-                                      const __nv_bfloat16* ksp, const __nv_bfloat16* vsp,
-                                      int n) {
-  for (int c = threadIdx.x; c < n * (HD / 16); c += blockDim.x) {
-    const int r = c / (HD / 16), cc = c % (HD / 16);
-    const int4 kv = *reinterpret_cast<const int4*>(kp + (size_t)r * HD + cc * 16);
-    const int4 vv = *reinterpret_cast<const int4*>(vp + (size_t)r * HD + cc * 16);
-    int* kd = sm.k + r * ROWW + cc * 4;
-    int* vd = sm.v + r * ROWW + cc * 4;
-    kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-    vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
-  }
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    sm.kscale[r] = __bfloat162float(ksp[r]);
-    sm.vscale[r] = __bfloat162float(vsp[r]);
-  }
-}
-
-// One online-softmax step over n (<= TILE) staged slots for this warp's head.
-__device__ __forceinline__ void online_update(Smem& sm, int n, float scale, float& m,
-                                              float& l, float (&acc)[4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* q = sm.q[warp];
-  float s[2];
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int j = lane + 32 * jj;
-    s[jj] = GAIE_NEG_INF;
-    if (j < n) {
-      const int* kr = sm.k + j * ROWW;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int w = 0; w < HD / 4; ++w) {
-        const int word = kr[w];
-        dot += q[4 * w + 0] * (float)(int8_t)(word & 0xff);
-        dot += q[4 * w + 1] * (float)(int8_t)((word >> 8) & 0xff);
-        dot += q[4 * w + 2] * (float)(int8_t)((word >> 16) & 0xff);
-        dot += q[4 * w + 3] * (float)(int8_t)((word >> 24) & 0xff);
-      }
-      s[jj] = (dot * scale) * sm.kscale[j];
-    }
-  }
-  const float m_new = fmaxf(m, warp_max(fmaxf(s[0], s[1])));
-  const float alpha = expf(m - m_new);
-  float psum = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int j = lane + 32 * jj;
-    float pv = 0.f;
-    if (j < n) {
-      const float p = expf(s[jj] - m_new);
-      psum += p;
-      pv = __bfloat162float(__float2bfloat16_rn(p * sm.vscale[j]));
-    }
-    sm.pv[warp][j] = pv;
-  }
-  l = l * alpha + warp_sum(psum);
-  __syncwarp();
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int j = 0; j < n; ++j) {
-    const float p = sm.pv[warp][j];
-    const int word = sm.v[j * ROWW + lane];
-    part[0] += p * (float)(int8_t)(word & 0xff);
-    part[1] += p * (float)(int8_t)((word >> 8) & 0xff);
-    part[2] += p * (float)(int8_t)((word >> 16) & 0xff);
-    part[3] += p * (float)(int8_t)((word >> 24) & 0xff);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] = acc[i] * alpha + part[i];
-  m = m_new;
-  __syncwarp();
-}
+using namespace decode_tile;
 
 __global__ void __launch_bounds__(MAX_G * 32)
     decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k8,
@@ -126,12 +39,10 @@ __global__ void __launch_bounds__(MAX_G * 32)
   __shared__ __align__(16) Smem sm;
   const int b = blockIdx.x, h = blockIdx.y;
   const int G = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int n_q = KH * G;
   const int head = h * G + warp;
-  const __nv_bfloat16* qp = q + ((size_t)b * n_q + head) * HD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sm.q[warp][lane * 4 + i] = __bfloat162float(qp[lane * 4 + i]);
+  load_q(sm, q + ((size_t)b * n_q + head) * HD);
 
   float m = GAIE_NEG_INF, l = 0.f;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -144,20 +55,12 @@ __global__ void __launch_bounds__(MAX_G * 32)
   for (int t0 = 0; t0 < n_cache; t0 += TILE) {
     const int n = min(TILE, n_cache - t0);
     __syncthreads();
-    stage(sm, kb + (size_t)t0 * HD, vb + (size_t)t0 * HD, ksb + t0, vsb + t0, n);
+    stage(sm, kb, vb, ksb, vsb, n, [t0](int r) { return (size_t)(t0 + r); });
     __syncthreads();
     online_update(sm, n, scale, m, l, acc);
   }
-  if (kab != nullptr && count > 0) {
-    __syncthreads();
-    stage(sm, kab + row * C * HD, vab + row * C * HD, ksab + row * C, vsab + row * C, count);
-    __syncthreads();
-    online_update(sm, count, scale, m, l, acc);
-  }
-  const float denom = fmaxf(l, 1e-30f);
-  __nv_bfloat16* op = out + ((size_t)b * n_q + head) * HD + lane * 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) op[i] = __float2bfloat16_rn(acc[i] / denom);
+  finish(sm, kab, vab, ksab, vsab, row, C, count, scale, m, l, acc,
+         out + ((size_t)b * n_q + head) * HD);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 """Decode-path builders for the scheduler (port of ``engine/decode.py``):
-params and cache preparation, the append-buffer flush, and the chunked
-decode loop."""
+params, cache and paged-pool preparation, the append-buffer flushes, and
+the chunked decode loops (contiguous and paged)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 from generativeaiexamples_tpu_torch.core.logging import get_logger
 from generativeaiexamples_tpu_torch.engine.sampler import sample
 from generativeaiexamples_tpu_torch.models import llama
-from generativeaiexamples_tpu_torch.ops.decode_attention import flush_clip_start
+from generativeaiexamples_tpu_torch.ops.decode_attention import flush_clip_start, paged_slots
 from generativeaiexamples_tpu_torch.ops.quant import (
     QUANT_TARGETS,
     QuantizedMatrix,
@@ -82,6 +82,24 @@ def prepare_cache(cfg: llama.LlamaConfig, batch: int, max_len: int, device):
     return llama.init_kv_cache(cfg, batch, max_len, device=device)
 
 
+def prepare_paged_pool(
+    cfg: llama.LlamaConfig,
+    max_batch: int,
+    max_len: int,
+    page_tokens: int,
+    total_pages: Optional[int] = None,
+    *,
+    device,
+):
+    """Allocate the paged KV pool (``engine.paged_kv.PagedKVPool``), the
+    paged counterpart of :func:`prepare_cache`; ``total_pages`` floors at
+    ``max_batch * n_slot_pages + 1`` so admission never deadlocks on
+    pages."""
+    from generativeaiexamples_tpu_torch.engine.paged_kv import PagedKVPool
+
+    return PagedKVPool(cfg, max_batch, max_len, page_tokens, total_pages=total_pages, device=device)
+
+
 def _flush_append_buffer(cache, ab, starts: torch.Tensor, max_len: int):
     """Write the chunk's append buffer into the big cache, in place.
 
@@ -97,6 +115,37 @@ def _flush_append_buffer(cache, ab, starts: torch.Tensor, max_len: int):
     for big, small in zip(cache, ab):
         big[:, :, bidx, pos] = small
     return cache
+
+
+def _flush_append_buffer_paged(leaves, ab, starts: torch.Tensor, table: torch.Tensor, max_len: int, page_tokens: int):
+    """Paged twin of :func:`_flush_append_buffer`: write the chunk's append
+    buffer through the page table into the flat pool, in place.
+
+    Row r's C slots land at logical positions ``[start_r, start_r + C)``
+    with the same ``flush_clip_start`` clip, so lanes pinned at
+    ``max_len - 1`` write the logical tail zone, whose unowned table
+    entries map to the garbage page 0 (duplicate writes there are
+    harmless).  Live rows' pages were made private by the scheduler's
+    ``make_writable`` before dispatch."""
+    c = ab[0].shape[3]
+    start = starts.clamp(0, flush_clip_start(max_len, c)).long()
+    pos = start[:, None] + torch.arange(c, device=start.device)[None, :]  # (b, c)
+    phys = paged_slots(table, pos, page_tokens)
+    # (L, KH, b, c, ...) updates land on big[:, :, phys]: the update shape
+    # is the append buffer's own.
+    for big, small in zip(leaves, ab):
+        big[:, :, phys] = small
+    return leaves
+
+
+def _append_buffer(cfg: llama.LlamaConfig, b: int, n_steps: int, dev):
+    ab_shape = (cfg.n_layers, cfg.n_kv_heads, b, n_steps, cfg.head_dim)
+    return (
+        torch.zeros(ab_shape, dtype=torch.int8, device=dev),
+        torch.zeros(ab_shape, dtype=torch.int8, device=dev),
+        torch.zeros(ab_shape[:-1], dtype=torch.bfloat16, device=dev),
+        torch.zeros(ab_shape[:-1], dtype=torch.bfloat16, device=dev),
+    )
 
 
 def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
@@ -116,14 +165,7 @@ def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
         # Valid big-cache slots per row: the current token's write position
         # (its KV lives in the append buffer this chunk).
         lengths0 = lengths.clamp(max=max_len - 1)
-        ab_shape = (cfg.n_layers, cfg.n_kv_heads, b, n_steps, cfg.head_dim)
-        dev = tokens.device
-        ab = (
-            torch.zeros(ab_shape, dtype=torch.int8, device=dev),
-            torch.zeros(ab_shape, dtype=torch.int8, device=dev),
-            torch.zeros(ab_shape[:-1], dtype=torch.bfloat16, device=dev),
-            torch.zeros(ab_shape[:-1], dtype=torch.bfloat16, device=dev),
-        )
+        ab = _append_buffer(cfg, b, n_steps, tokens.device)
         tok = tokens
         toks = []
         for step in range(n_steps):
@@ -139,3 +181,39 @@ def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
         return cache, torch.stack(toks)
 
     return decode_chunk
+
+
+def make_paged_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int, page_tokens: int):
+    """Paged twin of :func:`make_decode_chunk_fn`.
+
+    ``fn(params, leaves, table, tokens, lengths, generator, temp, top_p,
+    top_k, n_steps, kv_bucket=None) -> (leaves, toks)``: the pool leaves
+    are updated in place, the device page table rides alongside (the host
+    owns it), and ``max_len`` is the logical per-slot capacity the table
+    maps.  The steps mirror the contiguous chunk's (append-buffer
+    protocol, paged decode kernel), so greedy decode gives the same
+    tokens in both layouts.
+    """
+
+    def paged_decode_chunk(
+        params, leaves, table, tokens, lengths, generator, temp, top_p, top_k, n_steps, kv_bucket=None
+    ):
+        b = tokens.shape[0]
+        lengths0 = lengths.clamp(max=max_len - 1)
+        ab = _append_buffer(cfg, b, n_steps, tokens.device)
+        tok = tokens
+        toks = []
+        for step in range(n_steps):
+            positions = (lengths0 + step).clamp(max=max_len - 1)[:, None]
+            hidden, _, ab = llama.forward(
+                params, cfg, tok[:, None].long(), positions, leaves, lengths0,
+                kv_bucket=kv_bucket, append_cache=(ab, step),
+                page_table=table, page_tokens=page_tokens, pages_len=max_len,
+            )
+            lg = llama.logits(params, hidden)[:, 0]
+            tok = sample(lg, generator, temp, top_p, top_k)
+            toks.append(tok)
+        _flush_append_buffer_paged(leaves, ab, lengths0, table, max_len, page_tokens)
+        return leaves, torch.stack(toks)
+
+    return paged_decode_chunk

@@ -1,8 +1,15 @@
 """Continuous-batching scheduler (port of ``engine/scheduler.py``, the
-contiguous-cache, non-speculative path).
+non-speculative path, on the contiguous cache or the paged pool).
 
 * **Slot model**: the int8 KV cache holds ``max_batch`` fixed slots; a
   request occupies a slot from prefill to finish.
+* **KV layout** (``kv_layout``): ``"contiguous"`` gives each slot a
+  ``max_len`` row of the cache; ``"paged"`` maps each slot's tokens to
+  pages of a shared pool (``engine.paged_kv``) through a page table.
+  Paged prefix reuse is zero-copy: a finished history parks as a
+  page-owning segment (the slot frees at once), a hit references the
+  segment's pages from a free slot, and the first divergent write into
+  a shared page copies only that page.
 * **Batched cold prefill**: waiting prompts prefill together into a small
   private cache (cold prefill through the flash kernel), then their rows
   are copied into their slots.
@@ -19,8 +26,7 @@ contiguous-cache, non-speculative path).
   wait for sampled tokens: no host sync between dispatch and finalize.
 
 The scheduler thread emits tokens through ``on_token`` / ``on_done``
-callbacks.  Speculative decoding and the paged KV layout are not ported
-yet.
+callbacks.  Speculative decoding is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,17 +41,20 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from generativeaiexamples_tpu_torch.core.device import resolve_device
+from generativeaiexamples_tpu_torch.core.device import host_to_device, resolve_device
 from generativeaiexamples_tpu_torch.core.logging import get_logger
 from generativeaiexamples_tpu_torch.engine.decode import (
     make_decode_chunk_fn,
+    make_paged_decode_chunk_fn,
     prepare_cache,
+    prepare_paged_pool,
     prepare_params,
 )
+from generativeaiexamples_tpu_torch.engine.paged_kv import PAGE_EVENTS, num_slot_pages
 from generativeaiexamples_tpu_torch.engine.prefix_cache import PrefixCacheIndex
 from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams, sample
 from generativeaiexamples_tpu_torch.models import llama
-from generativeaiexamples_tpu_torch.ops.decode_attention import flush_clip_start
+from generativeaiexamples_tpu_torch.ops.decode_attention import flush_clip_start, paged_slots
 from generativeaiexamples_tpu_torch.utils.buckets import bucket_size
 
 logger = get_logger(__name__)
@@ -103,6 +112,17 @@ class Stats:
         self.decode_s = 0.0
         self.decode_chunks = 0
         self.tick_ms_ewma = 0.0
+        # Paged KV pool gauges (zero under the contiguous cache): total
+        # pages, free-list depth, pages held by parked segments, pages
+        # shared by more than one owner (refcount > 1, COW-armed), pages
+        # privatized by copy-on-write, and parked segments evicted under
+        # pool pressure.
+        self.kv_pages_total = 0
+        self.kv_pages_free = 0
+        self.kv_pages_parked = 0
+        self.kv_pages_shared = 0
+        self.kv_cow_breaks = 0
+        self.kv_page_evictions = 0
 
     def note_ttft(self, seconds: float) -> None:
         """Record one request's time to first token (caller holds lock)."""
@@ -131,6 +151,12 @@ class Stats:
                 "shared_prefix_hits": self.shared_prefix_hits,
                 "prefill_chunks": self.prefill_chunks,
                 "tick_ms_ewma": round(self.tick_ms_ewma, 3),
+                "kv_pages_total": self.kv_pages_total,
+                "kv_pages_free": self.kv_pages_free,
+                "kv_pages_parked": self.kv_pages_parked,
+                "kv_pages_shared": self.kv_pages_shared,
+                "kv_cow_breaks": self.kv_cow_breaks,
+                "kv_page_evictions": self.kv_page_evictions,
             }
 
 
@@ -143,6 +169,12 @@ class Scheduler:
     ``engine.decode.init_random_int8_params``; ``None`` builds random int8
     weights), laid out once here for the W8A8 kernel
     (``engine.decode.prepare_params``).
+
+    ``kv_layout="paged"`` serves from the paged pool: ``kv_page_size``
+    tokens per page (a power of two), ``kv_pool_pages`` pages (floored at
+    ``max_batch * n_slot_pages + 1``), and ``kv_page_low_water`` free pages
+    below which a tick evicts least-recently-used parked segments
+    (default: one slot's worth).
     """
 
     # Minimum shared-prefix length for the suffix-prefill path.
@@ -165,10 +197,18 @@ class Scheduler:
         seed: int = 0,
         prefill_chunk_tokens: Optional[int] = 256,
         prefix_cache: str = "shared",
+        kv_layout: str = "contiguous",
+        kv_page_size: int = 64,
+        kv_pool_pages: Optional[int] = None,
+        kv_page_low_water: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         if cfg.kv_dtype != "int8":
             raise ValueError("the port serves the int8 KV cache: use kv_dtype='int8'")
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv_layout mode {kv_layout!r}")
+        if kv_page_size < 1 or (kv_page_size & (kv_page_size - 1)):
+            raise ValueError(f"kv_page_size must be a power of two, got {kv_page_size}")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len
@@ -178,13 +218,40 @@ class Scheduler:
         self.stats = Stats()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        self.kv_layout = kv_layout
+        self.kv_page_size = int(kv_page_size)
+        self._pool = None
+        # Parked prefix segments (paged mode) hold pages, not slots; their
+        # ids start at max_batch so they never collide with slot ids.
+        self._next_seg = max_batch
+        self._session_segs: dict[str, int] = {}
+        self._seg_sessions: dict[int, str] = {}
         with torch.inference_mode():
             self.params = prepare_params(cfg, params, device=self.device, generator=self._gen)
-            self._cache = prepare_cache(cfg, max_batch, self.max_len, self.device)
+            if kv_layout == "paged":
+                self._pool = prepare_paged_pool(
+                    cfg, max_batch, self.max_len, self.kv_page_size, kv_pool_pages, device=self.device
+                )
+                # The pool's leaves are updated in place (COW copies
+                # included), so this alias stays valid for the pool's life.
+                self._cache = self._pool.leaves
+            else:
+                self._cache = prepare_cache(cfg, max_batch, self.max_len, self.device)
         self.matmul_kernel = "w8a8"  # the one projection path the port serves
-        self._decode_chunk = make_decode_chunk_fn(cfg, self.max_len)
+        if self._pool is not None:
+            self._decode_chunk = make_paged_decode_chunk_fn(cfg, self.max_len, self.kv_page_size)
+            self._kv_low_water = (
+                int(kv_page_low_water) if kv_page_low_water is not None else self._pool.n_slot_pages
+            )
+            # Pages promised to batch admissions whose allocation happens at
+            # the batch's dispatch later this tick.
+            self._kv_pages_reserved = 0
+        else:
+            self._decode_chunk = make_decode_chunk_fn(cfg, self.max_len)
         self.prefix_cache = prefix_cache
         self._prefix_index = PrefixCacheIndex()
+        if self._pool is not None:
+            self._publish_pool_gauges()
         if prefill_chunk_tokens is not None and prefill_chunk_tokens <= 0:
             prefill_chunk_tokens = None
         self.prefill_chunk_tokens = prefill_chunk_tokens
@@ -211,10 +278,7 @@ class Scheduler:
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device without a host sync (pinned, non-blocking)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return host_to_device(torch.from_numpy(np.ascontiguousarray(arr)), self.device)
 
     def _full(self, value, dtype) -> torch.Tensor:
         return torch.full((1,), value, dtype=dtype, device=self.device)
@@ -241,16 +305,37 @@ class Scheduler:
             s = sm.shape[3]
             big[:, :, slots, :s] = sm[:, :, :k]
 
+    def _graft_rows_paged(self, small, phys: torch.Tensor) -> None:
+        """Paged twin of :meth:`_graft_rows`: the small cache's rows
+        0..k-1 scatter to the physical pool slots ``phys`` (k, s) computed
+        from each slot's page table.  Padded tail positions map through
+        unowned entries to the garbage page."""
+        k = phys.shape[0]
+        for big, sm in zip(self._cache, small):
+            big[:, :, phys] = sm[:, :, :k]
+
     def _prefill_suffix(self, tokens, start: int, suffix_len: int, slot: int, sampling, kv_bucket: int):
         """Warm-prefill ``tokens`` (1, s) at positions ``start..`` into slot
-        ``slot``'s rows, attending over the slot's cached prefix."""
+        ``slot``'s rows, attending over the slot's cached prefix.  In paged
+        mode the pages covering ``[start, start + suffix_len)`` are made
+        private first (a grafted boundary page is copied), and the forward
+        writes and reads through the slot's table row."""
         s = tokens.shape[1]
-        row = tuple(c[:, :, slot : slot + 1] for c in self._cache)
         positions = start + torch.arange(s, dtype=torch.int32, device=self.device)[None, :]
-        hidden, _ = llama.forward(
-            self.params, self.cfg, tokens.long(), positions, row,
-            self._full(start + suffix_len, torch.int32), kv_bucket=kv_bucket,
-        )
+        if self._pool is not None:
+            self._pool.make_writable(slot, start, start + suffix_len)
+            hidden, _ = llama.forward(
+                self.params, self.cfg, tokens.long(), positions, self._cache,
+                self._full(start + suffix_len, torch.int32), kv_bucket=kv_bucket,
+                page_table=self._pool.device_table()[slot : slot + 1],
+                page_tokens=self._pool.page_tokens, pages_len=self.max_len,
+            )
+        else:
+            row = tuple(c[:, :, slot : slot + 1] for c in self._cache)
+            hidden, _ = llama.forward(
+                self.params, self.cfg, tokens.long(), positions, row,
+                self._full(start + suffix_len, torch.int32), kv_bucket=kv_bucket,
+            )
         last = hidden[0, max(suffix_len - 1, 0)]
         lg = llama.logits(self.params, last[None, None, :])[:, 0]
         temp, top_p, top_k = sampling
@@ -259,7 +344,10 @@ class Scheduler:
     def _graft_prefix(self, src: int, dst: int, n: int) -> None:
         """Copy the first ``n`` cache positions of slot ``src`` into ``dst``
         (over-copy past the shared prefix is harmless: the destination
-        rewrites those positions before any mask exposes them)."""
+        rewrites those positions before any mask exposes them).  The copy
+        is device work, so it counts in ``device_graft_dispatch``: a paged
+        graft must leave that count flat."""
+        PAGE_EVENTS["device_graft_dispatch"] += 1
         for buf in self._cache:
             m = min(n, buf.shape[3])
             buf[:, :, dst, :m] = buf[:, :, src, :m]
@@ -369,6 +457,41 @@ class Scheduler:
         slot.length = 0
         slot.warm_pos = None
 
+    def _park_segment(self, session_id: str, history: list[int], pages: list[int]) -> int:
+        """Register a finished history as a page-owning parked segment
+        (paged mode).  A session's previous segment is dropped first (the
+        new turn's history extends it)."""
+        seg = self._next_seg
+        self._next_seg += 1
+        if session_id:
+            stale = self._session_segs.pop(session_id, None)
+            if stale is not None:
+                self._drop_segment(stale)
+            self._session_segs[session_id] = seg
+            self._seg_sessions[seg] = session_id
+        self._prefix_index.insert(seg, history, pages=pages)
+        return seg
+
+    def _drop_segment(self, seg: int) -> None:
+        """Remove a parked segment and release its page references (pages
+        shared with live slots survive on their refcounts)."""
+        pages = self._prefix_index.pages(seg)
+        self._prefix_index.remove(seg)
+        sid = self._seg_sessions.pop(seg, None)
+        if sid is not None and self._session_segs.get(sid) == seg:
+            del self._session_segs[sid]
+        if pages and self._pool is not None:
+            self._pool.release(pages)
+
+    def _publish_pool_gauges(self) -> None:
+        pool = self._pool
+        with self.stats.lock:
+            self.stats.kv_pages_total = pool.total_pages
+            self.stats.kv_pages_free = pool.pages_free
+            self.stats.kv_pages_parked = self._prefix_index.total_pages()
+            self.stats.kv_pages_shared = pool.pages_shared
+            self.stats.kv_cow_breaks = pool.cow_breaks
+
     def _active(self) -> list[int]:
         return [i for i, s in enumerate(self._slots) if s.request is not None and s.warm_pos is None]
 
@@ -403,19 +526,28 @@ class Scheduler:
             # The last sampled token of a length finish was never fed back,
             # so its KV was never written.
             history = list(slot.history) if (reason == "stop" or not slot.emitted) else slot.history[:-1]
-            if req.session_id:
-                for i, s in enumerate(self._slots):
-                    if s.session_id == req.session_id and s.request is None:
-                        self._unpark(i)  # stale earlier turn of this session
-            slot.session_id = req.session_id
-            slot.cached = True
-            slot.history = history
-            slot.length = len(history)
-            slot.parked_at = time.monotonic()
-            if self.prefix_cache == "shared":
-                self._prefix_index.insert(slot_idx, history)
+            if self._pool is not None:
+                # Segment parking: keep exactly the pages the history
+                # occupies, hand them to a parked segment, free the slot.
+                self._pool.trim(slot_idx, len(history))
+                self._park_segment(req.session_id, history, self._pool.detach(slot_idx))
+                self._unpark(slot_idx)
+            else:
+                if req.session_id:
+                    for i, s in enumerate(self._slots):
+                        if s.session_id == req.session_id and s.request is None:
+                            self._unpark(i)  # stale earlier turn of this session
+                slot.session_id = req.session_id
+                slot.cached = True
+                slot.history = history
+                slot.length = len(history)
+                slot.parked_at = time.monotonic()
+                if self.prefix_cache == "shared":
+                    self._prefix_index.insert(slot_idx, history)
         else:
             self._unpark(slot_idx)
+            if self._pool is not None:
+                self._pool.reset_slot(slot_idx)
         slot.emitted = 0
         if req is not None and req.id:
             with self._cancel_lock:
@@ -453,7 +585,17 @@ class Scheduler:
         small, tok = self._prefill_some(
             self._h2d(tokens), self._h2d(lengths), self._h2d(temp), self._h2d(top_p), self._h2d(top_k)
         )
-        self._graft_rows(small, self._h2d(np.asarray(slot_idxs, dtype=np.int64)))
+        if self._pool is not None:
+            # Allocate each admitted slot's pages, then scatter the rows to
+            # their physical pool slots.
+            for r, slot_idx in enumerate(slot_idxs):
+                self._pool.reset_slot(slot_idx)
+                self._pool.make_writable(slot_idx, 0, plens[r])
+            rows = torch.from_numpy(self._pool.tables[np.asarray(slot_idxs)])
+            phys = paged_slots(rows, torch.arange(s).expand(len(slot_idxs), s), self._pool.page_tokens)
+            self._graft_rows_paged(small, self._h2d(phys.numpy()))
+        else:
+            self._graft_rows(small, self._h2d(np.asarray(slot_idxs, dtype=np.int64)))
         for r, (req, slot_idx) in enumerate(zip(reqs, slot_idxs)):
             slot = self._slots[slot_idx]
             slot.request = req
@@ -478,10 +620,21 @@ class Scheduler:
             self.stats.prefill_rows += len(reqs)
 
     def _find_parked(self, req: Request) -> tuple[int, int]:
-        """This session's parked slot whose history is a long-enough prefix
-        of the prompt: (slot, prefix_len) or (-1, 0)."""
+        """This session's parked slot (contiguous) or segment (paged) whose
+        history is a long-enough prefix of the prompt: (slot_or_seg,
+        prefix_len) or (-1, 0)."""
         if not req.session_id:
             return -1, 0
+        if self._pool is not None:
+            seg = self._session_segs.get(req.session_id)
+            if seg is None:
+                return -1, 0
+            n = 0
+            for a, b in zip(self._prefix_index.tokens(seg) or (), req.token_ids):
+                if a != b:
+                    break
+                n += 1
+            return (seg, n) if n >= self.MIN_PREFIX else (-1, 0)
         for i, s in enumerate(self._slots):
             if s.request is None and s.session_id == req.session_id:
                 n = 0
@@ -504,10 +657,11 @@ class Scheduler:
         common = min(common, len(req.token_ids) - 1)
         if common < self.MIN_PREFIX:
             return -1, 0
-        slot = self._slots[seg]
-        if slot.request is not None or not slot.cached:
-            self._prefix_index.remove(seg)  # stale entry: never graft live rows
-            return -1, 0
+        if self._pool is None:
+            slot = self._slots[seg]
+            if slot.request is not None or not slot.cached:
+                self._prefix_index.remove(seg)  # stale entry: never graft live rows
+                return -1, 0
         return seg, common
 
     def _suffix_dispatch(self, req: Request, slot_idx: int, common: int):
@@ -562,6 +716,79 @@ class Scheduler:
             return fin
         t = self._suffix_dispatch(req, slot_idx, common)
         return lambda: self._suffix_finalize(*t)
+
+    def _admit_paged_hit(
+        self, req: Request, seg: int, common: int, free: list[int], *, consume: bool, shared: bool
+    ) -> tuple[bool, Optional[Callable[[], None]]]:
+        """Admit a prefix hit from a parked segment (paged mode): a slot
+        taken from ``free`` (the caller's unclaimed slots) references the
+        segment's pages (host work only) and only the suffix is
+        prefilled.  ``consume`` (session hits) drops the segment after the
+        transfer.  Returns ``(admitted, finalize)``; ``(False, None)`` when
+        no free slot or pages exist.
+
+        The reference takes ``self._free_slots()[0]`` here, which can be a
+        slot the same tick already gave to a pending batch admission (that
+        batch claims its slots only at dispatch); taking from the caller's
+        list cannot."""
+        plen = len(req.token_ids)
+        common = min(common, plen - 1, self._admit_limit - 2)
+        if not free:
+            return False, None
+        # Pinned across the page-pressure eviction: _ensure_pages must not
+        # evict the segment this admission is about to reference.
+        self._prefix_index.pin(seg)
+        try:
+            if not self._admit_pages_ok(plen, common):
+                return False, None
+            slot_idx = free.pop(0)
+            self._pool.share_pages(self._prefix_index.pages(seg), slot_idx, common)
+        finally:
+            self._prefix_index.unpin(seg)
+        if consume:
+            self._drop_segment(seg)
+        else:
+            self._prefix_index.touch(seg)
+        return True, self._admit_hit(req, slot_idx, common, shared=shared)
+
+    def _admit_pages_ok(self, plen: int, common: int = 0, *, reserve: bool = False) -> bool:
+        """Page-aware admission gate (paged mode): admit only when the free
+        list covers the prompt's new pages plus one decode chunk of
+        headroom; ``common`` tokens arrive on shared pages.  Evicts LRU
+        parked segments to make room; False means backlog.  ``reserve``
+        holds the need against later checks this tick, for batch
+        admissions that allocate at their dispatch."""
+        pt = self._pool.page_tokens
+        horizon = min(plen + self.decode_chunk_size + 1, self.max_len)
+        need = max(num_slot_pages(horizon, pt) - common // pt, 1)
+        ok = self._ensure_pages(need + self._kv_pages_reserved)
+        if ok and reserve:
+            self._kv_pages_reserved += need
+        return ok
+
+    def _ensure_pages(self, need: int) -> bool:
+        """Free at least ``need`` pages, evicting LRU parked segments as
+        required; False when that many cannot be freed."""
+        if self._pool.pages_free >= need:
+            return True
+        self._evict_segments(need)
+        return self._pool.pages_free >= need
+
+    def _evict_segments(self, target: int) -> int:
+        """Evict least-recently-used unpinned parked segments until
+        ``target`` pages are free (or none are left); returns the count."""
+        evicted = 0
+        for seg in self._prefix_index.lru_order():
+            if self._pool.pages_free >= target:
+                break
+            if self._prefix_index.pinned(seg):
+                continue
+            self._drop_segment(seg)
+            evicted += 1
+        if evicted:
+            with self.stats.lock:
+                self.stats.kv_page_evictions += evicted
+        return evicted
 
     def _graft_into(self, src: int, dst: int, common: int) -> None:
         """Copy the shared segment's first ``common`` positions (bucketed)
@@ -663,7 +890,13 @@ class Scheduler:
                     for i, s in enumerate(self._slots):
                         if s.cached:
                             self._unpark(i)
-                    self._cache = prepare_cache(self.cfg, self.max_batch, self.max_len, self.device)
+                    if self._pool is not None:
+                        self._prefix_index.clear()
+                        self._session_segs.clear()
+                        self._seg_sessions.clear()
+                        self._pool.reset_all()
+                    else:
+                        self._cache = prepare_cache(self.cfg, self.max_batch, self.max_len, self.device)
                 self.stats.tick_ms_ewma += 0.1 * ((time.perf_counter() - tick_t0) * 1e3 - self.stats.tick_ms_ewma)
         logger.info("scheduler stopped")
 
@@ -671,6 +904,13 @@ class Scheduler:
         with self.stats.lock:
             self.stats.tick_count += 1
         progressed = False
+        if self._pool is not None:
+            self._kv_pages_reserved = 0
+            # Pool pressure: below the low-water mark at a tick boundary,
+            # evict LRU parked segments so admission allocates from a
+            # healthy free list.
+            if self._pool.pages_free < self._kv_low_water:
+                self._evict_segments(self._kv_low_water)
         # Pipelined tick: admission work is dispatched first, the decode
         # chunk for the pre-admission active snapshot behind it, and only
         # then does the host wait.  Newly admitted slots join decode next
@@ -719,7 +959,29 @@ class Scheduler:
                     budget = 0
                     break
                 if parked >= 0:
-                    settle(self._admit_hit(req, parked, common, shared=False))
+                    if self._pool is not None:
+                        # Session hit (paged): reference the session
+                        # segment's pages from a free slot and consume it.
+                        ok, fin = self._admit_paged_hit(req, parked, common, free, consume=True, shared=False)
+                        if not ok:
+                            self._backlog.appendleft(req)
+                            stalled = True
+                            break
+                        settle(fin)
+                    else:
+                        settle(self._admit_hit(req, parked, common, shared=False))
+                    budget -= cost
+                    progressed = True
+                    continue
+                if shared_src >= 0 and self._pool is not None:
+                    # Shared-prefix hit (paged): the segment keeps serving
+                    # other requests; copy-on-write isolates divergence.
+                    ok, fin = self._admit_paged_hit(req, shared_src, shared_common, free, consume=False, shared=True)
+                    if not ok:
+                        self._backlog.appendleft(req)
+                        stalled = True
+                        break
+                    settle(fin)
                     budget -= cost
                     progressed = True
                     continue
@@ -746,7 +1008,16 @@ class Scheduler:
                         self._backlog.appendleft(req)
                         stalled = True
                         break
-                if self.prefill_chunk_tokens and plen > self.prefill_chunk_tokens:
+                chunked_cold = bool(self.prefill_chunk_tokens and plen > self.prefill_chunk_tokens)
+                # In paged mode a free slot is not capacity: the free list
+                # must also cover the prompt and a chunk of decode.  Chunked
+                # admissions allocate their first chunk at once; batch
+                # admissions at the batch's dispatch, so theirs is reserved.
+                if self._pool is not None and not self._admit_pages_ok(plen, reserve=not chunked_cold):
+                    self._backlog.appendleft(req)
+                    stalled = True
+                    break
+                if chunked_cold:
                     slot_idx = free.pop()
                     self._claim_warm_cold(req, slot_idx)
                     fin, _ = self._advance_warm(slot_idx)
@@ -759,6 +1030,8 @@ class Scheduler:
             if not batch:
                 break
             t = self._admit_dispatch([r for r, _ in batch], [i for _, i in batch])
+            if self._pool is not None:
+                self._kv_pages_reserved = 0  # the dispatch allocated them
             admits.append(lambda t=t: self._admit_finalize(*t))
             budget -= batch_tokens
             progressed = True
@@ -773,6 +1046,8 @@ class Scheduler:
             fin()
         if decode_pending is not None:
             self._decode_finalize(*decode_pending)
+        if self._pool is not None:
+            self._publish_pool_gauges()
         if not progressed:
             req = self._next_pending()
             if req is None:
@@ -792,11 +1067,25 @@ class Scheduler:
         self._clip_prompt(req)
         parked, common = self._find_parked(req)
         if parked >= 0:
-            fin = self._admit_hit(req, parked, common, shared=False)
+            if self._pool is not None:
+                ok, fin = self._admit_paged_hit(req, parked, common, self._free_slots(), consume=True, shared=False)
+                if not ok:
+                    return False
+            else:
+                fin = self._admit_hit(req, parked, common, shared=False)
             if fin is not None:
                 fin()
             return True
         shared_src, shared_common = self._find_shared(req)
+        if shared_src >= 0 and self._pool is not None:
+            ok, fin = self._admit_paged_hit(
+                req, shared_src, shared_common, self._free_slots(), consume=False, shared=True
+            )
+            if not ok:
+                return False
+            if fin is not None:
+                fin()
+            return True
         if shared_src >= 0:
             self._prefix_index.pin(shared_src)
             try:
@@ -814,6 +1103,8 @@ class Scheduler:
             return True
         free = self._free_slots() or self._reclaim_parked(1)
         if not free:
+            return False
+        if self._pool is not None and not self._admit_pages_ok(len(req.token_ids)):
             return False
         if self.prefill_chunk_tokens and len(req.token_ids) > self.prefill_chunk_tokens:
             self._claim_warm_cold(req, free[0])
@@ -863,9 +1154,18 @@ class Scheduler:
         # Attention window: the power-of-two bucket covering every position
         # this chunk can write for a live lane.
         kv_bucket = bucket_size(max_active + self.decode_chunk_size + 1, maximum=self.max_len)
+        cache_args: tuple = (self._cache,)
+        if self._pool is not None:
+            # Private pages for each live lane's write range; lanes outside
+            # the snapshot write the garbage page through unowned entries.
+            for i in active:
+                slot = self._slots[i]
+                live = slot.length + slot.emitted
+                self._pool.make_writable(i, max(live - 1, 0), min(live + self.decode_chunk_size, self.max_len))
+            cache_args = (self._cache, self._pool.device_table())
         _, toks = self._decode_chunk(
             self.params,
-            self._cache,
+            *cache_args,
             self._h2d(self._cur_tok),
             self._h2d(np.minimum(lengths, self.max_len - 1).astype(np.int32)),
             self._gen,

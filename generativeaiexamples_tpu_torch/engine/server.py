@@ -7,7 +7,8 @@ written by hand), with the reference's routes and JSON:
 ``/health`` and ``/metrics``.  One thread per connection; tokens cross
 from the scheduler thread through a ``queue.Queue`` per request.
 
-Run: ``python -m generativeaiexamples_tpu_torch.engine.server --model llama3-8b``.
+Run: ``python -m generativeaiexamples_tpu_torch.engine.server --model llama3-8b``
+(``--kv-layout paged`` serves from the paged KV pool).
 """
 
 from __future__ import annotations
@@ -353,6 +354,14 @@ def metrics_text(scheduler) -> str:
         ("engine_shared_prefix_hits_total", "counter", snap["shared_prefix_hits"]),
         ("engine_prefill_chunks_total", "counter", snap["prefill_chunks"]),
         ("engine_tick_ms_ewma", "gauge", snap["tick_ms_ewma"]),
+        # Paged KV pool (0 under the contiguous cache): parked = pages held
+        # by parked prefix segments, shared = refcount > 1 (COW-armed).
+        ("engine_kv_pages_total", "gauge", snap["kv_pages_total"]),
+        ("engine_kv_pages_free", "gauge", snap["kv_pages_free"]),
+        ("engine_kv_pages_parked", "gauge", snap["kv_pages_parked"]),
+        ("engine_kv_pages_shared", "gauge", snap["kv_pages_shared"]),
+        ("engine_kv_cow_breaks_total", "counter", snap["kv_cow_breaks"]),
+        ("engine_kv_page_evictions_total", "counter", snap["kv_page_evictions"]),
     ]
     lines = []
     for name, kind, value in series:
@@ -391,8 +400,9 @@ def drain_engine(engine, timeout: float = 15.0) -> None:
         logger.exception("engine stop failed during shutdown")
 
 
-def main(argv: Optional[list[str]] = None) -> None:
-    """``python -m generativeaiexamples_tpu_torch.engine.server``."""
+def build_server(argv: Optional[list[str]] = None) -> EngineServer:
+    """Parse the command line and build the engine and its HTTP front; the
+    caller starts ``server.scheduler`` and serves."""
     import dataclasses
 
     import torch
@@ -413,6 +423,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--decode-chunk-size", type=int, default=8)
     parser.add_argument("--prefill-chunk-tokens", type=int, default=256)
     parser.add_argument("--prefix-cache", default="shared", choices=["shared", "session", "off"])
+    parser.add_argument("--kv-layout", default="contiguous", choices=["contiguous", "paged"],
+                        help="KV cache layout: one max_len row per slot, or pages of a shared pool")
+    parser.add_argument("--kv-page-size", type=int, default=64, help="tokens per KV page (a power of two)")
+    parser.add_argument("--kv-pool-pages", type=int, default=None,
+                        help="pages in the paged pool (default and floor: max_batch * pages per slot + 1)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("-v", "--verbose", action="count", default=None)
     args = parser.parse_args(argv)
@@ -429,10 +444,19 @@ def main(argv: Optional[list[str]] = None) -> None:
         cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
         decode_chunk_size=args.decode_chunk_size, seed=args.seed,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None, prefix_cache=args.prefix_cache,
+        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages,
     )
-    engine.start()
     server = create_engine_app(engine, get_tokenizer(args.model), args.model, args.host, args.port)
-    logger.info("engine server on %s:%d (model %s, device %s)", args.host, server.server_address[1], preset, device)
+    logger.info("engine server on %s:%d (model %s, device %s, kv %s)", args.host, server.server_address[1], preset,
+                device, args.kv_layout)
+    return server
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    """``python -m generativeaiexamples_tpu_torch.engine.server``."""
+    server = build_server(argv)
+    engine = server.scheduler
+    engine.start()
     try:
         server.serve_forever()
     except KeyboardInterrupt:

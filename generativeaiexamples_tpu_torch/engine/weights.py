@@ -1,7 +1,7 @@
 """Weight management (port of the parts of ``engine/weights.py`` the
 serving path needs): preset resolution, load-time blocking of the int8
-projections, and conversion of the reference's param trees and KV caches
-from numpy.  HF safetensors loading is not ported yet."""
+projections, and conversion of the reference's param trees, KV caches and
+paged KV pools from numpy.  HF safetensors loading is not ported yet."""
 
 from __future__ import annotations
 
@@ -111,3 +111,21 @@ def params_from_numpy(tree, cfg, device) -> dict:
 def cache_from_numpy(cache, device) -> tuple:
     """The reference's KV cache leaves (numpy) as the port's cache tuple."""
     return tuple(_tensor(leaf, device) for leaf in cache)
+
+
+def pool_from_numpy(pool, cfg, device):
+    """A reference ``PagedKVPool``'s state as the port's pool: the leaves
+    (read with ``np.asarray``), page tables, refcounts, free list, held
+    counts and counters, so both pools continue from one state."""
+    from generativeaiexamples_tpu_torch.engine.paged_kv import PagedKVPool
+
+    out = PagedKVPool(cfg, pool.max_batch, pool.max_len, pool.page_tokens, pool.total_pages, device=device)
+    out.leaves = cache_from_numpy([np.asarray(leaf) for leaf in pool.leaves], device)
+    out.tables = np.array(pool.tables, dtype=np.int32, copy=True)
+    out._refcount = np.array(pool._refcount, dtype=np.int32, copy=True)
+    out._free = [int(p) for p in pool._free]
+    out._held = np.array(pool._held, dtype=np.int32, copy=True)
+    out.cow_breaks = int(pool.cow_breaks)
+    out.frees_total = int(pool.frees_total)
+    out._dirty = True
+    return out

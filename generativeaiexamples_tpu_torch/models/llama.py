@@ -6,8 +6,9 @@ are stacked on a leading ``n_layers`` axis (``params["layers"]``), so the
 reference's param trees convert leaf by leaf
 (``engine.weights.params_from_numpy``) and the layer loop takes views.
 
-:func:`forward` runs the three serving modes of the int8 contiguous KV
-cache the scheduler uses:
+:func:`forward` runs the three serving modes of the int8 KV cache the
+scheduler uses, on the contiguous cache or on the paged pool
+(``engine.paged_kv``, through a page table):
 
 * cold prefill (``cold_prefill=True``, s > 1): the prompt's K/V are
   quantized into the cache, and attention runs over the fresh K/V through
@@ -17,7 +18,11 @@ cache the scheduler uses:
   ``ops.attention.gqa_attention``, as the reference leaves it to XLA);
 * append-buffer decode (``append_cache``, s == 1): the fresh K/V go to the
   decode chunk's append buffer, and attention reads the cache window plus
-  the buffer through the decode kernel (``ops.decode_attention``).
+  the buffer through the decode kernel (``ops.decode_attention``; the
+  paged decode kernel on the pool).
+
+The paged pool takes no cold prefill: the scheduler cold-prefills into a
+small contiguous cache and scatters the rows into pages.
 
 The projections are packed (``wqkv``, ``w_gu``) and pre-blocked int8
 (``engine.decode.prepare_params``), and each goes through
@@ -34,7 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from generativeaiexamples_tpu_torch.ops.attention import attention
-from generativeaiexamples_tpu_torch.ops.decode_attention import decode_gqa_attention
+from generativeaiexamples_tpu_torch.ops.decode_attention import (
+    decode_gqa_attention,
+    paged_decode_gqa_attention,
+    paged_slots,
+    paged_window_index,
+)
 from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
 from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, q_dot
 from generativeaiexamples_tpu_torch.ops.rope import apply_rope
@@ -246,6 +256,9 @@ def forward(
     kv_bucket: Optional[int] = None,
     cold_prefill: bool = False,
     append_cache: Optional[tuple] = None,
+    page_table: Optional[torch.Tensor] = None,
+    page_tokens: int = 0,
+    pages_len: int = 0,
 ):
     """Run the transformer body against the int8 serving cache.
 
@@ -257,6 +270,15 @@ def forward(
     ``(ab, step)`` for the decode chunk's append buffer (s == 1): the fresh
     K/V go to ``ab`` slot ``step`` and the big cache is only read.
 
+    ``page_table`` switches to the paged layout: ``cache`` is the 4-tuple
+    of flat pool leaves (values (L, KH, P, HD), scales (L, KH, P)) and
+    ``page_table`` (b, n_slot_pages) int32 maps row ``r``'s logical token
+    ``t`` to pool slot ``table[r, t // page_tokens] * page_tokens + t %
+    page_tokens``; ``pages_len`` is the logical per-slot capacity that
+    ``kv_bucket`` windows against.  Warm writes scatter through the table
+    and reads gather the logical window, so the results equal the
+    contiguous layout's on the same content.
+
     Returns ``(hidden, cache)``, or ``(hidden, cache, ab)`` with
     ``append_cache``.
     """
@@ -264,7 +286,18 @@ def forward(
         raise ValueError("forward serves the int8 KV cache (k8, v8, k_scale, v_scale)")
     b, s = tokens.shape
     n_q, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    t = cache[0].shape[3]
+    paged = page_table is not None
+    if paged:
+        if cold_prefill:
+            raise ValueError(
+                "cold_prefill is contiguous-only: paged callers stage cold prefill "
+                "in a small contiguous cache and scatter rows into pool pages"
+            )
+        if page_tokens < 1 or pages_len < 1:
+            raise ValueError("paged KV requires page_tokens >= 1 and pages_len >= 1")
+        t = pages_len
+    else:
+        t = cache[0].shape[3]
     window = t if kv_bucket is None else min(kv_bucket, t)
     if append_cache is not None:
         if s != 1:
@@ -274,6 +307,14 @@ def forward(
         ab, step = None, None
     if cold_prefill and s > 1 and (b > cache[0].shape[2] or s > t):
         raise ValueError("cold prefill rows/slots exceed the cache")
+
+    if paged and ab is None:
+        # Warm mode: physical write slot of each fresh token (positions
+        # clamp to the logical capacity, so a padded tail lands on the
+        # row's last entry: an owned page's garbage tail or page 0) and
+        # the flat gather index of the logical window [0, window).
+        phys_pos = paged_slots(page_table, positions.clamp(max=pages_len - 1), page_tokens)
+        page_flat = paged_window_index(page_table, window, page_tokens)
 
     x = embed(params, tokens, cfg.compute_dtype)
     k8c, v8c, ksc, vsc = cache
@@ -295,10 +336,16 @@ def forward(
             ab[1][li, :, :, step] = _heads_first(v8)[:, :, 0]
             ab[2][li, :, :, step] = _heads_first(ks)[:, :, 0]
             ab[3][li, :, :, step] = _heads_first(vs)[:, :, 0]
-            attn = decode_gqa_attention(
-                q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths,
-                append=(ab[0], ab[1], ab[2], ab[3], step + 1), window=window,
-            )[:, None]
+            append = (ab[0], ab[1], ab[2], ab[3], step + 1)
+            if paged:
+                attn = paged_decode_gqa_attention(
+                    q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths, page_table,
+                    append=append, window=window, page_tokens=page_tokens,
+                )[:, None]
+            else:
+                attn = decode_gqa_attention(
+                    q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths, append=append, window=window,
+                )[:, None]
         elif cold_prefill and s > 1:
             k8c[li, :, :b, :s] = _heads_first(k8)
             v8c[li, :, :b, :s] = _heads_first(v8)
@@ -307,6 +354,24 @@ def forward(
             # Attend over the fresh k/v: no quantization error on the
             # prompt pass (the cache stores int8 for later reads).
             attn = attention(q, k, v, positions, kv_lengths)
+        elif paged:
+            # Paged warm mode: scatter the fresh KV through the table, then
+            # the contiguous warm path's attention call over the gathered
+            # logical window.
+            k8c[li][:, phys_pos] = _heads_first(k8)
+            v8c[li][:, phys_pos] = _heads_first(v8)
+            ksc[li][:, phys_pos] = _heads_first(ks)
+            vsc[li][:, phys_pos] = _heads_first(vs)
+
+            def gather(buf):
+                # (KH, P, ...) -> (b, window, KH, ...)
+                g = buf[li][:, page_flat]
+                return g.permute(1, 2, 0, *range(3, g.ndim))
+
+            attn = attention(
+                q, gather(k8c), gather(v8c), positions, kv_lengths,
+                k_scale=gather(ksc), v_scale=gather(vsc),
+            )
         else:
             # Warm write.  The reference drops out-of-range writes (padded
             # tail positions past the cache); the port clamps them onto the

@@ -34,8 +34,9 @@ SOURCES = {
     "qmm": "qmm.cu",
     "decode_attention": "decode_attention.cu",
     "flash_attention": "flash_attention.cu",
+    "paged_decode_attention": "paged_decode_attention.cu",
 }
-_COMMON = ("common.cuh",)
+_COMMON = ("common.cuh", "decode_tile.cuh")
 
 LAUNCHES = {name: 0 for name in SOURCES}
 

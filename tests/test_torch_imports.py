@@ -23,7 +23,7 @@ for name in names:
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "generativeaiexamples_tpu" or m.startswith("generativeaiexamples_tpu.")]
-print(len(names))
+print(",".join(names))
 print(",".join(sorted(bad)))
 """
 
@@ -34,10 +34,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         [sys.executable, "-c", _PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split("\n")[:2]
+    names, bad = out.stdout.split("\n")[:2]
+    names = names.split(",")
     expected = len(list(pkgutil.walk_packages(
         generativeaiexamples_tpu_torch.__path__, "generativeaiexamples_tpu_torch.")))
-    assert int(count) == expected >= 15
+    assert len(names) == expected >= 15
+    assert "generativeaiexamples_tpu_torch.engine.paged_kv" in names
     assert bad == "", f"port pulled in: {bad}"
 
 

@@ -9,6 +9,7 @@ decision is made inside the fixture).  On a machine with one:
 import pytest
 import torch
 
+from chip_smoke import paged_mirror
 from generativeaiexamples_tpu_torch.ops import _cuda
 from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
@@ -61,6 +62,52 @@ def test_decode_attention_close(dev, with_append):
     torch.testing.assert_close(out, ref, atol=5e-3, rtol=2e-2)
     if not with_append:
         assert not out[0].any()
+
+
+@pytest.mark.parametrize("pt", [16, 64])
+@pytest.mark.parametrize("with_append", [False, True])
+def test_paged_decode_attention_close_and_equal_to_contiguous(dev, pt, with_append):
+    g = torch.Generator(device=dev).manual_seed(4)
+    L, KH, B, T, HD, G, C = 2, 2, 5, 320, 128, 4, 4
+    q = torch.randn(B, KH * G, HD, device=dev, generator=g).to(torch.bfloat16)
+    cache = (
+        torch.randint(-127, 128, (L, KH, B, T, HD), dtype=torch.int8, device=dev, generator=g),
+        torch.randint(-127, 128, (L, KH, B, T, HD), dtype=torch.int8, device=dev, generator=g),
+        (torch.rand(L, KH, B, T, device=dev, generator=g) * 0.01 + 0.005).to(torch.bfloat16),
+        (torch.rand(L, KH, B, T, device=dev, generator=g) * 0.01 + 0.005).to(torch.bfloat16),
+    )
+    append = None
+    if with_append:
+        append = (
+            torch.randint(-127, 128, (L, KH, B, C, HD), dtype=torch.int8, device=dev, generator=g),
+            torch.randint(-127, 128, (L, KH, B, C, HD), dtype=torch.int8, device=dev, generator=g),
+            (torch.rand(L, KH, B, C, device=dev, generator=g) * 0.01 + 0.005).to(torch.bfloat16),
+            (torch.rand(L, KH, B, C, device=dev, generator=g) * 0.01 + 0.005).to(torch.bfloat16),
+            3,
+        )
+    window = 192
+    lengths = torch.tensor([0, T - 1, 70, 192, 129], dtype=torch.int32, device=dev)
+    # The pinned lane owns only its window's pages: its tail is page 0.
+    leaves, table = paged_mirror(torch, cache, [0, window, 70, 192, 129], pt, torch.Generator().manual_seed(pt))
+    before = _cuda.LAUNCHES["paged_decode_attention"]
+    out = da.paged_decode_gqa_attention(q, *leaves, 1, lengths, table, append, window=window, page_tokens=pt)
+    assert _cuda.LAUNCHES["paged_decode_attention"] == before + 1
+    ref = da.paged_decode_gqa_attention_plain(q, *leaves, 1, lengths, table, append, window=window, page_tokens=pt)
+    torch.testing.assert_close(out, ref, atol=5e-3, rtol=2e-2)
+    k2 = da.decode_gqa_attention(q, *cache, 1, lengths, append, window=window)
+    assert torch.equal(out, k2)  # same tiles, same order: K2's bits
+    if not with_append:
+        assert not out[0].any()
+
+
+def test_paged_decode_attention_raises_on_shapes_it_cannot_serve(dev):
+    q = torch.zeros(2, 8, 64, dtype=torch.bfloat16, device=dev)
+    pool = [torch.zeros(1, 2, 64, 64, dtype=torch.int8, device=dev)] * 2
+    scales = [torch.zeros(1, 2, 64, dtype=torch.bfloat16, device=dev)] * 2
+    table = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.paged_decode_gqa_attention(q, *pool, *scales, 0, lengths, table, window=64, page_tokens=16)
 
 
 def test_flash_attention_close(dev):

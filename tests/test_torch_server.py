@@ -1,7 +1,8 @@
 """The port's HTTP front (``engine/server.py``) over a tiny CPU scheduler:
 health, models, metrics, plain and streaming completions, and chat.  The
 completion's text must be the scheduler's own greedy tokens for the same
-prompt."""
+prompt.  A server built from the command line with ``--kv-layout paged``
+serves a completion and exports the KV pool series."""
 
 import json
 import queue
@@ -14,7 +15,7 @@ import torch
 from generativeaiexamples_tpu_torch.engine.decode import prepare_params
 from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
 from generativeaiexamples_tpu_torch.engine.scheduler import Request, Scheduler
-from generativeaiexamples_tpu_torch.engine.server import create_engine_app
+from generativeaiexamples_tpu_torch.engine.server import build_server, create_engine_app
 from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
 from generativeaiexamples_tpu_torch.models import llama
 
@@ -117,3 +118,51 @@ def test_bad_request_is_422(served):
     with pytest.raises(urllib.error.HTTPError) as exc:
         urllib.request.urlopen(req, timeout=30)
     assert exc.value.code == 422
+
+
+KV_SERIES = (
+    "engine_kv_pages_total", "engine_kv_pages_free", "engine_kv_pages_parked", "engine_kv_pages_shared",
+    "engine_kv_cow_breaks_total", "engine_kv_page_evictions_total",
+)
+
+
+def _metric(body, name):
+    return float(next(line.split()[1] for line in body.splitlines() if line.startswith(name + " ")))
+
+
+def test_contiguous_metrics_read_zero_kv_pages(served):
+    _, base = served
+    _, body = _get(base + "/metrics")
+    for name in KV_SERIES:
+        assert _metric(body, name) == 0, name
+
+
+def test_paged_server_from_the_command_line():
+    server = build_server([
+        "--device", "cpu", "--model", "llama-tiny", "--host", "127.0.0.1", "--port", "0",
+        "--max-batch", "2", "--max-len", "128", "--decode-chunk-size", "2", "--prefill-chunk-tokens", "8",
+        "--kv-layout", "paged", "--kv-page-size", "16", "--kv-pool-pages", "40",
+    ])
+    sched = server.scheduler
+    assert sched.kv_layout == "paged" and sched.kv_page_size == 16 and sched._pool.total_pages == 40
+    sched.start()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, body = _post(base + "/v1/completions", {"prompt": PROMPT * 4, "max_tokens": 6, "temperature": 0})
+        out = json.loads(body)
+        assert status == 200 and out["usage"]["completion_tokens"] == 6 and out["choices"][0]["text"]
+        _, body = _get(base + "/metrics")
+        assert _metric(body, "engine_kv_pages_total") == 40
+        # The history (41 prompt tokens and 5 of the 6 sampled, the last
+        # never fed back) parked as a segment of three 16-token pages.
+        assert _metric(body, "engine_kv_pages_parked") == 3
+        assert _metric(body, "engine_kv_pages_free") == 40 - 1 - 3
+        for name in KV_SERIES:
+            assert f"# TYPE {name} " in body
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=10)
