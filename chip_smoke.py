@@ -6,9 +6,13 @@
 Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and CUDA.
-2. ``build``: nvcc builds the four kernels from ``csrc/`` in parallel.
+2. ``build``: nvcc builds the four kernels from ``csrc/`` in parallel
+   (with each kernel function's registers, spills and shared memory).
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (W8A8 matmul bitwise; the attention kernels
+   the serving path's shapes (the W8A8 matmul bitwise, both of its
+   designs, at M = 1, 33, 65 and at the timed M = 32, 256, 2048 over
+   Llama-3-8B's four projections, with its achieved rate and bound share;
+   the attention kernels
    within stated bf16 tolerances; the paged decode kernel also bit for bit
    equal to the contiguous one on mirrored content at page sizes 16, 32,
    64 and 128), with kernel, plain and library times and the least time
@@ -21,8 +25,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    a seed, int8 contiguous KV), served by the port's Scheduler and HTTP
    front on 127.0.0.1: eight concurrent completions, a streaming chat, two
    prompts sent alone, models, health and metrics.  Launch counts are
-   zeroed just before and read just after; every kernel of the path must
-   have launched.  Then one decode chunk at batch 32 is timed, untraced.
+   zeroed just before and read just after; every kernel of the path, and
+   both designs of the W8A8 kernel, must have launched.  Then one decode
+   chunk at batch 32 is timed, untraced.
 6. ``serve_paged``: the same on the paged KV pool (page 64, same params),
    plus a shared-prefix group (a 300-token prompt, then four extensions of
    it): the paged decode kernel must have launched, grafts must be host
@@ -90,18 +95,32 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n_variants: int, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, n_variants: int, iters: int, warmup: int = 2, graph: bool = False) -> float:
     """Mean device time of ``fn(i)`` over ``iters`` launches, cycling over
-    ``n_variants`` input copies so the inputs do not sit in the 50 MB L2."""
+    ``n_variants`` input copies so the inputs do not sit in the 50 MB L2.
+    With ``graph`` the launches are captured into one CUDA graph and timed
+    as its replay: the device's time alone, where a short kernel would
+    otherwise be timed at the host's launch rate."""
     import torch
 
     for i in range(warmup):
         fn(i % n_variants)
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(iters):
+                fn(i % n_variants)
+        g.replay()
+        torch.cuda.synchronize()
+        run = g.replay
+    else:
+        def run():
+            for i in range(iters):
+                fn(i % n_variants)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fn(i % n_variants)
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -119,6 +138,41 @@ def tolerance_use(out, ref, atol: float, rtol: float) -> float:
     return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
+def _short_name(mangled: str) -> str:
+    """``qmm_decode<32,1>`` from an Itanium-mangled kernel name: the last
+    length-prefixed identifier of the nested name, then its integer
+    template arguments."""
+    import re
+
+    i, name = 3 if mangled.startswith("_ZN") else 2, None
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if name is None:
+        return mangled[:60]
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
+    return name + (f"<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>" if args else "")
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, shared memory and spills per kernel function from
+    ``nvcc -Xptxas -v`` output, keyed by a short name (``qmm_decode<32,1>``)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = _short_name(entry.group(1))
+            out[name] = ""
+        elif name and ("spill" in line or "Used" in line):
+            out[name] = (out[name] + "; " if out[name] else "") + line.split(":", 1)[-1].strip()
+    return out
+
+
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -130,52 +184,95 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
+QMM_PROJECTIONS = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w_gu", 4096, 28672), ("w_down", 14336, 4096))
+QMM_TIMED_M = (32, 256, 2048)  # a decode step, a warm chunk, a cold batch
+QMM_CHECKED_M = (1, 33, 65)  # the designs' edges, checked bit for bit only
+
+
+def achieved(nbytes: float, ops: float, ms: float, by: str) -> dict:
+    """What a kernel reached, in the unit of what bounds it."""
+    if by == "bytes":
+        return {"achieved_gb_per_s": nbytes / ms / 1e6}
+    return {"achieved_tops": ops / ms / 1e9}
+
+
 def check_qmm(torch, dev, log):
+    """K1 at Llama-3-8B's four projections: bit for bit against its plain
+    version at every M of QMM_TIMED_M and QMM_CHECKED_M, timed at
+    QMM_TIMED_M beside its bound, the plain version and ``torch._int_mm``.
+    Returns the summary entry (one decode step's four projections at
+    M=32) with the layer's sums at each timed M."""
     from generativeaiexamples_tpu_torch.ops import qmm
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    projections = [("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w_gu", 4096, 28672), ("w_down", 14336, 4096)]
     rows = []
-    for m in (32, 2048):
-        for name, k, n in projections:
+    for m in QMM_TIMED_M + QMM_CHECKED_M:
+        timed = m in QMM_TIMED_M
+        for name, k, n in QMM_PROJECTIONS:
             wbytes = n * k
-            nv = copies_for(wbytes + m * k)
+            nv = copies_for(wbytes + m * k) if timed else 1
             ws = [torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=gen) for _ in range(nv)]
             wscale = torch.rand(n, device=dev, generator=gen) * 1e-3 + 1e-4
             xs = [torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
             qs = [qmm.quantize_activations(x) for x in xs]
             out = qmm.qmm_cuda(qs[0][0], qs[0][1], ws[0], wscale, n, torch.bfloat16)
+            again = qmm.qmm_cuda(qs[0][0], qs[0][1], ws[0], wscale, n, torch.bfloat16)
             ref = qmm.qmm_plain(qs[0][0], qs[0][1], ws[0], wscale, n, torch.bfloat16)
             torch.cuda.synchronize()
             if not torch.equal(out, ref):
                 diff = (out.float() - ref.float()).abs().max().item()
                 raise AssertionError(f"qmm {name} M={m}: kernel differs from plain (max {diff})")
-            iters = 20 if m == 32 else 5
-            k_ms = time_ms(lambda i: qmm.qmm_cuda(qs[i][0], qs[i][1], ws[i], wscale, n, torch.bfloat16), nv, iters)
+            if not torch.equal(out, again):
+                raise AssertionError(f"qmm {name} M={m}: two calls in a row differ")
+            plan = qmm.qmm_plan(m, n, k)
+            if not timed:
+                emit("kernel", kernel="qmm", proj=name, m=m, k=k, n=n, design=plan.design, bitwise_equal=True)
+                del ws, xs, qs, out, again, ref
+                continue
+            # Kernel and library call timed as graph replays (device time;
+            # a 5 µs product launched from Python is host-bound), and the
+            # kernel also eagerly, at the rate the host can launch it.
+            iters = 20 if m <= 256 else 10
+            k_ms = time_ms(lambda i: qmm.qmm_cuda(qs[i][0], qs[i][1], ws[i], wscale, n, torch.bfloat16), nv, iters,
+                           graph=True)
+            eager_ms = time_ms(lambda i: qmm.qmm_cuda(qs[i][0], qs[i][1], ws[i], wscale, n, torch.bfloat16), nv,
+                               iters)
             p_ms = time_ms(lambda i: qmm.qmm_plain(qs[i][0], qs[i][1], ws[i], wscale, n, torch.bfloat16), nv, 3, 1)
             try:
                 wt = [w.t() for w in ws]
-                lib_ms = time_ms(lambda i: torch._int_mm(qs[i][0], wt[i]), nv, iters)
+                lib_ms = time_ms(lambda i: torch._int_mm(qs[i][0], wt[i]), nv, iters, graph=True)
             except RuntimeError as exc:  # the yardstick only; the port never calls it
                 log.append(f"_int_mm {name} M={m}: {exc}")
                 lib_ms = None
-            b_ms, b_by = bound(m * k + n * k + m * 4 + n * 4 + m * n * 2, 2.0 * m * n * k, INT8_OPS)
-            row = dict(proj=name, m=m, k=k, n=n, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+            nbytes, ops = m * k + n * k + m * 4 + n * 4 + m * n * 2, 2.0 * m * n * k
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS)
+            row = dict(proj=name, m=m, k=k, n=n, design=plan.design, grid=list(plan.grid), split=plan.split,
+                       tile_n=plan.tile_n,
+                       ms=k_ms, eager_ms=eager_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / k_ms, **achieved(nbytes, ops, k_ms, b_by), max_abs_err=0.0,
+                       bytes=nbytes, ops=ops)
             rows.append(row)
             emit("kernel", kernel="qmm", **row)
-            del ws, xs, qs, out, ref
+            del ws, xs, qs, out, again, ref
             torch.cuda.empty_cache()
+    layers = {}
+    for m in QMM_TIMED_M:
+        sel = [r for r in rows if r["m"] == m]
+        lib = [r["library_ms"] for r in sel]
+        layer = dict(ms=sum(r["ms"] for r in sel), plain_ms=sum(r["plain_ms"] for r in sel),
+                     library_ms=None if None in lib else sum(lib), bound_ms=sum(r["bound_ms"] for r in sel),
+                     bound_by="bytes" if all(r["bound_by"] == "bytes" for r in sel) else "operations")
+        layer["bound_share"] = layer["bound_ms"] / layer["ms"]
+        layer.update(achieved(sum(r["bytes"] for r in sel), sum(r["ops"] for r in sel), layer["ms"],
+                              layer["bound_by"]))
+        emit("kernel", kernel="qmm", proj="layer (four projections)", m=m, **layer)
+        layers[m] = layer
     # The summary entry: one decode step's four projections of one layer
     # at batch 32 (each is one launch; a step makes 4 per layer).
-    dec = [r for r in rows if r["m"] == 32]
-    lib = [r["library_ms"] for r in dec]
-    return dict(
-        ms=sum(r["ms"] for r in dec), plain_ms=sum(r["plain_ms"] for r in dec),
-        library_ms=None if None in lib else sum(lib), bound_ms=sum(r["bound_ms"] for r in dec),
-        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in dec) else "operations",
-        max_abs_err=0.0, shape="one layer's wqkv+wo+w_gu+w_down at M=32 (per-shape rows in the kernel lines)",
-    )
+    return dict(layers[32], max_abs_err=0.0,
+                shape="one layer's wqkv+wo+w_gu+w_down at M=32 (per-shape rows in the kernel lines)",
+                layer_ms_by_m={m: v["ms"] for m, v in layers.items()},
+                layer_library_ms_by_m={m: v["library_ms"] for m, v in layers.items()})
 
 
 def check_decode(torch, dev):
@@ -592,10 +689,12 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
             if st != 200 or not txt:
                 raise AssertionError(f"{path} returned {st}")
         launches = dict(_cuda.LAUNCHES)
+        designs = dict(_cuda.QMM_DESIGN_LAUNCHES)
         want, other = PATH_KERNELS[kv_layout]
-        missing = [k for k in want if launches[k] == 0]
+        missing = [k for k in want if launches[k] == 0] + [f"qmm {d}" for d, n in designs.items() if n == 0]
         if missing or launches[other]:
-            raise AssertionError(f"{kv_layout} path launches: {launches} (missing {missing}, {other} must be 0)")
+            raise AssertionError(f"{kv_layout} path launches: {launches} {designs} (missing {missing}, "
+                                 f"{other} must be 0)")
         snap2 = sched.stats.snapshot()
         page_events = {k: PAGE_EVENTS[k] - events0[k] for k in PAGE_EVENTS}
         if paged:
@@ -630,7 +729,7 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
             tokens_per_s=n_tokens / wall, decode_tokens_per_s=decode_tokens / decode_s if decode_s else None,
             decode_chunks=snap1["decode_chunks"] - snap0["decode_chunks"],
             prefill_chunks=snap1["prefill_chunks"] - snap0["prefill_chunks"],
-            launches=launches, alone_equal_to_other_layout=True if expect is not None else None,
+            launches=launches, qmm_design_launches=designs, alone_equal_to_other_layout=True if expect is not None else None,
             resend_equal=True, page_events=page_events if paged else None, **shared_fields, **pool_fields,
             peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
         )
@@ -763,11 +862,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     took = _cuda.build()
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][-2:]
-        for name, (_, log) in _cuda.BUILD_LOG.items()
-    }
-    emit("build", seconds=time.perf_counter() - t0, per_kernel_s=took, ptxas=ptxas)
+    from generativeaiexamples_tpu_torch.ops import qmm
+
+    # Dynamic shared memory per block of each K1 design (ptxas reports
+    # only static shared memory).
+    qmm_smem = {f"{p.design} M={m} tile {p.tile_n}": p.smem_bytes
+                for m in (1, 32, 64, 256, 2048) for p in [qmm.qmm_plan(m, 4096, 4096)]}
+    emit("build", seconds=time.perf_counter() - t0, per_kernel_s=took,
+         ptxas={name: ptxas_summary(log) for name, (_, log) in _cuda.BUILD_LOG.items()},
+         qmm_dynamic_smem_bytes=qmm_smem)
 
     log: list[str] = []
     summary = {
@@ -812,6 +915,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "shape": s["shape"],
+            **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -13,16 +13,6 @@ extern "C" const char* gaie_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// D = A(16x32 s8, row) * B(32x8 s8, col) + C, int32 accumulate (exact).
-__device__ __forceinline__ void mma_s8_16x8x32(int (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // D = A(16x16 bf16, row) * B(16x8 bf16, col) + C, f32 accumulate.
 __device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], const uint32_t (&a)[4],
                                                  uint32_t b0, uint32_t b1) {

@@ -36,9 +36,13 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
 }
-_COMMON = ("common.cuh", "decode_tile.cuh")
+# Headers every library hashes with its source: an edited header rebuilds.
+_COMMON = ("common.cuh", "decode_tile.cuh", "sm90.cuh")
 
 LAUNCHES = {name: 0 for name in SOURCES}
+# Launches of each of the W8A8 kernel's two designs (ops/qmm.py), beside
+# its one count in LAUNCHES.
+QMM_DESIGN_LAUNCHES = {"decode": 0, "wide": 0}
 
 # name -> (seconds, ptxas report) of builds made by this process
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -49,8 +53,9 @@ _fns: dict[tuple[str, str], object] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, QMM_DESIGN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -85,6 +90,11 @@ def _build_locked(names: list[str]) -> dict[str, float]:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    # libcuda (cuTensorMapEncodeTiled) links against the toolkit's stub; the
+    # installed libcuda.so.1 is loaded at run time.
+    cuda_root = Path(nvcc).resolve().parent.parent
+    stubs = [f"-L{d}" for d in (cuda_root / "lib64" / "stubs", cuda_root / "targets" / "x86_64-linux" / "lib" / "stubs")
+             if d.is_dir()]
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
@@ -93,7 +103,7 @@ def _build_locked(names: list[str]) -> dict[str, float]:
         cmd = [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-I", str(CSRC), "-o", str(tmp), str(CSRC / SOURCES[name]),
+            "-I", str(CSRC), "-o", str(tmp), str(CSRC / SOURCES[name]), *stubs, "-lcuda",
         ]
         procs[name] = (
             subprocess.Popen(

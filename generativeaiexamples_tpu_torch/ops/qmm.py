@@ -6,15 +6,21 @@
   ``torch.round`` rounds half to even, as ``jnp.round`` does.
 * **Blocked weights, made once at load**: :func:`block_matrix` turns a
   :class:`~generativeaiexamples_tpu_torch.ops.quant.QuantizedMatrix`
-  into the kernel's Hopper layout: ``(N_pad, K_pad)`` int8, K-contiguous,
-  which is the column-major B operand of the int8 ``mma.sync``, plus
-  ``(N_pad,)`` f32 scales.  ``BLOCK_EVENTS`` counts blockings so tests can
-  show that no decode step re-tiles.
+  into the kernel's Hopper layout: ``(N_pad, K_pad)`` int8, K-contiguous
+  (the K-major operand the int8 ``wgmma`` takes, in 128-byte K rows that
+  match the TMA's 128-byte swizzle), plus ``(N_pad,)`` f32 scales.
+  ``BLOCK_EVENTS`` counts blockings so tests can show that no decode step
+  re-tiles.
 * **Exact integer product, one scale fold**: the int32 accumulator is
   exact, and both versions fold scales with the reference's expression
   ``((float)acc * a_scale) * w_scale``, rounded once to the output type.
   The kernel (``csrc/qmm.cu``) is therefore bit-identical to
   :func:`qmm_plain` and to the reference's ``_qmm_xla``.
+
+* **Two designs, one launch** (:func:`qmm_plan`): at ``M <= 64`` the
+  decode design streams the weight with a split-K cluster of blocks, above
+  it the wide design tiles the output 128 x 256, 128 x 128 or 64 x 128;
+  ``DESIGN_LAUNCHES`` counts each.
 
 The wrapper launches the kernel for CUDA tensors and runs the plain
 version only for tensors on the CPU.
@@ -23,6 +29,7 @@ version only for tensors on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -104,6 +111,89 @@ def _fold(acc, a_scale, w_scale, out_dtype):
     return ((acc.float() * a_scale) * w_scale).to(out_dtype)
 
 
+# Geometry shared with csrc/qmm.cu.
+SMS = 132  # streaming multiprocessors of an H100 SXM
+BK = 128  # K bytes per pipeline step
+TILE_N = 128  # output channels per block
+DECODE_MAX_M = 64  # the decode design runs at M <= this
+MAX_CLUSTER = 8  # portable thread-block cluster size
+DECODE_STAGES = 4
+# Wide design: the largest of 128 x 256, 128 x 128 and 64 x 128 output
+# tiles whose grid fills at least WIDE_MIN_WAVE of a wave of blocks (else
+# 64 x 128), and the ring depth of each shape; both chosen from timings of
+# the four Llama-3-8B projections at M = 65-2048 on an H100 (PERF.md).
+WIDE_TILES = ((128, 256), (128, 128), (64, 128))
+WIDE_STAGES = {(128, 256): 4, (128, 128): 6, (64, 128): 4}
+WIDE_MIN_WAVE = 0.7
+
+# Launches per design: the decode and wide kernels of csrc/qmm.cu.
+DESIGN_LAUNCHES = _cuda.QMM_DESIGN_LAUNCHES
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmPlan:
+    """How one ``(m, n_pad, k_pad)`` product is launched.
+
+    ``grid`` is (x, y) in blocks, y over the ``tile_n``-channel tiles.
+    Decode: x is the split-K cluster, ``split`` <= 8 blocks along K, and
+    ``tile_m`` (8/16/32/64) the token width of its wgmma.  Wide: x walks
+    the ``tile_m``-token tiles, ``split`` is 1.  ``splits`` lists each
+    split's K byte range, ``stages`` the TMA ring's depth and
+    ``smem_bytes`` each block's dynamic shared memory."""
+
+    design: str
+    grid: tuple
+    split: int
+    stages: int
+    tile_m: int
+    tile_n: int
+    splits: tuple
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _k_splits(k_steps: int, split: int) -> tuple:
+    """Split r's K byte range: whole BK steps, the first ``k_steps % split``
+    splits one step longer (the kernel's own arithmetic)."""
+    base, rem = divmod(k_steps, split)
+    out = []
+    for r in range(split):
+        kb = r * base + min(r, rem)
+        out.append((kb * BK, (kb + base + (r < rem)) * BK))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def qmm_plan(m: int, n_pad: int, k_pad: int) -> QmmPlan:
+    """The launch of ``csrc/qmm.cu`` for ``(m, k_pad) x (n_pad, k_pad)``.
+
+    Decode (m <= 64): the fewest splits that give every SM a block
+    (``n_tiles * split >= SMS``), with at least one K step each and at
+    most 8 (one cluster).  Wide: one output tile per block, the largest of
+    WIDE_TILES whose grid is at least WIDE_MIN_WAVE of a wave."""
+    if k_pad % BK or n_pad % N_QUANTUM or m <= 0:
+        raise ValueError(f"qmm_plan: bad shape m={m} n_pad={n_pad} k_pad={k_pad}")
+    k_steps = k_pad // BK
+    n_tiles = -(-n_pad // TILE_N)
+    if m <= DECODE_MAX_M:
+        split = max(1, min(-(-SMS // n_tiles), MAX_CLUSTER, k_steps))
+        width = next(w for w in (8, 16, 32, 64) if m <= w)
+        stage = TILE_N * BK + width * BK
+        smem = max(DECODE_STAGES * stage, width * (TILE_N + 4) * 4) + 2 * 8 * DECODE_STAGES + 1024
+        return QmmPlan("decode", (split, n_tiles), split, DECODE_STAGES, width, TILE_N,
+                       _k_splits(k_steps, split), smem)
+    for tile_m, tile_n in WIDE_TILES:
+        grid = (-(-m // tile_m), -(-n_pad // tile_n))
+        if grid[0] * grid[1] >= WIDE_MIN_WAVE * SMS:
+            break
+    stages = WIDE_STAGES[tile_m, tile_n]
+    smem = stages * (tile_m + tile_n) * BK + 2 * 8 * stages + 1024
+    return QmmPlan("wide", grid, 1, stages, tile_m, tile_n, _k_splits(k_steps, 1), smem)
+
+
 def qmm_plain(xq, a_scale, w, w_scale, n: int, out_dtype):
     """Plain version of the kernel over the same operands.
 
@@ -116,7 +206,7 @@ def qmm_plain(xq, a_scale, w, w_scale, n: int, out_dtype):
     return _fold(acc[:, :n], a_scale, w_scale[:n], out_dtype)
 
 
-_QMM_ARGS = [_cuda.c_ptr] * 5 + [_cuda.c_int] * 5 + [_cuda.c_ptr]
+_QMM_ARGS = [_cuda.c_ptr] * 5 + [_cuda.c_int] * 9 + [_cuda.c_ptr]
 
 
 def qmm_cuda(xq, a_scale, w, w_scale, n: int, out_dtype):
@@ -130,18 +220,23 @@ def qmm_cuda(xq, a_scale, w, w_scale, n: int, out_dtype):
         a_scale.dtype == torch.float32 and w_scale.dtype == torch.float32,
         "qmm: scales must be float32",
     )
-    _cuda.require(w.shape[1] == k_pad and k_pad % 64 == 0, f"qmm: K mismatch {tuple(xq.shape)} vs {tuple(w.shape)}")
+    _cuda.require(w.shape[1] == k_pad and k_pad % BK == 0, f"qmm: K mismatch {tuple(xq.shape)} vs {tuple(w.shape)}")
     _cuda.require(n_pad % 64 == 0 and 0 < n <= n_pad, f"qmm: bad N {n} / {n_pad}")
     _cuda.require(tuple(a_scale.shape) == (m, 1) and tuple(w_scale.shape) == (n_pad,), "qmm: scale shapes")
     _cuda.require(out_dtype in (torch.bfloat16, torch.float32), f"qmm: output dtype {out_dtype}")
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    if m == 0:
+        return out
+    plan = qmm_plan(m, n_pad, k_pad)
     fn = _cuda.function("qmm", "qmm_launch", _QMM_ARGS)
     err = fn(
         xq.data_ptr(), a_scale.data_ptr(), w.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-        m, n_pad, k_pad, n, int(out_dtype == torch.bfloat16), _cuda.stream_ptr(xq),
+        m, n_pad, k_pad, n, int(out_dtype == torch.bfloat16), plan.split, plan.stages, plan.tile_m, plan.tile_n,
+        _cuda.stream_ptr(xq),
     )
     _cuda.check("qmm", err)
     _cuda.LAUNCHES["qmm"] += 1
+    DESIGN_LAUNCHES[plan.design] += 1
     return out
 
 

@@ -3,7 +3,7 @@
 A CUDA kernel has no CPU mode, so these tests skip without a card (the
 decision is made inside the fixture).  On a machine with one:
 
-    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
 import pytest
@@ -13,7 +13,7 @@ from chip_smoke import paged_mirror
 from generativeaiexamples_tpu_torch.ops import _cuda
 from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
-from generativeaiexamples_tpu_torch.ops import qmm
+from generativeaiexamples_tpu_torch.ops import qmm, quant
 
 pytestmark = pytest.mark.cuda
 
@@ -25,17 +25,50 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 128, 64), (5, 256, 320), (33, 384, 640), (130, 4096, 1024)])
+QMM_M = (1, 5, 16, 32, 33, 64, 65, 130, 256, 2048)
+# Llama-3-8B widths (wqkv, w_down) and a ragged N (five 64-column blocks).
+QMM_KN = ((4096, 6144), (14336, 4096), (384, 320))
+
+
+def _check_qmm(xq, a_scale, w, ws, n, out_dtype):
+    """One kernel call per launch, bit-equal to the plain version, the same
+    bits on a second call (no state left between launches), and the design
+    the plan names."""
+    design = qmm.qmm_plan(xq.shape[0], w.shape[0], w.shape[1]).design
+    before, before_design = _cuda.LAUNCHES["qmm"], qmm.DESIGN_LAUNCHES[design]
+    out = qmm.qmm_cuda(xq, a_scale, w, ws, n, out_dtype)
+    again = qmm.qmm_cuda(xq, a_scale, w, ws, n, out_dtype)
+    assert _cuda.LAUNCHES["qmm"] == before + 2
+    assert qmm.DESIGN_LAUNCHES[design] == before_design + 2
+    assert design == ("decode" if xq.shape[0] <= qmm.DECODE_MAX_M else "wide")
+    assert torch.equal(out, qmm.qmm_plain(xq, a_scale, w, ws, n, out_dtype))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("m", QMM_M)
+@pytest.mark.parametrize("k,n", QMM_KN)
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_qmm_bit_identical(dev, m, k, n, out_dtype):
     g = torch.Generator(device=dev).manual_seed(0)
     w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g)
     ws = torch.rand(n, device=dev, generator=g) * 1e-2
     xq, a_scale = qmm.quantize_activations(torch.randn(m, k, device=dev, generator=g))
-    before = _cuda.LAUNCHES["qmm"]
-    out = qmm.qmm_cuda(xq, a_scale, w, ws, n, out_dtype)
-    assert _cuda.LAUNCHES["qmm"] == before + 1
-    assert torch.equal(out, qmm.qmm_plain(xq, a_scale, w, ws, n, out_dtype))
+    _check_qmm(xq, a_scale, w, ws, n, out_dtype)
+
+
+@pytest.mark.parametrize("m", (32, 256))
+def test_qmm_on_a_stacked_layer_view(dev, m):
+    """Layer i > 0 of a stacked weight is a view whose base is offset by
+    i·N_pad·K_pad bytes; the kernel must read that layer's rows only (the
+    ragged N tile's padding rows of the next layer are not its own)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    k, n = 384, 300
+    bw = qmm.block_matrix(quant.quantize_matrix(torch.randn(3, k, n, device=dev, generator=g)))
+    layer = bw.layer(1)
+    assert layer.w.data_ptr() == bw.w.data_ptr() + bw.w[0].numel()
+    xq, a_scale = qmm.quantize_activations(torch.randn(m, k, device=dev, generator=g))
+    xq = torch.nn.functional.pad(xq, (0, layer.w.shape[1] - k)).contiguous()
+    _check_qmm(xq, a_scale, layer.w, layer.scale, n, torch.bfloat16)
 
 
 @pytest.mark.parametrize("with_append", [False, True])

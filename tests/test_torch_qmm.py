@@ -125,3 +125,53 @@ def test_q_dot_takes_only_blocked_weights():
         tquant.q_dot(torch.zeros(2, 48), torch.zeros(48, 96), "wo")
     out = tquant.q_dot(torch.ones(2, 48), tqmm.block_matrix(qm), "wo")
     assert out.shape == (2, 96) and out.dtype == torch.float32
+
+
+# The four Llama-3-8B projections (K, N) and odd shapes: (m, k_pad, n_pad).
+LLAMA3_8B_PROJECTIONS = {"wqkv": (4096, 6144), "wo": (4096, 4096), "w_gu": (4096, 28672), "w_down": (14336, 4096)}
+PLAN_CASES = [(32, k, n) for k, n in LLAMA3_8B_PROJECTIONS.values()] + [
+    (1, 128, 64),  # one K step, one ragged tile
+    (5, 256, 320),  # ragged N: the last 128-channel tile half padding
+    (64, 384, 64),  # the decode design's widest token side
+    (65, 4096, 6144),  # the first wide M
+    (2048, 14336, 4096),
+    (17, 128 * 13, 192),  # K steps that split unevenly
+]
+
+
+@pytest.mark.parametrize("m,k_pad,n_pad", PLAN_CASES)
+def test_qmm_plan_covers_k_in_whole_steps(m, k_pad, n_pad):
+    plan = tqmm.qmm_plan(m, n_pad, k_pad)
+    assert plan.design == ("decode" if m <= tqmm.DECODE_MAX_M else "wide")
+    assert len(plan.splits) == plan.split
+    bounds = [b for split in plan.splits for b in split]
+    assert bounds[0] == 0 and bounds[-1] == k_pad  # the splits cover k_pad exactly, in order
+    assert all(bounds[i] == bounds[i + 1] for i in range(1, len(bounds) - 1, 2))
+    for k0, k1 in plan.splits:
+        assert k0 % tqmm.BK == 0 and k1 % tqmm.BK == 0 and k1 > k0  # whole BK steps, none empty
+    assert 1 <= plan.split <= tqmm.MAX_CLUSTER  # a split-K cluster is at most 8 blocks
+    assert plan.smem_bytes <= 227 * 1024
+    n_tiles = -(-n_pad // plan.tile_n)
+    if plan.design == "decode":
+        assert plan.grid == (plan.split, n_tiles) and m <= plan.tile_m <= 64 and plan.tile_n == tqmm.TILE_N
+    else:
+        assert plan.split == 1 and plan.grid == (-(-m // plan.tile_m), n_tiles)
+        assert (plan.tile_m, plan.tile_n) in tqmm.WIDE_TILES
+
+
+@pytest.mark.parametrize("proj", sorted(LLAMA3_8B_PROJECTIONS))
+def test_qmm_plan_fills_the_card_at_decode(proj):
+    """At a decode step's M every Llama-3-8B projection launches at least
+    one block per SM of an H100, with the fewest splits that do."""
+    k, n = LLAMA3_8B_PROJECTIONS[proj]
+    plan = tqmm.qmm_plan(32, n, k)
+    assert plan.design == "decode" and plan.blocks >= tqmm.SMS
+    if plan.split > 1:
+        assert plan.grid[1] * (plan.split - 1) < tqmm.SMS
+
+
+def test_qmm_plan_refuses_unpadded_shapes():
+    with pytest.raises(ValueError, match="qmm_plan"):
+        tqmm.qmm_plan(4, 64, 100)
+    with pytest.raises(ValueError, match="qmm_plan"):
+        tqmm.qmm_plan(4, 100, 128)
