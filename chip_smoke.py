@@ -16,7 +16,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    within stated bf16 tolerances; the paged decode kernel also bit for bit
    equal to the contiguous one on mirrored content at page sizes 16, 32,
    64 and 128), with kernel, plain and library times and the least time
-   the card could take (its bound).
+   the card could take (its bound).  Kernels and library calls are timed
+   as CUDA-graph replays (the device's time; an eager loop of a short
+   kernel measures the host's launch rate), with the eager time beside
+   (``eager_ms``); the decode kernel also at each split count.
 4. ``reference``: a small bf16 model (head_dim 128) run through the
    kernels on the card and through the plain versions on the CPU: the
    cold-prefill logits and one append-buffer decode step's logits agree
@@ -259,7 +262,8 @@ def check_qmm(torch, dev, log):
     for m in QMM_TIMED_M:
         sel = [r for r in rows if r["m"] == m]
         lib = [r["library_ms"] for r in sel]
-        layer = dict(ms=sum(r["ms"] for r in sel), plain_ms=sum(r["plain_ms"] for r in sel),
+        layer = dict(ms=sum(r["ms"] for r in sel), eager_ms=sum(r["eager_ms"] for r in sel),
+                     plain_ms=sum(r["plain_ms"] for r in sel),
                      library_ms=None if None in lib else sum(lib), bound_ms=sum(r["bound_ms"] for r in sel),
                      bound_by="bytes" if all(r["bound_by"] == "bytes" for r in sel) else "operations")
         layer["bound_share"] = layer["bound_ms"] / layer["ms"]
@@ -307,19 +311,46 @@ def check_decode(torch, dev):
         torch.testing.assert_close(out, ref, **DECODE_TOL)
         if not with_ab and out[0].any():
             raise AssertionError("decode_attention: an empty lane must give exact zeros")
-        k_ms = time_ms(lambda i: da.decode_attention_cuda(q, k8, v8, ks, vs, i, lengths, append, window), L, 50)
+        again = da.decode_attention_cuda(q, k8, v8, ks, vs, 1, lengths, append, window)
+        if not torch.equal(out, again):
+            raise AssertionError("decode_attention: two calls in a row differ")
+        k_ms = time_ms(lambda i: da.decode_attention_cuda(q, k8, v8, ks, vs, i, lengths, append, window), L, 50,
+                       graph=True)
+        eager_ms = time_ms(lambda i: da.decode_attention_cuda(q, k8, v8, ks, vs, i, lengths, append, window), L, 50)
         p_ms = time_ms(lambda i: da.decode_gqa_attention_plain(q, k8, v8, ks, vs, i, lengths, append, window=window), L, 5, 1)
         slots = lengths.clamp(0, window).sum().item() + (B * count if with_ab else 0)
         nbytes = slots * KH * (2 * HD + 2 * 2) + q.numel() * 2 * 2 + B * 4
         b_ms, b_by = bound(nbytes, 4.0 * slots * G * KH * HD, BF16_FLOPS)
-        row = dict(append=with_ab, b=B, t=T, window=window, ms=k_ms, plain_ms=p_ms, library_ms=None,
-                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err, tolerance=DECODE_TOL, tolerance_use=use)
+        row = dict(append=with_ab, b=B, t=T, window=window, splits=da.decode_plan(B, KH), ms=k_ms, eager_ms=eager_ms,
+                   plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms,
+                   max_abs_err=err, tolerance=DECODE_TOL, tolerance_use=use)
+        if with_ab:
+            row["splits_sweep_ms"] = decode_splits_sweep(torch, da, q, k8, v8, ks, vs, lengths, append, window, L)
         emit("kernel", kernel="decode_attention", **row)
         if with_ab:
             summary = dict(row, shape=f"B={B} KH={KH} G={G} T={T} window={window} append C={C} count={count}")
     del k8, v8, ks, vs, ab
     torch.cuda.empty_cache()
     return summary
+
+
+def decode_splits_sweep(torch, da, q, k8, v8, ks, vs, lengths, append, window, n_layers) -> dict:
+    """K2's graph-timed ms at each split count, the plan's choice replaced
+    for the sweep only (``BLOCKS_PER_SM`` in ``ops/decode_attention.py``
+    comes from it); each must still match the plain version."""
+    planner = da.decode_plan
+    out = {}
+    ref = da.decode_gqa_attention_plain(q, k8, v8, ks, vs, 1, lengths, append, window=window)
+    try:
+        for splits in (1, 2, 4, 8):
+            da.decode_plan = lambda *_a, _s=splits: _s
+            torch.testing.assert_close(da.decode_attention_cuda(q, k8, v8, ks, vs, 1, lengths, append, window), ref,
+                                       **DECODE_TOL)
+            out[splits] = time_ms(lambda i: da.decode_attention_cuda(q, k8, v8, ks, vs, i, lengths, append, window),
+                                  n_layers, 50, graph=True)
+    finally:
+        da.decode_plan = planner
+    return out
 
 
 def paged_mirror(torch, cache, own, pt, gen, share=None):
@@ -403,8 +434,11 @@ def check_paged_decode(torch, dev):
             if not with_ab and out[0].any():
                 raise AssertionError("paged_decode_attention: an empty lane must give exact zeros")
             k_ms = time_ms(lambda i: da.paged_decode_attention_cuda(q, *leaves, i, lengths, table, append, window, pt),
-                           L, 50)
-            k2_ms = time_ms(lambda i: da.decode_attention_cuda(q, *cache, i, lengths, append, window), L, 50)
+                           L, 50, graph=True)
+            eager_ms = time_ms(lambda i: da.paged_decode_attention_cuda(q, *leaves, i, lengths, table, append, window,
+                                                                        pt), L, 50)
+            k2_ms = time_ms(lambda i: da.decode_attention_cuda(q, *cache, i, lengths, append, window), L, 50,
+                            graph=True)
             p_ms = time_ms(lambda i: da.paged_decode_gqa_attention_plain(
                 q, *leaves, i, lengths, table, append, window=window, page_tokens=pt), L, 5, 1)
             # Bytes: each distinct pool slot the rows read, once (rows 3 and
@@ -418,8 +452,9 @@ def check_paged_decode(torch, dev):
             nbytes = (pool_slots + ab_slots) * KH * (2 * HD + 2 * 2) + table_entries * 4 + q.numel() * 2 * 2 + B * 4
             b_ms, b_by = bound(nbytes, 4.0 * (visible.sum().item() + ab_slots) * G * KH * HD, BF16_FLOPS)
             row = dict(page_tokens=pt, append=with_ab, b=B, max_len=T, window=window, pool_slots_read=pool_slots,
-                       row_slots_read=visible.sum().item(), ms=k_ms, k2_ms=k2_ms,
-                       plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                       row_slots_read=visible.sum().item(), splits=da.decode_plan(B, KH), ms=k_ms,
+                       eager_ms=eager_ms, k2_ms=k2_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / k_ms, max_abs_err=err,
                        tolerance=DECODE_TOL, tolerance_use=use, equal_to_k2=True)
             emit("kernel", kernel="paged_decode_attention", **row)
             if pt == 64 and with_ab:
@@ -432,7 +467,7 @@ def check_paged_decode(torch, dev):
     return summary
 
 
-def check_flash(torch, dev):
+def check_flash(torch, dev, log):
     import torch.nn.functional as F
 
     from generativeaiexamples_tpu_torch.ops import flash_attention as fa
@@ -454,7 +489,10 @@ def check_flash(torch, dev):
     torch.testing.assert_close(out, ref, **FLASH_TOL)
     if out[5, 140:].any():
         raise AssertionError("flash_attention: padded query rows must give exact zeros")
-    k_ms = time_ms(lambda i: fa.flash_attention_cuda(qs[i], kks[i], vvs[i], pos, lengths), nv, 20)
+    if not torch.equal(out, fa.flash_attention_cuda(qs[0], kks[0], vvs[0], pos, lengths)):
+        raise AssertionError("flash_attention: two calls in a row differ")
+    k_ms = time_ms(lambda i: fa.flash_attention_cuda(qs[i], kks[i], vvs[i], pos, lengths), nv, 20, graph=True)
+    eager_ms = time_ms(lambda i: fa.flash_attention_cuda(qs[i], kks[i], vvs[i], pos, lengths), nv, 20)
     p_ms = time_ms(lambda i: fa.flash_gqa_attention_plain(qs[i], kks[i], vvs[i], pos, lengths), nv, 3, 1)
     # SDPA with a boolean mask of the same visibility (its fully masked rows
     # would be NaN where the kernel gives 0; none are fully masked here
@@ -465,7 +503,18 @@ def check_flash(torch, dev):
     qt = [x.transpose(1, 2) for x in qs]
     kt = [x.transpose(1, 2) for x in kks]
     vt = [x.transpose(1, 2) for x in vvs]
-    lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(qt[i], kt[i], vt[i], attn_mask=mask, enable_gqa=True), nv, 20)
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qt[i], kt[i], vt[i], attn_mask=mask, enable_gqa=True)
+
+    # The yardstick as graph replays like the kernel, with its eager time
+    # beside; if its backend cannot be captured, eagerly over many calls.
+    lib_eager_ms = time_ms(sdpa, nv, 200)
+    try:
+        lib_ms, lib_timing = time_ms(sdpa, nv, 20, graph=True), "graph"
+    except RuntimeError as exc:
+        log.append(f"SDPA graph capture failed, timed eagerly over 200 calls: {exc}")
+        torch.cuda.synchronize()
+        lib_ms, lib_timing = lib_eager_ms, "eager, 200 calls"
     visible = int(mask.sum().item()) * nq  # (query, key) pairs attended, all heads
     # Bytes the function needs: q only for real rows (padded rows' outputs
     # are 0 by contract), K/V only up to min(kv_len, max position + 1) per
@@ -474,8 +523,10 @@ def check_flash(torch, dev):
     q_rows = int((pos >= 0).sum().item())
     nbytes = (q_rows * nq * hd + kv_slots * 2 * nkv * hd + b * s * nq * hd) * 2 + b * s * 4 + b * 4
     b_ms, b_by = bound(nbytes, 4.0 * visible * hd, BF16_FLOPS)
-    row = dict(b=b, s=s, nq=nq, nkv=nkv, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, max_abs_err=err, tolerance=FLASH_TOL, tolerance_use=use)
+    row = dict(b=b, s=s, nq=nq, nkv=nkv, ms=k_ms, eager_ms=eager_ms, plain_ms=p_ms, library_ms=lib_ms,
+               library_timing=lib_timing, library_eager_ms=lib_eager_ms, beats_library=k_ms < lib_ms,
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms, max_abs_err=err, tolerance=FLASH_TOL,
+               tolerance_use=use)
     emit("kernel", kernel="flash_attention", **row)
     return dict(row, shape=f"b={b} s={s} n_q={nq} n_kv={nkv} hd={hd}, ragged kv lengths, padded rows")
 
@@ -743,6 +794,8 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
 
 
 PROFILE_STEPS, PROFILE_LENGTH, PROFILE_WINDOW = 8, 512, 1024
+# Device-side names of the port's kernel functions (torch.profiler keys).
+PORT_KERNEL_NAMES = ("qmm_decode", "qmm_wide", "decode_kernel", "flash_kernel")
 
 
 def decode_chunk(torch, dev, sched):
@@ -824,13 +877,16 @@ def profile_decode(torch, dev, cfg, params, kv_layout: str, timing: dict) -> Non
             by_name[ev.key] = by_name.get(ev.key, 0.0) + dt / 1e3
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # The port's own kernels, by name, whether or not they are in the top ten.
+    port = {k[:80]: v for k, v in by_name.items() if any(n in k for n in PORT_KERNEL_NAMES)}
     emit(
         "profile_paged" if kv_layout == "paged" else "profile",
         what=f"one decode chunk, {PROFILE_STEPS} steps, batch {sched.max_batch} all live at {PROFILE_LENGTH}, "
              f"window {PROFILE_WINDOW}",
         **timing, traced_device_ms=device_ms, traced_event_span_ms=traced_span_ms,
         device_busy_share=device_ms / traced_span_ms if traced_span_ms else None,
-        top_kernels_ms={k[:80]: v for k, v in top},
+        top_kernels_ms={k[:80]: v for k, v in top}, port_kernels_ms=port,
+        decode_attention_ms_per_step=sum(v for k, v in port.items() if "decode_kernel" in k) / PROFILE_STEPS,
     )
 
 
@@ -877,7 +933,7 @@ def main() -> int:
         "qmm": check_qmm(torch, dev, log),
         "decode_attention": check_decode(torch, dev),
         "paged_decode_attention": check_paged_decode(torch, dev),
-        "flash_attention": check_flash(torch, dev),
+        "flash_attention": check_flash(torch, dev, log),
     }
     if log:
         emit("notes", notes=log)
@@ -914,7 +970,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"generativeaiexamples_tpu_torch/csrc/{_cuda.SOURCES[name]}",
             "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"], "shape": s["shape"],
+            "library_ms": s["library_ms"], "eager_ms": s["eager_ms"], "shape": s["shape"],
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

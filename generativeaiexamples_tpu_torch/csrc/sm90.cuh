@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA
-// tile loads, thread-block-cluster barriers and distributed shared memory,
-// and the int8 warpgroup MMA (wgmma) with its shared-memory descriptors.
+// tile loads, cp.async copies and ldmatrix fragment loads, thread-block-
+// cluster barriers and distributed shared memory, and the int8 and bf16
+// warpgroup MMAs (wgmma) with their shared-memory descriptors.
 // Kept in the port's own header so that nvcc builds stay at seconds.
 #pragma once
 
@@ -59,6 +60,41 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---- cp.async and ldmatrix ------------------------------------------------
+
+// Copies 16 bytes from global to shared memory asynchronously; with
+// `valid` false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8, and r[j] holds this lane's pair of matrix j
+// (row lane / 4, columns 2·(lane % 4) and +1; transposed with `trans`).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
 // ---- clusters -------------------------------------------------------------
 
 // Every thread of every block of the cluster arrives and waits; shared
@@ -90,6 +126,12 @@ __device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // Descriptor of a K-major operand tile in shared memory laid out by a TMA
@@ -99,6 +141,17 @@ __device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile, uint32_t k_bytes) {
   const uint64_t addr = smem_u32(tile) + k_bytes;
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// Descriptor of an MN-major operand tile (B read transposed) laid out in
+// 128-byte swizzled rows along K: 64 MN elements (128 bytes) a row, 8-row
+// K groups `k_group_bytes` apart (stride byte offset), the next 64 MN
+// elements `mn_atom_bytes` on (leading byte offset); base 1024-byte aligned.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(const void* tile, uint32_t mn_atom_bytes,
+                                                        uint32_t k_group_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((mn_atom_bytes >> 4) & 0x3FFF) << 16) |
+         (uint64_t((k_group_bytes >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -114,6 +167,12 @@ template <int R>
 __device__ __forceinline__ void wgmma_fence_operands(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D(64 x N, s32) += A(64 x 32, s8, K-major) * B(N x 32, s8, K-major)^T, both
@@ -194,3 +253,31 @@ struct WgmmaS8<256> {
         : "l"(a), "l"(b), "r"(1));
   }
 };
+
+// The bf16 products of the prefill attention kernel; the accumulator
+// d[4j + e] is laid out as the int8 product's above.
+//
+// D(64 x 32, f32) (+)= A(64 x 16) * B(32 x 16)^T, both bf16 K-major tiles in
+// shared memory through descriptors; scale_d = 0 ignores D's old value.
+__device__ __forceinline__ void wgmma_bf16_m64n32_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D(64 x 128, f32) += A(64 x 16, bf16, registers) * B(16 x 128, bf16, an
+// MN-major tile in shared memory).  A's registers follow mma.sync's
+// m16n8k16 A fragment on each warp's 16 rows: a[0] holds row lane/4,
+// columns 2·(lane%4) and +1; a[1] the row 8 below; a[2], a[3] the same 8
+// columns on.
+__device__ __forceinline__ void wgmma_bf16_m64n128_rs_mn(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}

@@ -29,6 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
+SMS = 132  # streaming multiprocessors of an H100 SXM, for the launch planners
+
 # kernel name -> source file under csrc/
 SOURCES = {
     "qmm": "qmm.cu",

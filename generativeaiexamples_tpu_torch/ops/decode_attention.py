@@ -22,10 +22,13 @@ On a CUDA tensor :func:`decode_gqa_attention` launches
 versions, :func:`decode_gqa_attention_plain` and
 :func:`paged_decode_gqa_attention_plain` (the reference's
 ``decode_gqa_attention_xla`` and ``paged_decode_gqa_attention_xla``).
+Both kernels split each row's window over a cluster of blocks as
+:func:`decode_plan` says.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -164,6 +167,41 @@ def paged_decode_gqa_attention_plain(
     )[:, 0]
 
 
+# Geometry shared with csrc/decode_tile.cuh.
+TILE = 64  # logical slots a tile
+MAX_SPLITS = 8  # portable thread-block cluster size
+# Blocks wanted per SM, from a sweep of 1-8 splits at B=32, KH=8 on an
+# H100 (PERF.md): 2 splits (~3.9 blocks per SM) were the fastest.
+BLOCKS_PER_SM = 3
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(b: int, n_kv: int) -> int:
+    """The split count of the decode kernels for ``b`` rows and ``n_kv``
+    kv heads: the fewest splits, a power of two up to ``MAX_SPLITS``, that
+    give ``BLOCKS_PER_SM`` blocks per SM.
+
+    The grid is (B, KH, splits); each (row, kv head)'s ``splits`` blocks
+    are one cluster.  A row's cache slots ``[0, min(len, window))`` are cut
+    into ``TILE``-slot logical tiles dealt round-robin: split ``z`` takes
+    tiles ``z, z + splits, ...``, and the append buffer is the next logical
+    tile after the cache's last.
+
+    It depends on ``(b, n_kv)`` only, never on the window or the lengths:
+    the split count fixes the order in which a row's partial sums are
+    combined, so a row's result must not move with the window the batch's
+    longest row sets (a prompt gives the same greedy text alone as in a
+    batch; the scheduler decodes at its fixed ``max_batch``), and the
+    contiguous and paged kernels split at the same logical slots."""
+    if b <= 0 or n_kv <= 0:
+        raise ValueError(f"decode_plan: bad shape b={b} n_kv={n_kv}")
+    want = -(-BLOCKS_PER_SM * _cuda.SMS // (b * n_kv))
+    splits = 1
+    while splits < want and splits < MAX_SPLITS:
+        splits *= 2
+    return splits
+
+
 def _append_args(append, n_layers: int, n_kv: int, b: int, hd: int, name: str):
     """Check a launch's append buffer; returns ((k_ab, v_ab, ks_ab, vs_ab)
     or Nones, width C, valid count)."""
@@ -186,6 +224,8 @@ def _check_common(name: str, tensors, q, k8, v8, ks, vs, n_q: int, n_kv: int, hd
     g = n_q // n_kv
     for tname, x in tensors:
         _cuda.require(x.is_cuda and x.is_contiguous(), f"{name}: {tname} must be a contiguous CUDA tensor")
+        # The kernels copy 16-byte vectors.
+        _cuda.require(x.data_ptr() % 16 == 0, f"{name}: {tname} must be 16-byte aligned")
     _cuda.require(q.dtype == torch.bfloat16, f"{name}: q must be bf16, got {q.dtype}")
     _cuda.require(k8.dtype == torch.int8 and v8.dtype == torch.int8, f"{name}: cache values must be int8")
     _cuda.require(ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16, f"{name}: scales must be bf16")
@@ -193,7 +233,7 @@ def _check_common(name: str, tensors, q, k8, v8, ks, vs, n_q: int, n_kv: int, hd
     _cuda.require(n_q % n_kv == 0 and 1 <= g <= 8, f"{name}: group size {n_q}/{n_kv} not in [1, 8]")
 
 
-_DECODE_ARGS = [_cuda.c_ptr] * 11 + [_cuda.c_int] * 8 + [_cuda.c_float, _cuda.c_ptr]
+_DECODE_ARGS = [_cuda.c_ptr] * 11 + [_cuda.c_int] * 9 + [_cuda.c_float, _cuda.c_ptr]
 
 
 def decode_attention_cuda(q, k8, v8, ks, vs, layer: int, kv_lengths, append, window: int):
@@ -216,14 +256,14 @@ def decode_attention_cuda(q, k8, v8, ks, vs, layer: int, kv_lengths, append, win
     err = fn(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         kv_lengths.data_ptr(), ptr(k_ab), ptr(v_ab), ptr(ks_ab), ptr(vs_ab), out.data_ptr(),
-        int(layer), b, n_kv, n_q // n_kv, t, c, count, int(window), hd**-0.5, _cuda.stream_ptr(q),
+        int(layer), b, n_kv, n_q // n_kv, t, c, count, int(window), decode_plan(b, n_kv), hd**-0.5, _cuda.stream_ptr(q),
     )
     _cuda.check("decode_attention", err)
     _cuda.LAUNCHES["decode_attention"] += 1
     return out
 
 
-_PAGED_ARGS = [_cuda.c_ptr] * 12 + [_cuda.c_int] * 10 + [_cuda.c_float, _cuda.c_ptr]
+_PAGED_ARGS = [_cuda.c_ptr] * 12 + [_cuda.c_int] * 11 + [_cuda.c_float, _cuda.c_ptr]
 
 
 def paged_decode_attention_cuda(
@@ -239,8 +279,9 @@ def paged_decode_attention_cuda(
     _check_common("paged_decode_attention", tensors, q, k8, v8, ks, vs, n_q, n_kv, hd, chd)
     _cuda.require(tuple(v8.shape) == tuple(k8.shape) and tuple(ks.shape) == (n_layers, n_kv, p)
                   and tuple(vs.shape) == tuple(ks.shape), "paged_decode_attention: pool shapes")
-    _cuda.require(page_tokens >= 1 and p % page_tokens == 0,
-                  f"paged_decode_attention: pool of {p} slots is not whole pages of {page_tokens}")
+    pt = int(page_tokens)
+    _cuda.require(pt >= 1 and pt & (pt - 1) == 0, f"paged_decode_attention: page of {pt} slots is not a power of two")
+    _cuda.require(p % pt == 0, f"paged_decode_attention: pool of {p} slots is not whole pages of {pt}")
     _cuda.require(page_table.dtype == torch.int32 and page_table.ndim == 2 and page_table.shape[0] == b,
                   "paged_decode_attention: page_table must be (B, n_slot_pages) int32")
     n_pages = page_table.shape[1]
@@ -253,8 +294,8 @@ def paged_decode_attention_cuda(
     err = fn(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         kv_lengths.data_ptr(), page_table.data_ptr(), ptr(k_ab), ptr(v_ab), ptr(ks_ab), ptr(vs_ab),
-        out.data_ptr(), int(layer), b, n_kv, n_q // n_kv, p, n_pages, int(page_tokens), c, count,
-        int(window), hd**-0.5, _cuda.stream_ptr(q),
+        out.data_ptr(), int(layer), b, n_kv, n_q // n_kv, p, n_pages, pt, c, count,
+        int(window), decode_plan(b, n_kv), hd**-0.5, _cuda.stream_ptr(q),
     )
     _cuda.check("paged_decode_attention", err)
     _cuda.LAUNCHES["paged_decode_attention"] += 1

@@ -35,6 +35,8 @@ def flash_attention_cuda(q, k, v, q_positions, kv_lengths):
             x.is_cuda and x.is_contiguous() and x.dtype == torch.bfloat16,
             f"flash_attention: {name} must be a contiguous bf16 CUDA tensor",
         )
+        # The kernel copies 16-byte vectors.
+        _cuda.require(x.data_ptr() % 16 == 0, f"flash_attention: {name} must be 16-byte aligned")
     _cuda.require(hd == 128, f"flash_attention: head_dim must be 128, got {hd}")
     _cuda.require(tuple(v.shape) == tuple(k.shape) and k.shape[0] == b and k.shape[3] == hd,
                   "flash_attention: k/v shapes")
@@ -66,6 +68,8 @@ def flash_gqa_attention(
     if kv_lengths is None:
         kv_lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
     if _cuda.on_cuda(q):
-        # Packed-qkv slices arrive strided; the kernel reads dense rows.
+        # Packed-qkv slices arrive strided; the kernel reads dense rows.  On
+        # the cold-prefill path q and k come fresh from rope (no copy) and
+        # v is a slice of the packed projection (one copy).
         return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), q_positions, kv_lengths)
     return flash_gqa_attention_plain(q, k, v, q_positions, kv_lengths)

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from generativeaiexamples_tpu_torch.ops import _cuda
+from generativeaiexamples_tpu_torch.ops._cuda import SMS
 
 # K pads to this quantum (zero columns add exact zeros to the integer dot);
 # N pads to the kernel's 64-column output tile (zero rows, scale 0).
@@ -112,7 +113,6 @@ def _fold(acc, a_scale, w_scale, out_dtype):
 
 
 # Geometry shared with csrc/qmm.cu.
-SMS = 132  # streaming multiprocessors of an H100 SXM
 BK = 128  # K bytes per pipeline step
 TILE_N = 128  # output channels per block
 DECODE_MAX_M = 64  # the decode design runs at M <= this

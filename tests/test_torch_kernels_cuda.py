@@ -158,6 +158,123 @@ def test_flash_attention_close(dev):
     assert not out[1, 60:].any() and not out[2].any()
 
 
+def _int8_cache(dev, g, shape):
+    return (
+        torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g),
+        torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g),
+        (torch.rand(shape[:-1], device=dev, generator=g) * 0.015 + 0.005).to(torch.bfloat16),
+        (torch.rand(shape[:-1], device=dev, generator=g) * 0.015 + 0.005).to(torch.bfloat16),
+    )
+
+
+def _poisoned_call(torch_fn, like):
+    """Call once on a freed NaN-filled block of the output's size (the
+    caching allocator hands it back), so a slot the kernel leaves unwritten
+    shows; then again on the same buffer, which must give the same bits."""
+    junk = torch.full_like(like, float("nan"))
+    del junk
+    first = torch_fn()
+    keep = first.clone()
+    del first
+    second = torch_fn()
+    assert torch.equal(second, keep)
+    return second
+
+
+# Window 512 = 8 tiles; 17 rows x 2 kv heads plan 8 splits, one tile each.
+SPLIT_WINDOW = 512
+SPLIT_LENGTHS = (0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 447, 448, 449, 511, SPLIT_WINDOW, 1023)
+
+
+@pytest.mark.parametrize("with_append", [False, True])
+def test_decode_attention_split_boundaries(dev, with_append):
+    """Lengths at every tile/split boundary +-1, 0, the window and a lane
+    pinned at T - 1, on a plan with 8 splits: within tolerance of the plain
+    version, exact zeros on the empty lane, and the same bits on a reused
+    (poisoned) output buffer."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    L, KH, HD, G, C, T = 2, 2, 128, 4, 8, 1024
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    B = lengths.numel()
+    assert da.decode_plan(B, KH) == 8
+    q = torch.randn(B, KH * G, HD, device=dev, generator=g).to(torch.bfloat16)
+    cache = _int8_cache(dev, g, (L, KH, B, T, HD))
+    append = (*_int8_cache(dev, g, (L, KH, B, C, HD)), 5) if with_append else None
+    out = _poisoned_call(lambda: da.decode_gqa_attention(q, *cache, 1, lengths, append, window=SPLIT_WINDOW), q)
+    ref = da.decode_gqa_attention_plain(q, *cache, 1, lengths, append, window=SPLIT_WINDOW)
+    torch.testing.assert_close(out, ref, atol=5e-3, rtol=2e-2)
+    if not with_append:
+        assert not out[0].any()
+
+
+@pytest.mark.parametrize("pt", [16, 32, 64, 128])
+@pytest.mark.parametrize("with_append", [False, True])
+def test_paged_decode_attention_split_equals_contiguous(dev, pt, with_append):
+    """K3 through a shuffled page table equals K2 bit for bit with the split
+    (8 splits), at every page size, and is within tolerance of its plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    L, KH, HD, G, C, T = 2, 2, 128, 4, 8, 1024
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    B = lengths.numel()
+    q = torch.randn(B, KH * G, HD, device=dev, generator=g).to(torch.bfloat16)
+    cache = _int8_cache(dev, g, (L, KH, B, T, HD))
+    append = (*_int8_cache(dev, g, (L, KH, B, C, HD)), 5) if with_append else None
+    own = lengths.clamp(max=SPLIT_WINDOW).tolist()
+    leaves, table = paged_mirror(torch, cache, own, pt, torch.Generator().manual_seed(pt))
+    out = _poisoned_call(lambda: da.paged_decode_gqa_attention(
+        q, *leaves, 1, lengths, table, append, window=SPLIT_WINDOW, page_tokens=pt), q)
+    k2 = da.decode_gqa_attention(q, *cache, 1, lengths, append, window=SPLIT_WINDOW)
+    assert torch.equal(out, k2)
+    ref = da.paged_decode_gqa_attention_plain(q, *leaves, 1, lengths, table, append, window=SPLIT_WINDOW,
+                                              page_tokens=pt)
+    torch.testing.assert_close(out, ref, atol=5e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,KH", [(32, 8), (5, 2)])
+@pytest.mark.parametrize("with_append", [False, True])
+def test_decode_attention_does_not_move_with_the_window(dev, B, KH, with_append):
+    """The scheduler's window is a bucket of the batch's longest row: rows
+    shorter than both windows get the same bits from K2 and from K3 under
+    window 192 and window 576, so a prompt decodes alike alone and in a
+    batch (at the serving plan, 2 splits, and at 8 splits)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    L, HD, G, C, T, pt = 1, 128, 4, 8, 640, 64
+    lengths = torch.randint(0, 192, (B,), dtype=torch.int32, device=dev, generator=g)
+    lengths[0], lengths[-1] = 0, 191
+    q = torch.randn(B, KH * G, HD, device=dev, generator=g).to(torch.bfloat16)
+    cache = _int8_cache(dev, g, (L, KH, B, T, HD))
+    append = (*_int8_cache(dev, g, (L, KH, B, C, HD)), 3) if with_append else None
+    leaves, table = paged_mirror(torch, cache, lengths.tolist(), pt, torch.Generator().manual_seed(5))
+    small, large = (da.decode_gqa_attention(q, *cache, 0, lengths, append, window=w) for w in (192, 576))
+    assert torch.equal(small, large)
+    paged_small, paged_large = (da.paged_decode_gqa_attention(q, *leaves, 0, lengths, table, append, window=w,
+                                                              page_tokens=pt) for w in (192, 576))
+    assert torch.equal(paged_small, paged_large) and torch.equal(paged_small, small)
+
+
+@pytest.mark.parametrize("n_q,n_kv", [(8, 8), (8, 2), (16, 2)])
+@pytest.mark.parametrize("s", [100, 257])
+def test_flash_attention_group_sizes(dev, n_q, n_kv, s):
+    """Group sizes 1, 4 and 8 stacked on the 64-row tiles, s not a multiple
+    of a tile, padded rows, a zero-length row and a row whose keys stop
+    short of its queries: within tolerance, exact zeros where nothing is
+    visible, and the same bits on a reused (poisoned) output buffer."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, hd = 4, 128
+    q = torch.randn(b, s, n_q, hd, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, s, n_kv, hd, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, s, n_kv, hd, device=dev, generator=g).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s).contiguous()
+    pos[1, s - 37:] = -1  # padded rows
+    pos[3] = torch.arange(s, dtype=torch.int32, device=dev) + 5  # a warm suffix: positions past 0
+    lengths = torch.tensor([s, s - 37, 0, s // 2], dtype=torch.int32, device=dev)
+    out = _poisoned_call(lambda: fa.flash_gqa_attention(q, k, v, pos, lengths), q)
+    ref = fa.flash_gqa_attention_plain(q, k, v, pos, lengths)
+    torch.testing.assert_close(out, ref, atol=1e-2, rtol=2e-2)
+    assert not out[1, s - 37:].any() and not out[2].any()
+
+
 def test_logits_bf16_head_accumulates_in_f32(dev):
     """The bf16 head copy (exact int8 values) with f32 accumulation and f32
     output gives the f32 product of the same values."""
