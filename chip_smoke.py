@@ -24,24 +24,44 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    kernels on the card and through the plain versions on the CPU: the
    cold-prefill logits and one append-buffer decode step's logits agree
    element by element within a stated tolerance.
-5. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
+5. ``bert``: BERT at arctic-embed-l's width (2 layers, bf16, random
+   weights from seed 0) on the card and on the CPU with the same weights:
+   embeddings, and rerank scores of a padded two-segment batch, within
+   ``BERT_TOL``.
+6. ``embed``: arctic-embed-l at full depth (24 layers, bf16, seed 0) through
+   the port's ``GPUEmbedder``: 256 documents of 510 byte tokens (batches of
+   32 x 512) and 32 queries; unit-norm finite vectors, each query alone
+   within ``EMBED_TOL`` of itself in the batch; ms per 32 x 512 forward
+   (CUDA events) beside its FLOP bound, docs/s.
+7. ``retrieve``: the exact ``GPUVectorStore`` with 1,000,000 clustered bf16
+   rows of 1024 (numpy, seed 0): 128 queries (64 planted on corpus rows)
+   at top_k 4 and 10, ids against an f64 brute force over the bf16 values,
+   5,000 rows appended through the tail (no rebuild), a masked delete
+   (masks only); the scan's device ms per 128-query batch beside its byte
+   bound, and the share of ``torch.topk``.
+8. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
    a seed, int8 contiguous KV), served by the port's Scheduler and HTTP
    front on 127.0.0.1: eight concurrent completions, a streaming chat, two
    prompts sent alone, models, health and metrics.  Launch counts are
    zeroed just before and read just after; every kernel of the path, and
-   both designs of the W8A8 kernel, must have launched.  Then one decode
-   chunk at batch 32 is timed, untraced.
-6. ``serve_paged``: the same on the paged KV pool (page 64, same params),
+   both designs of the W8A8 kernel, must have launched.  Then the same
+   front's ``/v1/embeddings`` (the arctic embedder behind the
+   micro-batcher: 32 concurrent single queries, one 64-passage request)
+   and ``/v1/ranking`` (an arctic reranker, 16 passages) against direct
+   calls, with the ``rag_*`` series showing the queries coalesced.  Then
+   one decode chunk at batch 32 is timed, untraced.
+9. ``serve_paged``: the same on the paged KV pool (page 64, same params),
    plus a shared-prefix group (a 300-token prompt, then four extensions of
    it): the paged decode kernel must have launched, grafts must be host
    table copies, the shared boundary page must be copied on write, the
    prompts sent alone must give the contiguous server's greedy text, and
    the pool must be all free once the parked segments are dropped.
-7. ``profile`` and ``profile_paged``: the decode chunk of each layout
+10. ``profile`` and ``profile_paged``: the decode chunk of each layout
    traced with torch.profiler (device time by kernel, and the device's
-   busy share of the traced call's own span).  The traces come after
-   every untraced measurement: a trace leaves the process's later host
-   work slower.
+   busy share of the traced call's own span); then ``profile_embed``, one
+   32 x 512 arctic-embed-l forward traced the same way.  The traces come
+   after every untraced measurement: a trace leaves the process's later
+   host work slower.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -77,6 +97,17 @@ FLASH_TOL = dict(atol=1e-2, rtol=2e-2)
 # versions: the attention kernels' bf16 roundings carried through two
 # layers, the head and the final norm (logits of magnitude up to ~2).
 REFERENCE_TOL = dict(atol=5e-2, rtol=2e-2)
+# BERT in bf16, card against CPU on the same weights: cuBLAS and the CPU's
+# GEMM round bf16 results after sums in other orders, carried through two
+# layers (unit-norm embeddings; rerank logits of magnitude ~0.5).
+BERT_TOL = dict(atol=2e-2, rtol=2e-2)
+# A query embedded alone (a batch of 4) and inside a batch of 32, 24 bf16
+# layers: cuBLAS may choose another algorithm, and order of sums, per M.
+EMBED_TOL = dict(atol=1e-2, rtol=0)
+# Score gap below which two ranks may swap between the card's f32 sums of
+# bf16 products and an f64 brute force over the same bf16 values (a sum of
+# 1024 products of unit vectors in f32 is off by ~1e-6).
+RANK_EPS = 1e-4
 
 REPLACES = {
     "qmm": "generativeaiexamples_tpu/ops/qmm.py:264",
@@ -593,6 +624,287 @@ def check_reference(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# the retrieval side: BERT, the embedder, the exact vector store
+# ---------------------------------------------------------------------------
+
+
+def bert_flops(cfg, b: int, s: int) -> float:
+    """One forward's multiply-adds x 2: the four projections and the MLP of
+    every token, and QK^T and PV over every (query, key) pair."""
+    per_layer = 2.0 * b * s * (4 * cfg.d_model ** 2 + 2 * cfg.d_model * cfg.d_ff) + 4.0 * b * s * s * cfg.d_model
+    return cfg.n_layers * per_layer
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def check_bert(torch, dev) -> None:
+    """BERT at arctic-embed-l's width, 2 layers, bf16, random weights from
+    seed 0, on the card and on the CPU with the same weights: the pooled
+    embeddings of a padded batch, and the rerank scores of the same batch
+    with two segments, within BERT_TOL."""
+    from generativeaiexamples_tpu_torch.models import bert
+
+    cfg = bert.arctic_embed_l(n_layers=2)
+    gen = torch.Generator().manual_seed(0)
+    params, head = bert.init_params(cfg, gen, "cpu"), bert.init_rerank_head(cfg, gen, "cpu")
+    lengths = [512, 300, 129, 1, 77, 512, 40, 256]
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    mask = (torch.arange(512)[None, :] < torch.tensor(lengths)[:, None]).long()
+    types = (torch.arange(512)[None, :] >= torch.tensor(lengths)[:, None] // 2).long() * mask
+    out = {}
+    with torch.inference_mode():
+        for d, p, h in (("cpu", params, head), ("card", _to(params, dev), _to(head, dev))):
+            args = (tokens.to(p["tok_embed"].device), mask.to(p["tok_embed"].device))
+            out[d] = (bert.embed(p, cfg, *args).cpu(),
+                      bert.rerank_score(p, h, cfg, *args, types.to(p["tok_embed"].device)).cpu())
+    fields = {}
+    for i, what in enumerate(("embedding", "rerank_score")):
+        got, ref = out["card"][i], out["cpu"][i]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"bert: non-finite {what} on the card")
+        torch.testing.assert_close(got, ref, **BERT_TOL)
+        fields[f"{what}_max_abs_err"] = (got - ref).abs().max().item()
+        fields[f"{what}_tolerance_use"] = tolerance_use(got, ref, **BERT_TOL)
+    fields["rerank_score_scale"] = out["cpu"][1].abs().max().item()
+    emit("bert", config="arctic-embed-l width (d 1024, 16 heads, d_ff 4096), 2 layers, bf16, seed 0",
+         batch="8 x 512, lengths " + ",".join(map(str, lengths)), tolerance=BERT_TOL, **fields)
+
+
+def _texts(seed: int, n: int, n_chars: int) -> list:
+    import random
+
+    rng = random.Random(seed)
+    return ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz ,.") for _ in range(n_chars)) for _ in range(n)]
+
+
+def _unit_rows(torch, vecs) -> bool:
+    v = torch.as_tensor(vecs)
+    return bool(torch.isfinite(v).all()) and bool(((v.norm(dim=1) - 1).abs() < 1e-3).all())
+
+
+def embed_phase(torch, dev):
+    """arctic-embed-l at full depth through the port's embedder.  Returns
+    the embedder (``serve`` uses it) and its queries."""
+    from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
+    from generativeaiexamples_tpu_torch.models import bert
+
+    cfg = bert.arctic_embed_l()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    embedder = GPUEmbedder(cfg, device=dev)
+    n_params = sum(v.numel() for v in embedder.params.values() if torch.is_tensor(v)) + sum(
+        v.numel() for v in embedder.params["layers"].values())
+    params_gb = (torch.cuda.memory_allocated(dev) - mem0) / 1e9
+    docs = _texts(10, 256, 510)  # the splitter's 510-token chunk: BOS + 510 bytes -> a 512 bucket
+    queries = _texts(11, 32, 60)
+    embedder.embed_documents(docs[:32])  # warm-up: cuBLAS handles and algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    doc_vecs = embedder.embed_documents(docs)
+    docs_s = time.perf_counter() - t0
+    batch_vecs = embedder.embed_queries(queries)
+    alone = [embedder.embed_query(q) for q in queries]
+    if len(doc_vecs) != 256 or not _unit_rows(torch, doc_vecs) or not _unit_rows(torch, batch_vecs):
+        raise AssertionError("embed: vectors not finite or not of unit norm to 1e-3")
+    diff = (torch.tensor(alone) - torch.tensor(batch_vecs)).abs().max().item()
+    torch.testing.assert_close(torch.tensor(alone), torch.tensor(batch_vecs), **EMBED_TOL)
+    # One 32 x 512 forward, device time by CUDA events (median of 5).
+    ids = [embedder.tokenizer.encode(t, add_bos=True) for t in docs[:32]]
+    tokens = torch.tensor(ids, device=dev)
+    mask = torch.ones_like(tokens)
+    tokens = torch.nn.functional.pad(tokens, (0, 512 - tokens.shape[1]))
+    mask = torch.nn.functional.pad(mask, (0, 512 - mask.shape[1]))
+    times = []
+    with torch.inference_mode():
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            bert.embed(embedder.params, cfg, tokens, mask)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    fwd_ms = sorted(times[1:])[2]
+    flops = bert_flops(cfg, 32, 512)
+    bound_ms = flops / BF16_FLOPS * 1e3
+    emit("embed", model="arctic-embed-l", layers=cfg.n_layers, params=n_params, weights="random bf16, seed 0",
+         params_device_gb=params_gb, peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         documents=len(docs), doc_tokens=512, docs_per_s=len(docs) / docs_s, embed_documents_s=docs_s,
+         forward_ms_32x512=fwd_ms, forward_flops=flops, flop_bound_ms=bound_ms, bound_share=bound_ms / fwd_ms,
+         forward_ms_all=times, queries=len(queries), query_alone_vs_batch_max_abs_err=diff, tolerance=EMBED_TOL,
+         unit_norm=True)
+    return embedder, queries
+
+
+def _clustered_rows(np, rng, centres, assign, noise: float):
+    """Unit rows: a unit centre plus Gaussian noise of norm ~``noise``."""
+    d = centres.shape[1]
+    rows = centres[assign] + rng.standard_normal((len(assign), d), dtype=np.float32) * np.float32(noise / math.sqrt(d))
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    return rows
+
+
+def _brute_top(torch, np, corpus, queries, k: int):
+    """Top k+1 of an f64 scan over the bf16-rounded corpus and queries:
+    (scores, rows) per query."""
+    def bf16(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).double().numpy()
+
+    q = bf16(queries)
+    scores = np.empty((len(q), len(corpus)), dtype=np.float64)
+    for lo in range(0, len(corpus), 65536):
+        scores[:, lo:lo + 65536] = q @ bf16(corpus[lo:lo + 65536]).T
+    top = np.argpartition(-scores, k, axis=1)[:, : k + 1]
+    order = np.argsort(-np.take_along_axis(scores, top, 1), axis=1, kind="stable")
+    top = np.take_along_axis(top, order, 1)
+    return np.take_along_axis(scores, top, 1), top
+
+
+RETRIEVE_ROWS, RETRIEVE_DIM, RETRIEVE_QUERIES, RETRIEVE_APPEND = 1_000_000, 1024, 128, 5000
+
+
+def retrieve_phase(torch, dev) -> None:
+    """The exact store at 1,000,000 x 1024 bf16 rows on the card."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.retrieval.base import Chunk
+    from generativeaiexamples_tpu_torch.retrieval.gpu import GPUVectorStore
+
+    n, d = RETRIEVE_ROWS, RETRIEVE_DIM
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    centres = rng.standard_normal((1000, d), dtype=np.float32)
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    assign = rng.integers(0, 1000, n)
+    corpus = np.empty((n, d), dtype=np.float32)
+    for lo in range(0, n, 65536):
+        corpus[lo:lo + 65536] = _clustered_rows(np, rng, centres, assign[lo:lo + 65536], 0.8)
+    chunks = [Chunk(text=f"row {i}", source=f"doc{i // 1000}", id=str(i)) for i in range(n)]
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    store = GPUVectorStore(d, dtype="bfloat16", device=dev)
+    t0 = time.perf_counter()
+    store.add(chunks, corpus)
+    add_s = time.perf_counter() - t0
+    del chunks
+    corpus = store._mirror._vecs  # the same rows, held once
+    # 64 planted queries (a corpus row plus small noise) and 64 fresh points.
+    planted = rng.choice(n, 64, replace=False)
+    queries = np.concatenate([
+        _clustered_rows(np, rng, corpus, planted, 0.1),
+        _clustered_rows(np, rng, centres, rng.integers(0, 1000, RETRIEVE_QUERIES - 64), 0.8),
+    ])
+    t0 = time.perf_counter()
+    store.search_batch(queries[:1], 1)  # the first sync: the device build
+    build_s = time.perf_counter() - t0
+    device_gb = (torch.cuda.memory_allocated(dev) - mem0) / 1e9
+    stats = store.capacity_stats()
+    results = {}
+    for k in (4, 10):
+        hits = store.search_batch(queries, k)
+        results[k] = hits
+        if any(not h or h[0].chunk.id != str(int(r)) for h, r in zip(hits[:64], planted)):
+            raise AssertionError(f"retrieve: a planted query's row does not rank first at top_k {k}")
+    # Ids against an f64 brute force over the same bf16 values, for 16
+    # queries (8 planted): equal wherever the gap below a rank exceeds RANK_EPS.
+    sel = np.r_[0:8, 64:72]
+    b_scores, b_rows = _brute_top(torch, np, corpus, queries[sel], 10)
+    checked = 0
+    score_err = 0.0
+    for qi, bs, br in zip(sel, b_scores, b_rows):
+        got = results[10][qi]
+        score_err = max(score_err, max(abs(h.score - s) for h, s in zip(got, bs)))
+        for j in range(10):
+            if bs[j] - bs[j + 1] > RANK_EPS:
+                checked += 1
+                if {h.chunk.id for h in got[: j + 1]} != {str(int(r)) for r in br[: j + 1]}:
+                    raise AssertionError(f"retrieve: query {qi} top-{j + 1} differs from the f64 brute force")
+    if not checked or score_err > 1e-4:
+        raise AssertionError(f"retrieve: brute-force check: {checked} ranks checked, score error {score_err}")
+    timing = {k: _time_scan(torch, store, queries, k) for k in (4, 10)}
+    cap, tail_cap = int(store._device_buf.shape[0]), int(store._tail_buf.shape[0])
+    nbytes = (cap + tail_cap) * d * 2 + cap + tail_cap + RETRIEVE_QUERIES * d * 4
+    b_ms, b_by = bound(nbytes, 2.0 * RETRIEVE_QUERIES * (cap + tail_cap) * d, BF16_FLOPS)
+    # 5,000 new rows ride the tail: each found by a query planted on it.
+    buf0 = store._device_buf
+    new = _clustered_rows(np, rng, centres, rng.integers(0, 1000, RETRIEVE_APPEND), 0.8)
+    store.add([Chunk(text=f"new {i}", source="appended", id=f"new{i}") for i in range(RETRIEVE_APPEND)], new)
+    t0 = time.perf_counter()
+    found = store.search_batch(_clustered_rows(np, rng, new, np.arange(RETRIEVE_APPEND), 0.1), 1)
+    append_search_s = time.perf_counter() - t0
+    after = store.capacity_stats()
+    if [h[0].chunk.id if h else None for h in found] != [f"new{i}" for i in range(RETRIEVE_APPEND)]:
+        raise AssertionError("retrieve: an appended row is not found by its planted query")
+    if store._device_buf is not buf0 or after["tail_rows"] != RETRIEVE_APPEND or store._base != n:
+        raise AssertionError(f"retrieve: the append rebuilt the main buffer ({after})")
+    # A masked delete of one source: only the masks re-upload.
+    held = (store._device_buf, store._tail_buf, store._device_valid, store._tail_valid)
+    removed = store.delete_source("doc7")
+    gone = store.search_batch(_clustered_rows(np, rng, corpus, np.arange(7000, 7064), 0.1), 10)
+    if removed != 1000 or any(h.chunk.source == "doc7" for hits in gone for h in hits):
+        raise AssertionError("retrieve: a deleted source came back")
+    if store._device_buf is not held[0] or store._tail_buf is not held[1] or store._device_valid is held[2]:
+        raise AssertionError("retrieve: the delete re-uploaded more than the masks")
+    emit("retrieve", rows=n, dim=d, dtype="bfloat16", corpus="1000 Gaussian centres + noise, unit norm, numpy seed 0",
+         generate_s=gen_s, add_s=add_s, first_sync_s=build_s, capacity=cap, tail_capacity=tail_cap,
+         device_gb=device_gb, store_bytes=stats["bytes"], peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         queries=RETRIEVE_QUERIES, planted_first=True, brute_force_ranks_checked=checked,
+         brute_force_max_score_err=score_err, rank_eps=RANK_EPS,
+         **{f"top{k}_{key}": v for k, t in timing.items() for key, v in t.items()},
+         bound_ms=b_ms, bound_by=b_by, bound_share_top4=b_ms / timing[4]["scan_ms"],
+         bound_share_top10=b_ms / timing[10]["scan_ms"], appended=RETRIEVE_APPEND,
+         append_found_s=append_search_s, tail_rows=after["tail_rows"], rebuilt=False,
+         deleted_rows=removed, delete_uploaded="masks only")
+    del store, corpus, held, buf0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _time_scan(torch, store, queries, k: int) -> dict:
+    """A 128-query batch: the device work (the f32 scan of main and tail,
+    the masks, ``torch.topk`` of each) timed by CUDA events, median of 12,
+    with the main buffer's product alone and ``torch.topk`` alone beside it;
+    and ``search_batch`` whole by the host clock (median of 10), host
+    selection and result assembly included."""
+    from generativeaiexamples_tpu_torch.retrieval.gpu import scores_f32
+
+    snap = store._prepared()
+    Q = torch.from_numpy(queries).to(store.device)
+
+    def device_work():
+        parts = store.scan(snap, Q)
+        return [torch.topk(p, k + 1, dim=1) for p in parts]
+
+    def events(fn, n=12):
+        out = []
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return sorted(out)[n // 2]
+
+    device_work()
+    scan_ms = events(device_work)
+    Qc = Q.to(snap[0].dtype)
+    product_ms = events(lambda: scores_f32(Qc, snap[0]))
+    parts = store.scan(snap, Q)
+    topk_ms = events(lambda: [torch.topk(p, k + 1, dim=1) for p in parts])
+    del parts
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        store.search_batch(queries, k)
+        host.append((time.perf_counter() - t0) * 1e3)
+    return dict(scan_ms=scan_ms, product_ms=product_ms, topk_ms=topk_ms, topk_share=topk_ms / scan_ms,
+                search_batch_ms=sorted(host)[5])
+
+
+# ---------------------------------------------------------------------------
 # serve Llama-3-8B through the port's HTTP front
 # ---------------------------------------------------------------------------
 
@@ -659,6 +971,66 @@ def _concurrent(base, prompts):
     return workers, results
 
 
+def serve_rag(torch, base: str, rag) -> dict:
+    """``/v1/embeddings`` and ``/v1/ranking`` on the serving front: 32
+    concurrent single queries (they must coalesce in the micro-batcher),
+    one 64-passage request and one 16-passage ranking, each against a
+    direct call.  Returns the phase's fields."""
+    batched, reranker, queries = rag
+    inner = batched._inner
+    snap0 = batched.batcher.stats.snapshot()
+    vectors, latency_ms, errors = {}, {}, {}
+
+    def one(i):
+        t0 = time.perf_counter()
+        try:
+            _, body = _post(base + "/v1/embeddings", {"input": queries[i], "input_type": "query"})
+        except OSError as exc:  # reported below: the phase fails
+            errors[i] = repr(exc)
+            return
+        latency_ms[i] = (time.perf_counter() - t0) * 1e3
+        vectors[i] = json.loads(body)["data"][0]["embedding"]
+
+    workers = [threading.Thread(target=one, args=(i,)) for i in range(len(queries))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=300)
+    if len(vectors) != len(queries):
+        raise AssertionError(f"/v1/embeddings: {len(queries) - len(vectors)} query requests failed: {errors}")
+    direct = torch.tensor([inner.embed_query(q) for q in queries])
+    served = torch.tensor([vectors[i] for i in range(len(queries))])
+    torch.testing.assert_close(served, direct, **EMBED_TOL)
+    passages = _texts(12, 64, 400)
+    status, body = _post(base + "/v1/embeddings", {"input": passages, "input_type": "passage"})
+    docs = torch.tensor([d["embedding"] for d in json.loads(body)["data"]])
+    docs_direct = torch.tensor(inner.embed_documents(passages))
+    torch.testing.assert_close(docs, docs_direct, **EMBED_TOL)
+    ranked = passages[:16]
+    status, body = _post(base + "/v1/ranking", {"query": {"text": queries[0]}, "passages": [{"text": p} for p in ranked]})
+    got = [r["index"] for r in json.loads(body)["rankings"]]
+    scores = reranker.score(queries[0], ranked)
+    want = sorted(range(len(ranked)), key=lambda i: -scores[i])
+    # The reranker's order; two passages whose scores differ by less than
+    # the card's run-to-run noise may swap.
+    if sorted(got) != list(range(len(ranked))) or any(abs(scores[g] - scores[w]) > 1e-3 for g, w in zip(got, want)):
+        raise AssertionError(f"/v1/ranking order {got} is not the reranker's {want}")
+    _, metrics = _get(base + "/metrics")
+    series = {line.split()[0]: float(line.split()[1]) for line in metrics.splitlines()
+              if line.startswith("rag_") and not line.startswith("#")}
+    n_req = series["rag_requests_total"] - snap0["requests_total"]
+    n_batches = series["rag_batches_total"] - snap0["batches_total"]
+    if n_req != len(queries) or not n_batches < len(queries):
+        raise AssertionError(f"rag series: {n_req} requests in {n_batches} batches; the queries did not coalesce")
+    lat = sorted(latency_ms.values())
+    return dict(embed_requests=len(queries), embed_latency_p50_ms=lat[len(lat) // 2],
+                embed_latency_p95_ms=lat[int(0.95 * (len(lat) - 1))], rag_batches=n_batches,
+                mean_batch_size=(series["rag_embed_batch_size_sum"] - snap0["batch_size_sum"]) / n_batches,
+                embed_max_abs_err=(served - direct).abs().max().item(),
+                passage_max_abs_err=(docs - docs_direct).abs().max().item(),
+                ranking_passages=len(ranked), ranking_equal_to_direct=True)
+
+
 def make_scheduler(cfg, params, dev, kv_layout):
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
 
@@ -666,16 +1038,18 @@ def make_scheduler(cfg, params, dev, kv_layout):
     return Scheduler(cfg, params, device=dev, **SERVE_KW, **paged)
 
 
-def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
+def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=None):
     """Serve Llama-3-8B through the port's HTTP front on one KV layout.
 
     Launch counts are zeroed just before the requests and read just after:
     eight concurrent completions with a streaming chat beside them, then
     the 20- and 650-token prompts each sent alone (their greedy text must
     equal ``expect``, the other layout's, when given), and on the paged
-    layout a shared-prefix group.  Then the engine stops and one decode
-    chunk is timed, untraced.  Returns (launches, texts of the prompts sent
-    alone, the chunk's timing)."""
+    layout a shared-prefix group.  With ``rag`` (a ``BatchedEmbedder``, a
+    reranker and 32 queries) the front also serves ``/v1/embeddings`` and
+    ``/v1/ranking`` (:func:`serve_rag`).  Then the engine stops and one
+    decode chunk is timed, untraced.  Returns (launches, texts of the
+    prompts sent alone, the chunk's timing)."""
     from generativeaiexamples_tpu_torch.engine.paged_kv import PAGE_EVENTS
     from generativeaiexamples_tpu_torch.engine.server import create_engine_app
     from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
@@ -687,7 +1061,8 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     built_gb = torch.cuda.memory_allocated(dev) / 1e9
-    server = create_engine_app(sched, get_tokenizer("llama3-8b"), "llama3-8b", "127.0.0.1", 0)
+    server = create_engine_app(sched, get_tokenizer("llama3-8b"), "llama3-8b", "127.0.0.1", 0,
+                               embedder=rag[0] if rag else None, reranker=rag[1] if rag else None)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     sched.start()
     thread.start()
@@ -746,6 +1121,7 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
         if missing or launches[other]:
             raise AssertionError(f"{kv_layout} path launches: {launches} {designs} (missing {missing}, "
                                  f"{other} must be 0)")
+        rag_fields = serve_rag(torch, base, rag) if rag else {}
         snap2 = sched.stats.snapshot()
         page_events = {k: PAGE_EVENTS[k] - events0[k] for k in PAGE_EVENTS}
         if paged:
@@ -782,6 +1158,7 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None):
             prefill_chunks=snap1["prefill_chunks"] - snap0["prefill_chunks"],
             launches=launches, qmm_design_launches=designs, alone_equal_to_other_layout=True if expect is not None else None,
             resend_equal=True, page_events=page_events if paged else None, **shared_fields, **pool_fields,
+            **rag_fields,
             peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
         )
         return launches, alone, time_chunk(torch, decode_chunk(torch, dev, sched))
@@ -841,6 +1218,52 @@ def time_chunk(torch, chunk) -> dict:
                 ms_per_step=span_ms / PROFILE_STEPS)
 
 
+def device_ms_by_name(prof) -> dict:
+    """Device ms by kernel name from a torch.profiler trace (kernel-level
+    events only: an operator's device time is its kernels')."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dt / 1e3
+    return by_name
+
+
+def profile_embed(torch, dev, embedder) -> None:
+    """Where a 32 x 512 arctic-embed-l forward's time goes: one forward
+    traced with torch.profiler, device ms by kernel name (top ten) and the
+    busy share of the traced call's CUDA-event span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from generativeaiexamples_tpu_torch.models import bert
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, 256, (32, 512), device=dev, generator=gen)
+    mask = torch.ones_like(tokens)
+    with torch.inference_mode():
+        bert.embed(embedder.params, embedder.cfg, tokens, mask)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            bert.embed(embedder.params, embedder.cfg, tokens, mask)
+            end.record()
+            end.synchronize()
+    span_ms = start.elapsed_time(end)
+    by_name = device_ms_by_name(prof)
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit("profile_embed", what="one arctic-embed-l forward, 32 x 512, bf16, 24 layers", traced_device_ms=device_ms,
+         traced_event_span_ms=span_ms, device_busy_share=device_ms / span_ms if span_ms else None,
+         top_kernels_ms={k[:80]: v for k, v in top})
+
+
 def profile_decode(torch, dev, cfg, params, kv_layout: str, timing: dict) -> None:
     """Where a decode chunk's time goes, on a fresh scheduler of one layout:
     the chunk traced with torch.profiler (device time by kernel name), with
@@ -848,7 +1271,6 @@ def profile_decode(torch, dev, cfg, params, kv_layout: str, timing: dict) -> Non
     call's CUDA-event span.  ``timing`` is the chunk timed untraced after
     the serve, before any trace of the run: a trace leaves the process's
     later host work slower (``PERF.md``, PR 2 run 5)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sched = make_scheduler(cfg, params, dev, kv_layout)
@@ -865,16 +1287,7 @@ def profile_decode(torch, dev, cfg, params, kv_layout: str, timing: dict) -> Non
     finally:
         sched._cache = sched._pool = None
     traced_span_ms = start.elapsed_time(end)
-    # Kernel-level events only: an operator's device time is its kernels'.
-    by_name: dict[str, float] = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "self_cuda_time_total", 0.0)
-        if dt:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + dt / 1e3
+    by_name = device_ms_by_name(prof)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     # The port's own kernels, by name, whether or not they are in the top ten.
@@ -940,6 +1353,19 @@ def main() -> int:
     check_reference(torch, dev)
     torch.cuda.empty_cache()
 
+    # The retrieval side, before the Llama params: BERT on card vs CPU,
+    # arctic-embed-l through the embedder (kept with a reranker for
+    # ``serve``), and the exact store at 1M rows (freed after).
+    from generativeaiexamples_tpu_torch.engine.microbatch import BatchedEmbedder
+    from generativeaiexamples_tpu_torch.engine.reranker import GPUReranker
+    from generativeaiexamples_tpu_torch.models import bert
+
+    check_bert(torch, dev)
+    embedder, queries = embed_phase(torch, dev)
+    retrieve_phase(torch, dev)
+    rag = (BatchedEmbedder(embedder, max_batch=32, max_wait_ms=3.0), GPUReranker(bert.arctic_embed_l(), device=dev),
+           queries)
+
     from generativeaiexamples_tpu_torch.engine.decode import prepare_params
     from generativeaiexamples_tpu_torch.models import llama
 
@@ -953,7 +1379,11 @@ def main() -> int:
     emit("params", model="llama3-8b", seconds=time.perf_counter() - t0,
          device_gb=torch.cuda.memory_allocated(dev) / 1e9)
     prompts = make_prompts()
-    launches, alone, timing = serve(torch, dev, _cuda, cfg, params, prompts, "contiguous")
+    try:
+        launches, alone, timing = serve(torch, dev, _cuda, cfg, params, prompts, "contiguous", rag=rag)
+    finally:
+        rag[0].close()
+    del rag
     gc.collect()
     torch.cuda.empty_cache()
     paged_launches, _, paged_timing = serve(torch, dev, _cuda, cfg, params, prompts, "paged", expect=alone)
@@ -963,6 +1393,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         profile_decode(torch, dev, cfg, params, kv_layout, t)
+    profile_embed(torch, dev, embedder)
+    del embedder
 
     kernels = []
     for name, s in summary.items():

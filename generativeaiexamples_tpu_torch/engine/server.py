@@ -3,12 +3,14 @@ single-engine part of ``engine/server.py``).
 
 Built on the standard library (``http.server.ThreadingHTTPServer``, SSE
 written by hand), with the reference's routes and JSON:
-``/v1/completions``, ``/v1/chat/completions``, ``/v1/models``,
-``/health`` and ``/metrics``.  One thread per connection; tokens cross
-from the scheduler thread through a ``queue.Queue`` per request.
+``/v1/completions``, ``/v1/chat/completions``, ``/v1/embeddings``,
+``/v1/ranking``, ``/v1/models``, ``/health`` and ``/metrics``.  One thread
+per connection; tokens cross from the scheduler thread through a
+``queue.Queue`` per request.
 
 Run: ``python -m generativeaiexamples_tpu_torch.engine.server --model llama3-8b``
-(``--kv-layout paged`` serves from the paged KV pool).
+(``--kv-layout paged`` serves from the paged KV pool; ``--embedder`` picks
+the BERT embedder behind ``/v1/embeddings``).
 """
 
 from __future__ import annotations
@@ -215,7 +217,7 @@ class _Handler(BaseHTTPRequestHandler):
                 200 if ok else 503,
             )
         elif route == "/metrics":
-            body = metrics_text(self.server.scheduler).encode()
+            body = metrics_text(self.server.scheduler, self.server.embedder).encode()
             self.send_response(200)
             self.send_header("Content-Type", "text/plain")
             self.send_header("Content-Length", str(len(body)))
@@ -230,6 +232,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._chat()
         elif route == "/v1/completions":
             self._completions()
+        elif route == "/v1/embeddings":
+            self._embeddings()
+        elif route == "/v1/ranking":
+            self._ranking()
         else:
             self._json({"error": {"message": f"no route {route}"}}, 404)
 
@@ -339,8 +345,91 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
 
-def metrics_text(scheduler) -> str:
-    """Prometheus exposition of the scheduler's own stats."""
+    def _embeddings(self) -> None:
+        body = self._body()
+        if body is None:
+            return
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not isinstance(inputs, list) or not all(isinstance(t, str) for t in inputs):
+            self._json({"error": {"message": "input must be a string or a list of strings"}}, 422)
+            return
+        embedder = self.server.embedder
+        if embedder is None:
+            self._json({"error": {"message": "no embedder configured"}}, 501)
+            return
+        if body.get("input_type", "passage") == "query":
+            # One query goes through embed_query, so that concurrent
+            # requests coalesce in a BatchedEmbedder; several are already a
+            # batch.
+            if len(inputs) == 1:
+                vectors = [embedder.embed_query(inputs[0])]
+            elif hasattr(embedder, "embed_queries"):
+                vectors = embedder.embed_queries(inputs)
+            else:
+                vectors = [embedder.embed_query(t) for t in inputs]
+        else:
+            vectors = embedder.embed_documents(inputs)
+        self._json({
+            "object": "list", "model": body.get("model", "arctic-embed-l"),
+            "data": [{"object": "embedding", "index": i, "embedding": v} for i, v in enumerate(vectors)],
+            "usage": {"prompt_tokens": 0, "total_tokens": 0},
+        })
+
+    def _ranking(self) -> None:
+        """NeMo-Retriever-style reranking: {query: {text}, passages: [{text}]}."""
+        body = self._body()
+        if body is None:
+            return
+        try:
+            query = body["query"]["text"] if isinstance(body.get("query"), dict) else body["query"]
+            passages = [p["text"] if isinstance(p, dict) else p for p in body["passages"]]
+            if not isinstance(query, str) or not all(isinstance(p, str) for p in passages):
+                raise TypeError("query and passages must be text")
+        except (KeyError, TypeError) as exc:
+            self._json({"error": {"message": str(exc)}}, 422)
+            return
+        reranker = self.server.reranker
+        if reranker is None:
+            self._json({"error": {"message": "no reranker configured"}}, 501)
+            return
+        scores = reranker.score(query, passages)
+        order = sorted(range(len(scores)), key=lambda i: -scores[i])
+        self._json({"rankings": [{"index": i, "logit": scores[i]} for i in order]})
+
+
+def rag_metrics_lines(snap: Optional[dict]) -> list[str]:
+    """Prometheus lines for the embedding micro-batcher (rag_* series; a
+    copy of the JAX package's ``server/app.py::rag_metrics_lines``).
+
+    ``snap`` is a ``MicroBatcher.stats.snapshot()``, or None when batching
+    is off: the series still export, at zero.  Mean batch size =
+    ``rag_embed_batch_size_sum / _count``; a count that grows slower than
+    ``rag_requests_total`` is the batching win.
+    """
+    s = snap or {}
+    return [
+        "# TYPE rag_requests_total counter",
+        f"rag_requests_total {s.get('requests_total', 0)}",
+        "# TYPE rag_batches_total counter",
+        f"rag_batches_total {s.get('batches_total', 0)}",
+        "# TYPE rag_embed_batch_size summary",
+        f"rag_embed_batch_size_sum {s.get('batch_size_sum', 0)}",
+        f"rag_embed_batch_size_count {s.get('batches_total', 0)}",
+        "# TYPE rag_embed_batch_size_max gauge",
+        f"rag_embed_batch_size_max {s.get('batch_size_max', 0)}",
+        "# TYPE rag_queue_wait_ms summary",
+        f"rag_queue_wait_ms_sum {s.get('queue_wait_ms_sum', 0.0)}",
+        f"rag_queue_wait_ms_count {s.get('requests_total', 0)}",
+        "# TYPE rag_errors_total counter",
+        f"rag_errors_total {s.get('errors_total', 0)}",
+    ]
+
+
+def metrics_text(scheduler, embedder=None) -> str:
+    """Prometheus exposition of the scheduler's own stats and the embedding
+    micro-batcher's ``rag_*`` series."""
     snap = scheduler.stats.snapshot()
     series = [
         ("engine_requests_total", "counter", snap["requests_total"]),
@@ -368,6 +457,8 @@ def metrics_text(scheduler) -> str:
         lines += [f"# TYPE {name} {kind}", f"{name} {value}"]
     lines.append("# TYPE engine_matmul_kernel gauge")
     lines.append(f'engine_matmul_kernel{{kernel="{scheduler.matmul_kernel}"}} 1')
+    batcher = getattr(embedder, "batcher", None)
+    lines += rag_metrics_lines(batcher.stats.snapshot() if batcher is not None else None)
     return "\n".join(lines) + "\n"
 
 
@@ -375,21 +466,30 @@ class EngineServer(ThreadingHTTPServer):
     """HTTP server bound to one scheduler; ``serve_forever`` serves."""
 
     daemon_threads = True
+    # Listen backlog (http.server's default is 5): a burst of concurrent
+    # clients must queue, not be reset; aiohttp, the reference's front,
+    # listens with 128.
+    request_queue_size = 128
 
-    def __init__(self, address, scheduler, tokenizer, model_name: str) -> None:
+    def __init__(self, address, scheduler, tokenizer, model_name: str, embedder=None, reranker=None) -> None:
         super().__init__(address, _Handler)
         self.scheduler = scheduler
         self.tokenizer = tokenizer
         self.model_name = model_name
+        self.embedder = embedder
+        self.reranker = reranker
 
 
 def create_engine_app(
-    scheduler, tokenizer, model_name: str = "llama3-8b", host: str = "127.0.0.1", port: int = 0
+    scheduler, tokenizer, model_name: str = "llama3-8b", host: str = "127.0.0.1", port: int = 0, *,
+    embedder=None, reranker=None,
 ) -> EngineServer:
     """Bind the OpenAI-compatible front over ``scheduler`` (which runs on
-    the device it was built for; ``Scheduler`` defaults to CUDA).  Port 0
-    picks a free port (``server.server_address``)."""
-    return EngineServer((host, port), scheduler, tokenizer, model_name)
+    the device it was built for; ``Scheduler`` defaults to CUDA), with
+    ``embedder`` behind ``/v1/embeddings`` and ``reranker`` behind
+    ``/v1/ranking`` (501 without one).  Port 0 picks a free port
+    (``server.server_address``)."""
+    return EngineServer((host, port), scheduler, tokenizer, model_name, embedder, reranker)
 
 
 def drain_engine(engine, timeout: float = 15.0) -> None:
@@ -428,6 +528,13 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     parser.add_argument("--kv-page-size", type=int, default=64, help="tokens per KV page (a power of two)")
     parser.add_argument("--kv-pool-pages", type=int, default=None,
                         help="pages in the paged pool (default and floor: max_batch * pages per slot + 1)")
+    parser.add_argument("--embedder", default="tiny", choices=["tiny", "arctic", "none"],
+                        help="BERT embedder behind /v1/embeddings (random weights, seed 0): bert-tiny, "
+                             "arctic-embed-l, or none")
+    parser.add_argument("--embed-max-batch", type=int, default=32,
+                        help="concurrent single-query /v1/embeddings requests that share one forward (0/1: off)")
+    parser.add_argument("--embed-max-wait-ms", type=float, default=3.0,
+                        help="how long a query waits for batch-mates before its batch runs anyway")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("-v", "--verbose", action="count", default=None)
     args = parser.parse_args(argv)
@@ -446,9 +553,20 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
         prefill_chunk_tokens=args.prefill_chunk_tokens or None, prefix_cache=args.prefix_cache,
         kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages,
     )
-    server = create_engine_app(engine, get_tokenizer(args.model), args.model, args.host, args.port)
-    logger.info("engine server on %s:%d (model %s, device %s, kv %s)", args.host, server.server_address[1], preset,
-                device, args.kv_layout)
+    embedder = None
+    if args.embedder != "none":
+        from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
+        from generativeaiexamples_tpu_torch.models import bert
+
+        bcfg = bert.arctic_embed_l() if args.embedder == "arctic" else bert.bert_tiny()
+        embedder = GPUEmbedder(bcfg, device=device)
+        if args.embed_max_batch > 1:
+            from generativeaiexamples_tpu_torch.engine.microbatch import BatchedEmbedder
+
+            embedder = BatchedEmbedder(embedder, max_batch=args.embed_max_batch, max_wait_ms=args.embed_max_wait_ms)
+    server = create_engine_app(engine, get_tokenizer(args.model), args.model, args.host, args.port, embedder=embedder)
+    logger.info("engine server on %s:%d (model %s, device %s, kv %s, embedder %s)", args.host,
+                server.server_address[1], preset, device, args.kv_layout, args.embedder)
     return server
 
 
@@ -464,6 +582,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     finally:
         server.server_close()
         drain_engine(engine)
+        if hasattr(server.embedder, "close"):
+            server.embedder.close()
 
 
 if __name__ == "__main__":

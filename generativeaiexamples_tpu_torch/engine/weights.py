@@ -1,7 +1,8 @@
 """Weight management (port of the parts of ``engine/weights.py`` the
 serving path needs): preset resolution, load-time blocking of the int8
-projections, and conversion of the reference's param trees, KV caches and
-paged KV pools from numpy.  HF safetensors loading is not ported yet."""
+projections, and conversion of the reference's param trees (Llama and
+BERT, with the rerank head), KV caches and paged KV pools from numpy.  HF
+safetensors loading is not ported yet."""
 
 from __future__ import annotations
 
@@ -129,3 +130,31 @@ def pool_from_numpy(pool, cfg, device):
     out.frees_total = int(pool.frees_total)
     out._dirty = True
     return out
+
+
+def _tree_from_numpy(tree, shapes, device, what: str) -> dict:
+    out = {}
+    for name, shape in shapes.items():
+        if isinstance(shape, dict):
+            out[name] = _tree_from_numpy(tree[name], shape, device, what)
+            continue
+        leaf = _tensor(tree[name], device)
+        if tuple(leaf.shape) != tuple(shape):
+            raise ValueError(f"{what} leaf {name!r} has shape {tuple(leaf.shape)}; the config says {shape}")
+        out[name] = leaf
+    return out
+
+
+def bert_params_from_numpy(tree, cfg, device) -> dict:
+    """The reference's BERT param tree, with numpy leaves
+    (``jax.tree.map(np.asarray, params)``), as the port's params: the same
+    leaf names, shapes and values (bfloat16 leaves exactly)."""
+    from generativeaiexamples_tpu_torch.models.bert import param_shapes
+
+    return _tree_from_numpy(tree, param_shapes(cfg), device, "bert param")
+
+
+def rerank_head_from_numpy(head, device) -> dict:
+    """The reference's rerank head (``w_pool``/``b_pool`` when it has the
+    pooler, ``w``/``b``) with numpy leaves, as tensors."""
+    return {name: _tensor(leaf, device) for name, leaf in head.items()}

@@ -1,0 +1,143 @@
+"""Vector store interface (a copy of the JAX package's ``retrieval/base.py``,
+which imports no JAX: the port imports nothing of that package).
+
+One small, typed contract: add embedded chunks, search by embedding,
+list/delete by source document.  The port's backends: the in-memory numpy
+store (``retrieval.memory``) and the exact store on the card
+(``retrieval.gpu``).
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+import threading
+import uuid
+from typing import Any, Optional, Sequence
+
+# Guards the lazily-created per-store version counter: ABC subclasses do
+# not all call a shared __init__, so the counter lives in the instance
+# dict on first bump and concurrent bumps must not lose increments.
+_VERSION_LOCK = threading.Lock()
+
+
+@dataclasses.dataclass
+class Chunk:
+    """One embedded piece of a source document."""
+
+    text: str
+    source: str = ""  # originating document (filename), the delete/list key
+    metadata: dict[str, Any] = dataclasses.field(default_factory=dict)
+    id: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex)
+
+
+@dataclasses.dataclass
+class ScoredChunk:
+    chunk: Chunk
+    score: float  # cosine/inner-product similarity, higher = closer
+
+
+class VectorStore(abc.ABC):
+    """Embedding index + chunk payload storage."""
+
+    dimensions: int
+
+    @abc.abstractmethod
+    def add(
+        self, chunks: Sequence[Chunk], embeddings: Sequence[Sequence[float]]
+    ) -> list[str]:
+        """Insert chunks with their embeddings; returns ALL chunk ids.
+
+        The returned ids acknowledge ingestion, not retrievability:
+        zero-embedding chunks (which score 0 against every query and can
+        never be retrieved) may be stored (in-process backends) or
+        skipped entirely (``elastic_compat``, whose dot_product mapping
+        rejects zero vectors) — so ``__len__``/``delete_by_source`` counts
+        may differ across backends for such chunks, but search results
+        never do."""
+
+    @abc.abstractmethod
+    def search(
+        self, embedding: Sequence[float], top_k: int
+    ) -> list[ScoredChunk]:
+        """Nearest chunks by similarity, best first."""
+
+    def search_batch(
+        self, embeddings: Sequence[Sequence[float]], top_k: int
+    ) -> list[list[ScoredChunk]]:
+        """Search many queries at once; result i answers query i.
+
+        Default is a per-query loop; device-backed stores override with a
+        single-dispatch batched scan: one pass over the corpus answers
+        the whole batch, so concurrent serving should batch queries the
+        same way the embedder batches texts."""
+        return [self.search(e, top_k) for e in embeddings]
+
+    @abc.abstractmethod
+    def sources(self) -> list[str]:
+        """Distinct source documents present in the store
+        (reference ``get_docs``, ``server.py:377-398``)."""
+
+    @abc.abstractmethod
+    def delete_source(self, source: str) -> int:
+        """Remove every chunk of a source; returns removed count
+        (reference ``del_docs``, ``server.py:401-427``)."""
+
+    @abc.abstractmethod
+    def __len__(self) -> int: ...
+
+    def version(self) -> int:
+        """Monotonic mutation counter for O(1) cache invalidation.
+
+        Every mutation path — ``add``, ``delete_source``, bulk-ingest
+        appends (which go through ``add``), and background index swaps
+        (IVF retrain) — bumps this via :meth:`_bump_version`.  Result
+        caches stamp entries with the version they were computed against
+        and treat any mismatch as a miss, so invalidation never requires
+        flushing or scanning the cache."""
+        return self.__dict__.get("_store_version", 0)
+
+    def _bump_version(self) -> int:
+        with _VERSION_LOCK:
+            v = self.__dict__.get("_store_version", 0) + 1
+            self.__dict__["_store_version"] = v
+        return v
+
+    def _restore_version(self, version: int) -> None:
+        """Persistence hook: carry the mutation counter across
+        ``save()``/``load()`` so version-stamped cache entries from a
+        previous process lifetime can never alias a reloaded corpus
+        state (a fresh store restarting at 0 would replay old stamps)."""
+        with _VERSION_LOCK:
+            current = self.__dict__.get("_store_version", 0)
+            self.__dict__["_store_version"] = max(current, int(version))
+
+    def add_mutation_listener(self, callback) -> None:
+        """Register ``callback(event: str, info: dict)`` to observe
+        mutations that bypass the public ``add``/``delete_source``
+        surface — today the background IVF ``index_swap`` — so a
+        durability wrapper can journal them.  Listener errors are
+        swallowed: observers must never break the store."""
+        self.__dict__.setdefault("_mutation_listeners", []).append(callback)
+
+    def _notify_mutation(self, event: str, info: dict) -> None:
+        for cb in list(self.__dict__.get("_mutation_listeners", ())):
+            try:
+                cb(event, info)
+            except Exception:  # pragma: no cover - observer bug
+                pass
+
+    def capacity_stats(self) -> dict:
+        """Capacity-planning gauges for ``/metrics``: live ``rows``, device
+        ``bytes`` held by scoring buffers, and ``tail_rows`` staged outside
+        the main index.  Backends without device buffers report zero bytes
+        (external services own their capacity accounting)."""
+        return {"rows": len(self), "bytes": 0, "tail_rows": 0}
+
+    # Optional persistence hooks; in-memory backends may ignore them.
+    def save(self, path: str) -> None:  # pragma: no cover - backend-specific
+        raise NotImplementedError
+
+    @classmethod
+    def load(cls, path: str) -> "VectorStore":  # pragma: no cover
+        raise NotImplementedError

@@ -38,8 +38,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     names = names.split(",")
     expected = len(list(pkgutil.walk_packages(
         generativeaiexamples_tpu_torch.__path__, "generativeaiexamples_tpu_torch.")))
-    assert len(names) == expected >= 15
-    assert "generativeaiexamples_tpu_torch.engine.paged_kv" in names
+    assert len(names) == expected >= 22
+    for module in ("engine.paged_kv", "models.bert", "engine.embedder", "engine.reranker", "engine.microbatch",
+                   "retrieval.base", "retrieval.memory", "retrieval.gpu"):
+        assert f"generativeaiexamples_tpu_torch.{module}" in names
     assert bad == "", f"port pulled in: {bad}"
 
 
