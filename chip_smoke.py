@@ -33,13 +33,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    32 x 512) and 32 queries; unit-norm finite vectors, each query alone
    within ``EMBED_TOL`` of itself in the batch; ms per 32 x 512 forward
    (CUDA events) beside its FLOP bound, docs/s.
-7. ``retrieve``: the exact ``GPUVectorStore`` with 1,000,000 clustered bf16
-   rows of 1024 (numpy, seed 0): 128 queries (64 planted on corpus rows)
+7. ``retrieve``: the exact ``GPUVectorStore``, built by the port's
+   ``get_store()`` from the ``AppConfig`` defaults, with 1,000,000 clustered
+   bf16 rows of 1024 (numpy, seed 0): 128 queries (64 planted on corpus rows)
    at top_k 4 and 10, ids against an f64 brute force over the bf16 values,
    5,000 rows appended through the tail (no rebuild), a masked delete
    (masks only); the scan's device ms per 128-query batch beside its byte
    bound, and the share of ``torch.topk``.
-8. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
+8. ``retriever``: the retrieval chain as ``chains/factory.py`` builds it from
+   the ``AppConfig`` defaults (arctic-embed-l, 24 layers, random bf16, seed
+   0; the result cache on; no reranker) over that store plus 2,048
+   documents of 510 byte tokens.  Cold: 128 queries through
+   ``Retriever.retrieve_many`` give the direct calls' hits and scores, none
+   degraded, with each trace stage's ms.  Warm: the same 128 are exact-tier
+   hits with no BERT forward, scan or ring scan.  The semantic ring at 512 x
+   1024 against a numpy f64 reference (argmax and hit/miss).  32 concurrent
+   requests through ``get_retrieval_batcher()``, each with its own 2 s
+   deadline, logs and trace: none degraded or failed.  The ladder: a
+   ``store`` fault serves ``index_fallback`` with the device search's
+   ranks (and ``search_fallback`` alone at 1M rows, timed and checked on
+   planted queries); without the fallback a warm cache serves
+   ``cache_stale``.  Then ``ranking.model_engine`` ``tpu`` (the 24-layer
+   cross-encoder): 32 queries at fetch_k 16 rank as a direct
+   ``score_pairs`` of their 512 pairs, and a ``reranker`` fault serves
+   vector-search order.  The chain and the store are freed after.
+9. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
    a seed, int8 contiguous KV), served by the port's Scheduler and HTTP
    front on 127.0.0.1: eight concurrent completions, a streaming chat, two
    prompts sent alone, models, health and metrics.  Launch counts are
@@ -50,13 +68,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    and ``/v1/ranking`` (an arctic reranker, 16 passages) against direct
    calls, with the ``rag_*`` series showing the queries coalesced.  Then
    one decode chunk at batch 32 is timed, untraced.
-9. ``serve_paged``: the same on the paged KV pool (page 64, same params),
+10. ``serve_paged``: the same on the paged KV pool (page 64, same params),
    plus a shared-prefix group (a 300-token prompt, then four extensions of
    it): the paged decode kernel must have launched, grafts must be host
    table copies, the shared boundary page must be copied on write, the
    prompts sent alone must give the contiguous server's greedy text, and
    the pool must be all free once the parked segments are dropped.
-10. ``profile`` and ``profile_paged``: the decode chunk of each layout
+11. ``profile`` and ``profile_paged``: the decode chunk of each layout
    traced with torch.profiler (device time by kernel, and the device's
    busy share of the traced call's own span); then ``profile_embed``, one
    32 x 512 arctic-embed-l forward traced the same way.  The traces come
@@ -764,10 +782,13 @@ def _brute_top(torch, np, corpus, queries, k: int):
 RETRIEVE_ROWS, RETRIEVE_DIM, RETRIEVE_QUERIES, RETRIEVE_APPEND = 1_000_000, 1024, 128, 5000
 
 
-def retrieve_phase(torch, dev) -> None:
-    """The exact store at 1,000,000 x 1024 bf16 rows on the card."""
+def retrieve_phase(torch, dev):
+    """The exact store at 1,000,000 x 1024 bf16 rows on the card, built by
+    the port's ``get_store()`` from the ``AppConfig`` defaults (the
+    ``retriever`` phase's chain searches it).  Returns the store."""
     import numpy as np
 
+    from generativeaiexamples_tpu_torch.chains import factory
     from generativeaiexamples_tpu_torch.retrieval.base import Chunk
     from generativeaiexamples_tpu_torch.retrieval.gpu import GPUVectorStore
 
@@ -784,7 +805,9 @@ def retrieve_phase(torch, dev) -> None:
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     mem0 = torch.cuda.memory_allocated(dev)
-    store = GPUVectorStore(d, dtype="bfloat16", device=dev)
+    store = factory.get_store()
+    if not isinstance(store, GPUVectorStore) or store._dtype != torch.bfloat16 or store.device != dev:
+        raise AssertionError(f"retrieve: get_store() gave {store!r}, not the exact bf16 store on {dev}")
     t0 = time.perf_counter()
     store.add(chunks, corpus)
     add_s = time.perf_counter() - t0
@@ -856,10 +879,8 @@ def retrieve_phase(torch, dev) -> None:
          bound_ms=b_ms, bound_by=b_by, bound_share_top4=b_ms / timing[4]["scan_ms"],
          bound_share_top10=b_ms / timing[10]["scan_ms"], appended=RETRIEVE_APPEND,
          append_found_s=append_search_s, tail_rows=after["tail_rows"], rebuilt=False,
-         deleted_rows=removed, delete_uploaded="masks only")
-    del store, corpus, held, buf0
-    gc.collect()
-    torch.cuda.empty_cache()
+         deleted_rows=removed, delete_uploaded="masks only", max_query_batch=store.max_query_batch)
+    return store
 
 
 def _time_scan(torch, store, queries, k: int) -> dict:
@@ -902,6 +923,398 @@ def _time_scan(torch, store, queries, k: int) -> dict:
         host.append((time.perf_counter() - t0) * 1e3)
     return dict(scan_ms=scan_ms, product_ms=product_ms, topk_ms=topk_ms, topk_share=topk_ms / scan_ms,
                 search_batch_ms=sorted(host)[5])
+
+
+# ---------------------------------------------------------------------------
+# the retrieval call chain built from AppConfig (Retriever, cache, ladder)
+# ---------------------------------------------------------------------------
+
+CHAIN_DOCS, CHAIN_QUERIES, CHAIN_CONCURRENT, CHAIN_LADDER, CHAIN_RERANK = 2048, 128, 32, 16, 32
+
+
+class _NoFallback:
+    """The store without its host fallback: the ladder's next rung is the
+    stale cache."""
+
+    def __init__(self, store):
+        self._store = store
+
+    def search_batch(self, embeddings, top_k):
+        return self._store.search_batch(embeddings, top_k)
+
+    def version(self):
+        return self._store.version()
+
+
+class _DeviceWork:
+    """Counts BERT forwards and store scans while it is entered (each wraps
+    the module-level function the path calls)."""
+
+    def __init__(self):
+        from generativeaiexamples_tpu_torch.models import bert
+        from generativeaiexamples_tpu_torch.retrieval.gpu import GPUVectorStore
+
+        self._bert, self._store_cls = bert, GPUVectorStore
+        self.forwards = self.scans = 0
+
+    def __enter__(self):
+        embed, scan = self._embed, self._scan = self._bert.embed, self._store_cls.scan
+
+        def counted_embed(*a, **k):
+            self.forwards += 1
+            return embed(*a, **k)
+
+        def counted_scan(*a, **k):
+            self.scans += 1
+            return scan(*a, **k)
+
+        self._bert.embed = counted_embed
+        self._store_cls.scan = staticmethod(counted_scan)
+        return self
+
+    def __exit__(self, *exc):
+        self._bert.embed = self._embed
+        self._store_cls.scan = staticmethod(self._scan)
+
+
+def _ids(hits):
+    return [h.chunk.id for h in hits]
+
+
+def _same_ranks(got, want, k: int, where: str) -> int:
+    """``got`` (top k per query) against ``want`` (top k + 1 of the same
+    candidates): equal id sets at every rank whose gap to the next score of
+    ``want`` exceeds RANK_EPS, scores within 1e-4.  Returns the ranks
+    checked."""
+    checked = 0
+    for qi, (g, w) in enumerate(zip(got, want)):
+        ws = [h.score for h in w] + [-math.inf]
+        if len(g) != min(k, len(w)) or any(abs(a.score - b) > 1e-4 for a, b in zip(g, ws)):
+            raise AssertionError(f"retriever: {where}: query {qi} scores {[h.score for h in g]} != {ws}")
+        for j in range(len(g)):
+            if ws[j] - ws[j + 1] > RANK_EPS:
+                checked += 1
+                if set(_ids(g[: j + 1])) != set(_ids(w[: j + 1])):
+                    raise AssertionError(f"retriever: {where}: query {qi} top-{j + 1} {_ids(g)} != {_ids(w)}")
+    return checked
+
+
+def _requests(n, route="/search"):
+    from generativeaiexamples_tpu_torch.cache.log import CacheLog
+    from generativeaiexamples_tpu_torch.obs.trace import RequestTrace
+    from generativeaiexamples_tpu_torch.resilience.degrade import DegradeLog
+
+    return ([DegradeLog() for _ in range(n)], [CacheLog() for _ in range(n)],
+            [RequestTrace(route=route) for _ in range(n)])
+
+
+def _retrieve(retriever, queries, k=None):
+    """One traced ``retrieve_many``: (results, logs, cache logs, traces,
+    wall ms)."""
+    logs, clogs, traces = _requests(len(queries))
+    t0 = time.perf_counter()
+    out = retriever.retrieve_many(queries, top_k=k, degrade_logs=logs, cache_logs=clogs, traces=traces)
+    return out, logs, clogs, traces, (time.perf_counter() - t0) * 1e3
+
+
+def _direct(retriever, queries, fetch_k):
+    """The same work by direct calls: threshold-filtered device hits."""
+    vecs = retriever.embedder.embed_queries(queries)
+    return [[h for h in hits if h.score >= retriever.score_threshold]
+            for hits in retriever.store.search_batch(vecs, fetch_k)], vecs
+
+
+def _stage_ms(traces) -> dict:
+    """Each stage's ms (summed where a stage repeats) of the first trace:
+    the batch's stages are shared, so every member holds the same."""
+    out: dict = {}
+    for s in traces[0].stages():
+        key = s["stage"] + (f"_{s['attrs']['tier']}" if s.get("attrs", {}).get("tier") else "")
+        out[key] = out.get(key, 0.0) + s["duration_ms"]
+    return out
+
+
+def _clean_logs(logs, where: str) -> None:
+    marked = [log.stages() for log in logs if log]
+    if marked:
+        raise AssertionError(f"retriever: {where}: degraded {marked}")
+
+
+def _ring_check(torch, np, dev, cfg) -> dict:
+    """The semantic ring at its configured size on the card: 128 lookups
+    near stored vectors (cosine ~0.99) and 128 random ones against a numpy
+    f64 reference over the same f32 values."""
+    from generativeaiexamples_tpu_torch.cache.core import RetrievalCache, _unit
+
+    d, cap = cfg.embeddings.dimensions, cfg.cache.semantic_entries
+    rng = np.random.default_rng(2)
+    cache = RetrievalCache(d, max_entries=cfg.cache.max_entries, semantic_entries=cap,
+                           similarity_threshold=cfg.cache.similarity_threshold, device=dev)
+    stored = rng.standard_normal((cap + 88, d)).astype(np.float32)
+    stored /= np.linalg.norm(stored, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    for i, v in enumerate(stored.tolist()):  # cap + 88 admits: the ring wraps
+        cache.admit(f"ring {i}", 4, "rag", 0, v, [], [])
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t0) * 1e3 / len(stored)
+    live = stored[88:]
+    near = live[rng.integers(0, cap, 128)] + 0.14 / math.sqrt(d) * rng.standard_normal((128, d)).astype(np.float32)
+    queries = np.concatenate([near, rng.standard_normal((128, d)).astype(np.float32)])
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    qlist = queries.tolist()
+    cache.lookup_semantic_many(qlist[:8], "rag", 0)  # warm-up
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cache.lookup_semantic_many(qlist, "rag", 0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ring = cache._ring.cpu().numpy().astype(np.float64)
+    valid = cache._ring_valid.cpu().numpy()
+    scored = np.stack([_unit(q) for q in qlist]).astype(np.float64)  # the vectors the cache scores
+    sims = np.where(valid[None, :], scored @ ring.T, -np.inf)
+    order = np.argsort(-sims, axis=1)
+    checked_argmax = checked_hit = 0
+    for qi, found in enumerate(got):
+        best, second = sims[qi, order[qi, 0]], sims[qi, order[qi, 1]]
+        slot = next(i for i, e in enumerate(cache._ring_entries) if e is found[0]) if found is not None else None
+        if best - cache.similarity_threshold > RANK_EPS:
+            checked_hit += 1
+            if found is None:
+                raise AssertionError(f"retriever: ring: query {qi} at {best:.6f} missed")
+            if best - second > RANK_EPS:
+                checked_argmax += 1
+                if slot != order[qi, 0]:
+                    raise AssertionError(f"retriever: ring: query {qi} took slot {slot}, f64 says {order[qi, 0]}")
+            if abs(found[1] - best) > 1e-6:
+                raise AssertionError(f"retriever: ring: query {qi} similarity {found[1]} vs f64 {best}")
+        elif cache.similarity_threshold - best > RANK_EPS:
+            checked_hit += 1
+            if found is not None:
+                raise AssertionError(f"retriever: ring: query {qi} at {best:.6f} hit")
+    hits = sum(g is not None for g in got)
+    if hits != 128 or checked_argmax < 128 or checked_hit != 256:
+        raise AssertionError(f"retriever: ring: {hits} hits, {checked_argmax} argmaxes, {checked_hit} hit tests")
+    ms = sorted(times)[2]
+    return dict(ring_shape=[cap, d], ring_admit_ms_per_entry=admit_ms, ring_lookups=len(qlist), ring_hits=hits,
+                ring_argmax_checked=checked_argmax,
+                ring_hit_tests_checked=checked_hit, ring_lookup_ms_256=ms, ring_lookup_ms_per_query=ms / len(qlist))
+
+
+def _concurrent_retrievals(np, factory, queries) -> dict:
+    """``CHAIN_CONCURRENT`` requests at once through the process-wide
+    micro-batcher, each with its own 2 s deadline, logs and trace."""
+    from generativeaiexamples_tpu_torch.resilience.deadline import Deadline
+
+    batcher = factory.get_retrieval_batcher()
+    before = batcher.stats.snapshot()
+    logs, clogs, traces = _requests(len(queries))
+    lat, errors = [0.0] * len(queries), []
+    start = threading.Barrier(len(queries))
+
+    def one(i):
+        start.wait()
+        t0 = time.perf_counter()
+        try:
+            batcher.call((queries[i], 4, logs[i], clogs[i], traces[i]), deadline=Deadline.after_ms(2000),
+                         trace=traces[i])
+        except Exception as exc:  # reported below: the gate fails
+            errors.append(f"{type(exc).__name__}: {exc}")
+        lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(queries))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"retriever: concurrent: {errors[:3]}")
+    _clean_logs(logs, "concurrent")
+    after = batcher.stats.snapshot()
+    batches = after["batches_total"] - before["batches_total"]
+    tiers = [c.tier or "miss" for c in clogs]
+    waits = [s["duration_ms"] for tr in traces for s in tr.stages() if s["stage"] == "queue_wait"]
+    if len(waits) != len(queries):
+        raise AssertionError(f"retriever: concurrent: {len(waits)} queue_wait stages for {len(queries)} requests")
+    return dict(concurrent_requests=len(queries), concurrent_batches=batches,
+                concurrent_mean_batch=(after["batch_size_sum"] - before["batch_size_sum"]) / batches,
+                concurrent_p50_ms=float(np.percentile(lat, 50)), concurrent_p95_ms=float(np.percentile(lat, 95)),
+                concurrent_queue_wait_ms_p50=float(np.percentile(waits, 50)),
+                concurrent_tiers={t: tiers.count(t) for t in sorted(set(tiers))})
+
+
+def retriever_phase(torch, dev, store) -> None:
+    """The retrieval chain as ``chains/factory.py`` builds it from the
+    ``AppConfig`` defaults, over the 1M-row store of ``retrieve``: cold,
+    warm, the semantic ring at full size, concurrent requests through the
+    micro-batcher, the degradation ladder, and the reranker on."""
+    import dataclasses
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.cache.metrics import cache_snapshot
+    from generativeaiexamples_tpu_torch.chains import factory
+    from generativeaiexamples_tpu_torch.core.configuration import get_config, reset_config_cache
+    from generativeaiexamples_tpu_torch.resilience.faults import get_fault_injector, reset_faults
+    from generativeaiexamples_tpu_torch.resilience.metrics import reset_resilience
+    from generativeaiexamples_tpu_torch.retrieval.base import Chunk
+
+    cfg = get_config()
+    t_phase = time.perf_counter()
+    retriever = factory.get_retriever()
+    embedder, cache, k = retriever.embedder, retriever.cache, retriever.top_k
+    if retriever.store is not store or retriever.reranker is not None or cache is None:
+        raise AssertionError("retriever: the factory's chain is not the default one over the retrieve store")
+    fields = dict(config="AppConfig defaults", embedder=f"arctic-embed-l, {embedder.cfg.n_layers} layers, "
+                  f"random bf16, seed 0", top_k=k, score_threshold=retriever.score_threshold,
+                  fetch_k_multiplier=retriever.fetch_k_multiplier, cache_exact_entries=cache.max_entries,
+                  cache_semantic_entries=cfg.cache.semantic_entries, similarity_threshold=cache.similarity_threshold,
+                  store_rows=len(store), rank_eps=RANK_EPS)
+
+    # 2,048 documents of 510 byte tokens: rows a query finds above the
+    # threshold (the 1M clustered rows score near 0 against BERT vectors).
+    docs = _texts(12, CHAIN_DOCS, 510)
+    t0 = time.perf_counter()
+    store.add([Chunk(text=t, source=f"rag{i // 64}", id=f"rag{i}") for i, t in enumerate(docs)],
+              embedder.embed_documents(docs))
+    fields["docs_embed_add_s"] = time.perf_counter() - t0
+
+    # 1. Cold: one embed, one search for 128 distinct queries.  The direct
+    # calls run first (they also warm cuBLAS at these shapes).
+    queries = _texts(13, CHAIN_QUERIES, 60)
+    t0 = time.perf_counter()
+    direct, qvecs = _direct(retriever, queries, k + 1)
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    # How far apart random-weight embeddings lie: cosines between the
+    # queries, and each query's gap between its first and second score.
+    qv = np.asarray(qvecs)
+    cos = (qv @ qv.T)[~np.eye(len(qv), dtype=bool)]
+    gaps = np.array([h[0].score - h[1].score for h in direct if len(h) > 1])
+    fields.update(query_cosine_min_max=[float(cos.min()), float(cos.max())],
+                  top1_gap_min_median=[float(gaps.min()), float(np.median(gaps))])
+    reset_resilience()
+    with _DeviceWork() as work:
+        cold, logs, _, traces, cold_ms = _retrieve(retriever, queries)
+    _clean_logs(logs, "cold")
+    cold_checked = _same_ranks(cold, direct, k, "cold vs direct")
+    # The same arithmetic on the same inputs: the very same hits and scores.
+    if [[(h.chunk.id, h.score) for h in r] for r in cold] != [[(h.chunk.id, h.score) for h in r[:k]] for r in direct]:
+        raise AssertionError("retriever: cold: results are not the direct calls' hits and scores")
+    stages = _stage_ms(traces)
+    t0 = time.perf_counter()
+    _direct(retriever, queries, k + 1)
+    direct2_ms = (time.perf_counter() - t0) * 1e3
+    fields.update(cold_ms=cold_ms, cold_stage_ms=stages, cold_host_ms=cold_ms - sum(stages.values()),
+                  cold_forwards=work.forwards, cold_scans=work.scans, cold_ranks_checked=cold_checked,
+                  cold_identical_to_direct=True,
+                  direct_ms=[direct_ms, direct2_ms], retriever_overhead_ms=cold_ms - direct2_ms,
+                  cold_hits_per_query=[min(len(h) for h in cold), max(len(h) for h in cold)])
+    if not all(cold):
+        raise AssertionError("retriever: cold: a query found nothing above the threshold")
+
+    # 2. Warm: the same queries are exact-tier hits with no device work.
+    scans0 = cache_snapshot()["semantic_scan_count"]
+    with _DeviceWork() as work:
+        warm, logs, clogs, traces, warm_ms = _retrieve(retriever, queries)
+    _clean_logs(logs, "warm")
+    ring_scans = cache_snapshot()["semantic_scan_count"] - scans0
+    if [c.tier for c in clogs] != ["exact"] * len(queries) or work.forwards or work.scans or ring_scans:
+        raise AssertionError(f"retriever: warm: tiers {sorted(set(c.tier for c in clogs))}, {work.forwards} "
+                             f"forwards, {work.scans} scans, {ring_scans} ring scans")
+    if [[(h.chunk.id, h.score) for h in r] for r in warm] != [[(h.chunk.id, h.score) for h in r] for r in cold]:
+        raise AssertionError("retriever: warm: results differ from the cold pass")
+    fields.update(warm_ms=warm_ms, warm_stage_ms=_stage_ms(traces), warm_forwards=0, warm_scans=0)
+
+    # 3. The semantic ring at its configured size, against f64.
+    fields.update(_ring_check(torch, np, dev, cfg))
+
+    # 4. Concurrent requests through the process-wide micro-batcher (a
+    # cleared cache: the first batch pays embed and search).
+    cache.clear()
+    reset_resilience()
+    fields.update(_concurrent_retrievals(np, factory, _texts(14, CHAIN_CONCURRENT, 60)))
+
+    # 5. The ladder: a store fault with the host fallback, then without it
+    # over a warm cache.
+    lq = _texts(15, CHAIN_LADDER, 60)
+    cache.clear()
+    reset_resilience()
+    get_fault_injector().configure("store:error=1")
+    fb, logs, _, traces, fb_ms = _retrieve(retriever, lq)
+    reset_faults()
+    if [log.stages() for log in logs] != [["index_fallback"]] * len(lq):
+        raise AssertionError(f"retriever: store fault: marks {[log.stages() for log in logs]}")
+    want, _ = _direct(retriever, lq, k + 1)
+    fb_checked = _same_ranks(fb, want, k, "index_fallback vs device search")
+    # The fallback alone at 1M rows, on 16 queries planted near corpus rows
+    # (the BERT vectors' top scores lie closer together than RANK_EPS).
+    rng = np.random.default_rng(3)
+    rows = store._mirror._vecs[rng.integers(0, RETRIEVE_ROWS, CHAIN_LADDER)]
+    planted = rows + 0.3 / math.sqrt(rows.shape[1]) * rng.standard_normal(rows.shape).astype(np.float32)
+    planted /= np.linalg.norm(planted, axis=1, keepdims=True)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fallback = store.search_fallback(planted, 10)
+        times.append((time.perf_counter() - t0) * 1e3)
+    planted_checked = _same_ranks(fallback, store.search_batch(planted, 11), 10, "search_fallback vs device search")
+    if planted_checked < 16:
+        raise AssertionError(f"retriever: search_fallback: only {planted_checked} ranks checked")
+    fields.update(fallback_ranks_checked=fb_checked, fallback_call_ms=fb_ms, fallback_stage_ms=_stage_ms(traces),
+                  search_fallback_ms=sorted(times)[1], search_fallback_queries=CHAIN_LADDER, search_fallback_k=10,
+                  search_fallback_ranks_checked=planted_checked, admitted_after_fallback=len(cache))
+    if len(cache):
+        raise AssertionError("retriever: a degraded result was admitted to the cache")
+    reset_resilience()
+    clean, logs, _, _, _ = _retrieve(retriever, lq)  # warm the cache at k
+    _clean_logs(logs, "stale warm-up")
+    get_fault_injector().configure("store:error=1")
+    stale, logs, clogs, _, _ = _retrieve(dataclasses.replace(retriever, store=_NoFallback(store)), lq, 2 * k)
+    reset_faults()
+    if [log.stages() for log in logs] != [["cache_stale"]] * len(lq) or {c.tier for c in clogs} != {"stale"}:
+        raise AssertionError(f"retriever: stale rung: marks {[log.stages() for log in logs][:2]}")
+    if [_ids(h) for h in stale] != [_ids(h) for h in clean]:
+        raise AssertionError("retriever: stale rung: not the cached results")
+    fields.update(stale_served=len(lq))
+
+    # 6. The reranker on (ranking.model_engine "tpu": the 24-layer arctic
+    # cross-encoder, random, seeds 1 and 2) over the same store and embedder.
+    os.environ["APP_RANKING_MODELENGINE"] = "tpu"
+    reset_config_cache()
+    factory.reset_factories(keep=("store", "embedder"))
+    try:
+        rr = factory.get_retriever()
+        fetch_k = k * rr.fetch_k_multiplier
+        rq = _texts(16, CHAIN_RERANK, 60)
+        got, logs, _, traces, rr_ms = _retrieve(rr, rq)
+        _clean_logs(logs, "rerank")
+        cands, _ = _direct(rr, rq, fetch_k)
+        pairs = [(q, h.chunk.text) for q, hs in zip(rq, cands) for h in hs]
+        flat, at, want = rr.reranker.score_pairs(pairs), 0, []
+        for hs in cands:
+            scored = sorted(zip([flat[at + i] for i in range(len(hs))], range(len(hs))), key=lambda t: -t[0])
+            want.append([hs[i].chunk.id for _, i in scored[:k]])
+            at += len(hs)
+        if [_ids(h) for h in got] != want:
+            raise AssertionError("retriever: rerank: order differs from a direct score_pairs")
+        fields.update(rerank_pairs=len(pairs), rerank_fetch_k=fetch_k, rerank_call_ms=rr_ms,
+                      rerank_stage_ms=_stage_ms(traces))
+        # The reranker rung: a fault serves vector-search order.
+        rr.cache.clear()
+        get_fault_injector().configure("reranker:error=1")
+        vec, logs, _, _, _ = _retrieve(rr, lq)
+        reset_faults()
+        if [log.stages() for log in logs] != [["rerank"]] * len(lq):
+            raise AssertionError(f"retriever: reranker fault: marks {[log.stages() for log in logs][:2]}")
+        order, _ = _direct(rr, lq, fetch_k)
+        if [_ids(h) for h in vec] != [_ids(h[:k]) for h in order]:
+            raise AssertionError("retriever: reranker fault: not vector-search order")
+        fields.update(rerank_fault_vector_order=True)
+    finally:
+        del os.environ["APP_RANKING_MODELENGINE"]
+        reset_config_cache()
+    fields["phase_s"] = time.perf_counter() - t_phase
+    emit("retriever", **fields)
 
 
 # ---------------------------------------------------------------------------
@@ -1355,14 +1768,22 @@ def main() -> int:
 
     # The retrieval side, before the Llama params: BERT on card vs CPU,
     # arctic-embed-l through the embedder (kept with a reranker for
-    # ``serve``), and the exact store at 1M rows (freed after).
+    # ``serve``), the exact store at 1M rows, and the retrieval chain over
+    # it (both freed after).
     from generativeaiexamples_tpu_torch.engine.microbatch import BatchedEmbedder
     from generativeaiexamples_tpu_torch.engine.reranker import GPUReranker
     from generativeaiexamples_tpu_torch.models import bert
 
     check_bert(torch, dev)
     embedder, queries = embed_phase(torch, dev)
-    retrieve_phase(torch, dev)
+    store = retrieve_phase(torch, dev)
+    retriever_phase(torch, dev, store)
+    from generativeaiexamples_tpu_torch.chains.factory import reset_factories
+
+    reset_factories()  # frees the chain: the 1M-row store, its embedder, the reranker
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
     rag = (BatchedEmbedder(embedder, max_batch=32, max_wait_ms=3.0), GPUReranker(bert.arctic_embed_l(), device=dev),
            queries)
 

@@ -11,6 +11,14 @@ single-query ``/v1/embeddings`` requests share one BERT forward.
 Contract:
   * **Per-item error isolation**: a failed batch is retried item by item,
     so one poisoned input fails only its own future.
+  * **Deadline awareness**: each queue entry carries its request's
+    :class:`~..resilience.deadline.Deadline` and
+    :class:`~..obs.trace.RequestTrace` (explicitly: contextvars do not
+    cross into the worker thread).  An entry whose budget expired while
+    queued fails with ``DeadlineExceeded`` before dispatch, and the batch
+    runs under the loosest surviving member's deadline, so shared work is
+    not cut short for members that still have budget.  Each member's trace
+    gets its own ``queue_wait`` stage with the shared batch id.
   * **Crash guard**: if the worker thread dies outside the per-item
     dispatch path, every queued future is failed (not hung) and a fresh
     worker is started.
@@ -18,10 +26,6 @@ Contract:
     answers) before the worker exits; only new submissions are refused.
   * **Stats**: batch-size and queue-wait counters for the ``rag_*`` series
     of ``/metrics``.
-
-The reference also carries each request's deadline and trace on its queue
-entry; the port has no ``resilience/`` or ``obs/`` yet, so they come with
-those slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -30,9 +34,17 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Callable, Generic, Optional, Sequence, TypeVar
 
 from generativeaiexamples_tpu_torch.core.logging import get_logger
+from generativeaiexamples_tpu_torch.obs.trace import RequestTrace, current_request_trace
+from generativeaiexamples_tpu_torch.resilience.deadline import (
+    Deadline,
+    DeadlineExceeded,
+    current_deadline,
+    deadline_scope,
+)
 from generativeaiexamples_tpu_torch.utils.buckets import bucket_size
 
 logger = get_logger(__name__)
@@ -59,7 +71,8 @@ class _BatchStats:
         self.queue_wait_ms_max = 0.0
         self.errors_total = 0
 
-    def record_batch(self, size: int, bucket: int, waits_ms: Sequence[float]) -> None:
+    def record_batch(self, size: int, bucket: int, waits_ms: Sequence[float]) -> int:
+        """Returns the batch's ordinal (1-based), used as its trace id."""
         with self._lock:
             self.batches_total += 1
             self.batch_size_sum += size
@@ -68,6 +81,7 @@ class _BatchStats:
             for w in waits_ms:
                 self.queue_wait_ms_sum += w
                 self.queue_wait_ms_max = max(self.queue_wait_ms_max, w)
+            return self.batches_total
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -113,7 +127,8 @@ class MicroBatcher(Generic[T, R]):
         self.name = name
         self.stats = _BatchStats()
         self._cond = threading.Condition()
-        # Entries: (item, future, enqueue time on the perf_counter clock).
+        # Entries: (item, future, enqueue time on the perf_counter clock,
+        # deadline, trace).
         self._queue: deque[tuple] = deque()
         self._inflight: list[tuple] = []
         self._closed = False
@@ -122,21 +137,53 @@ class MicroBatcher(Generic[T, R]):
 
     # -- caller side -------------------------------------------------------
 
-    def submit(self, item: T) -> "Future[R]":
-        """Enqueue one item; returns a future resolving to its result."""
+    def submit(
+        self, item: T, *, deadline: Optional[Deadline] = None, trace: Optional[RequestTrace] = None
+    ) -> "Future[R]":
+        """Enqueue one item; returns a future resolving to its result.
+
+        ``deadline`` and ``trace`` default to the submitting thread's
+        context values and ride the queue entry.  An already-expired
+        budget is refused here."""
+        if deadline is None:
+            deadline = current_deadline()
+        if trace is None:
+            trace = current_request_trace()
+        if deadline is not None:
+            deadline.check(f"{self.name} submit")
         fut: "Future[R]" = Future()
         with self._cond:
             if self._closed:
                 raise BatcherClosed(f"{self.name}: batcher is closed")
             with self.stats._lock:
                 self.stats.requests_total += 1
-            self._queue.append((item, fut, time.perf_counter()))
+            self._queue.append((item, fut, time.perf_counter(), deadline, trace))
             self._cond.notify()
         return fut
 
-    def call(self, item: T, timeout: Optional[float] = None) -> R:
-        """Blocking convenience wrapper around :meth:`submit`."""
-        return self.submit(item).result(timeout=timeout)
+    def call(
+        self,
+        item: T,
+        timeout: Optional[float] = None,
+        *,
+        deadline: Optional[Deadline] = None,
+        trace: Optional[RequestTrace] = None,
+    ) -> R:
+        """Blocking convenience wrapper around :meth:`submit`; the wait is
+        capped by the deadline, and a wait cut by it raises
+        ``DeadlineExceeded``."""
+        if deadline is None:
+            deadline = current_deadline()
+        if deadline is not None:
+            timeout = deadline.cap_timeout(timeout)
+        fut = self.submit(item, deadline=deadline, trace=trace)
+        try:
+            return fut.result(timeout=timeout)
+        except FuturesTimeoutError:
+            if deadline is not None and deadline.expired():
+                fut.cancel()
+                deadline.check(f"{self.name} wait")
+            raise
 
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Stop accepting work, drain queued callers, join the worker.
@@ -190,19 +237,39 @@ class MicroBatcher(Generic[T, R]):
                 self._thread.start()
         wrapped = RuntimeError(f"{self.name}: batcher worker crashed: {exc!r}")
         wrapped.__cause__ = exc
-        for _, fut, _ in pending:
-            if not fut.done():
-                self._fail_one(fut, wrapped)
+        for entry in pending:
+            if not entry[1].done():
+                self._fail_one(entry[1], wrapped)
 
     def _dispatch(self, entries: list[tuple]) -> None:
         now = time.perf_counter()
+        # Cancel, don't compute: entries whose budget expired while queued
+        # fail here, before any device work.
+        live = []
+        for entry in entries:
+            if entry[3] is not None and entry[3].expired():
+                self._fail_one(entry[1], DeadlineExceeded(f"deadline exceeded in {self.name} queue"),
+                               deadline_expired=True)
+            else:
+                live.append(entry)
+        if not live:
+            return
+        entries = live
         items = [e[0] for e in entries]
-        self.stats.record_batch(
-            len(items), bucket_size(len(items), minimum=1, maximum=self.max_batch),
-            [(now - e[2]) * 1000.0 for e in entries],
+        waits_ms = [(now - e[2]) * 1000.0 for e in entries]
+        batch_seq = self.stats.record_batch(
+            len(items), bucket_size(len(items), minimum=1, maximum=self.max_batch), waits_ms
         )
+        # Each member's queue wait onto its own trace; the shared batch id
+        # ties the members' traces together.
+        batch_id = f"{self.name}-{batch_seq}"
+        for (_, _, enq, _, trace), wait_ms in zip(entries, waits_ms):
+            if trace is not None:
+                trace.add_stage("queue_wait", wait_ms, start=enq, batch_id=batch_id, batch_size=len(items))
         try:
-            results = self._run(items)
+            # Shared work runs under the loosest member's budget.
+            with deadline_scope(Deadline.latest([e[3] for e in entries])):
+                results = self._run(items)
         except Exception as exc:
             if len(entries) == 1:
                 self._fail_one(entries[0][1], exc)
@@ -210,17 +277,18 @@ class MicroBatcher(Generic[T, R]):
             # Per-item error isolation: retry individually so only the
             # offender's future carries the exception.
             logger.warning("%s: batch of %d failed; retrying items individually", self.name, len(items))
-            for item, fut, _ in entries:
+            for item, fut, _, dl, _ in entries:
                 if not fut.set_running_or_notify_cancel():
                     continue
                 try:
-                    fut.set_result(self._run([item])[0])
+                    with deadline_scope(dl):
+                        fut.set_result(self._run([item])[0])
                 except Exception as item_exc:
                     with self.stats._lock:
                         self.stats.errors_total += 1
                     fut.set_exception(item_exc)
             return
-        for (_, fut, _), res in zip(entries, results):
+        for (_, fut, _, _, _), res in zip(entries, results):
             if fut.set_running_or_notify_cancel():  # else cancelled while queued
                 fut.set_result(res)
 
@@ -230,9 +298,13 @@ class MicroBatcher(Generic[T, R]):
             raise RuntimeError(f"{self.name}: batch fn returned {len(results)} results for {len(items)} items")
         return results
 
-    def _fail_one(self, fut: Future, exc: BaseException) -> None:
+    def _fail_one(self, fut: Future, exc: BaseException, *, deadline_expired: bool = False) -> None:
         with self.stats._lock:
             self.stats.errors_total += 1
+        if deadline_expired:
+            from generativeaiexamples_tpu_torch.resilience.metrics import record_deadline_expired
+
+            record_deadline_expired()
         if fut.set_running_or_notify_cancel():
             fut.set_exception(exc)
 

@@ -1,12 +1,15 @@
 """Weight management (port of the parts of ``engine/weights.py`` the
 serving path needs): preset resolution, load-time blocking of the int8
 projections, and conversion of the reference's param trees (Llama and
-BERT, with the rerank head), KV caches and paged KV pools from numpy.  HF
-safetensors loading is not ported yet."""
+BERT, with the rerank head), KV caches and paged KV pools from numpy, and
+``weights_dir_for`` (where a provisioned checkpoint would be).  HF
+safetensors loading is not ported yet (``ROADMAP.md``, Queue 1 item 5)."""
 
 from __future__ import annotations
 
+import os
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,6 +19,8 @@ from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix, block
 from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix
 
 logger = get_logger(__name__)
+
+WEIGHTS_DIR_ENV = "GAIE_WEIGHTS_DIR"
 
 # Per-layer projection leaves the W8A8 kernel consumes (packed layout).
 PREBLOCK_TARGETS = ("wqkv", "w_gu", "w_down", "wo")
@@ -57,6 +62,16 @@ def resolve_model_preset(model_name: str) -> str:
         return "llama-tiny"
     logger.warning("unknown model %r; defaulting to llama-tiny preset", model_name)
     return "llama-tiny"
+
+
+def weights_dir_for(model_name: str) -> Optional[str]:
+    """Local checkpoint dir for a model, if one is provisioned (a copy of
+    the reference's: ``$GAIE_WEIGHTS_DIR/<name with / as -->``)."""
+    root = os.environ.get(WEIGHTS_DIR_ENV, "")
+    if not root:
+        return None
+    cand = os.path.join(root, model_name.replace("/", "--"))
+    return cand if os.path.isdir(cand) else None
 
 
 def _tensor(a, device) -> torch.Tensor:

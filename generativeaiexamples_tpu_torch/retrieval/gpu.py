@@ -26,10 +26,16 @@ Design points, the reference's:
     (``vectors.npz``, ``chunks.json``, ``tpu_meta.json``), so a snapshot of
     either package loads into the other.
 
-Not ported yet (``ROADMAP.md``, Queue 1 slice 3): the int8 / PQ two-stage
-scan, the IVF store, the mesh-sharded path, and ``search_fallback`` (the
-resilience ladder's host-mirror rung, which comes with ``resilience/``).
-The constructor raises ``NotImplementedError`` for the first three.
+  * **Host fallback**: ``search_fallback`` (the resilience ladder's
+    ``index_fallback`` rung) scans the host mirror with no device work.
+    It scores the values the device holds (rows and queries rounded to the
+    store's dtype, as the upload rounds them, with f32 sums), so its ranks
+    and scores are the device search's within f32 summation error; the
+    reference scores the f32 mirror even for a bf16 store.
+
+Not ported yet (``ROADMAP.md``, Queue 1 item 4): the int8 / PQ two-stage
+scan, the IVF store and the mesh-sharded path; the constructor raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -70,7 +76,7 @@ _EXACT_META = {"quantization": "none", "pq_m": 16, "rescore_multiplier": 4, "rec
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch store yet (ROADMAP.md, Queue 1, slice 3)")
+    return NotImplementedError(f"{what} is not ported to the PyTorch store yet (ROADMAP.md, Queue 1 item 4)")
 
 
 def _bucket_queries(Q: np.ndarray, maximum: Optional[int] = None) -> np.ndarray:
@@ -370,6 +376,42 @@ class GPUVectorStore(VectorStore):
             m = min(self.max_query_batch, len(Q_all) - lo)
             Q = _bucket_queries(Q_all[lo : lo + m], maximum=self.max_query_batch)
             out.extend(self._search_rows(snap, Q, m, k))
+        return out
+
+    def _host_rows(self, rows: np.ndarray) -> np.ndarray:
+        """f32 host rows holding the values the device scores: rounded to
+        nearest even in the store's dtype, as ``_upload`` rounds them."""
+        if self._dtype == torch.float32:
+            return rows
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(self._dtype).float().numpy()
+
+    def search_fallback(self, embeddings: Sequence[Sequence[float]], top_k: int) -> list[list[ScoredChunk]]:
+        """Device-free exact scan over the host mirror (the resilience
+        ladder's ``index_fallback`` rung, reference ``retrieval/tpu.py``
+        ``search_fallback``): the device's values scored on the host in
+        blocks, invalidated rows masked, ranks in ``lax.top_k``'s order."""
+        if len(embeddings) == 0:
+            return []
+        with self._lock:
+            # add() replaces the mirror's array and delete_source() writes
+            # the mask in place, so the mask is copied and the rows are not.
+            vecs = self._mirror._vecs
+            chunks = list(self._mirror._chunks)
+            valid = self._valid.copy()
+        live = int(valid.sum())
+        if live == 0 or top_k <= 0:
+            return [[] for _ in embeddings]
+        Q = self._host_rows(np.asarray(embeddings, dtype=np.float32))
+        scores = np.empty((len(Q), len(vecs)), dtype=np.float32)
+        for lo in range(0, len(vecs), _UPLOAD_ROWS):
+            scores[:, lo : lo + _UPLOAD_ROWS] = Q @ self._host_rows(vecs[lo : lo + _UPLOAD_ROWS]).T
+        scores[:, ~valid] = -np.inf
+        k = min(top_k, live)
+        out: list[list[ScoredChunk]] = []
+        for row in scores:
+            idx = np.argpartition(-row, k - 1)[:k]
+            idx = idx[np.lexsort((idx, -row[idx]))]
+            out.append([ScoredChunk(chunks[int(i)], float(row[i])) for i in idx if np.isfinite(row[i])])
         return out
 
     def _collect(self, scores, ids, top_k: int) -> list[ScoredChunk]:

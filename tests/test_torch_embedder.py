@@ -4,8 +4,8 @@ on the CPU.
 ``GPUEmbedder(device="cpu")`` and ``GPUReranker(device="cpu")`` get the
 reference's bert-tiny weights (float32) and must give ``TPUEmbedder``'s
 vectors and ``TPUReranker``'s scores within 1e-5; the micro-batcher cases
-are the reference's own (``tests/test_microbatch.py``) without deadlines
-and traces, which the port has not yet.
+are the reference's own (``tests/test_microbatch.py``); its deadline and
+trace cases are in ``tests/test_torch_microbatch.py``.
 """
 
 import threading
@@ -140,7 +140,7 @@ def test_entry_points_default_to_cuda():
 
 
 # ---------------------------------------------------------------------------
-# micro-batcher (the reference's cases, without deadline and trace)
+# micro-batcher (the reference's cases; deadlines and traces: test_torch_microbatch.py)
 
 
 class CountingFn:

@@ -38,9 +38,13 @@ def test_port_imports_no_jax_and_no_reference_package():
     names = names.split(",")
     expected = len(list(pkgutil.walk_packages(
         generativeaiexamples_tpu_torch.__path__, "generativeaiexamples_tpu_torch.")))
-    assert len(names) == expected >= 22
+    assert len(names) == expected >= 54
     for module in ("engine.paged_kv", "models.bert", "engine.embedder", "engine.reranker", "engine.microbatch",
-                   "retrieval.base", "retrieval.memory", "retrieval.gpu"):
+                   "retrieval.base", "retrieval.memory", "retrieval.gpu", "retrieval.retriever", "retrieval.factory",
+                   "core.config", "core.configuration", "core.tracing", "obs.metrics", "obs.trace", "obs.recorder",
+                   "resilience.deadline", "resilience.breaker", "resilience.retry", "resilience.degrade",
+                   "resilience.faults", "resilience.metrics", "cache.log", "cache.metrics", "cache.core",
+                   "chains.factory"):
         assert f"generativeaiexamples_tpu_torch.{module}" in names
     assert bad == "", f"port pulled in: {bad}"
 

@@ -350,3 +350,38 @@ def test_unported_snapshots_raise(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GPUVectorStore(DIM)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_search_fallback_matches_the_device_search_and_reference(dtype):
+    """The host-mirror fallback (the ``index_fallback`` rung) answers as the
+    device search does: it scores the store's dtype, honours the masks and
+    ranks ties by lower row.  In float32 it is also the reference's
+    ``search_fallback``; in bfloat16 the reference scores its f32 mirror,
+    the port the bf16 values its device search scores."""
+    vecs, rng = _clustered(1500)
+    pair = Pair(dtype)
+    pair.add(_texts("t", 0, 1200), [f"s{i % 7}" for i in range(1200)], vecs[:1200])
+    pair.port.search(vecs[0], 1)  # device build: the next rows ride the tail
+    pair.ref.search(vecs[0], 1)
+    pair.add(_texts("t", 1200, 1500), ["tail"] * 300, vecs[1200:])
+    pair.delete("s3")
+    queries = np.concatenate([vecs[rng.integers(0, 1500, 6)], _clustered(6, seed=1)[0]])
+    for k in (1, 4, 10):
+        got = pair.port.search_fallback(queries, k)
+        device = pair.port.search_batch(queries, k)
+        assert [[h.chunk.text for h in r] for r in got] == [[h.chunk.text for h in r] for r in device]
+        np.testing.assert_allclose([h.score for r in got for h in r], [h.score for r in device for h in r],
+                                   atol=SCORE_TOL, rtol=0)
+        assert all(h.chunk.source != "s3" for r in got for h in r)
+        if dtype == "float32":
+            want = pair.ref.search_fallback(queries, k)
+            assert [[h.chunk.text for h in r] for r in got] == [[h.chunk.text for h in r] for r in want]
+            np.testing.assert_allclose([h.score for r in got for h in r], [h.score for r in want for h in r],
+                                       atol=SCORE_TOL, rtol=0)
+    assert pair.port.search_fallback([], 4) == [] and pair.port.search_fallback(queries[:2], 0) == [[], []]
+    # Planted ties: equal rows rank the lower row first, as the device does.
+    tie = GPUVectorStore(DIM, dtype=dtype, device="cpu")
+    tie.add([Chunk(text=f"d{i}", source="s") for i in range(6)], np.repeat(vecs[:2], 3, axis=0))
+    assert [h.chunk.text for h in tie.search_fallback(vecs[:1], 3)[0]] == ["d0", "d1", "d2"]
+    assert [h.chunk.text for h in tie.search_batch(vecs[:1], 3)[0]] == ["d0", "d1", "d2"]
