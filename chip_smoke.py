@@ -80,9 +80,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    32 x 512 arctic-embed-l forward traced the same way.  The traces come
    after every untraced measurement: a trace leaves the process's later
    host work slower.
+12. ``chain``: the chain server as ``create_app()`` builds it from the
+   ``APP_*`` defaults (Llama-3-8B W8A8 behind ``GPUChatLLM``, random int8,
+   seed 0; arctic-embed-l; the exact store; the result cache; no
+   reranker), the earlier phases' params freed first, driven over HTTP on
+   127.0.0.1 (K4 first held against its plain version at the phase's
+   prefill shape, s = 2048).  64 short documents and 4 of ~6 KB uploaded
+   through ``/documents``; 16 ``/search`` queries equal to
+   ``QAChatbot().document_search`` and to the store's threshold-filtered
+   search, bit for bit; the long documents deleted and no longer
+   searched; one greedy ``/generate`` whose system turn is the RAG
+   template over the hits ``/search`` gave, and whose streamed text is
+   the engine's own for the same ids submitted directly; 8 concurrent
+   streams and one with the knowledge base off (TTFT, decode tokens/s,
+   Server-Timing stages, micro-batches); ``/health``, ``/metrics``, a 504
+   at a 1 ms deadline.  Launch counts are zeroed after the build and read
+   at the end: K1, K2 and K4 must have launched, K3 not.
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+Then the ``kernels`` summary line (each kernel's ``launches`` from its
+serving phase, ``chain_launches`` from ``chain``), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 It needs one CUDA card and the repository's ``generativeaiexamples_tpu_torch``
 package beside it; without either it exits non-zero and prints no result.
 """
@@ -97,6 +114,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -326,6 +344,61 @@ def check_qmm(torch, dev, log):
                 shape="one layer's wqkv+wo+w_gu+w_down at M=32 (per-shape rows in the kernel lines)",
                 layer_ms_by_m={m: v["ms"] for m, v in layers.items()},
                 layer_library_ms_by_m={m: v["library_ms"] for m, v in layers.items()})
+
+
+class QmmShapes:
+    """Records the operand shapes of every K1 launch while it is entered
+    (it wraps ``qmm.qmm_cuda``, which ``q_matmul`` calls), so that
+    ``check_qmm_shapes`` can hold each against the plain version."""
+
+    def __init__(self):
+        from generativeaiexamples_tpu_torch.ops import qmm
+
+        self._qmm, self._launch, self.seen = qmm, qmm.qmm_cuda, set()
+
+    def __enter__(self):
+        def recording(xq, a_scale, w, w_scale, n, out_dtype):
+            self.seen.add((xq.shape[0], xq.shape[1], w.shape[0], n, out_dtype))
+            return self._launch(xq, a_scale, w, w_scale, n, out_dtype)
+
+        self._qmm.qmm_cuda = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._qmm.qmm_cuda = self._launch
+
+
+QMM_PLAIN_ROWS = 8192  # rows of the f64 plain product at a time
+
+
+def check_qmm_shapes(torch, dev, shapes, worst_m: int) -> None:
+    """K1 bit for bit against its plain version at every shape the serving
+    phases launched it with, and at ``worst_m`` (the largest cold batch the
+    admission budget lets through: ``max_batch`` prompts bucketed to
+    ``max_len``) for each projection seen at a wide M.  Operands are full
+    range int8; the plain version runs on row blocks (it is row-wise)."""
+    from generativeaiexamples_tpu_torch.ops import qmm
+
+    shapes = set(shapes) | {(worst_m, k, n_pad, n, dt) for m, k, n_pad, n, dt in shapes if m > qmm.DECODE_MAX_M}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    for m, k_pad, n_pad, n, dtype in sorted(shapes, key=lambda s: s[:4]):
+        w = torch.randint(-127, 128, (n_pad, k_pad), dtype=torch.int8, device=dev, generator=gen)
+        w_scale = torch.rand(n_pad, device=dev, generator=gen) * 1e-3 + 1e-4
+        xq = torch.randint(-127, 128, (m, k_pad), dtype=torch.int8, device=dev, generator=gen)
+        a_scale = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
+        out = qmm.qmm_cuda(xq, a_scale, w, w_scale, n, dtype)
+        for r in range(0, m, QMM_PLAIN_ROWS):
+            ref = qmm.qmm_plain(xq[r:r + QMM_PLAIN_ROWS], a_scale[r:r + QMM_PLAIN_ROWS], w, w_scale, n, dtype)
+            if not torch.equal(out[r:r + QMM_PLAIN_ROWS], ref):
+                diff = (out[r:r + QMM_PLAIN_ROWS].float() - ref.float()).abs().max().item()
+                raise AssertionError(f"qmm M={m} K={k_pad} N={n}: kernel differs from plain at rows {r}+ (max {diff})")
+        del w, xq, out, ref
+    torch.cuda.empty_cache()
+    ms = sorted({s[0] for s in shapes})
+    emit("kernel", kernel="qmm", check="every serving shape", shapes=len(shapes), m=ms, worst_m=worst_m,
+         designs=sorted({qmm.qmm_plan(m, 4096, 4096).design for m in ms}), bitwise_equal=True,
+         seconds=time.perf_counter() - t0)
 
 
 def check_decode(torch, dev):
@@ -1322,18 +1395,36 @@ def retriever_phase(torch, dev, store) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _http(method, url, body=None, headers=None, timeout=600):
+    """(status, headers, body bytes) of one request, error statuses included."""
+    data = json.dumps(body).encode() if isinstance(body, (dict, list)) else body
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers, exc.read()
+
+
 def _post(url, body, timeout=600):
-    req = urllib.request.Request(url, json.dumps(body).encode(), {"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return resp.status, resp.read().decode()
+    status, _, raw = _http("POST", url, body, timeout=timeout)
+    return status, raw.decode()
 
 
 def _get(url, timeout=60):
-    with urllib.request.urlopen(url, timeout=timeout) as resp:
-        return resp.status, resp.read().decode()
+    status, _, raw = _http("GET", url, timeout=timeout)
+    return status, raw.decode()
 
 
-SERVE_KW = dict(max_batch=32, max_len=2048, decode_chunk_size=8, prefill_chunk_tokens=256, seed=0)
+def serve_kw(kv_layout: str) -> dict:
+    """The engine server's serving settings for one KV layout."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import SERVING_DEFAULTS
+
+    paged = dict(kv_layout="paged", kv_page_size=64) if kv_layout == "paged" else {}
+    return dict(SERVING_DEFAULTS, **paged)
+
+
 # Kernels each serving path must launch, and the decode kernel of the other
 # layout, which it must not.
 PATH_KERNELS = {
@@ -1447,8 +1538,7 @@ def serve_rag(torch, base: str, rag) -> dict:
 def make_scheduler(cfg, params, dev, kv_layout):
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
 
-    paged = dict(kv_layout="paged", kv_page_size=64) if kv_layout == "paged" else {}
-    return Scheduler(cfg, params, device=dev, **SERVE_KW, **paged)
+    return Scheduler(cfg, params, device=dev, **serve_kw(kv_layout))
 
 
 def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=None):
@@ -1561,7 +1651,7 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=N
             pool_fields["all_free_after_drain"] = True
         emit(
             phase, model="llama3-8b", layers=cfg.n_layers, d_model=cfg.d_model, weights="random int8, seed 0",
-            kv=f"int8 {kv_layout}" + (", page 64" if paged else ""), **SERVE_KW, cache_build_s=build_s,
+            kv=f"int8 {kv_layout}" + (", page 64" if paged else ""), **serve_kw(kv_layout), cache_build_s=build_s,
             device_gb_after_build=built_gb, requests=len(prompts["completions"]) + 1,
             prompt_tokens=prompts["lengths"], completion_tokens=n_tokens, wall_s=wall,
             ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None,
@@ -1716,6 +1806,398 @@ def profile_decode(torch, dev, cfg, params, kv_layout: str, timing: dict) -> Non
     )
 
 
+# ---------------------------------------------------------------------------
+# the chain server: /documents -> /search -> /generate over Llama-3-8B
+# ---------------------------------------------------------------------------
+
+CHAIN_SHORT_DOCS, CHAIN_LONG_DOCS, CHAIN_SEARCHES, CHAIN_CONCURRENT_GEN = 64, 4, 16, 8
+# Short documents stay under 350 bytes, so a prompt of the RAG template
+# and four of them fits the engine's 2,039-token bound (byte tokens).
+CHAIN_SHORT_BYTES, CHAIN_LONG_BYTES, CHAIN_GEN_TOKENS = (200, 350), 6000, 32
+CHAIN_WORDS = ("cache", "vector", "search", "engine", "token", "layer", "kernel", "batch", "store", "query",
+               "answer", "prompt", "device", "memory", "stream", "server", "index", "rank", "score", "model")
+
+
+def _chain_text(rng, n_bytes: int) -> str:
+    out = ""
+    while len(out) < n_bytes:
+        out += " ".join(rng.choice(CHAIN_WORDS, int(rng.integers(4, 12)))) + ". "
+    return out[:n_bytes].strip()
+
+
+def _upload(base, name: str, text: str) -> float:
+    """POST one text document as multipart/form-data; returns its ms."""
+    boundary = "chainSmokeBoundary"
+    body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{name}"\r\n'
+            f"Content-Type: text/plain\r\n\r\n{text}\r\n--{boundary}--\r\n").encode()
+    t0 = time.perf_counter()
+    status, _, raw = _http("POST", base + "/documents", body,
+                           {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    if status != 200:
+        raise AssertionError(f"chain: upload of {name} failed: {status} {raw[:300]!r}")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _generate(base, query: str, kb: bool = True, max_tokens: int = CHAIN_GEN_TOKENS, headers=None) -> dict:
+    """One streamed /generate: status, text, ms to the first ``data:`` line
+    and to the end, ms between successive ``data:`` lines, the [DONE]
+    chunk and the response headers."""
+    body = {"messages": [{"role": "user", "content": query}], "use_knowledge_base": kb, "temperature": 0,
+            "max_tokens": max_tokens}
+    req = urllib.request.Request(base + "/generate", json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        resp = urllib.request.urlopen(req, timeout=600)
+    except urllib.error.HTTPError as exc:
+        return dict(status=exc.code, body=exc.read(), headers=exc.headers)
+    chunks, arrivals = [], []
+    with resp:
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("data: "):
+                arrivals.append(time.perf_counter())
+                chunks.append(json.loads(line[6:]))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if not chunks or chunks[-1]["choices"][0]["finish_reason"] != "[DONE]" or not chunks[-1]["id"]:
+        raise AssertionError(f"chain: /generate did not end with a [DONE] chunk of this stream: {chunks[-1:]}")
+    pieces = [c["choices"][0]["message"]["content"] for c in chunks[:-1]]
+    return dict(status=resp.status, text="".join(pieces), pieces=pieces, done=chunks[-1],
+                ttft_ms=(arrivals[0] - t0) * 1e3, wall_ms=wall_ms, headers=resp.headers,
+                gaps_ms=[(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])])
+
+
+def _search(base, query: str, top_k: int) -> list:
+    """One /search: its chunks.  Fails unless it is a 200 that no rung of
+    the degradation ladder served."""
+    status, _, raw = _http("POST", base + "/search", {"query": query, "top_k": top_k})
+    body = json.loads(raw) if status == 200 else {}
+    if status != 200 or body["degraded"]:
+        raise AssertionError(f"chain: /search {query!r}: {status} {raw[:300]!r}")
+    return body["chunks"]
+
+
+def _server_timing(header: str) -> dict:
+    """Server-Timing ``name;dur=ms`` entries, summed by name."""
+    out: dict = {}
+    for part in (header or "").split(","):
+        name, _, dur = part.strip().partition(";dur=")
+        if name and dur:
+            out[name] = out.get(name, 0.0) + float(dur)
+    return out
+
+
+def _pct(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+
+def check_flash_long(torch, dev) -> dict:
+    """K4 at the chain's prefill shape (RAG prompts of ~2k tokens, whole and
+    cold) against its plain version within FLASH_TOL."""
+    from generativeaiexamples_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, s, nq, nkv, hd = 2, 2048, 32, 8, 128
+    q = torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, s, nkv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, s, nkv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([1931, 1702], dtype=torch.int32, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s).contiguous()
+    out = fa.flash_attention_cuda(q, k, v, pos, lengths)
+    ref = fa.flash_gqa_attention_plain(q, k, v, pos, lengths)
+    valid = pos < lengths[:, None]
+    torch.testing.assert_close(out[valid], ref[valid], **FLASH_TOL)
+    return dict(flash_s2048_max_abs_err=(out[valid].float() - ref[valid].float()).abs().max().item(),
+                flash_s2048_tolerance_use=tolerance_use(out[valid], ref[valid], **FLASH_TOL))
+
+
+def chain_phase(torch, dev, _cuda, smi: str) -> dict:
+    """The chain server from ``APP_*`` defaults through ``create_app()``:
+    Llama-3-8B W8A8 (random, seed 0) behind ``GPUChatLLM``, arctic-embed-l,
+    the exact store, the result cache, no reranker.  Documents in over
+    HTTP, searches against direct calls, /generate against the engine's
+    own greedy text, concurrent streams, the other routes.  Returns the
+    launches of the phase."""
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.chains import factory
+    from generativeaiexamples_tpu_torch.chains.developer_rag import QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import GPUChatLLM
+    from generativeaiexamples_tpu_torch.core.configuration import get_config, reset_config_cache
+    from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    from generativeaiexamples_tpu_torch.engine.tokenizer import decode_stream
+    from generativeaiexamples_tpu_torch.obs.slo import slo_health
+    from generativeaiexamples_tpu_torch.retrieval.base import Chunk, ScoredChunk
+    from generativeaiexamples_tpu_torch.server.app import UPLOAD_DIR_ENV, create_app
+    from generativeaiexamples_tpu_torch.server.schema import sanitize
+
+    t_phase = time.perf_counter()
+    fields = dict(nvidia_smi=smi, **check_flash_long(torch, dev))
+    reset_config_cache()
+    factory.reset_factories()
+    cfg = get_config()
+    os.environ[UPLOAD_DIR_ENV] = tempfile.mkdtemp(prefix="chain_uploads_")
+    t0 = time.perf_counter()
+    server = create_app()
+    torch.cuda.synchronize()
+    fields["build_s"] = time.perf_counter() - t0
+    llm, retriever, store = factory.peek_chat_llm(), factory.get_retriever(), factory.get_store()
+    cache, batcher, splitter = factory.get_retrieval_cache(), factory.get_retrieval_batcher(), factory.get_splitter()
+    sched = llm.scheduler
+    if (not isinstance(llm, GPUChatLLM) or sched.device.type != "cuda" or retriever.reranker is not None
+            or cache is None or batcher is None or type(store).__name__ != "GPUVectorStore"):
+        raise AssertionError("chain: create_app() did not build the default chain on the card")
+    fields.update(config="APP_* defaults", llm=f"{cfg.llm.model_name} -> llama3-8b W8A8, "
+                  f"{sched.cfg.n_layers} layers, random int8, seed 0",
+                  engine=dict(max_batch=sched.max_batch, max_len=sched.max_len,
+                              decode_chunk_size=sched.decode_chunk_size,
+                              prefill_chunk_tokens=sched.prefill_chunk_tokens, prefix_cache=sched.prefix_cache,
+                              kv_layout=sched.kv_layout, max_prompt_len=sched.max_prompt_len),
+                  embedder=f"arctic-embed-l, {retriever.embedder.cfg.n_layers} layers, random bf16, seed 0",
+                  top_k=retriever.top_k, score_threshold=retriever.score_threshold,
+                  device_gb_after_build=torch.cuda.memory_allocated(dev) / 1e9)
+    # What GPUChatLLM.stream receives, recorded by wrapping the class's
+    # method for this phase (the server has no hook of its own).
+    received: list = []
+    stream = GPUChatLLM.stream
+
+    def recording_stream(self, messages, **kw):
+        received.append(list(messages))
+        return stream(self, messages, **kw)
+
+    GPUChatLLM.stream = recording_stream
+    # The token ids each request receives, by request id: the server's
+    # streams and the direct submission go through the scheduler's submit.
+    ids_by_request: dict = {}
+    submit = sched.submit
+
+    def recording_submit(req):
+        on_token, got = req.on_token, ids_by_request.setdefault(req.id, [])
+        req.on_token = lambda t: (got.append(int(t)), on_token(t))
+        submit(req)
+
+    sched.submit = recording_submit
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(0)
+    try:
+        _cuda.reset_launch_counts()
+        # 1. Ingest: 64 one-chunk documents and 4 of ~6 KB (token splitter
+        # at 510/200: 508-token windows every 308 tokens).
+        short = [_chain_text(rng, int(rng.integers(*CHAIN_SHORT_BYTES))) for _ in range(CHAIN_SHORT_DOCS)]
+        long = [_chain_text(rng, CHAIN_LONG_BYTES) for _ in range(CHAIN_LONG_DOCS)]
+        short_ms = [_upload(base, f"short{i}.txt", t) for i, t in enumerate(short)]
+        long_ms = [_upload(base, f"long{i}.txt", t) for i, t in enumerate(long)]
+        long_chunks = [len(splitter.split(t)) for t in long]
+        rows = store.capacity_stats()["rows"]
+        if rows != CHAIN_SHORT_DOCS + sum(long_chunks) or min(long_chunks) < 2:
+            raise AssertionError(f"chain: {rows} rows after ingest, want {CHAIN_SHORT_DOCS} + {long_chunks}")
+        fields.update(ingest_docs=len(short) + len(long), ingest_short_ms_per_doc=sum(short_ms) / len(short),
+                      ingest_long_ms_per_doc=sum(long_ms) / len(long), long_doc_chunks=long_chunks,
+                      store_rows_after_ingest=rows)
+
+        # 2. /search, one query at a time, each on a cleared cache (random
+        # embeddings lie within the semantic tier's 0.98 of each other),
+        # against QAChatbot().document_search on a cleared cache and the
+        # store's own threshold-filtered search.
+        queries = [_chain_text(rng, int(rng.integers(30, 60))) for _ in range(CHAIN_SEARCHES)]
+        k = retriever.top_k
+        search_ms = []
+        for q in queries:
+            cache.clear()
+            t0 = time.perf_counter()
+            found = _search(base, q, k)
+            search_ms.append((time.perf_counter() - t0) * 1e3)
+            got = [(c["content"], c["filename"], c["score"]) for c in found]
+            cache.clear()
+            direct = [(h["content"], h["source"], h["score"]) for h in QAChatbot().document_search(q, k)]
+            hits = store.search_batch(retriever.embedder.embed_queries([q]), k)[0]
+            want = [(h.chunk.text, h.chunk.source, h.score) for h in hits if h.score >= retriever.score_threshold]
+            if not got or got != direct or got != want:
+                raise AssertionError(f"chain: /search {q!r}:\n{got}\n{direct}\n{want}")
+        fields.update(searches=len(queries), search_ms_p50=_pct(search_ms, 0.5), search_ms_p95=_pct(search_ms, 0.95),
+                      search_equal_to_direct_and_store=True)
+
+        # 3. Deletes: the long documents go (their chunks would not fit a
+        # prompt beside the template: 4 x 508 tokens), and are no longer
+        # searched.
+        probe = None
+        for q in queries:  # a query whose top 25 holds long-document chunks
+            cache.clear()
+            if any(c["filename"].startswith("long") for c in _search(base, q, 25)):
+                probe = q
+                break
+        for i in range(CHAIN_LONG_DOCS):
+            status, _, raw = _http("DELETE", base + f"/documents?filename=long{i}.txt")
+            if status != 200:
+                raise AssertionError(f"chain: DELETE long{i}.txt: {status} {raw[:200]!r}")
+        _, _, raw = _http("GET", base + "/documents")
+        listed = json.loads(raw)["documents"]
+        cache.clear()
+        after = _search(base, probe or queries[0], 25)
+        if any(n.startswith("long") for n in listed) or len(listed) != CHAIN_SHORT_DOCS or probe is None or any(
+                c["filename"].startswith("long") for c in after):
+            raise AssertionError(f"chain: deletes not honoured (probe {probe is not None}, listed {len(listed)})")
+        fields.update(deleted_docs=CHAIN_LONG_DOCS, store_rows_after_delete=store.capacity_stats()["rows"])
+
+        # 4. /generate, knowledge base on, greedy, 32 tokens.  Gate 1: the
+        # system turn is the RAG template over the hits /search gave.  Gate
+        # 2: the token ids the server's stream received are the engine's
+        # for the same chat-templated ids submitted directly, and so is the
+        # streamed text.  The prefix cache is off for the gate, so both go
+        # through the same cold prefill.
+        q = _chain_text(rng, 50)
+        cache.clear()
+        hits = _search(base, q, k)
+        sched.prefix_cache = "off"
+        received.clear()
+        ids_by_request.clear()
+        res = _generate(base, q)
+        streamed_ids = list(ids_by_request.values())
+        messages = received[-1]
+        context = retriever.build_context(
+            [ScoredChunk(Chunk(text=h["content"], source=h["filename"]), h["score"]) for h in hits])
+        if res["status"] != 200 or messages[0] != ("system", cfg.prompts.rag_template.format(context=context)) or (
+                messages[-1] != ("user", q)) or res["done"]["cache_tier"] != "exact" or res["done"]["degraded"]:
+            raise AssertionError(f"chain: gate 1: the retrieved context did not reach the prompt ({res['done']})")
+        ids = llm.tokenizer.apply_chat_template(messages)
+        tokens, done = [], []
+        sched.submit(Request(token_ids=list(ids), sampling=SamplingParams(temperature=0.0, top_p=0.7,
+                             max_tokens=CHAIN_GEN_TOKENS), on_token=tokens.append, on_done=done.append,
+                             eos_id=llm.tokenizer.eos_id, id="chain-direct"))
+        t0 = time.perf_counter()
+        while not done and time.perf_counter() - t0 < 300:
+            time.sleep(0.01)
+        sched.prefix_cache = "shared"
+        if not done or done[0] not in ("stop", "length") or len(streamed_ids) != 1 or streamed_ids[0] != tokens:
+            raise AssertionError(f"chain: gate 2: the stream's ids {streamed_ids} != the engine's {tokens} ({done})")
+        # The engine's text as the server streams it: one chunk per
+        # non-empty decoded piece, each sanitized as the reference's
+        # Message is (a piece "<|id|>" of an id past the byte vocabulary
+        # becomes an empty chunk).
+        piece = decode_stream(llm.tokenizer)
+        direct = [p for p in [piece(t) for t in tokens] + [piece(0, final=True)] if p]
+        if [sanitize(p) for p in direct] != res["pieces"]:
+            raise AssertionError(f"chain: gate 2: streamed {res['pieces']} != engine's {direct}")
+        fields.update(gate_prompt_tokens=len(ids), gate_hits=len(hits), gate_context_chars=len(context),
+                      gate_ttft_ms=res["ttft_ms"], gate_wall_ms=res["wall_ms"], gate_tokens=len(tokens),
+                      gate_text=res["text"], gate_byte_tokens=sum(t < llm.tokenizer.vocab_size for t in tokens),
+                      context_in_prompt=True, answer_ids_equal_to_engine=True, answer_equal_to_engine=True)
+
+        # 5. Concurrent streams: 8 with the knowledge base on (fresh
+        # queries, a cleared cache), then one with it off.
+        cache.clear()
+        snap0, rag0 = sched.stats.snapshot(), batcher.stats.snapshot()
+        gen_queries = [_chain_text(rng, int(rng.integers(30, 60))) for _ in range(CHAIN_CONCURRENT_GEN)]
+        results: dict = {}
+        received.clear()
+
+        def one(i):
+            results[i] = _generate(base, gen_queries[i])
+
+        workers = [threading.Thread(target=one, args=(i,)) for i in range(CHAIN_CONCURRENT_GEN)]
+        t_wall = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        wall = time.perf_counter() - t_wall
+        snap1, rag1 = sched.stats.snapshot(), batcher.stats.snapshot()
+        if len(results) != CHAIN_CONCURRENT_GEN or any(
+                r["status"] != 200 or not r["pieces"] or r["done"]["degraded"] for r in results.values()):
+            raise AssertionError(f"chain: a concurrent /generate failed or degraded: "
+                                 f"{[(r['status'], r['done']['degraded']) for r in results.values()]}")
+        prompt_tokens = [len(llm.tokenizer.apply_chat_template(m)) for m in received]
+        off = _generate(base, gen_queries[0], kb=False)
+        if off["status"] != 200 or not off["pieces"] or off["done"]["cache_tier"] or off["done"]["degraded"]:
+            raise AssertionError(f"chain: /generate with the knowledge base off failed: {off}")
+        ttfts = [r["ttft_ms"] for r in results.values()]
+        # The stream admitted first is decoding when the others' cold batch
+        # is prefilled whole: its longest gap between SSE lines, beside the
+        # longest gaps of the others (a decode chunk's tokens come out
+        # together), is what that prefill costs a running stream.
+        first = min(results.values(), key=lambda r: r["ttft_ms"])
+        later_gaps = sorted(max(r["gaps_ms"]) for r in results.values() if r is not first)
+        stages = [_server_timing(r["headers"].get("Server-Timing")) for r in results.values()]
+        decode_tokens = (snap1["tokens_total"] - snap0["tokens_total"]) - (snap1["requests_total"] - snap0["requests_total"])
+        decode_s = snap1["decode_s"] - snap0["decode_s"]
+        fields.update(
+            concurrent=CHAIN_CONCURRENT_GEN, concurrent_wall_s=wall, ttft_ms_p50=_pct(ttfts, 0.5),
+            ttft_ms_p95=_pct(ttfts, 0.95), ttft_ms=sorted(ttfts), stream_wall_ms=sorted(r["wall_ms"] for r in results.values()),
+            first_stream_gaps_ms_top=sorted(first["gaps_ms"])[-4:],
+            later_streams_max_gap_ms=[later_gaps[0], _pct(later_gaps, 0.5), later_gaps[-1]],
+            decode_tokens_per_s=decode_tokens / decode_s if decode_s else None,
+            tokens_per_s=(snap1["tokens_total"] - snap0["tokens_total"]) / wall,
+            rag_prompt_tokens=[min(prompt_tokens), max(prompt_tokens)],
+            retrieval_stage_ms={name: [_pct([s.get(name, 0.0) for s in stages], 0.5),
+                                       max(s.get(name, 0.0) for s in stages)]
+                                for name in ("cache_lookup", "queue_wait", "embed", "search")},
+            # Random embeddings lie within the semantic tier's 0.98 of each
+            # other: a batch after the first may be served from the ring.
+            concurrent_cache_tiers=sorted(r["done"]["cache_tier"] for r in results.values()),
+            microbatch_requests=rag1["requests_total"] - rag0["requests_total"],
+            microbatch_batches=rag1["batches_total"] - rag0["batches_total"],
+            kb_off_ttft_ms=off["ttft_ms"], kb_off_wall_ms=off["wall_ms"],
+            kb_off_prompt_tokens=len(llm.tokenizer.apply_chat_template(received[-1])))
+
+        # 6. The other routes.
+        status, _, raw = _http("GET", base + "/health")
+        health = json.loads(raw)
+        status_m, _, raw = _http("GET", base + "/metrics")
+        series = {line.split(" ")[0]: float(line.split(" ")[1]) for line in raw.decode().splitlines()
+                  if line and not line.startswith("#")}
+        # /health is "degraded" exactly while the SLO engine's fast-burn
+        # rule fires (streams past /generate's 2,500 ms latency objective
+        # burn its budget); every breaker must be closed.
+        slo = slo_health()
+        if status != 200 or health["slo"] != slo or health["status"] != ("degraded" if slo["degraded"] else "ok") or (
+                set(health["breakers"].values()) != {"closed"}) or status_m != 200 or (
+                series["rag_requests_total"] != batcher.stats.snapshot()["requests_total"]) or (
+                series["rag_store_rows"] != store.capacity_stats()["rows"]):
+            raise AssertionError(f"chain: /health {status} {health} or /metrics {status_m} disagree")
+        # No rung of the degradation ladder (the LLM-only answer, the host
+        # scan, ...) served a request of the phase, and no breaker opened
+        # (the counters are reset at the phase's start).
+        ladder = {name: v for name, v in series.items()
+                  if name.startswith(("rag_degraded_total", "rag_breaker_open_total"))}
+        if not ladder or any(ladder.values()):
+            raise AssertionError(f"chain: the ladder served requests: {ladder}")
+        late = _generate(base, _chain_text(rng, 40), headers={"X-Request-Deadline-Ms": "1"})
+        unlimited = _generate(base, _chain_text(rng, 40), max_tokens=4, headers={"X-Request-Deadline-Ms": "0"})
+        if late["status"] != 504 or unlimited["status"] != 200:
+            raise AssertionError(f"chain: deadline 1 ms gave {late['status']}, 0 gave {unlimited['status']}")
+        fields.update(health=health["status"], health_slo_firing=health["slo"]["firing"],
+                      metrics_rag_requests_total=series["rag_requests_total"],
+                      metrics_rag_store_rows=series["rag_store_rows"], ladder_counters_zero=len(ladder),
+                      deadline_1ms_status=504,
+                      deadline_0_status=200)
+
+        # 7. Every kernel of the path launched in this phase (counts zeroed
+        # after the build, before the first request).
+        launches = dict(_cuda.LAUNCHES)
+        if not all(launches[n] for n in ("qmm", "decode_attention", "flash_attention")) or (
+                launches["paged_decode_attention"]):
+            raise AssertionError(f"chain: path launches {launches}")
+        fields.update(launches=launches, qmm_design_launches=dict(_cuda.QMM_DESIGN_LAUNCHES))
+    finally:
+        GPUChatLLM.stream = stream
+        sched.submit = submit
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        factory.reset_factories()  # stops the engine's tick thread, frees the chain
+        reset_config_cache()
+        del os.environ[UPLOAD_DIR_ENV]
+    fields["phase_s"] = time.perf_counter() - t_phase
+    emit("chain", **fields)
+    return launches
+
+
 def main() -> int:
     # The run uses one card: only the first visible one is exposed, so the
     # device count in the last line is 1 whatever else the machine holds.
@@ -1800,22 +2282,33 @@ def main() -> int:
     emit("params", model="llama3-8b", seconds=time.perf_counter() - t0,
          device_gb=torch.cuda.memory_allocated(dev) / 1e9)
     prompts = make_prompts()
-    try:
-        launches, alone, timing = serve(torch, dev, _cuda, cfg, params, prompts, "contiguous", rag=rag)
-    finally:
-        rag[0].close()
-    del rag
-    gc.collect()
-    torch.cuda.empty_cache()
-    paged_launches, _, paged_timing = serve(torch, dev, _cuda, cfg, params, prompts, "paged", expect=alone)
-    # Each kernel's launches come from the path that runs it.
-    launches["paged_decode_attention"] = paged_launches["paged_decode_attention"]
-    for kv_layout, t in (("contiguous", timing), ("paged", paged_timing)):
+    # Every K1 shape the serving phases launch is held bit for bit against
+    # the plain version after them.
+    with QmmShapes() as k1_shapes:
+        try:
+            launches, alone, timing = serve(torch, dev, _cuda, cfg, params, prompts, "contiguous", rag=rag)
+        finally:
+            rag[0].close()
+        del rag
         gc.collect()
         torch.cuda.empty_cache()
-        profile_decode(torch, dev, cfg, params, kv_layout, t)
-    profile_embed(torch, dev, embedder)
-    del embedder
+        paged_launches, _, paged_timing = serve(torch, dev, _cuda, cfg, params, prompts, "paged", expect=alone)
+        # Each kernel's launches come from the path that runs it.
+        launches["paged_decode_attention"] = paged_launches["paged_decode_attention"]
+        for kv_layout, t in (("contiguous", timing), ("paged", paged_timing)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            profile_decode(torch, dev, cfg, params, kv_layout, t)
+        profile_embed(torch, dev, embedder)
+        del embedder, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # The chain server builds its own engine and embedder from APP_*.
+        chain_launches = chain_phase(torch, dev, _cuda, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = serve_kw("contiguous")
+    check_qmm_shapes(torch, dev, k1_shapes.seen, worst_m=kw["max_batch"] * kw["max_len"])
 
     kernels = []
     for name, s in summary.items():
@@ -1824,6 +2317,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "eager_ms": s["eager_ms"], "shape": s["shape"],
+            "chain_launches": chain_launches[name],
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

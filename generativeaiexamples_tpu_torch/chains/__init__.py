@@ -1,2 +1,7 @@
-"""Chain-side wiring: the retrieval half of ``chains/factory.py`` (the
-chains themselves come with the chain server, ``ROADMAP.md``)."""
+"""RAG pipeline plugins and their factories (port of the JAX package's
+``chains/``: the ``developer_rag`` pipeline; the other chains are not
+ported yet, ``ROADMAP.md``)."""
+
+from generativeaiexamples_tpu_torch.chains.base import BaseExample
+
+__all__ = ["BaseExample"]

@@ -1,18 +1,21 @@
-"""Lazy singletons for the retrieval chain (port of the retrieval half of
-the JAX package's ``chains/factory.py``).
+"""Lazy singletons for the chains (port of the JAX package's
+``chains/factory.py``).
 
-``get_embedder``, ``get_store``, ``get_reranker``, ``get_retriever``,
-``get_retrieval_cache`` and ``get_retrieval_batcher`` build one shared
-instance per process from ``get_config()``, so the pipelines of a process
-share one embedder, one store and one micro-batcher.  Engine names are the
+``get_chat_llm``, ``get_embedder``, ``get_store``, ``get_reranker``,
+``get_splitter``, ``get_retriever``, ``get_retrieval_cache`` and
+``get_retrieval_batcher`` build one shared instance per process from
+``get_config()``, so the pipelines of a process share one engine, one
+embedder, one store and one micro-batcher.  Engine names are the
 reference's: ``tpu`` means this package's device implementation on the
-card (``GPUEmbedder``, ``GPUVectorStore``, ``GPUReranker``) and ``hash``
-the ``HashEmbedder`` fake.
+card (``GPUChatLLM``, ``GPUEmbedder``, ``GPUVectorStore``,
+``GPUReranker``), ``openai`` an HTTP client, and ``echo`` / ``hash`` the
+fakes.
 
-Each factory function takes ``device`` like every other entry point of the port:
-``None`` is the card, ``"cpu"`` the CPU; the first build of a singleton
-fixes its device.  The LLM, splitter, ingest, durability and collections
-factories come with the chain server (``ROADMAP.md``, Queue 1 item 2).
+Each factory function takes ``device`` like every other entry point of the
+port: ``None`` is the card, ``"cpu"`` the CPU; the first build of a
+singleton fixes its device.  The bulk-ingest pipeline, the named
+collections, the conversation-memory store and durability are not ported
+(``ROADMAP.md``, Queue 1): their factories raise.
 """
 
 from __future__ import annotations
@@ -53,6 +56,67 @@ def _checkpoint_refused(model_name: str, what: str) -> None:
         raise _not_ported(f"loading the provisioned {what} checkpoint {ckpt_dir}", "item 5 (HF weights)")
 
 
+def _build_chat_llm(device):
+    cfg = get_config()
+    engine = cfg.llm.model_engine.lower()
+    if engine == "echo":
+        from generativeaiexamples_tpu_torch.chains.llm import EchoChatLLM
+
+        return EchoChatLLM()
+    if engine == "openai":
+        from generativeaiexamples_tpu_torch.chains.llm import OpenAIChatLLM
+
+        base = cfg.llm.server_url or "http://localhost:8000/v1"
+        if not base.startswith("http"):
+            base = f"http://{base}/v1"
+        return OpenAIChatLLM(base_url=base, model=cfg.llm.model_name)
+    if engine == "tpu":
+        from generativeaiexamples_tpu_torch.chains.llm import GPUChatLLM
+        from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset
+
+        _checkpoint_refused(cfg.llm.model_name, "LLM")
+        return GPUChatLLM(model_preset=resolve_model_preset(cfg.llm.model_name), device=device)
+    raise ValueError(f"unknown llm.model_engine {cfg.llm.model_engine!r}")
+
+
+def get_chat_llm(device=None):
+    """Configured chat LLM (reference ``get_chat_llm``): ``tpu`` is
+    :class:`GPUChatLLM`, the in-process engine on ``device``."""
+    return _singleton("chat_llm", _build_chat_llm, device)
+
+
+def peek_chat_llm():
+    """The chat LLM IF one has been built, else None."""
+    return _peek("chat_llm")
+
+
+def get_splitter():
+    """The configured ingestion splitter (``ingest/splitters.py``)."""
+
+    def build(_device):
+        from generativeaiexamples_tpu_torch.ingest.splitters import get_text_splitter
+
+        return get_text_splitter(get_config())
+
+    return _singleton("splitter", build, None)
+
+
+def get_ingest_pipeline():
+    raise _not_ported("the bulk-ingest pipeline (ingest/pipeline.py, POST /documents/bulk)", "item 2")
+
+
+def get_collection_manager():
+    raise _not_ported("named collections (retrieval/fabric/)", "item 8")
+
+
+def get_memory_store():
+    raise _not_ported("the conversation-memory store of the multi-turn chain", "item 2")
+
+
+def shutdown_durability() -> None:
+    raise _not_ported("durability (the write-ahead-logged store and the ingest journal)", "item 2")
+
+
 def _build_embedder(device):
     cfg = get_config()
     engine = cfg.embeddings.model_engine.lower()
@@ -63,7 +127,9 @@ def _build_embedder(device):
     if engine == "huggingface":
         raise _not_ported("embeddings.model_engine 'huggingface' (STEmbedder)", "item 8")
     if engine == "openai":
-        raise _not_ported("embeddings.model_engine 'openai' (the HTTP embedder client)", "item 2")
+        from generativeaiexamples_tpu_torch.engine.embedder_client import HTTPEmbedder
+
+        return HTTPEmbedder(cfg.embeddings.server_url, cfg.embeddings.model_name, cfg.embeddings.dimensions)
     if engine == "tpu":
         from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
         from generativeaiexamples_tpu_torch.models import bert
@@ -219,8 +285,9 @@ def get_retrieval_batcher(device=None):
 def reset_factories(keep: Sequence[str] = ()) -> None:
     """Testing hook: drop the singletons and zero the counters (pairs with
     ``reset_config_cache``).  ``keep`` names singletons to carry over
-    (``"store"``, ``"embedder"``, ...), so a chain can be rebuilt under a
-    new config over a store that is already loaded."""
+    (``"store"``, ``"embedder"``, ``"chat_llm"``, ...), so a chain can be
+    rebuilt under a new config over a store and an engine already loaded.
+    The dropped batcher's worker and chat LLM's scheduler thread stop."""
     from generativeaiexamples_tpu_torch.cache.metrics import reset_cache_metrics
     from generativeaiexamples_tpu_torch.obs import reset_obs
     from generativeaiexamples_tpu_torch.resilience.metrics import reset_resilience
@@ -229,8 +296,9 @@ def reset_factories(keep: Sequence[str] = ()) -> None:
     reset_cache_metrics()
     reset_obs()
     with _LOCK:
-        batcher = None if "batcher" in keep else _STATE.get("batcher")
-        for name in [n for n in _STATE if n not in keep]:
-            del _STATE[name]
-    if batcher is not None:
-        batcher.close()
+        dropped = {n: _STATE.pop(n) for n in list(_STATE) if n not in keep}
+    # Stop the worker threads of what was dropped: the batcher's, and the
+    # chat LLM's scheduler tick.
+    for name in ("batcher", "chat_llm"):
+        if hasattr(dropped.get(name), "close"):
+            dropped[name].close()

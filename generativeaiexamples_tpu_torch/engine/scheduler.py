@@ -59,6 +59,13 @@ from generativeaiexamples_tpu_torch.utils.buckets import bucket_size
 
 logger = get_logger(__name__)
 
+# What the engine server serves with (its command-line defaults); the chain
+# server's in-process LLM (``chains/llm.py::GPUChatLLM``) starts from them.
+SERVING_DEFAULTS = dict(
+    max_batch=32, max_len=2048, decode_chunk_size=8, prefill_chunk_tokens=256,
+    prefix_cache="shared", kv_layout="contiguous", seed=0,
+)
+
 
 @dataclasses.dataclass
 class Request:
@@ -388,6 +395,12 @@ class Scheduler:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+
+    @property
+    def max_prompt_len(self) -> int:
+        """The longest prompt admitted whole: a longer one is clipped to its
+        tail (``_clip_prompt``)."""
+        return self._admit_limit - 1
 
     def healthy(self) -> bool:
         """False iff the tick thread died while meant to be running."""

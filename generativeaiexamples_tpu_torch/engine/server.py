@@ -25,7 +25,7 @@ from typing import Optional
 
 from generativeaiexamples_tpu_torch.core.logging import configure_logging, get_logger
 from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
-from generativeaiexamples_tpu_torch.engine.scheduler import Request, Scheduler
+from generativeaiexamples_tpu_torch.engine.scheduler import SERVING_DEFAULTS, Request, Scheduler
 from generativeaiexamples_tpu_torch.engine.tokenizer import decode_stream
 
 logger = get_logger(__name__)
@@ -518,12 +518,13 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--model", default="llama3-8b", help="model preset or HF id")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--max-batch", type=int, default=32)
-    parser.add_argument("--max-len", type=int, default=2048)
-    parser.add_argument("--decode-chunk-size", type=int, default=8)
-    parser.add_argument("--prefill-chunk-tokens", type=int, default=256)
-    parser.add_argument("--prefix-cache", default="shared", choices=["shared", "session", "off"])
-    parser.add_argument("--kv-layout", default="contiguous", choices=["contiguous", "paged"],
+    parser.add_argument("--max-batch", type=int, default=SERVING_DEFAULTS["max_batch"])
+    parser.add_argument("--max-len", type=int, default=SERVING_DEFAULTS["max_len"])
+    parser.add_argument("--decode-chunk-size", type=int, default=SERVING_DEFAULTS["decode_chunk_size"])
+    parser.add_argument("--prefill-chunk-tokens", type=int, default=SERVING_DEFAULTS["prefill_chunk_tokens"])
+    parser.add_argument("--prefix-cache", default=SERVING_DEFAULTS["prefix_cache"],
+                        choices=["shared", "session", "off"])
+    parser.add_argument("--kv-layout", default=SERVING_DEFAULTS["kv_layout"], choices=["contiguous", "paged"],
                         help="KV cache layout: one max_len row per slot, or pages of a shared pool")
     parser.add_argument("--kv-page-size", type=int, default=64, help="tokens per KV page (a power of two)")
     parser.add_argument("--kv-pool-pages", type=int, default=None,
@@ -535,7 +536,7 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
                         help="concurrent single-query /v1/embeddings requests that share one forward (0/1: off)")
     parser.add_argument("--embed-max-wait-ms", type=float, default=3.0,
                         help="how long a query waits for batch-mates before its batch runs anyway")
-    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=SERVING_DEFAULTS["seed"])
     parser.add_argument("-v", "--verbose", action="count", default=None)
     args = parser.parse_args(argv)
     configure_logging(args.verbose)

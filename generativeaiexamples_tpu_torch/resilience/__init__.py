@@ -5,13 +5,18 @@
 * :mod:`.retry`: jittered exponential backoff with retry budgets.
 * :mod:`.breaker`: per-dependency closed/open/half-open breakers.
 * :mod:`.degrade`: the graceful-degradation ladder's request log.
+* :mod:`.admission`: priority-class admission control and shedding.
 * :mod:`.faults`: named fault points for chaos testing.
 * :mod:`.metrics`: counters and Prometheus export for all of the above.
-
-The reference's ``admission`` (traffic classes and shedding) comes with
-the chain server (``ROADMAP.md``, Queue 1 item 2).
 """
 
+from generativeaiexamples_tpu_torch.resilience.admission import (
+    CLASSES as ADMISSION_CLASSES,
+    AdmissionController,
+    admission_metrics_lines,
+    get_admission_controller,
+    reset_admission,
+)
 from generativeaiexamples_tpu_torch.resilience.breaker import (
     CircuitBreaker,
     CircuitOpenError,
@@ -56,6 +61,11 @@ from generativeaiexamples_tpu_torch.resilience.retry import (
 )
 
 __all__ = [
+    "ADMISSION_CLASSES",
+    "AdmissionController",
+    "admission_metrics_lines",
+    "get_admission_controller",
+    "reset_admission",
     "CircuitBreaker",
     "CircuitOpenError",
     "STANDARD_DEPS",

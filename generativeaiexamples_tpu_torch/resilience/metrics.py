@@ -128,10 +128,10 @@ def reset_resilience() -> None:
     """Testing hook: zero the counters, drop breakers and fault points
     (plus the cache counters — stale serves land in both ledgers — and
     the stage/request latency histograms, which aggregate the same
-    per-request telemetry).  The reference also resets its admission
-    controller, which the port does not have yet."""
+    per-request telemetry, and the admission controller)."""
     from generativeaiexamples_tpu_torch.cache.metrics import reset_cache_metrics
     from generativeaiexamples_tpu_torch.obs.metrics import reset_obs_metrics
+    from generativeaiexamples_tpu_torch.resilience.admission import reset_admission
     from generativeaiexamples_tpu_torch.resilience.faults import reset_faults
 
     _STATS.reset()
@@ -139,3 +139,4 @@ def reset_resilience() -> None:
     reset_faults()
     reset_cache_metrics()
     reset_obs_metrics()
+    reset_admission()

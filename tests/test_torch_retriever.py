@@ -383,7 +383,6 @@ def test_factory_chain_matches_reference(monkeypatch, tmp_path):
     {"APP_VECTORSTORE_NAME": "pgvector"}, {"APP_VECTORSTORE_NAME": "auto"},
     {"APP_VECTORSTORE_QUANTIZATION": "int8"}, {"APP_VECTORSTORE_QUANTIZATION": "pq"},
     {"APP_DURABILITY_ENABLED": "true"}, {"APP_EMBEDDINGS_MODELENGINE": "huggingface"},
-    {"APP_EMBEDDINGS_MODELENGINE": "openai"},
 ])
 def test_unported_backends_raise_with_their_roadmap_item(env, monkeypatch):
     monkeypatch.setenv("APP_EMBEDDINGS_MODELENGINE", "hash")
