@@ -95,11 +95,43 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    streams and one with the knowledge base off (TTFT, decode tokens/s,
    Server-Timing stages, micro-batches); ``/health``, ``/metrics``, a 504
    at a 1 ms deadline.  Launch counts are zeroed after the build and read
-   at the end: K1, K2 and K4 must have launched, K3 not.
+   after these requests: K1, K2 and K4 must have launched, K3 not.  Then
+   on the same server, each step zeroing and reading the launches of its
+   own requests:
+   ``bulk``: 128 documents of 6,000 bytes (numpy seed 0) and two files
+   that must fail alone in one ``POST /documents/bulk``, polled through
+   ``/documents/status``, with a stream decoding beside it: the job's
+   status, the store's growth, 16 ``/search`` equal to the store's own
+   search bit for bit, the ``ingest_*`` series equal to the job's numbers;
+   chunks/s, embed dispatches, the device's busy share (CUDA events around
+   each dispatch), the stream's longest SSE gap, and the serial
+   ``/documents`` path's chunks/s on 16 more documents.
+   ``collections``: a quota from ``APP_*``, 8 documents bulk-ingested into
+   ``?collection=tenant-a`` and one more refused alone; its ``/search``
+   equal to that store's search, the default collection's results
+   unchanged, 404 for an unknown collection before any SSE byte,
+   ``rag_store_rows{collection=...}``, and a knowledge-base ``/generate``
+   over ``tenant-a`` that streams the engine's greedy ids.
+   ``multi_turn``: a second server with ``MultiTurnChatbot`` over the same
+   singletons; turn 1 lands in the memory store (its own store on the
+   card), turn 2's prompt holds it, both stream the engine's greedy ids.
+   ``profiler``: ``/debug/profiler/start`` (a second start is 409), one
+   8-token ``/generate``, ``stop``: the Chrome trace names the W8A8 and
+   decode-attention kernels.
+13. ``durable``: durability with ``python -m
+   generativeaiexamples_tpu_torch.server`` processes (echo LLM,
+   arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
+   and one deleted, 16 searches recorded, SIGKILL; the restart replays the
+   WAL (rows, sources, version and the 16 searches equal, bit for bit);
+   SIGTERM cuts a final snapshot and the next start replays nothing (the
+   same 16 searches); a bulk job killed mid-way resumes at the next start
+   with every file landing once (the final snapshot's chunks by source,
+   no chunk id twice).
 
 Then the ``kernels`` summary line (each kernel's ``launches`` from its
-serving phase, ``chain_launches`` from ``chain``), the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``.
+serving phase, ``chain_launches`` from ``chain``, ``step_launches`` from
+the steps after it), the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``.
 It needs one CUDA card and the repository's ``generativeaiexamples_tpu_torch``
 package beside it; without either it exits non-zero and prints no result.
 """
@@ -1838,12 +1870,13 @@ def _upload(base, name: str, text: str) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def _generate(base, query: str, kb: bool = True, max_tokens: int = CHAIN_GEN_TOKENS, headers=None) -> dict:
+def _generate(base, query: str, kb: bool = True, max_tokens: int = CHAIN_GEN_TOKENS, headers=None,
+              collection: str = "") -> dict:
     """One streamed /generate: status, text, ms to the first ``data:`` line
     and to the end, ms between successive ``data:`` lines, the [DONE]
-    chunk and the response headers."""
+    chunk and the response headers (an error status: its body)."""
     body = {"messages": [{"role": "user", "content": query}], "use_knowledge_base": kb, "temperature": 0,
-            "max_tokens": max_tokens}
+            "max_tokens": max_tokens, "collection": collection}
     req = urllib.request.Request(base + "/generate", json.dumps(body).encode(), method="POST",
                                  headers={"Content-Type": "application/json", **(headers or {})})
     t0 = time.perf_counter()
@@ -1863,7 +1896,7 @@ def _generate(base, query: str, kb: bool = True, max_tokens: int = CHAIN_GEN_TOK
         raise AssertionError(f"chain: /generate did not end with a [DONE] chunk of this stream: {chunks[-1:]}")
     pieces = [c["choices"][0]["message"]["content"] for c in chunks[:-1]]
     return dict(status=resp.status, text="".join(pieces), pieces=pieces, done=chunks[-1],
-                ttft_ms=(arrivals[0] - t0) * 1e3, wall_ms=wall_ms, headers=resp.headers,
+                ttft_ms=(arrivals[0] - t0) * 1e3, wall_ms=wall_ms, headers=resp.headers, arrivals=arrivals,
                 gaps_ms=[(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])])
 
 
@@ -1892,6 +1925,50 @@ def _pct(values, q: float) -> float:
     return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
 
 
+def _same_as_engine(base, llm, sched, received, ids_by_request, query, kb=True, collection="", where="chain"):
+    """One greedy /generate (prefix cache off, so it and the direct
+    submission prefill alike) whose streamed token ids must equal the
+    engine's for the same chat-templated prompt ids submitted directly to
+    the scheduler, and whose streamed pieces the engine's text.
+    ``received`` and ``ids_by_request`` are filled by recording wrappers
+    of ``GPUChatLLM.stream`` and the scheduler's ``submit``.  Returns
+    (response, the messages the LLM received, prompt ids, token ids)."""
+    from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+    from generativeaiexamples_tpu_torch.engine.tokenizer import decode_stream
+    from generativeaiexamples_tpu_torch.server.schema import sanitize
+
+    sched.prefix_cache = "off"
+    try:
+        received.clear()
+        ids_by_request.clear()
+        res = _generate(base, query, kb=kb, collection=collection)
+        if res["status"] != 200 or res["done"]["degraded"] or len(received) != 1:
+            raise AssertionError(f"{where}: the gate's /generate failed or degraded: {res.get('done', res)}")
+        streamed_ids = list(ids_by_request.values())
+        messages = received[-1]
+        ids = llm.tokenizer.apply_chat_template(messages)
+        tokens, done = [], []
+        sched.submit(Request(token_ids=list(ids), sampling=SamplingParams(temperature=0.0, top_p=0.7,
+                             max_tokens=CHAIN_GEN_TOKENS), on_token=tokens.append, on_done=done.append,
+                             eos_id=llm.tokenizer.eos_id, id=f"{where}-direct"))
+        t0 = time.perf_counter()
+        while not done and time.perf_counter() - t0 < 300:
+            time.sleep(0.01)
+    finally:
+        sched.prefix_cache = "shared"
+    if not done or done[0] not in ("stop", "length") or len(streamed_ids) != 1 or streamed_ids[0] != tokens:
+        raise AssertionError(f"{where}: gate 2: the stream's ids {streamed_ids} != the engine's {tokens} ({done})")
+    # The engine's text as the server streams it: one chunk per non-empty
+    # decoded piece, each sanitized as the reference's Message is (a piece
+    # "<|id|>" of an id past the byte vocabulary becomes an empty chunk).
+    piece = decode_stream(llm.tokenizer)
+    direct = [p for p in [piece(t) for t in tokens] + [piece(0, final=True)] if p]
+    if [sanitize(p) for p in direct] != res["pieces"]:
+        raise AssertionError(f"{where}: gate 2: streamed {res['pieces']} != engine's {direct}")
+    return res, messages, ids, tokens
+
+
 def check_flash_long(torch, dev) -> dict:
     """K4 at the chain's prefill shape (RAG prompts of ~2k tokens, whole and
     cold) against its plain version within FLASH_TOL."""
@@ -1912,13 +1989,16 @@ def check_flash_long(torch, dev) -> dict:
                 flash_s2048_tolerance_use=tolerance_use(out[valid], ref[valid], **FLASH_TOL))
 
 
-def chain_phase(torch, dev, _cuda, smi: str) -> dict:
+def chain_phase(torch, dev, _cuda, smi: str) -> tuple[dict, dict]:
     """The chain server from ``APP_*`` defaults through ``create_app()``:
     Llama-3-8B W8A8 (random, seed 0) behind ``GPUChatLLM``, arctic-embed-l,
     the exact store, the result cache, no reranker.  Documents in over
     HTTP, searches against direct calls, /generate against the engine's
-    own greedy text, concurrent streams, the other routes.  Returns the
-    launches of the phase."""
+    own greedy text, concurrent streams, the other routes; then, on the
+    same server, the bulk, collections, multi-turn and profiler steps.
+    Returns the launches of the phase's own requests and, by step, those
+    of the steps that launch kernels."""
+    import shutil
     import tempfile
 
     import numpy as np
@@ -1927,13 +2007,9 @@ def chain_phase(torch, dev, _cuda, smi: str) -> dict:
     from generativeaiexamples_tpu_torch.chains.developer_rag import QAChatbot
     from generativeaiexamples_tpu_torch.chains.llm import GPUChatLLM
     from generativeaiexamples_tpu_torch.core.configuration import get_config, reset_config_cache
-    from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
-    from generativeaiexamples_tpu_torch.engine.scheduler import Request
-    from generativeaiexamples_tpu_torch.engine.tokenizer import decode_stream
     from generativeaiexamples_tpu_torch.obs.slo import slo_health
     from generativeaiexamples_tpu_torch.retrieval.base import Chunk, ScoredChunk
     from generativeaiexamples_tpu_torch.server.app import UPLOAD_DIR_ENV, create_app
-    from generativeaiexamples_tpu_torch.server.schema import sanitize
 
     t_phase = time.perf_counter()
     fields = dict(nvidia_smi=smi, **check_flash_long(torch, dev))
@@ -1941,6 +2017,8 @@ def chain_phase(torch, dev, _cuda, smi: str) -> dict:
     factory.reset_factories()
     cfg = get_config()
     os.environ[UPLOAD_DIR_ENV] = tempfile.mkdtemp(prefix="chain_uploads_")
+    # The profiler routes are served when the server is built with the gate open.
+    os.environ.update(GAIE_ENABLE_PROFILER="1", GAIE_PROFILER_DIR=tempfile.mkdtemp(prefix="chain_profile_"))
     t0 = time.perf_counter()
     server = create_app()
     torch.cuda.synchronize()
@@ -1981,6 +2059,12 @@ def chain_phase(torch, dev, _cuda, smi: str) -> dict:
         submit(req)
 
     sched.submit = recording_submit
+
+    def gate(query, **kw):
+        """Gate 2: one greedy /generate whose streamed ids are the engine's
+        for the same chat-templated prompt ids submitted directly."""
+        return _same_as_engine(base, llm, sched, received, ids_by_request, query, **kw)
+
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -2054,36 +2138,12 @@ def chain_phase(torch, dev, _cuda, smi: str) -> dict:
         q = _chain_text(rng, 50)
         cache.clear()
         hits = _search(base, q, k)
-        sched.prefix_cache = "off"
-        received.clear()
-        ids_by_request.clear()
-        res = _generate(base, q)
-        streamed_ids = list(ids_by_request.values())
-        messages = received[-1]
+        res, messages, ids, tokens = gate(q)
         context = retriever.build_context(
             [ScoredChunk(Chunk(text=h["content"], source=h["filename"]), h["score"]) for h in hits])
-        if res["status"] != 200 or messages[0] != ("system", cfg.prompts.rag_template.format(context=context)) or (
-                messages[-1] != ("user", q)) or res["done"]["cache_tier"] != "exact" or res["done"]["degraded"]:
+        if messages[0] != ("system", cfg.prompts.rag_template.format(context=context)) or (
+                messages[-1] != ("user", q)) or res["done"]["cache_tier"] != "exact":
             raise AssertionError(f"chain: gate 1: the retrieved context did not reach the prompt ({res['done']})")
-        ids = llm.tokenizer.apply_chat_template(messages)
-        tokens, done = [], []
-        sched.submit(Request(token_ids=list(ids), sampling=SamplingParams(temperature=0.0, top_p=0.7,
-                             max_tokens=CHAIN_GEN_TOKENS), on_token=tokens.append, on_done=done.append,
-                             eos_id=llm.tokenizer.eos_id, id="chain-direct"))
-        t0 = time.perf_counter()
-        while not done and time.perf_counter() - t0 < 300:
-            time.sleep(0.01)
-        sched.prefix_cache = "shared"
-        if not done or done[0] not in ("stop", "length") or len(streamed_ids) != 1 or streamed_ids[0] != tokens:
-            raise AssertionError(f"chain: gate 2: the stream's ids {streamed_ids} != the engine's {tokens} ({done})")
-        # The engine's text as the server streams it: one chunk per
-        # non-empty decoded piece, each sanitized as the reference's
-        # Message is (a piece "<|id|>" of an id past the byte vocabulary
-        # becomes an empty chunk).
-        piece = decode_stream(llm.tokenizer)
-        direct = [p for p in [piece(t) for t in tokens] + [piece(0, final=True)] if p]
-        if [sanitize(p) for p in direct] != res["pieces"]:
-            raise AssertionError(f"chain: gate 2: streamed {res['pieces']} != engine's {direct}")
         fields.update(gate_prompt_tokens=len(ids), gate_hits=len(hits), gate_context_chars=len(context),
                       gate_ttft_ms=res["ttft_ms"], gate_wall_ms=res["wall_ms"], gate_tokens=len(tokens),
                       gate_text=res["text"], gate_byte_tokens=sum(t < llm.tokenizer.vocab_size for t in tokens),
@@ -2183,7 +2243,19 @@ def chain_phase(torch, dev, _cuda, smi: str) -> dict:
         if not all(launches[n] for n in ("qmm", "decode_attention", "flash_attention")) or (
                 launches["paged_decode_attention"]):
             raise AssertionError(f"chain: path launches {launches}")
-        fields.update(launches=launches, qmm_design_launches=dict(_cuda.QMM_DESIGN_LAUNCHES))
+        fields.update(launches=launches, qmm_design_launches=dict(_cuda.QMM_DESIGN_LAUNCHES),
+                      phase_s=time.perf_counter() - t_phase)
+        emit("chain", **fields)
+
+        # 8-11. The same server's bulk path, named collections, a second
+        # server with the multi-turn chain, and the profiler routes (last:
+        # a trace slows the process's later host work).  Each reads the
+        # launches of its own requests.
+        bulk_step(torch, base, factory, store, retriever, cache, splitter, sched, smi)
+        step_launches = dict(
+            collections=collections_step(base, factory, retriever, cache, splitter, gate, _cuda, smi),
+            multi_turn=multi_turn_step(factory, llm, sched, received, ids_by_request, _cuda, smi),
+            profiler=profiler_step(base, _cuda, smi))
     finally:
         GPUChatLLM.stream = stream
         sched.submit = submit
@@ -2192,10 +2264,637 @@ def chain_phase(torch, dev, _cuda, smi: str) -> dict:
         thread.join(timeout=30)
         factory.reset_factories()  # stops the engine's tick thread, frees the chain
         reset_config_cache()
-        del os.environ[UPLOAD_DIR_ENV]
-    fields["phase_s"] = time.perf_counter() - t_phase
-    emit("chain", **fields)
+        shutil.rmtree(os.environ.pop("GAIE_PROFILER_DIR"), ignore_errors=True)
+        for key in (UPLOAD_DIR_ENV, "GAIE_ENABLE_PROFILER"):
+            del os.environ[key]
+    return launches, step_launches
+
+
+# ---------------------------------------------------------------------------
+# bulk ingestion, named collections, the multi-turn chain, the profiler
+# routes (on the chain phase's server) and durability (server processes)
+# ---------------------------------------------------------------------------
+
+# The stream beside the job: enough tokens to outlast it (decode starves
+# while the job embeds), few enough that its tail after the job is short.
+BULK_DOCS, BULK_SERIAL_DOCS, BULK_STREAM_TOKENS = 128, 16, 48
+TENANT_DOCS, MULTI_TURN_TOKENS, PROFILE_GEN_TOKENS = 8, CHAIN_GEN_TOKENS, 8
+DURABLE_DOCS, DURABLE_RESUME_DOCS, DURABLE_SEARCHES = 32, 16, 16
+# Files that must fail alone in a bulk job: an extension no loader takes,
+# and a .json file that is not JSON.
+BAD_FILES = (("bad.xyz", "no loader takes this extension"), ("broken.json", "{not json"))
+
+
+def _multipart_files(files) -> tuple[bytes, dict]:
+    """A multipart/form-data body of (name, text) files under ``files``."""
+    boundary = "chainSmokeBulkBoundary"
+    body = b"".join(f'--{boundary}\r\nContent-Disposition: form-data; name="files"; filename="{name}"\r\n'
+                    f"Content-Type: text/plain\r\n\r\n{text}\r\n".encode() for name, text in files)
+    return body + f"--{boundary}--\r\n".encode(), {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def _bulk(base, files, query: str = "") -> str:
+    """POST /documents/bulk; the job id of its 202."""
+    body, headers = _multipart_files(files)
+    status, _, raw = _http("POST", base + "/documents/bulk" + query, body, headers)
+    if status != 202:
+        raise AssertionError(f"bulk: POST /documents/bulk{query}: {status} {raw[:300]!r}")
+    return json.loads(raw)["job_id"]
+
+
+def _job(base, job_id: str) -> dict:
+    status, _, raw = _http("GET", base + f"/documents/status?job_id={job_id}")
+    if status != 200:
+        raise AssertionError(f"bulk: GET /documents/status?job_id={job_id}: {status} {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _wait_job(base, job_id: str, timeout: float = 600.0, poll_s: float = 0.05) -> dict:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        snap = _job(base, job_id)
+        if snap["status"] not in ("queued", "running"):
+            return snap
+        time.sleep(poll_s)
+    raise AssertionError(f"bulk: job {job_id} still running after {timeout} s")
+
+
+def _exposition(base):
+    """/metrics, parsed and checked by the port's exposition parser."""
+    from generativeaiexamples_tpu_torch.obs.exposition import parse_exposition
+
+    status, _, raw = _http("GET", base + "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics: {status}")
+    return parse_exposition(raw.decode())
+
+
+def _documents(base, query: str = "") -> list:
+    status, _, raw = _http("GET", base + "/documents" + query)
+    if status != 200:
+        raise AssertionError(f"GET /documents{query}: {status} {raw[:200]!r}")
+    return sorted(json.loads(raw)["documents"])
+
+
+def _hits(chunks) -> list:
+    return [(c["content"], c["filename"], c["score"]) for c in chunks]
+
+
+def _store_hits(hits, threshold: float) -> list:
+    return [(h.chunk.text, h.chunk.source, h.score) for h in hits if h.score >= threshold]
+
+
+def _path_launches(_cuda, where: str, expect=("qmm", "decode_attention", "flash_attention")) -> dict:
+    """The launches since the last reset; every kernel of the path must
+    have launched and the paged decode kernel not."""
+    launches = dict(_cuda.LAUNCHES)
+    if not all(launches[n] for n in expect) or launches["paged_decode_attention"]:
+        raise AssertionError(f"{where}: path launches {launches}")
     return launches
+
+
+def _chunk_timer(sched):
+    """Wrap a scheduler's decode-chunk dispatch and finalize (instance
+    attributes, undone by ``restore``): each chunk's host perf_counter
+    times (dispatch start, dispatch end, finalize start, finalize end),
+    so a slow chunk shows whether its host enqueue or its wait on the
+    device took the time."""
+    chunks: list = []
+    dispatch, finalize = sched._decode_dispatch, sched._decode_finalize
+
+    def timed_dispatch(active):
+        t0 = time.perf_counter()
+        out = dispatch(active)
+        chunks.append([t0, time.perf_counter()])
+        return out
+
+    def timed_finalize(*args):
+        t0 = time.perf_counter()
+        finalize(*args)
+        if chunks:
+            chunks[-1] += [t0, time.perf_counter()]
+
+    def restore():
+        del sched._decode_dispatch, sched._decode_finalize
+
+    sched._decode_dispatch, sched._decode_finalize = timed_dispatch, timed_finalize
+    return chunks, restore
+
+
+def _substeps(t0: float, marks: dict) -> dict:
+    """Seconds of each part of a step, from perf_counter ``marks`` (in the
+    order taken, each the end of its part)."""
+    out = {}
+    for name, t in marks.items():
+        out[name], t0 = t - t0, t
+    return out
+
+
+def bulk_step(torch, base, factory, store, retriever, cache, splitter, sched, smi) -> None:
+    """``/documents/bulk`` on the chain server: 128 documents of 6,000
+    bytes (numpy seed 0) and two files that must fail alone, against the
+    serial ``/documents`` path, with a stream running beside the job (its
+    decode chunks timed: host enqueue, wait on the device, and the time
+    between chunks)."""
+    import numpy as np
+
+    t_step = time.perf_counter()
+    brng = np.random.default_rng(0)
+    docs = [_chain_text(brng, CHAIN_LONG_BYTES) for _ in range(BULK_DOCS + BULK_SERIAL_DOCS)]
+    bulk_docs, serial_docs = docs[:BULK_DOCS], docs[BULK_DOCS:]
+    expected = sum(len(splitter.split(t)) for t in bulk_docs)
+    rows0 = store.capacity_stats()["rows"]
+    marks = {"prepare": time.perf_counter()}
+    # The pipeline the route builds, built here first to time its embed
+    # dispatches with CUDA events (device busy share of the job).
+    pipeline = factory.get_ingest_pipeline()
+    dispatches: list = []
+    embed = pipeline._embed_fn
+
+    def timed_embed(texts):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = embed(texts)
+        end.record()
+        dispatches.append((start, end, len(texts)))
+        return out
+
+    pipeline._embed_fn = timed_embed
+    chunk_times, restore_chunks = _chunk_timer(sched)
+    stream: dict = {}
+    streamer = threading.Thread(target=lambda: stream.update(_generate(
+        base, _chain_text(brng, 40), kb=False, max_tokens=BULK_STREAM_TOKENS)), daemon=True)
+    try:
+        streamer.start()
+        time.sleep(1.0)  # the stream is decoding when the job starts
+        files = [(f"bulk{i}.txt", t) for i, t in enumerate(bulk_docs)] + list(BAD_FILES)
+        t0 = time.perf_counter()
+        job_id = _bulk(base, files)
+        snap = _wait_job(base, job_id, poll_s=0.02)
+        t_done = time.perf_counter()
+        wall = t_done - t0
+        streamer.join(timeout=600)
+        marks["job"], marks["stream_tail"] = t_done, time.perf_counter()
+    finally:
+        pipeline._embed_fn = embed
+        restore_chunks()
+    torch.cuda.synchronize()
+    busy_ms = sum(s.elapsed_time(e) for s, e, _ in dispatches)
+    errors = " ".join(snap["errors"])
+    rows1 = store.capacity_stats()["rows"]
+    if snap["status"] != "partial" or snap["files_failed"] != 2 or snap["files_done"] != BULK_DOCS or (
+            snap["chunks_ingested"] != expected) or "bad.xyz" not in errors or "broken.json" not in errors or (
+            rows1 - rows0 != expected):
+        raise AssertionError(f"bulk: job {snap}, rows {rows0} -> {rows1}, want +{expected}")
+    # 16 /search against the store's own search on the same query vectors.
+    qrng = np.random.default_rng(1)
+    k = retriever.top_k
+    for q in [_chain_text(qrng, int(qrng.integers(30, 60))) for _ in range(CHAIN_SEARCHES)]:
+        cache.clear()
+        got = _hits(_search(base, q, k))
+        want = _store_hits(store.search_batch(retriever.embedder.embed_queries([q]), k)[0], retriever.score_threshold)
+        if not got or got != want:
+            raise AssertionError(f"bulk: /search {q!r} after the job:\n{got}\n{want}")
+    exp = _exposition(base)
+    stats = pipeline.stats.snapshot()
+    counters = {name: exp.value(name) for name in ("ingest_jobs_total", "ingest_docs_total",
+                                                   "ingest_doc_failures_total", "ingest_chunks_total",
+                                                   "ingest_embed_batches_total", "ingest_append_batches_total")}
+    want_counters = {"ingest_jobs_total": 1, "ingest_docs_total": snap["files_done"],
+                     "ingest_doc_failures_total": snap["files_failed"], "ingest_chunks_total": snap["chunks_total"],
+                     "ingest_embed_batches_total": stats["embed_batches_total"],
+                     "ingest_append_batches_total": stats["append_batches_total"]}
+    if counters != want_counters or len(dispatches) != stats["embed_batches_total"]:
+        raise AssertionError(f"bulk: /metrics {counters} != the job's {want_counters} ({len(dispatches)} dispatches)")
+    marks["searches_metrics"] = time.perf_counter()
+    # The serial path: 16 more of the same documents through POST /documents.
+    serial_ms = [_upload(base, f"serial{i}.txt", t) for i, t in enumerate(serial_docs)]
+    serial_chunks = sum(len(splitter.split(t)) for t in serial_docs)
+    marks["serial"] = time.perf_counter()
+    # Their chunks would not fit a prompt beside the template (4 x 508
+    # byte tokens): the later /generate gates need them gone.
+    for name in [f"bulk{i}.txt" for i in range(BULK_DOCS)] + [f"serial{i}.txt" for i in range(BULK_SERIAL_DOCS)]:
+        status, _, raw = _http("DELETE", base + f"/documents?filename={name}")
+        if status != 200:
+            raise AssertionError(f"bulk: DELETE {name}: {status} {raw[:200]!r}")
+    if store.capacity_stats()["rows"] != rows0:
+        raise AssertionError(f"bulk: {store.capacity_stats()['rows']} rows after the deletes, want {rows0}")
+    marks["deletes"] = time.perf_counter()
+    arrivals = stream.get("arrivals", [])
+    in_job = [(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:]) if b > t0 and a < t_done]
+    # Decode chunks that overlap the job: (enqueue ms, finalize ms, ms
+    # since the previous chunk's finalize ended).
+    job_chunks = [(c[1] - c[0], c[3] - c[2], (c[0] - p[3]) if p else 0.0)
+                  for p, c in zip([None] + chunk_times, chunk_times) if len(c) == 4 and c[3] > t0 and c[0] < t_done]
+    job_chunks = [tuple(x * 1e3 for x in c) for c in job_chunks]
+    emit("bulk", nvidia_smi=smi, docs=BULK_DOCS, doc_bytes=CHAIN_LONG_BYTES, bad_files=[n for n, _ in BAD_FILES],
+         chunks=expected, job_status=snap["status"], files_done=snap["files_done"], files_failed=snap["files_failed"],
+         job_wall_s=wall, chunks_per_s=expected / wall, embed_dispatches=len(dispatches),
+         chunks_per_dispatch=sum(n for _, _, n in dispatches) / max(len(dispatches), 1),
+         append_batches=stats["append_batches_total"], device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
+         serial_docs=BULK_SERIAL_DOCS, serial_chunks=serial_chunks, serial_ms_per_doc=sum(serial_ms) / len(serial_ms),
+         serial_chunks_per_s=serial_chunks / (sum(serial_ms) / 1e3), searches_equal_to_store=CHAIN_SEARCHES,
+         metrics_equal_to_job=counters, stream_status=stream.get("status"), stream_tokens=len(arrivals),
+         stream_spans_job=bool(arrivals) and arrivals[0] < t0 and arrivals[-1] > t_done,
+         stream_max_gap_ms_during_job=max(in_job) if in_job else None, stream_gaps_during_job=len(in_job),
+         stream_max_gap_ms=max(stream["gaps_ms"]) if stream.get("gaps_ms") else None,
+         stream_chunks_during_job=len(job_chunks),
+         stream_chunk_enqueue_ms_max=max((c[0] for c in job_chunks), default=None),
+         stream_chunk_finalize_ms_max=max((c[1] for c in job_chunks), default=None),
+         stream_chunk_between_ms_max=max((c[2] for c in job_chunks), default=None),
+         stream_chunk_ms=[[round(x, 1) for x in c] for c in job_chunks],
+         step_s=time.perf_counter() - t_step, substeps_s=_substeps(t_step, marks))
+
+
+def collections_step(base, factory, retriever, cache, splitter, gate, _cuda, smi) -> dict:
+    """``?collection=`` on the chain server: a quota from ``APP_*``, a bulk
+    job into ``tenant-a`` and one more file refused alone, searches against
+    the collection's store, the default collection untouched, a 404 before
+    any SSE byte, and a knowledge-base /generate over ``tenant-a`` that
+    streams the engine's greedy ids."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.core.configuration import reset_config_cache
+
+    t_step = time.perf_counter()
+    rng = np.random.default_rng(2)
+    k = retriever.top_k
+    queries = [_chain_text(rng, int(rng.integers(30, 60))) for _ in range(8)]
+
+    def default_hits():
+        out = []
+        for q in queries:
+            cache.clear()
+            out.append(_hits(_search(base, q, k)))
+        return out
+
+    before = default_hits()
+    docs = [_chain_text(rng, int(rng.integers(*CHAIN_SHORT_BYTES))) for _ in range(TENANT_DOCS + 1)]
+    rows_want = sum(len(splitter.split(t)) for t in docs[:TENANT_DOCS])
+    # The quota admits the 8 documents (one chunk each) and not one more;
+    # the manager is rebuilt under it (the default collection is not
+    # written to in this step).
+    os.environ["APP_COLLECTIONS_MAXROWSPERCOLLECTION"] = str(rows_want)
+    reset_config_cache()
+    factory.reset_factories(keep=("chat_llm", "embedder", "store", "reranker", "retriever", "cache", "batcher",
+                                  "splitter", "ingest"))
+    try:
+        first = _wait_job(base, _bulk(base, [(f"tenant{i}.txt", t) for i, t in enumerate(docs[:TENANT_DOCS])],
+                                      "?collection=tenant-a"))
+        refused = _wait_job(base, _bulk(base, [("tenant-extra.txt", docs[-1])], "?collection=tenant-a"))
+    finally:
+        del os.environ["APP_COLLECTIONS_MAXROWSPERCOLLECTION"]
+        reset_config_cache()
+    manager = factory.peek_collection_manager()
+    tstore = manager.get("tenant-a")
+    if first["status"] != "done" or first["files_done"] != TENANT_DOCS or refused["status"] != "failed" or (
+            refused["files_failed"] != 1 or "CollectionQuotaExceeded" not in refused["errors"][0]) or (
+            len(tstore) != rows_want or type(tstore).__name__ != "GPUVectorStore" or tstore.device.type != "cuda"):
+        raise AssertionError(f"collections: jobs {first} / {refused}, {len(tstore)} rows (want {rows_want})")
+    names = {f"tenant{i}.txt" for i in range(TENANT_DOCS)}
+    for q in queries:
+        got = _http("POST", base + "/search", {"query": q, "top_k": k, "collection": "tenant-a"})
+        body = json.loads(got[2])
+        want = _store_hits(tstore.search(retriever.embedder.embed_query(q), k), retriever.score_threshold)
+        if got[0] != 200 or body["degraded"] or _hits(body["chunks"]) != want or not want or not {
+                c["filename"] for c in body["chunks"]} <= names:
+            raise AssertionError(f"collections: /search tenant-a {q!r}:\n{body}\n{want}")
+    if default_hits() != before or set(_documents(base, "?collection=tenant-a")) != names:
+        raise AssertionError("collections: the default collection's results moved, or tenant-a lists other files")
+    unknown = _generate(base, queries[0], collection="nobody")
+    exp = _exposition(base)
+    rows_label = exp.value("rag_store_rows", collection="tenant-a")
+    if unknown["status"] != 404 or not json.loads(unknown["body"])["detail"].startswith("unknown collection") or (
+            rows_label != rows_want or exp.value("rag_collection_quota_rejections_total") != 1 or (
+            exp.value("rag_collection_count") != 2)):
+        raise AssertionError(f"collections: unknown collection gave {unknown['status']}, rows {rows_label}")
+    _cuda.reset_launch_counts()
+    q = queries[1]
+    res, messages, ids, tokens = gate(q, collection="tenant-a")
+    hits = json.loads(_http("POST", base + "/search", {"query": q, "top_k": k, "collection": "tenant-a"})[2])["chunks"]
+    context = "\n\n".join(c["content"] for c in hits)
+    if ("system", f"Answer using this context from the 'tenant-a' collection:\n{context}") not in messages:
+        raise AssertionError(f"collections: the tenant-a context did not reach the prompt: {messages}")
+    launches = _path_launches(_cuda, "collections")
+    emit("collections", nvidia_smi=smi, collection="tenant-a", docs=TENANT_DOCS, rows=rows_want,
+         max_rows_per_collection=rows_want, extra_file_status=refused["status"], extra_file_error=refused["errors"][0],
+         searches_equal_to_collection_store=len(queries), default_results_unchanged=True, unknown_collection_status=404,
+         metrics_rows_tenant_a=rows_label, quota_rejections=1, gate_prompt_tokens=len(ids), gate_tokens=len(tokens),
+         gate_ttft_ms=res["ttft_ms"], answer_ids_equal_to_engine=True, launches=launches,
+         step_s=time.perf_counter() - t_step)
+    return launches
+
+
+def multi_turn_step(factory, llm, sched, received, ids_by_request, _cuda, smi) -> dict:
+    """A second server, ``create_app(example_cls=MultiTurnChatbot)``, over the
+    same singletons: two greedy turns; the first is written to the memory
+    store (its own store on the card), the second's prompt holds it, and
+    both stream the engine's greedy ids."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.chains.multi_turn import MultiTurnChatbot
+    from generativeaiexamples_tpu_torch.server.app import create_app
+
+    t_step = time.perf_counter()
+    server = create_app(example_cls=MultiTurnChatbot)
+    memory = factory.get_memory_store()
+    marks = {"create_app": time.perf_counter()}
+    if type(memory).__name__ != "GPUVectorStore" or memory.device.type != "cuda" or len(memory) or (
+            memory is factory.get_store()):
+        raise AssertionError(f"multi_turn: the memory store is {type(memory).__name__} with {len(memory)} rows")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(3)
+    try:
+        _cuda.reset_launch_counts()
+        q1, q2 = _chain_text(rng, 45), _chain_text(rng, 45)
+        res1, _, ids1, tokens1 = _same_as_engine(base, llm, sched, received, ids_by_request, q1, where="multi_turn")
+        marks["turn1"] = time.perf_counter()
+        rows = [c.text for c in memory._mirror._chunks]
+        if len(memory) != 1 or not rows[0].startswith(f"User: {q1}\nAssistant: ") or len(rows[0]) <= len(q1) + 18:
+            raise AssertionError(f"multi_turn: memory after turn 1: {rows}")
+        res2, messages2, ids2, tokens2 = _same_as_engine(base, llm, sched, received, ids_by_request, q2,
+                                                         where="multi_turn")
+        marks["turn2"] = time.perf_counter()
+        if rows[0] not in messages2[0][1] or len(memory) != 2:
+            raise AssertionError(f"multi_turn: turn 2's prompt lacks turn 1: {messages2[0]}")
+        launches = _path_launches(_cuda, "multi_turn")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    marks["shutdown"] = time.perf_counter()
+    emit("multi_turn", nvidia_smi=smi, memory_store="GPUVectorStore on cuda", memory_rows=len(memory),
+         turn_prompt_tokens=[len(ids1), len(ids2)], turn_tokens=[len(tokens1), len(tokens2)],
+         turn_ttft_ms=[res1["ttft_ms"], res2["ttft_ms"]], turn2_prompt_holds_turn1=True,
+         answer_ids_equal_to_engine=True, launches=launches, step_s=time.perf_counter() - t_step,
+         substeps_s=_substeps(t_step, marks), turn_wall_ms=[res1["wall_ms"], res2["wall_ms"]])
+    return launches
+
+
+def profiler_step(base, _cuda, smi) -> dict:
+    """``/debug/profiler/{start,stop}`` on the chain server: a second start
+    is 409; the trace of one 8-token /generate, written by ``stop``, names
+    the W8A8 matmul and decode-attention kernels among its CUDA kernels."""
+    t_step = time.perf_counter()
+    _cuda.reset_launch_counts()
+    first, _, raw = _http("POST", base + "/debug/profiler/start")
+    second, _, _ = _http("POST", base + "/debug/profiler/start")
+    if first != 200 or second != 409:
+        raise AssertionError(f"profiler: start gave {first} {raw[:200]!r}, a second start {second}")
+    res = _generate(base, "profile this answer", kb=False, max_tokens=PROFILE_GEN_TOKENS)
+    t0 = time.perf_counter()
+    status, _, raw = _http("POST", base + "/debug/profiler/stop")
+    stop_s = time.perf_counter() - t0
+    body = json.loads(raw)
+    if status != 200 or res["status"] != 200 or not os.path.isfile(body.get("trace", "")):
+        raise AssertionError(f"profiler: stop gave {status} {body}, /generate {res['status']}")
+    launches = _path_launches(_cuda, "profiler", expect=("qmm", "decode_attention"))
+    size = os.path.getsize(body["trace"])
+    with open(body["trace"], encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    qmm_k = sum("qmm" in n for n in kernels)
+    decode_k = sum("decode_kernel" in n for n in kernels)
+    if not qmm_k or not decode_k:
+        raise AssertionError(f"profiler: the trace's {len(kernels)} CUDA kernels name no qmm / decode_kernel")
+    emit("profiler", nvidia_smi=smi, trace="chrome", trace_mb=size / 1e6, export_s=body["export_s"],
+         stop_request_s=stop_s, cuda_kernels=len(kernels), qmm_kernels=qmm_k, decode_attention_kernels=decode_k,
+         second_start_status=409, generate_tokens=PROFILE_GEN_TOKENS, launches=launches,
+         step_s=time.perf_counter() - t_step)
+    return launches
+
+
+class _ServerProcess:
+    """``python -m generativeaiexamples_tpu_torch.server`` in its own process
+    on a free port, its log in ``log_path``."""
+
+    def __init__(self, env: dict, log_path: str, args=()) -> None:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.log_path = log_path
+        self.t0 = time.perf_counter()
+        self._log = open(log_path, "ab")
+        self.proc = subprocess.Popen([sys.executable, "-m", "generativeaiexamples_tpu_torch.server", "--host",
+                                      "127.0.0.1", "--port", str(self.port), "-v", *args],
+                                     cwd=ROOT, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def log_tail(self, n: int = 3000) -> str:
+        with open(self.log_path, "rb") as fh:
+            return fh.read()[-n:].decode(errors="replace")
+
+    def wait_ready(self, timeout: float = 300.0) -> float:
+        """Seconds from the process's start to its first answered /health."""
+        while time.perf_counter() - self.t0 < timeout:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"durable: the server exited with {self.proc.returncode}:\n{self.log_tail()}")
+            try:
+                if _http("GET", self.base + "/health", timeout=5)[0] == 200:
+                    return time.perf_counter() - self.t0
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise AssertionError(f"durable: the server did not come up in {timeout} s:\n{self.log_tail()}")
+
+    def kill(self) -> None:
+        self.proc.kill()  # SIGKILL: no handler, no flush, no snapshot
+        self.proc.wait(timeout=60)
+        self._log.close()
+
+    def term(self) -> tuple[int, float]:
+        """SIGTERM; (exit code, seconds to exit)."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=300)
+        self._log.close()
+        return rc, time.perf_counter() - t0
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.kill()
+
+
+def _recovery_event(base) -> dict:
+    """The pinned ``startup.recovery`` record of /debug/requests; fails
+    unless the recovered store is on the card."""
+    status, _, raw = _http("GET", base + "/debug/requests")
+    events = [r for r in json.loads(raw)["requests"] if r["route"] == "startup.recovery"] if status == 200 else []
+    if len(events) != 1:
+        raise AssertionError(f"durable: {len(events)} recovery events in /debug/requests ({status})")
+    rec = events[0]["attrs"]["recovery"]
+    if not rec["device"].startswith("cuda"):
+        raise AssertionError(f"durable: the store was recovered on {rec['device']}")
+    return rec
+
+
+def _search_store_versions(base) -> list:
+    """The store version each /search of /debug/requests read (its result
+    cache's stamp), newest first."""
+    status, _, raw = _http("GET", base + "/debug/requests")
+    if status != 200:
+        raise AssertionError(f"durable: /debug/requests {status}")
+    return [r["attrs"]["store_version"] for r in json.loads(raw)["requests"] if r["route"] == "/search"]
+
+
+def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
+    """Durability on the card with server processes: recovery after a
+    SIGKILL from the WAL, a final snapshot at SIGTERM, and a bulk job
+    killed mid-way that resumes with every file landing once.  The LLM is
+    the echo fake (none of this reaches it); the embedder (arctic-embed-l)
+    and the exact store are the card's.  The result cache keeps only its
+    exact tier (random embeddings lie within the semantic tier's 0.98 of
+    each other), which stamps each /search's trace with the store version
+    it read; no query is searched twice in one process, so every gated
+    /search reaches the store."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.core.configuration import AppConfig
+    from generativeaiexamples_tpu_torch.ingest.splitters import get_text_splitter
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="durable_")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("APP_", "GAIE_"))}
+    env.update(APP_DURABILITY_ENABLED="true", GAIE_DURABILITY_DIR=os.path.join(root, "durability"),
+               APP_LLM_MODELENGINE="echo", APP_CACHE_SEMANTICENABLED="false",
+               GAIE_UPLOAD_DIR=os.path.join(root, "uploads"),
+               **(env_extra or {}))
+    splitter = get_text_splitter(AppConfig())
+    brng = np.random.default_rng(0)
+    docs = [(f"durable{i}.txt", _chain_text(brng, CHAIN_LONG_BYTES)) for i in range(DURABLE_DOCS)]
+    resume_docs = [(f"resume{i}.txt", _chain_text(brng, CHAIN_LONG_BYTES)) for i in range(DURABLE_RESUME_DOCS)]
+    qrng = np.random.default_rng(1)
+    queries = [_chain_text(qrng, int(qrng.integers(30, 60))) for _ in range(DURABLE_SEARCHES + 1)]
+    queries, first_query = queries[:-1], queries[-1]
+    chunks_of = {name: len(splitter.split(text)) for name, text in docs + resume_docs}
+    servers = []
+
+    def start(name):
+        servers.append(_ServerProcess(env, os.path.join(root, f"{name}.log"), server_args))
+        return servers[-1], servers[-1].wait_ready()
+
+    def searches(base):
+        return [_hits(_search(base, q, 4)) for q in queries]
+
+    def first_search_s(srv):
+        _search(srv.base, first_query, 4)
+        return time.perf_counter() - srv.t0
+
+    fields = dict(nvidia_smi=smi, llm="echo (APP_LLM_MODELENGINE=echo; no Llama in this phase)",
+                  embedder="arctic-embed-l, 24 layers, random bf16, seed 0", store="GPUVectorStore (bf16)",
+                  cache="exact tier only (APP_CACHE_SEMANTICENABLED=false)",
+                  durability="APP_DURABILITY_ENABLED=true, defaults")
+    try:
+        # 1-2. Ingest, delete a source, record 16 searches; SIGKILL.
+        a, fields["start_a_s"] = start("a")
+        t0 = time.perf_counter()
+        job = _wait_job(a.base, _bulk(a.base, docs))
+        fields["ingest_s"] = time.perf_counter() - t0
+        added = sum(chunks_of[n] for n, _ in docs)
+        status, _, raw = _http("DELETE", a.base + f"/documents?filename={docs[0][0]}")
+        if job["status"] != "done" or job["files_done"] != DURABLE_DOCS or status != 200:
+            raise AssertionError(f"durable: ingest {job}, delete {status} {raw[:200]!r}")
+        want = searches(a.base)
+        exp = _exposition(a.base)
+        rows, seq, wal_bytes = exp.value("rag_store_rows"), exp.value("rag_wal_last_seq"), exp.value("rag_wal_bytes_total")
+        sources, versions = _documents(a.base), set(_search_store_versions(a.base))
+        if rows != added - chunks_of[docs[0][0]] or len(sources) != DURABLE_DOCS - 1 or len(versions) != 1:
+            raise AssertionError(f"durable: {rows} rows, {len(sources)} sources, versions {versions} before the kill")
+        version = versions.pop()
+        a.kill()
+        # 3. Restart: the WAL replays.
+        b, fields["restart_after_kill_ready_s"] = start("b")
+        fields["restart_after_kill_first_search_s"] = first_search_s(b)
+        rec = _recovery_event(b.base)
+        exp = _exposition(b.base)
+        got = searches(b.base)
+        if rec["snapshot_restored"] or rec["replayed_records"] != seq or rec["rows"] != rows or (
+                rec["version"] != version) or set(_search_store_versions(b.base)) != {version} or (
+                exp.value("rag_recovery_replayed_records_total") != seq) or (
+                exp.value("rag_store_rows") != rows) or _documents(b.base) != sources or got != want:
+            raise AssertionError(f"durable: recovery gate: {rec} (version {version} before the kill), "
+                                 f"searches equal {got == want}")
+        fields.update(rows=rows, rows_added=added, wal_records=seq, wal_bytes=wal_bytes,
+                      wal_bytes_per_1000_rows=wal_bytes / added * 1000, recovery_replayed_records=rec["replayed_records"],
+                      recovery_s=rec["duration_ms"] / 1e3, version_before_kill=version,
+                      recovery_version=rec["version"], recovery_device=rec["device"],
+                      searches_equal_after_kill=len(got))
+        # 4. SIGTERM cuts a final snapshot.
+        rc, fields["sigterm_to_exit_s"] = b.term()
+        cut = re.findall(r"snapshot (snap-\d+): (\d+) rows in ([0-9.]+) ms", b.log_tail(200000))
+        if rc != 0 or not cut or int(cut[-1][1]) != rows:
+            raise AssertionError(f"durable: SIGTERM exit {rc}, snapshot lines {cut}:\n{b.log_tail()}")
+        fields.update(snapshot=cut[-1][0], snapshot_s=float(cut[-1][2]) / 1e3)
+        # 5. Restart: the snapshot loads and nothing replays.
+        c, fields["restart_after_term_ready_s"] = start("c")
+        fields["restart_after_term_first_search_s"] = first_search_s(c)
+        rec = _recovery_event(c.base)
+        got = searches(c.base)
+        if not rec["snapshot_restored"] or rec["replayed_records"] != 0 or rec["rows"] != rows or got != want or (
+                rec["version"] != version) or set(_search_store_versions(c.base)) != {version} or (
+                _documents(c.base) != sources):
+            raise AssertionError(f"durable: snapshot gate: {rec} (version {version}), searches equal {got == want}")
+        fields.update(snapshot_recovery_s=rec["duration_ms"] / 1e3, snapshot_recovery_device=rec["device"],
+                      searches_equal_after_term=len(got))
+        # 6. A bulk job killed mid-way resumes at the next start.
+        job_id = _bulk(c.base, resume_docs)
+        t0 = time.perf_counter()
+        while True:
+            snap = _job(c.base, job_id)
+            if snap["status"] != "running" or snap["files_done"] >= DURABLE_RESUME_DOCS // 4 or (
+                    time.perf_counter() - t0 > 300):
+                break
+            time.sleep(0.01)
+        c.kill()
+        if snap["status"] != "running":
+            raise AssertionError(f"durable: the job was not running at the kill: {snap}")
+        d, fields["restart_after_job_kill_ready_s"] = start("d")
+        _recovery_event(d.base)
+        t0 = time.perf_counter()
+        resumed = _wait_job(d.base, job_id)
+        fields["resume_wait_s"] = time.perf_counter() - t0
+        listed = _documents(d.base)
+        exp = _exposition(d.base)
+        rows_after = rows + sum(chunks_of[n] for n, _ in resume_docs)
+        if resumed["status"] != "done" or resumed["files_done"] != DURABLE_RESUME_DOCS or resumed["files_failed"] or (
+                listed != sorted(sources + [n for n, _ in resume_docs])) or exp.value("rag_store_rows") != rows_after or (
+                exp.value("rag_recovery_resumed_jobs_total") != 1):
+            raise AssertionError(f"durable: resume gate: {resumed}, {exp.value('rag_store_rows')} rows (want "
+                                 f"{rows_after})")
+        rc, _ = d.term()
+        # Every file landed once: the final snapshot's chunks, by source,
+        # with no chunk id twice.
+        store_dir = os.path.join(env["GAIE_DURABILITY_DIR"], "store")
+        with open(os.path.join(store_dir, "MANIFEST.json"), encoding="utf-8") as fh:
+            manifest = json.load(fh)
+        with open(os.path.join(store_dir, manifest["snapshot"], "chunks.json"), encoding="utf-8") as fh:
+            chunks = json.load(fh)["chunks"]
+        per_source: dict = {}
+        for c_ in chunks:
+            per_source[c_["source"]] = per_source.get(c_["source"], 0) + 1
+        ids = [c_["id"] for c_ in chunks]
+        if rc != 0 or len(ids) != len(set(ids)) or per_source != {n: chunks_of[n] for n in listed}:
+            raise AssertionError(f"durable: exit {rc}, {len(ids) - len(set(ids))} duplicate ids, sources off by "
+                                 f"{ {n: per_source.get(n) for n in listed if per_source.get(n) != chunks_of[n]} }")
+        fields.update(resume_killed_at_files_done=snap["files_done"], resume_files=DURABLE_RESUME_DOCS,
+                      resume_status=resumed["status"], resume_rows=rows_after, resume_duplicate_ids=0,
+                      servers_started=len(servers))
+    finally:
+        for srv in servers:
+            srv.close()
+        shutil.rmtree(root, ignore_errors=True)
+    fields["phase_s"] = time.perf_counter() - t_phase
+    emit("durable", **fields)
 
 
 def main() -> int:
@@ -2304,11 +3003,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # The chain server builds its own engine and embedder from APP_*.
-        chain_launches = chain_phase(torch, dev, _cuda, smi)
+        chain_launches, step_launches = chain_phase(torch, dev, _cuda, smi)
     gc.collect()
     torch.cuda.empty_cache()
     kw = serve_kw("contiguous")
     check_qmm_shapes(torch, dev, k1_shapes.seen, worst_m=kw["max_batch"] * kw["max_len"])
+    durable_phase(smi)
 
     kernels = []
     for name, s in summary.items():
@@ -2318,6 +3018,7 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "eager_ms": s["eager_ms"], "shape": s["shape"],
             "chain_launches": chain_launches[name],
+            "step_launches": {step: counts[name] for step, counts in step_launches.items()},
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

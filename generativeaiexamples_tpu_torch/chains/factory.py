@@ -13,9 +13,12 @@ fakes.
 
 Each factory function takes ``device`` like every other entry point of the
 port: ``None`` is the card, ``"cpu"`` the CPU; the first build of a
-singleton fixes its device.  The bulk-ingest pipeline, the named
-collections, the conversation-memory store and durability are not ported
-(``ROADMAP.md``, Queue 1): their factories raise.
+singleton fixes its device.  ``get_ingest_pipeline`` (the bulk path),
+``get_collection_manager`` (named collections, the ``default`` one being
+the ``get_store`` singleton), ``get_memory_store`` (the multi-turn chain's
+conversation store) and, with ``durability.enabled``, the write-ahead
+logged store, the ingest journal and ``shutdown_durability`` follow the
+reference.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import threading
 from typing import Sequence
 
 from generativeaiexamples_tpu_torch.core.configuration import get_config
+from generativeaiexamples_tpu_torch.core.logging import get_logger
+
+logger = get_logger(__name__)
 
 # Built singletons by name.  Not lru_cached: a factory takes a device, and
 # reset_factories must close the batcher's worker thread.  Re-entrant:
@@ -101,22 +107,6 @@ def get_splitter():
     return _singleton("splitter", build, None)
 
 
-def get_ingest_pipeline():
-    raise _not_ported("the bulk-ingest pipeline (ingest/pipeline.py, POST /documents/bulk)", "item 2")
-
-
-def get_collection_manager():
-    raise _not_ported("named collections (retrieval/fabric/)", "item 8")
-
-
-def get_memory_store():
-    raise _not_ported("the conversation-memory store of the multi-turn chain", "item 2")
-
-
-def shutdown_durability() -> None:
-    raise _not_ported("durability (the write-ahead-logged store and the ingest journal)", "item 2")
-
-
 def _build_embedder(device):
     cfg = get_config()
     engine = cfg.embeddings.model_engine.lower()
@@ -152,20 +142,189 @@ def _build_store(device):
     from generativeaiexamples_tpu_torch.retrieval.factory import get_vector_store
 
     cfg = get_config()
+    store = get_vector_store(cfg, device=device)
     if cfg.durability.enabled:
-        raise _not_ported("durability.enabled (the write-ahead-logged store)", "item 2")
-    return get_vector_store(cfg, device=device)
+        store = _wrap_durable(store, cfg)
+    return store
 
 
 def get_store(device=None):
-    """Configured vector store singleton (reference ``get_store``)."""
+    """Configured vector store singleton (reference ``get_store``).
+
+    With ``durability.enabled`` the backend is wrapped in a
+    :class:`DurableVectorStore`: construction itself performs crash
+    recovery (snapshot restore onto ``device`` + WAL tail replay), and
+    every mutation from then on is write-ahead logged."""
     return _singleton("store", _build_store, device)
+
+
+def _wrap_durable(store, cfg, subdir: str = "store"):
+    import os
+
+    from generativeaiexamples_tpu_torch.durability.store import DurableVectorStore
+    from generativeaiexamples_tpu_torch.retrieval.base import VectorStore
+
+    if type(store).save is VectorStore.save:
+        # A backend without a save() path: wrapping it would snapshot nothing.
+        logger.warning("durability.enabled but %s has no save() path; store runs without a WAL", type(store).__name__)
+        return store
+    return DurableVectorStore(
+        store,
+        os.path.join(cfg.durability.directory, subdir),
+        fsync_every=cfg.durability.fsync_every,
+        snapshot_every_records=cfg.durability.snapshot_every_records,
+        keep_snapshots=cfg.durability.keep_snapshots,
+    )
 
 
 def peek_store():
     """The store singleton IF one has been created, else None: a metrics
     scrape must never build the store."""
     return _peek("store")
+
+
+def _build_collection_manager(device):
+    from generativeaiexamples_tpu_torch.retrieval.fabric.collections import CollectionManager
+    from generativeaiexamples_tpu_torch.retrieval.factory import get_vector_store
+
+    cfg = get_config()
+
+    def _store_factory(name: str, overrides: dict):
+        store = get_vector_store(cfg, device=device, collection=name, overrides=overrides)
+        if cfg.durability.enabled:
+            # Per-collection WAL/snapshot directory: tenant A's ingest never
+            # rewrites tenant B's recovery artifacts.
+            store = _wrap_durable(store, cfg, subdir=f"collections/{name}")
+        return store
+
+    return CollectionManager(
+        _store_factory,
+        default_store=lambda: get_store(device),
+        max_collections=cfg.collections.max_collections,
+        default_max_rows=cfg.collections.max_rows_per_collection,
+        default_max_bytes=cfg.collections.max_bytes_per_collection,
+    )
+
+
+def get_collection_manager(device=None):
+    """Process-wide :class:`CollectionManager` over the store factory: named
+    collections get their own stores on ``device`` (and their own WAL
+    directory with durability on); the ``default`` collection IS the
+    :func:`get_store` singleton, so nothing is double counted."""
+    return _singleton("collections", _build_collection_manager, device)
+
+
+def peek_collection_manager():
+    """The live manager if one was ever built, else None: /metrics exports
+    the ``rag_collection_*`` zeros without building anything."""
+    return _peek("collections")
+
+
+def get_memory_store(device=None):
+    """Separate store for conversation memory (the multi-turn chain's second
+    collection): another ``GPUVectorStore`` on ``device``."""
+
+    def build(dev):
+        from generativeaiexamples_tpu_torch.retrieval.factory import get_vector_store
+
+        return get_vector_store(get_config(), device=dev, collection="memory")
+
+    return _singleton("memory_store", build, device)
+
+
+def _build_ingest_pipeline(device):
+    import os
+
+    from generativeaiexamples_tpu_torch.ingest.loaders import load_document
+    from generativeaiexamples_tpu_torch.ingest.pipeline import IngestPipeline
+    from generativeaiexamples_tpu_torch.retrieval.base import Chunk
+    from generativeaiexamples_tpu_torch.retrieval.fabric.collections import DEFAULT_COLLECTION
+
+    cfg = get_config()
+
+    def _parse(path: str, filename: str) -> list:
+        return [Chunk(text=p, source=filename) for p in get_splitter().split(load_document(path))]
+
+    journal = durable_flush_fn = None
+    if cfg.durability.enabled:
+        from generativeaiexamples_tpu_torch.durability.journal import IngestJournal
+        from generativeaiexamples_tpu_torch.durability.store import DurableVectorStore
+
+        os.makedirs(cfg.durability.directory, exist_ok=True)
+        journal = IngestJournal(os.path.join(cfg.durability.directory, "ingest-journal.log"))
+        store = get_store(device)
+        if isinstance(store, DurableVectorStore):
+            durable_flush_fn = store.flush
+
+    def _admit(chunks, embs):
+        # Quota gate at ingest admission: refuse BEFORE the store mutates
+        # (CollectionQuotaExceeded isolates to the file).
+        get_collection_manager(device).admit(DEFAULT_COLLECTION, len(chunks), sum(len(e) * 4 for e in embs))
+
+    pipeline = IngestPipeline(
+        parse_fn=_parse,
+        embed_fn=lambda texts: get_embedder(device).embed_documents(texts),
+        append_fn=lambda chunks, embs: get_store(device).add(chunks, embs),
+        admit_fn=_admit,
+        parse_workers=cfg.ingest.parse_workers,
+        embed_batch_chunks=cfg.ingest.embed_batch_chunks,
+        append_batch_chunks=cfg.ingest.append_batch_chunks,
+        queue_depth=cfg.ingest.queue_depth,
+        delete_files=True,  # bulk uploads stream to unique temp paths
+        journal=journal,
+        delete_source_fn=lambda source: get_store(device).delete_source(source),
+        durable_flush_fn=durable_flush_fn,
+    )
+    if journal is not None and cfg.durability.resume_jobs:
+        try:
+            journal.compact()
+            resumed = pipeline.resume()
+            if resumed:
+                logger.info("resumed %d interrupted ingest job(s)", len(resumed))
+        except Exception:
+            logger.exception("ingest job resume failed")
+    return pipeline
+
+
+def get_ingest_pipeline(device=None):
+    """Process-wide bulk-ingestion pipeline (``ingest/pipeline.py``) over the
+    singleton splitter, embedder and store on ``device``: parse/split on a
+    CPU pool, chunks coalesced into shared embed dispatches, O(new rows)
+    store appends.  With durability on it journals its jobs and, when
+    built, resumes the ones a restart interrupted."""
+    return _singleton("ingest", _build_ingest_pipeline, device)
+
+
+def peek_ingest_pipeline():
+    """The live pipeline if one was ever built, else None: /metrics exports
+    the ``ingest_*`` zeros without building the embedder stack."""
+    return _peek("ingest")
+
+
+def shutdown_durability() -> None:
+    """Graceful-shutdown hook: drain queued ingest work, close the journal,
+    flush the WAL and (per ``durability.final_snapshot_on_shutdown``) cut a
+    final snapshot so the next boot replays nothing.  Touches only
+    singletons that already exist."""
+    from generativeaiexamples_tpu_torch.durability.store import DurableVectorStore
+
+    pipeline = peek_ingest_pipeline()
+    if pipeline is not None:
+        try:
+            pipeline.close()
+        except Exception:
+            logger.exception("ingest pipeline drain failed during shutdown")
+        if pipeline.journal is not None:
+            try:
+                pipeline.journal.close()
+            except Exception:
+                logger.exception("ingest journal close failed during shutdown")
+    store = peek_store()
+    if isinstance(store, DurableVectorStore):
+        try:
+            store.close(final_snapshot=get_config().durability.final_snapshot_on_shutdown)
+        except Exception:
+            logger.exception("durable store close failed during shutdown")
 
 
 def _build_reranker(device):
@@ -287,18 +446,29 @@ def reset_factories(keep: Sequence[str] = ()) -> None:
     ``reset_config_cache``).  ``keep`` names singletons to carry over
     (``"store"``, ``"embedder"``, ``"chat_llm"``, ...), so a chain can be
     rebuilt under a new config over a store and an engine already loaded.
-    The dropped batcher's worker and chat LLM's scheduler thread stop."""
+    What is dropped is closed as the reference closes it: the batcher's
+    worker and the chat LLM's scheduler thread stop, the ingest pipeline
+    drains and its journal closes, the named collections are dropped, and
+    a durable store closes its WAL without a final snapshot (a recovery
+    test needs the WAL tail exactly as its scenario left it)."""
     from generativeaiexamples_tpu_torch.cache.metrics import reset_cache_metrics
+    from generativeaiexamples_tpu_torch.durability.metrics import reset_durability_metrics
+    from generativeaiexamples_tpu_torch.durability.store import DurableVectorStore
     from generativeaiexamples_tpu_torch.obs import reset_obs
     from generativeaiexamples_tpu_torch.resilience.metrics import reset_resilience
 
     reset_resilience()
     reset_cache_metrics()
+    reset_durability_metrics()
     reset_obs()
     with _LOCK:
         dropped = {n: _STATE.pop(n) for n in list(_STATE) if n not in keep}
-    # Stop the worker threads of what was dropped: the batcher's, and the
-    # chat LLM's scheduler tick.
-    for name in ("batcher", "chat_llm"):
+    for name in ("batcher", "chat_llm", "ingest"):
         if hasattr(dropped.get(name), "close"):
             dropped[name].close()
+    if getattr(dropped.get("ingest"), "journal", None) is not None:
+        dropped["ingest"].journal.close()
+    if dropped.get("collections") is not None:
+        dropped["collections"].close()
+    if isinstance(dropped.get("store"), DurableVectorStore):
+        dropped["store"].close(final_snapshot=False)

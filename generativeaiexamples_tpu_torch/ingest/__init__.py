@@ -1,7 +1,7 @@
-"""Document ingestion: loaders and text splitters (the reference's bulk
-pipeline, ``ingest/pipeline.py``, is not ported: ``ROADMAP.md``)."""
+"""Document ingestion: loaders, text splitters and the bulk pipeline."""
 
 from generativeaiexamples_tpu_torch.ingest.loaders import load_document
+from generativeaiexamples_tpu_torch.ingest.pipeline import IngestPipeline, ingest_metrics_lines
 from generativeaiexamples_tpu_torch.ingest.splitters import (
     CharacterSplitter,
     MarkdownSplitter,
@@ -14,9 +14,11 @@ from generativeaiexamples_tpu_torch.ingest.splitters import (
 __all__ = [
     "load_document",
     "CharacterSplitter",
+    "IngestPipeline",
     "MarkdownSplitter",
     "PythonCodeSplitter",
     "RecursiveCharacterSplitter",
     "TokenSplitter",
     "get_text_splitter",
+    "ingest_metrics_lines",
 ]

@@ -121,7 +121,7 @@ def _not_ported(kind: str, package: str) -> Callable[[str], str]:
     def load(path: str) -> str:
         raise NotImplementedError(
             f"{kind} documents are not ported to the PyTorch package ({package} is not on the card "
-            f"machine; ROADMAP.md, Queue 1 item 2)"
+            f"machine; ROADMAP.md, Queue 1 item 5)"
         )
 
     return load

@@ -15,8 +15,9 @@ flight recorder).
     burn-rate rules over the TSDB (``rag_slo_*`` metrics, ``/health``
     degradation, alert transitions pinned into the flight recorder).
 
-The reference's ``exposition`` and ``profiler`` are not ported
-(``ROADMAP.md``, Queue 1 item 7).
+  * :mod:`~.exposition`: the Prometheus text-format parser and checker.
+  * :mod:`~.profiler`: the ``/debug/profiler/{start,stop}`` session on
+    ``torch.profiler`` (Chrome traces).
 """
 
 from generativeaiexamples_tpu_torch.obs.metrics import (

@@ -30,14 +30,26 @@ _NOT_PORTED = {
 
 
 def get_vector_store(
-    config: Optional[AppConfig] = None, *, dimensions: Optional[int] = None, device=None
+    config: Optional[AppConfig] = None,
+    *,
+    dimensions: Optional[int] = None,
+    device=None,
+    collection: str = "default",
+    overrides: Optional[dict] = None,
 ) -> VectorStore:
     """Instantiate the configured backend on ``device``: the card
-    (``None``) or ``"cpu"``, as for every entry point of the port.  The
-    reference's per-collection ``overrides`` come with the collections
-    manager (``ROADMAP.md``, Queue 1 item 2)."""
+    (``None``) or ``"cpu"``, as for every entry point of the port.
+
+    ``overrides`` is the reference's per-collection escape hatch
+    (``CollectionManager.create``): ``backend`` replaces the configured
+    name and ``quantization`` the scoring mode (any mode but ``none``
+    raises, naming ``ROADMAP.md`` Queue 1 item 4).  ``collection`` names
+    the collection; the reference gives it to the external stores, which
+    the port does not have, so the in-process backends here ignore it.
+    """
     config = config or get_config()
-    name = config.vector_store.name.lower()
+    overrides = overrides or {}
+    name = str(overrides.get("backend", config.vector_store.name)).lower()
     dim = dimensions or config.embeddings.dimensions
     # The widest query batch the retrieval micro-batcher dispatches; with
     # batching off, the store's default bound applies.
@@ -48,7 +60,7 @@ def get_vector_store(
         from generativeaiexamples_tpu_torch.retrieval.gpu import GPUVectorStore
 
         # A compressed scan raises NotImplementedError in the constructor.
-        quantization = config.vector_store.quantization
+        quantization = overrides.get("quantization", config.vector_store.quantization)
         return GPUVectorStore(dim, device=device, max_query_batch=qcap, quantization=quantization)
     if name in _NOT_PORTED:
         raise NotImplementedError(

@@ -2,8 +2,11 @@
 
 Serves the pipeline from ``APP_*`` (``--help-config`` prints the schema)
 on the card, or on the CPU with ``--device cpu``.  SIGTERM and SIGINT shut
-down cleanly: the server stops accepting, then the chat LLM's scheduler
-thread and the retrieval micro-batcher stop.
+down cleanly: the server stops accepting; with ``durability.enabled`` the
+ingest pipeline drains, the journal closes, the WAL is flushed and a final
+snapshot is cut (``durability.final_snapshot_on_shutdown``), so the next
+start replays nothing; then the chat LLM's scheduler thread and the
+retrieval micro-batcher stop.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ def main(argv=None) -> None:
     configure_logging(args.verbose)
     logger = get_logger("chain-server")
 
-    from generativeaiexamples_tpu_torch.chains.factory import reset_factories
+    from generativeaiexamples_tpu_torch.chains.factory import reset_factories, shutdown_durability
+    from generativeaiexamples_tpu_torch.core.configuration import get_config
     from generativeaiexamples_tpu_torch.server.app import create_app
 
     server = create_app(host=args.host, port=args.port, device=args.device)
@@ -51,6 +55,8 @@ def main(argv=None) -> None:
         server.serve_forever()
     finally:
         server.server_close()
+        if get_config().durability.enabled:
+            shutdown_durability()  # drain, flush the WAL, cut the final snapshot
         reset_factories()  # stops the scheduler thread and the batcher
         logger.info("chain server stopped")
 

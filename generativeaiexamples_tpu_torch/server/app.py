@@ -3,22 +3,26 @@ standard library's ``http.server``.
 
 Routes: ``POST /generate`` streaming SSE ``ChainResponse`` chunks ended by
 a ``[DONE]`` chunk (bytes identical to the reference's but for the uuid
-``id``), ``POST /documents`` (multipart upload), ``GET``/``DELETE
-/documents``, ``POST /search``, ``GET /health`` and ``GET /metrics``.
-One thread per connection runs its request end to end: the telemetry
-shell (request id, W3C ``traceparent``, a ``RequestTrace``,
-``Server-Timing``, the flight recorder and the TSDB/SLO feeds), the
-admission gate, the request deadline, and the pipeline generator under a
-``contextvars`` context that binds the deadline, degrade log, cache log
-and trace.
+``id``), ``POST /documents`` (multipart upload), ``POST /documents/bulk``
+(a background job through the bulk-ingest pipeline, 202 with its id) and
+``GET /documents/status``, ``GET``/``DELETE /documents``, ``POST
+/search``, each of them on a named collection with ``?collection=`` (or
+the body's ``collection``), ``GET /health``, ``GET /metrics``, ``GET
+/debug/requests``, ``GET /debug/timeseries``, and ``POST
+/debug/profiler/{start,stop}`` behind ``GAIE_ENABLE_PROFILER``.  One
+thread per connection runs its request end to end: the telemetry shell
+(request id, W3C ``traceparent``, a ``RequestTrace``, ``Server-Timing``,
+the flight recorder and the TSDB/SLO feeds), the admission gate, the
+request deadline, and the pipeline generator under a ``contextvars``
+context that binds the deadline, degrade log, cache log and trace.  With
+``durability.enabled``, ``create_app`` recovers the store and resumes the
+journal's interrupted jobs before it serves.
 
-Differences from the reference, on purpose: a named ``collection`` answers
-501 (named collections are ``ROADMAP.md`` Queue 1 item 8); the bulk
-upload, ``/debug/*`` and profiler routes are not served; ``/metrics``
-carries the families of the ported modules (``rag_*``, ``rag_store_*``,
-resilience, admission, cache, obs, slo) and not the ingest, fabric, pool,
-durability and gray ones; uploads default to a directory under the
-temporary directory.
+Differences from the reference, on purpose: ``/metrics`` carries every
+family of the ported modules and not the engine pool's or the
+gray-failure ones (their modules are not ported); the profiler writes a
+Chrome trace, not a TensorBoard one; uploads default to a directory under
+the temporary directory.
 """
 
 from __future__ import annotations
@@ -42,10 +46,15 @@ from generativeaiexamples_tpu_torch.core.tracing import extract_trace_headers, g
 from generativeaiexamples_tpu_torch.obs.recorder import get_flight_recorder
 from generativeaiexamples_tpu_torch.obs.slo import slo_health, slo_note_request
 from generativeaiexamples_tpu_torch.obs.trace import RequestTrace, bind_request_trace, new_request_id
-from generativeaiexamples_tpu_torch.obs.tsdb import get_tsdb
+from generativeaiexamples_tpu_torch.obs.tsdb import get_tsdb, parse_window
 from generativeaiexamples_tpu_torch.resilience.breaker import CircuitOpenError, all_breakers
 from generativeaiexamples_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded, bind_deadline
 from generativeaiexamples_tpu_torch.resilience.degrade import DegradeLog, bind_degrade_log
+from generativeaiexamples_tpu_torch.retrieval.fabric.collections import (
+    DEFAULT_COLLECTION,
+    CollectionQuotaExceeded,
+    UnknownCollection,
+)
 from generativeaiexamples_tpu_torch.server import schema
 from generativeaiexamples_tpu_torch.server.plugins import discover_example
 
@@ -61,7 +70,6 @@ UPLOAD_DIR_ENV = "GAIE_UPLOAD_DIR"
 DEFAULT_UPLOAD_DIR = os.path.join(tempfile.gettempdir(), "gaie_uploaded_files")
 MAX_BODY_BYTES = 512 * 1024 * 1024  # the reference's client_max_size
 
-DEFAULT_COLLECTION = "default"
 _ERROR_MESSAGE = "Error from chain server. Please check chain-server logs for more details."
 _SSE_HEADERS = {"Content-Type": "text/event-stream", "Cache-Control": "no-cache"}
 
@@ -198,6 +206,7 @@ _ADMISSION_ROUTES = {
     ("POST", "/generate"): None,
     ("POST", "/search"): None,
     ("POST", "/documents"): "ingest",
+    ("POST", "/documents/bulk"): "ingest",
 }
 
 
@@ -313,17 +322,50 @@ def _error_chunk(message: str) -> schema.ChainResponse:
 
 
 def _requested_collection(value: str) -> str:
-    """Empty and ``"default"`` both mean the singleton store."""
+    """Empty and ``"default"`` both mean the singleton store (the example
+    pipeline owns retrieval and ingestion); any other name routes the
+    request to that named collection's own store."""
     name = (value or "").strip()
     return "" if name == DEFAULT_COLLECTION else name
 
 
-def _named_collection(name: str) -> Response:
-    return json_response(
-        {"detail": f"collection {name!r}: named collections are not served by the PyTorch chain server "
-                   f"(ROADMAP.md, Queue 1 item 8); use the default collection"},
-        status=501,
-    )
+def _collection_search_sync(name: str, query: str, top_k: int, device) -> list[dict]:
+    """Embed + search a named collection's store directly (the example
+    pipeline only knows the singleton).  Returns ``document_search``-shaped
+    dicts; raises :class:`UnknownCollection` for a 404."""
+    from generativeaiexamples_tpu_torch.chains.factory import get_collection_manager, get_embedder
+    from generativeaiexamples_tpu_torch.core.configuration import get_config
+
+    store = get_collection_manager(device).get(name)
+    embedding = get_embedder(device).embed_query(query)
+    threshold = get_config().retriever.score_threshold
+    hits = store.search(embedding, top_k=top_k)
+    return [
+        {"content": h.chunk.text, "source": h.chunk.source, "score": float(h.score)}
+        for h in hits
+        if float(h.score) >= threshold
+    ]
+
+
+def _collection_ingest_sync(name: str, file_path: str, filename: str, example, device) -> int:
+    """Parse → embed → quota-admitted append into a named collection,
+    created on first ingest (create-as-ensure, config default quotas);
+    parsing prefers the example's ``parse_chunks`` hook.  Raises
+    :class:`CollectionQuotaExceeded` for a 413."""
+    from generativeaiexamples_tpu_torch.chains.factory import get_collection_manager, get_embedder, get_splitter
+    from generativeaiexamples_tpu_torch.ingest.loaders import load_document
+    from generativeaiexamples_tpu_torch.retrieval.base import Chunk
+
+    manager = get_collection_manager(device)
+    manager.create(name)
+    parse = getattr(example, "parse_chunks", None)
+    if callable(parse):
+        chunks = list(parse(file_path, filename))
+    else:
+        chunks = [Chunk(text=piece, source=filename) for piece in get_splitter().split(load_document(file_path))]
+    embeddings = get_embedder(device).embed_documents([c.text for c in chunks])
+    manager.add(name, chunks, embeddings)
+    return len(chunks)
 
 
 def handle_health(req: "_Request") -> Response:
@@ -337,14 +379,20 @@ def handle_health(req: "_Request") -> Response:
     ).to_dict())
 
 
-def store_metrics_lines(stats: Optional[dict]) -> list[str]:
+def store_metrics_lines(stats: Optional[dict], collections: Optional[dict] = None) -> list[str]:
     """Prometheus lines for vector-store capacity (``rag_store_*``; zeros
-    before any store exists).  ``rag_store_bytes`` counts every device
-    buffer the store holds."""
+    before any store exists).  The unlabeled gauges are the aggregate over
+    the singleton and every named collection; ``collections`` maps a
+    collection's name to its ``capacity_stats()`` and feeds
+    ``rag_store_rows{collection=...}`` (64-label fold) inside the same
+    ``# TYPE`` block.  ``rag_store_bytes`` counts every device buffer."""
+    from generativeaiexamples_tpu_torch.retrieval.fabric.metrics import _escape, fold_collection_labels
+
     s = stats or {}
-    return [
-        "# TYPE rag_store_rows gauge",
-        f"rag_store_rows {s.get('rows', 0)}",
+    lines = ["# TYPE rag_store_rows gauge", f"rag_store_rows {s.get('rows', 0)}"]
+    for label, cstats in fold_collection_labels(collections or {}):
+        lines.append(f'rag_store_rows{{collection="{_escape(label)}"}} {cstats.get("rows", 0)}')
+    return lines + [
         "# TYPE rag_store_bytes gauge",
         f"rag_store_bytes {s.get('bytes', 0)}",
         "# TYPE rag_store_tail_rows gauge",
@@ -353,27 +401,49 @@ def store_metrics_lines(stats: Optional[dict]) -> list[str]:
 
 
 def metrics_text() -> str:
-    """The chain server's Prometheus exposition: the retrieval
-    micro-batcher's ``rag_*`` series, store capacity, resilience,
-    admission, cache, per-stage latency and SLO families."""
+    """The chain server's Prometheus exposition, in the reference's order:
+    the retrieval micro-batcher's ``rag_*`` series, the bulk pipeline's
+    ``ingest_*``, store capacity (aggregate and per collection), the
+    fabric's shard, cold-tier and collection families, resilience,
+    admission, cache, per-stage latency, SLO and durability.  Peek-only:
+    a scrape builds no store, manager or pipeline."""
     from generativeaiexamples_tpu_torch.cache.metrics import cache_metrics_lines
-    from generativeaiexamples_tpu_torch.chains.factory import get_retrieval_batcher, peek_store
+    from generativeaiexamples_tpu_torch.chains.factory import (
+        get_retrieval_batcher,
+        peek_collection_manager,
+        peek_ingest_pipeline,
+        peek_store,
+    )
+    from generativeaiexamples_tpu_torch.durability.metrics import durability_metrics_lines
     from generativeaiexamples_tpu_torch.engine.server import rag_metrics_lines
+    from generativeaiexamples_tpu_torch.ingest.pipeline import ingest_metrics_lines
     from generativeaiexamples_tpu_torch.obs.metrics import obs_metrics_lines
     from generativeaiexamples_tpu_torch.obs.slo import slo_metrics_lines
     from generativeaiexamples_tpu_torch.resilience.admission import admission_metrics_lines
     from generativeaiexamples_tpu_torch.resilience.metrics import resilience_metrics_lines
+    from generativeaiexamples_tpu_torch.retrieval.fabric.metrics import aggregate_capacity_stats, fabric_metrics_lines
 
     batcher = get_retrieval_batcher()
+    pipeline = peek_ingest_pipeline()
     store = peek_store()
+    manager = peek_collection_manager()
     lines = (
         rag_metrics_lines(batcher.stats.snapshot() if batcher is not None else None)
-        + store_metrics_lines(store.capacity_stats() if store is not None else None)
+        + ingest_metrics_lines(
+            pipeline.stats.snapshot() if pipeline is not None else None,
+            active_jobs=pipeline.active_jobs() if pipeline is not None else 0,
+        )
+        + store_metrics_lines(
+            aggregate_capacity_stats(store, manager),
+            manager.capacity_by_collection() if manager is not None else None,
+        )
+        + fabric_metrics_lines(store, manager)
         + resilience_metrics_lines()
         + admission_metrics_lines()
         + cache_metrics_lines()
         + obs_metrics_lines()
         + slo_metrics_lines()
+        + durability_metrics_lines()
     )
     return "\n".join(lines) + "\n"
 
@@ -389,7 +459,13 @@ def handle_generate(req: "_Request") -> Response:
         return json_response({"detail": str(exc)}, status=422)
     collection = _requested_collection(prompt.collection)
     if collection and prompt.use_knowledge_base:
-        return _named_collection(collection)
+        # Resolve the collection BEFORE streaming: a typo becomes a typed
+        # 404, not a 200 that dies with an SSE error chunk.
+        from generativeaiexamples_tpu_torch.chains.factory import peek_collection_manager
+
+        manager = peek_collection_manager()
+        if manager is None or not manager.exists(collection):
+            return json_response({"detail": f"unknown collection {collection!r}"}, status=404)
 
     chat_history = [(m.role, m.content) for m in prompt.messages]
     last_user = next((c for r, c in reversed(chat_history) if r == "user"), None)
@@ -414,11 +490,27 @@ def handle_generate(req: "_Request") -> Response:
     try:
         with get_tracer().start_as_current_span("generate"):
             example = req.example_cls()
-            chain = example.rag_chain if prompt.use_knowledge_base else example.llm_chain
-            gen = chain(query=last_user or "", chat_history=chat_history, **llm_settings)
+            if prompt.use_knowledge_base and collection:
+                gen = _collection_rag(example, collection, last_user or "", chat_history, llm_settings, req.device)
+            else:
+                chain = example.rag_chain if prompt.use_knowledge_base else example.llm_chain
+                gen = chain(query=last_user or "", chat_history=chat_history, **llm_settings)
             return _generate_stream(req, _iterate_in_context(gen, ctx), resp_id, degrade_log, cache_log)
     finally:
         _annotate_trace(req.trace, degrade_log, cache_log)
+
+
+def _collection_rag(example, collection: str, query: str, chat_history: list, llm_settings: dict,
+                    device) -> Iterator[str]:
+    """Named-collection RAG: retrieve from the collection's own store, then
+    ground the LLM with a system context turn (the example's rag_chain is
+    bound to the singleton)."""
+    from generativeaiexamples_tpu_torch.core.configuration import get_config
+
+    hits = _collection_search_sync(collection, query, get_config().retriever.top_k, device)
+    context = "\n\n".join(h["content"] for h in hits)
+    grounded = [("system", f"Answer using this context from the {collection!r} collection:\n{context}")]
+    yield from example.llm_chain(query=query, chat_history=grounded + chat_history, **llm_settings)
 
 
 def _generate_stream(req: "_Request", chunks: Iterator[str], resp_id: str, degrade_log: DegradeLog,
@@ -471,18 +563,28 @@ def _generate_stream(req: "_Request", chunks: Iterator[str], resp_id: str, degra
     return Response(200, sent=True)
 
 
-def _file_part(content_type: str, body: bytes) -> Optional[tuple[str, bytes]]:
-    """The ``file`` field of a multipart/form-data body: (filename, bytes),
-    or None."""
+def _file_parts(content_type: str, body: bytes, names=("file",), named_only: bool = False) -> list:
+    """The file fields (``names``) of a multipart/form-data body, in order:
+    [(filename, bytes)]; ``named_only`` skips parts without a filename."""
     msg = email.parser.BytesParser(policy=email.policy.HTTP).parsebytes(
         b"Content-Type: " + content_type.encode("latin-1") + b"\r\n\r\n" + body
     )
     if not msg.is_multipart():
-        return None
+        return []
+    out = []
     for part in msg.iter_parts():
-        if part.get_param("name", header="content-disposition") == "file":
-            return part.get_filename() or "", part.get_payload(decode=True) or b""
-    return None
+        if part.get_param("name", header="content-disposition") in names:
+            filename = part.get_filename() or ""
+            if filename or not named_only:
+                out.append((filename, part.get_payload(decode=True) or b""))
+    return out
+
+
+def _file_part(content_type: str, body: bytes) -> Optional[tuple[str, bytes]]:
+    """The first ``file`` field of a multipart/form-data body: (filename,
+    bytes), or None."""
+    parts = _file_parts(content_type, body)
+    return parts[0] if parts else None
 
 
 def _save_part(filename: str, data: bytes) -> tuple[str, str]:
@@ -500,16 +602,22 @@ def _save_part(filename: str, data: bytes) -> tuple[str, str]:
 
 
 def handle_upload_document(req: "_Request") -> Response:
-    collection = _requested_collection(req.query.get("collection", ""))
-    if collection:
-        return _named_collection(collection)
     part = _file_part(req.headers.get("Content-Type", ""), req.body())
     if part is None:
         return json_response({"detail": "no file field"}, status=422)
     file_path, filename = _save_part(*part)
-    logger.info("saved upload %s (%d bytes)", filename, len(part[1]))
+    collection = _requested_collection(req.query.get("collection", ""))
+    logger.info("saved upload %s (%d bytes)%s", filename, len(part[1]),
+                f" -> collection {collection!r}" if collection else "")
     try:
-        req.example_cls().ingest_docs(file_path, filename)
+        example = req.example_cls()
+        if collection:
+            _collection_ingest_sync(collection, file_path, filename, example, req.device)
+        else:
+            example.ingest_docs(file_path, filename)
+    except CollectionQuotaExceeded as exc:
+        logger.warning("quota refusal for %s: %s", filename, exc)
+        return json_response({"detail": str(exc)}, status=413)
     except Exception as exc:
         logger.exception("ingest failed for %s", filename)
         return json_response({"detail": f"Failed to upload document. {exc}"}, status=500)
@@ -521,20 +629,89 @@ def handle_upload_document(req: "_Request") -> Response:
     return json_response({"message": f"File uploaded successfully: {filename}"})
 
 
+def handle_bulk_upload(req: "_Request") -> Response:
+    """``POST /documents/bulk``: multi-file upload into the staged ingest
+    pipeline as a BACKGROUND job: 202 with a job id once the files are on
+    disk; ``GET /documents/status?job_id=...`` tracks it.  Files of a
+    standard pipeline (a ``parse_chunks`` hook) flow through the parse
+    pool and shared embed dispatches; a named collection, or a plugin with
+    its own ``ingest_docs``, ingests each file on the pool (a quota refusal
+    fails only that file)."""
+    from generativeaiexamples_tpu_torch.chains.factory import get_collection_manager, get_ingest_pipeline
+
+    parts = _file_parts(req.headers.get("Content-Type", ""), req.body(), names=("file", "files"), named_only=True)
+    files: list[tuple[str, str]] = []
+    for filename, data in parts:
+        files.append(_save_part(filename, data))
+        logger.info("bulk upload staged %s (%d bytes)", files[-1][1], len(data))
+    if not files:
+        return json_response({"detail": "no file fields"}, status=422)
+    collection = _requested_collection(req.query.get("collection", ""))
+    try:
+        example = req.example_cls()
+        pipeline = get_ingest_pipeline(req.device)
+        if collection:
+            # Ensure the collection before the 202: a bad name fails the
+            # submission, not the job.
+            get_collection_manager(req.device).create(collection)
+
+            def ingest_fn(path: str, name: str) -> None:
+                _collection_ingest_sync(collection, path, name, example, req.device)
+
+        else:
+            ingest_fn = None if hasattr(example, "parse_chunks") else example.ingest_docs
+        job_id = pipeline.submit(files, ingest_fn=ingest_fn)
+    except Exception as exc:
+        logger.exception("bulk ingest submission failed")
+        for path, _ in files:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        return json_response({"detail": f"Failed to start bulk ingestion. {exc}"}, status=500)
+    return json_response(
+        schema.BulkIngestResponse(job_id=job_id, files_received=len(files),
+                                  message=f"Bulk ingestion started for {len(files)} files.").to_dict(),
+        status=202,
+    )
+
+
+def handle_ingest_status(req: "_Request") -> Response:
+    """``GET /documents/status``: bulk-ingest job progress (one job with
+    ``?job_id=``, else every job, newest first)."""
+    from generativeaiexamples_tpu_torch.chains.factory import peek_ingest_pipeline
+
+    pipeline = peek_ingest_pipeline()
+    job_id = req.query.get("job_id", "")
+    if pipeline is None:
+        if job_id:
+            return json_response({"detail": f"unknown job {job_id!r}"}, status=404)
+        return json_response(schema.IngestStatusResponse(jobs=[], active_jobs=0).to_dict())
+    if job_id:
+        snap = pipeline.status(job_id)
+        if snap is None:
+            return json_response({"detail": f"unknown job {job_id!r}"}, status=404)
+        return json_response(schema.IngestJobStatus(**snap).to_dict())
+    status = pipeline.status()
+    return json_response(schema.IngestStatusResponse(
+        jobs=[schema.IngestJobStatus(**j) for j in status["jobs"]], active_jobs=status["active_jobs"]).to_dict())
+
+
 def handle_search(req: "_Request") -> Response:
     try:
         body = schema.DocumentSearch.parse(req.json())
     except ValueError as exc:
         return json_response({"detail": str(exc)}, status=422)
     collection = _requested_collection(body.collection)
-    if collection:
-        return _named_collection(collection)
     degrade_log = DegradeLog()
     cache_log = CacheLog()
     ctx = _request_context(_request_deadline(req.headers), degrade_log, cache_log, req.trace)
     try:
         example = req.example_cls()
-        hits = ctx.run(example.document_search, body.query, body.top_k)
+        if collection:
+            hits = ctx.run(_collection_search_sync, collection, body.query, body.top_k, req.device)
+        else:
+            hits = ctx.run(example.document_search, body.query, body.top_k)
         chunks = [
             schema.DocumentChunk(content=h.get("content", ""), filename=h.get("source", ""),
                                  score=float(h.get("score", 0.0)))
@@ -546,6 +723,8 @@ def handle_search(req: "_Request") -> Response:
                                           cache_tier=tier).to_dict(),
             headers=_cache_headers(cache_log),
         )
+    except UnknownCollection as exc:
+        return json_response({"detail": str(exc)}, status=404)
     except NotImplementedError:
         return json_response({"detail": "document_search not supported by this pipeline"}, status=501)
     except DeadlineExceeded:
@@ -564,11 +743,16 @@ def handle_search(req: "_Request") -> Response:
 
 def handle_get_documents(req: "_Request") -> Response:
     collection = _requested_collection(req.query.get("collection", ""))
-    if collection:
-        return _named_collection(collection)
     try:
-        docs = req.example_cls().get_documents()
+        if collection:
+            from generativeaiexamples_tpu_torch.chains.factory import get_collection_manager
+
+            docs = sorted(get_collection_manager(req.device).get(collection).sources())
+        else:
+            docs = req.example_cls().get_documents()
         return json_response(schema.DocumentsResponse(documents=docs).to_dict())
+    except UnknownCollection as exc:
+        return json_response({"detail": str(exc)}, status=404)
     except NotImplementedError:
         return json_response({"detail": "get_documents not supported by this pipeline"}, status=501)
     except Exception:
@@ -581,13 +765,18 @@ def handle_delete_document(req: "_Request") -> Response:
     if not filename:
         return json_response({"detail": "filename query param required"}, status=422)
     collection = _requested_collection(req.query.get("collection", ""))
-    if collection:
-        return _named_collection(collection)
     try:
-        ok = req.example_cls().delete_documents([filename])
+        if collection:
+            from generativeaiexamples_tpu_torch.chains.factory import get_collection_manager
+
+            ok = get_collection_manager(req.device).get(collection).delete_source(filename)
+        else:
+            ok = req.example_cls().delete_documents([filename])
         if not ok:
             return json_response({"detail": f"{filename} not found"}, status=404)
         return json_response({"message": f"Deleted {filename}"})
+    except UnknownCollection as exc:
+        return json_response({"detail": str(exc)}, status=404)
     except NotImplementedError:
         return json_response({"detail": "delete_documents not supported by this pipeline"}, status=501)
     except Exception:
@@ -595,16 +784,68 @@ def handle_delete_document(req: "_Request") -> Response:
         return json_response({"detail": "Error occurred while deleting document."}, status=500)
 
 
+def handle_debug_requests(req: "_Request") -> Response:
+    """``GET /debug/requests``: the flight recorder's completed request
+    traces, newest first (``?limit=N`` trims the dump)."""
+    limit: Optional[int] = None
+    raw = req.query.get("limit", "")
+    if raw:
+        try:
+            limit = int(raw)
+        except ValueError:
+            return json_response({"detail": "limit must be an integer"}, status=422)
+    records = get_flight_recorder().snapshot(limit)
+    return json_response(schema.DebugRequestsResponse(
+        requests=[schema.RequestTraceRecord(**r) for r in records], count=len(records)).to_dict())
+
+
+def handle_debug_timeseries(req: "_Request") -> Response:
+    """``GET /debug/timeseries?series=a,b*&window=5m``: the in-process
+    TSDB's bucketed history; ``series`` filters by exact name or
+    trailing-``*`` prefix, omitted means everything."""
+    names = [p.strip() for p in req.query.get("series", "").split(",") if p.strip()]
+    try:
+        window_s = parse_window(req.query.get("window", ""), default_s=300.0)
+    except ValueError as exc:
+        return json_response({"detail": str(exc)}, status=422)
+    db = get_tsdb()
+    payload = db.query(window_s, names or None)
+    payload["names"] = db.names()
+    return json_response(schema.DebugTimeseriesResponse(**payload).to_dict())
+
+
+def handle_profiler_start(req: "_Request") -> Response:
+    from generativeaiexamples_tpu_torch.obs.profiler import profiler_start
+
+    status, body = profiler_start()
+    return json_response(body, status=status)
+
+
+def handle_profiler_stop(req: "_Request") -> Response:
+    from generativeaiexamples_tpu_torch.obs.profiler import profiler_stop
+
+    status, body = profiler_stop()
+    return json_response(body, status=status)
+
+
 ROUTES = {
     ("GET", "/health"): handle_health,
     ("GET", "/metrics"): handle_metrics,
     ("POST", "/generate"): handle_generate,
     ("POST", "/documents"): handle_upload_document,
+    ("POST", "/documents/bulk"): handle_bulk_upload,
+    ("GET", "/documents/status"): handle_ingest_status,
     ("GET", "/documents"): handle_get_documents,
     ("DELETE", "/documents"): handle_delete_document,
     ("POST", "/search"): handle_search,
+    ("GET", "/debug/requests"): handle_debug_requests,
+    ("GET", "/debug/timeseries"): handle_debug_timeseries,
 }
-_PATHS = {path for _, path in ROUTES}
+# Served only when the profiler gate is open (``obs/profiler.py``).
+PROFILER_ROUTES = {
+    ("POST", "/debug/profiler/start"): handle_profiler_start,
+    ("POST", "/debug/profiler/stop"): handle_profiler_stop,
+}
 
 
 class _Request:
@@ -618,6 +859,7 @@ class _Request:
         self.query = {k: v[0] for k, v in urllib.parse.parse_qs(url.query, keep_blank_values=True).items()}
         self.headers = http.headers
         self.example_cls = http.server.example_cls
+        self.device = http.server.device
         self.request_id = ""
         self.trace: Optional[RequestTrace] = None
         self._body: Optional[bytes] = None
@@ -685,10 +927,11 @@ class _Handler(BaseHTTPRequestHandler):
             req.trace = RequestTrace(request_id=req.request_id, route=req.path)
             if parent_span:
                 req.trace.set_attr("parent_span_id", parent_span)
-        handler = ROUTES.get((method, req.path))
+        routes = self.server.routes
+        handler = routes.get((method, req.path))
         try:
             if handler is None:
-                status = 405 if req.path in _PATHS else 404
+                status = 405 if any(path == req.path for _, path in routes) else 404
                 resp = json_response({"detail": "Method Not Allowed" if status == 405 else "Not Found"}, status)
             else:
                 resp = _admitted(req, handler)
@@ -713,16 +956,19 @@ class _Handler(BaseHTTPRequestHandler):
 
 class ChainServer(ThreadingHTTPServer):
     """The chain server: one thread per connection, serving ``example_cls``
-    (a fresh pipeline object per request, as the reference does)."""
+    (a fresh pipeline object per request, as the reference does) over the
+    factory's singletons on ``device``."""
 
     daemon_threads = True
     # Listen backlog (http.server's default is 5): a burst of concurrent
     # clients must queue, not be reset.
     request_queue_size = 128
 
-    def __init__(self, address, example_cls) -> None:
+    def __init__(self, address, example_cls, device=None, routes=None) -> None:
         super().__init__(address, _Handler)
         self.example_cls = example_cls
+        self.device = device
+        self.routes = dict(ROUTES if routes is None else routes)
 
 
 def create_app(example_cls: Any = None, host: str = "127.0.0.1", port: int = 0, device=None) -> ChainServer:
@@ -733,11 +979,30 @@ def create_app(example_cls: Any = None, host: str = "127.0.0.1", port: int = 0, 
     ``GAIE_EXAMPLE_MODULE``, default the port's ``developer_rag``).  The
     factory's chat LLM, retriever (store, embedder, reranker, cache) and
     micro-batcher are built here from ``APP_*``, on ``device``: None is
-    the card (without one this raises), ``"cpu"`` only when asked."""
-    from generativeaiexamples_tpu_torch.chains.factory import get_chat_llm, get_retrieval_batcher, get_retriever
+    the card (without one this raises), ``"cpu"`` only when asked; so is
+    what the example's ``prepare(device)`` builds (the multi-turn chain's
+    memory store).  With ``durability.enabled`` building the store
+    recovers it (snapshot + WAL tail) and the ingest pipeline is built to
+    resume the journal's interrupted jobs, both before the first request.
+    The ``/debug/profiler/*`` routes exist when ``GAIE_ENABLE_PROFILER`` is
+    set."""
+    from generativeaiexamples_tpu_torch.chains.factory import (
+        get_chat_llm,
+        get_ingest_pipeline,
+        get_retrieval_batcher,
+        get_retriever,
+    )
+    from generativeaiexamples_tpu_torch.core.configuration import get_config
+    from generativeaiexamples_tpu_torch.obs.profiler import profiler_enabled
 
     example_cls = example_cls or discover_example()
     get_chat_llm(device)
     get_retriever(device)
     get_retrieval_batcher(device)
-    return ChainServer((host, port), example_cls)
+    prepare = getattr(example_cls, "prepare", None)
+    if callable(prepare):
+        prepare(device)
+    if get_config().durability.enabled:
+        get_ingest_pipeline(device)
+    routes = {**ROUTES, **(PROFILER_ROUTES if profiler_enabled() else {})}
+    return ChainServer((host, port), example_cls, device=device, routes=routes)

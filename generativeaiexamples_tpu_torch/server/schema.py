@@ -4,7 +4,11 @@
 Field for field the reference's pydantic models, with their bounds and
 defaults: ``Prompt`` in, ``ChainResponse`` chunks out with a ``[DONE]``
 finish_reason sentinel, ``DocumentSearch``/``DocumentSearchResponse``,
-``DocumentsResponse``, ``HealthResponse``.  Each model validates on
+``DocumentsResponse``, ``HealthResponse``, the bulk-ingest job models
+(``BulkIngestResponse``, ``IngestJobStatus``, ``IngestStatusResponse``)
+and the ``/debug`` models (``RequestTraceStage``, ``RequestTraceRecord``,
+``DebugRequestsResponse``, ``TimeseriesSeries``,
+``DebugTimeseriesResponse``).  Each model validates on
 construction, as a pydantic model does (so an assistant ``Message`` is
 sanitized too), and ``parse`` builds one from decoded JSON with pydantic's
 lax coercions (``"0.5"`` for a float, ``"yes"`` for a bool, ``5.0`` for an
@@ -21,7 +25,7 @@ import dataclasses
 import json
 import math
 import re
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 _TAG_RE = re.compile(r"<[^>]*>")
 MAX_CONTENT_LEN = 131072  # request cap, reference server.py:63,123
@@ -66,6 +70,13 @@ def _bounded(value: float, loc: str, ge: float, le: float) -> None:
         raise ValidationError(f"{loc}: Input should be less than or equal to {le}")
 
 
+def _float_min(value: Any, loc: str, ge: float) -> float:
+    out = _number(value, loc)
+    if not out >= ge:
+        raise ValidationError(f"{loc}: Input should be greater than or equal to {ge}")
+    return out
+
+
 def _float(value: Any, loc: str, ge: float, le: float) -> float:
     out = _number(value, loc)
     _bounded(out, loc, ge, le)
@@ -82,6 +93,17 @@ def _int(value: Any, loc: str, ge: int, le: int) -> int:
         out = int(num)
     _bounded(out, loc, ge, le)
     return out
+
+
+def _count(value: Any, loc: str) -> int:
+    """A non-negative integer (pydantic's ``int`` with ``ge=0``)."""
+    return _int(value, loc, 0, 2**63 - 1)
+
+
+def _dict(value: Any, loc: str) -> dict:
+    if not isinstance(value, dict):
+        raise ValidationError(f"{loc}: Input should be a valid dictionary")
+    return value
 
 
 def _bool(value: Any, loc: str) -> bool:
@@ -291,3 +313,155 @@ class HealthResponse(_Model):
         self.status = _str(self.status, "status", 16)
         if not isinstance(self.breakers, dict) or not isinstance(self.slo, dict):
             raise ValidationError("breakers, slo: Input should be a valid dictionary")
+
+
+@dataclasses.dataclass
+class BulkIngestResponse(_Model):
+    """202 body of POST /documents/bulk: the background job handle."""
+
+    job_id: str = ""
+    files_received: int = 0
+    message: str = ""
+
+    def __post_init__(self) -> None:
+        self.job_id = _str(self.job_id, "job_id", 64)
+        self.files_received = _count(self.files_received, "files_received")
+        self.message = _str(self.message, "message", 4096)
+
+
+@dataclasses.dataclass
+class IngestJobStatus(_Model):
+    """Progress of one bulk-ingestion job (GET /documents/status)."""
+
+    job_id: str = ""
+    status: str = ""
+    files_total: int = 0
+    files_done: int = 0
+    files_failed: int = 0
+    chunks_total: int = 0
+    chunks_ingested: int = 0
+    docs_per_sec: float = 0.0
+    errors: List[str] = dataclasses.field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        self.job_id = _str(self.job_id, "job_id", 64)
+        self.status = _str(self.status, "status", 32)
+        for name in ("files_total", "files_done", "files_failed", "chunks_total", "chunks_ingested"):
+            setattr(self, name, _count(getattr(self, name), name))
+        self.docs_per_sec = _number(self.docs_per_sec, "docs_per_sec")
+        self.errors = _str_list(self.errors, "errors", 64)
+
+
+@dataclasses.dataclass
+class IngestStatusResponse(_Model):
+    jobs: List[IngestJobStatus] = dataclasses.field(default_factory=list)
+    active_jobs: int = 0
+
+    def __post_init__(self) -> None:
+        self.jobs = [_model(IngestJobStatus, j, f"jobs.{i}") for i, j in enumerate(_list(self.jobs, "jobs", 2**31))]
+        self.active_jobs = _count(self.active_jobs, "active_jobs")
+
+
+@dataclasses.dataclass
+class RequestTraceStage(_Model):
+    """One completed hot-path stage inside a request trace."""
+
+    stage: str = ""
+    # Offset from the trace's creation, and the stage's wall duration.
+    start_ms: float = 0.0
+    duration_ms: float = 0.0
+    # Facts the stage already computed: cache tier, batch id/size, ...
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self.stage = _str(self.stage, "stage", 64)
+        self.start_ms = _float_min(self.start_ms, "start_ms", 0.0)
+        self.duration_ms = _float_min(self.duration_ms, "duration_ms", 0.0)
+        self.attrs = _dict(self.attrs, "attrs")
+
+
+@dataclasses.dataclass
+class RequestTraceRecord(_Model):
+    """One completed request in the GET /debug/requests flight recorder."""
+
+    seq: int = 0
+    # True when the trace sits in the pinned ring (error or degraded).
+    pinned: bool = False
+    request_id: str = ""
+    route: str = ""
+    status: Optional[int] = None
+    error: Optional[str] = None
+    degraded: List[str] = dataclasses.field(default_factory=list)
+    total_ms: float = 0.0
+    # Unix wall-clock seconds of the request's start.
+    started_at: float = 0.0
+    stages: List[RequestTraceStage] = dataclasses.field(default_factory=list)
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self.seq = _count(self.seq, "seq")
+        self.pinned = _bool(self.pinned, "pinned")
+        self.request_id = _str(self.request_id, "request_id", 64)
+        self.route = _str(self.route, "route", 256)
+        if self.status is not None:
+            self.status = _int(self.status, "status", -(2**63), 2**63 - 1)
+        if self.error is not None:
+            self.error = _str(self.error, "error", 512)
+        self.degraded = _str_list(self.degraded, "degraded", 16)
+        self.total_ms = _float_min(self.total_ms, "total_ms", 0.0)
+        self.started_at = _number(self.started_at, "started_at")
+        self.stages = [
+            _model(RequestTraceStage, st, f"stages.{i}") for i, st in enumerate(_list(self.stages, "stages", 2**31))
+        ]
+        self.attrs = _dict(self.attrs, "attrs")
+
+
+@dataclasses.dataclass
+class DebugRequestsResponse(_Model):
+    requests: List[RequestTraceRecord] = dataclasses.field(default_factory=list)
+    count: int = 0
+
+    def __post_init__(self) -> None:
+        self.requests = [
+            _model(RequestTraceRecord, r, f"requests.{i}") for i, r in enumerate(_list(self.requests, "requests", 2**31))
+        ]
+        self.count = _count(self.count, "count")
+
+
+@dataclasses.dataclass
+class TimeseriesSeries(_Model):
+    """One TSDB series: its kind plus bucket rows, oldest first."""
+
+    kind: str = "value"
+    # Bucket rows laid out per the response's ``columns``.
+    points: List[List[float]] = dataclasses.field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        self.kind = _str(self.kind, "kind", 16)
+        self.points = [
+            [_number(v, f"points.{i}.{j}") for j, v in enumerate(_list(row, f"points.{i}", 2**31))]
+            for i, row in enumerate(_list(self.points, "points", 2**31))
+        ]
+
+
+@dataclasses.dataclass
+class DebugTimeseriesResponse(_Model):
+    """GET /debug/timeseries: the in-process TSDB's bucketed history."""
+
+    window_s: float = 300.0
+    # Layout of every bucket row under ``series.*.points``.
+    columns: List[str] = dataclasses.field(default_factory=list)
+    series: Dict[str, TimeseriesSeries] = dataclasses.field(default_factory=dict)
+    # Every series the process knows, for discovery (unfiltered).
+    names: List[str] = dataclasses.field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        self.window_s = _number(self.window_s, "window_s")
+        if not self.window_s > 0.0:
+            raise ValidationError("window_s: Input should be greater than 0.0")
+        self.columns = _str_list(self.columns, "columns", 2**31)
+        self.series = {
+            _str(k, "series", 2**31): _model(TimeseriesSeries, v, f"series.{k}")
+            for k, v in _dict(self.series, "series").items()
+        }
+        self.names = _str_list(self.names, "names", 2**31)

@@ -10,7 +10,12 @@ both servers, in the same order, and holds the port to the reference:
 status codes, ``/search`` chunks (same order, scores within
 ``SCORE_TOL``), the SSE bytes of ``/generate`` with the uuid ``id``
 masked (``[DONE]`` chunk included), the document listing, ``/health``,
-and the ``rag_*`` and admission counters of ``/metrics``.
+and the ``rag_*`` and admission counters of ``/metrics``.  Then the bulk
+path (``/documents/bulk``, ``/documents/status``, job ids masked), named
+collections on every route (``?collection=``, the body's ``collection``,
+quotas, 404s), ``/debug/requests`` and ``/debug/timeseries``, the new
+``/metrics`` families parsed by both packages' ``obs/exposition.py``, and
+the profiler gate (closed: 404 on both; open: the port's own routes).
 """
 
 import asyncio
@@ -18,6 +23,7 @@ import json
 import os
 import re
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -27,10 +33,12 @@ from aiohttp.test_utils import TestClient, TestServer
 from generativeaiexamples_tpu.chains import factory as jfactory
 from generativeaiexamples_tpu.core import configuration as jconfiguration
 from generativeaiexamples_tpu.engine import tokenizer as jtokenizer
+from generativeaiexamples_tpu.obs import exposition as jexposition
 from generativeaiexamples_tpu.resilience import breaker as jbreaker
 from generativeaiexamples_tpu.server import app as japp
 from generativeaiexamples_tpu_torch.chains import factory as tfactory
 from generativeaiexamples_tpu_torch.core import configuration as tconfiguration
+from generativeaiexamples_tpu_torch.obs import exposition as texposition
 from generativeaiexamples_tpu_torch.resilience import breaker as tbreaker
 from generativeaiexamples_tpu_torch.server import app as tapp
 
@@ -318,21 +326,6 @@ def test_store_fault_without_fallback_answers_llm_only_on_both(env, servers):
     assert _families(tb, prefixes) == _families(jb, prefixes)
 
 
-def test_named_collection_is_501(servers):
-    """A documented difference: the reference serves named collections from
-    its retrieval fabric, which is not ported."""
-    port = servers[1]
-    for method, path, body in (("POST", "/search", {"query": "x", "collection": "tenant-a"}),
-                               ("GET", "/documents?collection=tenant-a", None),
-                               ("DELETE", "/documents?filename=a.txt&collection=tenant-a", None),
-                               ("POST", "/generate", {"messages": [{"role": "user", "content": "x"}],
-                                                      "use_knowledge_base": True, "collection": "tenant-a"})):
-        status, _, raw = port.request(method, path, body)
-        assert status == 501 and "item 8" in json.loads(raw)["detail"]
-    status, _, _ = port.request("POST", "/search", {"query": "x", "collection": "default"})
-    assert status == 200
-
-
 def test_multipart_part_keeps_its_bytes():
     content = b"line one\r\n\r\n--not-a-boundary\r\n\x00\xff\xfe binary\nlast"
     body, headers = _multipart("data.bin", content)
@@ -352,3 +345,221 @@ def test_upload_is_unlinked_and_traced(servers, tmp_path):
     assert os.listdir(tmp_path / "up") == []
     _, _, raw = port.request("GET", "/metrics")
     assert _families(raw, ("rag_admission_admitted_total",))['rag_admission_admitted_total{class="batch"}'] == "1"
+
+
+def _multipart_files(files, field="files") -> tuple[bytes, dict]:
+    body = b""
+    for name, content in files:
+        body += (f'--{BOUNDARY}\r\nContent-Disposition: form-data; name="{field}"; filename="{name}"\r\n'
+                 f"Content-Type: application/octet-stream\r\n\r\n").encode() + content + b"\r\n"
+    return body + f"--{BOUNDARY}--\r\n".encode(), {"Content-Type": f"multipart/form-data; boundary={BOUNDARY}"}
+
+
+BULK = dict(DOCS, **{"bad.xyz": "an unsupported extension", "broken.json": "{not json",
+                     "data.json": '{"title": "bulk json", "body": "kernels and stores"}'})
+
+
+def _wait_job(server, job_id):
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        status, _, raw = server.request("GET", f"/documents/status?job_id={job_id}")
+        assert status == 200, raw
+        snap = json.loads(raw)
+        if snap["status"] not in ("queued", "running"):
+            return snap
+        time.sleep(0.02)
+    raise AssertionError(f"job {job_id} did not finish")
+
+
+def _masked_job(snap):
+    snap = dict(snap)
+    assert re.fullmatch(r"[0-9a-f]{12}", snap.pop("job_id"))
+    snap.pop("docs_per_sec")
+    snap["errors"] = sorted(snap["errors"])
+    return snap
+
+
+def _bulk(servers, files, query=""):
+    body, headers = _multipart_files([(n, t.encode()) for n, t in files.items()])
+    (js, _, jb), (ts, _, tb) = _both(servers, "POST", "/documents/bulk" + query, body, headers)
+    assert js == ts == 202, (jb, tb)
+    j, t = json.loads(jb), json.loads(tb)
+    assert {**t, "job_id": ""} == {**j, "job_id": ""} and t["files_received"] == len(files)
+    jsnap, tsnap = _wait_job(servers[0], j["job_id"]), _wait_job(servers[1], t["job_id"])
+    assert _masked_job(tsnap) == _masked_job(jsnap)
+    return tsnap
+
+
+def test_bulk_upload_and_status_match_reference(servers, tmp_path):
+    (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/documents/status")
+    assert js == ts == 200 and json.loads(tb) == json.loads(jb) == {"jobs": [], "active_jobs": 0}
+    snap = _bulk(servers, BULK)
+    assert snap["status"] == "partial" and snap["files_failed"] == 2 and snap["files_done"] == len(BULK) - 2
+    assert any("bad.xyz" in e for e in snap["errors"]) and any("broken.json" in e for e in snap["errors"])
+    (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/documents")
+    assert sorted(json.loads(tb)["documents"]) == sorted(json.loads(jb)["documents"]) == sorted(
+        set(BULK) - {"bad.xyz", "broken.json"})
+    for q in QUERIES:
+        assert _same_search(servers, q)["chunks"]
+    # A second job; the listing is newest first on both.
+    _bulk(servers, {"more.txt": "Another bulk document about HBM bandwidth."})
+    (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/documents/status")
+    j, t = json.loads(jb), json.loads(tb)
+    assert js == ts == 200 and [_masked_job(x) for x in t["jobs"]] == [_masked_job(x) for x in j["jobs"]]
+    assert t["active_jobs"] == j["active_jobs"] == 0 and len(t["jobs"]) == 2
+    (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/documents/status?job_id=nope")
+    assert js == ts == 404 and json.loads(tb) == json.loads(jb)
+    (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/documents/status?job_id=")  # empty: every job
+    assert js == ts == 200 and [_masked_job(x) for x in json.loads(tb)["jobs"]] == [
+        _masked_job(x) for x in json.loads(jb)["jobs"]]
+    # No file fields: 422 on both, nothing staged.
+    body, headers = _multipart_files([("x.txt", b"x")], field="other")
+    (js, _, _), (ts, _, _) = _both(servers, "POST", "/documents/bulk", body, headers)
+    assert js == ts == 422
+    assert os.listdir(tmp_path / "up") == []  # staged files are unlinked once ingested
+    (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/metrics")
+    prefixes = ("ingest_jobs_total", "ingest_jobs_active", "ingest_docs_total", "ingest_doc_failures_total",
+                "ingest_chunks_total", "rag_store_rows", "rag_admission_admitted_total")
+    assert _families(tb, prefixes) == _families(jb, prefixes)
+    assert _families(tb, ("ingest_doc_failures_total",))["ingest_doc_failures_total"] == "2"
+
+
+def test_bulk_submission_failure_unlinks_staged_files(servers, tmp_path, monkeypatch):
+    def broken(*_a, **_k):
+        raise RuntimeError("pipeline unavailable")
+
+    monkeypatch.setattr(tfactory, "get_ingest_pipeline", broken)
+    body, headers = _multipart_files([("a.txt", b"alpha"), ("b.txt", b"beta")])
+    status, _, raw = servers[1].request("POST", "/documents/bulk", body, headers)
+    assert status == 500 and "pipeline unavailable" in json.loads(raw)["detail"]
+    assert os.listdir(tmp_path / "up") == []
+
+
+def test_named_collections_on_every_route_match_reference(servers):
+    _upload_all(servers)
+    # Unknown collections before any exists: 404 everywhere, before any
+    # SSE byte on /generate.
+    gen = {"messages": [{"role": "user", "content": "what colour are bananas"}], "use_knowledge_base": True,
+           "collection": "tenant-a"}
+    for method, path, body in (("POST", "/search", {"query": "x", "collection": "tenant-a"}),
+                               ("GET", "/documents?collection=tenant-a", None),
+                               ("DELETE", "/documents?filename=a.txt&collection=tenant-a", None),
+                               ("POST", "/generate", gen)):
+        (js, _, jb), (ts, _, tb) = _both(servers, method, path, body)
+        assert js == ts == 404 and json.loads(tb) == json.loads(jb), (path, tb)
+    # Upload into tenant-a, bulk into tenant-b.
+    for name in ("facts.txt", "table.csv"):
+        body, headers = _multipart(name, DOCS[name].encode())
+        (js, _, jb), (ts, _, tb) = _both(servers, "POST", "/documents?collection=tenant-a", body, headers)
+        assert js == ts == 200 and json.loads(tb) == json.loads(jb)
+    snap = _bulk(servers, {"notes.md": DOCS["notes.md"], "extra.txt": "Tenant b keeps its own notes."},
+                 "?collection=tenant-b")
+    assert snap["status"] == "done" and snap["files_done"] == 2
+    for path in ("/documents?collection=tenant-a", "/documents?collection=tenant-b", "/documents?collection=default",
+                 "/documents"):
+        (js, _, jb), (ts, _, tb) = _both(servers, "GET", path)
+        assert js == ts == 200 and json.loads(tb) == json.loads(jb), path
+    for collection in ("tenant-a", "tenant-b", "default", ""):
+        for q in QUERIES:
+            (js, _, jb), (ts, _, tb) = _both(servers, "POST", "/search", {"query": q, "top_k": 4,
+                                                                          "collection": collection})
+            assert js == ts == 200
+            j, t = json.loads(jb), json.loads(tb)
+            assert [(c["content"], c["filename"]) for c in t["chunks"]] == [(c["content"], c["filename"])
+                                                                           for c in j["chunks"]]
+            assert all(abs(a["score"] - b["score"]) <= SCORE_TOL for a, b in zip(j["chunks"], t["chunks"]))
+            if collection == "tenant-b":
+                assert {c["filename"] for c in t["chunks"]} <= {"notes.md", "extra.txt"}
+    chunks = _same_sse(servers, gen)
+    assert chunks[-1]["choices"][0]["finish_reason"] == "[DONE]"
+    _same_sse(servers, {**gen, "use_knowledge_base": False, "collection": "nobody"})  # no retrieval: no check
+    (js, _, jb), (ts, _, tb) = _both(servers, "POST", "/generate", {**gen, "collection": "nobody"})
+    assert js == ts == 404 and json.loads(tb) == json.loads(jb)
+    (js, _, jb), (ts, _, tb) = _both(servers, "DELETE", "/documents?filename=facts.txt&collection=tenant-a")
+    assert js == ts == 200 and json.loads(tb) == json.loads(jb)
+    (js, _, jb), (ts, _, tb) = _both(servers, "DELETE", "/documents?filename=facts.txt&collection=tenant-a")
+    assert js == ts == 404 and json.loads(tb) == json.loads(jb)
+    (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/metrics")
+    for text, parse in ((tb, texposition.parse_exposition), (jb, jexposition.parse_exposition),
+                        (tb, jexposition.parse_exposition)):
+        parse(text.decode())
+    prefixes = ("rag_store_rows", "rag_collection_", "rag_shard_", "rag_coldtier_", "rag_scan_")
+    got, want = _families(tb, prefixes), _families(jb, prefixes)
+    assert got == want and got['rag_store_rows{collection="tenant-b"}'] != "0"
+    assert got["rag_collection_count"] == "3" and got["rag_shard_count"] == "0"
+
+
+def test_collection_quota_is_413_and_fails_one_bulk_file(env):
+    env.setenv("APP_COLLECTIONS_MAXROWSPERCOLLECTION", "1")
+    _reset_both()
+    servers = (_Jax(), _Torch())
+    try:
+        body, headers = _multipart("facts.txt", DOCS["facts.txt"].encode())
+        (js, _, jb), (ts, _, tb) = _both(servers, "POST", "/documents?collection=tenant-q", body, headers)
+        assert js == ts == 200, (jb, tb)
+        body, headers = _multipart("notes.md", DOCS["notes.md"].encode())
+        (js, _, jb), (ts, _, tb) = _both(servers, "POST", "/documents?collection=tenant-q", body, headers)
+        assert js == ts == 413 and json.loads(tb) == json.loads(jb)
+        snap = _bulk(servers, {"table.csv": DOCS["table.csv"], "tiny.txt": "x"}, "?collection=tenant-q")
+        assert snap["files_failed"] >= 1 and any("quota exceeded" in e for e in snap["errors"])
+        (js, _, jb), (ts, _, tb) = _both(servers, "GET", "/metrics")
+        prefixes = ("rag_collection_", "rag_store_rows")
+        assert _families(tb, prefixes) == _families(jb, prefixes)
+        assert _families(tb, prefixes)["rag_collection_quota_rejections_total"] != "0"
+    finally:
+        servers[1].close()
+        servers[0].close()
+
+
+def test_debug_requests_and_timeseries_match_reference(servers):
+    _upload_all(servers)
+    _same_search(servers, QUERIES[0])
+    _same_sse(servers, {"messages": [{"role": "user", "content": "bananas"}], "use_knowledge_base": True})
+    for path in ("/debug/requests", "/debug/requests?limit=2"):
+        (js, _, jb), (ts, _, tb) = _both(servers, "GET", path)
+        j, t = json.loads(jb), json.loads(tb)
+        assert js == ts == 200 and t["count"] == j["count"] == len(t["requests"]) > 0
+        assert [(r["route"], r["status"], r["pinned"], [st["stage"] for st in r["stages"]]) for r in t["requests"]] \
+            == [(r["route"], r["status"], r["pinned"], [st["stage"] for st in r["stages"]]) for r in j["requests"]]
+        assert [sorted(r) for r in t["requests"]] == [sorted(r) for r in j["requests"]]
+    assert json.loads(tb)["count"] == 2
+    for path in ("/debug/requests?limit=x", "/debug/timeseries?window=bogus"):
+        (js, _, jb), (ts, _, tb) = _both(servers, "GET", path)
+        assert js == ts == 422 and json.loads(tb)["detail"]
+    for path in ("/debug/timeseries", "/debug/timeseries?series=chain.requests.*,nope&window=90s",
+                 "/debug/timeseries?series=chain.request_ms./search"):
+        (js, _, jb), (ts, _, tb) = _both(servers, "GET", path)
+        j, t = json.loads(jb), json.loads(tb)
+        assert js == ts == 200 and {k: t[k] for k in ("window_s", "columns", "names")} == \
+            {k: j[k] for k in ("window_s", "columns", "names")}
+        assert {n: (s["kind"], len(s["points"][0])) for n, s in t["series"].items()} == \
+            {n: (s["kind"], len(s["points"][0])) for n, s in j["series"].items()}
+    assert list(t["series"]) == ["chain.request_ms./search"]
+
+
+def test_profiler_gate_closed_is_404_on_both(servers):
+    for path in ("/debug/profiler/start", "/debug/profiler/stop"):
+        (js, _, _), (ts, _, _) = _both(servers, "POST", path)
+        assert js == ts == 404
+
+
+def test_profiler_routes_when_the_gate_is_open(env, tmp_path):
+    env.setenv("GAIE_ENABLE_PROFILER", "1")
+    env.setenv("GAIE_PROFILER_DIR", str(tmp_path / "prof"))
+    _reset_both()
+    port = _Torch()
+    try:
+        assert port.request("POST", "/debug/profiler/stop")[0] == 409
+        status, _, raw = port.request("POST", "/debug/profiler/start")
+        assert status == 200 and json.loads(raw) == {"status": "profiling", "dir": str(tmp_path / "prof")}
+        assert port.request("POST", "/debug/profiler/start")[0] == 409
+        body, headers = _multipart("facts.txt", DOCS["facts.txt"].encode())
+        assert port.request("POST", "/documents", body, headers)[0] == 200
+        status, _, raw = port.request("POST", "/debug/profiler/stop")
+        body = json.loads(raw)
+        assert status == 200 and body["status"] == "stopped" and os.path.dirname(body["trace"]) == body["dir"]
+        trace = json.load(open(body["trace"]))
+        assert trace["traceEvents"]
+        assert port.request("POST", "/debug/profiler/stop")[0] == 409
+    finally:
+        port.close()

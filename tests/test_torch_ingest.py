@@ -192,5 +192,5 @@ def test_unsupported_and_unported_types(tmp_path):
     for ext in (".pdf", ".pptx"):
         path = tmp_path / f"doc{ext}"
         path.write_bytes(b"%PDF-1.4")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             tloaders.load_document(str(path))
