@@ -12,7 +12,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    the serving path's shapes (the W8A8 matmul bitwise, both of its
    designs, at M = 1, 33, 65 and at the timed M = 32, 256, 2048 over
    Llama-3-8B's four projections, with its achieved rate and bound share;
-   the attention kernels
+   the prefill flash kernel at head_dim 128 and at 64, the speculative
+   draft's; the attention kernels
    within stated bf16 tolerances; the paged decode kernel also bit for bit
    equal to the contiguous one on mirrored content at page sizes 16, 32,
    64 and 128), with kernel, plain and library times and the least time
@@ -74,13 +75,44 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    table copies, the shared boundary page must be copied on write, the
    prompts sent alone must give the contiguous server's greedy text, and
    the pool must be all free once the parked segments are dropped.
-11. ``profile`` and ``profile_paged``: the decode chunk of each layout
+11. ``spec``: speculative decoding on the same params, gamma 4, each step
+   driven over the engine front's HTTP routes with its launch counts
+   zeroed just before and read just after: ``spec_plain`` (a plain
+   scheduler in the same position, serve's 8 completions and streaming
+   chat: the baseline for the steps' TTFT and tokens/s), ``spec_ngram``
+   (the front's ``--spec-decode``, prompt lookup, contiguous),
+   ``spec_fault`` (``spec_draft:error=1`` on that scheduler, one prompt),
+   ``spec_draft`` (``--spec-decode --draft-model llama3.2-1b``: a random
+   W8A8 draft, paged, page 64) and ``spec_self`` (the target's first 4
+   layers as the draft, contiguous): serve's 8 completions and streaming
+   chat, the two prompts sent alone, a ~600-token quoting prompt and one
+   sampled request (temperature 0.7, top_p 0.9).  Then ``spec_accept``:
+   one full-width verify round on each layout whose drafts are the
+   target's own continuation (all accepted: gamma + 1 tokens) or carry one
+   wrong draft (a partial acceptance), and a second round after it.
+   Gates: every greedy spec token is its position's argmax within
+   ``SPEC_TIE`` under a teacher-forced forward and every plain one within
+   ``PLAIN_TIE``; a spec stream leaves serve's only where the two tokens'
+   logits lie within ``PLAIN_TIE``; spec steps that accepted no draft emit
+   the greedy streams of ``spec_ngram`` bit for bit (others part from them
+   only within ``SPEC_TIE``), ``spec_plain``'s are serve's; ``spec_accept``
+   emits gamma + 1 and 3 tokens, paged = contiguous, its verify logits
+   within ``VERIFY_LOGIT_TOL`` of the teacher-forced ones; sampled tokens
+   lie in their warped candidate pool; the fault's stream is serve's bit
+   for bit with fallbacks and no round; ``/metrics`` engine_spec_* equal
+   ``Stats``; K1 and K4 launch in every step, K4 at head_dim 64 in
+   ``spec_draft``, K2/K3 only in ``spec_plain`` and ``spec_fault``.  TTFT
+   p50, decode tokens/s and the decode chunk's ms beside ``spec_plain``'s
+   and serve's, acceptance, tokens per target forward, the final gamma;
+   and the verify attention of one layer (B=32, S=5, window 1024) beside
+   its byte bound and K2.
+12. ``profile`` and ``profile_paged``: the decode chunk of each layout
    traced with torch.profiler (device time by kernel, and the device's
    busy share of the traced call's own span); then ``profile_embed``, one
    32 x 512 arctic-embed-l forward traced the same way.  The traces come
    after every untraced measurement: a trace leaves the process's later
    host work slower.
-12. ``chain``: the chain server as ``create_app()`` builds it from the
+13. ``chain``: the chain server as ``create_app()`` builds it from the
    ``APP_*`` defaults (Llama-3-8B W8A8 behind ``GPUChatLLM``, random int8,
    seed 0; arctic-embed-l; the exact store; the result cache; no
    reranker), the earlier phases' params freed first, driven over HTTP on
@@ -118,7 +150,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``profiler``: ``/debug/profiler/start`` (a second start is 409), one
    8-token ``/generate``, ``stop``: the Chrome trace names the W8A8 and
    decode-attention kernels.
-13. ``durable``: durability with ``python -m
+14. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -130,7 +162,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 Then the ``kernels`` summary line (each kernel's ``launches`` from its
 serving phase, ``chain_launches`` from ``chain``, ``step_launches`` from
-the steps after it), the ``nvidia-smi`` line, and last ``{"ok": true,
+the steps after it, ``spec_launches`` from each ``spec`` step; K4's line
+carries its head_dim-64 timing and ``spec_draft`` launches in ``hd64``),
+the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``.
 It needs one CUDA card and the repository's ``generativeaiexamples_tpu_torch``
 package beside it; without either it exits non-zero and prints no result.
@@ -621,13 +655,15 @@ def check_paged_decode(torch, dev):
     return summary
 
 
-def check_flash(torch, dev, log):
+def check_flash(torch, dev, log, hd: int = 128):
+    """K4 at the cold-prefill shape (b=8, s=256, 32/8 heads) at head_dim
+    ``hd``: 128 for Llama-3-8B, 64 for the Llama-3.2-1B draft."""
     import torch.nn.functional as F
 
     from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, s, nq, nkv, hd = 8, 256, 32, 8, 128
+    b, s, nq, nkv = 8, 256, 32, 8
     nv = 4
     qs = [torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
     kks = [torch.randn(b, s, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
@@ -681,7 +717,7 @@ def check_flash(torch, dev, log):
                library_timing=lib_timing, library_eager_ms=lib_eager_ms, beats_library=k_ms < lib_ms,
                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms, max_abs_err=err, tolerance=FLASH_TOL,
                tolerance_use=use)
-    emit("kernel", kernel="flash_attention", **row)
+    emit("kernel", kernel="flash_attention", hd=hd, **row)
     return dict(row, shape=f"b={b} s={s} n_q={nq} n_kv={nkv} hd={hd}, ragged kv lengths, padded rows")
 
 
@@ -1584,7 +1620,8 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=N
     reranker and 32 queries) the front also serves ``/v1/embeddings`` and
     ``/v1/ranking`` (:func:`serve_rag`).  Then the engine stops and one
     decode chunk is timed, untraced.  Returns (launches, texts of the
-    prompts sent alone, the chunk's timing)."""
+    prompts sent alone, the chunk's timing, a summary: wall, TTFT p50,
+    decode tokens/s and each prompt's emitted ids)."""
     from generativeaiexamples_tpu_torch.engine.paged_kv import PAGE_EVENTS
     from generativeaiexamples_tpu_torch.engine.server import create_engine_app
     from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
@@ -1593,6 +1630,7 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=N
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     sched = make_scheduler(cfg, params, dev, kv_layout)
+    tee = StreamTee(sched)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     built_gb = torch.cuda.memory_allocated(dev) / 1e9
@@ -1681,6 +1719,9 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=N
             if pool.pages_free != pool.total_pages - 1 or int(pool._refcount.sum()) != 1:
                 raise AssertionError(f"pages leaked: {pool.pages_free} free of {pool.total_pages}")
             pool_fields["all_free_after_drain"] = True
+        summary = dict(wall_s=wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None,
+                       decode_tokens_per_s=decode_tokens / decode_s if decode_s else None,
+                       streams=tee.by_prompt())
         emit(
             phase, model="llama3-8b", layers=cfg.n_layers, d_model=cfg.d_model, weights="random int8, seed 0",
             kv=f"int8 {kv_layout}" + (", page 64" if paged else ""), **serve_kw(kv_layout), cache_build_s=build_s,
@@ -1696,13 +1737,577 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=N
             **rag_fields,
             peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
         )
-        return launches, alone, time_chunk(torch, decode_chunk(torch, dev, sched))
+        return launches, alone, time_chunk(torch, decode_chunk(torch, dev, sched)), summary
     finally:
         server.shutdown()
         server.server_close()
         sched.stop()
         thread.join(timeout=30)
         sched._cache = sched._pool = None  # free the KV memory for the next phase
+
+
+class StreamTee:
+    """Records each request a scheduler takes: its prompt ids, sampling
+    and emitted ids (the front's own callback still runs)."""
+
+    def __init__(self, sched):
+        self.records = []
+        submit = sched.submit
+
+        def tee(req):
+            ids, on_token = [], req.on_token
+
+            def on_tok(tid):
+                ids.append(tid)
+                on_token(tid)
+
+            req.on_token = on_tok
+            self.records.append((tuple(req.token_ids), req.sampling, ids))
+            submit(req)
+
+        sched.submit = tee
+
+    def by_prompt(self) -> dict:
+        return {prompt: list(ids) for prompt, _, ids in self.records}
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding on the serving path
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA, SPEC_SELF_LAYERS = 4, 4
+# Greedy exactness on the card: plain decode attends through K2, the verify
+# pass through plain PyTorch, and the two round differently, so a near-tie
+# argmax may flip.  Each greedy token is held to its position's argmax
+# under a teacher-forced forward (f32 logits of an independent warm
+# forward over the stream, ``teacher_forced_logits``): a speculative
+# token within SPEC_TIE, a plain (K2) token within PLAIN_TIE, and where a
+# spec stream first leaves the plain one the two tokens' logits lie within
+# PLAIN_TIE of each other.  The three speculative steps share the verify
+# math: steps that accepted no draft must emit equal greedy streams bit for
+# bit, others may part from them only at a near tie (within SPEC_TIE).  A
+# full-width round whose drafts are the target's own continuation must
+# accept every draft (``spec_accept_round``).  Random Llama-3-8B logits are nearly flat
+# (a std of ~1.3 and a median top-2 gap of ~0.2: ``serve_logit_std_mean``,
+# ``serve_top2_gap_median``).  Measured on an H100 (PERF.md): spec tokens
+# sit up to 0.262 below the teacher-forced argmax, plain ones up to 0.711,
+# and a first difference's two logits up to 0.526 apart; planted verify
+# faults read as PERF.md records (``perf_torch/rehearse_spec_gates.py``).
+SPEC_TIE = 0.35
+PLAIN_TIE = 0.9
+# ``spec_accept``: the verify pass's f32 logits over its round against the
+# teacher-forced forward's, every vocabulary entry (measured 0.079 on an
+# H100; 2.8-5.1 under the rehearsed faults).
+VERIFY_LOGIT_TOL = 0.25
+SPEC_SAMPLED = dict(temperature=0.7, top_p=0.9, max_tokens=32)
+
+
+def quote_prompt() -> str:
+    """About 600 byte tokens: a passage, then an instruction to repeat it
+    (the RAG quote-the-context case prompt lookup is for)."""
+    import random
+
+    rng = random.Random(1)
+    words = [rng.choice(CHAIN_WORDS) for _ in range(200)]
+    passage = " ".join(words)[:540]
+    return passage + "\n\nRepeat the passage above, word for word:\n" + passage[:12]
+
+
+def teacher_forced_logits(torch, cfg, params, prompt, stream, chunk: int = 256):
+    """f32 logits of each emitted position of ``stream`` after ``prompt``,
+    the way the scheduler builds the cache: a cold prefill of the prompt
+    (in warm chunks of ``chunk`` when it is longer), then one warm forward
+    over the stream's tokens reading the int8 cache.  Returns (n, vocab)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    dev = params["final_norm"].device
+    n = len(prompt) + len(stream)
+    cache = llama.init_kv_cache(cfg, 1, n, device=dev)
+    ids = torch.tensor([list(prompt) + list(stream)], device=dev)
+    with torch.inference_mode():
+        plen = len(prompt)
+        if plen <= chunk:
+            pos = torch.arange(plen, dtype=torch.int32, device=dev)[None]
+            hidden, _ = llama.forward(params, cfg, ids[:, :plen], pos, cache,
+                                      torch.tensor([plen], dtype=torch.int32, device=dev), cold_prefill=True)
+        else:
+            for start in range(0, plen, chunk):
+                end = min(start + chunk, plen)
+                pos = torch.arange(start, end, dtype=torch.int32, device=dev)[None]
+                hidden, _ = llama.forward(params, cfg, ids[:, start:end], pos, cache,
+                                          torch.tensor([end], dtype=torch.int32, device=dev))
+        rows = [llama.logits(params, hidden[:, -1:])[0]]
+        if len(stream) > 1:
+            pos = torch.arange(plen, n - 1, dtype=torch.int32, device=dev)[None]
+            hidden, _ = llama.forward(params, cfg, ids[:, plen:n - 1], pos, cache,
+                                      torch.tensor([n - 1], dtype=torch.int32, device=dev))
+            rows.append(llama.logits(params, hidden)[0])
+        return torch.cat(rows).float()
+
+
+def check_spec_streams(torch, cfg, params, records, serve_streams, spec: bool = True) -> dict:
+    """The greedy and sampled gates over one step's requests (see
+    SPEC_TIE; ``spec=False`` for a plain step, whose greedy streams must
+    be serve's bit for bit).  Every reading is taken before any gate
+    fails.  Returns the step's stream fields."""
+    from generativeaiexamples_tpu_torch.engine.sampler import warped_candidates
+
+    differ, compared, worst_deficit, worst_flip = 0, 0, 0.0, 0.0
+    sampled_inside, sampled_outside, sampled_margin = 0, 0, None
+    plain_deficit, top2_gaps, stds, mean_deficits, failures = 0.0, [], [], [], []
+    tie = SPEC_TIE if spec else PLAIN_TIE
+    for prompt, sp, ids in records:
+        if not ids:
+            raise AssertionError(f"a {len(prompt)}-token request emitted nothing")
+        logits = teacher_forced_logits(torch, cfg, params, prompt, ids)
+        picked = logits[torch.arange(len(ids)), torch.tensor(ids, device=logits.device)]
+        if sp.temperature <= 0.0:
+            worst_deficit = max(worst_deficit, (logits.max(dim=-1).values - picked).max().item())
+            ref = serve_streams.get(prompt)
+            if ref is None:
+                continue
+            compared += 1
+            ref_logits = teacher_forced_logits(torch, cfg, params, prompt, ref)
+            ref_picked = ref_logits[torch.arange(len(ref)), torch.tensor(ref, device=ref_logits.device)]
+            top2 = ref_logits.topk(2, dim=-1).values
+            top2_gaps.append(top2[:, 0] - top2[:, 1])
+            stds.append(ref_logits.std(dim=-1))
+            mean_deficits.append(top2[:, 0] - ref_logits.mean(dim=-1))
+            plain_deficit = max(plain_deficit, (ref_logits.max(dim=-1).values - ref_picked).max().item())
+            n = min(len(ref), len(ids))
+            j = next((i for i in range(n) if ref[i] != ids[i]), None)
+            if j is None:
+                if len(ref) != len(ids):
+                    failures.append(f"a stream of {len(ids)} tokens vs serve's {len(ref)}")
+                continue
+            differ += 1
+            worst_flip = max(worst_flip, abs(logits[j, ids[j]].item() - logits[j, ref[j]].item()))
+        else:
+            n = len(ids)
+            full = lambda v, dt: torch.full((n,), v, dtype=dt, device=logits.device)  # noqa: E731
+            cand, probs = warped_candidates(logits, full(sp.temperature, torch.float32),
+                                            full(sp.top_p, torch.float32), full(sp.top_k, torch.int32))
+            kept = probs > 0
+            tok = torch.tensor(ids, device=logits.device)
+            inside = ((cand == tok[:, None]) & kept).any(dim=-1)
+            # How far inside the pool each token lies: its logit above the
+            # pool's smallest kept logit.
+            edge = torch.where(kept, torch.gather(logits, 1, cand), torch.full_like(probs, float("inf")))
+            margin = (picked - edge.min(dim=-1).values).min().item()
+            sampled_margin = margin if sampled_margin is None else min(sampled_margin, margin)
+            sampled_inside += int(inside.sum().item())
+            sampled_outside += int((~inside).sum().item())
+    if worst_deficit > tie:
+        failures.append(f"a greedy token {worst_deficit:.4f} below its position's argmax (> {tie})")
+    if plain_deficit > PLAIN_TIE:
+        failures.append(f"serve's greedy token {plain_deficit:.4f} below its argmax (> PLAIN_TIE)")
+    if worst_flip > PLAIN_TIE:
+        failures.append(f"a stream leaves serve's with logits {worst_flip:.4f} apart (> PLAIN_TIE)")
+    if not spec and differ:
+        failures.append(f"{differ} plain greedy streams differ from serve's")
+    if sampled_outside:
+        failures.append(f"{sampled_outside} sampled tokens outside their warped pool")
+    fields = dict(greedy_streams_compared=compared, greedy_streams_differing=differ,
+                  greedy_max_argmax_deficit=worst_deficit, serve_max_argmax_deficit=plain_deficit,
+                  serve_top2_gap_median=torch.cat(top2_gaps).median().item() if top2_gaps else None,
+                  serve_logit_std_mean=torch.cat(stds).mean().item() if stds else None,
+                  serve_mean_token_deficit_median=torch.cat(mean_deficits).median().item() if stds else None,
+                  greedy_first_difference_logit_gap=worst_flip, sampled_tokens_in_pool=sampled_inside,
+                  sampled_tokens_outside_pool=sampled_outside, sampled_min_margin_above_pool_edge=sampled_margin,
+                  tie=tie, plain_tie=PLAIN_TIE, failures=failures)
+    return fields
+
+
+SPEC_COUNTERS = ("spec_rounds", "spec_tokens", "spec_proposed", "spec_accepted", "spec_fallbacks")
+
+
+def _spec_metrics(base, sched) -> dict:
+    """``/metrics``' engine_spec_* against the scheduler's Stats."""
+    _, text = _get(base + "/metrics")
+    series = {line.split()[0]: float(line.split()[1]) for line in text.splitlines()
+              if line.startswith("engine_spec_")}
+    snap = sched.stats.snapshot()
+    names = {f"engine_spec_{k[5:]}_total": k for k in SPEC_COUNTERS}
+    names.update(engine_spec_acceptance_ewma="spec_acceptance_ewma", engine_spec_gamma="spec_gamma")
+    if set(series) != set(names):
+        raise AssertionError(f"/metrics engine_spec_* families {sorted(series)}")
+    for name, key in names.items():
+        if abs(series[name] - snap[key]) > 1e-3:
+            raise AssertionError(f"/metrics {name} {series[name]} != Stats {key} {snap[key]}")
+    if snap["spec_accepted"] > snap["spec_proposed"]:
+        raise AssertionError(f"spec_accepted {snap['spec_accepted']} > spec_proposed {snap['spec_proposed']}")
+    return series
+
+
+def spec_step(torch, dev, _cuda, name, sched, cfg, params, prompts, serve, requests=("batch", "alone", "quote",
+                                                                                    "sampled"), baseline=None):
+    """Serve one step's requests through the engine front on ``sched``
+    and read its streams, counters and launches (``baseline``: the plain
+    step's fields in the same position, printed beside these)."""
+    from generativeaiexamples_tpu_torch.engine.server import create_engine_app
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+
+    tee = StreamTee(sched)
+    server = create_engine_app(sched, get_tokenizer("llama3-8b"), "llama3-8b", "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    sched.start()
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        _complete(base, prompts["warmup"], 4)
+        tee.records.clear()
+        n_ttft0 = len(sched.stats.ttft_recent)
+        snap0 = sched.stats.snapshot()
+        _cuda.reset_launch_counts()
+        t_wall = time.perf_counter()
+        fields = {}
+        if "batch" in requests:
+            workers, results = _concurrent(base, prompts["completions"])
+            status, body = _post(base + "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": prompts["chat"]}], "max_tokens": 32,
+                "temperature": 0, "stream": True})
+            for w in workers:
+                w.join(timeout=900)
+            if status != 200 or len(results) != len(prompts["completions"]):
+                raise AssertionError(f"{name}: a batch request failed ({status})")
+            fields["wall_s"] = time.perf_counter() - t_wall
+            snap1 = sched.stats.snapshot()
+            decode_tokens = (snap1["tokens_total"] - snap0["tokens_total"]) - (snap1["requests_total"]
+                                                                               - snap0["requests_total"])
+            decode_s = snap1["decode_s"] - snap0["decode_s"]
+            ttfts = sorted(list(sched.stats.ttft_recent)[n_ttft0:])
+            chunks = snap1["decode_chunks"] - snap0["decode_chunks"]
+            # A late arrival waits out the running decode chunk: its ms
+            # (plain: decode_chunk_size steps; spec: ceil(chunk / (gamma +
+            # 1)) rounds) sets the batch's TTFT.
+            fields.update(ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+                          ttft_ms=[t * 1e3 for t in ttfts],
+                          decode_tokens_per_s=decode_tokens / decode_s if decode_s else None,
+                          decode_chunks=chunks, decode_chunk_ms=decode_s / chunks * 1e3 if chunks else None,
+                          serve_decode_tokens_per_s=serve["decode_tokens_per_s"], serve_wall_s=serve["wall_s"],
+                          serve_ttft_p50_ms=serve["ttft_p50_ms"])
+            if baseline is not None:
+                fields.update({f"plain_{k}": baseline[k] for k in ("decode_tokens_per_s", "ttft_p50_ms", "wall_s",
+                                                                    "decode_chunk_ms")})
+                fields["vs_plain_decode_tokens_per_s"] = fields["decode_tokens_per_s"] / baseline["decode_tokens_per_s"]
+        alone = (20, 650) if "alone" in requests else (20,) if "alone20" in requests else ()
+        for n in alone:
+            _complete(base, prompts["completions"][prompts["lengths"].index(n)])
+        if "quote" in requests:
+            _complete(base, quote_prompt())
+        if "sampled" in requests:
+            status, body = _post(base + "/v1/completions", {"prompt": prompts["chat"], **SPEC_SAMPLED})
+            if status != 200:
+                raise AssertionError(f"{name}: the sampled request failed: {status} {body[:200]}")
+        launches = dict(_cuda.LAUNCHES)
+        flash_hd = dict(_cuda.FLASH_HD_LAUNCHES)
+        snap = sched.stats.snapshot()
+        series = _spec_metrics(base, sched)
+        delta = {k: snap[k] - snap0[k] for k in SPEC_COUNTERS}
+        fields.update(
+            spec=delta, spec_gamma=snap["spec_gamma"], spec_acceptance_ewma=snap["spec_acceptance_ewma"],
+            acceptance=delta["spec_accepted"] / delta["spec_proposed"] if delta["spec_proposed"] else None,
+            tokens_per_target_forward=delta["spec_tokens"] / delta["spec_rounds"] if delta["spec_rounds"] else None,
+            metrics_equal_stats=True, engine_spec_series=series, launches=launches, flash_hd_launches=flash_hd,
+            requests=len(tee.records),
+        )
+        return tee.records, fields
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+
+
+def spec_accept_round(torch, dev, cfg, params, prompt_ids) -> dict:
+    """Speculation rounds at full width whose drafts stand, on both
+    layouts, through the n-gram chunk functions with the drafts planted in
+    the token history (random weights accept ~nothing on their own).
+
+    Two rows hold the same prompt.  Row 0 proposes the target's own greedy
+    continuation and must emit gamma + 1 tokens, the drafts and a bonus;
+    row 1 proposes it with its third draft replaced and must emit 3, the
+    first two drafts and the target's own third (the rejected tail's KV is
+    written and must be overwritten).  The chunk runs a second round from
+    each row's new length.  The continuation starts as the teacher-forced
+    argmax and is corrected, one position per try, where the verify pass
+    picks another token.  Readings: the corrections needed, each emitted
+    token's deficit below its teacher-forced argmax, the verify pass's
+    logits against the teacher-forced ones, paged against contiguous.
+    Returns the readings with ``failures``."""
+    from generativeaiexamples_tpu_torch.engine import spec_decode
+    from generativeaiexamples_tpu_torch.engine.decode import _append_buffer
+    from generativeaiexamples_tpu_torch.models import llama
+
+    g, b, max_len, pt = SPEC_GAMMA, 2, 512, 64
+    ids = list(prompt_ids)
+    n = len(ids)
+    failures = []
+    cache = llama.init_kv_cache(cfg, b, max_len, device=dev)
+    with torch.inference_mode():
+        hidden, _ = llama.forward(params, cfg, torch.tensor([ids] * b, device=dev),
+                                  torch.arange(n, dtype=torch.int32, device=dev).repeat(b, 1), cache,
+                                  torch.full((b,), n, dtype=torch.int32, device=dev), cold_prefill=True)
+        tok0 = int(llama.logits(params, hidden[:1, -1:])[0, 0].argmax())
+    stream = [tok0]
+    for _ in range(g):
+        stream.append(int(teacher_forced_logits(torch, cfg, params, ids, stream + [0])[-1].argmax()))
+    leaves, table = paged_mirror(torch, cache, [max_len] * b, pt, torch.Generator().manual_seed(6))
+    layouts = {"contiguous": (spec_decode.make_ngram_spec_chunk_fn(cfg, max_len, 2), cache, None),
+               "paged": (spec_decode.make_paged_ngram_spec_chunk_fn(cfg, max_len, pt, 2), leaves, table)}
+    tok = torch.full((b,), tok0, dtype=torch.int32, device=dev)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+    greedy = (torch.zeros(b, device=dev), torch.ones(b, device=dev), torch.zeros(b, dtype=torch.int32, device=dev))
+    # The planted bigram (the prompt's last token, tok0) and its
+    # continuation end before the prompt's last token: the latest match.
+    p = n - g - 2
+
+    def planted(rows):
+        hist = torch.tensor([ids + [0] * (max_len - n)] * b, dtype=torch.int32, device=dev)
+        for r, drafts in enumerate(rows):
+            hist[r, p - 1:p + g + 1] = torch.tensor([ids[-1], tok0] + drafts, dtype=torch.int32, device=dev)
+        return hist
+
+    def run(layout, rows, n_rounds):
+        fn, base, tbl = layouts[layout]
+        c = tuple(x.clone() for x in base)
+        hist = planted(rows)
+        with_tok = hist.clone()
+        with_tok[:, n] = tok0
+        proposed = spec_decode._ngram_drafts(with_tok, tok, lengths, max_len, g, 2).tolist()
+        if proposed != rows:
+            raise AssertionError(f"spec_accept: the history proposes {proposed}, not the planted {rows}")
+        args = (tok, lengths, torch.Generator(device=dev).manual_seed(0), *greedy, n_rounds, g, max_len, False)
+        with torch.inference_mode():
+            out = fn(params, c, tbl, hist, *args) if tbl is not None else fn(params, c, hist, *args)
+        return out[2].tolist(), out[3].tolist()
+
+    drafts, corrected = stream[1:], []
+    for _ in range(g + 1):
+        outs, n_emit = run("contiguous", [drafts, drafts], 1)
+        a = n_emit[0][0] - 1
+        if a == g:
+            break
+        corrected.append(a)
+        drafts = drafts[:a] + [outs[0][0][a]] + drafts[a + 1:]
+    wrong = drafts[:2] + [(drafts[2] + 1) % cfg.vocab_size] + drafts[3:]
+    got = {layout: run(layout, [drafts, wrong], 2) for layout in layouts}
+    outs, n_emit = got["contiguous"]
+    bonus, next0, next1 = outs[0][0][g], outs[1][0][0], outs[1][1][0]
+    if n_emit[0] != [g + 1, 3]:
+        failures.append(f"round 1 emitted {n_emit[0]} tokens, not [{g + 1}, 3]")
+    if outs[0][0][:g] != drafts or outs[0][1][:3] != drafts[:3]:
+        failures.append(f"round 1 emitted {outs[0]}, drafts {drafts}")
+    if got["paged"] != got["contiguous"]:
+        failures.append(f"paged {got['paged']} != contiguous {got['contiguous']}")
+    # Teacher-forced logits along row 0's stream: row k predicts its k-th
+    # token, so rows 1..g hold the drafts', g + 1 the bonus', g + 2 the
+    # second round's; row 1's second round predicts d_4 (row 4).
+    full = [tok0] + drafts + [bonus, next0]
+    tf = teacher_forced_logits(torch, cfg, params, ids, full)
+    top = tf.max(dim=-1).values
+    deficits = [(top[k] - tf[k, full[k]]).item() for k in range(len(full))]
+    deficits.append((top[4] - tf[4, next1]).item())
+    # The verify pass's own logits over row 0's round against the
+    # teacher-forced ones (the same positions).
+    c = tuple(x.clone() for x in cache)
+    ab = _append_buffer(cfg, 1, g + 1, dev)
+    with torch.inference_mode():
+        vh, _, ab = llama.forward(params, cfg, torch.tensor([full[:g + 1]], device=dev),
+                                  torch.arange(n, n + g + 1, dtype=torch.int32, device=dev)[None],
+                                  tuple(x[:, :, :1] for x in c), lengths[:1], kv_bucket=max_len,
+                                  append_cache=(ab, 0))
+        vlogits = llama.logits(params, vh)[0].float()
+    logit_diff = (vlogits - tf[1:g + 2]).abs().max().item()
+    if logit_diff > VERIFY_LOGIT_TOL:
+        failures.append(f"the verify logits {logit_diff:.4f} from the teacher-forced ones (> VERIFY_LOGIT_TOL)")
+    if max(deficits) > SPEC_TIE:
+        failures.append(f"an emitted token {max(deficits):.4f} below its teacher-forced argmax (> SPEC_TIE)")
+    return dict(prompt_tokens=n, drafts=drafts, corrections_at=corrected, n_emit=n_emit, outs=outs,
+                verify_logit_tol=VERIFY_LOGIT_TOL,
+                paged_equal=got["paged"] == got["contiguous"], row1_round2_is_d4=next1 == drafts[3],
+                max_token_deficit=max(deficits), token_deficits=deficits,
+                verify_vs_teacher_forced_max_abs_logit_diff=logit_diff, failures=failures)
+
+
+def time_verify_attention(torch, dev, k2_ms: float) -> dict:
+    """The verify pass's attention for one layer at B=32, S=5 (gamma 4),
+    32/8 heads, window 1024 on a cache of 2048, timed as a CUDA-graph
+    replay and eagerly, beside its byte bound (the int8 K/V window and
+    its scales, q, the buffer and the output, over the card's memory
+    rate) and K2's S=1 time at the same window."""
+    from generativeaiexamples_tpu_torch.ops import decode_attention as da
+
+    b, s, kh, g, hd, t, window, n_layers = 32, SPEC_GAMMA + 1, 8, 4, 128, 2048, 1024, 2
+    gen = torch.Generator(device=dev).manual_seed(8)
+    nv = 2
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def sc(*shape):
+        return (torch.rand(shape, generator=gen, device=dev) * 0.02 + 0.01).to(torch.bfloat16)
+
+    caches = [(i8(n_layers, kh, b, t, hd), i8(n_layers, kh, b, t, hd), sc(n_layers, kh, b, t), sc(n_layers, kh, b, t))
+              for _ in range(nv)]
+    blocks = [(i8(n_layers, kh, b, s, hd), i8(n_layers, kh, b, s, hd), sc(n_layers, kh, b, s), sc(n_layers, kh, b, s))
+              for _ in range(nv)]
+    qs = [torch.randn(b, s, kh * g, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(nv)]
+    lengths = torch.full((b,), window - s, dtype=torch.int32, device=dev)
+
+    def fn(i):
+        return da.verify_gqa_attention(qs[i], *caches[i], 1, lengths, blocks[i], window=window)
+
+    out = fn(0)
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("verify attention: non-finite output")
+    ms = time_ms(fn, nv, 10, graph=True)
+    eager_ms = time_ms(fn, nv, 10)
+    nbytes = b * kh * window * (2 * hd + 2 * 2) + b * kh * s * (2 * hd + 2 * 2) + 2 * b * s * kh * g * hd * 2 + b * 4
+    b_ms, b_by = bound(nbytes, 4.0 * b * kh * g * s * (window + s) * hd, BF16_FLOPS)
+    del caches, blocks
+    return dict(b=b, s=s, n_q=kh * g, n_kv=kh, window=window, ms=ms, eager_ms=eager_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / ms, k2_s1_ms=k2_ms, vs_k2=ms / k2_ms)
+
+
+def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> dict:
+    """Speculative decoding through the engine server's flags, Llama-3-8B
+    W8A8 at full width and depth (the ``serve`` params), gamma 4:
+    ``spec_plain`` (a plain scheduler: the same-position baseline),
+    ``spec_ngram`` (``--spec-decode``, contiguous), ``spec_draft``
+    (``--spec-decode --draft-model llama3.2-1b``, paged, page 64),
+    ``spec_self`` (the target's first 4 layers as the draft, contiguous),
+    ``spec_fault`` (``spec_draft:error=1`` on the n-gram scheduler) and
+    ``spec_accept`` (:func:`spec_accept_round`).  Returns each step's
+    launches by kernel and K4's head_dim-64 launches in ``spec_draft``."""
+    from generativeaiexamples_tpu_torch.engine import spec_decode
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import parse_args, spec_scheduler_kwargs
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.resilience.faults import get_fault_injector, reset_faults
+
+    t_phase = time.perf_counter()
+    emit("spec_verify_attention", **time_verify_attention(torch, dev, k2_ms))
+    streams = serve["streams"]
+    out, greedy, accepted = {}, {}, {}
+
+    def run(name, sched, requests=("batch", "alone", "quote", "sampled"), baseline=None, spec=True):
+        t0 = time.perf_counter()
+        records, fields = spec_step(torch, dev, _cuda, name, sched, cfg, params, prompts, serve, requests, baseline)
+        gates = check_spec_streams(torch, cfg, params, records, streams, spec=spec)
+        greedy[name] = {prompt: ids for prompt, sp, ids in records if sp.temperature <= 0.0}
+        accepted[name] = fields["spec"]["spec_accepted"]
+        launches = fields["launches"]
+        failures = gates.pop("failures")
+        decode = ("decode_attention", "paged_decode_attention")
+        if not launches["qmm"] or not launches["flash_attention"]:
+            failures.append(f"K1 and K4 must launch: {launches}")
+        if spec and any(launches[k] for k in decode):
+            failures.append(f"K2/K3 launched on a speculating path: {launches}")
+        if not spec and not launches["decode_attention"]:
+            failures.append(f"K2 did not launch on the plain path: {launches}")
+        if bool(fields["spec"]["spec_rounds"]) != spec:
+            failures.append(f"speculation rounds {fields['spec']['spec_rounds']}")
+        emit(name, gamma_max=SPEC_GAMMA, step_s=time.perf_counter() - t0, **gates, **fields)
+        if failures:
+            raise AssertionError(f"{name}: {failures}")
+        out[name] = launches
+        return fields
+
+    # The baseline: a plain scheduler in the same position of the run.
+    plain = Scheduler(cfg, params, device=dev, **serve_kw("contiguous"))
+    try:
+        baseline = run("spec_plain", plain, ("batch",), spec=False)
+    finally:
+        plain._cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --spec-decode alone: prompt lookup, through the front's args mapping.
+    kw = spec_scheduler_kwargs(parse_args(["--spec-decode", "--gamma", str(SPEC_GAMMA)]), cfg, dev)
+    if kw != {"spec_mode": "ngram", "gamma": SPEC_GAMMA}:
+        raise AssertionError(f"--spec-decode mapped to {kw}")
+    ngram = Scheduler(cfg, params, device=dev, **serve_kw("contiguous"), **kw)
+    try:
+        run("spec_ngram", ngram, baseline=baseline)
+        # The fault: every tick degrades to the plain chunk (K2), so the
+        # stream is serve's bit for bit.
+        snap0 = ngram.stats.snapshot()
+        get_fault_injector().install("spec_draft", error_rate=1.0)
+        try:
+            records, fields = spec_step(torch, dev, _cuda, "spec_fault", ngram, cfg, params, prompts, serve,
+                                        ("alone20",))
+        finally:
+            reset_faults()
+        snap = ngram.stats.snapshot()
+        prompt20 = next(r for r in records if len(r[0]) == 20)
+        if prompt20[2] != streams[prompt20[0]]:
+            raise AssertionError("spec_fault: the degraded stream differs from serve's")
+        if not snap["spec_fallbacks"] > snap0["spec_fallbacks"] or snap["spec_rounds"] != snap0["spec_rounds"]:
+            raise AssertionError(f"spec_fault: fallbacks {snap['spec_fallbacks']}, rounds {snap['spec_rounds']}")
+        if not all(fields["launches"][k] for k in ("qmm", "decode_attention", "flash_attention")):
+            raise AssertionError(f"spec_fault: K1, K4 and the plain chunk's K2 must launch: {fields['launches']}")
+        emit("spec_fault", stream_equal_to_serve=True, fallbacks=snap["spec_fallbacks"] - snap0["spec_fallbacks"],
+             spec_rounds=snap["spec_rounds"] - snap0["spec_rounds"], launches=fields["launches"])
+        out["spec_fault"] = fields["launches"]
+    finally:
+        ngram._cache = ngram._dhist = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kw = spec_scheduler_kwargs(
+        parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma", str(SPEC_GAMMA)]), cfg, dev)
+    draft = Scheduler(cfg, params, device=dev, **serve_kw("paged"), **kw)
+    try:
+        fields = run("spec_draft", draft, baseline=baseline)
+        hd64 = fields["flash_hd_launches"][64]
+        if not hd64:
+            raise AssertionError(f"spec_draft: K4 never launched at head_dim 64: {fields['flash_hd_launches']}")
+    finally:
+        draft._cache = draft._pool = draft._dcache = draft.draft_params = None
+    del kw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dcfg, dparams = spec_decode.self_draft(cfg, params, SPEC_SELF_LAYERS)
+    selfd = Scheduler(cfg, params, device=dev, **serve_kw("contiguous"), draft_cfg=dcfg, draft_params=dparams,
+                      gamma=SPEC_GAMMA)
+    try:
+        run("spec_self", selfd, ("batch",), baseline=baseline)
+    finally:
+        selfd._cache = selfd._dcache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One verify math, three drafts and two layouts.  Steps that accepted
+    # no draft ran every round at slot 0 with the same lookahead, so their
+    # greedy streams must be equal bit for bit; a token a step emitted from
+    # a later slot of a round (an accepted draft or its bonus) went
+    # through other shapes and may flip a near tie there.
+    same = {}
+    for name in ("spec_draft", "spec_self"):
+        exact = not (accepted[name] or accepted["spec_ngram"])
+        common = [prompt for prompt in greedy[name] if prompt in greedy["spec_ngram"]]
+        gaps = []
+        for prompt in common:
+            ids, ref = greedy[name][prompt], greedy["spec_ngram"][prompt]
+            j = next((i for i in range(min(len(ids), len(ref))) if ids[i] != ref[i]), None)
+            if j is None:
+                continue
+            logits = teacher_forced_logits(torch, cfg, params, prompt, ids[:j + 1])
+            gaps.append(abs(logits[j, ids[j]].item() - logits[j, ref[j]].item()))
+        same[name] = dict(compared=len(common), differing=len(gaps), must_be_equal=exact,
+                          first_difference_logit_gaps=gaps, accepted=accepted[name])
+        if not common or (exact and gaps) or any(gap > SPEC_TIE for gap in gaps):
+            raise AssertionError(f"{name}: greedy streams against spec_ngram's: {same[name]}")
+
+    accept = spec_accept_round(torch, dev, cfg, params, get_tokenizer("llama3-8b").encode(prompts["chat"]))
+    failures = accept.pop("failures")
+    emit("spec_accept", gamma=SPEC_GAMMA, spec_tie=SPEC_TIE, **accept)
+    if failures:
+        raise AssertionError(f"spec_accept: {failures}")
+    emit("spec", seconds=time.perf_counter() - t_phase, steps=list(out), streams_equal_to_spec_ngram=same)
+    return out, hd64
 
 
 PROFILE_STEPS, PROFILE_LENGTH, PROFILE_WINDOW = 8, 512, 1024
@@ -2942,6 +3547,8 @@ def main() -> int:
         "paged_decode_attention": check_paged_decode(torch, dev),
         "flash_attention": check_flash(torch, dev, log),
     }
+    # K4 at the speculative draft's head_dim (Llama-3.2-1B: 64).
+    summary["flash_attention"]["hd64"] = check_flash(torch, dev, log, hd=64)
     if log:
         emit("notes", notes=log)
     check_reference(torch, dev)
@@ -2985,15 +3592,20 @@ def main() -> int:
     # the plain version after them.
     with QmmShapes() as k1_shapes:
         try:
-            launches, alone, timing = serve(torch, dev, _cuda, cfg, params, prompts, "contiguous", rag=rag)
+            launches, alone, timing, serve_summary = serve(torch, dev, _cuda, cfg, params, prompts, "contiguous",
+                                                           rag=rag)
         finally:
             rag[0].close()
         del rag
         gc.collect()
         torch.cuda.empty_cache()
-        paged_launches, _, paged_timing = serve(torch, dev, _cuda, cfg, params, prompts, "paged", expect=alone)
+        paged_launches, _, paged_timing, _ = serve(torch, dev, _cuda, cfg, params, prompts, "paged", expect=alone)
         # Each kernel's launches come from the path that runs it.
         launches["paged_decode_attention"] = paged_launches["paged_decode_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec_launches, spec_hd64 = spec_phase(torch, dev, _cuda, cfg, params, prompts, serve_summary,
+                                           summary["decode_attention"]["ms"])
         for kv_layout, t in (("contiguous", timing), ("paged", paged_timing)):
             gc.collect()
             torch.cuda.empty_cache()
@@ -3019,8 +3631,14 @@ def main() -> int:
             "library_ms": s["library_ms"], "eager_ms": s["eager_ms"], "shape": s["shape"],
             "chain_launches": chain_launches[name],
             "step_launches": {step: counts[name] for step, counts in step_launches.items()},
+            "spec_launches": {step: counts[name] for step, counts in spec_launches.items()},
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
+        if "hd64" in s:
+            h = s["hd64"]
+            kernels[-1]["hd64"] = {k: h[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                     "max_abs_err", "shape")}
+            kernels[-1]["hd64"]["spec_draft_launches"] = spec_hd64
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,15 @@
 // Replaces ops/flash_attention.py::flash_gqa_attention (kernel _flash_kernel)
 // of the JAX package.
 //
-// Inputs: q (b, s, n_q, 128) bf16, k/v (b, t, n_kv, 128) bf16, q_positions
+// Inputs: q (b, s, n_q, HD) bf16, k/v (b, t, n_kv, HD) bf16, q_positions
 // (b, s) int32, kv_len (b,) int32.  Key slot j is visible to the query at
 // position p iff j <= p and j < kv_len[b].  The mask is multiplicative on
 // the exp-weights, so padded query rows (position -1) and rows with no
 // visible key come out exactly 0, as in the reference (stock SDPA does not
 // carry that contract).  GQA maps query head h to kv head h / (n_q/n_kv)
-// without materialising the broadcast.
+// without materialising the broadcast.  HD is 128 (Llama-3-8B, 70B) or 64
+// (Llama-3.2-1B, the speculative draft): one kernel, instantiated for each
+// head_dim; a tile row is HD / 64 swizzled halves of 64 head dims.
 //
 // Bound on this card: at the prefill shapes of the serving path (s = 256,
 // head_dim 128) device-memory bandwidth bounds it: moving q, k, v and the
@@ -39,7 +41,8 @@
 //   of 64 head dims, 16-byte chunk c of row r at chunk c ^ (r % 8)).
 // - Four blocks an SM: Q stays in shared memory (no fragment registers)
 //   and K/V arrive in 32-slot tiles, so a block holds 48 KB of shared
-//   memory and 114 registers a thread.  Against an mma.sync version of the
+//   memory (at head_dim 128; half at 64) and at most 128 registers a
+//   thread (the launch bounds).  Against an mma.sync version of the
 //   same packing (ldmatrix fragments, q in registers, 64-slot tiles, 3
 //   blocks an SM), this is 1.4x faster at check_flash's shape (PERF.md,
 //   perf_torch/probe_flash_designs.py).
@@ -56,20 +59,26 @@
 
 namespace {
 
-constexpr int HD = 128;
 constexpr int BM = 64;   // packed (position, head) rows per block, 16 per warp
 constexpr int BKV = 32;  // key slots per tile
 constexpr int THREADS = 128;  // one warpgroup
 constexpr int MIN_BLOCKS = 4;  // resident blocks per SM the registers are sized for
-// A tile of R rows x 128 head dims is two halves of R rows x 128 bytes.
+// A tile of R rows x HD head dims is HD / 64 halves of R rows x 128 bytes.
 constexpr int Q_HALF = BM * 64;  // elements
 constexpr int KV_HALF = BKV * 64;
-constexpr int KV_TILE = 2 * KV_HALF;
 constexpr int STAGES = 2;
-// q, then each stage's K tile and V tile; slack to align the base to 1024.
-constexpr int SMEM_BYTES = (2 * Q_HALF + STAGES * 2 * KV_TILE) * 2 + 1024;
-constexpr int LDO = HD + 8;  // output staging row stride (elements)
-static_assert(BM * LDO <= STAGES * 2 * KV_TILE, "output staging fits in the ring");
+
+template <int HD>
+struct Geometry {
+  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  static constexpr int CHUNKS = HD / 8;  // 16-byte chunks a row
+  static constexpr int Q_TILE = (HD / 64) * Q_HALF;
+  static constexpr int KV_TILE = (HD / 64) * KV_HALF;
+  // q, then each stage's K tile and V tile; slack to align the base to 1024.
+  static constexpr int SMEM_BYTES = (Q_TILE + STAGES * 2 * KV_TILE) * 2 + 1024;
+  static constexpr int LDO = HD + 8;  // output staging row stride (elements)
+  static_assert(BM * LDO <= STAGES * 2 * KV_TILE, "output staging fits in the ring");
+};
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x on the special-function unit (flushes denormals; 2^-huge is 0).
@@ -89,24 +98,28 @@ __device__ __forceinline__ int swz(int r, int cc) {
 // Makes this thread's completed cp.async writes visible to wgmma's reads.
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
+template <int HD>
 __device__ __forceinline__ void issue_q(__nv_bfloat16* dst, const __nv_bfloat16* q, const int* row_q, int tid) {
-  // BM rows x 16 chunks of 16 bytes.
+  // BM rows x HD / 8 chunks of 16 bytes.
+  constexpr int CH = Geometry<HD>::CHUNKS;
 #pragma unroll
-  for (int i = 0; i < BM * (HD / 8) / THREADS; ++i) {
+  for (int i = 0; i < BM * CH / THREADS; ++i) {
     const int c = tid + i * THREADS;
-    const int r = c >> 4, cc = c & 15;
+    const int r = c / CH, cc = c % CH;
     const int off = row_q[r];
     cp_async_16(dst + swz<Q_HALF>(r, cc), q + (off < 0 ? 0 : (size_t)off * HD + cc * 8), off >= 0);
   }
 }
 
+template <int HD>
 __device__ __forceinline__ void issue_kv(__nv_bfloat16* ks, const __nv_bfloat16* k, const __nv_bfloat16* v,
                                          int b, int kvh, int T, int n_kv, int kv0, int limit, int tid) {
-  // BKV slots x 16 chunks of K and of V; V's tile follows K's.
+  // BKV slots x HD / 8 chunks of K and of V; V's tile follows K's.
+  constexpr int CH = Geometry<HD>::CHUNKS, KV_TILE = Geometry<HD>::KV_TILE;
 #pragma unroll
-  for (int i = 0; i < BKV * (HD / 8) / THREADS; ++i) {
+  for (int i = 0; i < BKV * CH / THREADS; ++i) {
     const int c = tid + i * THREADS;
-    const int r = c >> 4, cc = c & 15;
+    const int r = c / CH, cc = c % CH;
     const bool ok = kv0 + r < limit;
     const size_t off = ok ? (((size_t)b * T + kv0 + r) * n_kv + kvh) * HD + cc * 8 : 0;
     cp_async_16(ks + swz<KV_HALF>(r, cc), k + off, ok);
@@ -114,16 +127,19 @@ __device__ __forceinline__ void issue_kv(__nv_bfloat16* ks, const __nv_bfloat16*
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
                  const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out, int S,
                  int T, int n_q, int n_kv, float scale) {
+  using Geo = Geometry<HD>;
+  constexpr int KV_TILE = Geo::KV_TILE, LDO = Geo::LDO;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // The swizzle is on address bits, so tiles start 1024-byte aligned.
   __nv_bfloat16* qs =
       reinterpret_cast<__nv_bfloat16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  __nv_bfloat16* ring = qs + 2 * Q_HALF;
+  __nv_bfloat16* ring = qs + Geo::Q_TILE;
   __shared__ int pos_s[BM];
   __shared__ int row_q[BM];  // row's q/out offset in units of HD elements, -1 if padding
   __shared__ int maxpos_s;
@@ -161,11 +177,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 
   if (n_tiles > 0) {  // block-uniform
-    issue_q(qs, q, row_q, tid);
-    issue_kv(ring, k, v, b, kvh, T, n_kv, 0, limit, tid);
+    issue_q<HD>(qs, q, row_q, tid);
+    issue_kv<HD>(ring, k, v, b, kvh, T, n_kv, 0, limit, tid);
     cp_async_commit();
     if (n_tiles > 1) {
-      issue_kv(ring + 2 * KV_TILE, k, v, b, kvh, T, n_kv, BKV, limit, tid);
+      issue_kv<HD>(ring + 2 * KV_TILE, k, v, b, kvh, T, n_kv, BKV, limit, tid);
       cp_async_commit();
     }
 
@@ -180,8 +196,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       fence_proxy_async();
       __syncthreads();
 
-      // S = Q K^T over head_dim in 8 k16 steps; step kd is 32 bytes into
-      // half kd / 4 of both swizzled tiles.
+      // S = Q K^T over head_dim in HD / 16 k16 steps; step kd is 32 bytes
+      // into half kd / 4 of both swizzled tiles.
       float sc[BKV / 2];
       wgmma_fence();
 #pragma unroll
@@ -237,7 +253,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
       // O += P V: the weights, packed to bf16, are the A fragments of the
       // two k16 steps over this tile's slots; V is read transposed, 16
-      // slots (2048 bytes) a step, its second 64 head dims KV_HALF on.
+      // slots (2048 bytes) a step, its second 64 head dims (HD 128) KV_HALF
+      // on.
       uint32_t pa[BKV / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
@@ -247,14 +264,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_bf16_m64n128_rs_mn(o, pa[kk], wgmma_desc_sw128_mn(Vs + kk * 16 * 64, KV_HALF * 2, 1024));
+        wgmma_bf16_rs_mn(o, pa[kk], wgmma_desc_sw128_mn(Vs + kk * 16 * 64, KV_HALF * 2, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_fence_operands(o);
 
       __syncthreads();  // this stage is free for tile it + 2
       if (it + 2 < n_tiles) {
-        issue_kv(ring + (it & 1) * 2 * KV_TILE, k, v, b, kvh, T, n_kv, (it + 2) * BKV, limit, tid);
+        issue_kv<HD>(ring + (it & 1) * 2 * KV_TILE, k, v, b, kvh, T, n_kv, (it + 2) * BKV, limit, tid);
         cp_async_commit();
       }
     }
@@ -275,32 +292,43 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < BM * (HD / 8) / THREADS; ++i) {
+  for (int i = 0; i < BM * Geo::CHUNKS / THREADS; ++i) {
     const int c = tid + i * THREADS;
-    const int r = c >> 4, cc = c & 15;
+    const int r = c / Geo::CHUNKS, cc = c % Geo::CHUNKS;
     if (row_q[r] >= 0)
       *reinterpret_cast<int4*>(out + (size_t)row_q[r] * HD + cc * 8) = *reinterpret_cast<const int4*>(os + r * LDO + cc * 8);
   }
 }
 
-}  // namespace
-
-// Returns the launch's cudaError_t (0 = launched).
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* qpos, const void* kv_len, void* out, int B,
-                                      int S, int T, int n_q, int n_kv, float scale,
-                                      void* stream) {
-  if (B <= 0 || S <= 0) return 0;
-  // Once: allow the dynamic shared memory (above the 48 KB default).
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* qpos, const void* kv_len, void* out, int B,
+           int S, int T, int n_q, int n_kv, float scale, cudaStream_t stream) {
+  constexpr int SMEM = Geometry<HD>::SMEM_BYTES;
+  // Once per instance: allow the dynamic shared memory (above the 48 KB
+  // default).
   static const cudaError_t attr =
-      cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      cudaFuncSetAttribute(flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int G = n_q / n_kv;
   const dim3 grid(n_kv, B, (S * G + BM - 1) / BM);
-  flash_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  flash_kernel<HD><<<grid, THREADS, SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(kv_len), static_cast<__nv_bfloat16*>(out), S, T, n_q, n_kv,
-      scale);
+      static_cast<const int*>(kv_len), static_cast<__nv_bfloat16*>(out), S, T, n_q, n_kv, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns the launch's cudaError_t (0 = launched); head_dim 64 or 128
+// (anything else is cudaErrorInvalidValue).
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
+                                      const void* qpos, const void* kv_len, void* out, int B,
+                                      int S, int T, int n_q, int n_kv, int hd, float scale,
+                                      void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128) return launch<128>(q, k, v, qpos, kv_len, out, B, S, T, n_q, n_kv, scale, st);
+  if (hd == 64) return launch<64>(q, k, v, qpos, kv_len, out, B, S, T, n_q, n_kv, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -32,7 +32,7 @@ class SamplingParams:
 
 def _warp(logits, temperature, top_p, top_k):
     """Temperature -> candidates -> top-k/top-p.  Returns (cand_idx,
-    cand_logits with filtered = -1e30, scaled full logits)."""
+    cand_logits with filtered = -1e30, keep mask, scaled full logits)."""
     vocab = logits.shape[-1]
     temp = temperature.clamp_min(1e-6)[:, None]
     scaled = logits / temp
@@ -46,7 +46,31 @@ def _warp(logits, temperature, top_p, top_k):
     topp_mask = (cumulative - sorted_probs) < top_p[:, None]
     keep = topk_mask & topp_mask
     cand_logits = torch.where(keep, sorted_scaled, torch.full_like(sorted_scaled, _NEG_INF))
-    return cand_idx, cand_logits, scaled
+    return cand_idx, cand_logits, keep, scaled
+
+
+def warped_candidates(logits, temperature, top_p, top_k):
+    """The warped (temperature -> top-k -> top-p) distribution, sparse over
+    the candidate pool: ``(cand_ids, cand_probs)``, each (b, K) with
+    K = min(CANDIDATES, vocab); filtered candidates carry probability 0.
+    Speculative rejection sampling compares the target's and the draft's
+    distributions in this form."""
+    cand_idx, cand_logits, keep, _ = _warp(logits, temperature, top_p, top_k)
+    probs = torch.softmax(cand_logits, dim=-1)
+    return cand_idx, torch.where(keep, probs, torch.zeros_like(probs))
+
+
+def sample_from_candidates(cand_ids: torch.Tensor, cand_probs: torch.Tensor, generator: torch.Generator):
+    """One draw per row from a sparse candidate distribution; (b,) int32."""
+    choice = _categorical(torch.log(cand_probs + 1e-30), generator)
+    return torch.gather(cand_ids, 1, choice[:, None])[:, 0].to(torch.int32)
+
+
+def prob_of(cand_ids: torch.Tensor, cand_probs: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The probability each row's sparse distribution gives ``tokens``
+    ((b,)); 0 for a token outside the pool."""
+    match = cand_ids == tokens[:, None].to(cand_ids.dtype)
+    return torch.where(match, cand_probs, torch.zeros_like(cand_probs)).sum(dim=-1)
 
 
 def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -70,7 +94,7 @@ def sample(
     sample the full untruncated distribution.
     """
     greedy = torch.argmax(logits, dim=-1)
-    cand_idx, cand_logits, scaled = _warp(logits, temperature, top_p, top_k)
+    cand_idx, cand_logits, _, scaled = _warp(logits, temperature, top_p, top_k)
     choice = _categorical(cand_logits, generator)
     sampled = torch.gather(cand_idx, 1, choice[:, None])[:, 0]
     unfiltered = (top_p >= 1.0) & (top_k <= 0) & (temperature > 0.0)

@@ -25,8 +25,16 @@ non-speculative path, on the contiguous cache or the paged pool).
   chunk behind it on the same CUDA stream, and only then does the host
   wait for sampled tokens: no host sync between dispatch and finalize.
 
+* **Speculative decoding** (``engine.spec_decode``): with a draft model
+  (an independent W8A8 draft, or the target's first layers) or
+  ``spec_mode="ngram"`` (prompt lookup), every decode chunk becomes
+  speculation rounds: the draft proposes up to ``gamma`` tokens and the
+  target verifies them in one forward.  Greedy streams equal the plain
+  chunk's.  The draft keeps its own contiguous slot cache (or the n-gram
+  matcher its token history), rebuilt along every KV-building path.
+
 The scheduler thread emits tokens through ``on_token`` / ``on_done``
-callbacks.  Speculative decoding is not ported yet.
+callbacks.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 
 from generativeaiexamples_tpu_torch.core.device import host_to_device, resolve_device
 from generativeaiexamples_tpu_torch.core.logging import get_logger
+from generativeaiexamples_tpu_torch.engine import spec_decode
 from generativeaiexamples_tpu_torch.engine.decode import (
     make_decode_chunk_fn,
     make_paged_decode_chunk_fn,
@@ -55,6 +64,8 @@ from generativeaiexamples_tpu_torch.engine.prefix_cache import PrefixCacheIndex
 from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams, sample
 from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops.decode_attention import flush_clip_start, paged_slots
+from generativeaiexamples_tpu_torch.resilience.degrade import mark_degraded
+from generativeaiexamples_tpu_torch.resilience.faults import FaultInjected, inject
 from generativeaiexamples_tpu_torch.utils.buckets import bucket_size
 
 logger = get_logger(__name__)
@@ -94,6 +105,9 @@ class _Slot:
     parked_at: float = 0.0
     # Chunked prefill: next prompt position to prefill (None = not warming).
     warm_pos: Optional[int] = None
+    # Speculation: EWMA of this request's acceptance rate (accepted drafts
+    # / gamma), which drives the adaptive lookahead; 1.0 at every claim.
+    accept_ewma: float = 1.0
 
 
 class Stats:
@@ -119,6 +133,23 @@ class Stats:
         self.decode_s = 0.0
         self.decode_chunks = 0
         self.tick_ms_ewma = 0.0
+        # Tick time scaled to one token per decoding lane per chunk step
+        # (a speculative tick that emits 3x the tokens is not 3x slower),
+        # and the tokens a tick emits.
+        self.tick_ms_norm_ewma = 0.0
+        self.tick_tokens_ewma = 0.0
+        # Speculation: (slot, round) pairs of greedy or filtered-sampled
+        # rows, the tokens they emitted, drafts put before the verifier and
+        # accepted (acceptance = accepted / proposed), the acceptance EWMA
+        # over chunks, the lookahead of the latest chunk, and ticks that a
+        # ``spec_draft`` fault degraded to the plain chunk.
+        self.spec_rounds = 0
+        self.spec_tokens = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_acceptance_ewma = 0.0
+        self.spec_gamma = 0
+        self.spec_fallbacks = 0
         # Paged KV pool gauges (zero under the contiguous cache): total
         # pages, free-list depth, pages held by parked segments, pages
         # shared by more than one owner (refcount > 1, COW-armed), pages
@@ -158,6 +189,15 @@ class Stats:
                 "shared_prefix_hits": self.shared_prefix_hits,
                 "prefill_chunks": self.prefill_chunks,
                 "tick_ms_ewma": round(self.tick_ms_ewma, 3),
+                "tick_ms_norm_ewma": round(self.tick_ms_norm_ewma, 3),
+                "tick_tokens_ewma": round(self.tick_tokens_ewma, 3),
+                "spec_rounds": self.spec_rounds,
+                "spec_tokens": self.spec_tokens,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "spec_acceptance_ewma": round(self.spec_acceptance_ewma, 4),
+                "spec_gamma": self.spec_gamma,
+                "spec_fallbacks": self.spec_fallbacks,
                 "kv_pages_total": self.kv_pages_total,
                 "kv_pages_free": self.kv_pages_free,
                 "kv_pages_parked": self.kv_pages_parked,
@@ -182,6 +222,14 @@ class Scheduler:
     ``max_batch * n_slot_pages + 1``), and ``kv_page_low_water`` free pages
     below which a tick evicts least-recently-used parked segments
     (default: one slot's worth).
+
+    Speculative decoding: ``draft_cfg`` / ``draft_params`` attach a draft
+    model (``None`` params: random int8 from the scheduler's generator),
+    ``spec_mode="ngram"`` prompt lookup over the last ``ngram`` tokens;
+    ``gamma`` is the largest lookahead, which ``adaptive_gamma`` shrinks
+    chunk by chunk to the power of two the rows' acceptance asks for.  The
+    draft serves as the target does, W8A8 with int8 KV (the reference's
+    bf16 draft is not ported).
     """
 
     # Minimum shared-prefix length for the suffix-prefill path.
@@ -208,6 +256,12 @@ class Scheduler:
         kv_page_size: int = 64,
         kv_pool_pages: Optional[int] = None,
         kv_page_low_water: Optional[int] = None,
+        draft_cfg: Optional[llama.LlamaConfig] = None,
+        draft_params=None,
+        gamma: int = 4,
+        adaptive_gamma: bool = True,
+        spec_mode: Optional[str] = None,
+        ngram: int = 2,
     ) -> None:
         self.device = resolve_device(device)
         if cfg.kv_dtype != "int8":
@@ -216,10 +270,35 @@ class Scheduler:
             raise ValueError(f"unknown kv_layout mode {kv_layout!r}")
         if kv_page_size < 1 or (kv_page_size & (kv_page_size - 1)):
             raise ValueError(f"kv_page_size must be a power of two, got {kv_page_size}")
+        if spec_mode not in (None, "ngram"):
+            raise ValueError(f"unknown spec_mode {spec_mode!r}")
+        if spec_mode == "ngram" and draft_cfg is not None:
+            raise ValueError("spec_mode='ngram' excludes a draft model")
+        if draft_cfg is not None:
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if draft_cfg.kv_dtype != "int8":
+                raise ValueError("the port serves the draft's int8 KV cache: use kv_dtype='int8'")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len
         self.decode_chunk_size = decode_chunk_size
+        self.draft_cfg = draft_cfg
+        self.spec_mode = spec_mode
+        self.ngram = ngram
+        self.gamma = gamma
+        self.adaptive_gamma = adaptive_gamma
+        self._speculating = draft_cfg is not None or spec_mode == "ngram"
+        self.effective_max_len = self.max_len
+        if self._speculating:
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            # A live row must never start a round inside the flush-clip zone
+            # [max_len - (gamma + 1), max_len): a clipped round flush would
+            # overwrite history the next round's verify reads.
+            self.effective_max_len = self.max_len - (gamma + 1)
+            if self.effective_max_len < 2:
+                raise ValueError(f"max_len {self.max_len} too small for gamma {gamma}")
         if prefix_cache not in ("shared", "session", "off"):
             raise ValueError(f"unknown prefix_cache mode {prefix_cache!r}")
         self.stats = Stats()
@@ -244,6 +323,16 @@ class Scheduler:
                 self._cache = self._pool.leaves
             else:
                 self._cache = prepare_cache(cfg, max_batch, self.max_len, self.device)
+            self.draft_params = None
+            self._dcache = None
+            self._dhist = None
+            if draft_cfg is not None:
+                self.draft_params = prepare_params(draft_cfg, draft_params, device=self.device, generator=self._gen)
+                self._dcache = prepare_cache(draft_cfg, max_batch, self.max_len, self.device)
+            elif spec_mode == "ngram":
+                # The matcher's token history lives on the device: rows are
+                # written at admission, the chunk carries them forward.
+                self._dhist = torch.zeros((max_batch, self.max_len), dtype=torch.int32, device=self.device)
         self.matmul_kernel = "w8a8"  # the one projection path the port serves
         if self._pool is not None:
             self._decode_chunk = make_paged_decode_chunk_fn(cfg, self.max_len, self.kv_page_size)
@@ -255,6 +344,18 @@ class Scheduler:
             self._kv_pages_reserved = 0
         else:
             self._decode_chunk = make_decode_chunk_fn(cfg, self.max_len)
+        if draft_cfg is not None:
+            self._spec_chunk = (
+                spec_decode.make_paged_spec_chunk_fn(cfg, draft_cfg, self.max_len, self.kv_page_size)
+                if self._pool is not None
+                else spec_decode.make_spec_chunk_fn(cfg, draft_cfg, self.max_len)
+            )
+        elif spec_mode == "ngram":
+            self._spec_chunk = (
+                spec_decode.make_paged_ngram_spec_chunk_fn(cfg, self.max_len, self.kv_page_size, ngram=ngram)
+                if self._pool is not None
+                else spec_decode.make_ngram_spec_chunk_fn(cfg, self.max_len, ngram=ngram)
+            )
         self.prefix_cache = prefix_cache
         self._prefix_index = PrefixCacheIndex()
         if self._pool is not None:
@@ -263,9 +364,12 @@ class Scheduler:
             prefill_chunk_tokens = None
         self.prefill_chunk_tokens = prefill_chunk_tokens
         # Pipelined ticks pin not-yet-decoding lanes at max_len - 1, whose
-        # flush garbage-writes [max_len - chunk, max_len): admitted prompt
+        # flush garbage-writes [max_len - w, max_len), w the widest flush
+        # this scheduler dispatches: the decode chunk, or a speculative
+        # round's gamma + 1 (adaptive gamma only shrinks).  Admitted prompt
         # KV must stay strictly below it.
-        self._admit_limit = flush_clip_start(self.max_len, self.decode_chunk_size)
+        self._flush_width = max(decode_chunk_size, gamma + 1) if self._speculating else decode_chunk_size
+        self._admit_limit = min(self.effective_max_len, flush_clip_start(self.max_len, self._flush_width))
         if self._admit_limit < 2:
             raise ValueError(
                 f"max_len {self.max_len} leaves no admissible prompt room "
@@ -276,6 +380,10 @@ class Scheduler:
         self._cancel_lock = threading.Lock()
         self._cur_tok = np.zeros((max_batch,), dtype=np.int32)
         self._tok_count = 0
+        # Tokens emitted this tick and lanes its decode chunk advanced, for
+        # the token-normalized tick time.
+        self._tick_tokens = 0
+        self._tick_decoded = 0
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._backlog: "collections.deque[Request]" = collections.deque()
         self._running = False
@@ -305,10 +413,40 @@ class Scheduler:
         lg = llama.logits(self.params, last[:, None, :])[:, 0]
         return small, sample(lg, self._gen, temp, top_p, top_k)
 
-    def _graft_rows(self, small, slots: torch.Tensor) -> None:
-        """Copy the small cache's rows 0..k-1 into their slots."""
+    def _prefill_draft(self, tokens, lengths):
+        """Cold-prefill the admission batch into a fresh small draft cache
+        (no sampling: the draft only needs KV)."""
+        b, s = tokens.shape
+        small = llama.init_kv_cache(self.draft_cfg, b, s, device=self.device)
+        positions = torch.arange(s, dtype=torch.int32, device=self.device).expand(b, s)
+        llama.forward(self.draft_params, self.draft_cfg, tokens.long(), positions, small, lengths, cold_prefill=True)
+        return small
+
+    def _prefill_draft_suffix(self, tokens, start: int, suffix_len: int, slot: int, kv_bucket: int) -> None:
+        """Warm-prefill ``tokens`` (1, s) at positions ``start..`` into the
+        draft cache row of ``slot``: the draft twin of
+        :meth:`_prefill_suffix`, which keeps the draft covering the same
+        ``[0, length)`` window as the target on every KV-building path."""
+        s = tokens.shape[1]
+        positions = start + torch.arange(s, dtype=torch.int32, device=self.device)[None, :]
+        row = tuple(c[:, :, slot : slot + 1] for c in self._dcache)
+        llama.forward(
+            self.draft_params, self.draft_cfg, tokens.long(), positions, row,
+            self._full(start + suffix_len, torch.int32), kv_bucket=kv_bucket,
+        )
+
+    def _set_history_row(self, slot: int, token_ids) -> None:
+        """Rewrite the n-gram matcher's history row of ``slot`` (zeros past
+        the tokens clear the row's previous occupant)."""
+        row = np.zeros((self.max_len,), dtype=np.int32)
+        row[: len(token_ids)] = token_ids
+        self._dhist[slot] = self._h2d(row)
+
+    def _graft_rows(self, small, slots: torch.Tensor, cache=None) -> None:
+        """Copy the small cache's rows 0..k-1 into their slots of ``cache``
+        (default: the target's)."""
         k = slots.shape[0]
-        for big, sm in zip(self._cache, small):
+        for big, sm in zip(self._cache if cache is None else cache, small):
             s = sm.shape[3]
             big[:, :, slots, :s] = sm[:, :, :k]
 
@@ -529,11 +667,12 @@ class Scheduler:
                 (req.session_id and self.prefix_cache != "off")
                 or (self.prefix_cache == "shared" and slot.length + slot.emitted > self.MIN_PREFIX)
             )
-            # Parked history stays clear of the flush-clip tail zone.
+            # Parked history stays clear of the flush-clip tail zone of the
+            # widest flush (decode chunk or speculative round).
             and slot.length + slot.emitted
             < min(
-                flush_clip_start(self.max_len, self.decode_chunk_size),
-                self.max_len - max(16, self.decode_chunk_size + 1),
+                flush_clip_start(self.max_len, self._flush_width),
+                self.max_len - max(16, self._flush_width + 1),
             )
         ):
             # The last sampled token of a length finish was never fed back,
@@ -595,8 +734,10 @@ class Scheduler:
             temp[r] = req.sampling.temperature
             top_p[r] = req.sampling.top_p
             top_k[r] = req.sampling.top_k
+        tokens_dev, lengths_dev = self._h2d(tokens), self._h2d(lengths)
+        slots_dev = self._h2d(np.asarray(slot_idxs, dtype=np.int64))
         small, tok = self._prefill_some(
-            self._h2d(tokens), self._h2d(lengths), self._h2d(temp), self._h2d(top_p), self._h2d(top_k)
+            tokens_dev, lengths_dev, self._h2d(temp), self._h2d(top_p), self._h2d(top_k)
         )
         if self._pool is not None:
             # Allocate each admitted slot's pages, then scatter the rows to
@@ -608,13 +749,23 @@ class Scheduler:
             phys = paged_slots(rows, torch.arange(s).expand(len(slot_idxs), s), self._pool.page_tokens)
             self._graft_rows_paged(small, self._h2d(phys.numpy()))
         else:
-            self._graft_rows(small, self._h2d(np.asarray(slot_idxs, dtype=np.int64)))
+            self._graft_rows(small, slots_dev)
+        if self._dhist is not None:
+            hist = np.zeros((len(reqs), self.max_len), dtype=np.int32)
+            for r, req in enumerate(reqs):
+                hist[r, : plens[r]] = req.token_ids
+            self._dhist[slots_dev] = self._h2d(hist)
+        if self.draft_cfg is not None:
+            # The draft's slot rows mirror the target's: same prompts, same
+            # slots.
+            self._graft_rows(self._prefill_draft(tokens_dev, lengths_dev), slots_dev, self._dcache)
         for r, (req, slot_idx) in enumerate(zip(reqs, slot_idxs)):
             slot = self._slots[slot_idx]
             slot.request = req
             slot.length = plens[r]
             slot.emitted = 0
             slot.history = list(req.token_ids)
+            slot.accept_ewma = 1.0
         return reqs, slot_idxs, tok, t_admit0
 
     def _admit_finalize(self, reqs, slot_idxs, tok, t_admit0: float) -> None:
@@ -687,15 +838,21 @@ class Scheduler:
         tokens = np.zeros((1, s), dtype=np.int32)
         tokens[0, : len(suffix)] = suffix
         kv_bucket = bucket_size(common + s, maximum=self.max_len, dense=True)
+        tok_dev = self._h2d(tokens)
         tok = self._prefill_suffix(
-            self._h2d(tokens), common, len(suffix), slot_idx, self._sampling_dev(req.sampling), kv_bucket
+            tok_dev, common, len(suffix), slot_idx, self._sampling_dev(req.sampling), kv_bucket
         )
+        if self.draft_cfg is not None:
+            self._prefill_draft_suffix(tok_dev, common, len(suffix), slot_idx, kv_bucket)
+        if self._dhist is not None:
+            self._set_history_row(slot_idx, req.token_ids)
         slot = self._slots[slot_idx]
         slot.request = req
         slot.length = plen
         slot.emitted = 0
         slot.history = list(req.token_ids)
         slot.warm_pos = None
+        slot.accept_ewma = 1.0
         return req, slot_idx, tok, t0
 
     def _suffix_finalize(self, req, slot_idx, tok, t0) -> None:
@@ -762,6 +919,14 @@ class Scheduler:
             self._drop_segment(seg)
         else:
             self._prefix_index.touch(seg)
+        if self.draft_cfg is not None and common > 0:
+            # The segment holds target pages only: rebuild the slot's
+            # contiguous draft row over [0, common) with one draft prefill.
+            s = min(bucket_size(common, minimum=16, dense=True), self.max_len)
+            dtok = np.zeros((1, s), dtype=np.int32)
+            dtok[0, :common] = req.token_ids[:common]
+            kv_bucket = bucket_size(s, maximum=self.max_len, dense=True)
+            self._prefill_draft_suffix(self._h2d(dtok), 0, common, slot_idx, kv_bucket)
         return True, self._admit_hit(req, slot_idx, common, shared=shared)
 
     def _admit_pages_ok(self, plen: int, common: int = 0, *, reserve: bool = False) -> bool:
@@ -772,7 +937,7 @@ class Scheduler:
         holds the need against later checks this tick, for batch
         admissions that allocate at their dispatch."""
         pt = self._pool.page_tokens
-        horizon = min(plen + self.decode_chunk_size + 1, self.max_len)
+        horizon = min(plen + self._flush_width + 1, self.max_len)
         need = max(num_slot_pages(horizon, pt) - common // pt, 1)
         ok = self._ensure_pages(need + self._kv_pages_reserved)
         if ok and reserve:
@@ -808,6 +973,11 @@ class Scheduler:
         from slot ``src`` into slot ``dst``; the source stays parked."""
         n = min(bucket_size(common, minimum=16, dense=True), self.max_len)
         self._graft_prefix(src, dst, n)
+        if self.draft_cfg is not None:
+            # The parked draft rows were written in lockstep with the
+            # target's: the same copy covers [0, common) in the draft too.
+            for buf in self._dcache:
+                buf[:, :, dst, :n] = buf[:, :, src, :n]
         self._prefix_index.touch(src)
 
     def _claim_warm(self, req: Request, slot_idx: int, start: int) -> None:
@@ -820,6 +990,11 @@ class Scheduler:
         slot.cached = False
         slot.parked_at = 0.0
         slot.warm_pos = start
+        slot.accept_ewma = 1.0
+        if self._dhist is not None:
+            # The whole prompt can go in at once: the matcher reads only
+            # positions below the live length.
+            self._set_history_row(slot_idx, req.token_ids)
 
     def _claim_warm_cold(self, req: Request, slot_idx: int) -> None:
         with self.stats.lock:
@@ -845,9 +1020,11 @@ class Scheduler:
         tokens = np.zeros((1, s), dtype=np.int32)
         tokens[0, :n] = slot.history[pos : pos + n]
         kv_bucket = bucket_size(pos + s, maximum=self.max_len, dense=True)
-        tok = self._prefill_suffix(
-            self._h2d(tokens), pos, n, slot_idx, self._sampling_dev(req.sampling), kv_bucket
-        )
+        tok_dev = self._h2d(tokens)
+        tok = self._prefill_suffix(tok_dev, pos, n, slot_idx, self._sampling_dev(req.sampling), kv_bucket)
+        if self.draft_cfg is not None:
+            # Both caches advance their warm frontier together.
+            self._prefill_draft_suffix(tok_dev, pos, n, slot_idx, kv_bucket)
         with self.stats.lock:
             self.stats.prefill_chunks += 1
         if pos + n < plen:
@@ -878,9 +1055,10 @@ class Scheduler:
         slot.emitted += 1
         slot.history.append(tid)
         self._tok_count += 1
+        self._tick_tokens += 1
         if slot.emitted >= req.sampling.max_tokens:
             self._finish(slot_idx, "length")
-        elif slot.length + slot.emitted >= self.max_len:
+        elif slot.length + slot.emitted >= self.effective_max_len:
             self._finish(slot_idx, "length")
 
     def _loop(self) -> None:
@@ -910,13 +1088,31 @@ class Scheduler:
                         self._pool.reset_all()
                     else:
                         self._cache = prepare_cache(self.cfg, self.max_batch, self.max_len, self.device)
-                self.stats.tick_ms_ewma += 0.1 * ((time.perf_counter() - tick_t0) * 1e3 - self.stats.tick_ms_ewma)
+                    if self._dcache is not None:
+                        self._dcache = prepare_cache(self.draft_cfg, self.max_batch, self.max_len, self.device)
+                    if self._dhist is not None:
+                        self._dhist.zero_()
+                self._note_tick((time.perf_counter() - tick_t0) * 1e3)
         logger.info("scheduler stopped")
+
+    def _note_tick(self, dt_ms: float) -> None:
+        """Tick-time EWMAs: raw, and scaled back to one token per decoding
+        lane per chunk step when speculation emitted more than the plain
+        chunk would have (non-speculative ticks: the two are equal)."""
+        stats = self.stats
+        stats.tick_ms_ewma += 0.1 * (dt_ms - stats.tick_ms_ewma)
+        emitted = self._tick_tokens
+        baseline = self._tick_decoded * self.decode_chunk_size
+        norm_ms = dt_ms * baseline / emitted if emitted > baseline > 0 else dt_ms
+        stats.tick_ms_norm_ewma += 0.1 * (norm_ms - stats.tick_ms_norm_ewma)
+        stats.tick_tokens_ewma += 0.1 * (emitted - stats.tick_tokens_ewma)
 
     def _tick(self) -> None:
         with self.stats.lock:
             self.stats.tick_count += 1
         progressed = False
+        self._tick_tokens = 0
+        self._tick_decoded = 0
         if self._pool is not None:
             self._kv_pages_reserved = 0
             # Pool pressure: below the low-water mark at a tick boundary,
@@ -1053,12 +1249,14 @@ class Scheduler:
             self.stats.active_slots = len(self._active())
         decode_pending = None
         if decode_active:
-            decode_pending = self._decode_dispatch(decode_active)
+            self._tick_decoded = len(decode_active)
+            decode_pending = self._dispatch_decode_phase(decode_active)
             progressed = True
         for fin in admits:
             fin()
         if decode_pending is not None:
-            self._decode_finalize(*decode_pending)
+            finalize, pending = decode_pending
+            finalize(*pending)
         if self._pool is not None:
             self._publish_pool_gauges()
         if not progressed:
@@ -1204,3 +1402,153 @@ class Scheduler:
         with self.stats.lock:
             self.stats.decode_s += time.perf_counter() - t_dec0
             self.stats.decode_chunks += 1
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _dispatch_decode_phase(self, active: list[int]):
+        """Dispatch this tick's decode work for the ``active`` snapshot;
+        returns ``(finalize, args)``.  A speculating scheduler runs
+        :meth:`_spec_dispatch`; a ``spec_draft`` fault degrades the whole
+        tick to the plain chunk (acceptance drops, never exactness: greedy
+        rows keep only drafts equal to the target's argmax, and rejection
+        sampling corrects any proposal)."""
+        if self._speculating:
+            try:
+                inject("spec_draft")
+            except FaultInjected:
+                mark_degraded("spec_draft")
+                with self.stats.lock:
+                    self.stats.spec_fallbacks += 1
+                return self._decode_finalize, self._decode_dispatch(active)
+            return self._spec_finalize, self._spec_dispatch(active)
+        return self._decode_finalize, self._decode_dispatch(active)
+
+    def _pick_gamma(self, active: list[int]) -> int:
+        """This chunk's lookahead: the power-of-two bucket of the highest
+        per-slot desire (``accept_ewma * gamma``, clamped to [1, gamma]).
+        One gamma serves every lane, so the most hopeful lane sets it."""
+        g = self.gamma
+        if self.adaptive_gamma and active:
+            desired = 1
+            for i in active:
+                slot = self._slots[i]
+                if slot.request is None:
+                    continue
+                want = int(round(slot.accept_ewma * self.gamma))
+                desired = max(desired, min(self.gamma, max(1, want)))
+            g = spec_decode.gamma_bucket(desired, self.gamma)
+        with self.stats.lock:
+            self.stats.spec_gamma = g
+        return g
+
+    def _spec_dispatch(self, active: list[int]) -> tuple:
+        """Dispatch one speculative chunk (draft-model or n-gram rounds)
+        without waiting.  Lanes outside the ``active`` snapshot are pinned
+        at ``max_len - 1``: the room clamp holds them to one garbage token a
+        round, written in the tail zone ``_admit_limit`` keeps clear.  The
+        all-greedy gate is decided here, from the host's temperatures."""
+        t_dec0 = time.perf_counter()
+        lengths, temp, top_p, top_k, max_active = self._lane_state()
+        snap = np.zeros((self.max_batch,), dtype=bool)
+        snap[active] = True
+        lengths = np.where(snap, lengths, self.max_len - 1)
+        g = self._pick_gamma(active)
+        # Rounds per chunk: about the plain chunk's emission ceiling.
+        rounds = max(1, -(-self.decode_chunk_size // (g + 1)))
+        kv_bucket = bucket_size(max_active + rounds * (g + 1) + 1, maximum=self.max_len)
+        table = None
+        if self._pool is not None:
+            # Pages for each live lane's whole potential write range; the
+            # finalize trims back to what the verifier accepted, so a
+            # rejected draft only ever releases pages.
+            for i in active:
+                slot = self._slots[i]
+                live = slot.length + slot.emitted
+                self._pool.make_writable(i, max(live - 1, 0), min(live + rounds * (g + 1) + 1, self.max_len))
+            table = self._pool.device_table()
+        args = (
+            self._h2d(self._cur_tok),
+            self._h2d(np.minimum(lengths, self.max_len - 1).astype(np.int32)),
+            self._gen,
+            self._h2d(temp),
+            self._h2d(top_p),
+            self._h2d(top_k),
+            rounds,
+            g,
+            kv_bucket,
+            bool((temp > 0.0).any()),
+        )
+        if self.draft_cfg is not None:
+            pair = (self.params, self.draft_params)
+            if table is not None:
+                _, _, outs, n_emits = self._spec_chunk(pair, self._cache, table, self._dcache, *args)
+            else:
+                _, _, outs, n_emits = self._spec_chunk(pair, self._cache, self._dcache, *args)
+        elif table is not None:
+            _, _, outs, n_emits = self._spec_chunk(self.params, self._cache, table, self._dhist, *args)
+        else:
+            _, _, outs, n_emits = self._spec_chunk(self.params, self._cache, self._dhist, *args)
+        return outs, n_emits, active, g, t_dec0
+
+    def _spec_finalize(self, outs, n_emits, active: list[int], gamma_used: int, t_dec0: float) -> None:
+        """Fetch a dispatched speculative chunk and emit its tokens; only
+        lanes of the snapshot update ``_cur_tok``."""
+        outs_h = outs.cpu().numpy()
+        n_h = n_emits.cpu().numpy()
+        last = outs_h[-1, np.arange(self.max_batch), np.maximum(n_h[-1] - 1, 0)]
+        if active:
+            self._cur_tok[active] = last[active]
+        self._consume_spec_outs(outs_h, n_h, active, gamma_used)
+        if self._pool is not None:
+            # Page rollback of rejected drafts: each lane's accounted length
+            # counts accepted tokens only.  Lanes that finished mid-chunk
+            # were trimmed (parked) or reset by _finish.
+            for i in active:
+                slot = self._slots[i]
+                if slot.request is not None and slot.warm_pos is None:
+                    self._pool.trim(i, slot.length + slot.emitted)
+        with self.stats.lock:
+            self.stats.decode_s += time.perf_counter() - t_dec0
+            self.stats.decode_chunks += 1
+
+    def _consume_spec_outs(self, outs_h: np.ndarray, n_h: np.ndarray, active: list[int], gamma_used: int) -> None:
+        """Emit each round's accepted tokens per snapshot lane and account
+        acceptance.  ``n_h[r, i]`` counts verifier-accepted tokens (plus the
+        correction or bonus token), so a rejected draft never reaches
+        ``_handle_token``: never ``slot.history``, a parked segment or the
+        radix index.  A lane that finishes mid-chunk drops its later
+        rounds."""
+        rounds = tokens = proposed = accepted_total = 0
+        for r in range(outs_h.shape[0]):
+            for i in active:
+                slot = self._slots[i]
+                req = slot.request
+                if req is None:
+                    continue
+                sp = req.sampling
+                # Unfiltered sampled rows emit one token a round by design:
+                # speculation buys them nothing, so their desire decays.
+                counted = sp.temperature <= 0.0 or sp.top_p < 1.0 or sp.top_k > 0
+                n = int(n_h[r, i])
+                accepted = min(max(n - 1, 0), gamma_used)
+                rate = 0.0
+                if counted:
+                    rounds += 1
+                    proposed += gamma_used
+                    accepted_total += accepted
+                    rate = accepted / gamma_used
+                slot.accept_ewma += 0.3 * (rate - slot.accept_ewma)
+                for j in range(n):
+                    self._handle_token(i, int(outs_h[r, i, j]))
+                    if counted:
+                        tokens += 1
+                    if slot.request is None:
+                        break
+        with self.stats.lock:
+            self.stats.spec_rounds += rounds
+            self.stats.spec_tokens += tokens
+            self.stats.spec_proposed += proposed
+            self.stats.spec_accepted += accepted_total
+            if proposed:
+                self.stats.spec_acceptance_ewma += 0.2 * (accepted_total / proposed - self.stats.spec_acceptance_ewma)
+        self._flush_tokens()

@@ -10,13 +10,15 @@ per connection; tokens cross from the scheduler thread through a
 
 Run: ``python -m generativeaiexamples_tpu_torch.engine.server --model llama3-8b``
 (``--kv-layout paged`` serves from the paged KV pool; ``--embedder`` picks
-the BERT embedder behind ``/v1/embeddings``).
+the BERT embedder behind ``/v1/embeddings``; ``--spec-decode`` speculates,
+by prompt lookup or, with ``--draft-model``, with a draft model).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import queue
 import time
 import uuid
@@ -442,6 +444,16 @@ def metrics_text(scheduler, embedder=None) -> str:
         ("engine_prefix_tokens_reused_total", "counter", snap["prefix_tokens_reused"]),
         ("engine_shared_prefix_hits_total", "counter", snap["shared_prefix_hits"]),
         ("engine_prefill_chunks_total", "counter", snap["prefill_chunks"]),
+        # Speculation (from zero whether or not the engine speculates):
+        # acceptance = accepted / proposed; the gauges are the adaptive
+        # controller's state.
+        ("engine_spec_rounds_total", "counter", snap["spec_rounds"]),
+        ("engine_spec_tokens_total", "counter", snap["spec_tokens"]),
+        ("engine_spec_proposed_total", "counter", snap["spec_proposed"]),
+        ("engine_spec_accepted_total", "counter", snap["spec_accepted"]),
+        ("engine_spec_fallbacks_total", "counter", snap["spec_fallbacks"]),
+        ("engine_spec_acceptance_ewma", "gauge", snap["spec_acceptance_ewma"]),
+        ("engine_spec_gamma", "gauge", snap["spec_gamma"]),
         ("engine_tick_ms_ewma", "gauge", snap["tick_ms_ewma"]),
         # Paged KV pool (0 under the contiguous cache): parked = pages held
         # by parked prefix segments, shared = refcount > 1 (COW-armed).
@@ -500,19 +512,9 @@ def drain_engine(engine, timeout: float = 15.0) -> None:
         logger.exception("engine stop failed during shutdown")
 
 
-def build_server(argv: Optional[list[str]] = None) -> EngineServer:
-    """Parse the command line and build the engine and its HTTP front; the
-    caller starts ``server.scheduler`` and serves."""
-    import dataclasses
-
-    import torch
-
-    from generativeaiexamples_tpu_torch.core.device import resolve_device
-    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
-    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
-    from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset
-    from generativeaiexamples_tpu_torch.models import llama
-
+def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
+    """The engine server's command line (``GAIE_*`` environment defaults
+    for the speculation flags, as in the reference)."""
     parser = argparse.ArgumentParser(description="PyTorch/CUDA model-serving engine")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
@@ -529,6 +531,21 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     parser.add_argument("--kv-page-size", type=int, default=64, help="tokens per KV page (a power of two)")
     parser.add_argument("--kv-pool-pages", type=int, default=None,
                         help="pages in the paged pool (default and floor: max_batch * pages per slot + 1)")
+    parser.add_argument("--draft-model", default=os.environ.get("GAIE_DRAFT_MODEL", ""),
+                        help="draft model preset for speculative decoding (empty: none); the port builds it as "
+                             "random W8A8 with int8 KV from --seed")
+    parser.add_argument("--spec-ngram", action="store_true", default=os.environ.get("GAIE_SPEC_NGRAM", "") == "1",
+                        help="prompt-lookup speculation: drafts from the request's own prompt and output (no draft "
+                             "model); excludes --draft-model")
+    parser.add_argument("--spec-decode", action="store_true", default=os.environ.get("GAIE_SPEC_DECODE", "") == "1",
+                        help="speculative decoding in the scheduler: the --draft-model (or [llm].draft_model) "
+                             "proposes and the target verifies; without one, prompt lookup")
+    gamma = os.environ.get("GAIE_SPEC_GAMMA")
+    parser.add_argument("--gamma", "--spec-gamma", dest="gamma", type=int, default=int(gamma) if gamma else None,
+                        help="largest speculation lookahead, draft tokens per round (default [llm].spec_gamma, "
+                             "else 4; the adaptive controller only shrinks below it)")
+    parser.add_argument("--draft-checkpoint", default=os.environ.get("GAIE_DRAFT_CHECKPOINT", ""),
+                        help="weights directory for the draft model (not loadable in the port yet)")
     parser.add_argument("--embedder", default="tiny", choices=["tiny", "arctic", "none"],
                         help="BERT embedder behind /v1/embeddings (random weights, seed 0): bert-tiny, "
                              "arctic-embed-l, or none")
@@ -538,7 +555,68 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
                         help="how long a query waits for batch-mates before its batch runs anyway")
     parser.add_argument("--seed", type=int, default=SERVING_DEFAULTS["seed"])
     parser.add_argument("-v", "--verbose", action="count", default=None)
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def spec_scheduler_kwargs(args: argparse.Namespace, cfg, device) -> dict:
+    """The ``Scheduler`` speculation kwargs from the command line, with the
+    ``[llm]`` config (``spec_decode``, ``draft_model``, ``spec_gamma``)
+    as fallbacks; explicit flags win.  ``--gamma`` and ``--spec-gamma``
+    (the reference's two names) set one value.  ``--spec-decode`` without a draft
+    model means prompt lookup.  A draft preset is built as random W8A8
+    with int8 KV from ``--seed`` (the port serves no bf16 draft and loads
+    no checkpoint yet).  Empty when nothing speculates."""
+    from generativeaiexamples_tpu_torch.core.configuration import get_config
+
+    llm_cfg = get_config().llm
+    spec_decode = args.spec_decode or bool(getattr(llm_cfg, "spec_decode", False))
+    draft_model = args.draft_model or str(getattr(llm_cfg, "draft_model", "") or "")
+    gamma = args.gamma if args.gamma is not None else int(getattr(llm_cfg, "spec_gamma", 0) or 0) or 4
+    if args.spec_ngram and draft_model:
+        raise ValueError("--spec-ngram and --draft-model are mutually exclusive")
+    if args.spec_ngram or (spec_decode and not draft_model):
+        return {"spec_mode": "ngram", "gamma": gamma}
+    if not draft_model:
+        return {}
+    import dataclasses
+
+    import torch
+
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset, weights_dir_for
+    from generativeaiexamples_tpu_torch.models import llama
+
+    checkpoint = args.draft_checkpoint or weights_dir_for(draft_model)
+    if checkpoint:
+        raise NotImplementedError(
+            f"loading the draft checkpoint {checkpoint} is not ported to the PyTorch package yet "
+            "(ROADMAP.md, Queue 1 item 5 (HF weights))"
+        )
+    dcfg = dataclasses.replace(llama.PRESETS[resolve_model_preset(draft_model)](), kv_dtype="int8")
+    if dcfg.vocab_size != cfg.vocab_size:
+        raise ValueError(f"draft {draft_model!r} has vocab {dcfg.vocab_size}, the model {cfg.vocab_size}")
+    logger.warning("no draft checkpoint in the port: speculating with random int8 weights for %s (seed %d)",
+                   draft_model, args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    with torch.inference_mode():
+        dparams = prepare_params(dcfg, None, device=device, generator=gen)
+    return {"draft_cfg": dcfg, "draft_params": dparams, "gamma": gamma}
+
+
+def build_server(argv: Optional[list[str]] = None) -> EngineServer:
+    """Parse the command line and build the engine and its HTTP front; the
+    caller starts ``server.scheduler`` and serves."""
+    import dataclasses
+
+    import torch
+
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset
+    from generativeaiexamples_tpu_torch.models import llama
+
+    args = parse_args(argv)
     configure_logging(args.verbose)
 
     device = resolve_device(args.device)
@@ -548,11 +626,12 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.inference_mode():
         params = prepare_params(cfg, None, device=device, generator=gen)
+    spec = spec_scheduler_kwargs(args, cfg, device)
     engine = Scheduler(
         cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
         decode_chunk_size=args.decode_chunk_size, seed=args.seed,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None, prefix_cache=args.prefix_cache,
-        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages,
+        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages, **spec,
     )
     embedder = None
     if args.embedder != "none":
@@ -566,8 +645,9 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
 
             embedder = BatchedEmbedder(embedder, max_batch=args.embed_max_batch, max_wait_ms=args.embed_max_wait_ms)
     server = create_engine_app(engine, get_tokenizer(args.model), args.model, args.host, args.port, embedder=embedder)
-    logger.info("engine server on %s:%d (model %s, device %s, kv %s, embedder %s)", args.host,
-                server.server_address[1], preset, device, args.kv_layout, args.embedder)
+    speculation = spec.get("spec_mode") or ("draft" if spec else "off")
+    logger.info("engine server on %s:%d (model %s, device %s, kv %s, embedder %s, speculation %s)", args.host,
+                server.server_address[1], preset, device, args.kv_layout, args.embedder, speculation)
     return server
 
 

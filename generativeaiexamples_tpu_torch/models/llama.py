@@ -19,7 +19,12 @@ scheduler uses, on the contiguous cache or on the paged pool
 * append-buffer decode (``append_cache``, s == 1): the fresh K/V go to the
   decode chunk's append buffer, and attention reads the cache window plus
   the buffer through the decode kernel (``ops.decode_attention``; the
-  paged decode kernel on the pool).
+  paged decode kernel on the pool);
+* append-buffer verify (``append_cache``, s > 1, the speculative verify
+  pass): the s fresh K/V fill an s-slot buffer, and attention reads the
+  cache window plus the causal buffer (``ops.decode_attention.
+  verify_gqa_attention`` or its paged twin, plain PyTorch, as the
+  reference leaves it to XLA).
 
 The paged pool takes no cold prefill: the scheduler cold-prefills into a
 small contiguous cache and scatters the rows into pages.
@@ -43,7 +48,9 @@ from generativeaiexamples_tpu_torch.ops.decode_attention import (
     decode_gqa_attention,
     paged_decode_gqa_attention,
     paged_slots,
+    paged_verify_gqa_attention,
     paged_window_index,
+    verify_gqa_attention,
 )
 from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
 from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, q_dot
@@ -268,7 +275,10 @@ def forward(
     ``positions`` is ``arange(s)`` for every row (cache rows ``[0, b)``
     are written).  ``append_cache`` is
     ``(ab, step)`` for the decode chunk's append buffer (s == 1): the fresh
-    K/V go to ``ab`` slot ``step`` and the big cache is only read.
+    K/V go to ``ab`` slot ``step`` and the big cache is only read.  With
+    s > 1 it is the verify pass: ``ab`` has exactly s slots, ``step`` is 0,
+    the fresh block fills them, and ``kv_lengths`` is each row's valid
+    cache prefix (the caller flushes the buffer after the pass).
 
     ``page_table`` switches to the paged layout: ``cache`` is the 4-tuple
     of flat pool leaves (values (L, KH, P, HD), scales (L, KH, P)) and
@@ -300,9 +310,9 @@ def forward(
         t = cache[0].shape[3]
     window = t if kv_bucket is None else min(kv_bucket, t)
     if append_cache is not None:
-        if s != 1:
-            raise ValueError("append_cache is the s == 1 decode protocol")
         ab, step = append_cache
+        if s > 1 and (ab[0].shape[3] != s or step != 0):
+            raise ValueError(f"verify append buffer has {ab[0].shape[3]} slots at step {step} for {s} fresh tokens")
     else:
         ab, step = None, None
     if cold_prefill and s > 1 and (b > cache[0].shape[2] or s > t):
@@ -330,7 +340,23 @@ def forward(
         k8, ks = _quantize_kv(k)
         v8, vs = _quantize_kv(v)
 
-        if ab is not None:
+        if ab is not None and s > 1:
+            # Verify block: (b, s, KH, ...) -> (KH, b, s, ...) into slots
+            # [0, s) of layer li; the queries attend the cache prefix and
+            # the causal buffer.
+            ab[0][li] = _heads_first(k8)
+            ab[1][li] = _heads_first(v8)
+            ab[2][li] = _heads_first(ks)
+            ab[3][li] = _heads_first(vs)
+            block = (ab[0], ab[1], ab[2], ab[3])
+            if paged:
+                attn = paged_verify_gqa_attention(
+                    q, k8c, v8c, ksc, vsc, li, kv_lengths, page_table, block,
+                    window=window, page_tokens=page_tokens,
+                )
+            else:
+                attn = verify_gqa_attention(q, k8c, v8c, ksc, vsc, li, kv_lengths, block, window=window)
+        elif ab is not None:
             # (b, 1, KH, ...) -> (KH, b, ...) into slot ``step`` of layer li.
             ab[0][li, :, :, step] = _heads_first(k8)[:, :, 0]
             ab[1][li, :, :, step] = _heads_first(v8)[:, :, 0]

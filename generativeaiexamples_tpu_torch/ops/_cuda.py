@@ -45,6 +45,8 @@ LAUNCHES = {name: 0 for name in SOURCES}
 # Launches of each of the W8A8 kernel's two designs (ops/qmm.py), beside
 # its one count in LAUNCHES.
 QMM_DESIGN_LAUNCHES = {"decode": 0, "wide": 0}
+# Launches of the prefill flash kernel at each head_dim it is built for.
+FLASH_HD_LAUNCHES = {64: 0, 128: 0}
 
 # name -> (seconds, ptxas report) of builds made by this process
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -55,7 +57,7 @@ _fns: dict[tuple[str, str], object] = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, QMM_DESIGN_LAUNCHES):
+    for counts in (LAUNCHES, QMM_DESIGN_LAUNCHES, FLASH_HD_LAUNCHES):
         for name in counts:
             counts[name] = 0
 

@@ -24,6 +24,11 @@ versions, :func:`decode_gqa_attention_plain` and
 ``decode_gqa_attention_xla`` and ``paged_decode_gqa_attention_xla``).
 Both kernels split each row's window over a cluster of blocks as
 :func:`decode_plan` says.
+
+The speculative verify pass (S = gamma + 1 fresh tokens a row) attends
+through :func:`verify_gqa_attention` and
+:func:`paged_verify_gqa_attention`: plain PyTorch on every device, on
+the same window core, as the reference computes them in XLA.
 """
 
 from __future__ import annotations
@@ -165,6 +170,51 @@ def paged_decode_gqa_attention_plain(
         append_w,
         buf_base,
     )[:, 0]
+
+
+def verify_gqa_attention(q, k8, v8, ks, vs, layer: int, kv_lengths, append, *, window: int) -> torch.Tensor:
+    """Speculative verify attention over [cache prefix ; fresh block] (the
+    reference's ``verify_gqa_attention_xla``, plain PyTorch on every
+    device, as the reference leaves it to XLA).
+
+    q (B, S, n_q, HD): row r's S fresh tokens sit at positions
+    ``kv_lengths[r] + i``.  Every query sees the cache slots ``t <
+    min(kv_lengths[r], window)`` of layer ``layer``; ``append`` is the
+    round's ``(k_ab, v_ab, ks_ab, vs_ab)`` buffer of S slots ((L, KH, B, S,
+    HD) / (L, KH, B, S)), whose slot j query i sees iff ``j <= i``.
+    Returns (B, S, n_q, HD) in q's dtype."""
+    k_ab, v_ab, ks_ab, vs_ab = append
+    return _window_attention_plain(
+        q,
+        k8[layer, :, :, :window],
+        v8[layer, :, :, :window],
+        ks[layer, :, :, :window],
+        vs[layer, :, :, :window],
+        kv_lengths,
+        (k_ab[layer], v_ab[layer], ks_ab[layer], vs_ab[layer]),
+        0,
+    )
+
+
+def paged_verify_gqa_attention(
+    q, k8, v8, ks, vs, layer: int, kv_lengths, page_table, append, *, window: int, page_tokens: int
+) -> torch.Tensor:
+    """Paged twin of :func:`verify_gqa_attention` (the reference's
+    ``paged_verify_gqa_attention_xla``): the logical window gathered
+    through the page table, then the same window core, so it equals the
+    contiguous function on the same content."""
+    k_ab, v_ab, ks_ab, vs_ab = append
+    flat = paged_window_index(page_table, window, page_tokens)
+    return _window_attention_plain(
+        q,
+        k8[layer][:, flat],
+        v8[layer][:, flat],
+        ks[layer][:, flat],
+        vs[layer][:, flat],
+        kv_lengths,
+        (k_ab[layer], v_ab[layer], ks_ab[layer], vs_ab[layer]),
+        0,
+    )
 
 
 # Geometry shared with csrc/decode_tile.cuh.

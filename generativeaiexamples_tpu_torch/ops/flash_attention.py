@@ -23,7 +23,10 @@ def flash_gqa_attention_plain(q, k, v, q_positions, kv_lengths=None):
     return gqa_attention(q, k, v, q_positions, kv_lengths)
 
 
-_FLASH_ARGS = [_cuda.c_ptr] * 6 + [_cuda.c_int] * 5 + [_cuda.c_float, _cuda.c_ptr]
+_FLASH_ARGS = [_cuda.c_ptr] * 6 + [_cuda.c_int] * 6 + [_cuda.c_float, _cuda.c_ptr]
+# The head_dims the kernel is instantiated for (Llama-3-8B / 70B: 128;
+# Llama-3.2-1B, the speculative draft: 64).
+HEAD_DIMS = (64, 128)
 
 
 def flash_attention_cuda(q, k, v, q_positions, kv_lengths):
@@ -37,7 +40,7 @@ def flash_attention_cuda(q, k, v, q_positions, kv_lengths):
         )
         # The kernel copies 16-byte vectors.
         _cuda.require(x.data_ptr() % 16 == 0, f"flash_attention: {name} must be 16-byte aligned")
-    _cuda.require(hd == 128, f"flash_attention: head_dim must be 128, got {hd}")
+    _cuda.require(hd in HEAD_DIMS, f"flash_attention: head_dim must be one of {HEAD_DIMS}, got {hd}")
     _cuda.require(tuple(v.shape) == tuple(k.shape) and k.shape[0] == b and k.shape[3] == hd,
                   "flash_attention: k/v shapes")
     _cuda.require(n_q % n_kv == 0, "flash_attention: n_q must be a multiple of n_kv")
@@ -49,10 +52,11 @@ def flash_attention_cuda(q, k, v, q_positions, kv_lengths):
     fn = _cuda.function("flash_attention", "flash_attention_launch", _FLASH_ARGS)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(), kv_lengths.data_ptr(),
-        out.data_ptr(), b, s, t, n_q, n_kv, hd**-0.5, _cuda.stream_ptr(q),
+        out.data_ptr(), b, s, t, n_q, n_kv, hd, hd**-0.5, _cuda.stream_ptr(q),
     )
     _cuda.check("flash_attention", err)
     _cuda.LAUNCHES["flash_attention"] += 1
+    _cuda.FLASH_HD_LAUNCHES[hd] += 1
     return out
 
 

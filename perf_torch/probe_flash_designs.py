@@ -36,12 +36,20 @@ def main() -> int:
     for name, (_, log) in _cuda.BUILD_LOG.items():
         print(json.dumps(dict(build=name, ptxas=[ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln])))
 
+    # The mma.sync design takes no head_dim argument (it is 128 only).
+    mma_sync_args = [_cuda.c_ptr] * 6 + [_cuda.c_int] * 5 + [_cuda.c_float, _cuda.c_ptr]
+
     def launch(name, q, k, v, pos, lengths):
         b, s, n_q, hd = q.shape
         out = torch.empty_like(q)
-        fn = _cuda.function(name, "flash_attention_launch", fa._FLASH_ARGS)
+        shape = (b, s, k.shape[1], n_q, k.shape[2])
+        if name == "flash_attention":
+            fn = _cuda.function(name, "flash_attention_launch", fa._FLASH_ARGS)
+            shape += (hd,)
+        else:
+            fn = _cuda.function(name, "flash_attention_launch", mma_sync_args)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 b, s, k.shape[1], n_q, k.shape[2], hd**-0.5, _cuda.stream_ptr(q))
+                 *shape, hd**-0.5, _cuda.stream_ptr(q))
         _cuda.check(name, err)
         return out
 

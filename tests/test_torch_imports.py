@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     names = names.split(",")
     expected = len(list(pkgutil.walk_packages(
         generativeaiexamples_tpu_torch.__path__, "generativeaiexamples_tpu_torch.")))
-    assert len(names) == expected >= 84
+    assert len(names) == expected >= 85
     for module in ("engine.paged_kv", "models.bert", "engine.embedder", "engine.reranker", "engine.microbatch",
                    "retrieval.base", "retrieval.memory", "retrieval.gpu", "retrieval.retriever", "retrieval.factory",
                    "core.config", "core.configuration", "core.tracing", "obs.metrics", "obs.trace", "obs.recorder",
@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "obs.tsdb", "obs.slo", "server.schema", "server.plugins", "server.app", "server.__main__",
                    "durability.wal", "durability.metrics", "durability.journal", "durability.store",
                    "retrieval.fabric.collections", "retrieval.fabric.metrics", "ingest.pipeline", "obs.profiler",
-                   "obs.exposition", "chains.multi_turn", "chains.query_decomposition", "chains.api_catalog"):
+                   "obs.exposition", "chains.multi_turn", "chains.query_decomposition", "chains.api_catalog",
+                   "engine.spec_decode"):
         assert f"generativeaiexamples_tpu_torch.{module}" in names
     assert bad == "", f"port pulled in: {bad}"
 
