@@ -58,7 +58,35 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    cross-encoder): 32 queries at fetch_k 16 rank as a direct
    ``score_pairs`` of their 512 pairs, and a ``reranker`` fault serves
    vector-search order.  The chain and the store are freed after.
-9. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
+9. ``stores``: the compressed and IVF stores over the ``retrieve``
+   corpus (its 1M rows, read from the exact store's mirror) and its 128
+   queries, each built by ``retrieval.factory.get_vector_store`` with a
+   collection's overrides and freed before the next: ``store_int8``,
+   ``store_pq`` (``pq_m`` 16, ``rescore_multiplier`` 4), ``store_ivf``,
+   ``store_ivf_int8``, ``store_ivf_pq`` (nlist 64, nprobe 16), each with its
+   build seconds (train, encode, upload, first sync), device GB,
+   ``capacity_stats``, ``scanned_bytes_per_query(10)``, device ms per
+   128-query batch as ``search_batch`` chunks it (CUDA events, median of
+   12) beside its byte bound, ``search_batch`` ms (host clock, median of 10)
+   beside the exact store's timed alike, recall@10 against the exact
+   store's top-10 and planted rows ranked first.  Gates: every returned
+   score within 1e-4 of the f64 dot of its row's bf16 values (16
+   queries); int8 codes bit for bit ``_int8_rows``', recall@10 >= 0.95 and
+   64 of 64 planted first; PQ's stage-one scores on the card within
+   ``ADC_TOL`` of the same codes and table on the CPU; IVF with nprobe =
+   nlist gives the exact store's ids wherever gaps exceed ``RANK_EPS``;
+   plain and int8 IVF rank first every planted row in a probed list; a
+   deleted source never returns.  ``store_maintenance`` (on ``store_ivf``):
+   5,000 appends found from the tail before any fold, a background fold
+   under searches (centroids kept, one ``index_swap``, the tail empty),
+   then a retrain forced by growth.  ``store_crossover``: exact and IVF at
+   131,072 rows and at all rows, and the factory's ``cuda`` crossover.
+   ``store_snapshot``: IVF int8 at 65,536 rows saved, loaded on the card
+   (the saved store's answers) and on the CPU (the same ids wherever gaps
+   exceed ``RANK_EPS``).  ``auto`` from ``APP_*`` builds the IVF store on
+   the card with the ``cuda`` crossover.  Then ``stores``: peak device GB,
+   peak host RSS, the phase's seconds.
+10. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
    a seed, int8 contiguous KV), served by the port's Scheduler and HTTP
    front on 127.0.0.1: eight concurrent completions, a streaming chat, two
    prompts sent alone, models, health and metrics.  Launch counts are
@@ -69,13 +97,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    and ``/v1/ranking`` (an arctic reranker, 16 passages) against direct
    calls, with the ``rag_*`` series showing the queries coalesced.  Then
    one decode chunk at batch 32 is timed, untraced.
-10. ``serve_paged``: the same on the paged KV pool (page 64, same params),
+11. ``serve_paged``: the same on the paged KV pool (page 64, same params),
    plus a shared-prefix group (a 300-token prompt, then four extensions of
    it): the paged decode kernel must have launched, grafts must be host
    table copies, the shared boundary page must be copied on write, the
    prompts sent alone must give the contiguous server's greedy text, and
    the pool must be all free once the parked segments are dropped.
-11. ``spec``: speculative decoding on the same params, gamma 4, each step
+12. ``spec``: speculative decoding on the same params, gamma 4, each step
    driven over the engine front's HTTP routes with its launch counts
    zeroed just before and read just after: ``spec_plain`` (a plain
    scheduler in the same position, serve's 8 completions and streaming
@@ -106,13 +134,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    and serve's, acceptance, tokens per target forward, the final gamma;
    and the verify attention of one layer (B=32, S=5, window 1024) beside
    its byte bound and K2.
-12. ``profile`` and ``profile_paged``: the decode chunk of each layout
+13. ``profile`` and ``profile_paged``: the decode chunk of each layout
    traced with torch.profiler (device time by kernel, and the device's
    busy share of the traced call's own span); then ``profile_embed``, one
    32 x 512 arctic-embed-l forward traced the same way.  The traces come
    after every untraced measurement: a trace leaves the process's later
    host work slower.
-13. ``chain``: the chain server as ``create_app()`` builds it from the
+14. ``chain``: the chain server as ``create_app()`` builds it from the
    ``APP_*`` defaults (Llama-3-8B W8A8 behind ``GPUChatLLM``, random int8,
    seed 0; arctic-embed-l; the exact store; the result cache; no
    reranker), the earlier phases' params freed first, driven over HTTP on
@@ -150,7 +178,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``profiler``: ``/debug/profiler/start`` (a second start is 409), one
    8-token ``/generate``, ``stop``: the Chrome trace names the W8A8 and
    decode-attention kernels.
-14. ``durable``: durability with ``python -m
+15. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -189,6 +217,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+F32_FLOPS = 67e12  # outside the tensor cores: the PQ scans' table sums
 
 # Stated tolerances of the attention kernels against their plain versions
 # (bf16 outputs; the kernel rounds unnormalized softmax weights to bf16
@@ -926,7 +955,8 @@ RETRIEVE_ROWS, RETRIEVE_DIM, RETRIEVE_QUERIES, RETRIEVE_APPEND = 1_000_000, 1024
 def retrieve_phase(torch, dev):
     """The exact store at 1,000,000 x 1024 bf16 rows on the card, built by
     the port's ``get_store()`` from the ``AppConfig`` defaults (the
-    ``retriever`` phase's chain searches it).  Returns the store."""
+    ``retriever`` phase's chain searches it, the ``stores`` phase reads its
+    corpus).  Returns the store, the 128 queries and the 64 planted rows."""
     import numpy as np
 
     from generativeaiexamples_tpu_torch.chains import factory
@@ -1021,7 +1051,7 @@ def retrieve_phase(torch, dev):
          bound_share_top10=b_ms / timing[10]["scan_ms"], appended=RETRIEVE_APPEND,
          append_found_s=append_search_s, tail_rows=after["tail_rows"], rebuilt=False,
          deleted_rows=removed, delete_uploaded="masks only", max_query_batch=store.max_query_batch)
-    return store
+    return store, queries, planted
 
 
 def _time_scan(torch, store, queries, k: int) -> dict:
@@ -1039,31 +1069,38 @@ def _time_scan(torch, store, queries, k: int) -> dict:
         parts = store.scan(snap, Q)
         return [torch.topk(p, k + 1, dim=1) for p in parts]
 
-    def events(fn, n=12):
-        out = []
-        for _ in range(n):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end))
-        return sorted(out)[n // 2]
-
     device_work()
-    scan_ms = events(device_work)
+    scan_ms = _event_ms(torch, device_work)
     Qc = Q.to(snap[0].dtype)
-    product_ms = events(lambda: scores_f32(Qc, snap[0]))
+    product_ms = _event_ms(torch, lambda: scores_f32(Qc, snap[0]))
     parts = store.scan(snap, Q)
-    topk_ms = events(lambda: [torch.topk(p, k + 1, dim=1) for p in parts])
+    topk_ms = _event_ms(torch, lambda: [torch.topk(p, k + 1, dim=1) for p in parts])
     del parts
-    host = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        store.search_batch(queries, k)
-        host.append((time.perf_counter() - t0) * 1e3)
     return dict(scan_ms=scan_ms, product_ms=product_ms, topk_ms=topk_ms, topk_share=topk_ms / scan_ms,
-                search_batch_ms=sorted(host)[5])
+                search_batch_ms=_host_ms(lambda: store.search_batch(queries, k)))
+
+
+def _event_ms(torch, fn, n: int = 12) -> float:
+    """Median of ``n`` runs of ``fn`` between two CUDA events."""
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return sorted(out)[n // 2]
+
+
+def _host_ms(fn, n: int = 10) -> float:
+    """Median of ``n`` runs of ``fn`` by the host clock."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)[n // 2]
 
 
 # ---------------------------------------------------------------------------
@@ -1131,12 +1168,12 @@ def _same_ranks(got, want, k: int, where: str) -> int:
     for qi, (g, w) in enumerate(zip(got, want)):
         ws = [h.score for h in w] + [-math.inf]
         if len(g) != min(k, len(w)) or any(abs(a.score - b) > 1e-4 for a, b in zip(g, ws)):
-            raise AssertionError(f"retriever: {where}: query {qi} scores {[h.score for h in g]} != {ws}")
+            raise AssertionError(f"{where}: query {qi} scores {[h.score for h in g]} != {ws}")
         for j in range(len(g)):
             if ws[j] - ws[j + 1] > RANK_EPS:
                 checked += 1
                 if set(_ids(g[: j + 1])) != set(_ids(w[: j + 1])):
-                    raise AssertionError(f"retriever: {where}: query {qi} top-{j + 1} {_ids(g)} != {_ids(w)}")
+                    raise AssertionError(f"{where}: query {qi} top-{j + 1} {_ids(g)} != {_ids(w)}")
     return checked
 
 
@@ -1337,7 +1374,7 @@ def retriever_phase(torch, dev, store) -> None:
     with _DeviceWork() as work:
         cold, logs, _, traces, cold_ms = _retrieve(retriever, queries)
     _clean_logs(logs, "cold")
-    cold_checked = _same_ranks(cold, direct, k, "cold vs direct")
+    cold_checked = _same_ranks(cold, direct, k, "retriever: cold vs direct")
     # The same arithmetic on the same inputs: the very same hits and scores.
     if [[(h.chunk.id, h.score) for h in r] for r in cold] != [[(h.chunk.id, h.score) for h in r[:k]] for r in direct]:
         raise AssertionError("retriever: cold: results are not the direct calls' hits and scores")
@@ -1386,7 +1423,7 @@ def retriever_phase(torch, dev, store) -> None:
     if [log.stages() for log in logs] != [["index_fallback"]] * len(lq):
         raise AssertionError(f"retriever: store fault: marks {[log.stages() for log in logs]}")
     want, _ = _direct(retriever, lq, k + 1)
-    fb_checked = _same_ranks(fb, want, k, "index_fallback vs device search")
+    fb_checked = _same_ranks(fb, want, k, "retriever: index_fallback vs device search")
     # The fallback alone at 1M rows, on 16 queries planted near corpus rows
     # (the BERT vectors' top scores lie closer together than RANK_EPS).
     rng = np.random.default_rng(3)
@@ -1398,7 +1435,7 @@ def retriever_phase(torch, dev, store) -> None:
         t0 = time.perf_counter()
         fallback = store.search_fallback(planted, 10)
         times.append((time.perf_counter() - t0) * 1e3)
-    planted_checked = _same_ranks(fallback, store.search_batch(planted, 11), 10, "search_fallback vs device search")
+    planted_checked = _same_ranks(fallback, store.search_batch(planted, 11), 10, "retriever: search_fallback vs device search")
     if planted_checked < 16:
         raise AssertionError(f"retriever: search_fallback: only {planted_checked} ranks checked")
     fields.update(fallback_ranks_checked=fb_checked, fallback_call_ms=fb_ms, fallback_stage_ms=_stage_ms(traces),
@@ -1456,6 +1493,515 @@ def retriever_phase(torch, dev, store) -> None:
         reset_config_cache()
     fields["phase_s"] = time.perf_counter() - t_phase
     emit("retriever", **fields)
+
+
+# ---------------------------------------------------------------------------
+# the compressed and IVF stores over the retrieve corpus
+# ---------------------------------------------------------------------------
+
+# Each store line, and the overrides a collection would pass to build it.
+STORE_KINDS = (
+    ("store_int8", {"backend": "tpu", "quantization": "int8"}),
+    ("store_pq", {"backend": "tpu", "quantization": "pq"}),
+    ("store_ivf", {"backend": "tpu-ivf"}),
+    ("store_ivf_int8", {"backend": "tpu-ivf", "quantization": "int8"}),
+    ("store_ivf_pq", {"backend": "tpu-ivf", "quantization": "pq"}),
+)
+# Queries whose every returned score is held against f64 (8 planted, 8 fresh).
+STORE_CHECKED = tuple(range(8)) + tuple(range(64, 72))
+STORE_APPEND, STORE_CROSS_ROWS, STORE_SNAPSHOT_ROWS = 5000, 131072, 65536
+# The reference's int8 recall gate (tests/test_retrieval.py::TestQuantized).
+INT8_RECALL = 0.95
+# PQ's ADC scores on the card against the same codes and table on the CPU.
+ADC_TOL = 1e-4
+
+
+class _PeakRSS:
+    """The process's largest resident set while entered, sampled every 50 ms."""
+
+    def __enter__(self):
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            with open("/proc/self/statm", encoding="ascii") as fh:
+                self.peak = max(self.peak, int(fh.read().split()[1]) * page)
+            if self._stop.wait(0.05):
+                return
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(5)
+
+
+class _BuildSplit:
+    """Seconds of a store's build spent training (IVF k-means, PQ
+    codebooks), encoding (int8 quantization, PQ codes) and uploading rows,
+    read by wrapping the store module's functions while entered, with the
+    device synchronized around each call."""
+
+    # (part, class of the store module or None for a module function, name)
+    TARGETS = (("train", None, "_kmeans"), ("train", None, "_train_pq"), ("encode", None, "_pq_encode"),
+               ("encode", None, "_int8_rows_t"), ("upload", "GPUVectorStore", "_upload"),
+               ("upload", "GPUIVFVectorStore", "_rows_f32"))
+
+    def __init__(self, torch):
+        from generativeaiexamples_tpu_torch.retrieval import gpu
+
+        self._torch, self._gpu = torch, gpu
+        self.seconds = {"train": 0.0, "encode": 0.0, "upload": 0.0}
+
+    def _timed(self, part, fn):
+        def timed(*a, **k):
+            self._torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self._torch.cuda.synchronize()
+                self.seconds[part] += time.perf_counter() - t0
+
+        return timed
+
+    def __enter__(self):
+        self._saved = []
+        for part, cls, name in self.TARGETS:
+            owner = self._gpu if cls is None else getattr(self._gpu, cls)
+            fn = vars(owner)[name]
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._timed(part, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _bf16_f64(torch, np, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).double().numpy()
+
+
+def _rescoring_error(torch, np, corpus, queries, results) -> float:
+    """Largest |score - f64 dot| over every hit of the STORE_CHECKED
+    queries: the dot of the bf16 values of the query and of the hit's row."""
+    err = 0.0
+    for qi in STORE_CHECKED:
+        hits = results[qi]
+        want = _bf16_f64(torch, np, corpus[[int(h.chunk.id) for h in hits]]) @ _bf16_f64(torch, np, queries[qi])
+        err = max(err, float(np.abs(np.array([h.score for h in hits]) - want).max()))
+    return err
+
+
+def _time_store(torch, store, queries, k: int) -> dict:
+    """A 128-query batch as ``search_batch`` splits it: the device work of
+    every chunk timed by CUDA events (median of 12), and ``search_batch``
+    whole by the host clock (median of 10).  The exact store: the scan and
+    ``torch.topk`` of main and tail.  Flat compressed stores: stage one,
+    ``torch.topk`` of the candidates, the gathered rows rescored, the
+    tail.  IVF: the probe (a host sync: the probed lists decide which lists
+    each chunk reads, so these events include the host's time between
+    launches), each chunk's list scores, top-k, rescoring and tail."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.retrieval.gpu import (
+        GPUIVFVectorStore, GPUVectorStore, _IVFSnap, _rescore, scores_f32,
+    )
+
+    snap = store._prepared()
+    Q = torch.from_numpy(queries).to(store.device)
+    q, d = Q.shape
+    inf = float("-inf")
+    # The least bytes the batch moves: each input read once (the corpus
+    # part once for all 128 queries; IVF: each list some query probes) and
+    # the rescored rows; the products' operations at the bf16 peak.
+    if isinstance(snap, _IVFSnap):
+        nlist, cap = int(snap.buckets.shape[0]), int(snap.buckets.shape[1])
+        isz = snap.buckets.element_size()
+        quant = store._two_stage_engages(snap, k)
+        chunk = store.query_chunk(snap, k)
+        k2 = min(k * store.rescore_multiplier, store.nprobe * cap)
+        lists = len(np.unique(GPUIVFVectorStore.probe(snap, Q, store.nprobe)))
+        row_bytes = (d + 4 if store.quantization == "int8" else store.pq_m) if quant else d * isz
+        nbytes = nlist * d * 4 + lists * cap * (row_bytes + 1) + (q * k2 * d * isz if quant else 0)
+        scored = store.nprobe * cap
+        tail = snap.tail
+
+        def work():
+            probe = GPUIVFVectorStore.probe(snap, Q, store.nprobe)
+            probe_t = torch.from_numpy(probe).to(Q.device)
+            for lo in range(0, len(Q), chunk):
+                Qb = Q[lo : lo + chunk]
+                Qc = Qb.to(snap.buckets.dtype)
+                S = GPUIVFVectorStore.list_scores(snap, Qb, probe[lo : lo + chunk], quant).view(len(Qb), -1)
+                if quant:
+                    cpos = torch.topk(S, k2 + 1, dim=1)[1][:, :k2]
+                    lists = torch.gather(probe_t[lo : lo + chunk], 1, cpos // cap)
+                    torch.topk(_rescore(snap.buckets[lists, cpos % cap], Qc), k + 1, dim=1)
+                else:
+                    torch.topk(S, k + 1, dim=1)
+                torch.topk(scores_f32(Qc, snap.tail).masked_fill_(~snap.tvalid[None, :], inf), k + 1, dim=1)
+
+        shape = dict(query_chunk=chunk, dispatches_per_128=-(-len(Q) // chunk), two_stage=quant)
+    else:
+        cap, isz = int(snap.buf.shape[0]), snap.buf.element_size()
+        quant = store._quant_ready(k, snap)
+        k2 = min(k * store.rescore_multiplier, cap) if quant else k
+        mqb = store.max_query_batch
+        if not quant:
+            row_bytes = d * isz
+        elif store.quantization == "int8":
+            row_bytes = d + 4
+        else:
+            row_bytes = store.pq_m
+        nbytes = cap * (row_bytes + 1) + (q * k2 * d * isz if quant else 0)
+        if quant and snap.books is not None:
+            nbytes += snap.books.numel() * 4
+        scored = cap
+        tail = snap.tail
+
+        def work():
+            for lo in range(0, len(Q), mqb):
+                Qb = Q[lo : lo + mqb]
+                if not quant:
+                    [torch.topk(p, k + 1, dim=1) for p in GPUVectorStore.scan(snap, Qb)]
+                    continue
+                Qc = Qb.to(snap.buf.dtype)
+                cid = torch.topk(GPUVectorStore.stage_one(snap, Qb), k2 + 1, dim=1)[1][:, :k2]
+                torch.topk(_rescore(snap.buf[cid], Qc), k + 1, dim=1)
+                torch.topk(scores_f32(Qc, snap.tail).masked_fill_(~snap.tvalid[None, :], inf), k + 1, dim=1)
+
+        shape = dict(query_chunk=mqb, dispatches_per_128=-(-len(Q) // mqb), two_stage=quant)
+    nbytes += tail.shape[0] * (d * isz + 1) + q * d * 4
+    if quant and store.quantization == "pq":  # a table sum per subspace and row, in f32
+        b_ms, b_by = bound(nbytes, q * scored * store.pq_m, F32_FLOPS)
+    else:  # bf16 (or int8 cast to bf16) products
+        b_ms, b_by = bound(nbytes, 2.0 * q * (scored + tail.shape[0]) * d, BF16_FLOPS)
+    work()
+    device_ms = _event_ms(torch, work)
+    return dict(device_ms=device_ms, search_batch_ms=_host_ms(lambda: store.search_batch(queries, k)),
+                candidates=k2, batch_bytes=nbytes, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / device_ms,
+                **shape)
+
+
+def _adc_error(torch, store, Q) -> float:
+    """PQ stage-one scores of 4 queries on the card against the same codes,
+    codebooks and masks scored on the CPU (largest |difference| over
+    finite scores)."""
+    from generativeaiexamples_tpu_torch.retrieval.gpu import GPUIVFVectorStore, GPUVectorStore, _IVFSnap
+
+    snap = store._prepared()
+    Q4 = Q[:4]
+    if isinstance(snap, _IVFSnap):
+        probe = GPUIVFVectorStore.probe(snap, Q4, store.nprobe)
+        card = GPUIVFVectorStore.list_scores(snap, Q4, probe, True)
+        cpu = snap._replace(bvalid=snap.bvalid.cpu(), qbuckets=snap.qbuckets.cpu(), books=snap.books.cpu())
+        plain = GPUIVFVectorStore.list_scores(cpu, Q4.cpu(), probe, True)
+    else:
+        card = GPUVectorStore.stage_one(snap, Q4)
+        cpu = snap._replace(valid=snap.valid.cpu(), qbuf=snap.qbuf.cpu(), books=snap.books.cpu())
+        plain = GPUVectorStore.stage_one(cpu, Q4.cpu())
+    finite = torch.isfinite(plain)
+    if not torch.equal(finite, torch.isfinite(card.cpu())):
+        raise AssertionError("stores: PQ stage one masks other rows on the card than on the CPU")
+    return float((card.cpu()[finite] - plain[finite]).abs().max())
+
+
+def _nearest_lists(torch, np, store, corpus) -> np.ndarray:
+    """Each corpus row's nearest centroid by the f32 inner product, on the
+    card in row blocks."""
+    from generativeaiexamples_tpu_torch.retrieval.gpu import full_f32
+
+    out = []
+    with full_f32(store.device):
+        for lo in range(0, len(corpus), 65536):
+            rows = torch.from_numpy(np.ascontiguousarray(corpus[lo : lo + 65536])).to(store.device)
+            out.append((rows @ store._centroids.t()).argmax(dim=1).cpu().numpy())
+    return np.concatenate(out)
+
+
+def _store_line(torch, np, dev, store, chunks, corpus, queries, planted, truth_ids) -> dict:
+    """Build one store from the corpus, search the 128 queries, hold every
+    gate of its kind, and return its line's fields."""
+    from generativeaiexamples_tpu_torch.retrieval.gpu import GPUIVFVectorStore, _int8_rows
+
+    mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    store.add(chunks, corpus)
+    add_s = time.perf_counter() - t0
+    with _BuildSplit(torch) as split:
+        t0 = time.perf_counter()
+        store.search_batch(queries[:1], 1)  # the first sync: the device build
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+    ivf = isinstance(store, GPUIVFVectorStore)
+    built = store._buckets is not None if ivf else store._device_buf is not None
+    compressed = (store._q_buckets if ivf else store._q_buf) is not None
+    if not built or compressed != (store.quantization != "none"):
+        raise AssertionError(f"stores: {type(store).__name__}({store.quantization}) built no index or compressed copy")
+    stats = store.capacity_stats()
+    results = store.search_batch(queries, 10)
+    recall = float(np.mean([len({h.chunk.id for h in r} & {str(int(i)) for i in t[:10]}) / 10
+                            for r, t in zip(results, truth_ids)]))
+    first = [bool(r) and r[0].chunk.id == str(int(p)) for r, p in zip(results[:64], planted)]
+    rescoring_err = _rescoring_error(torch, np, corpus, queries, results)
+    if rescoring_err > 1e-4:
+        raise AssertionError(f"stores: {type(store).__name__}({store.quantization}): a returned score is "
+                             f"{rescoring_err} from the f64 dot of its row")
+    scanned = store.scanned_bytes_per_query(10)
+    timing = _time_store(torch, store, queries, 10)
+    fields = dict(
+        rows=len(store), quantization=store.quantization, pq_m=store.pq_m,
+        rescore_multiplier=store.rescore_multiplier, max_query_batch=store.max_query_batch, add_s=add_s,
+        first_sync_s=sync_s, **{f"{k}_s": v for k, v in split.seconds.items()},
+        other_s=sync_s - sum(split.seconds.values()),
+        device_gb=(torch.cuda.memory_allocated(dev) - mem0) / 1e9, capacity_stats=stats,
+        scanned_bytes_per_query_top10=scanned,
+        # The reference's per-query count times 128 queries: each query reads
+        # its whole scan alone (``bound_ms`` counts what the batch shares once).
+        per_query_bound_ms=scanned * len(queries) / HBM_BYTES_PER_S * 1e3,
+        **timing, recall_at_10=recall, planted_first=sum(first),
+        rescoring_max_err=rescoring_err,
+    )
+    Q = torch.from_numpy(queries).to(dev)
+    if store.quantization == "pq":
+        err = _adc_error(torch, store, Q)
+        if err > ADC_TOL:
+            raise AssertionError(f"stores: PQ ADC on the card is {err} from the CPU's")
+        fields["adc_card_vs_cpu_max_err"] = err
+    if ivf:
+        snap = store._prepared()
+        cap = int(store._buckets.shape[1])
+        nearest = _nearest_lists(torch, np, store, corpus)
+        probe = GPUIVFVectorStore.probe(snap, Q[:64], store.nprobe)
+        probed = [store._pos_list[int(p)] in probe[i] for i, p in enumerate(planted)]
+        fields.update(nlist=store.nlist, nprobe=store.nprobe, bucket_cap=cap, pad_factor=store.nlist * cap / len(store),
+                      spilled_rows=int((store._pos_list[: len(nearest)] != nearest).sum()),
+                      planted_in_probed_lists=sum(probed), planted_outside_probed_lists=64 - sum(probed))
+        if store.quantization != "pq" and any(p and not f for p, f in zip(probed, first)):
+            raise AssertionError(f"stores: IVF({store.quantization}): a planted row in a probed list is not first")
+    elif store.quantization == "int8":
+        m = min(65536, len(corpus))
+        codes, scale = _int8_rows(corpus[:m])
+        if not (np.array_equal(store._q_buf[:m].cpu().numpy(), codes)
+                and np.array_equal(store._q_scale[:m].cpu().numpy(), scale)):
+            raise AssertionError("stores: the card's int8 codes are not _int8_rows' bit for bit")
+        fields["int8_codes_equal_rows"] = m
+        if recall < INT8_RECALL or sum(first) != 64:
+            raise AssertionError(f"stores: int8 recall@10 {recall} (gate {INT8_RECALL}), {sum(first)} of 64 planted first")
+    return fields
+
+
+def _all_probed_is_exact(np, store, chunks, queries, truth_s, truth_ids) -> int:
+    """nprobe = nlist scores every list: the exact store's ids wherever the
+    gap below a rank exceeds RANK_EPS.  Returns the ranks checked."""
+    from generativeaiexamples_tpu_torch.retrieval.base import ScoredChunk
+
+    sel = list(STORE_CHECKED)
+    nprobe, store.nprobe = store.nprobe, store.nlist
+    try:
+        got = store.search_batch(queries[sel], 10)
+    finally:
+        store.nprobe = nprobe
+    want = [[ScoredChunk(chunks[int(i)], float(s)) for s, i in zip(truth_s[q], truth_ids[q])] for q in sel]
+    return _same_ranks(got, want, 10, "stores: IVF with nprobe = nlist against the exact store")
+
+
+def _maintenance(torch, np, store, rng) -> dict:
+    """IVF upkeep at full size: 5,000 appends searched from the tail, a
+    background fold under searches, the swap, then a retrain forced by
+    growth (the threshold lowered to the rows at the last train)."""
+    from generativeaiexamples_tpu_torch.retrieval.base import Chunk
+
+    events = []
+    store.add_mutation_listener(lambda event, info: events.append((event, info)))
+    base0, v0, c0 = store._ivf_base, store.version(), store._centroids.clone()
+    src = store._mirror._vecs
+
+    def append(tag, count):
+        rows = _clustered_rows(np, rng, src, rng.integers(0, base0, count), 0.8)
+        store.add([Chunk(text=f"{tag} {i}", source=tag, id=f"{tag}{i}") for i in range(count)], rows)
+        return rows
+
+    new = append("appended", STORE_APPEND)
+    probes = _clustered_rows(np, rng, new, np.arange(STORE_APPEND), 0.1)
+    t0 = time.perf_counter()
+    found = store.search_batch(probes, 1)
+    append_search_s = time.perf_counter() - t0
+    if [h[0].chunk.id if h else None for h in found] != [f"appended{i}" for i in range(STORE_APPEND)]:
+        raise AssertionError("store_maintenance: an appended row is not found by its planted query before a fold")
+    if store._ivf_base != base0 or store._maintenance_running() or store.capacity_stats()["tail_rows"] != STORE_APPEND:
+        raise AssertionError("store_maintenance: 5,000 appends started a fold")
+
+    def under_searches(what):
+        """Searches of the first 64 appended rows while a background build
+        runs: each must answer with its row first."""
+        t0, lat = time.perf_counter(), []
+        while True:
+            t1 = time.perf_counter()
+            hits = store.search_batch(probes[:64], 10)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            if [h[0].chunk.id if h else None for h in hits] != [f"appended{i}" for i in range(64)]:
+                raise AssertionError(f"store_maintenance: a search during the {what} lost an appended row")
+            if not store._maintenance_running():
+                break
+        store.wait_for_maintenance(timeout=600)
+        if store._maintenance_running():
+            raise AssertionError(f"store_maintenance: the {what} did not finish")
+        return dict(seconds=time.perf_counter() - t0, searches=len(lat), search_ms_median=sorted(lat)[len(lat) // 2],
+                    search_ms_max=max(lat))
+
+    # The fold: the tail reaches min(max(1024, base / 8), 8192) rows.
+    fold_at = min(max(1024, base0 // 8), 8192)
+    append("fold", fold_at - STORE_APPEND)
+    fold = under_searches("fold")
+    swaps = [info for event, info in events if event == "index_swap"]
+    if not (torch.equal(store._centroids, c0) and store.version() > v0 and len(swaps) == 1
+            and not swaps[0]["trained"] and store.capacity_stats()["tail_rows"] == 0
+            and store._ivf_base == base0 + fold_at):
+        raise AssertionError(f"store_maintenance: after the fold: swaps {swaps}, tail {store.capacity_stats()}, "
+                             f"base {store._ivf_base}")
+    # The retrain: 16 more rows sync with the growth threshold at 1.0.
+    store.retrain_growth = 1.0
+    append("grow", 16)
+    retrain = under_searches("retrain")
+    swaps = [info for event, info in events if event == "index_swap"]
+    if len(swaps) != 2 or not swaps[1]["trained"] or store._last_train_live != swaps[1]["rows"]:
+        raise AssertionError(f"store_maintenance: after the retrain: swaps {swaps}")
+    return dict(appended=STORE_APPEND, append_found_first=STORE_APPEND, append_search_s=append_search_s,
+                fold_at_tail_rows=fold_at, fold=fold, fold_centroids_kept=True, swaps=swaps,
+                retrain=retrain, retrain_centroid_shift=float((store._centroids - c0).abs().max()),
+                rows_after=len(store), tail_rows_after=store.capacity_stats()["tail_rows"])
+
+
+def stores_phase(torch, dev, exact, queries, planted) -> None:
+    """The compressed and IVF stores over the ``retrieve`` corpus (its 1M
+    rows, read from the exact store's mirror) and its 128 queries, each
+    built through the port's ``retrieval.factory.get_vector_store`` with a
+    collection's overrides and freed before the next; the truth is the
+    exact store's top-10 over the same rows."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.core.configuration import reset_config_cache
+    from generativeaiexamples_tpu_torch.retrieval import factory as rfactory
+    from generativeaiexamples_tpu_torch.retrieval.gpu import GPUIVFVectorStore, GPUVectorStore, _top_rows, scores_f32
+
+    t_phase = time.perf_counter()
+    n = RETRIEVE_ROWS
+    if exact._base != n:
+        raise AssertionError(f"stores: the exact store's main buffer holds {exact._base} rows, not the corpus")
+    corpus, chunks = exact._mirror._vecs[:n], exact._mirror._chunks[:n]
+    Q = torch.from_numpy(queries).to(dev)
+    # The exact store's scan of the corpus rows (its main buffer, unmasked:
+    # the new stores hold every row).
+    truth_s, truth_ids = _top_rows(scores_f32(Q.to(exact._dtype), exact._device_buf[:n]), 11)
+    exact_timing = dict(_time_scan(torch, exact, queries, 10), chunked=_time_store(torch, exact, queries, 10))
+    rng = np.random.default_rng(5)
+    doc7 = _clustered_rows(np, rng, corpus, np.arange(7000, 7064), 0.1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _PeakRSS() as rss:
+        for line, overrides in STORE_KINDS:
+            store = rfactory.get_vector_store(device=dev, overrides=overrides)
+            fields = _store_line(torch, np, dev, store, chunks, corpus, queries, planted, truth_ids)
+            fields.update(exact_device_ms=exact_timing["chunked"]["device_ms"],
+                          exact_top10_scan_ms=exact_timing["scan_ms"],
+                          exact_search_batch_ms=exact_timing["search_batch_ms"])
+            if line == "store_ivf":
+                fields["all_probed_ranks_checked"] = _all_probed_is_exact(np, store, chunks, queries, truth_s, truth_ids)
+                ivf_full = fields
+            removed = store.delete_source("doc7")
+            gone = store.search_batch(doc7, 10)
+            if removed != 1000 or any(h.chunk.source == "doc7" for hits in gone for h in hits):
+                raise AssertionError(f"stores: {line}: a deleted source came back")
+            fields["deleted_rows"] = removed
+            emit(line, **fields)
+            if line == "store_ivf":
+                emit("store_maintenance", rows=len(store), **_maintenance(torch, np, store, rng))
+            del store
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # Exact against IVF at the first 131,072 rows and at all rows.
+        cross = {}
+        for backend in ("tpu", "tpu-ivf"):
+            store = rfactory.get_vector_store(device=dev, overrides={"backend": backend})
+            store.add(chunks[:STORE_CROSS_ROWS], corpus[:STORE_CROSS_ROWS])
+            store.search_batch(queries[:1], 1)
+            if backend == "tpu":
+                t = _time_store(torch, store, queries, 10)
+                cross["exact"] = dict(device_ms=t["device_ms"], search_batch_ms=t["search_batch_ms"])
+                small_truth = store.search_batch(queries, 10)
+            else:
+                t = _time_store(torch, store, queries, 10)
+                got = store.search_batch(queries, 10)
+                cross["ivf"] = dict(device_ms=t["device_ms"], search_batch_ms=t["search_batch_ms"],
+                                    bucket_cap=int(store._buckets.shape[1]), query_chunk=t["query_chunk"],
+                                    recall_at_10=float(np.mean([len({h.chunk.id for h in a} & {h.chunk.id for h in b})
+                                                                / 10 for a, b in zip(got, small_truth)])))
+            del store
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit("store_crossover", rows=[STORE_CROSS_ROWS, n],
+             exact_device_ms=[cross["exact"]["device_ms"], exact_timing["chunked"]["device_ms"]],
+             exact_search_batch_ms=[cross["exact"]["search_batch_ms"], exact_timing["search_batch_ms"]],
+             ivf_device_ms=[cross["ivf"]["device_ms"], ivf_full["device_ms"]],
+             ivf_search_batch_ms=[cross["ivf"]["search_batch_ms"], ivf_full["search_batch_ms"]],
+             ivf_recall_at_10=[cross["ivf"]["recall_at_10"], ivf_full["recall_at_10"]],
+             ivf_bucket_cap=[cross["ivf"]["bucket_cap"], ivf_full["bucket_cap"]],
+             ivf_query_chunk=[cross["ivf"]["query_chunk"], ivf_full["query_chunk"]],
+             cuda_crossover_rows=rfactory.crossover_rows(RETRIEVE_DIM, "cuda"))
+
+        # IVF with int8 at 65,536 rows: saved, loaded on the card and on the CPU.
+        store = rfactory.get_vector_store(device=dev, overrides={"backend": "tpu-ivf", "quantization": "int8"})
+        store.add(chunks[:STORE_SNAPSHOT_ROWS], corpus[:STORE_SNAPSHOT_ROWS])
+        before = store.search_batch(queries, 10)
+        root = tempfile.mkdtemp(prefix="stores_")
+        try:
+            t0 = time.perf_counter()
+            store.save(root)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_card = GPUVectorStore.load(root, device=dev, max_query_batch=store.max_query_batch)
+            load_s = time.perf_counter() - t0
+            on_cpu = GPUVectorStore.load(root, device="cpu", max_query_batch=store.max_query_batch)
+            files = sorted(os.listdir(root))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        for loaded in (on_card, on_cpu):
+            if not isinstance(loaded, GPUIVFVectorStore) or loaded._q_buckets is None or loaded._dirty:
+                raise AssertionError(f"stores: the snapshot loaded as {type(loaded).__name__} without its index")
+        card = on_card.search_batch(queries, 10)
+        if [[(h.chunk.id, h.score) for h in r] for r in card] != [[(h.chunk.id, h.score) for h in r] for r in before]:
+            raise AssertionError("store_snapshot: the loaded store answers otherwise than the saved one")
+        checked = _same_ranks(card, on_cpu.search_batch(queries, 11), 10, "store_snapshot: card against CPU")
+        emit("store_snapshot", rows=STORE_SNAPSHOT_ROWS, quantization="int8", files=files, save_s=save_s,
+             load_s=load_s, bucket_cap=int(on_card._buckets.shape[1]), card_vs_cpu_ranks_checked=checked,
+             loaded_equals_saved=True)
+        del store, on_card, on_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ``auto`` from APP_*: the IVF store on the card with the cuda crossover.
+        os.environ["APP_VECTORSTORE_NAME"] = "auto"
+        reset_config_cache()
+        try:
+            auto = rfactory.get_vector_store(device=dev)
+        finally:
+            del os.environ["APP_VECTORSTORE_NAME"]
+            reset_config_cache()
+        if not (isinstance(auto, GPUIVFVectorStore) and auto.device == dev
+                and auto.min_train_size == rfactory.crossover_rows(RETRIEVE_DIM, "cuda")):
+            raise AssertionError(f"stores: auto built {type(auto).__name__} on {auto.device}")
+    emit("stores", rows=n, queries=len(queries), auto=f"GPUIVFVectorStore, min_train_size {auto.min_train_size}",
+         peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9, peak_host_rss_gb=rss.peak / 1e9,
+         phase_s=time.perf_counter() - t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -3556,16 +4102,17 @@ def main() -> int:
 
     # The retrieval side, before the Llama params: BERT on card vs CPU,
     # arctic-embed-l through the embedder (kept with a reranker for
-    # ``serve``), the exact store at 1M rows, and the retrieval chain over
-    # it (both freed after).
+    # ``serve``), the exact store at 1M rows, the retrieval chain over it,
+    # and the compressed and IVF stores over its corpus (all freed after).
     from generativeaiexamples_tpu_torch.engine.microbatch import BatchedEmbedder
     from generativeaiexamples_tpu_torch.engine.reranker import GPUReranker
     from generativeaiexamples_tpu_torch.models import bert
 
     check_bert(torch, dev)
     embedder, queries = embed_phase(torch, dev)
-    store = retrieve_phase(torch, dev)
+    store, ret_queries, planted = retrieve_phase(torch, dev)
     retriever_phase(torch, dev, store)
+    stores_phase(torch, dev, store, ret_queries, planted)
     from generativeaiexamples_tpu_torch.chains.factory import reset_factories
 
     reset_factories()  # frees the chain: the 1M-row store, its embedder, the reranker

@@ -159,8 +159,8 @@ def test_factory_manager_from_config_matches_the_reference(config):
 def test_store_overrides_follow_the_reference(config):
     assert isinstance(get_vector_store(device="cpu", overrides={"backend": "memory"}), MemoryVectorStore)
     assert isinstance(get_vector_store(device="cpu", collection="tenant-a"), GPUVectorStore)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_vector_store(device="cpu", overrides={"quantization": "int8"})
+    int8 = get_vector_store(device="cpu", overrides={"quantization": "int8"})
+    assert isinstance(int8, GPUVectorStore) and int8.quantization == "int8" and int8.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="item 8"):
         get_vector_store(device="cpu", overrides={"backend": "fabric"})
     with pytest.raises(ValueError):

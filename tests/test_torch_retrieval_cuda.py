@@ -1,6 +1,7 @@
 """The retrieval side on the card against the same code on the CPU: the
-exact store's f32 scan, BERT at arctic-embed-l's width, and a query
-embedded alone against the same query inside a batch.
+exact store's f32 scan, the compressed (int8, PQ) and IVF stores loaded from
+one snapshot on both, BERT at arctic-embed-l's width, and a query embedded
+alone against the same query inside a batch.
 
 These skip without a card (the decision is made inside the fixture).  On a
 machine with one:
@@ -16,7 +17,7 @@ from chip_smoke import BERT_TOL, EMBED_TOL
 from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
 from generativeaiexamples_tpu_torch.models import bert
 from generativeaiexamples_tpu_torch.retrieval.base import Chunk
-from generativeaiexamples_tpu_torch.retrieval.gpu import GPUVectorStore, scores_f32
+from generativeaiexamples_tpu_torch.retrieval.gpu import GPUIVFVectorStore, GPUVectorStore, scores_f32
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +79,57 @@ def test_store_on_card_matches_cpu(dev, dtype):
                     assert {h.chunk.id for h in g[: j + 1]} == {h.chunk.id for h in w[: j + 1]}
             np.testing.assert_allclose([h.score for h in g], ws, atol=1e-5, rtol=0)
             assert all(h.chunk.source != "s3" for h in g)
+
+
+def _same_where_gaps(got, want, gap=1e-4):
+    """Top-k results on the card against the CPU's for the same k (a
+    two-stage store's candidates depend on k): equal id sets wherever the
+    CPU's gap below a rank exceeds ``gap``, scores within it."""
+    for g, w in zip(got, want):
+        ws = [h.score for h in w]
+        for j in range(len(ws) - 1):
+            if ws[j] - ws[j + 1] > gap:
+                assert {h.chunk.id for h in g[: j + 1]} == {h.chunk.id for h in w[: j + 1]}
+        np.testing.assert_allclose([h.score for h in g], ws, atol=gap, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["int8", "pq", "ivf", "ivf_int8", "ivf_pq"])
+def test_compressed_and_ivf_stores_on_card_match_cpu(dev, kind, tmp_path):
+    """65,536 rows saved from a CPU store and loaded on the card and on the
+    CPU: an IVF store installs the shared persisted index (centroids,
+    layout, codebooks) on both; a flat PQ store persists no codebooks and
+    trains them on each load (k-means on the card may settle a near tie
+    otherwise than on the CPU), so the card store is given the CPU's
+    codebooks and codes.  The same ids wherever the gaps exceed 1e-4; int8
+    and PQ codes bit for bit."""
+    n = 65536
+    vecs, rng = _corpus(n)
+    quant = "none" if kind == "ivf" else kind.split("_")[-1]
+    ivf = kind.startswith("ivf")
+    saver = (GPUIVFVectorStore if ivf else GPUVectorStore)(D, device="cpu", quantization=quant)
+    saver.add([Chunk(text=f"t{i}", source=f"s{i % 9}", id=str(i)) for i in range(n)], vecs)
+    saver.search(vecs[0], 1)
+    saver.save(str(tmp_path))
+    card, cpu = (GPUVectorStore.load(str(tmp_path), device=d) for d in (dev, "cpu"))
+    queries = np.concatenate([vecs[rng.integers(0, n, 40)], _corpus(24, seed=1)[0]])
+    for store in (card, cpu):
+        assert type(store) is type(saver) and store.quantization == quant
+        store.search(queries[0], 1)
+    if kind == "pq":
+        card._pq_codebooks_h, card._pq_codebooks = cpu._pq_codebooks_h, cpu._pq_codebooks.to(dev)
+        card._q_buf = cpu._q_buf.to(dev)
+    if ivf:
+        assert card._buckets.device.type == dev.type and np.array_equal(card._bids_h, cpu._bids_h)
+    codes = (card._q_buckets, cpu._q_buckets) if ivf else (card._q_buf, cpu._q_buf)
+    if quant != "none":
+        assert torch.equal(codes[0].cpu(), codes[1])
+    if quant == "int8":
+        scales = (card._q_bucket_scales, cpu._q_bucket_scales) if ivf else (card._q_scale, cpu._q_scale)
+        assert torch.equal(scales[0].cpu(), scales[1])
+    for k in (4, 10):
+        _same_where_gaps(card.search_batch(queries, k), cpu.search_batch(queries, k))
+    card.delete_source("s3")
+    assert all(h.chunk.source != "s3" for r in card.search_batch(queries, 10) for h in r)
 
 
 def _bert_inputs():

@@ -378,10 +378,9 @@ def test_factory_chain_matches_reference(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("env", [
-    {"APP_VECTORSTORE_NAME": "tpu-ivf"}, {"APP_VECTORSTORE_NAME": "fabric"}, {"APP_VECTORSTORE_NAME": "native"},
+    {"APP_VECTORSTORE_NAME": "fabric"}, {"APP_VECTORSTORE_NAME": "native"},
     {"APP_VECTORSTORE_NAME": "milvus"}, {"APP_VECTORSTORE_NAME": "elasticsearch"},
-    {"APP_VECTORSTORE_NAME": "pgvector"}, {"APP_VECTORSTORE_NAME": "auto"},
-    {"APP_VECTORSTORE_QUANTIZATION": "int8"}, {"APP_VECTORSTORE_QUANTIZATION": "pq"},
+    {"APP_VECTORSTORE_NAME": "pgvector"},
     {"APP_DURABILITY_ENABLED": "true", "APP_VECTORSTORE_NAME": "milvus"},
     {"APP_EMBEDDINGS_MODELENGINE": "huggingface"},
 ])
