@@ -178,7 +178,29 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``profiler``: ``/debug/profiler/start`` (a second start is 409), one
    8-token ``/generate``, ``stop``: the Chrome trace names the W8A8 and
    decode-attention kernels.
-15. ``durable``: durability with ``python -m
+15. ``hf_checkpoint`` (inside the K1 shape record, after ``chain``): the
+   quantizers held against numpy's ``amax / 127`` bit for bit
+   (``check_quantizers``); a Llama-3-8B checkpoint at full width and depth
+   written from numpy seed 0 in bf16 (four shards, the index, a
+   ``LlamaForCausalLM`` ``config.json``; layer i is the base layer rolled
+   by i rows) and served by ``build_server`` through ``$GAIE_WEIGHTS_DIR``
+   (load seconds, device GB, the host's resident set during the load,
+   which may grow by no more than 8 GB); the int8 codes and f32 scales of
+   every projection of layers 0, 16 and 31, the head and the embedding
+   equal numpy's quantization of the written arrays bit for bit; greedy
+   streams (four completions together, two alone) of the loaded server, of
+   a ``Scheduler`` on the numpy-quantized tree and of a paged ``Scheduler``
+   on the loaded params are equal, with K1, K2 / K3 and K4 launched on each
+   path; then arctic-embed-l-shaped embedder and cross-encoder checkpoints
+   (24 layers, bf16, a 30,522-entry ``vocab.txt``) through
+   ``chains.factory``'s ``get_embedder`` / ``get_reranker``: their leaves
+   equal the written arrays, the WordPiece ids come from the native
+   library and equal the Python path's, 256 documents and 32 queries embed
+   unit-norm within ``EMBED_TOL`` of a direct ``GPUEmbedder``, and 32 x 16
+   pairs rerank in two segments within ``BERT_TOL`` of a direct
+   ``score_pairs``.  The checkpoints (about 17 GB) live under the
+   temporary directory and are deleted at the phase's end.
+16. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -190,7 +212,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 Then the ``kernels`` summary line (each kernel's ``launches`` from its
 serving phase, ``chain_launches`` from ``chain``, ``step_launches`` from
-the steps after it, ``spec_launches`` from each ``spec`` step; K4's line
+the steps after it, ``spec_launches`` from each ``spec`` step,
+``hf_launches`` from each path of ``hf_checkpoint``; K4's line
 carries its head_dim-64 timing and ``spec_draft`` launches in ``hd64``),
 the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``.
@@ -4048,10 +4071,648 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
     emit("durable", **fields)
 
 
+# ---------------------------------------------------------------------------
+# F2 on the card, and serving HF checkpoints written from a seed
+# ---------------------------------------------------------------------------
+
+
+def np_int8(np, x, axis: int):
+    """numpy's symmetric int8 of ``x`` (f32) along ``axis``: f32 scales
+    ``max(amax, 1e-8) / 127`` (a division), codes ``rint`` (half to even)
+    clipped to +-127.  The reference's arithmetic, which the port's
+    quantizers must give bit for bit on the card."""
+    amax = np.abs(x).max(axis=axis, keepdims=True)
+    scale = (np.maximum(amax, 1e-8) / np.float32(127)).astype(np.float32)
+    codes = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+    return codes, scale
+
+
+def _bits_equal(torch, got, want) -> bool:
+    """Equal bit for bit: int8 codes, or f32 / bf16 scales read as integers."""
+    got, want = got.cpu().contiguous(), torch.as_tensor(want).contiguous()
+    if got.dtype.is_floating_point:
+        view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        got, want = got.view(view), want.to(got.dtype).view(view)
+    return got.shape == want.shape and torch.equal(got, want)
+
+
+QUANT_ROWS, QUANT_WIDTH = 1000, 4096
+
+
+def check_quantizers(torch, dev) -> dict:
+    """The port's three quantizers on the card (``quantize_matrix``,
+    ``quantize_activations``, ``_quantize_kv``) against :func:`np_int8` bit
+    for bit, scales and codes, on 1000 x 4096 Gaussian rows, their bf16
+    roundings, and rows of exact powers of two.  Also counts the scales a
+    product by the reciprocal of 127 would have put elsewhere."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.models.llama import _quantize_kv
+    from generativeaiexamples_tpu_torch.ops.qmm import quantize_activations
+    from generativeaiexamples_tpu_torch.ops.quant import quantize_matrix
+
+    rng = np.random.default_rng(0)
+    gauss = rng.standard_normal((QUANT_ROWS, QUANT_WIDTH), dtype=np.float32)
+    sign = np.where(rng.random((QUANT_ROWS, QUANT_WIDTH)) < 0.5, -1.0, 1.0)
+    pow2 = (sign * 2.0 ** rng.integers(-20, 20, (QUANT_ROWS, QUANT_WIDTH))).astype(np.float32)
+    cases = {"gaussian": gauss, "gaussian_bf16": torch.from_numpy(gauss).bfloat16().float().numpy(),
+             "powers_of_two": pow2}
+    bad, reciprocal = [], {}
+    for name, rows in cases.items():
+        codes, scale = np_int8(np, rows, axis=1)
+        x = torch.from_numpy(rows).to(dev)
+        qm = quantize_matrix(x.T)  # (K, N): one output channel per row
+        if not (_bits_equal(torch, qm.q.T, codes) and _bits_equal(torch, qm.scale[0], scale[:, 0])):
+            bad.append(f"quantize_matrix/{name}")
+        xq, a_scale = quantize_activations(x)
+        if not (_bits_equal(torch, xq, codes) and _bits_equal(torch, a_scale, scale)):
+            bad.append(f"quantize_activations/{name}")
+        heads = rows.reshape(1, QUANT_ROWS, QUANT_WIDTH // 128, 128)  # (b, s, n_kv, hd)
+        kv_codes, kv_scale = np_int8(np, heads, axis=-1)
+        kq, ks = _quantize_kv(torch.from_numpy(heads).to(dev))
+        if not (_bits_equal(torch, kq, kv_codes) and _bits_equal(torch, ks, torch.from_numpy(kv_scale[..., 0]))):
+            bad.append(f"_quantize_kv/{name}")
+        amax = np.abs(rows).max(axis=1)
+        by_reciprocal = np.maximum(amax, 1e-8) * np.float32(1.0 / 127.0)
+        reciprocal[name] = int((by_reciprocal != scale[:, 0]).sum())
+    if bad:
+        raise AssertionError(f"quantizers differ from numpy's amax / 127 on the card: {bad}")
+    return dict(quantizers_bitwise_equal=True, quantizer_rows=QUANT_ROWS, quantizer_width=QUANT_WIDTH,
+                scales_a_reciprocal_would_move=reciprocal)
+
+
+HF_SHARDS = 4
+HF_SEED = 0
+LLAMA_HF = "meta-llama/Meta-Llama-3-8B-Instruct"
+EMBED_HF, RERANK_HF = "acme/arctic-embed-l-seeded", "acme/cross-encoder-seeded"
+# (ours, HF name in a layer); the projections in the fused order.
+LLAMA_NORMS = (("attn_norm", "input_layernorm.weight"), ("mlp_norm", "post_attention_layernorm.weight"))
+LLAMA_PROJ = (("wq", "self_attn.q_proj.weight"), ("wk", "self_attn.k_proj.weight"),
+              ("wv", "self_attn.v_proj.weight"), ("wo", "self_attn.o_proj.weight"),
+              ("w_gate", "mlp.gate_proj.weight"), ("w_up", "mlp.up_proj.weight"),
+              ("w_down", "mlp.down_proj.weight"))
+LLAMA_FUSED = (("wqkv", ("wq", "wk", "wv")), ("wo", ("wo",)), ("w_gu", ("w_gate", "w_up")), ("w_down", ("w_down",)))
+
+
+def _bf16_gauss(torch, np, rng, shape, std=0.02, mean=0.0):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)).bfloat16()
+
+
+def llama_base_layer(torch, np, rng, cfg) -> dict:
+    """One random layer in HF names and (out, in) shapes, bf16."""
+    hd, d = cfg.head_dim, cfg.d_model
+    shapes = {"self_attn.q_proj.weight": (cfg.n_heads * hd, d), "self_attn.k_proj.weight": (cfg.n_kv_heads * hd, d),
+              "self_attn.v_proj.weight": (cfg.n_kv_heads * hd, d), "self_attn.o_proj.weight": (d, cfg.n_heads * hd),
+              "mlp.gate_proj.weight": (cfg.d_ff, d), "mlp.up_proj.weight": (cfg.d_ff, d),
+              "mlp.down_proj.weight": (d, cfg.d_ff)}
+    out = {name: _bf16_gauss(torch, np, rng, (d,), 0.1, 1.0) for _, name in LLAMA_NORMS}
+    out.update({name: _bf16_gauss(torch, np, rng, shape) for name, shape in shapes.items()})
+    return out
+
+
+def llama_layer(torch, base: dict, i: int) -> dict:
+    """Layer ``i`` of the seeded checkpoint: the base layer rolled by ``i``
+    rows (HF's output axis), so every layer differs from every other and
+    a loader that mixes up layers cannot pass."""
+    return {name: torch.roll(t, i, 0) for name, t in base.items()}
+
+
+def write_llama_checkpoint(torch, np, path, cfg, seed: int = HF_SEED, shards: int = HF_SHARDS) -> dict:
+    """A Llama checkpoint of ``cfg``'s geometry in bf16, as ``shards``
+    ``model-0000k-of-0000n.safetensors`` files with the index and a
+    ``LlamaForCausalLM`` ``config.json``, from numpy seed ``seed``.  Returns
+    the base tensors (for the references), bytes written and seconds."""
+    from generativeaiexamples_tpu_torch.engine.weights import save_safetensors
+
+    t0 = time.perf_counter()
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    base = llama_base_layer(torch, np, rng, cfg)
+    top = {"model.embed_tokens.weight": _bf16_gauss(torch, np, rng, (cfg.vocab_size, cfg.d_model)),
+           "model.norm.weight": _bf16_gauss(torch, np, rng, (cfg.d_model,), 0.1, 1.0),
+           "lm_head.weight": _bf16_gauss(torch, np, rng, (cfg.vocab_size, cfg.d_model))}
+    per_shard = -(-cfg.n_layers // shards)
+    weight_map, total = {}, 0
+    for k in range(shards):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        tensors = {"model.embed_tokens.weight": top["model.embed_tokens.weight"]} if k == 0 else {}
+        for i in range(k * per_shard, min(cfg.n_layers, (k + 1) * per_shard)):
+            tensors.update({f"model.layers.{i}.{name}": t for name, t in llama_layer(torch, base, i).items()})
+        if k == shards - 1:
+            tensors.update({n: top[n] for n in ("model.norm.weight", "lm_head.weight")})
+        save_safetensors(tensors, os.path.join(path, fname))
+        weight_map.update({name: fname for name in tensors})
+        total += sum(t.numel() * t.element_size() for t in tensors.values())
+        del tensors
+    with open(os.path.join(path, "model.safetensors.index.json"), "w", encoding="utf-8") as fh:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, fh)
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as fh:
+        json.dump({"architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.d_model, "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers,
+                   "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+                   "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, fh)
+    return dict(base=base, top=top, bytes=total, seconds=time.perf_counter() - t0)
+
+
+def numpy_quantized(np, base: dict, top: dict) -> dict:
+    """numpy's quantization (:func:`np_int8`, per HF row = per output
+    channel) of the base layer's projections, the embedding and the head,
+    by HF name: (codes, scales)."""
+    names = [name for _, name in LLAMA_PROJ] + ["model.embed_tokens.weight", "lm_head.weight"]
+    return {name: np_int8(np, (base[name] if name in base else top[name]).float().numpy(), axis=1)
+            for name in names}
+
+
+def numpy_llama_tree(torch, cfg, quantized: dict, base: dict, top: dict, dev) -> dict:
+    """The seeded checkpoint quantized by numpy (:func:`numpy_quantized`)
+    as a param tree of the port's ``QuantizedMatrix`` leaves on ``dev``,
+    which ``prepare_params`` packs and blocks as it finds them.  Layer
+    ``i``'s codes and scales are the base layer's rolled by ``i`` output
+    channels: a quantization per output channel commutes with a
+    permutation of the channels, so these are numpy's codes of layer ``i``
+    itself."""
+    from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix
+
+    L = cfg.n_layers
+    layers = {}
+    for ours, name in LLAMA_NORMS:
+        layers[ours] = torch.stack([torch.roll(base[name], i, 0) for i in range(L)]).to(dev)
+    for ours, name in LLAMA_PROJ:
+        codes, scale = quantized[name]  # (out, in), (out, 1)
+        codes, scale = torch.from_numpy(codes).to(dev), torch.from_numpy(scale[:, 0]).to(dev)
+        q = torch.empty((L, codes.shape[1], codes.shape[0]), dtype=torch.int8, device=dev)
+        s = torch.empty((L, 1, codes.shape[0]), dtype=torch.float32, device=dev)
+        for i in range(L):
+            q[i].copy_(torch.roll(codes, i, 0).T)
+            s[i, 0].copy_(torch.roll(scale, i, 0))
+        layers[ours] = QuantizedMatrix(q=q, scale=s)
+        del codes, scale
+    embed_codes, embed_scale = quantized["model.embed_tokens.weight"]
+    head_codes, head_scale = quantized["lm_head.weight"]
+    return {
+        "embed": QuantizedMatrix(q=torch.from_numpy(embed_codes).to(dev), scale=torch.from_numpy(embed_scale).to(dev)),
+        "layers": layers,
+        "final_norm": top["model.norm.weight"].to(dev),
+        "lm_head": QuantizedMatrix(q=torch.from_numpy(head_codes).to(dev).T.contiguous(),
+                                   scale=torch.from_numpy(head_scale).to(dev).T.contiguous()),
+    }
+
+
+def check_loaded_llama(torch, np, cfg, params, base: dict, quantized: dict) -> dict:
+    """The served params' int8 codes and f32 scales against numpy's
+    quantization of the written bf16 arrays, bit for bit: every projection
+    of the first (the base layer: ``quantized``), a middle and the last
+    layer (quantized here from the rolled arrays), the head and the
+    embedding."""
+    checked, bad = [], []
+    hf = dict(LLAMA_PROJ)
+    for i in sorted({0, cfg.n_layers // 2, cfg.n_layers - 1}):
+        layer = llama_layer(torch, base, i)
+
+        def numpy_q(name):
+            return quantized[name] if i == 0 else np_int8(np, layer[name].float().numpy(), axis=1)
+
+        for fused, parts in LLAMA_FUSED:
+            codes, scales = zip(*(numpy_q(hf[p]) for p in parts))
+            bm = params["layers"][fused]
+            got_q, got_s = bm.w[i, : bm.n, : bm.k], bm.scale[i, : bm.n]
+            if not (_bits_equal(torch, got_q, np.concatenate(codes)) and
+                    _bits_equal(torch, got_s, np.concatenate(scales)[:, 0])):
+                bad.append(f"layer {i} {fused}")
+            checked.append(f"{i}.{fused}")
+    for name, key, to_ours in (("embed", "model.embed_tokens.weight", False), ("lm_head", "lm_head.weight", True)):
+        codes, scale = quantized[key]
+        qm = params[name]
+        got_q, got_s = (qm.q.T, qm.scale.T) if to_ours else (qm.q, qm.scale)
+        if not (_bits_equal(torch, got_q.to(torch.int8), codes) and _bits_equal(torch, got_s, scale)):
+            bad.append(name)
+        checked.append(name)
+    if bad:
+        raise AssertionError(f"loaded int8 leaves differ from numpy's quantization of the checkpoint: {bad}")
+    return dict(leaves_checked=len(checked), layers_checked=sorted({0, cfg.n_layers // 2, cfg.n_layers - 1}),
+                int8_bitwise_equal_to_numpy=True)
+
+
+def _hf_requests(base_url, prompts) -> dict:
+    """The phase's greedy requests over one front: four completions sent
+    together, then the shortest and the longest sent alone (32 tokens
+    each).  Returns each request's text by name."""
+    picks = {f"batch_{n}": prompts["completions"][prompts["lengths"].index(n)] for n in (20, 140, 450, 650)}
+    workers, results = _concurrent(base_url, list(picks.values()))
+    for w in workers:
+        w.join(timeout=900)
+    if len(results) != len(picks):
+        raise AssertionError("hf_checkpoint: a completion did not return")
+    texts = {name: results[i]["choices"][0]["text"] for i, name in enumerate(picks)}
+    for n in (20, 650):
+        texts[f"alone_{n}"] = _complete(base_url, picks[f"batch_{n}"])["choices"][0]["text"]
+    return texts
+
+
+def _hf_serve(torch, _cuda, server, prompts, kv_layout: str) -> tuple[dict, dict]:
+    """Start ``server``'s scheduler and front, warm them, zero the launch
+    counts, send the phase's requests, and read the counts: every kernel
+    of the layout's path must have launched, the other layout's decode
+    kernel not.  Returns (texts, launches); the server is shut down."""
+    sched = server.scheduler
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    sched.start()
+    thread.start()
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        _complete(base_url, prompts["warmup"], 4)
+        _cuda.reset_launch_counts()
+        texts = _hf_requests(base_url, prompts)
+        launches = dict(_cuda.LAUNCHES)
+        want, other = PATH_KERNELS[kv_layout]
+        if not all(launches[k] for k in want) or launches[other]:
+            raise AssertionError(f"hf_checkpoint {kv_layout} path launches: {launches}")
+        return texts, launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+        sched._cache = sched._pool = None
+
+
+def bert_hf_tensors(torch, np, rng, cfg, cross_encoder: bool = False) -> dict:
+    """A random BERT checkpoint of ``cfg``'s geometry in HF names, bf16: a
+    ``BertModel``, or with ``cross_encoder`` a ``BertForSequenceClassification``
+    (``bert.``-prefixed, a pooler and a 1-logit classifier)."""
+    d, f = cfg.d_model, cfg.d_ff
+
+    def g(*shape):
+        return _bf16_gauss(torch, np, rng, shape)
+
+    def norm(prefix):
+        return {f"{prefix}.weight": _bf16_gauss(torch, np, rng, (d,), 0.1, 1.0),
+                f"{prefix}.bias": _bf16_gauss(torch, np, rng, (d,), 0.02)}
+
+    out = {"embeddings.word_embeddings.weight": g(cfg.vocab_size, d),
+           "embeddings.position_embeddings.weight": g(cfg.max_positions, d),
+           "embeddings.token_type_embeddings.weight": g(cfg.type_vocab_size, d), **norm("embeddings.LayerNorm")}
+    for i in range(cfg.n_layers):
+        lay = f"encoder.layer.{i}."
+        for proj in ("attention.self.query", "attention.self.key", "attention.self.value", "attention.output.dense"):
+            out.update({f"{lay}{proj}.weight": g(d, d), f"{lay}{proj}.bias": g(d)})
+        out.update({f"{lay}intermediate.dense.weight": g(f, d), f"{lay}intermediate.dense.bias": g(f),
+                    f"{lay}output.dense.weight": g(d, f), f"{lay}output.dense.bias": g(d),
+                    **norm(f"{lay}attention.output.LayerNorm"), **norm(f"{lay}output.LayerNorm")})
+    if cross_encoder:
+        out = {f"bert.{k}": v for k, v in out.items()}
+        out.update({"bert.pooler.dense.weight": g(d, d), "bert.pooler.dense.bias": g(d),
+                    "classifier.weight": g(1, d), "classifier.bias": g(1)})
+    return out
+
+
+def bert_tree_from_hf(torch, np, cfg, tensors: dict, dev) -> tuple:
+    """The written BERT tensors as the port's tree (and rerank head), built
+    through ``engine.weights.bert_params_from_numpy`` from f32 numpy
+    arrays of the bf16 values, then held in bf16 as written."""
+    from generativeaiexamples_tpu_torch.engine.weights import bert_params_from_numpy, rerank_head_from_numpy
+
+    t = {k[5:] if k.startswith("bert.") else k: v for k, v in tensors.items()}
+
+    def a(name, transpose=False):
+        v = t[name].T if transpose else t[name]
+        return v.float().numpy()
+
+    def stack(fmt, transpose):
+        return np.stack([a(fmt.format(i), transpose) for i in range(cfg.n_layers)])
+
+    lay = "encoder.layer.{}."
+    tree = {"tok_embed": a("embeddings.word_embeddings.weight"), "pos_embed": a("embeddings.position_embeddings.weight"),
+            "type_embed": a("embeddings.token_type_embeddings.weight"), "embed_norm_g": a("embeddings.LayerNorm.weight"),
+            "embed_norm_b": a("embeddings.LayerNorm.bias"), "layers": {}}
+    for ours, name, tr in (("wq", "attention.self.query.weight", True), ("bq", "attention.self.query.bias", False),
+                           ("wk", "attention.self.key.weight", True), ("bk", "attention.self.key.bias", False),
+                           ("wv", "attention.self.value.weight", True), ("bv", "attention.self.value.bias", False),
+                           ("wo", "attention.output.dense.weight", True), ("bo", "attention.output.dense.bias", False),
+                           ("attn_norm_g", "attention.output.LayerNorm.weight", False),
+                           ("attn_norm_b", "attention.output.LayerNorm.bias", False),
+                           ("w_up", "intermediate.dense.weight", True), ("b_up", "intermediate.dense.bias", False),
+                           ("w_down", "output.dense.weight", True), ("b_down", "output.dense.bias", False),
+                           ("mlp_norm_g", "output.LayerNorm.weight", False), ("mlp_norm_b", "output.LayerNorm.bias", False)):
+        tree["layers"][ours] = stack(lay + name, tr)
+
+    def bf16(tree_):
+        return {k: bf16(v) if isinstance(v, dict) else v.to(cfg.compute_dtype) for k, v in tree_.items()}
+
+    params = bf16(bert_params_from_numpy(tree, cfg, dev))
+    head = None
+    if "classifier.weight" in t:
+        head = bf16(rerank_head_from_numpy({"w_pool": a("pooler.dense.weight", True), "b_pool": a("pooler.dense.bias"),
+                                            "w": a("classifier.weight", True), "b": a("classifier.bias")}, dev))
+    return params, head
+
+
+def _tree_bits_equal(torch, got: dict, want: dict) -> list:
+    bad = []
+    for k, v in want.items():
+        if isinstance(v, dict):
+            bad += [f"{k}.{b}" for b in _tree_bits_equal(torch, got[k], v)]
+        elif got[k].dtype != v.dtype or not _bits_equal(torch, got[k], v.cpu()):
+            bad.append(k)
+    return bad
+
+
+def write_bert_checkpoint(torch, np, path, cfg, vocab: list, seed: int, cross_encoder: bool = False) -> dict:
+    """A BERT checkpoint (bf16 ``model.safetensors``, ``config.json``,
+    ``vocab.txt``, ``tokenizer_config.json``) from numpy seed ``seed``;
+    returns the written tensors."""
+    from generativeaiexamples_tpu_torch.engine.weights import save_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    tensors = bert_hf_tensors(torch, np, np.random.default_rng(seed), cfg, cross_encoder)
+    save_safetensors(tensors, os.path.join(path, "model.safetensors"))
+    arch = "BertForSequenceClassification" if cross_encoder else "BertModel"
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as fh:
+        json.dump({"architectures": [arch], "model_type": "bert", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.d_model, "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+                   "intermediate_size": cfg.d_ff, "max_position_embeddings": cfg.max_positions,
+                   "type_vocab_size": cfg.type_vocab_size, "layer_norm_eps": cfg.norm_eps, "hidden_act": "gelu",
+                   "num_labels": 1, "torch_dtype": "bfloat16"}, fh)
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as fh:
+        fh.write("\n".join(vocab) + "\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w", encoding="utf-8") as fh:
+        json.dump({"do_lower_case": True}, fh)
+    return tensors
+
+
+def wordpiece_vocab(seed: int, size: int) -> tuple[list, list]:
+    """A BERT-style vocabulary of ``size`` entries: the specials at BERT's
+    ids ([PAD] 0, [unused*] 1-99, [UNK] 100, [CLS] 101, [SEP] 102, [MASK]
+    103), punctuation, letters and digits whole and as ``##`` pieces, then
+    seeded words and ``##`` suffixes.  Returns (vocab, words)."""
+    import random
+
+    rng = random.Random(seed)
+    chars = [chr(c) for c in range(ord("a"), ord("z") + 1)] + list("0123456789")
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += list("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~") + chars + ["##" + c for c in chars]
+    seen = set(vocab)
+    words = []
+    while len(vocab) < size:
+        n = rng.randint(2, 4) if rng.random() < 0.25 else rng.randint(3, 10)
+        token = "".join(rng.choice(chars[:26]) for _ in range(n))
+        token = "##" + token if n <= 4 and rng.random() < 0.6 else token
+        if token not in seen:
+            seen.add(token)
+            vocab.append(token)
+            if not token.startswith("##"):
+                words.append(token)
+    return vocab, words
+
+
+def vocab_texts(seed: int, words: list, n: int, n_words: int) -> list:
+    """``n`` texts of ``n_words`` words each: vocabulary words, compounds of
+    two (which split into a word and ``##`` pieces), capitals, digits and
+    punctuation."""
+    import random
+
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        parts = []
+        for _ in range(n_words):
+            r = rng.random()
+            w = rng.choice(words)
+            if r < 0.2:
+                w = w + rng.choice(words)
+            elif r < 0.3:
+                w = w.capitalize()
+            elif r < 0.35:
+                w = str(rng.randint(0, 9999))
+            parts.append(w + (rng.choice(",.;!?") if rng.random() < 0.1 else ""))
+        out.append(" ".join(parts))
+    return out
+
+
+HF_DOCS, HF_QUERIES, HF_PASSAGES = 256, 32, 16
+HF_DOC_WORDS, HF_QUERY_WORDS = 400, 12
+
+
+def hf_embed_and_rerank(torch, np, dev, root) -> dict:
+    """arctic-embed-l-shaped embedder and cross-encoder checkpoints (24
+    layers, bf16, seeds 1 and 2) with a 30,522-entry ``vocab.txt``, loaded
+    through ``chains.factory``'s ``get_embedder`` / ``get_reranker`` from
+    ``APP_*``: their leaves equal the written arrays, the WordPiece ids come
+    from the native library and equal the Python path's, 256 documents and
+    32 queries embed unit-norm and finite within ``EMBED_TOL`` of a
+    ``GPUEmbedder`` on ``bert_params_from_numpy`` of the same arrays, and
+    32 queries x 16 passages rerank in two segments within ``BERT_TOL`` of
+    a direct ``score_pairs`` on the same head."""
+    from generativeaiexamples_tpu_torch.chains import factory
+    from generativeaiexamples_tpu_torch.core.configuration import reset_config_cache
+    from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
+    from generativeaiexamples_tpu_torch.engine.reranker import GPUReranker
+    from generativeaiexamples_tpu_torch.engine.tokenizer import WordPieceTokenizer
+    from generativeaiexamples_tpu_torch.models import bert
+
+    cfg = bert.arctic_embed_l()
+    vocab, words = wordpiece_vocab(HF_SEED, cfg.vocab_size)
+    t0 = time.perf_counter()
+    emb_dir, rr_dir = (os.path.join(root, n.replace("/", "--")) for n in (EMBED_HF, RERANK_HF))
+    emb_tensors = write_bert_checkpoint(torch, np, emb_dir, cfg, vocab, seed=1)
+    rr_tensors = write_bert_checkpoint(torch, np, rr_dir, cfg, vocab, seed=2, cross_encoder=True)
+    write_s = time.perf_counter() - t0
+    written_gb = sum(t.numel() * t.element_size() for d in (emb_tensors, rr_tensors) for t in d.values()) / 1e9
+    env = dict(APP_EMBEDDINGS_MODELENGINE="tpu", APP_EMBEDDINGS_MODELNAME=EMBED_HF, APP_EMBEDDINGS_DIMENSIONS=str(cfg.d_model),
+               APP_RANKING_MODELENGINE="tpu", APP_RANKING_MODELNAME=RERANK_HF)
+    os.environ.update(env)
+    reset_config_cache()
+    factory.reset_factories()
+    try:
+        t0 = time.perf_counter()
+        embedder, reranker = factory.get_embedder(), factory.get_reranker()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        tok = embedder.tokenizer
+        if not (isinstance(tok, WordPieceTokenizer) and isinstance(reranker.tokenizer, WordPieceTokenizer)):
+            raise AssertionError(f"hf_checkpoint: factory tokenizers {type(tok).__name__}, "
+                                 f"{type(reranker.tokenizer).__name__}")
+        if embedder.device.type != "cuda" or reranker.device.type != "cuda":
+            raise AssertionError("hf_checkpoint: the factory's embedder or reranker is not on the card")
+        want_params, _ = bert_tree_from_hf(torch, np, cfg, emb_tensors, dev)
+        want_rr, want_head = bert_tree_from_hf(torch, np, cfg, rr_tensors, dev)
+        bad = (_tree_bits_equal(torch, embedder.params, want_params) + _tree_bits_equal(torch, reranker.params, want_rr)
+               + [f"head.{k}" for k in _tree_bits_equal(torch, reranker.head, want_head)])
+        if bad:
+            raise AssertionError(f"hf_checkpoint: loaded BERT leaves differ from the written arrays: {bad[:8]}")
+        docs = vocab_texts(3, words, HF_DOCS, HF_DOC_WORDS)
+        queries = vocab_texts(4, words, HF_QUERIES, HF_QUERY_WORDS)
+        passages = docs[:HF_PASSAGES]
+        if tok.native_handle() is None:
+            raise AssertionError("hf_checkpoint: the native WordPiece library is not live")
+        python_tok = WordPieceTokenizer({t: i for i, t in enumerate(vocab)}, lowercase=True)
+        python_tok._native_tried = True  # pin the Python path
+        texts = docs + [embedder.query_prefix + q for q in queries]
+        t0 = time.perf_counter()
+        native_ids = [tok.tokenize_ids(t) for t in texts]
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        python_ids = [python_tok.tokenize_ids(t) for t in texts]
+        python_ms = (time.perf_counter() - t0) * 1e3
+        if native_ids != python_ids:
+            raise AssertionError("hf_checkpoint: native WordPiece ids differ from the Python path's")
+        n_pieces = sum(1 for ids in native_ids for i in ids if vocab[i].startswith("##"))
+        n_unk = sum(ids.count(100) for ids in native_ids)
+        t0 = time.perf_counter()
+        doc_vecs = torch.tensor(embedder.embed_documents(docs))
+        query_vecs = torch.tensor([embedder.embed_query(q) for q in queries])
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        direct = GPUEmbedder(cfg, want_params, tokenizer=python_tok, device=dev)
+        direct_docs = torch.tensor(direct.embed_documents(docs))
+        direct_queries = torch.tensor([direct.embed_query(q) for q in queries])
+        if not (_unit_rows(torch, doc_vecs) and _unit_rows(torch, query_vecs)):
+            raise AssertionError("hf_checkpoint: embeddings are not unit-norm and finite")
+        torch.testing.assert_close(doc_vecs, direct_docs, **EMBED_TOL)
+        torch.testing.assert_close(query_vecs, direct_queries, **EMBED_TOL)
+        pairs = [(q, p) for q in queries for p in passages]
+        encoded = [reranker._encode_pair(reranker._query_ids(q), p) for q, p in pairs]
+        if any(sorted(set(types)) != [0, 1] or ids[0] != 101 or ids.count(102) != 2 for ids, types in encoded):
+            raise AssertionError("hf_checkpoint: a rerank pair is not [CLS] q [SEP] p [SEP] in segments 0 and 1")
+        t0 = time.perf_counter()
+        scores = torch.tensor(reranker.score_pairs(pairs))
+        torch.cuda.synchronize()
+        rerank_s = time.perf_counter() - t0
+        direct_rr = GPUReranker(cfg, want_rr, want_head, tokenizer=python_tok, device=dev)
+        direct_scores = torch.tensor(direct_rr.score_pairs(pairs))
+        torch.testing.assert_close(scores, direct_scores, **BERT_TOL)
+        return dict(
+            bert_written_gb=written_gb, bert_write_s=write_s, bert_load_s=load_s, vocab_size=len(vocab),
+            bert_leaves_bitwise_equal=True, wordpiece="native", native_equals_python=True,
+            tokenized_texts=len(texts), tokens=sum(map(len, native_ids)), wordpiece_continuations=n_pieces,
+            unk_tokens=n_unk, native_tokenize_ms=native_ms, python_tokenize_ms=python_ms,
+            embedded_docs=len(docs), embedded_queries=len(queries), embed_s=embed_s,
+            embed_max_abs_err=max((doc_vecs - direct_docs).abs().max().item(),
+                                  (query_vecs - direct_queries).abs().max().item()),
+            reranked_pairs=len(pairs), rerank_s=rerank_s, two_segment_pairs=len(encoded),
+            rerank_max_abs_err=(scores - direct_scores).abs().max().item(),
+        )
+    finally:
+        factory.reset_factories()
+        for key in env:
+            del os.environ[key]
+        reset_config_cache()
+
+
+def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
+    """Serve checkpoints written from a seed through the normal entry
+    points.  A full-width, full-depth Llama-3-8B checkpoint (bf16, four
+    shards, about 16 GB) loads through ``build_server`` and
+    ``$GAIE_WEIGHTS_DIR``; its int8 codes and scales equal numpy's
+    quantization bit for bit (:func:`check_loaded_llama`, after
+    :func:`check_quantizers`); its greedy streams equal a ``Scheduler``'s
+    on the numpy-quantized tree, and a paged ``Scheduler``'s on the loaded
+    params, with K1-K4 each launched; then the embedder and cross-encoder
+    checkpoints (:func:`hf_embed_and_rerank`).  Returns each path's
+    launches."""
+    import resource
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import build_server, create_engine_app
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    fields = dict(nvidia_smi=smi, **check_quantizers(torch, dev))
+    root = tempfile.mkdtemp(prefix="hf_checkpoints_")
+    try:
+        cfg = llama.llama3_8b(kv_dtype="int8")
+        ckpt = write_llama_checkpoint(torch, np, os.path.join(root, LLAMA_HF.replace("/", "--")), cfg)
+        base, top = ckpt.pop("base"), ckpt.pop("top")
+        fields.update(model=LLAMA_HF, layers=cfg.n_layers, d_model=cfg.d_model, shards=HF_SHARDS,
+                      weights=f"bf16 from numpy seed {HF_SEED}, layer i = the base layer rolled by i rows",
+                      written_gb=ckpt["bytes"] / 1e9, write_s=ckpt["seconds"])
+        gc.collect()
+        os.environ["GAIE_WEIGHTS_DIR"] = root
+        kw = serve_kw("contiguous")
+        argv = ["--model", LLAMA_HF, "--host", "127.0.0.1", "--port", "0", "--embedder", "none",
+                "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"])]
+        torch.cuda.reset_peak_memory_stats(dev)
+        page = os.sysconf("SC_PAGE_SIZE")
+        with open("/proc/self/statm", encoding="ascii") as fh:
+            rss_before = int(fh.read().split()[1]) * page
+        t0 = time.perf_counter()
+        with _PeakRSS() as rss:
+            server = build_server(argv)
+            torch.cuda.synchronize()
+        fields.update(load_s=time.perf_counter() - t0, device_gb_after_load=torch.cuda.memory_allocated(dev) / 1e9,
+                      peak_device_gb_load=torch.cuda.max_memory_allocated(dev) / 1e9,
+                      rss_before_load_gb=rss_before / 1e9, peak_rss_load_gb=rss.peak / 1e9,
+                      ru_maxrss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+                      tokenizer=type(server.tokenizer).__name__)
+        # An f32 copy of the model would be 32 GB on the host, a bf16 one 16 GB;
+        # the loader holds one tensor's pages at a time (the embedding's 1.05
+        # GB at most, which grew the resident set by ~1.8 GB on the H100
+        # host: PERF.md).
+        if rss.peak - rss_before > 8e9:
+            raise AssertionError(f"hf_checkpoint: the load grew the host's resident set by "
+                                 f"{(rss.peak - rss_before) / 1e9:.2f} GB")
+        sched = server.scheduler
+        if sched.device.type != "cuda":
+            raise AssertionError("hf_checkpoint: build_server did not serve on the card")
+        t0 = time.perf_counter()
+        quantized = numpy_quantized(np, base, top)
+        fields.update(check_loaded_llama(torch, np, cfg, sched.params, base, quantized),
+                      check_s=time.perf_counter() - t0)
+        launches = {}
+        texts, launches["server"] = _hf_serve(torch, _cuda, server, prompts, "contiguous")
+        params = sched.params
+        del server, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            direct = Scheduler(cfg, numpy_llama_tree(torch, cfg, quantized, base, top, dev), device=dev, **kw)
+        fields["numpy_tree_s"] = time.perf_counter() - t0
+        del base, top, quantized
+        direct_texts, launches["direct"] = _hf_serve(
+            torch, _cuda, create_engine_app(direct, get_tokenizer(LLAMA_HF), LLAMA_HF, "127.0.0.1", 0), prompts,
+            "contiguous")
+        if direct_texts != texts:
+            raise AssertionError(f"hf_checkpoint: the loaded server's streams differ from the numpy-quantized "
+                                 f"scheduler's:\n{texts}\n{direct_texts}")
+        del direct
+        gc.collect()
+        torch.cuda.empty_cache()
+        paged = Scheduler(cfg, params, device=dev, **serve_kw("paged"))
+        paged_texts, launches["paged"] = _hf_serve(
+            torch, _cuda, create_engine_app(paged, get_tokenizer(LLAMA_HF), LLAMA_HF, "127.0.0.1", 0), prompts,
+            "paged")
+        if paged_texts != texts:
+            raise AssertionError(f"hf_checkpoint: paged streams differ from contiguous:\n{texts}\n{paged_texts}")
+        del paged, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        fields.update(requests=len(texts), streams_equal=["server", "direct", "paged"], launches=launches)
+        shutil.rmtree(os.path.join(root, LLAMA_HF.replace("/", "--")))
+        fields.update(hf_embed_and_rerank(torch, np, dev, root))
+    finally:
+        os.environ.pop("GAIE_WEIGHTS_DIR", None)
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields["seconds"] = time.perf_counter() - t_phase
+    emit("hf_checkpoint", **fields)
+    return launches
+
+
 def main() -> int:
     # The run uses one card: only the first visible one is exposed, so the
     # device count in the last line is 1 whatever else the machine holds.
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    # Tokenizers come from local files only: no hub lookups.
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
     try:
         import torch
     except ImportError:
@@ -4163,6 +4824,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # The chain server builds its own engine and embedder from APP_*.
         chain_launches, step_launches = chain_phase(torch, dev, _cuda, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        hf_launches = hf_checkpoint_phase(torch, dev, _cuda, smi, prompts)
     gc.collect()
     torch.cuda.empty_cache()
     kw = serve_kw("contiguous")
@@ -4179,6 +4843,7 @@ def main() -> int:
             "chain_launches": chain_launches[name],
             "step_launches": {step: counts[name] for step, counts in step_launches.items()},
             "spec_launches": {step: counts[name] for step, counts in spec_launches.items()},
+            "hf_launches": {path: counts[name] for path, counts in hf_launches.items()},
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
         if "hd64" in s:

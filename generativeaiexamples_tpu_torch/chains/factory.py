@@ -54,12 +54,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP.md, Queue 1 {item})")
 
 
-def _checkpoint_refused(model_name: str, what: str) -> None:
+def _checkpoint_refused(model_name: str) -> None:
+    """The chain LLM loads no checkpoint: the reference's ``TPUChatLLM``
+    never does (it serves random weights whatever is provisioned), and the
+    port refuses rather than quietly serve random weights beside one."""
     from generativeaiexamples_tpu_torch.engine.weights import weights_dir_for
 
     ckpt_dir = weights_dir_for(model_name)
     if ckpt_dir:
-        raise _not_ported(f"loading the provisioned {what} checkpoint {ckpt_dir}", "item 5 (HF weights)")
+        raise NotImplementedError(
+            f"the in-process chain LLM does not load the provisioned checkpoint {ckpt_dir}: the reference's "
+            "TPUChatLLM never loads one (a deliberate difference, ROADMAP.md, Queue 1 item 5); serve it with "
+            "the engine server (python -m generativeaiexamples_tpu_torch.engine.server) and set "
+            "llm.model_engine to openai"
+        )
 
 
 def _build_chat_llm(device):
@@ -80,7 +88,7 @@ def _build_chat_llm(device):
         from generativeaiexamples_tpu_torch.chains.llm import GPUChatLLM
         from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset
 
-        _checkpoint_refused(cfg.llm.model_name, "LLM")
+        _checkpoint_refused(cfg.llm.model_name)
         return GPUChatLLM(model_preset=resolve_model_preset(cfg.llm.model_name), device=device)
     raise ValueError(f"unknown llm.model_engine {cfg.llm.model_engine!r}")
 
@@ -122,9 +130,22 @@ def _build_embedder(device):
         return HTTPEmbedder(cfg.embeddings.server_url, cfg.embeddings.model_name, cfg.embeddings.dimensions)
     if engine == "tpu":
         from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
+        from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+        from generativeaiexamples_tpu_torch.engine.weights import bert_config_from_hf, load_hf_bert, weights_dir_for
         from generativeaiexamples_tpu_torch.models import bert
 
-        _checkpoint_refused(cfg.embeddings.model_name, "embedder")
+        ckpt_dir = weights_dir_for(cfg.embeddings.model_name)
+        if ckpt_dir:
+            # Provisioned arctic-embed-l-class weights and their WordPiece vocab.
+            bcfg = bert_config_from_hf(ckpt_dir)
+            if bcfg.d_model != cfg.embeddings.dimensions:
+                raise ValueError(
+                    f"provisioned embedder checkpoint {ckpt_dir} has hidden_size={bcfg.d_model} but "
+                    f"embeddings.dimensions={cfg.embeddings.dimensions}; the vector store would be sized wrong "
+                    "— fix APP_EMBEDDINGS_DIMENSIONS"
+                )
+            params = load_hf_bert(bcfg, ckpt_dir, device=device)
+            return GPUEmbedder(bcfg, params, tokenizer=get_tokenizer(ckpt_dir), device=device)
         if cfg.embeddings.dimensions == 1024:
             bcfg = bert.arctic_embed_l()
         else:
@@ -334,8 +355,18 @@ def _build_reranker(device):
         return None
     if engine == "tpu":
         from generativeaiexamples_tpu_torch.engine.reranker import GPUReranker
+        from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+        from generativeaiexamples_tpu_torch.engine.weights import (
+            bert_config_from_hf,
+            load_hf_cross_encoder,
+            weights_dir_for,
+        )
 
-        _checkpoint_refused(cfg.ranking.model_name, "reranker")
+        ckpt_dir = weights_dir_for(cfg.ranking.model_name)
+        if ckpt_dir:
+            bcfg = bert_config_from_hf(ckpt_dir)
+            params, head = load_hf_cross_encoder(bcfg, ckpt_dir, device=device)
+            return GPUReranker(bcfg, params, head, tokenizer=get_tokenizer(ckpt_dir), device=device)
         return GPUReranker(device=device)
     raise ValueError(f"unknown ranking.model_engine {cfg.ranking.model_engine!r}")
 

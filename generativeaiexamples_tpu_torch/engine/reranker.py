@@ -2,10 +2,11 @@
 passage) pairs with the BERT cross-encoder (``models.bert.rerank_score``)
 on the card.
 
-The port has the byte tokenizer only, so a pair is the query's ids (with
-BOS) followed by the passage's, all in segment 0, as the reference does
-for a tokenizer without ``encode_pair``.  The two-segment WordPiece
-encoding comes with the HF tokenizer (``ROADMAP.md``).
+A tokenizer with ``encode_pair`` (WordPiece, a cross-encoder checkpoint's
+``vocab.txt``) builds BERT's two-segment pair ``[CLS] q [SEP] p [SEP]``
+with segment ids 0 then 1, truncated longest-first; any other tokenizer
+concatenates the query's ids (with BOS) and the passage's in segment 0,
+as the reference does.
 """
 
 from __future__ import annotations
@@ -60,10 +61,19 @@ class GPUReranker:
         self.head = head
 
     def _encode_pair(self, query_ids: list[int], passage: str) -> tuple[list[int], list[int]]:
-        """(token ids, segment ids) of one pair: the query's ids then the
-        passage's, truncated to ``max_length``, all in segment 0."""
+        """(token ids, segment ids) of one pair: the two-segment encoding
+        when the tokenizer has ``encode_pair``, else the query's ids then
+        the passage's, truncated to ``max_length``, all in segment 0.
+        ``query_ids`` is tokenized once per query (:meth:`_query_ids`)."""
+        if hasattr(self.tokenizer, "encode_pair"):
+            return self.tokenizer.encode_pair(query_ids, passage, max_length=self.max_length)
         ids = (query_ids + self.tokenizer.encode(" " + passage, add_bos=False))[: self.max_length]
         return ids, [0] * len(ids)
+
+    def _query_ids(self, query: str) -> list[int]:
+        if hasattr(self.tokenizer, "encode_pair"):
+            return self.tokenizer.tokenize_ids(query)
+        return self.tokenizer.encode(query, add_bos=True)
 
     def _score_rows(self, rows: list[tuple[list[int], list[int]]]) -> list[float]:
         """Encoded (token, segment) rows through the cross-encoder in
@@ -92,7 +102,7 @@ class GPUReranker:
         """Relevance score per passage (higher = more relevant)."""
         if not passages:
             return []
-        query_ids = self.tokenizer.encode(query, add_bos=True)
+        query_ids = self._query_ids(query)
         return self._score_rows([self._encode_pair(query_ids, p) for p in passages])
 
     def score_pairs(self, pairs: Sequence[tuple[str, str]]) -> list[float]:
@@ -104,7 +114,7 @@ class GPUReranker:
         rows = []
         for q, p in pairs:
             if q not in query_ids:
-                query_ids[q] = self.tokenizer.encode(q, add_bos=True)
+                query_ids[q] = self._query_ids(q)
             rows.append(self._encode_pair(query_ids[q], p))
         return self._score_rows(rows)
 

@@ -704,6 +704,10 @@ class Scheduler:
         if req is not None and req.id:
             with self._cancel_lock:
                 self._cancelled.discard(req.id)
+        if self._pool is not None:
+            # The pool gauges before on_done, as the reference publishes:
+            # a caller reading /metrics right after completion sees the park.
+            self._publish_pool_gauges()
         if req is not None:
             try:
                 req.on_done(reason)

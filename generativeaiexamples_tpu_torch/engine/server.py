@@ -545,10 +545,13 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
                         help="largest speculation lookahead, draft tokens per round (default [llm].spec_gamma, "
                              "else 4; the adaptive controller only shrinks below it)")
     parser.add_argument("--draft-checkpoint", default=os.environ.get("GAIE_DRAFT_CHECKPOINT", ""),
-                        help="weights directory for the draft model (not loadable in the port yet)")
+                        help="HF weights directory for the draft model (default: $GAIE_WEIGHTS_DIR/<draft model>)")
     parser.add_argument("--embedder", default="tiny", choices=["tiny", "arctic", "none"],
-                        help="BERT embedder behind /v1/embeddings (random weights, seed 0): bert-tiny, "
-                             "arctic-embed-l, or none")
+                        help="BERT embedder behind /v1/embeddings: bert-tiny (random, seed 0), arctic-embed-l "
+                             "(the --embedder-model checkpoint when one is provisioned, else random, seed 0), or none")
+    parser.add_argument("--embedder-model", default="snowflake/arctic-embed-l",
+                        help="HF id used to look up the embedder's checkpoint under $GAIE_WEIGHTS_DIR "
+                             "(with --embedder arctic)")
     parser.add_argument("--embed-max-batch", type=int, default=32,
                         help="concurrent single-query /v1/embeddings requests that share one forward (0/1: off)")
     parser.add_argument("--embed-max-wait-ms", type=float, default=3.0,
@@ -563,9 +566,10 @@ def spec_scheduler_kwargs(args: argparse.Namespace, cfg, device) -> dict:
     ``[llm]`` config (``spec_decode``, ``draft_model``, ``spec_gamma``)
     as fallbacks; explicit flags win.  ``--gamma`` and ``--spec-gamma``
     (the reference's two names) set one value.  ``--spec-decode`` without a draft
-    model means prompt lookup.  A draft preset is built as random W8A8
-    with int8 KV from ``--seed`` (the port serves no bf16 draft and loads
-    no checkpoint yet).  Empty when nothing speculates."""
+    model means prompt lookup.  The draft loads from ``--draft-checkpoint``
+    or ``$GAIE_WEIGHTS_DIR/<draft model>`` (its preset's geometry), else is
+    random from ``--seed``; either way it serves W8A8 with int8 KV (the
+    port serves no bf16 draft).  Empty when nothing speculates."""
     from generativeaiexamples_tpu_torch.core.configuration import get_config
 
     llm_cfg = get_config().llm
@@ -580,27 +584,33 @@ def spec_scheduler_kwargs(args: argparse.Namespace, cfg, device) -> dict:
         return {}
     import dataclasses
 
-    import torch
-
-    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
     from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset, weights_dir_for
     from generativeaiexamples_tpu_torch.models import llama
 
-    checkpoint = args.draft_checkpoint or weights_dir_for(draft_model)
-    if checkpoint:
-        raise NotImplementedError(
-            f"loading the draft checkpoint {checkpoint} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, Queue 1 item 5 (HF weights))"
-        )
     dcfg = dataclasses.replace(llama.PRESETS[resolve_model_preset(draft_model)](), kv_dtype="int8")
     if dcfg.vocab_size != cfg.vocab_size:
         raise ValueError(f"draft {draft_model!r} has vocab {dcfg.vocab_size}, the model {cfg.vocab_size}")
-    logger.warning("no draft checkpoint in the port: speculating with random int8 weights for %s (seed %d)",
-                   draft_model, args.seed)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    with torch.inference_mode():
-        dparams = prepare_params(dcfg, None, device=device, generator=gen)
+    dparams = load_serving_params(dcfg, args.draft_checkpoint or weights_dir_for(draft_model), device, args.seed,
+                                  what=f"draft {draft_model}")
     return {"draft_cfg": dcfg, "draft_params": dparams, "gamma": gamma}
+
+
+def load_serving_params(cfg, ckpt_dir: Optional[str], device, seed: int, what: str):
+    """W8A8 serving params: the HF checkpoint in ``ckpt_dir`` (geometry from
+    ``cfg``, the preset's, as in the reference) quantized on ``device``, or
+    random int8 weights from ``seed`` when there is none."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.engine.weights import load_hf_causal_lm
+
+    with torch.inference_mode():
+        if ckpt_dir:
+            logger.info("loading %s weights from %s", what, ckpt_dir)
+            return prepare_params(cfg, load_hf_causal_lm(cfg, ckpt_dir, device=device), device=device)
+        logger.warning("no checkpoint for %s under $GAIE_WEIGHTS_DIR; serving random int8 weights (seed %d)",
+                       what, seed)
+        return prepare_params(cfg, None, device=device, generator=torch.Generator(device=device).manual_seed(seed))
 
 
 def build_server(argv: Optional[list[str]] = None) -> EngineServer:
@@ -611,9 +621,8 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     import torch
 
     from generativeaiexamples_tpu_torch.core.device import resolve_device
-    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
     from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
-    from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset
+    from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset, weights_dir_for
     from generativeaiexamples_tpu_torch.models import llama
 
     args = parse_args(argv)
@@ -622,10 +631,7 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     device = resolve_device(args.device)
     preset = resolve_model_preset(args.model)
     cfg = dataclasses.replace(llama.PRESETS[preset](), kv_dtype="int8")
-    logger.warning("no checkpoint loading in the port yet: serving random int8 weights (seed %d)", args.seed)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    with torch.inference_mode():
-        params = prepare_params(cfg, None, device=device, generator=gen)
+    params = load_serving_params(cfg, weights_dir_for(args.model), device, args.seed, what=args.model)
     spec = spec_scheduler_kwargs(args, cfg, device)
     engine = Scheduler(
         cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
@@ -636,18 +642,31 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     embedder = None
     if args.embedder != "none":
         from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
+        from generativeaiexamples_tpu_torch.engine.weights import bert_config_from_hf, load_hf_bert
         from generativeaiexamples_tpu_torch.models import bert
 
-        bcfg = bert.arctic_embed_l() if args.embedder == "arctic" else bert.bert_tiny()
-        embedder = GPUEmbedder(bcfg, device=device)
+        # Only --embedder arctic looks up a checkpoint: tiny stays a fast
+        # random dev embedder even when one is provisioned (the reference's rule).
+        embed_ckpt = weights_dir_for(args.embedder_model) if args.embedder == "arctic" else None
+        if embed_ckpt:
+            logger.info("loading embedder weights from %s", embed_ckpt)
+            bcfg = bert_config_from_hf(embed_ckpt)
+            with torch.inference_mode():
+                embed_params = load_hf_bert(bcfg, embed_ckpt, device=device)
+            embedder = GPUEmbedder(bcfg, embed_params, tokenizer=get_tokenizer(embed_ckpt), device=device)
+        else:
+            bcfg = bert.arctic_embed_l() if args.embedder == "arctic" else bert.bert_tiny()
+            embedder = GPUEmbedder(bcfg, device=device)
         if args.embed_max_batch > 1:
             from generativeaiexamples_tpu_torch.engine.microbatch import BatchedEmbedder
 
             embedder = BatchedEmbedder(embedder, max_batch=args.embed_max_batch, max_wait_ms=args.embed_max_wait_ms)
-    server = create_engine_app(engine, get_tokenizer(args.model), args.model, args.host, args.port, embedder=embedder)
+    tokenizer = get_tokenizer(args.model)
+    server = create_engine_app(engine, tokenizer, args.model, args.host, args.port, embedder=embedder)
     speculation = spec.get("spec_mode") or ("draft" if spec else "off")
-    logger.info("engine server on %s:%d (model %s, device %s, kv %s, embedder %s, speculation %s)", args.host,
-                server.server_address[1], preset, device, args.kv_layout, args.embedder, speculation)
+    logger.info("engine server on %s:%d (model %s, device %s, kv %s, tokenizer %s, embedder %s, speculation %s)",
+                args.host, server.server_address[1], preset, device, args.kv_layout, type(tokenizer).__name__,
+                args.embedder, speculation)
     return server
 
 

@@ -1,12 +1,24 @@
-"""Weight management (port of the parts of ``engine/weights.py`` the
-serving path needs): preset resolution, load-time blocking of the int8
-projections, and conversion of the reference's param trees (Llama and
-BERT, with the rerank head), KV caches and paged KV pools from numpy, and
-``weights_dir_for`` (where a provisioned checkpoint would be).  HF
-safetensors loading is not ported yet (``ROADMAP.md``, Queue 1 item 5)."""
+"""Weight management (port of ``engine/weights.py``): preset resolution,
+HF safetensors checkpoints (the reader and writer, Llama / Mistral causal
+LMs, BERT encoders and cross-encoders), load-time blocking of the int8
+projections, conversion of the reference's param trees (Llama and BERT,
+with the rerank head), KV caches and paged KV pools from numpy, and
+``weights_dir_for`` (where a provisioned checkpoint is).
+
+Checkpoints keep BF16 as bf16: the reference widens it to f32 on the
+host (``(u16 << 16).view(f32)``), which at 8B parameters is a 32 GB host
+copy; the port views the mmapped bytes as ``torch.bfloat16``, which is
+the same value (bf16 -> f32 -> bf16 round-trips).  Loaders read the
+checkpoint tensor by tensor and drop each layer's pages from the mapping
+once it is on the device, so the host holds about one layer at a time.
+The MoE (Mixtral) and layernorm / bias (StarCoder2) families, and Gemma,
+are ``ROADMAP.md`` Queue 1 item 6.
+"""
 
 from __future__ import annotations
 
+import json
+import mmap
 import os
 import re
 from typing import Optional
@@ -21,6 +33,8 @@ from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix
 logger = get_logger(__name__)
 
 WEIGHTS_DIR_ENV = "GAIE_WEIGHTS_DIR"
+
+_ITEM_6 = "is not ported to the PyTorch package yet (ROADMAP.md, Queue 1 item 6)"
 
 # Per-layer projection leaves the W8A8 kernel consumes (packed layout).
 PREBLOCK_TARGETS = ("wqkv", "w_gu", "w_down", "wo")
@@ -51,7 +65,7 @@ def resolve_model_preset(model_name: str) -> str:
     name = model_name.lower()
     for family in ("mixtral", "8x7b", "gemma", "starcoder", "moe"):
         if family in name:
-            raise ValueError(f"model {model_name!r}: the {family} family is not ported yet")
+            raise ValueError(f"model {model_name!r}: the {family} family {_ITEM_6}")
     if "70b" in name:
         return "llama3-70b"
     if re.search(r"(?<!\d)1b", name) and ("3.2" in name or "llama" in name):
@@ -72,6 +86,367 @@ def weights_dir_for(model_name: str) -> Optional[str]:
         return None
     cand = os.path.join(root, model_name.replace("/", "--"))
     return cand if os.path.isdir(cand) else None
+
+
+# -- HF safetensors checkpoints ----------------------------------------------
+
+_ST_DTYPES = {
+    "F32": torch.float32,
+    "F16": torch.float16,
+    "BF16": torch.bfloat16,
+    "I64": torch.int64,
+    "I32": torch.int32,
+}
+_ST_NAMES = {dt: name for name, dt in _ST_DTYPES.items()}
+
+
+class _Checkpoint(dict):
+    """``{name: tensor}`` over mmapped safetensors shards.  The tensors are
+    views of private (copy-on-write) mappings; :meth:`release` drops the
+    pages read so far from the process (a later read faults them back in
+    from the file), so a loader that releases after each layer keeps one
+    layer's pages resident, not the model's."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.maps: list = []
+
+    def release(self) -> None:
+        for mm in self.maps:
+            mm.madvise(mmap.MADV_DONTNEED)
+
+
+def _open_safetensors(path: str) -> _Checkpoint:
+    """Minimal safetensors reader: ``{name: tensor}``, each a lazy view of
+    the mmapped file (BF16 as ``torch.bfloat16``, never widened)."""
+    with open(path, "rb") as fh:
+        header_len = int.from_bytes(fh.read(8), "little")
+        header = json.loads(fh.read(header_len))
+        base = 8 + header_len
+        mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_COPY)
+    tensors = _Checkpoint()
+    tensors.maps.append(mm)
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        dt = _ST_DTYPES[meta["dtype"]]
+        start, end = meta["data_offsets"]
+        count = (end - start) // dt.itemsize
+        if count == 0:
+            flat = torch.empty(0, dtype=dt)
+        elif (base + start) % dt.itemsize:
+            # An unaligned tensor (a writer that does not pad its header):
+            # read it through bytes, which any offset allows.
+            flat = torch.frombuffer(bytearray(mm[base + start : base + end]), dtype=dt)
+        else:
+            flat = torch.frombuffer(mm, dtype=dt, count=count, offset=base + start)
+        tensors[name] = flat.reshape(meta["shape"])
+    return tensors
+
+
+def _load_safetensors_dir(ckpt_dir: str) -> _Checkpoint:
+    """Every ``*.safetensors`` shard of a directory as one lazy dict (a
+    sharded ``model-0000k-of-0000n`` checkpoint loads as one)."""
+    import glob
+
+    shards = sorted(glob.glob(os.path.join(ckpt_dir, "*.safetensors")))
+    if not shards:
+        raise FileNotFoundError(f"no safetensors found in {ckpt_dir}")
+    tensors = _Checkpoint()
+    for path in shards:
+        shard = _open_safetensors(path)
+        tensors.update(shard)
+        tensors.maps += shard.maps
+    return tensors
+
+
+def save_safetensors(tensors: dict, path: str) -> None:
+    """Write ``{name: tensor or np.ndarray}`` as a safetensors file, tensor
+    by tensor (no second copy of the data).
+
+    Counterpart of :func:`_open_safetensors`.  float32 / float16 / bfloat16
+    (torch, or numpy's ml_dtypes ``bfloat16``) / int32 / int64 store as
+    F32 / F16 / BF16 / I32 / I64; the header is padded to 8 bytes, as the
+    ``safetensors`` package pads it, so every tensor starts aligned.
+    """
+    arrays = {}
+    for name, arr in tensors.items():
+        if not isinstance(arr, torch.Tensor):
+            arr = np.ascontiguousarray(arr)
+            if arr.dtype.name == "bfloat16":
+                arr = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                arr = torch.from_numpy(arr)
+        t = arr.detach().cpu().contiguous()
+        arrays[name] = (_ST_NAMES[t.dtype], t)
+    header: dict = {}
+    offset = 0
+    for name, (dtype, t) in arrays.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": dtype, "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(head).to_bytes(8, "little"))
+        fh.write(head)
+        for _, t in arrays.values():
+            fh.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
+def _release(tensors) -> None:
+    release = getattr(tensors, "release", None)
+    if release is not None:
+        release()
+
+
+def _owned(t: torch.Tensor, dt, device) -> torch.Tensor:
+    """A copy of a checkpoint tensor in ``dt`` on ``device`` (never a view
+    of the file's mapping)."""
+    return t.to(device=device, dtype=dt, copy=True)
+
+
+def _transposed(t: torch.Tensor, dt, device) -> torch.Tensor:
+    """A checkpoint's (out, in) matrix as a contiguous (in, out) copy,
+    transposed on ``device``."""
+    return t.to(device).T.contiguous().to(dt)
+
+
+def _stack_layers(tensors, fmt: str, n_layers: int, dt, device, transpose: bool = True) -> torch.Tensor:
+    """Stack per-layer HF tensors onto a leading layer axis, transposing
+    (out, in) -> (in, out) matmul weights, one layer at a time: each
+    layer's contiguous rows go to the device and are transposed there, and
+    its pages leave the host after."""
+    out = None
+    for i in range(n_layers):
+        w = tensors[fmt.format(i)].to(device)
+        w = w.T if transpose else w
+        if out is None:
+            out = torch.empty((n_layers, *w.shape), dtype=dt, device=device)
+        out[i].copy_(w)
+        del w
+        _release(tensors)
+    return out
+
+
+def _hf_config(ckpt_dir: str) -> dict:
+    path = os.path.join(ckpt_dir, "config.json")
+    if not os.path.isfile(path):
+        return {}
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def llama_config_from_hf(ckpt_dir: str, **overrides):
+    """A LlamaConfig from a HF checkpoint's ``config.json`` (LlamaForCausalLM
+    fields) instead of a by-name preset.  Refuses what the reference
+    refuses: anything but the llama / mistral family (gemma and starcoder2
+    carry the same keys but need other architecture knobs)."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.models import llama
+
+    with open(os.path.join(ckpt_dir, "config.json"), encoding="utf-8") as fh:
+        hf = json.load(fh)
+    mtype = hf.get("model_type", "llama")
+    archs = hf.get("architectures") or []
+    if mtype not in ("llama", "mistral") or any("Llama" not in a and "Mistral" not in a for a in archs):
+        raise ValueError(
+            f"checkpoint is model_type={mtype!r} architectures={archs!r}; "
+            "llama_config_from_hf only maps the llama/mistral family — "
+            "use the matching preset + converter for other families"
+        )
+    n_heads = hf["num_attention_heads"]
+    cfg = llama.LlamaConfig(
+        vocab_size=hf["vocab_size"],
+        d_model=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=n_heads,
+        n_kv_heads=hf.get("num_key_value_heads", n_heads),
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // n_heads,
+        d_ff=hf["intermediate_size"],
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        max_seq_len=min(int(hf.get("max_position_embeddings", 8192)), 8192),
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+# What marks a checkpoint of a family the port does not serve yet: config
+# model types, and tensors of the MoE router and of layernorm biases.
+_ITEM_6_TYPES = ("mixtral", "gemma", "gemma2", "starcoder2")
+_ITEM_6_TENSORS = ("model.layers.0.block_sparse_moe.gate.weight", "model.norm.bias")
+
+
+def _refuse_item_6(ckpt_dir: str, tensors=None) -> None:
+    mtype = _hf_config(ckpt_dir).get("model_type", "")
+    marks = [n for n in _ITEM_6_TENSORS if tensors is not None and n in tensors]
+    if mtype in _ITEM_6_TYPES or marks:
+        what = f"model_type {mtype!r}" if mtype in _ITEM_6_TYPES else f"tensor {marks[0]!r}"
+        raise NotImplementedError(f"checkpoint {ckpt_dir} ({what}): the MoE / layernorm-bias / gemma family {_ITEM_6}")
+
+
+def load_hf_llama(cfg, ckpt_dir: str, *, device=None) -> dict:
+    """Convert a HF Llama / Mistral safetensors checkpoint into the port's
+    float param tree (``models.llama.init_params``' layout), in
+    ``cfg.compute_dtype`` on ``device`` (the card unless ``"cpu"``).
+
+    HF layout (``model.layers.N.self_attn.q_proj.weight`` etc., (out, in))
+    maps to ours ((in, out), layers stacked on axis 0); RoPE is half-split
+    in both, so no permutation.  A checkpoint without ``lm_head.weight``
+    ties the head to ``embed.T``.  ``engine.decode.prepare_params``
+    quantizes, packs and blocks the result.  MoE checkpoints raise
+    (``ROADMAP.md`` Queue 1 item 6).
+    """
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(device)
+    tensors = _load_safetensors_dir(ckpt_dir)
+    _refuse_item_6(ckpt_dir, tensors)
+    dt = cfg.compute_dtype
+
+    def stack_layers(fmt: str, transpose: bool = True) -> torch.Tensor:
+        return _stack_layers(tensors, fmt, cfg.n_layers, dt, device, transpose)
+
+    lay = "model.layers.{}."
+    params = {"embed": _owned(tensors["model.embed_tokens.weight"], dt, device)}
+    params["layers"] = {
+        "attn_norm": stack_layers(lay + "input_layernorm.weight", transpose=False),
+        "wq": stack_layers(lay + "self_attn.q_proj.weight"),
+        "wk": stack_layers(lay + "self_attn.k_proj.weight"),
+        "wv": stack_layers(lay + "self_attn.v_proj.weight"),
+        "wo": stack_layers(lay + "self_attn.o_proj.weight"),
+        "mlp_norm": stack_layers(lay + "post_attention_layernorm.weight", transpose=False),
+        "w_gate": stack_layers(lay + "mlp.gate_proj.weight"),
+        "w_up": stack_layers(lay + "mlp.up_proj.weight"),
+        "w_down": stack_layers(lay + "mlp.down_proj.weight"),
+    }
+    params["final_norm"] = _owned(tensors["model.norm.weight"], dt, device)
+    if "lm_head.weight" in tensors:
+        params["lm_head"] = _transposed(tensors["lm_head.weight"], dt, device)
+    else:  # tied embeddings
+        params["lm_head"] = params["embed"].T
+    _release(tensors)
+    logger.info("loaded %d HF tensors from %s", len(tensors), ckpt_dir)
+    return params
+
+
+def load_hf_causal_lm(cfg, ckpt_dir: str, *, device=None) -> dict:
+    """Config-dispatched HF causal-LM converter: the dense Llama / Mistral
+    map (:func:`load_hf_llama`).  The reference's other branches (Mixtral
+    MoE, Gemma, StarCoder2's layernorm and biases) raise, naming
+    ``ROADMAP.md`` Queue 1 item 6."""
+    _refuse_item_6(ckpt_dir)
+    return load_hf_llama(cfg, ckpt_dir, device=device)
+
+
+def bert_config_from_hf(ckpt_dir: str, **overrides):
+    """A BertConfig from a HF checkpoint's ``config.json``."""
+    from generativeaiexamples_tpu_torch.models import bert
+
+    with open(os.path.join(ckpt_dir, "config.json"), encoding="utf-8") as fh:
+        c = json.load(fh)
+    kw = dict(
+        vocab_size=c["vocab_size"],
+        d_model=c["hidden_size"],
+        n_layers=c["num_hidden_layers"],
+        n_heads=c["num_attention_heads"],
+        d_ff=c["intermediate_size"],
+        max_positions=c["max_position_embeddings"],
+        type_vocab_size=c.get("type_vocab_size", 2),
+        norm_eps=c.get("layer_norm_eps", 1e-12),
+    )
+    kw.update(overrides)
+    return bert.BertConfig(**kw)
+
+
+def _prefixed(tensors: dict, prefix: str) -> dict:
+    """Strip a submodel prefix (e.g. ``bert.``) when present (the result
+    releases the same mappings as ``tensors``)."""
+    if not any(k.startswith(prefix) for k in tensors):
+        return tensors
+    out = _Checkpoint()
+    out.maps = list(getattr(tensors, "maps", ()))
+    out.update({k[len(prefix) :]: v for k, v in tensors.items() if k.startswith(prefix)})
+    out.update({k: v for k, v in tensors.items() if not k.startswith(prefix)})
+    return out
+
+
+def load_hf_bert(cfg, ckpt_dir: str, _tensors=None, *, device=None) -> dict:
+    """Convert a HF BERT checkpoint (arctic-embed-l class: a plain
+    ``BertModel``, or a ``bert.``-prefixed task model) into the port's BERT
+    tree (``models.bert.param_shapes``' names and shapes), in
+    ``cfg.compute_dtype`` on ``device``."""
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(device)
+    tensors = _tensors if _tensors is not None else _load_safetensors_dir(ckpt_dir)
+    dt = cfg.compute_dtype
+    stripped = _prefixed(tensors, "bert.")
+
+    def t(name: str) -> torch.Tensor:
+        return _owned(stripped[name], dt, device)
+
+    def stack(fmt: str, transpose: bool) -> torch.Tensor:
+        return _stack_layers(stripped, fmt, cfg.n_layers, dt, device, transpose)
+
+    lay = "encoder.layer.{}."
+    params = {
+        "tok_embed": t("embeddings.word_embeddings.weight"),
+        "pos_embed": t("embeddings.position_embeddings.weight"),
+        "type_embed": t("embeddings.token_type_embeddings.weight"),
+        "embed_norm_g": t("embeddings.LayerNorm.weight"),
+        "embed_norm_b": t("embeddings.LayerNorm.bias"),
+        "layers": {
+            "wq": stack(lay + "attention.self.query.weight", True),
+            "bq": stack(lay + "attention.self.query.bias", False),
+            "wk": stack(lay + "attention.self.key.weight", True),
+            "bk": stack(lay + "attention.self.key.bias", False),
+            "wv": stack(lay + "attention.self.value.weight", True),
+            "bv": stack(lay + "attention.self.value.bias", False),
+            "wo": stack(lay + "attention.output.dense.weight", True),
+            "bo": stack(lay + "attention.output.dense.bias", False),
+            "attn_norm_g": stack(lay + "attention.output.LayerNorm.weight", False),
+            "attn_norm_b": stack(lay + "attention.output.LayerNorm.bias", False),
+            "w_up": stack(lay + "intermediate.dense.weight", True),
+            "b_up": stack(lay + "intermediate.dense.bias", False),
+            "w_down": stack(lay + "output.dense.weight", True),
+            "b_down": stack(lay + "output.dense.bias", False),
+            "mlp_norm_g": stack(lay + "output.LayerNorm.weight", False),
+            "mlp_norm_b": stack(lay + "output.LayerNorm.bias", False),
+        },
+    }
+    _release(tensors)
+    logger.info("loaded %d HF BERT tensors from %s", len(tensors), ckpt_dir)
+    return params
+
+
+def load_hf_cross_encoder(cfg, ckpt_dir: str, *, device=None) -> tuple[dict, dict]:
+    """Convert a HF cross-encoder (``BertForSequenceClassification``)
+    checkpoint: ``(encoder_params, rerank_head)``, the head carrying the
+    BERT pooler (tanh dense) and the 1-logit classifier, as HF scores.
+    A classifier with more than one logit is refused."""
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(device)
+    tensors = _load_safetensors_dir(ckpt_dir)
+    stripped = _prefixed(tensors, "bert.")
+    cls_w = stripped["classifier.weight"]
+    if cls_w.shape[0] != 1:
+        raise ValueError(f"cross-encoder classifier must have 1 logit, got {tuple(cls_w.shape)}")
+    params = load_hf_bert(cfg, ckpt_dir, _tensors=tensors, device=device)
+    dt = cfg.compute_dtype
+    head = {
+        "w_pool": _transposed(stripped["pooler.dense.weight"], dt, device),
+        "b_pool": _owned(stripped["pooler.dense.bias"], dt, device),
+        "w": _transposed(cls_w, dt, device),
+        "b": _owned(stripped["classifier.bias"], dt, device),
+    }
+    _release(tensors)
+    return params, head
+
+
+# -- the reference's param trees, from numpy -----------------------------------
 
 
 def _tensor(a, device) -> torch.Tensor:

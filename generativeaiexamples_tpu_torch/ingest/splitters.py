@@ -1,6 +1,8 @@
-"""Text splitters (port of the JAX package's ``ingest/splitters.py``, on
-the port's byte tokenizer: the HF tokenizers are ``ROADMAP.md`` Queue 1
-item 5).
+"""Text splitters (port of the JAX package's ``ingest/splitters.py``).
+The token splitter counts with ``engine.tokenizer.get_tokenizer`` of the
+configured ``text_splitter.model_name``, in the reference's order (a
+checkpoint directory's WordPiece vocab, local HF files, the hub when not
+offline, else bytes).
 
 Parity targets (SURVEY.md §2.1/§2.2): the token-aware splitter the chain
 server uses for ingestion (``SentenceTransformersTokenTextSplitter`` with

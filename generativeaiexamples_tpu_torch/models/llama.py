@@ -22,9 +22,9 @@ scheduler uses, on the contiguous cache or on the paged pool
   paged decode kernel on the pool);
 * append-buffer verify (``append_cache``, s > 1, the speculative verify
   pass): the s fresh K/V fill an s-slot buffer, and attention reads the
-  cache window plus the causal buffer (``ops.decode_attention.
+  whole cache plus the causal buffer (``ops.decode_attention.
   verify_gqa_attention`` or its paged twin, plain PyTorch, as the
-  reference leaves it to XLA).
+  reference leaves it to XLA; the reference reads ``kv_bucket``).
 
 The paged pool takes no cold prefill: the scheduler cold-prefills into a
 small contiguous cache and scatters the rows into pages.
@@ -53,7 +53,7 @@ from generativeaiexamples_tpu_torch.ops.decode_attention import (
     verify_gqa_attention,
 )
 from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
-from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, q_dot
+from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, int8_max_like, q_dot
 from generativeaiexamples_tpu_torch.ops.rope import apply_rope
 
 Params = Any  # dict of tensors / QuantizedMatrix / BlockedQuantizedMatrix
@@ -230,7 +230,8 @@ def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(token, head) symmetric int8: x (b, s, n_kv, hd) -> (q8, bf16 scale)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-8) / int8_max_like(amax)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale.to(torch.bfloat16)
 
@@ -270,7 +271,8 @@ def forward(
     """Run the transformer body against the int8 serving cache.
 
     ``cache`` is the ``(k8, v8, ks, vs)`` tuple, updated in place.
-    ``kv_bucket`` caps the cache window attention reads.  ``cold_prefill``
+    ``kv_bucket`` caps the cache window attention reads (not the verify
+    pass's, which reads the whole cache).  ``cold_prefill``
     asserts that the cache holds nothing visible to these queries and that
     ``positions`` is ``arange(s)`` for every row (cache rows ``[0, b)``
     are written).  ``append_cache`` is
@@ -349,13 +351,17 @@ def forward(
             ab[2][li] = _heads_first(ks)
             ab[3][li] = _heads_first(vs)
             block = (ab[0], ab[1], ab[2], ab[3])
+            # The verify window is the whole cache, not ``kv_bucket``: the
+            # plain core's sums run over the window's length, and a bucket
+            # follows the batch's longest row, so a row's logits would
+            # depend on its batch-mates (masked slots add exact zeros).
             if paged:
                 attn = paged_verify_gqa_attention(
                     q, k8c, v8c, ksc, vsc, li, kv_lengths, page_table, block,
-                    window=window, page_tokens=page_tokens,
+                    window=t, page_tokens=page_tokens,
                 )
             else:
-                attn = verify_gqa_attention(q, k8c, v8c, ksc, vsc, li, kv_lengths, block, window=window)
+                attn = verify_gqa_attention(q, k8c, v8c, ksc, vsc, li, kv_lengths, block, window=t)
         elif ab is not None:
             # (b, 1, KH, ...) -> (KH, b, ...) into slot ``step`` of layer li.
             ab[0][li, :, :, step] = _heads_first(k8)[:, :, 0]

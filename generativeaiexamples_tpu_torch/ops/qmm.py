@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from generativeaiexamples_tpu_torch.ops import _cuda
 from generativeaiexamples_tpu_torch.ops._cuda import SMS
+from generativeaiexamples_tpu_torch.ops.quant import int8_max_like
 
 # K pads to this quantum (zero columns add exact zeros to the integer dot);
 # N pads to the kernel's 64-column output tile (zero rows, scale 0).
@@ -102,7 +103,7 @@ def quantize_activations(x: torch.Tensor):
     returns int8 values and f32 ``(M, 1)`` scales."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    a_scale = amax.clamp_min(1e-8) / 127.0
+    a_scale = amax.clamp_min(1e-8) / int8_max_like(amax)
     xq = torch.clamp(torch.round(xf / a_scale), -127, 127).to(torch.int8)
     return xq, a_scale
 

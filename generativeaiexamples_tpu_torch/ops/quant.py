@@ -4,7 +4,9 @@ Symmetric per-output-channel int8 weights with f32 scales, the ``q_dot``
 projection dispatch, and the quantizers the serving params go through.
 The arithmetic (f32 amax, ``max(amax, 1e-8) / 127``, round half to even,
 clip to +-127) is the reference's, so both packages produce the same
-int8 values from the same float weights.
+int8 values from the same float weights, on the CPU and on the card: the
+scale divides by a tensor of 127s (:func:`int8_max_like`), since CUDA
+turns a division by a Python scalar into a product by its reciprocal.
 """
 
 from __future__ import annotations
@@ -31,10 +33,26 @@ class QuantizedMatrix:
         return self.q.ndim
 
 
+def int8_max_like(amax: torch.Tensor) -> torch.Tensor:
+    """127 in ``amax``'s shape, dtype and device: the divisor of every
+    symmetric int8 scale, so the division is IEEE on every device."""
+    return torch.full_like(amax, 127.0)
+
+
 def _quantize(w: torch.Tensor, dim: int) -> QuantizedMatrix:
+    if w.ndim > 2 and dim < 0:
+        # Stacked layers one at a time, so the f32 temporaries stay one
+        # layer's (a loaded Llama-3-8B's w_gu would need 15 GB at once).
+        first = _quantize(w[0], dim)
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty((w.shape[0], *first.scale.shape), dtype=first.scale.dtype, device=w.device)
+        for i in range(w.shape[0]):
+            part = first if i == 0 else _quantize(w[i], dim)
+            q[i], scale[i] = part.q, part.scale
+        return QuantizedMatrix(q=q, scale=scale)
     wf = w.float()
     amax = wf.abs().amax(dim=dim, keepdim=True)
-    scale = amax.clamp_min(1e-8) / 127.0
+    scale = amax.clamp_min(1e-8) / int8_max_like(amax)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return QuantizedMatrix(q=q, scale=scale)
 

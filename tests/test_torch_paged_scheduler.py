@@ -235,3 +235,30 @@ def test_paged_scheduler_arguments_and_gauges(tparams):
     snap = sched.stats.snapshot()
     assert snap["kv_pages_total"] == 100 and snap["kv_pages_free"] == 99
     assert _port(tparams).stats.snapshot()["kv_pages_total"] == 0
+
+
+def test_on_done_reads_the_park_on_metrics(tparams):
+    """The pool gauges publish before ``on_done``: a ``/metrics`` read made
+    inside the callback already shows the finished request's parked
+    segment (the reference publishes there too)."""
+    from generativeaiexamples_tpu_torch.engine.server import metrics_text
+
+    sched = _port(tparams, **PAGED_KW, kv_pool_pages=40)
+    seen: "queue.Queue[dict]" = queue.Queue()
+
+    def on_done(reason):
+        body = metrics_text(sched)
+        seen.put({line.split()[0]: float(line.split()[1]) for line in body.splitlines()
+                  if line.startswith("engine_kv_pages_")})
+
+    sched.start()
+    try:
+        sched.submit(tsched.Request(token_ids=list(PREFIX), on_token=lambda t: None, on_done=on_done,
+                                    sampling=tsched.SamplingParams(temperature=0.0, max_tokens=6)))
+        gauges = seen.get(timeout=180)
+    finally:
+        sched.stop()
+    # 48 prompt tokens and 5 of the 6 sampled (the last never fed back):
+    # a segment of four 16-token pages.
+    assert gauges["engine_kv_pages_parked"] == 4
+    assert gauges["engine_kv_pages_free"] == 40 - 1 - 4

@@ -399,14 +399,40 @@ def test_unported_backends_raise_with_their_roadmap_item(env, monkeypatch):
 
 
 def test_provisioned_checkpoint_raises(monkeypatch, tmp_path):
+    """A provisioned embedder checkpoint loads (its leaves, its WordPiece
+    vocab), as the reference's factory loads it; one whose width is not
+    ``embeddings.dimensions`` raises in both packages."""
+    import torch
+
+    from chip_smoke import wordpiece_vocab, write_bert_checkpoint
+    from generativeaiexamples_tpu_torch.engine.tokenizer import WordPieceTokenizer
+
+    cfg = tbert.bert_tiny()
+    vocab, _ = wordpiece_vocab(0, cfg.vocab_size)
+    written = write_bert_checkpoint(torch, np, str(tmp_path / "snowflake--snowflake-arctic-embed-l"), cfg, vocab, seed=1)
     monkeypatch.setenv("GAIE_WEIGHTS_DIR", str(tmp_path))
-    (tmp_path / "snowflake--snowflake-arctic-embed-l").mkdir()
     monkeypatch.setenv("APP_EMBEDDINGS_MODELENGINE", "tpu")
     monkeypatch.setenv("APP_EMBEDDINGS_MODELNAME", "snowflake/snowflake-arctic-embed-l")
+    monkeypatch.setenv("APP_EMBEDDINGS_DIMENSIONS", str(cfg.d_model))
     tconfiguration.reset_config_cache()
+    jconfiguration.reset_config_cache()
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tfactory.get_embedder(device="cpu")
+        embedder = tfactory.get_embedder(device="cpu")
+        assert isinstance(embedder.tokenizer, WordPieceTokenizer) and embedder.cfg == cfg
+        assert torch.equal(embedder.params["tok_embed"], written["embeddings.word_embeddings.weight"])
+        assert torch.equal(embedder.params["layers"]["wq"][1], written["encoder.layer.1.attention.self.query.weight"].T)
+        ref = jfactory.get_embedder()
+        assert embedder.tokenizer.encode(vocab[500]) == ref.tokenizer.encode(vocab[500])
+        tfactory.reset_factories()
+        jfactory.reset_factories()
+        monkeypatch.setenv("APP_EMBEDDINGS_DIMENSIONS", str(2 * cfg.d_model))
+        tconfiguration.reset_config_cache()
+        jconfiguration.reset_config_cache()
+        for get in (lambda: tfactory.get_embedder(device="cpu"), jfactory.get_embedder):
+            with pytest.raises(ValueError, match="embeddings.dimensions"):
+                get()
     finally:
         tconfiguration.reset_config_cache()
+        jconfiguration.reset_config_cache()
         tfactory.reset_factories()
+        jfactory.reset_factories()

@@ -222,6 +222,30 @@ def test_forward_verify_mode_logits_match_jax(models, monkeypatch):
                        torch.from_numpy(lens), append_cache=(tab, 1))
 
 
+def test_forward_verify_mode_does_not_follow_the_window(models):
+    """A row's verify logits are the same bits whatever ``kv_bucket`` the
+    batch asks for: the scheduler buckets the window by the batch's longest
+    row, so a bucket-length sum would let batch-mates move a row's greedy
+    token (the port reads the whole cache in verify mode)."""
+    jp, _, tp, _ = models
+    prompts = _prompts()
+    np_cache, lens = _cold_caches(jp, JCFG, TCFG, prompts)
+    rng = np.random.default_rng(4)
+    s = 4
+    inputs = torch.from_numpy(rng.integers(0, TCFG.vocab_size, (len(prompts), s)).astype(np.int64))
+    pos = torch.from_numpy((lens[:, None] + np.arange(s, dtype=np.int32)[None]).astype(np.int32))
+    ab_shape = (TCFG.n_layers, TCFG.n_kv_heads, len(prompts), s, TCFG.head_dim)
+    outs = []
+    for kv_bucket in (16, 32, None):
+        ab = (torch.zeros(ab_shape, dtype=torch.int8), torch.zeros(ab_shape, dtype=torch.int8),
+              torch.zeros(ab_shape[:-1], dtype=torch.bfloat16), torch.zeros(ab_shape[:-1], dtype=torch.bfloat16))
+        h, _, _ = tllama.forward(tp, TCFG, inputs, pos, cache_from_numpy(np_cache, "cpu"), torch.from_numpy(lens),
+                                 kv_bucket=kv_bucket, append_cache=(ab, 0))
+        outs.append(tllama.logits(tp, h))
+    assert max(lens) + 1 <= 16
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
 # ---------------------------------------------------------------------------
 # the four chunk functions, greedy
 # ---------------------------------------------------------------------------

@@ -505,7 +505,9 @@ def test_server_spec_flags_map_to_scheduler_kwargs(monkeypatch):
     with pytest.raises(ValueError, match="mutually exclusive"):
         tserver.spec_scheduler_kwargs(
             tserver.parse_args(["--spec-ngram", "--draft-model", "llama-tiny"]), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    # A draft checkpoint loads (tests/test_torch_weights.py); a directory
+    # without safetensors raises, as the reference's loader does.
+    with pytest.raises(FileNotFoundError, match="no safetensors"):
         tserver.spec_scheduler_kwargs(
             tserver.parse_args(["--draft-model", "llama-tiny", "--draft-checkpoint", "/nonexistent"]), cfg, "cpu")
 
