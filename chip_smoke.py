@@ -16,7 +16,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    draft's; the attention kernels
    within stated bf16 tolerances; the paged decode kernel also bit for bit
    equal to the contiguous one on mirrored content at page sizes 16, 32,
-   64 and 128), with kernel, plain and library times and the least time
+   64 and 128; then the families' instances: the decode kernels at
+   Gemma-7B's (head_dim 256, 16 kv heads, group 1), Gemma-2B's (256, 1, 8)
+   and StarCoder2-3B's (128, 2, 12) shapes, K3 equal to K2 bit for bit at
+   page 64, and the flash kernel at head_dim 256 with 16 / 16 and 8 / 1
+   heads), with kernel, plain and library times and the least time
    the card could take (its bound).  Kernels and library calls are timed
    as CUDA-graph replays (the device's time; an eager loop of a short
    kernel measures the host's launch rate), with the eager time beside
@@ -200,7 +204,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    pairs rerank in two segments within ``BERT_TOL`` of a direct
    ``score_pairs``.  The checkpoints (about 17 GB) live under the
    temporary directory and are deleted at the phase's end.
-16. ``durable``: durability with ``python -m
+16. ``families`` (inside the K1 shape record, after ``hf_checkpoint``):
+   Gemma-2B, Gemma-7B, StarCoder2-3B and Mixtral-8x7B.  Each at full width
+   and 2 layers, random W8A8 from seed 5 (Mixtral's experts bf16), through
+   the kernels on the card and the plain versions on the CPU: the
+   cold-prefill, one append-buffer decode step's and the cacheless
+   forward's logits within ``FAMILY_TOL``, fewer than 1 token in 8 routed
+   to other experts; for Mixtral also the router's and experts' float
+   products within ``MOE_PRODUCT_TOL`` and the top-k on planted ties equal
+   to the CPU's (``families_reference``; every comparison is read before
+   the phase fails, and the error names each one beyond its bound).  Each
+   served through ``build_server(["--model", <HF id>, ...])`` at full
+   width and depth (Mixtral at 16 of its 32 layers: 45 GB of bf16
+   experts), random int8 from seed 0: the 20- and 650-token prompts sent
+   together, then each alone, must emit the same 32 greedy ids; Gemma-2B
+   and StarCoder2-3B also on the paged pool (a ``Scheduler`` on the same
+   params), whose ids must equal the contiguous ones; K1, the layout's
+   decode kernel at the family's instance and K4 at its head_dim must
+   launch (``families_serve``: load s, device GB, TTFT p50, decode
+   tokens/s).  Then seeded 2-layer HF checkpoints of Gemma-7B (tied head),
+   StarCoder2-3B (biases, LayerNorm) and Mixtral (experts) written with
+   ``save_safetensors`` and served by ``build_server`` through
+   ``$GAIE_WEIGHTS_DIR``: int8 codes and scales against numpy's
+   quantization, float leaves against the written arrays, two completions
+   with K1, K2 and K4 launched (``families_checkpoint``).
+17. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -213,8 +241,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 Then the ``kernels`` summary line (each kernel's ``launches`` from its
 serving phase, ``chain_launches`` from ``chain``, ``step_launches`` from
 the steps after it, ``spec_launches`` from each ``spec`` step,
-``hf_launches`` from each path of ``hf_checkpoint``; K4's line
-carries its head_dim-64 timing and ``spec_draft`` launches in ``hd64``),
+``hf_launches`` from each path of ``hf_checkpoint``,
+``families_launches`` from each family's paths; K4's line carries its
+head_dim-64 timing and ``spec_draft`` launches in ``hd64`` and its
+head_dim-256 timings and ``families`` launches in ``hd256``; K2's and
+K3's lines carry their new instances' timings and ``families`` launches
+in ``instances``, null for a layout the phase did not serve that family on),
 the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``.
 It needs one CUDA card and the repository's ``generativeaiexamples_tpu_torch``
@@ -707,15 +739,16 @@ def check_paged_decode(torch, dev):
     return summary
 
 
-def check_flash(torch, dev, log, hd: int = 128):
-    """K4 at the cold-prefill shape (b=8, s=256, 32/8 heads) at head_dim
-    ``hd``: 128 for Llama-3-8B, 64 for the Llama-3.2-1B draft."""
+def check_flash(torch, dev, log, hd: int = 128, nq: int = 32, nkv: int = 8):
+    """K4 at the cold-prefill shape (b=8, s=256, ``nq`` / ``nkv`` heads) at
+    head_dim ``hd``: 128 for Llama-3-8B (32 / 8), 64 for the Llama-3.2-1B
+    draft, 256 for Gemma-7B (16 / 16) and Gemma-2B (8 / 1)."""
     import torch.nn.functional as F
 
     from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, s, nq, nkv = 8, 256, 32, 8
+    b, s = 8, 256
     nv = 4
     qs = [torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
     kks = [torch.randn(b, s, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
@@ -773,42 +806,142 @@ def check_flash(torch, dev, log, hd: int = 128):
     return dict(row, shape=f"b={b} s={s} n_q={nq} n_kv={nkv} hd={hd}, ragged kv lengths, padded rows")
 
 
+# K2/K3's instances beyond Llama's (128, G <= 8), at the families' shapes:
+# (head_dim, kv heads, group) of Gemma-7B, Gemma-2B and StarCoder2-3B.
+DECODE_INSTANCE_SHAPES = (("gemma-7b", 256, 16, 1), ("gemma-2b", 256, 1, 8), ("starcoder2-3b", 128, 2, 12))
+
+
+def check_decode_instance(torch, dev, hd: int, kh: int, g: int) -> dict:
+    """K2 and K3 (page 64, shuffled pages) at one of the new instances, at
+    the serving shape B=32, window 1024, append C=8: K2 within DECODE_TOL of
+    its plain version, K3 equal to K2 bit for bit on mirrored content, each
+    timed as graph replays and eagerly beside its plain version and its
+    byte bound.  Enough layers are cycled that the windows read exceed the
+    L2 several times.  Returns {kernel: row}."""
+    from generativeaiexamples_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(20 + hd + kh + g)
+    B, T, C, window, count, pt = 32, 2048, 8, 1024, 5, 64
+    L = max(2, min(16, math.ceil(160e6 / (B * window // 2 * kh * 2 * hd))))
+    q = torch.randn(B, kh * g, hd, device=dev, generator=gen).to(torch.bfloat16)
+
+    def int8_leaves(shape):
+        return [torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen) for _ in range(2)] + [
+            (torch.rand(shape[:-1], device=dev, generator=gen) * 0.015 + 0.005).to(torch.bfloat16) for _ in range(2)]
+
+    cache = int8_leaves((L, kh, B, T, hd))
+    append = (*int8_leaves((L, kh, B, C, hd)), count)
+    lengths = torch.randint(1, window - C, (B,), device=dev, generator=gen, dtype=torch.int32)
+    lengths[0], lengths[1], lengths[2] = 0, T - 1, window
+    leaves, table = paged_mirror(torch, cache, lengths.clamp(max=window).tolist(), pt, torch.Generator().manual_seed(7))
+    out = da.decode_attention_cuda(q, *cache, 1, lengths, append, window)
+    ref = da.decode_gqa_attention_plain(q, *cache, 1, lengths, append, window=window)
+    paged = da.paged_decode_attention_cuda(q, *leaves, 1, lengths, table, append, window, pt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **DECODE_TOL)
+    if not torch.equal(paged, out):
+        raise AssertionError(f"paged_decode_attention ({hd}, KH {kh}, G {g}): differs from K2 on mirrored content")
+    slots = lengths.clamp(0, window).sum().item() + B * count
+    nbytes = slots * kh * (2 * hd + 2 * 2) + q.numel() * 2 * 2 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * slots * g * kh * hd, BF16_FLOPS)
+    common = dict(instance="%dx%d" % da.decode_instance(hd, g), hd=hd, kv_heads=kh, group=g, b=B, t=T,
+                  window=window, append_c=C, layers_cycled=L, splits=da.decode_plan(B, kh),
+                  max_abs_err=(out.float() - ref.float()).abs().max().item(), tolerance=DECODE_TOL,
+                  tolerance_use=tolerance_use(out, ref, **DECODE_TOL), library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    rows = {}
+    for name, fn, plain in (
+        ("decode_attention", lambda i: da.decode_attention_cuda(q, *cache, i, lengths, append, window),
+         lambda i: da.decode_gqa_attention_plain(q, *cache, i, lengths, append, window=window)),
+        ("paged_decode_attention", lambda i: da.paged_decode_attention_cuda(q, *leaves, i, lengths, table, append,
+                                                                            window, pt),
+         lambda i: da.paged_decode_gqa_attention_plain(q, *leaves, i, lengths, table, append, window=window,
+                                                       page_tokens=pt)),
+    ):
+        k_ms = time_ms(fn, L, 50, graph=True)
+        row = dict(common, ms=k_ms, eager_ms=time_ms(fn, L, 50), plain_ms=time_ms(plain, L, 3, 1),
+                   bound_share=b_ms / k_ms, **({"page_tokens": pt, "equal_to_k2": True} if name != "decode_attention"
+                                                else {}))
+        emit("kernel", kernel=name, **row)
+        rows[name] = row
+    del cache, leaves, table
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # small reference model: kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
 
-def check_reference(torch, dev):
-    """A small bf16 model (head_dim 128) through the kernels on the card and
-    through the plain versions on the CPU: cold-prefill logits, then the
-    logits of one append-buffer decode step from the CPU's cache, each
-    within REFERENCE_TOL element by element."""
+def _to_device(torch, x, d):
+    """A param tree (dicts, dataclass leaves, tensors) copied to device ``d``."""
+    if isinstance(x, dict):
+        return {k: _to_device(torch, v, d) for k, v in x.items()}
+    if hasattr(x, "__dataclass_fields__"):
+        return type(x)(**{f: _to_device(torch, getattr(x, f), d) for f in x.__dataclass_fields__})
+    return x.to(d) if isinstance(x, torch.Tensor) else x
+
+
+class ToleranceError(AssertionError):
+    """A card-vs-CPU comparison beyond its tolerance; ``fields`` holds
+    every comparison's readings."""
+
+    def __init__(self, message: str, fields: dict):
+        super().__init__(message)
+        self.fields = fields
+
+
+def card_vs_cpu(torch, dev, cfg, seed: int, s: int, lengths: list, tol: dict, cacheless: bool = False,
+                built_on: str = "cpu") -> dict:
+    """Random W8A8 params of ``cfg`` from ``seed`` (made on ``built_on``,
+    the CPU or the card, and copied to the other) through the kernels on
+    the card and through the plain versions on the CPU: the cold-prefill
+    logits, then the logits of one append-buffer decode step from the
+    CPU's cache, and with ``cacheless`` the cacheless forward's logits,
+    each within ``tol``: element by element (``atol`` / ``rtol``), or as a
+    share of the logits' size (``rel_rms`` / ``max_abs_frac``).  Returns
+    each comparison's largest error and tolerance use; raises
+    :class:`ToleranceError`, naming every comparison beyond its tolerance,
+    when one is."""
     from generativeaiexamples_tpu_torch.engine.decode import prepare_params
     from generativeaiexamples_tpu_torch.models import llama
 
-    cfg = llama.LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=8, n_kv_heads=2, head_dim=128,
-                            d_ff=1024, max_seq_len=256, rope_theta=10000.0, kv_dtype="int8")
-    gen = torch.Generator().manual_seed(4)
-    params_cpu = prepare_params(cfg, None, device="cpu", generator=gen)
-
-    def to(x, d):
-        if isinstance(x, dict):
-            return {k: to(v, d) for k, v in x.items()}
-        if hasattr(x, "__dataclass_fields__"):
-            return type(x)(**{f: to(getattr(x, f), d) for f in x.__dataclass_fields__})
-        return x.to(d) if isinstance(x, torch.Tensor) else x
-
-    params_dev = to(params_cpu, dev)
-    b, s = 4, 48
+    gen = torch.Generator().manual_seed(seed)
+    if built_on == "cpu":
+        params_cpu = prepare_params(cfg, None, device="cpu", generator=gen)
+        params_dev = _to_device(torch, params_cpu, dev)
+    else:
+        params_dev = prepare_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        params_cpu = _to_device(torch, params_dev, "cpu")
+    b = len(lengths)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
-    lengths = torch.tensor([48, 30, 17, 40], dtype=torch.int32)
+    lengths = torch.tensor(lengths, dtype=torch.int32)
     pos = torch.arange(s, dtype=torch.int32).expand(b, s).contiguous()
-    prefill, caches = {}, {}
+    routes: dict = {}  # (phase, device) -> each MoE layer's chosen experts
+
+    def forward(phase, d, *args, **kw):
+        top_k = llama._top_k
+
+        def recording(probs, k):
+            values, idx = top_k(probs, k)
+            routes.setdefault((phase, str(d)), []).append(idx.sort(-1).values.reshape(b, -1, k)[:, :s].cpu())
+            return values, idx
+
+        llama._top_k = recording
+        try:
+            return llama.forward(*args, **kw)
+        finally:
+            llama._top_k = top_k
+
+    prefill, caches, plain = {}, {}, {}
     for d, params in (("cpu", params_cpu), (dev, params_dev)):
         cache = llama.init_kv_cache(cfg, b, 128, device=d)
-        hidden, caches[d] = llama.forward(params, cfg, tokens.to(d), pos.to(d), cache, lengths.to(d),
-                                          cold_prefill=True)
+        hidden, caches[d] = forward("prefill", d, params, cfg, tokens.to(d), pos.to(d), cache, lengths.to(d),
+                                    cold_prefill=True)
         prefill[d] = llama.logits(params, hidden).cpu()
+        if cacheless:
+            hidden, _ = forward("cacheless", d, params, cfg, tokens.to(d), pos.to(d), None, lengths.to(d))
+            plain[d] = llama.logits(params, hidden).cpu()
     first = prefill["cpu"][torch.arange(b), lengths.long() - 1].argmax(-1)
     decode = {}
     for d, params in (("cpu", params_cpu), (dev, params_dev)):
@@ -817,19 +950,118 @@ def check_reference(torch, dev):
             (ab_shape, torch.int8), (ab_shape, torch.int8),
             (ab_shape[:-1], torch.bfloat16), (ab_shape[:-1], torch.bfloat16)))
         cache = tuple(c.to(d) for c in caches["cpu"])
-        hidden, _, _ = llama.forward(params, cfg, first[:, None].to(d), lengths[:, None].to(d), cache,
-                                     lengths.to(d), kv_bucket=64, append_cache=(ab, 0))
+        hidden, _, _ = forward("decode", d, params, cfg, first[:, None].to(d), lengths[:, None].to(d), cache,
+                               lengths.to(d), kv_bucket=64, append_cache=(ab, 0))
         decode[d] = llama.logits(params, hidden).cpu()
     valid = torch.arange(s)[None, :] < lengths[:, None]
-    fields = {}
-    for phase, out, ref in (("prefill", prefill[dev][valid], prefill["cpu"][valid]),
-                            ("decode", decode[dev], decode["cpu"])):
+    fields, failures = {}, []
+    pairs = [("prefill", prefill[dev][valid], prefill["cpu"][valid]), ("decode", decode[dev], decode["cpu"])]
+    if cacheless:
+        pairs.append(("cacheless", plain[dev][valid], plain["cpu"][valid]))
+    for phase, out, ref in pairs:
         if not torch.isfinite(out).all():
-            raise AssertionError(f"reference: non-finite {phase} logits on the card")
-        torch.testing.assert_close(out, ref, **REFERENCE_TOL)
+            raise AssertionError(f"non-finite {phase} logits on the card")
         fields[f"{phase}_logit_max_abs_err"] = (out - ref).abs().max().item()
-        fields[f"{phase}_tolerance_use"] = tolerance_use(out, ref, **REFERENCE_TOL)
+        # A MoE token whose experts differ at some layer (a near tie in
+        # the router, rounded one way on the card and the other on the
+        # CPU) is the same function on either side of a step: its logits
+        # are held only to the RMS bound, and fewer than one token in 8
+        # may be such (none of the decode step's 2).
+        same = torch.ones(out.shape[0], dtype=torch.bool)
+        if routes:
+            rows = valid if phase != "decode" else torch.ones(b, 1, dtype=torch.bool)
+            moved = torch.zeros(rows.shape, dtype=torch.bool)
+            for card, cpu in zip(routes[(phase, str(dev))], routes[(phase, "cpu")]):
+                moved |= (card != cpu).any(-1)[:, : rows.shape[1]]
+            same = ~moved[rows]
+            fields[f"{phase}_tokens_routed_elsewhere"] = int((~same).sum())
+            if (~same).sum() > same.numel() // 8:
+                failures.append(f"{phase}: {int((~same).sum())} of {same.numel()} tokens routed to other experts "
+                                "on the card than on the CPU")
+        if "rel_rms" in tol:
+            rms = ((out - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
+            frac = ((out - ref)[same].abs().max() / ref.abs().max()).item() if same.any() else 0.0
+            fields[f"{phase}_rel_rms_err"] = rms
+            fields[f"{phase}_max_err_frac"] = frac
+            fields[f"{phase}_tolerance_use"] = max(rms / tol["rel_rms"], frac / tol["max_abs_frac"])
+            if fields[f"{phase}_tolerance_use"] > 1:
+                failures.append(f"{phase} logits card vs CPU: RMS error {rms:.4f} of the logits' RMS, max error "
+                                f"{frac:.4f} of their largest (tokens routed alike), beyond {tol}")
+        else:
+            fields[f"{phase}_tolerance_use"] = tolerance_use(out, ref, **tol)
+            try:
+                torch.testing.assert_close(out, ref, **tol)
+            except AssertionError as e:
+                failures.append(f"{phase}: {e}")
     fields["logit_scale"] = prefill["cpu"][valid].abs().max().item()
+    if failures:
+        raise ToleranceError("; ".join(failures), fields)
+    fields["logit_scale"] = prefill["cpu"][valid].abs().max().item()
+    return fields
+
+
+# The MoE's float products (router and experts: ``float_dot``, f32 sums
+# rounded once to bf16), card vs CPU on the same operands: the RMS of the
+# difference at most 2^-8 of the product's own.  Two f32 sums of another
+# order, each rounded once, differ by at most one bf16 ulp and rarely;
+# bf16 partial sums move every element.
+MOE_PRODUCT_TOL = 2.0**-8
+
+
+def moe_products_vs_cpu(torch, dev, cfg, seed: int) -> dict:
+    """The MoE's float products and its top-k on the card against the CPU,
+    held directly: through the W8A8 logits a wrong float product hides in
+    the int8 code flips (``perf_torch/rehearse_family_tol.py``).
+    ``float_dot`` at the router's and the experts' shapes on one
+    ``MOE_BLOCK_ROWS`` block of random bf16 operands within
+    :data:`MOE_PRODUCT_TOL`, and ``_top_k`` over router probabilities on
+    a grid of 1/16 (most rows hold ties, many at the top-k edge) equal to
+    the CPU's.  Raises :class:`ToleranceError` when either is not."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.quant import float_dot
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E, d, f, rows = cfg.n_experts, cfg.d_model, cfg.d_ff, llama.MOE_BLOCK_ROWS
+
+    def bf16(*shape, fan_in=1):
+        # Made where they are multiplied first (a CPU draw of the experts'
+        # 0.9 GB would cost seconds), then copied.
+        return (torch.randn(*shape, generator=gen, device=dev) * fan_in**-0.5).to(torch.bfloat16)
+
+    x = bf16(E, rows, d)
+    products = {"router": (x[0], bf16(d, E, fan_in=d)), "expert_up": (x, bf16(E, d, f, fan_in=d)),
+                "expert_down": (bf16(E, rows, f), bf16(E, f, d, fan_in=f))}
+    fields, failures = {}, []
+    for name, (a, w) in products.items():
+        out = float_dot(a, w).float().cpu()
+        ref = float_dot(a.cpu(), w.cpu()).float()
+        err = ((out - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
+        fields[f"{name}_rel_rms_err"] = err
+        if not err <= MOE_PRODUCT_TOL:
+            failures.append(f"{name} product card vs CPU: RMS error {err:.3g} of its RMS, beyond {MOE_PRODUCT_TOL:.3g}")
+    del products, x
+    probs = torch.randint(0, 16, (4096, E), generator=torch.Generator().manual_seed(seed)).float() / 16
+    values, idx = llama._top_k(probs.to(dev), cfg.n_experts_per_tok)
+    ref_values, ref_idx = llama._top_k(probs, cfg.n_experts_per_tok)
+    fields["top_k_rows_differing"] = int(((idx.cpu() != ref_idx) | (values.cpu() != ref_values)).any(-1).sum())
+    if fields["top_k_rows_differing"]:
+        failures.append(f"top-k on tied router probabilities: {fields['top_k_rows_differing']} of 4096 rows "
+                        "differ from the CPU's")
+    if failures:
+        raise ToleranceError("; ".join(failures), fields)
+    return fields
+
+
+def check_reference(torch, dev):
+    """A small bf16 model (head_dim 128) through the kernels on the card and
+    through the plain versions on the CPU: cold-prefill logits, then the
+    logits of one append-buffer decode step from the CPU's cache, each
+    within REFERENCE_TOL element by element (:func:`card_vs_cpu`)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=8, n_kv_heads=2, head_dim=128,
+                            d_ff=1024, max_seq_len=256, rope_theta=10000.0, kv_dtype="int8")
+    fields = card_vs_cpu(torch, dev, cfg, 4, 48, [48, 30, 17, 40], REFERENCE_TOL)
     emit("reference", config="d_model=512 n_layers=2 heads=8/2 head_dim=128 bf16", tolerance=REFERENCE_TOL,
          **fields)
 
@@ -3074,10 +3306,12 @@ def _generate(base, query: str, kb: bool = True, max_tokens: int = CHAIN_GEN_TOK
                 gaps_ms=[(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])])
 
 
-def _search(base, query: str, top_k: int) -> list:
+def _search(base, query: str, top_k: int, request_id: str = "") -> list:
     """One /search: its chunks.  Fails unless it is a 200 that no rung of
-    the degradation ladder served."""
-    status, _, raw = _http("POST", base + "/search", {"query": query, "top_k": top_k})
+    the degradation ladder served.  ``request_id`` goes out as
+    ``X-Request-Id``, which names the request's trace in /debug/requests."""
+    headers = {"X-Request-Id": request_id} if request_id else None
+    status, _, raw = _http("POST", base + "/search", {"query": query, "top_k": top_k}, headers=headers)
     body = json.loads(raw) if status == 200 else {}
     if status != 200 or body["degraded"]:
         raise AssertionError(f"chain: /search {query!r}: {status} {raw[:300]!r}")
@@ -3844,9 +4078,10 @@ class _ServerProcess:
     """``python -m generativeaiexamples_tpu_torch.server`` in its own process
     on a free port, its log in ``log_path``."""
 
-    def __init__(self, env: dict, log_path: str, args=()) -> None:
+    def __init__(self, env: dict, log_path: str, args=(), name: str = "") -> None:
         import socket
 
+        self.name = name
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             self.port = sock.getsockname()[1]
@@ -3908,13 +4143,30 @@ def _recovery_event(base) -> dict:
     return rec
 
 
-def _search_store_versions(base) -> list:
-    """The store version each /search of /debug/requests read (its result
-    cache's stamp), newest first."""
+def _search_store_versions(base, request_ids) -> list:
+    """The store version each of these /search requests read (its result
+    cache's stamp), from its trace in /debug/requests.  Fails unless every
+    one of them is there with its stamp; other requests' traces are not
+    read."""
     status, _, raw = _http("GET", base + "/debug/requests")
     if status != 200:
         raise AssertionError(f"durable: /debug/requests {status}")
-    return [r["attrs"]["store_version"] for r in json.loads(raw)["requests"] if r["route"] == "/search"]
+    records = json.loads(raw)["requests"]
+    by_id = {r["request_id"]: r for r in records if r["route"] == "/search"}
+    missing = [i for i in request_ids if "store_version" not in by_id.get(i, {}).get("attrs", {})]
+    if missing:
+        seen = [(r["request_id"], r["route"], r["status"], r["attrs"]) for r in records if r["route"] != "/documents/status"]
+        raise AssertionError(f"durable: /search traces {missing} lack a store version; /debug/requests holds {seen}")
+    return [by_id[i]["attrs"]["store_version"] for i in request_ids]
+
+
+def _other_search_traces(base, request_ids) -> list:
+    """(request id, status, attrs) of each /search trace in /debug/requests
+    that none of ``request_ids`` left: a record of stray /search traffic,
+    not a gate."""
+    records = json.loads(_http("GET", base + "/debug/requests")[2])["requests"]
+    return [(r["request_id"], r["status"], r["attrs"]) for r in records
+            if r["route"] == "/search" and r["request_id"] not in set(request_ids)]
 
 
 def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
@@ -3954,14 +4206,20 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
     servers = []
 
     def start(name):
-        servers.append(_ServerProcess(env, os.path.join(root, f"{name}.log"), server_args))
+        servers.append(_ServerProcess(env, os.path.join(root, f"{name}.log"), server_args, name))
         return servers[-1], servers[-1].wait_ready()
 
-    def searches(base):
-        return [_hits(_search(base, q, 4)) for q in queries]
+    def search_ids(srv):
+        return [f"durable-{srv.name}-{i}" for i in range(len(queries))]
+
+    def all_ids(srv):
+        return search_ids(srv) + [f"durable-{srv.name}-first"]
+
+    def searches(srv):
+        return [_hits(_search(srv.base, q, 4, rid)) for q, rid in zip(queries, search_ids(srv))]
 
     def first_search_s(srv):
-        _search(srv.base, first_query, 4)
+        _search(srv.base, first_query, 4, f"durable-{srv.name}-first")
         return time.perf_counter() - srv.t0
 
     fields = dict(nvidia_smi=smi, llm="echo (APP_LLM_MODELENGINE=echo; no Llama in this phase)",
@@ -3978,22 +4236,23 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
         status, _, raw = _http("DELETE", a.base + f"/documents?filename={docs[0][0]}")
         if job["status"] != "done" or job["files_done"] != DURABLE_DOCS or status != 200:
             raise AssertionError(f"durable: ingest {job}, delete {status} {raw[:200]!r}")
-        want = searches(a.base)
+        want = searches(a)
         exp = _exposition(a.base)
         rows, seq, wal_bytes = exp.value("rag_store_rows"), exp.value("rag_wal_last_seq"), exp.value("rag_wal_bytes_total")
-        sources, versions = _documents(a.base), set(_search_store_versions(a.base))
+        sources, versions = _documents(a.base), set(_search_store_versions(a.base, search_ids(a)))
         if rows != added - chunks_of[docs[0][0]] or len(sources) != DURABLE_DOCS - 1 or len(versions) != 1:
             raise AssertionError(f"durable: {rows} rows, {len(sources)} sources, versions {versions} before the kill")
         version = versions.pop()
+        fields["other_search_traces_a"] = _other_search_traces(a.base, search_ids(a))
         a.kill()
         # 3. Restart: the WAL replays.
         b, fields["restart_after_kill_ready_s"] = start("b")
         fields["restart_after_kill_first_search_s"] = first_search_s(b)
         rec = _recovery_event(b.base)
         exp = _exposition(b.base)
-        got = searches(b.base)
+        got = searches(b)
         if rec["snapshot_restored"] or rec["replayed_records"] != seq or rec["rows"] != rows or (
-                rec["version"] != version) or set(_search_store_versions(b.base)) != {version} or (
+                rec["version"] != version) or set(_search_store_versions(b.base, all_ids(b))) != {version} or (
                 exp.value("rag_recovery_replayed_records_total") != seq) or (
                 exp.value("rag_store_rows") != rows) or _documents(b.base) != sources or got != want:
             raise AssertionError(f"durable: recovery gate: {rec} (version {version} before the kill), "
@@ -4002,7 +4261,8 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
                       wal_bytes_per_1000_rows=wal_bytes / added * 1000, recovery_replayed_records=rec["replayed_records"],
                       recovery_s=rec["duration_ms"] / 1e3, version_before_kill=version,
                       recovery_version=rec["version"], recovery_device=rec["device"],
-                      searches_equal_after_kill=len(got))
+                      searches_equal_after_kill=len(got),
+                      other_search_traces_b=_other_search_traces(b.base, all_ids(b)))
         # 4. SIGTERM cuts a final snapshot.
         rc, fields["sigterm_to_exit_s"] = b.term()
         cut = re.findall(r"snapshot (snap-\d+): (\d+) rows in ([0-9.]+) ms", b.log_tail(200000))
@@ -4013,13 +4273,14 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
         c, fields["restart_after_term_ready_s"] = start("c")
         fields["restart_after_term_first_search_s"] = first_search_s(c)
         rec = _recovery_event(c.base)
-        got = searches(c.base)
+        got = searches(c)
         if not rec["snapshot_restored"] or rec["replayed_records"] != 0 or rec["rows"] != rows or got != want or (
-                rec["version"] != version) or set(_search_store_versions(c.base)) != {version} or (
+                rec["version"] != version) or set(_search_store_versions(c.base, all_ids(c))) != {version} or (
                 _documents(c.base) != sources):
             raise AssertionError(f"durable: snapshot gate: {rec} (version {version}), searches equal {got == want}")
         fields.update(snapshot_recovery_s=rec["duration_ms"] / 1e3, snapshot_recovery_device=rec["device"],
-                      searches_equal_after_term=len(got))
+                      searches_equal_after_term=len(got),
+                      other_search_traces_c=_other_search_traces(c.base, all_ids(c)))
         # 6. A bulk job killed mid-way resumes at the next start.
         job_id = _bulk(c.base, resume_docs)
         t0 = time.perf_counter()
@@ -4214,6 +4475,81 @@ def write_llama_checkpoint(torch, np, path, cfg, seed: int = HF_SEED, shards: in
                    "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False,
                    "torch_dtype": "bfloat16"}, fh)
     return dict(base=base, top=top, bytes=total, seconds=time.perf_counter() - t0)
+
+
+# (ours, HF name in a layer) of the families' float trees: the attention
+# projections of every family, then each family's MLP and norms.
+FAMILY_ATTN = (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"), ("wv", "self_attn.v_proj"),
+               ("wo", "self_attn.o_proj"))
+FAMILY_MLP = {
+    "gated": (("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"), ("w_down", "mlp.down_proj")),
+    "plain": (("w_up", "mlp.c_fc"), ("w_down", "mlp.c_proj")),
+    "moe": (("w_gate_e", "w1"), ("w_up_e", "w3"), ("w_down_e", "w2")),
+}
+FAMILY_NORMS = (("attn_norm", "input_layernorm"), ("mlp_norm", "post_attention_layernorm"))
+
+
+def family_hf_tensors(cfg, params) -> dict:
+    """A float param tree in the port's layout (``models.llama.init_params``':
+    (in, out) matrices stacked over layers) as HF tensors by name, (out, in):
+    Llama / Gemma / Mixtral names (the ``block_sparse_moe`` router and
+    experts for a MoE tree) or StarCoder2's (LayerNorm and projection biases,
+    ``c_fc`` / ``c_proj``).  A tree whose head is its embedding's transpose
+    writes no ``lm_head.weight``: a tied checkpoint."""
+    lay = params["layers"]
+    out = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
+    if "final_norm_b" in params:
+        out["model.norm.bias"] = params["final_norm_b"]
+    tied = params["lm_head"].data_ptr() == params["embed"].data_ptr()
+    if not tied:
+        out["lm_head.weight"] = params["lm_head"].T
+    mlp = "moe" if "router" in lay else "gated" if "w_gate" in lay else "plain"
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        for ours, hf in FAMILY_NORMS:
+            out[pre + hf + ".weight"] = lay[ours][i]
+            if ours + "_b" in lay:
+                out[pre + hf + ".bias"] = lay[ours + "_b"][i]
+        bias = dict(wq="bq", wk="bk", wv="bv", wo="bo", w_gate="b_gate", w_up="b_up", w_down="b_down")
+        for ours, hf in FAMILY_ATTN + (() if mlp == "moe" else FAMILY_MLP[mlp]):
+            out[pre + hf + ".weight"] = lay[ours][i].T
+            if bias[ours] in lay:
+                out[pre + hf + ".bias"] = lay[bias[ours]][i]
+        if mlp == "moe":
+            out[pre + "block_sparse_moe.gate.weight"] = lay["router"][i].T
+            for e in range(cfg.n_experts):
+                for ours, hf in FAMILY_MLP["moe"]:
+                    out[pre + f"block_sparse_moe.experts.{e}.{hf}.weight"] = lay[ours][i, e].T
+    return {name: t.contiguous() for name, t in out.items()}
+
+
+def family_hf_config(cfg) -> dict:
+    """A ``config.json`` for :func:`family_hf_tensors`' checkpoint of
+    ``cfg``'s family."""
+    arch, mtype = (("MixtralForCausalLM", "mixtral") if cfg.n_experts > 1 else
+                   ("Starcoder2ForCausalLM", "starcoder2") if cfg.norm_type == "layernorm" else
+                   ("GemmaForCausalLM", "gemma") if cfg.norm_unit_offset else ("LlamaForCausalLM", "llama"))
+    out = {"architectures": [arch], "model_type": mtype, "vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+           "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+           "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+           "max_position_embeddings": cfg.max_seq_len, "torch_dtype": "bfloat16"}
+    if cfg.n_experts > 1:
+        out.update(num_local_experts=cfg.n_experts, num_experts_per_tok=cfg.n_experts_per_tok)
+    return out
+
+
+def write_family_checkpoint(torch, path, cfg, params) -> dict:
+    """:func:`family_hf_tensors` of ``params`` (on any device) as
+    ``model.safetensors`` with :func:`family_hf_config` under ``path``;
+    returns the tensors written, on the host."""
+    from generativeaiexamples_tpu_torch.engine.weights import save_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    tensors = {name: t.cpu() for name, t in family_hf_tensors(cfg, params).items()}
+    save_safetensors(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as fh:
+        json.dump(family_hf_config(cfg), fh)
+    return tensors
 
 
 def numpy_quantized(np, base: dict, top: dict) -> dict:
@@ -4707,6 +5043,380 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# families: Gemma, StarCoder2 and Mixtral through the serving path
+# ---------------------------------------------------------------------------
+
+# (HF id, preset) of each family the phase serves.
+FAMILY_MODELS = (("google/gemma-2b", "gemma-2b"), ("google/gemma-7b", "gemma-7b"),
+                 ("bigcode/starcoder2-3b", "starcoder2-3b"), ("mistralai/Mixtral-8x7B-Instruct-v0.1", "mixtral-8x7b"))
+# Mixtral's bf16 experts are 2.82 GB a layer, 90 GB at its 32 layers (more
+# than the card holds; the reference keeps them bf16 too): served at 16.
+FAMILY_SERVED_LAYERS = {"mixtral-8x7b": 16}
+FAMILY_PAGED = ("gemma-2b", "starcoder2-3b")
+FAMILY_CHECKPOINTS = ("gemma-7b", "starcoder2-3b", "mixtral-8x7b")
+FAMILY_VOCAB_STRIDE = 8  # rows of the embedding and head held against numpy
+# Depth of the card-vs-CPU models and of the seeded checkpoints.
+FAMILY_REF_LAYERS = 2
+# The card-vs-CPU logits at full width, 2 layers, bf16, as a share of the
+# logits' own size: the RMS error at most 10% of their RMS, the largest
+# error at most 25% of the largest logit.  W8A8 re-quantizes each
+# projection's input per token, so a one-ulp bf16 difference (the
+# attention kernels round in other places than the plain versions) flips
+# int8 codes near a rounding edge, and the flips grow over the layers and
+# the widths: on an H100 the sound code reads an RMS of 4.3% (Gemma-2B),
+# 4.6% (Gemma-7B), 2.2% (StarCoder2-3B) and 5.1% (Mixtral), and a planted
+# wrong second 8-head tile in StarCoder2's decode instance 57%
+# (perf_torch/rehearse_family_tol.py).  A MoE token whose experts differ
+# between the sides (a router near tie) moved by 29% of the largest logit
+# (1.75 of 6.05): the largest-error bound reads the tokens routed alike, and fewer
+# than one token in 8 may be routed elsewhere (none of the decode step's
+# 2).  A wrong float product hides in the flips (bf16 partial sums read
+# 9.7%): :func:`moe_products_vs_cpu` holds the MoE's products directly.
+FAMILY_TOL = dict(rel_rms=0.1, max_abs_frac=0.25)
+
+
+class _PresetDepth:
+    """``models.llama.PRESETS[name]`` at ``n_layers`` while entered (None:
+    as it is): the entry points read a model's geometry from its preset."""
+
+    def __init__(self, name: str, n_layers):
+        self.name, self.n_layers = name, n_layers
+
+    def __enter__(self):
+        from generativeaiexamples_tpu_torch.models import llama
+
+        self.saved = llama.PRESETS[self.name]
+        if self.n_layers is not None:
+            llama.PRESETS[self.name] = lambda **kw: self.saved(**{"n_layers": self.n_layers, **kw})
+        return self
+
+    def __exit__(self, *exc):
+        from generativeaiexamples_tpu_torch.models import llama
+
+        llama.PRESETS[self.name] = self.saved
+
+
+def family_path(cfg) -> dict:
+    """The kernel instances a family's serving path must launch: K2/K3's
+    (head_dim, max group) and K4's head_dim."""
+    from generativeaiexamples_tpu_torch.ops import decode_attention as da
+
+    return dict(decode_instance="%dx%d" % da.decode_instance(cfg.head_dim, cfg.n_heads // cfg.n_kv_heads),
+                flash_hd=cfg.head_dim)
+
+
+def _completion(base_url, prompt, max_tokens=32) -> dict:
+    """A greedy ``/v1/completions`` that must answer 200 with
+    ``max_tokens`` tokens (random weights may emit no printable text)."""
+    status, body = _post(base_url + "/v1/completions", {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0})
+    out = json.loads(body) if status == 200 else {}
+    if status != 200 or out["usage"]["completion_tokens"] != max_tokens:
+        raise AssertionError(f"completion of a {len(prompt) + 1}-token prompt failed: {status} {body[:300]}")
+    return out
+
+
+def _family_requests(torch, _cuda, server, prompts, kv_layout: str, path: dict) -> tuple[dict, dict, dict]:
+    """The phase's requests on one front: the 20- and 650-token prompts
+    together, then each alone (32 greedy tokens each), the emitted ids
+    recorded at the scheduler (:class:`StreamTee`).  Launch counts are
+    zeroed after a warm-up and read after the four: K1, the layout's decode
+    kernel at the family's instance and K4 at its head_dim must have
+    launched, the other layout's decode kernel not.  The prompts sent alone
+    must emit the ids they emitted together.  Returns (ids by prompt
+    length, launches, timing: TTFT p50 and decode tokens/s)."""
+    sched = server.scheduler
+    tee = StreamTee(sched)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    sched.start()
+    thread.start()
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+    picks = {n: prompts["completions"][prompts["lengths"].index(n)] for n in (20, 650)}
+    try:
+        _completion(base_url, prompts["warmup"], 4)
+        n_ttft0 = len(sched.stats.ttft_recent)
+        snap0 = sched.stats.snapshot()
+        _cuda.reset_launch_counts()
+        results: dict = {}
+        workers = [threading.Thread(target=lambda n=n: results.__setitem__(n, _completion(base_url, picks[n])))
+                   for n in picks]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=900)
+        if len(results) != len(picks):
+            raise AssertionError("families: a completion did not return")
+        for prompt in picks.values():
+            _completion(base_url, prompt)
+        snap1 = sched.stats.snapshot()
+        launches = dict(_cuda.LAUNCHES)
+        decode_kernel = "paged_decode_attention" if kv_layout == "paged" else "decode_attention"
+        instances = {k: dict(v) for k, v in _cuda.DECODE_INSTANCE_LAUNCHES.items()}
+        flash_hd = dict(_cuda.FLASH_HD_LAUNCHES)
+        want, other = PATH_KERNELS[kv_layout]
+        if (not all(launches[k] for k in want) or launches[other] or not instances[decode_kernel][path["decode_instance"]]
+                or not flash_hd[path["flash_hd"]]):
+            raise AssertionError(f"families {kv_layout} path launches: {launches} {instances} {flash_hd} "
+                                 f"(wanted {want}, {path})")
+        streams = {}
+        for n in picks:
+            runs = [list(ids) for prompt, _, ids in tee.records if len(prompt) == n]
+            if len(runs) != 2 or runs[0] != runs[1] or len(runs[0]) != 32:
+                raise AssertionError(f"families {kv_layout}: the {n}-token prompt alone emitted other ids than "
+                                     f"together: {runs}")
+            streams[n] = runs[0]
+        ttfts = sorted(list(sched.stats.ttft_recent)[n_ttft0:])
+        decode_tokens = (snap1["tokens_total"] - snap0["tokens_total"]) - (snap1["requests_total"] - snap0["requests_total"])
+        decode_s = snap1["decode_s"] - snap0["decode_s"]
+        timing = dict(ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None,
+                      decode_tokens_per_s=decode_tokens / decode_s if decode_s else None)
+        launches.update(decode_instance_launches=instances[decode_kernel], flash_hd_launches=flash_hd)
+        return streams, launches, timing
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+        sched._cache = sched._pool = None
+
+
+def family_serve(torch, dev, _cuda, hf_id: str, preset: str, prompts) -> dict:
+    """One family through ``build_server(["--model", hf_id, ...])`` on the
+    card, random int8 weights from a seed (MoE experts bf16), at full width
+    and its served depth: the prompts sent alone give the text they gave
+    together, and a paged ``Scheduler`` on the same params gives the same
+    texts (:data:`FAMILY_PAGED`)."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import build_server, create_engine_app
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+
+    kw = serve_kw("contiguous")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with _PresetDepth(preset, FAMILY_SERVED_LAYERS.get(preset)):
+        server = build_server(["--model", hf_id, "--host", "127.0.0.1", "--port", "0", "--embedder", "none",
+                               "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"])])
+    torch.cuda.synchronize()
+    sched = server.scheduler
+    cfg = sched.cfg
+    if sched.device.type != "cuda":
+        raise AssertionError("families: build_server did not serve on the card")
+    fields = dict(model=hf_id, preset=preset, layers=cfg.n_layers, d_model=cfg.d_model, head_dim=cfg.head_dim,
+                  heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", experts=cfg.n_experts, moe_dropless=cfg.moe_dropless,
+                  weights="random int8 from seed 0" + (", bf16 experts" if cfg.n_experts > 1 else ""),
+                  load_s=time.perf_counter() - t0, device_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    path = family_path(cfg)
+    streams, launches, timing = _family_requests(torch, _cuda, server, prompts, "contiguous", path)
+    fields.update(alone_equal_together=True, launches={"contiguous": launches}, **timing,
+                  peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    if preset in FAMILY_PAGED:
+        paged = Scheduler(cfg, sched.params, device=dev, **serve_kw("paged"))
+        paged_streams, fields["launches"]["paged"], paged_timing = _family_requests(
+            torch, _cuda, create_engine_app(paged, get_tokenizer(hf_id), hf_id, "127.0.0.1", 0), prompts, "paged",
+            path)
+        if paged_streams != streams:
+            raise AssertionError(f"families {preset}: paged streams differ from contiguous:\n{streams}\n"
+                                 f"{paged_streams}")
+        fields.update(paged_equal_contiguous=True, paged=paged_timing)
+        del paged
+    del server, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("families_serve", **fields)
+    return fields["launches"]
+
+
+def seeded_family_tree(torch, cfg, dev, seed: int) -> dict:
+    """A float tree of ``cfg`` (bf16) from ``seed`` on ``dev``: 0.02-std
+    matrices, norm gains 1 + N(0, 0.1), biases N(0, 0.1), so every bias and
+    gain is read; Gemma's head tied to its embedding."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree = llama.init_params(cfg, gen, dev)
+
+    def jitter(name, t):
+        if name in llama.NORM_GAINS or name in llama.BIASES:
+            return (t.float() + 0.1 * torch.randn(t.shape, generator=gen, device=dev)).to(t.dtype)
+        return t
+
+    tree = {k: jitter(k, v) for k, v in tree.items() if k != "layers"} | {
+        "layers": {k: jitter(k, v) for k, v in tree["layers"].items()}}
+    if cfg.norm_unit_offset:  # Gemma checkpoints have no lm_head.weight
+        tree["lm_head"] = tree["embed"].T
+    return tree
+
+
+def check_loaded_family(torch, np, cfg, params, written: dict) -> dict:
+    """The served params of a loaded family checkpoint against the written
+    HF tensors: the int8 codes and f32 scales of every projection of its
+    last layer, and of every FAMILY_VOCAB_STRIDE-th row of the head and of
+    the embedding, equal numpy's quantization (:func:`np_int8`, per HF row)
+    bit for bit; norms, biases, the router and every layer's experts equal
+    the written bf16 arrays."""
+    from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
+
+    layers = params["layers"]
+    mlp = () if "router" in layers else FAMILY_MLP["gated" if "w_gu" in layers or "w_gate" in layers else "plain"]
+    hf = dict(FAMILY_ATTN + mlp)
+    parts = {"wqkv": ("wq", "wk", "wv"), "w_gu": ("w_gate", "w_up")}
+    i = cfg.n_layers - 1
+    pre = f"model.layers.{i}."
+    checked, bad = [], []
+    for name, leaf in layers.items():
+        if isinstance(leaf, BlockedQuantizedMatrix):
+            codes, scales = zip(*(np_int8(np, written[pre + hf[p] + ".weight"].float().numpy(), axis=1)
+                                  for p in parts.get(name, (name,))))
+            if not (_bits_equal(torch, leaf.w[i, : leaf.n, : leaf.k], np.concatenate(codes)) and
+                    _bits_equal(torch, leaf.scale[i, : leaf.n], np.concatenate(scales)[:, 0])):
+                bad.append(f"layer {i} {name}")
+            checked.append(f"{i}.{name}")
+    # Every FAMILY_VOCAB_STRIDE-th vocabulary row of the embedding and the
+    # head (each row is quantized on its own).
+    rows = slice(None, None, FAMILY_VOCAB_STRIDE)
+    embed_codes, embed_scale = np_int8(np, written["model.embed_tokens.weight"][rows].float().numpy(), axis=1)
+    head = written.get("lm_head.weight")
+    head_codes, head_scale = ((embed_codes, embed_scale) if head is None else
+                              np_int8(np, head[rows].float().numpy(), axis=1))
+    for name, codes, scale, to_ours in (("embed", embed_codes, embed_scale, False),
+                                        ("lm_head", head_codes, head_scale, True)):
+        qm = params[name]
+        got_q, got_s = (qm.q.T, qm.scale.T) if to_ours else (qm.q, qm.scale)
+        if not (_bits_equal(torch, got_q[rows].to(torch.int8), codes) and _bits_equal(torch, got_s[rows], scale)):
+            bad.append(name)
+        checked.append(name)
+    floats = {}
+    for j in range(cfg.n_layers):
+        p = f"model.layers.{j}."
+        for ours, hf_norm in FAMILY_NORMS:
+            floats[(ours, j)] = written[p + hf_norm + ".weight"]
+            if p + hf_norm + ".bias" in written:
+                floats[(ours + "_b", j)] = written[p + hf_norm + ".bias"]
+        for ours, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"), ("wo", "bo"), ("w_up", "b_up"), ("w_down", "b_down")):
+            if b in layers:
+                floats[(b, j)] = written[p + hf[ours] + ".bias"]
+        if "router" in layers:
+            floats[("router", j)] = written[p + "block_sparse_moe.gate.weight"].T
+            for e in range(cfg.n_experts):
+                for ours, w in FAMILY_MLP["moe"]:
+                    floats[(ours, j, e)] = written[p + f"block_sparse_moe.experts.{e}.{w}.weight"].T
+    for key, want in floats.items():  # bf16 bits, compared where the served leaf lives
+        got = layers[key[0]][key[1:]]
+        if not torch.equal(got.view(torch.int16), want.to(got.device).contiguous().view(torch.int16)):
+            bad.append("/".join(map(str, key)))
+    if bad:
+        raise AssertionError(f"loaded family leaves differ from the checkpoint: {bad}")
+    return dict(int8_leaves_checked=len(checked), float_leaves_checked=len(floats), bitwise_equal=True)
+
+
+def family_checkpoint(torch, np, dev, _cuda, root: str, hf_id: str, preset: str, prompts) -> dict:
+    """A seeded HF-layout checkpoint of ``preset`` at full width and
+    :data:`FAMILY_REF_LAYERS` layers (bf16, :func:`write_family_checkpoint`)
+    served by ``build_server`` through ``$GAIE_WEIGHTS_DIR``: its leaves
+    (:func:`check_loaded_family`), and two completions, the prompts sent
+    together, each with K1, K2 and K4 launched."""
+    import shutil
+
+    from generativeaiexamples_tpu_torch.engine.server import build_server
+    from generativeaiexamples_tpu_torch.models import llama
+
+    kw = serve_kw("contiguous")
+    cfg = llama.PRESETS[preset](n_layers=FAMILY_REF_LAYERS)
+    t0 = time.perf_counter()
+    path = os.path.join(root, hf_id.replace("/", "--"))
+    host = write_family_checkpoint(torch, path, cfg, seeded_family_tree(torch, cfg, dev, HF_SEED))
+    torch.cuda.empty_cache()
+    fields = dict(model=hf_id, layers=cfg.n_layers, d_model=cfg.d_model, tied_head="lm_head.weight" not in host,
+                  written_gb=sum(t.numel() * t.element_size() for t in host.values()) / 1e9,
+                  write_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with _PresetDepth(preset, FAMILY_REF_LAYERS):
+        server = build_server(["--model", hf_id, "--host", "127.0.0.1", "--port", "0", "--embedder", "none",
+                               "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"])])
+    torch.cuda.synchronize()
+    fields["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fields.update(check_loaded_family(torch, np, server.scheduler.cfg, server.scheduler.params, host),
+                  check_s=time.perf_counter() - t0)
+    del host
+    sched = server.scheduler
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    sched.start()
+    thread.start()
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        _completion(base_url, prompts["warmup"], 4)
+        _cuda.reset_launch_counts()
+        results: dict = {}
+        workers = [threading.Thread(target=lambda i=i: results.__setitem__(i, _completion(
+            base_url, prompts["completions"][i]))) for i in (0, 3)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=900)
+        launches = dict(_cuda.LAUNCHES)
+        if len(results) != 2 or not all(launches[k] for k in PATH_KERNELS["contiguous"][0]):
+            raise AssertionError(f"families checkpoint {preset}: completions {len(results)}, launches {launches}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+        sched._cache = sched._pool = None
+    del server, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(path, ignore_errors=True)
+    fields.update(completions=2, launches=launches)
+    emit("families_checkpoint", **fields)
+    return launches
+
+
+def families_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
+    """Gemma-2B, Gemma-7B, StarCoder2-3B and Mixtral-8x7B on the card:
+    each at full width and 2 layers through the kernels against the plain
+    versions on the CPU (:func:`card_vs_cpu`, with the cacheless forward);
+    each served through ``build_server`` by its HF id (:func:`family_serve`;
+    Mixtral at 16 of its 32 layers); then seeded checkpoints of Gemma-7B,
+    StarCoder2-3B and Mixtral at 2 layers through ``$GAIE_WEIGHTS_DIR``
+    (:func:`family_checkpoint`).  Returns the launches of each serving
+    path by family."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    for _, preset in FAMILY_MODELS:
+        cfg = llama.PRESETS[preset](kv_dtype="int8", n_layers=FAMILY_REF_LAYERS)
+        t0 = time.perf_counter()
+        fields = card_vs_cpu(torch, dev, cfg, 5, 32, [32, 19], FAMILY_TOL, cacheless=True, built_on="card")
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.n_experts > 1:
+            fields["moe_products"] = moe_products_vs_cpu(torch, dev, cfg, 6)
+        emit("families_reference", preset=preset, layers=cfg.n_layers, d_model=cfg.d_model, tolerance=FAMILY_TOL,
+             seconds=time.perf_counter() - t0, **fields)
+    launches = {}
+    for hf_id, preset in FAMILY_MODELS:
+        launches[preset] = family_serve(torch, dev, _cuda, hf_id, preset, prompts)
+    root = tempfile.mkdtemp(prefix="family_checkpoints_")
+    try:
+        os.environ["GAIE_WEIGHTS_DIR"] = root
+        for hf_id, preset in FAMILY_MODELS:
+            if preset in FAMILY_CHECKPOINTS:
+                launches[preset]["checkpoint"] = family_checkpoint(torch, np, dev, _cuda, root, hf_id, preset,
+                                                                   prompts)
+    finally:
+        os.environ.pop("GAIE_WEIGHTS_DIR", None)
+        shutil.rmtree(root, ignore_errors=True)
+    emit("families", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
+         served_layers={p: FAMILY_SERVED_LAYERS.get(p, "all") for _, p in FAMILY_MODELS})
+    return launches
+
+
 def main() -> int:
     # The run uses one card: only the first visible one is exposed, so the
     # device count in the last line is 1 whatever else the machine holds.
@@ -4756,6 +5466,13 @@ def main() -> int:
     }
     # K4 at the speculative draft's head_dim (Llama-3.2-1B: 64).
     summary["flash_attention"]["hd64"] = check_flash(torch, dev, log, hd=64)
+    # The families' instances: K2/K3 at (256, G <= 8) and (128, G <= 16),
+    # K4 at head_dim 256 with Gemma-7B's and Gemma-2B's heads.
+    instance_rows = {model: check_decode_instance(torch, dev, hd, kh, g) for model, hd, kh, g in DECODE_INSTANCE_SHAPES}
+    for name in ("decode_attention", "paged_decode_attention"):
+        summary[name]["instances"] = {model: rows[name] for model, rows in instance_rows.items()}
+    summary["flash_attention"]["hd256"] = {"gemma-7b": check_flash(torch, dev, log, hd=256, nq=16, nkv=16),
+                                           "gemma-2b": check_flash(torch, dev, log, hd=256, nq=8, nkv=1)}
     if log:
         emit("notes", notes=log)
     check_reference(torch, dev)
@@ -4827,6 +5544,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         hf_launches = hf_checkpoint_phase(torch, dev, _cuda, smi, prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        family_launches = families_phase(torch, dev, _cuda, smi, prompts)
     gc.collect()
     torch.cuda.empty_cache()
     kw = serve_kw("contiguous")
@@ -4846,11 +5566,25 @@ def main() -> int:
             "hf_launches": {path: counts[name] for path, counts in hf_launches.items()},
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
+        kernels[-1]["families_launches"] = {
+            preset: {path: counts[name] for path, counts in paths.items()} for preset, paths in family_launches.items()}
+        timed = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
         if "hd64" in s:
             h = s["hd64"]
-            kernels[-1]["hd64"] = {k: h[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                                     "max_abs_err", "shape")}
+            kernels[-1]["hd64"] = {k: h[k] for k in timed + ("shape",)}
             kernels[-1]["hd64"]["spec_draft_launches"] = spec_hd64
+        if "hd256" in s:
+            kernels[-1]["hd256"] = {
+                model: {**{k: h[k] for k in timed + ("shape",)},
+                        "families_launches": family_launches[model]["contiguous"]["flash_hd_launches"][256]}
+                for model, h in s["hd256"].items()}
+        if "instances" in s:
+            path = "contiguous" if name == "decode_attention" else "paged"
+            kernels[-1]["instances"] = {
+                model: {**{k: h[k] for k in timed + ("instance", "hd", "kv_heads", "group", "window")},
+                        "families_launches": family_launches[model][path]["decode_instance_launches"][h["instance"]]
+                        if path in family_launches[model] else None}
+                for model, h in s["instances"].items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

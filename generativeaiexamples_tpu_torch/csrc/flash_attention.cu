@@ -9,9 +9,10 @@
 // the exp-weights, so padded query rows (position -1) and rows with no
 // visible key come out exactly 0, as in the reference (stock SDPA does not
 // carry that contract).  GQA maps query head h to kv head h / (n_q/n_kv)
-// without materialising the broadcast.  HD is 128 (Llama-3-8B, 70B) or 64
-// (Llama-3.2-1B, the speculative draft): one kernel, instantiated for each
-// head_dim; a tile row is HD / 64 swizzled halves of 64 head dims.
+// without materialising the broadcast.  HD is 128 (Llama-3-8B, 70B,
+// Mixtral, StarCoder2), 64 (Llama-3.2-1B, the speculative draft) or 256
+// (Gemma): one kernel, instantiated for each head_dim; a tile row is HD /
+// 64 swizzled parts of 64 head dims.
 //
 // Bound on this card: at the prefill shapes of the serving path (s = 256,
 // head_dim 128) device-memory bandwidth bounds it: moving q, k, v and the
@@ -46,6 +47,11 @@
 //   same packing (ldmatrix fragments, q in registers, 64-slot tiles, 3
 //   blocks an SM), this is 1.4x faster at check_flash's shape (PERF.md,
 //   perf_torch/probe_flash_designs.py).
+// - Head_dim 256 (Gemma) is the same design with one 64 x 256 wgmma for
+//   P V: its accumulator is 128 registers a thread, so that instance is
+//   sized for 2 blocks an SM (255 registers a thread at most), and its
+//   97 KB of shared memory (q 32 KB, two 32-slot K/V stages 64 KB) allow
+//   2 blocks an SM too.
 // - Asynchronous K/V ring.  K/V tiles arrive by cp.async (zero-filled past
 //   the kv limit) into a two-stage ring: the next tile loads while this one
 //   is in the tensor cores.  q arrives the same way, first.  An async-proxy
@@ -62,7 +68,6 @@ namespace {
 constexpr int BM = 64;   // packed (position, head) rows per block, 16 per warp
 constexpr int BKV = 32;  // key slots per tile
 constexpr int THREADS = 128;  // one warpgroup
-constexpr int MIN_BLOCKS = 4;  // resident blocks per SM the registers are sized for
 // A tile of R rows x HD head dims is HD / 64 halves of R rows x 128 bytes.
 constexpr int Q_HALF = BM * 64;  // elements
 constexpr int KV_HALF = BKV * 64;
@@ -70,7 +75,10 @@ constexpr int STAGES = 2;
 
 template <int HD>
 struct Geometry {
-  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head_dim 64, 128 or 256");
+  // Resident blocks per SM the registers are sized for: at 256 the O
+  // accumulator alone is 128 registers a thread.
+  static constexpr int MIN_BLOCKS = HD == 256 ? 2 : 4;
   static constexpr int CHUNKS = HD / 8;  // 16-byte chunks a row
   static constexpr int Q_TILE = (HD / 64) * Q_HALF;
   static constexpr int KV_TILE = (HD / 64) * KV_HALF;
@@ -128,7 +136,7 @@ __device__ __forceinline__ void issue_kv(__nv_bfloat16* ks, const __nv_bfloat16*
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, Geometry<HD>::MIN_BLOCKS)
     flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
                  const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out, int S,
@@ -253,8 +261,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
       // O += P V: the weights, packed to bf16, are the A fragments of the
       // two k16 steps over this tile's slots; V is read transposed, 16
-      // slots (2048 bytes) a step, its second 64 head dims (HD 128) KV_HALF
-      // on.
+      // slots (2048 bytes) a step, each further 64 head dims KV_HALF on.
       uint32_t pa[BKV / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
@@ -320,7 +327,7 @@ int launch(const void* q, const void* k, const void* v, const void* qpos, const 
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 = launched); head_dim 64 or 128
+// Returns the launch's cudaError_t (0 = launched); head_dim 64, 128 or 256
 // (anything else is cudaErrorInvalidValue).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* qpos, const void* kv_len, void* out, int B,
@@ -330,5 +337,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128) return launch<128>(q, k, v, qpos, kv_len, out, B, S, T, n_q, n_kv, scale, st);
   if (hd == 64) return launch<64>(q, k, v, qpos, kv_len, out, B, S, T, n_q, n_kv, scale, st);
+  if (hd == 256) return launch<256>(q, k, v, qpos, kv_len, out, B, S, T, n_q, n_kv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

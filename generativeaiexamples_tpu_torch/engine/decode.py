@@ -31,13 +31,16 @@ def prepare_params(
     device,
     generator: Optional[torch.Generator] = None,
 ):
-    """Lay params out for W8A8 serving, the one layout the port serves.
+    """Lay params out for W8A8 serving, the one layout the port serves,
+    for every family of ``models.llama.PRESETS``.
 
     ``params=None`` builds random int8 weights from ``generator``.  Float
     leaves are quantized (projections, head and embedding; int8 leaves
-    pass through), qkv and gate/up are fused, every projection is blocked
-    once for the W8A8 kernel (``engine.weights.preblock_llama_params``),
-    and the int8 head is held in the compute dtype for the logits product
+    pass through; the MoE router and experts stay float, as in the
+    reference), qkv and gate/up are fused where the tree has no biases,
+    every projection is blocked once for the W8A8 kernel
+    (``engine.weights.preblock_llama_params``), and the int8 head is held
+    in the compute dtype for the logits product
     (``engine.weights.head_for_logits``).
     """
     from generativeaiexamples_tpu_torch.engine.weights import head_for_logits, preblock_llama_params
@@ -58,7 +61,9 @@ def prepare_params(
 def init_random_int8_params(cfg: llama.LlamaConfig, generator: torch.Generator, device):
     """Random serving params with projections born int8: one random layer,
     quantized, then copied to full depth, so no full-depth float copy of
-    the model ever exists (Llama-3-8B: about 8 GB of int8 weights)."""
+    the model ever exists (Llama-3-8B: about 8 GB of int8 weights).  Float
+    leaves (norms, biases, the MoE router and experts) are copied to depth
+    as they are (Mixtral's bf16 experts: 2.82 GB a layer)."""
     params = llama.init_params(dataclasses.replace(cfg, n_layers=1), generator, device)
     layers = {}
     for name, leaf in params["layers"].items():

@@ -265,7 +265,8 @@ class Scheduler:
     ) -> None:
         self.device = resolve_device(device)
         if cfg.kv_dtype != "int8":
-            raise ValueError("the port serves the int8 KV cache: use kv_dtype='int8'")
+            raise ValueError("the port serves the int8 KV cache: use kv_dtype='int8' (the bf16 cache is "
+                             "ROADMAP.md Queue 1 item 6)")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout mode {kv_layout!r}")
         if kv_page_size < 1 or (kv_page_size & (kv_page_size - 1)):
@@ -278,7 +279,8 @@ class Scheduler:
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocabulary")
             if draft_cfg.kv_dtype != "int8":
-                raise ValueError("the port serves the draft's int8 KV cache: use kv_dtype='int8'")
+                raise ValueError("the port serves the draft's int8 KV cache: use kv_dtype='int8' (the bf16 "
+                                 "draft is ROADMAP.md Queue 1 item 6)")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len

@@ -518,7 +518,11 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="PyTorch/CUDA model-serving engine")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
-    parser.add_argument("--model", default="llama3-8b", help="model preset or HF id")
+    parser.add_argument("--model", default="llama3-8b",
+                        help="model preset or HF id: the Llama-3 family (llama3-8b, llama3-70b, llama3.2-1b), "
+                             "mixtral-8x7b, gemma-2b, gemma-7b, starcoder2-3b (e.g. google/gemma-7b, "
+                             "bigcode/starcoder2-3b, mistralai/Mixtral-8x7B-Instruct-v0.1), or a tiny preset "
+                             "for --device cpu (llama-tiny, llama-moe-tiny, gemma-tiny, starcoder2-tiny)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--max-batch", type=int, default=SERVING_DEFAULTS["max_batch"])
     parser.add_argument("--max-len", type=int, default=SERVING_DEFAULTS["max_len"])
@@ -631,6 +635,10 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     device = resolve_device(args.device)
     preset = resolve_model_preset(args.model)
     cfg = dataclasses.replace(llama.PRESETS[preset](), kv_dtype="int8")
+    if cfg.n_experts > 1:
+        # Serving routes droplessly, as HF Mixtral does; capacity dropping
+        # is a training trade-off.
+        cfg = dataclasses.replace(cfg, moe_dropless=True)
     params = load_serving_params(cfg, weights_dir_for(args.model), device, args.seed, what=args.model)
     spec = spec_scheduler_kwargs(args, cfg, device)
     engine = Scheduler(

@@ -1,8 +1,9 @@
 """Weight management (port of ``engine/weights.py``): preset resolution,
-HF safetensors checkpoints (the reader and writer, Llama / Mistral causal
-LMs, BERT encoders and cross-encoders), load-time blocking of the int8
-projections, conversion of the reference's param trees (Llama and BERT,
-with the rerank head), KV caches and paged KV pools from numpy, and
+HF safetensors checkpoints (the reader and writer; Llama / Mistral,
+Mixtral, Gemma and StarCoder2 causal LMs; BERT encoders and
+cross-encoders), load-time blocking of the int8 projections, conversion
+of the reference's param trees (the Llama family and BERT, with the
+rerank head), KV caches and paged KV pools from numpy, and
 ``weights_dir_for`` (where a provisioned checkpoint is).
 
 Checkpoints keep BF16 as bf16: the reference widens it to f32 on the
@@ -11,8 +12,6 @@ copy; the port views the mmapped bytes as ``torch.bfloat16``, which is
 the same value (bf16 -> f32 -> bf16 round-trips).  Loaders read the
 checkpoint tensor by tensor and drop each layer's pages from the mapping
 once it is on the device, so the host holds about one layer at a time.
-The MoE (Mixtral) and layernorm / bias (StarCoder2) families, and Gemma,
-are ``ROADMAP.md`` Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -34,19 +33,20 @@ logger = get_logger(__name__)
 
 WEIGHTS_DIR_ENV = "GAIE_WEIGHTS_DIR"
 
-_ITEM_6 = "is not ported to the PyTorch package yet (ROADMAP.md, Queue 1 item 6)"
-
-# Per-layer projection leaves the W8A8 kernel consumes (packed layout).
-PREBLOCK_TARGETS = ("wqkv", "w_gu", "w_down", "wo")
+# Per-layer projection leaves the W8A8 kernel consumes, packed (wqkv,
+# w_gu) or unpacked (biased trees: StarCoder2; MoE trees have no dense MLP).
+# The head, the embedding, the router and the experts are not blocked.
+PREBLOCK_TARGETS = ("wqkv", "w_gu", "wq", "wk", "wv", "w_gate", "w_up", "w_down", "wo")
 
 
 def preblock_llama_params(params):
-    """Block every int8 projection leaf once, at load, into the W8A8
-    kernel's layout (``ops.qmm.block_matrix``); blocked leaves pass
-    through, so this is idempotent."""
+    """Block every int8 projection leaf the tree has, once, at load, into
+    the W8A8 kernel's layout (``ops.qmm.block_matrix``); blocked leaves
+    pass through, so this is idempotent."""
     layers = dict(params["layers"])
     for name in PREBLOCK_TARGETS:
-        layers[name] = block_matrix(layers[name])
+        if isinstance(layers.get(name), (QuantizedMatrix, BlockedQuantizedMatrix)):
+            layers[name] = block_matrix(layers[name])
     return {**params, "layers": layers}
 
 
@@ -63,9 +63,16 @@ def head_for_logits(params, cfg):
 def resolve_model_preset(model_name: str) -> str:
     """Map a model name (HF id or NIM-style) to one of the port's presets."""
     name = model_name.lower()
-    for family in ("mixtral", "8x7b", "gemma", "starcoder", "moe"):
-        if family in name:
-            raise ValueError(f"model {model_name!r}: the {family} family {_ITEM_6}")
+    if "mixtral" in name or "8x7b" in name:
+        return "mixtral-8x7b"
+    if "gemma" in name:
+        if "tiny" in name:
+            return "gemma-tiny"
+        return "gemma-7b" if "7b" in name else "gemma-2b"
+    if "starcoder" in name:
+        return "starcoder2-tiny" if "tiny" in name else "starcoder2-3b"
+    if "moe" in name and "tiny" in name:
+        return "llama-moe-tiny"
     if "70b" in name:
         return "llama3-70b"
     if re.search(r"(?<!\d)1b", name) and ("3.2" in name or "llama" in name):
@@ -229,14 +236,6 @@ def _stack_layers(tensors, fmt: str, n_layers: int, dt, device, transpose: bool 
     return out
 
 
-def _hf_config(ckpt_dir: str) -> dict:
-    path = os.path.join(ckpt_dir, "config.json")
-    if not os.path.isfile(path):
-        return {}
-    with open(path, encoding="utf-8") as fh:
-        return json.load(fh)
-
-
 def llama_config_from_hf(ckpt_dir: str, **overrides):
     """A LlamaConfig from a HF checkpoint's ``config.json`` (LlamaForCausalLM
     fields) instead of a by-name preset.  Refuses what the reference
@@ -272,43 +271,70 @@ def llama_config_from_hf(ckpt_dir: str, **overrides):
     return dataclasses.replace(cfg, **overrides)
 
 
-# What marks a checkpoint of a family the port does not serve yet: config
-# model types, and tensors of the MoE router and of layernorm biases.
-_ITEM_6_TYPES = ("mixtral", "gemma", "gemma2", "starcoder2")
-_ITEM_6_TENSORS = ("model.layers.0.block_sparse_moe.gate.weight", "model.norm.bias")
+def _stack_experts(tensors, fmt: str, cfg, dt, device) -> torch.Tensor:
+    """(L, E, in, out) expert weights from HF's per-expert (out, in)
+    tensors ``fmt.format(layer, expert)``, one matrix at a time onto the
+    device (transposed there), each layer's pages dropped after."""
+    out = None
+    for i in range(cfg.n_layers):
+        for e in range(cfg.n_experts):
+            w = tensors[fmt.format(i, e)].to(device).T
+            if out is None:
+                out = torch.empty((cfg.n_layers, cfg.n_experts, *w.shape), dtype=dt, device=device)
+            out[i, e].copy_(w)
+            del w
+        _release(tensors)
+    return out
 
 
-def _refuse_item_6(ckpt_dir: str, tensors=None) -> None:
-    mtype = _hf_config(ckpt_dir).get("model_type", "")
-    marks = [n for n in _ITEM_6_TENSORS if tensors is not None and n in tensors]
-    if mtype in _ITEM_6_TYPES or marks:
-        what = f"model_type {mtype!r}" if mtype in _ITEM_6_TYPES else f"tensor {marks[0]!r}"
-        raise NotImplementedError(f"checkpoint {ckpt_dir} ({what}): the MoE / layernorm-bias / gemma family {_ITEM_6}")
+def _tied_or_own_head(params: dict, tensors, dt, device) -> torch.Tensor:
+    """``lm_head.weight`` transposed, or the embedding's transpose when the
+    checkpoint ties them (Gemma, StarCoder2): the head is quantized per
+    output channel apart from the embedding's per-row quantization."""
+    if "lm_head.weight" in tensors:
+        return _transposed(tensors["lm_head.weight"], dt, device)
+    return params["embed"].T
 
 
 def load_hf_llama(cfg, ckpt_dir: str, *, device=None) -> dict:
-    """Convert a HF Llama / Mistral safetensors checkpoint into the port's
-    float param tree (``models.llama.init_params``' layout), in
-    ``cfg.compute_dtype`` on ``device`` (the card unless ``"cpu"``).
+    """Convert a HF Llama / Mistral / Mixtral / Gemma safetensors
+    checkpoint into the port's float param tree
+    (``models.llama.init_params``' layout), in ``cfg.compute_dtype`` on
+    ``device`` (the card unless ``"cpu"``).
 
     HF layout (``model.layers.N.self_attn.q_proj.weight`` etc., (out, in))
     maps to ours ((in, out), layers stacked on axis 0); RoPE is half-split
-    in both, so no permutation.  A checkpoint without ``lm_head.weight``
-    ties the head to ``embed.T``.  ``engine.decode.prepare_params``
-    quantizes, packs and blocks the result.  MoE checkpoints raise
-    (``ROADMAP.md`` Queue 1 item 6).
+    in both, so no permutation.  Mixtral's MoE layers (the
+    ``block_sparse_moe.gate`` router and each expert's ``w1`` / ``w3`` /
+    ``w2``: gate / up / down) stack onto (L, E, ...) expert tensors.  A
+    checkpoint without ``lm_head.weight`` (Gemma) ties the head to
+    ``embed.T``.  ``engine.decode.prepare_params`` quantizes, packs and
+    blocks the result; the experts and the router stay float.
     """
     from generativeaiexamples_tpu_torch.core.device import resolve_device
 
     device = resolve_device(device)
     tensors = _load_safetensors_dir(ckpt_dir)
-    _refuse_item_6(ckpt_dir, tensors)
     dt = cfg.compute_dtype
 
     def stack_layers(fmt: str, transpose: bool = True) -> torch.Tensor:
         return _stack_layers(tensors, fmt, cfg.n_layers, dt, device, transpose)
 
     lay = "model.layers.{}."
+    if cfg.n_experts > 1:
+        moe = lay + "block_sparse_moe."
+        mlp = {
+            "router": stack_layers(moe + "gate.weight"),
+            "w_gate_e": _stack_experts(tensors, moe + "experts.{}.w1.weight", cfg, dt, device),
+            "w_up_e": _stack_experts(tensors, moe + "experts.{}.w3.weight", cfg, dt, device),
+            "w_down_e": _stack_experts(tensors, moe + "experts.{}.w2.weight", cfg, dt, device),
+        }
+    else:
+        mlp = {
+            "w_gate": stack_layers(lay + "mlp.gate_proj.weight"),
+            "w_up": stack_layers(lay + "mlp.up_proj.weight"),
+            "w_down": stack_layers(lay + "mlp.down_proj.weight"),
+        }
     params = {"embed": _owned(tensors["model.embed_tokens.weight"], dt, device)}
     params["layers"] = {
         "attn_norm": stack_layers(lay + "input_layernorm.weight", transpose=False),
@@ -317,27 +343,75 @@ def load_hf_llama(cfg, ckpt_dir: str, *, device=None) -> dict:
         "wv": stack_layers(lay + "self_attn.v_proj.weight"),
         "wo": stack_layers(lay + "self_attn.o_proj.weight"),
         "mlp_norm": stack_layers(lay + "post_attention_layernorm.weight", transpose=False),
-        "w_gate": stack_layers(lay + "mlp.gate_proj.weight"),
-        "w_up": stack_layers(lay + "mlp.up_proj.weight"),
-        "w_down": stack_layers(lay + "mlp.down_proj.weight"),
+        **mlp,
     }
     params["final_norm"] = _owned(tensors["model.norm.weight"], dt, device)
-    if "lm_head.weight" in tensors:
-        params["lm_head"] = _transposed(tensors["lm_head.weight"], dt, device)
-    else:  # tied embeddings
-        params["lm_head"] = params["embed"].T
+    params["lm_head"] = _tied_or_own_head(params, tensors, dt, device)
     _release(tensors)
     logger.info("loaded %d HF tensors from %s", len(tensors), ckpt_dir)
     return params
 
 
 def load_hf_causal_lm(cfg, ckpt_dir: str, *, device=None) -> dict:
-    """Config-dispatched HF causal-LM converter: the dense Llama / Mistral
-    map (:func:`load_hf_llama`).  The reference's other branches (Mixtral
-    MoE, Gemma, StarCoder2's layernorm and biases) raise, naming
-    ``ROADMAP.md`` Queue 1 item 6."""
-    _refuse_item_6(ckpt_dir)
+    """Config-dispatched HF causal-LM converter: the Llama / Mistral /
+    Mixtral / Gemma map (:func:`load_hf_llama`), or the GPT family's
+    (LayerNorm and biases, ungated MLP: :func:`load_hf_starcoder2`).  A
+    gated MLP with LayerNorm or biases has no converter (no published
+    checkpoint family has that shape), as in the reference."""
+    if cfg.norm_type == "layernorm" or cfg.proj_bias:
+        if cfg.mlp_gated:
+            raise ValueError(
+                "no HF converter for gated-MLP configs with layernorm/biases (no published checkpoint family "
+                "has this shape)"
+            )
+        return load_hf_starcoder2(cfg, ckpt_dir, device=device)
     return load_hf_llama(cfg, ckpt_dir, device=device)
+
+
+def load_hf_starcoder2(cfg, ckpt_dir: str, *, device=None) -> dict:
+    """Convert a HF ``Starcoder2ForCausalLM`` checkpoint into the port's
+    float param tree, in ``cfg.compute_dtype`` on ``device``.
+
+    GPT-family layout: LayerNorm norms (weight and bias), biased q / k / v
+    / o and ``c_fc`` / ``c_proj`` projections (``c_fc -> w_up``, ``c_proj
+    -> w_down``), an ungated MLP, a head tied to the embedding unless the
+    checkpoint has ``lm_head.weight``.  A checkpoint with another layer
+    count than the config raises: the loader reads ``cfg.n_layers`` layers
+    and would otherwise serve a truncated model (the 3b preset against a
+    7b or 15b checkpoint).
+    """
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(device)
+    tensors = _load_safetensors_dir(ckpt_dir)
+    n_ckpt = len({k.split(".")[2] for k in tensors if k.startswith("model.layers.")})
+    if n_ckpt != cfg.n_layers:
+        raise ValueError(
+            f"checkpoint has {n_ckpt} layers but config expects {cfg.n_layers} — pass a matching preset/overrides "
+            "(starcoder2-7b/15b need their own geometry)"
+        )
+    dt = cfg.compute_dtype
+
+    def stack_layers(fmt: str, transpose: bool = True) -> torch.Tensor:
+        return _stack_layers(tensors, fmt, cfg.n_layers, dt, device, transpose)
+
+    lay = "model.layers.{}."
+    layers = {}
+    for ours, hf in (("attn_norm", "input_layernorm"), ("mlp_norm", "post_attention_layernorm")):
+        layers[ours] = stack_layers(lay + hf + ".weight", transpose=False)
+        layers[ours + "_b"] = stack_layers(lay + hf + ".bias", transpose=False)
+    for w, b, hf in (("wq", "bq", "self_attn.q_proj"), ("wk", "bk", "self_attn.k_proj"),
+                     ("wv", "bv", "self_attn.v_proj"), ("wo", "bo", "self_attn.o_proj"),
+                     ("w_up", "b_up", "mlp.c_fc"), ("w_down", "b_down", "mlp.c_proj")):
+        layers[w] = stack_layers(lay + hf + ".weight")
+        layers[b] = stack_layers(lay + hf + ".bias", transpose=False)
+    params = {"embed": _owned(tensors["model.embed_tokens.weight"], dt, device), "layers": layers}
+    params["final_norm"] = _owned(tensors["model.norm.weight"], dt, device)
+    params["final_norm_b"] = _owned(tensors["model.norm.bias"], dt, device)
+    params["lm_head"] = _tied_or_own_head(params, tensors, dt, device)
+    _release(tensors)
+    logger.info("loaded %d HF starcoder2 tensors from %s", len(tensors), ckpt_dir)
+    return params
 
 
 def bert_config_from_hf(ckpt_dir: str, **overrides):

@@ -1,14 +1,16 @@
-"""Llama-3 model family in PyTorch (port of ``models/llama.py``, the
-dense serving path).
+"""The Llama family in PyTorch (port of ``models/llama.py``): Llama-3,
+and the Mixtral (MoE), Gemma and StarCoder2 branches of the same forward.
 
 Params are a plain dict of tensors, as in the reference: per-layer leaves
 are stacked on a leading ``n_layers`` axis (``params["layers"]``), so the
 reference's param trees convert leaf by leaf
 (``engine.weights.params_from_numpy``) and the layer loop takes views.
 
-:func:`forward` runs the three serving modes of the int8 KV cache the
-scheduler uses, on the contiguous cache or on the paged pool
-(``engine.paged_kv``, through a page table):
+:func:`forward` runs cacheless (``cache=None``: scoring, and the oracle of
+the tests; attention over the fresh k/v through the flash kernel), or one
+of the serving modes of the int8 KV cache the scheduler uses, on the
+contiguous cache or on the paged pool (``engine.paged_kv``, through a page
+table):
 
 * cold prefill (``cold_prefill=True``, s > 1): the prompt's K/V are
   quantized into the cache, and attention runs over the fresh K/V through
@@ -29,10 +31,12 @@ scheduler uses, on the contiguous cache or on the paged pool
 The paged pool takes no cold prefill: the scheduler cold-prefills into a
 small contiguous cache and scatters the rows into pages.
 
-The projections are packed (``wqkv``, ``w_gu``) and pre-blocked int8
-(``engine.decode.prepare_params``), and each goes through
-``ops.quant.q_dot`` to the W8A8 kernel (``ops.qmm``).  The cache is
-updated in place.
+Served projections are pre-blocked int8 (``engine.decode.prepare_params``)
+and go through ``ops.quant.q_dot`` to the W8A8 kernel (``ops.qmm``):
+packed (``wqkv``, ``w_gu``) when they carry no bias, unpacked with their
+biases added after the product (StarCoder2).  The MoE router and experts
+stay float, as in the reference (``_moe_mlp``).  The cache is updated in
+place.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from generativeaiexamples_tpu_torch.ops.decode_attention import (
     verify_gqa_attention,
 )
 from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
-from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, int8_max_like, q_dot
+from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, float_dot, int8_max_like, q_dot
 from generativeaiexamples_tpu_torch.ops.rope import apply_rope
 
 Params = Any  # dict of tensors / QuantizedMatrix / BlockedQuantizedMatrix
@@ -77,10 +81,39 @@ class LlamaConfig:
     # KV-cache storage.  The port serves "int8" (per-token-per-head
     # symmetric bf16 scales); the default mirrors the reference's presets.
     kv_dtype: str = "bfloat16"
+    # Mixture-of-experts MLP (Mixtral): 0 = dense.  Top-k routing with
+    # capacity-dropping one-hot dispatch in groups of up to 128 tokens
+    # (_moe_mlp); ``moe_dropless`` sets each expert's capacity to the
+    # whole group, so no token is dropped (HF Mixtral's inference
+    # semantics; the engine server turns it on).
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
+    expert_capacity_factor: float = 1.25
+    moe_dropless: bool = False
+    # Gemma: the MLP activation ("silu", or "gelu_tanh" as Gemma and
+    # StarCoder2 use), embeddings scaled by sqrt(d_model), and RMSNorm by
+    # (1 + g) over zero-centred gains.
+    hidden_act: str = "silu"
+    scale_embeddings: bool = False
+    norm_unit_offset: bool = False
+    # StarCoder2: "layernorm" (mean-centred, with bias) instead of
+    # "rmsnorm", biases on every projection, and an ungated up -> act ->
+    # down MLP.
+    norm_type: str = "rmsnorm"
+    proj_bias: bool = False
+    mlp_gated: bool = True
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def act_fn(self):
+        if self.hidden_act == "silu":
+            return F.silu
+        if self.hidden_act == "gelu_tanh":
+            return lambda x: F.gelu(x, approximate="tanh")
+        raise ValueError(f"unknown hidden_act {self.hidden_act!r}")
 
 
 def llama3_8b(**overrides) -> LlamaConfig:
@@ -115,98 +148,255 @@ def llama_tiny(**overrides) -> LlamaConfig:
     )
 
 
+def mixtral_8x7b(**overrides) -> LlamaConfig:
+    """mistralai/Mixtral-8x7B geometry: Llama-shaped with 8-expert, top-2
+    MoE MLPs, routed droplessly (HF Mixtral's inference semantics)."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8, head_dim=128, d_ff=14336,
+            rope_theta=1e6, n_experts=8, n_experts_per_tok=2, moe_dropless=True,
+        ),
+        **overrides,
+    )
+
+
+def llama_moe_tiny(**overrides) -> LlamaConfig:
+    """Tiny MoE geometry for CPU tests."""
+    defaults = {"n_experts": 4, "n_experts_per_tok": 2}
+    return dataclasses.replace(llama_tiny(), **{**defaults, **overrides})
+
+
+_GEMMA_ARCH = {
+    "hidden_act": "gelu_tanh",
+    "scale_embeddings": True,
+    "norm_unit_offset": True,
+    "rope_theta": 10000.0,
+    "norm_eps": 1e-6,
+}
+
+
+def gemma_2b(**overrides) -> LlamaConfig:
+    """google/gemma-2b(-it) geometry: MQA (1 kv head), head_dim 256,
+    gelu_tanh MLP, sqrt(d_model)-scaled embeddings, (1 + g) RMSNorm, tied
+    LM head."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=256000, d_model=2048, n_layers=18, n_heads=8, n_kv_heads=1, head_dim=256, d_ff=16384,
+            **_GEMMA_ARCH,
+        ),
+        **overrides,
+    )
+
+
+def gemma_7b(**overrides) -> LlamaConfig:
+    """google/gemma-7b(-it) geometry (the same architecture, 16 / 16 heads)."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=256000, d_model=3072, n_layers=28, n_heads=16, n_kv_heads=16, head_dim=256, d_ff=24576,
+            **_GEMMA_ARCH,
+        ),
+        **overrides,
+    )
+
+
+def gemma_tiny(**overrides) -> LlamaConfig:
+    """Tiny Gemma-architecture geometry for CPU tests."""
+    return gemma_2b(**{
+        **dict(vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=1, head_dim=16, d_ff=128,
+               max_seq_len=512),
+        **overrides,
+    })
+
+
+_STARCODER2_ARCH = {
+    "hidden_act": "gelu_tanh",
+    "norm_type": "layernorm",
+    "proj_bias": True,
+    "mlp_gated": False,
+    "norm_eps": 1e-5,
+}
+
+
+def starcoder2_3b(**overrides) -> LlamaConfig:
+    """bigcode/starcoder2-3b geometry: LayerNorm with bias, biased
+    projections, an ungated c_fc / c_proj MLP, GQA (24 / 2 heads), rope,
+    tied LM head.  ``rope_theta`` is the published config's; sliding-window
+    attention is a no-op at contexts up to 4096 and is not modelled."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=49152, d_model=3072, n_layers=30, n_heads=24, n_kv_heads=2, head_dim=128, d_ff=12288,
+            max_seq_len=4096, rope_theta=999999.4342952444, **_STARCODER2_ARCH,
+        ),
+        **overrides,
+    )
+
+
+def starcoder2_tiny(**overrides) -> LlamaConfig:
+    """Tiny StarCoder2-architecture geometry for CPU tests."""
+    return starcoder2_3b(**{
+        **dict(vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+               max_seq_len=512, rope_theta=10000.0),
+        **overrides,
+    })
+
+
 PRESETS = {
     "llama3-8b": llama3_8b,
     "llama3-70b": llama3_70b,
     "llama3.2-1b": llama32_1b,
     "llama-tiny": llama_tiny,
+    "mixtral-8x7b": mixtral_8x7b,
+    "llama-moe-tiny": llama_moe_tiny,
+    "gemma-2b": gemma_2b,
+    "gemma-7b": gemma_7b,
+    "gemma-tiny": gemma_tiny,
+    "starcoder2-3b": starcoder2_3b,
+    "starcoder2-tiny": starcoder2_tiny,
 }
 
 
 def param_shapes(cfg: LlamaConfig) -> dict:
+    """Every parameter's shape, in :func:`init_params`' tree (the
+    reference's ``param_axes`` without the logical axes)."""
     L, D, H, KV, HD, FF, V = (
         cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
     )
-    return {
-        "embed": (V, D),
-        "layers": {
-            "attn_norm": (L, D),
-            "wq": (L, D, H * HD),
-            "wk": (L, D, KV * HD),
-            "wv": (L, D, KV * HD),
-            "wo": (L, H * HD, D),
-            "mlp_norm": (L, D),
-            "w_gate": (L, D, FF),
-            "w_up": (L, D, FF),
-            "w_down": (L, FF, D),
-        },
-        "final_norm": (D,),
-        "lm_head": (D, V),
+    if cfg.n_experts > 1:
+        E = cfg.n_experts
+        mlp = {"router": (L, D, E), "w_gate_e": (L, E, D, FF), "w_up_e": (L, E, D, FF), "w_down_e": (L, E, FF, D)}
+    elif cfg.mlp_gated:
+        mlp = {"w_gate": (L, D, FF), "w_up": (L, D, FF), "w_down": (L, FF, D)}
+    else:  # plain up -> act -> down (StarCoder2's c_fc / c_proj)
+        mlp = {"w_up": (L, D, FF), "w_down": (L, FF, D)}
+    layers = {
+        "attn_norm": (L, D),
+        "wq": (L, D, H * HD),
+        "wk": (L, D, KV * HD),
+        "wv": (L, D, KV * HD),
+        "wo": (L, H * HD, D),
+        "mlp_norm": (L, D),
+        **mlp,
     }
+    if cfg.proj_bias:
+        layers.update({"bq": (L, H * HD), "bk": (L, KV * HD), "bv": (L, KV * HD), "bo": (L, D), "b_up": (L, FF),
+                       "b_down": (L, D)})
+        if cfg.mlp_gated and cfg.n_experts <= 1:
+            layers["b_gate"] = (L, FF)
+    if cfg.norm_type == "layernorm":
+        layers["attn_norm_b"] = (L, D)
+        layers["mlp_norm_b"] = (L, D)
+    out = {"embed": (V, D), "layers": layers, "final_norm": (D,), "lm_head": (D, V)}
+    if cfg.norm_type == "layernorm":
+        out["final_norm_b"] = (D,)
+    return out
+
+
+# Leaves init_params starts at 1 (norm gains) and at 0 (biases).
+NORM_GAINS = ("attn_norm", "mlp_norm", "final_norm")
+BIASES = ("bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down", "attn_norm_b", "mlp_norm_b", "final_norm_b")
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, device) -> Params:
-    """Random-normal initialization (0.02 std), norms at 1."""
+    """Random-normal initialization (0.02 std); norm gains at 1, biases
+    (projection and norm) at 0."""
     shapes = param_shapes(cfg)
 
     def leaf(shape, name):
-        if name.endswith("norm"):
+        if name in NORM_GAINS:
             return torch.ones(shape, dtype=cfg.compute_dtype, device=device)
+        if name in BIASES:
+            return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
         return (w * 0.02).to(cfg.compute_dtype)
 
-    return {
-        "embed": leaf(shapes["embed"], "embed"),
-        "layers": {n: leaf(s, n) for n, s in shapes["layers"].items()},
-        "final_norm": leaf(shapes["final_norm"], "final_norm"),
-        "lm_head": leaf(shapes["lm_head"], "lm_head"),
-    }
+    out = {name: leaf(shape, name) for name, shape in shapes.items() if name != "layers"}
+    out["layers"] = {n: leaf(shape, n) for n, shape in shapes["layers"].items()}
+    return out
 
 
 def pack_for_serving(params: Params) -> Params:
     """Fuse ``wq|wk|wv -> wqkv`` and ``w_gate|w_up -> w_gu`` on the output
-    axis (QuantizedMatrix leaves); idempotent."""
+    axis (tensors or QuantizedMatrix leaves); idempotent.  Biased trees
+    (StarCoder2) stay unpacked, as the packed branches add no bias, and
+    MoE experts are never packed."""
     layers = dict(params["layers"])
-    if "wqkv" in layers:
+    if "bq" in layers or "wqkv" in layers:
         return params
 
     def cat(*ms):
-        return QuantizedMatrix(
-            q=torch.cat([m.q for m in ms], dim=-1),
-            scale=torch.cat([m.scale for m in ms], dim=-1),
-        )
+        if isinstance(ms[0], QuantizedMatrix):
+            return QuantizedMatrix(
+                q=torch.cat([m.q for m in ms], dim=-1),
+                scale=torch.cat([m.scale for m in ms], dim=-1),
+            )
+        return torch.cat(ms, dim=-1)
 
     layers["wqkv"] = cat(layers.pop("wq"), layers.pop("wk"), layers.pop("wv"))
-    layers["w_gu"] = cat(layers.pop("w_gate"), layers.pop("w_up"))
+    if "w_gate" in layers:  # the dense gated MLP only
+        layers["w_gu"] = cat(layers.pop("w_gate"), layers.pop("w_up"))
     return {**params, "layers": layers}
 
 
-def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm: statistics in f32, normalized value cast to x's dtype, then
-    the gain in x's dtype.  The sum of squares runs in float64 before its
-    f32 rounding, so a row's result does not depend on how many rows share
-    the call (reduction order): a prompt served alone or in a batch sees
-    the same numbers."""
+def _mean_sq_f64(x: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last axis of f32 ``x``, taken in float64
+    and rounded to float32: the sum's order cannot move its f32 result, so
+    a row's statistics do not depend on how many rows share the call (a
+    prompt served alone or in a batch sees the same numbers)."""
+    return x.double().square().mean(dim=-1, keepdim=True).float()
+
+
+def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float, unit_offset: bool = False) -> torch.Tensor:
+    """RMSNorm: statistics in f32 (the sum of squares in float64,
+    :func:`_mean_sq_f64`).  Llama casts the normalized value to x's dtype
+    and multiplies by the gain in x's dtype; with ``unit_offset`` (Gemma)
+    the whole product by ``1 + g`` runs in f32 with one final cast, as HF's
+    GemmaRMSNorm does."""
     xf = x.float()
-    ms = xf.double().square().mean(dim=-1, keepdim=True).float()
-    scale = torch.rsqrt(ms + eps)
+    scale = torch.rsqrt(_mean_sq_f64(xf) + eps)
+    if unit_offset:
+        return ((xf * scale) * (1.0 + gain.float())).to(x.dtype)
     return (xf * scale).to(x.dtype) * gain
 
 
+def _affine_layer_norm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """Mean-centred LayerNorm with bias (StarCoder2): statistics in f32
+    (both sums in float64, as :func:`rms_norm`'s), the normalized value
+    cast to x's dtype, then gain and bias in x's dtype."""
+    xf = x.float()
+    centred = xf - xf.double().mean(dim=-1, keepdim=True).float()
+    out = centred * torch.rsqrt(_mean_sq_f64(centred) + eps)
+    return out.to(x.dtype) * gain + bias
+
+
 def block_norm(x: torch.Tensor, cfg: LlamaConfig, lp, name: str) -> torch.Tensor:
-    return rms_norm(x, lp[name], cfg.norm_eps)
+    """A layer's norm: RMSNorm (Llama, Gemma) or LayerNorm (StarCoder2,
+    whose bias is ``name + "_b"``)."""
+    if cfg.norm_type == "layernorm":
+        return _affine_layer_norm(x, lp[name], lp[name + "_b"], cfg.norm_eps)
+    return rms_norm(x, lp[name], cfg.norm_eps, cfg.norm_unit_offset)
 
 
 def apply_final_norm(x: torch.Tensor, cfg: LlamaConfig, params: Params) -> torch.Tensor:
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.norm_type == "layernorm":
+        return _affine_layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_unit_offset)
+
+
+def _badd(x: torch.Tensor, lp, name: str) -> torch.Tensor:
+    """Add a projection's bias when the tree has it (StarCoder2)."""
+    return x + lp[name] if name in lp else x
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None, *, device) -> tuple:
     """Head-major int8 KV cache ``(k8, v8, k_scale, v_scale)``: values
     (L, KH, B, T, HD) int8, per-(token, head) bf16 scales (L, KH, B, T).
-    (The reference's bf16 cache is not ported yet.)"""
+    The reference's bf16 cache, with the bf16 speculative draft it serves,
+    is what remains of ROADMAP.md Queue 1 item 6."""
     if cfg.kv_dtype != "int8":
-        raise ValueError(f"the port serves the int8 KV cache, not kv_dtype={cfg.kv_dtype!r}")
+        raise ValueError(
+            f"the port serves the int8 KV cache, not kv_dtype={cfg.kv_dtype!r}: the bf16 KV cache (and the "
+            "bf16 speculative draft) is ROADMAP.md Queue 1 item 6"
+        )
     max_len = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, cfg.n_kv_heads, batch, max_len, cfg.head_dim)
     return (
@@ -253,13 +443,191 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(2, 0, 1, *range(3, x.ndim))
 
 
+# Rows of every MoE product (the router's and the experts'): each runs on
+# blocks of exactly this many rows, the last padded with zero rows, so
+# cuBLAS sees the same shapes whatever the batch and picks the same
+# algorithm and split over K (a row's sums do not depend on its
+# batch-mates).  128 keeps decode (32 rows, padded) bound by the weights'
+# bytes on an H100, where the product is not the limit.
+MOE_BLOCK_ROWS = 128
+# Tokens a dispatch group holds at most (the reference's GShard blocking).
+MOE_GROUP = 128
+
+
+def _row_blocks(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn`` over ``x``'s axis ``dim`` in blocks of :data:`MOE_BLOCK_ROWS`
+    rows (the last padded with zeros and cut off after), concatenated."""
+    n = x.shape[dim]
+    pad = (-n) % MOE_BLOCK_ROWS
+    if pad:
+        widths = [0, 0] * (x.ndim - 1 - dim) + [0, pad]
+        x = F.pad(x, widths)
+    outs = [fn(blk) for blk in torch.split(x, MOE_BLOCK_ROWS, dim=dim)]
+    return torch.cat(outs, dim=dim).narrow(dim, 0, n)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values and their indices, the lower index first among
+    equal values (``jax.lax.top_k``'s order; ``torch.topk`` promises none
+    on the card): a stable descending sort."""
+    values, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def _expert_ffn(x: torch.Tensor, lp) -> torch.Tensor:
+    """Every expert's gated MLP on its rows: x (E, R, d) -> (E, R, d), each
+    product with f32 accumulation and one rounding to x's dtype, as the
+    reference's ``preferred_element_type=f32`` einsums."""
+    gated = F.silu(float_dot(x, lp["w_gate_e"])) * float_dot(x, lp["w_up_e"])
+    return float_dot(gated, lp["w_down_e"])
+
+
+def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed mixture-of-experts MLP (the reference's GShard-style
+    one-hot dispatch).  Returns ``(out, aux_loss)``.
+
+    Tokens dispatch within groups of ``min(s, 128)`` (the sequence padded
+    to a whole number of groups; padded slots claim no capacity) into
+    per-expert buffers of ``cap`` slots: the whole group when
+    ``moe_dropless``, else ``max(8, ceil(capacity_factor * s * k / E))``
+    (tokens past it are dropped).  Routing is top-k over the softmax of the
+    router's logits, ties to the lower expert; the gate weights renormalize
+    over the k.  ``aux_loss`` is the load-balancing term ``E * sum_e
+    fraction_dispatched_e * mean_prob_e`` (1 at uniform routing).
+
+    The router's and the experts' products run on fixed blocks of rows
+    (:data:`MOE_BLOCK_ROWS`), so a token's result does not depend on its
+    batch-mates; the dispatch and combine products are exact (one and k
+    nonzero terms a sum; the combine in f32).
+    """
+    b_orig, s_orig, d = h.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    group = min(s_orig, MOE_GROUP)
+    pad = (-s_orig) % group
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+    n_groups = (s_orig + pad) // group
+    valid = (torch.arange(s_orig + pad, device=h.device) < s_orig).float()
+    valid = valid.reshape(n_groups, group)[None].expand(b_orig, n_groups, group).reshape(b_orig * n_groups, group)
+    h = h.reshape(b_orig * n_groups, group, d)
+    b, s = h.shape[:2]
+    if cfg.moe_dropless:
+        cap = s
+    else:
+        cap = min(max(8, int(cfg.expert_capacity_factor * s * k / E + 0.999)), s)
+
+    router_logits = _row_blocks(lambda x: q_dot(x, lp["router"], "router"), h.reshape(b * s, d), 0)
+    probs = torch.softmax(router_logits.reshape(b, s, E).float(), dim=-1)
+    gate_w, gate_idx = _top_k(probs, k)  # (b, s, k)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    onehot = F.one_hot(gate_idx, E).float() * valid[:, :, None, None]  # (b, s, k, E); pads claim nothing
+    valid_row = valid.sum(dim=1).clamp_min(1.0)
+    frac = onehot.sum(dim=(1, 2)) / (valid_row * k)[:, None]  # (b, E)
+    mean_prob = (probs * valid[:, :, None]).sum(dim=1) / valid_row[:, None]
+    aux_loss = (E * (frac * mean_prob).sum(-1)).mean()
+
+    # Slot of each (token, choice) in its expert's buffer: the count of
+    # earlier choices of the same expert; past ``cap`` it is dropped.
+    flat = onehot.reshape(b, s * k, E)
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1).long()
+    keep = (pos < cap).float()
+    pos_oh = F.one_hot(pos.clamp(max=cap - 1), cap).float() * keep[..., None]
+    disp_k = (flat[:, :, :, None] * pos_oh[:, :, None, :]).reshape(b, s, k, E, cap)
+    combine = (disp_k * gate_w[..., None, None]).sum(dim=2).to(h.dtype)  # (b, s, E, cap)
+    disp = disp_k.sum(dim=2).to(h.dtype)
+
+    x_e = torch.einsum("bsec,bsd->becd", disp, h)  # (b, E, cap, d)
+    rows = x_e.transpose(0, 1).reshape(E, b * cap, d)
+    y = _row_blocks(lambda x: _expert_ffn(x, lp), rows, 1)
+    y = y.reshape(E, b, cap, d).transpose(0, 1)
+    out = torch.einsum("bsec,becd->bsd", combine.float(), y.float()).to(h.dtype)
+    return out.reshape(b_orig, s_orig + pad, d)[:, :s_orig], aux_loss
+
+
+def _mlp(h: torch.Tensor, lp, cfg: LlamaConfig):
+    """The dense MLPs: packed gated (``w_gu``), unpacked gated with
+    optional biases, or plain up -> act -> down (StarCoder2)."""
+    if "w_gu" in lp:
+        gu = q_dot(h, lp["w_gu"], "w_gu")
+        gated = cfg.act_fn(gu[..., : cfg.d_ff]) * gu[..., cfg.d_ff :]
+        return q_dot(gated, lp["w_down"], "w_down")
+    if "w_gate" in lp:
+        gated = cfg.act_fn(_badd(q_dot(h, lp["w_gate"], "w_gate"), lp, "b_gate")) * _badd(
+            q_dot(h, lp["w_up"], "w_up"), lp, "b_up"
+        )
+    else:
+        gated = cfg.act_fn(_badd(q_dot(h, lp["w_up"], "w_up"), lp, "b_up"))
+    return _badd(q_dot(gated, lp["w_down"], "w_down"), lp, "b_down")
+
+
+def _qkv(h: torch.Tensor, lp, cfg: LlamaConfig):
+    """The attention projections, (b, s, heads, hd) each: one packed
+    ``wqkv`` product, or three unpacked ones with their biases."""
+    b, s = h.shape[:2]
+    n_q, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if "wqkv" in lp:
+        qkv = q_dot(h, lp["wqkv"], "wqkv")
+        q = qkv[..., : n_q * hd].reshape(b, s, n_q, hd)
+        k = qkv[..., n_q * hd : (n_q + n_kv) * hd].reshape(b, s, n_kv, hd)
+        v = qkv[..., (n_q + n_kv) * hd :].reshape(b, s, n_kv, hd)
+        return q, k, v
+    q = _badd(q_dot(h, lp["wq"], "wq"), lp, "bq").reshape(b, s, n_q, hd)
+    k = _badd(q_dot(h, lp["wk"], "wk"), lp, "bk").reshape(b, s, n_kv, hd)
+    v = _badd(q_dot(h, lp["wv"], "wv"), lp, "bv").reshape(b, s, n_kv, hd)
+    return q, k, v
+
+
+def dense_layer(
+    x: torch.Tensor,
+    lp,
+    cfg: LlamaConfig,
+    positions: torch.Tensor,
+    kv_lengths: Optional[torch.Tensor] = None,
+    tp_axis: Optional[str] = None,
+) -> torch.Tensor:
+    """One cacheless dense layer, as :func:`forward`'s cacheless mode runs
+    it for a dense tree (the same attention block and MLP; the reference
+    forks here only for its mesh path).  ``tp_axis`` (Megatron-style
+    tensor parallelism inside a mesh) needs a mesh, which the port does
+    not have yet."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel dense_layer needs a device mesh: ROADMAP.md Queue 1 item 10 (parallelism)"
+        )
+    x = _attention_block(x, lp, cfg, positions, lambda q, k, v: attention(q, k, v, positions, kv_lengths))
+    return x + _mlp(block_norm(x, cfg, lp, "mlp_norm"), lp, cfg)
+
+
+def _attention_block(x: torch.Tensor, lp, cfg: LlamaConfig, positions: torch.Tensor, attend) -> torch.Tensor:
+    """``x`` plus one layer's attention: the norm, the projections, RoPE,
+    ``attend(q, k, v)`` -> (b, s, heads, hd), and the output projection."""
+    b, s = x.shape[:2]
+    q, k, v = _qkv(block_norm(x, cfg, lp, "attn_norm"), lp, cfg)
+    attn = attend(apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v)
+    return x + _badd(q_dot(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp["wo"], "wo"), lp, "bo")
+
+
+def _check_mlp_tree(cfg: LlamaConfig, params: Params) -> None:
+    if cfg.n_experts > 1 and "router" not in params["layers"]:
+        raise ValueError(
+            "config has n_experts > 1 but params carry a dense MLP tree — the MoE config requires "
+            "router/w_*_e leaves (load or init params with the same config)"
+        )
+    if cfg.n_experts <= 1 and "router" in params["layers"]:
+        raise ValueError(
+            "params carry MoE leaves (router/w_*_e) but the config is dense (n_experts <= 1) — use the "
+            "matching MoE config"
+        )
+
+
 def forward(
     params: Params,
     cfg: LlamaConfig,
     tokens: torch.Tensor,
     positions: torch.Tensor,
-    cache: tuple,
-    kv_lengths: torch.Tensor,
+    cache: Optional[tuple] = None,
+    kv_lengths: Optional[torch.Tensor] = None,
     *,
     kv_bucket: Optional[int] = None,
     cold_prefill: bool = False,
@@ -267,10 +635,15 @@ def forward(
     page_table: Optional[torch.Tensor] = None,
     page_tokens: int = 0,
     pages_len: int = 0,
+    return_aux: bool = False,
 ):
-    """Run the transformer body against the int8 serving cache.
+    """Run the transformer body, cacheless or against the int8 serving
+    cache.
 
-    ``cache`` is the ``(k8, v8, ks, vs)`` tuple, updated in place.
+    ``cache=None`` is cacheless causal self-attention over ``tokens``
+    (scoring; ``kv_lengths`` optionally masks padding): nothing is
+    written, attention runs over the fresh k/v.  Otherwise ``cache`` is
+    the ``(k8, v8, ks, vs)`` tuple, updated in place.
     ``kv_bucket`` caps the cache window attention reads (not the verify
     pass's, which reads the whole cache).  ``cold_prefill``
     asserts that the cache holds nothing visible to these queries and that
@@ -291,15 +664,20 @@ def forward(
     and reads gather the logical window, so the results equal the
     contiguous layout's on the same content.
 
-    Returns ``(hidden, cache)``, or ``(hidden, cache, ab)`` with
-    ``append_cache``.
+    Returns ``(hidden, cache)``, ``(hidden, cache, ab)`` with
+    ``append_cache``, or ``(hidden, cache, aux)`` with ``return_aux``
+    (the MoE load-balancing loss averaged over layers; 0 for dense trees).
     """
-    if cache is None or len(cache) != 4:
-        raise ValueError("forward serves the int8 KV cache (k8, v8, k_scale, v_scale)")
+    if cache is not None and len(cache) != 4:
+        raise ValueError(
+            "forward serves the int8 KV cache (k8, v8, k_scale, v_scale); the bf16 cache is ROADMAP.md "
+            "Queue 1 item 6"
+        )
     b, s = tokens.shape
-    n_q, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     paged = page_table is not None
     if paged:
+        if cache is None:
+            raise ValueError("paged KV requires the int8 4-tuple of flat pool leaves")
         if cold_prefill:
             raise ValueError(
                 "cold_prefill is contiguous-only: paged callers stage cold prefill "
@@ -309,133 +687,153 @@ def forward(
             raise ValueError("paged KV requires page_tokens >= 1 and pages_len >= 1")
         t = pages_len
     else:
-        t = cache[0].shape[3]
+        t = cache[0].shape[3] if cache is not None else 0
     window = t if kv_bucket is None else min(kv_bucket, t)
     if append_cache is not None:
+        if cache is None or kv_lengths is None:
+            raise ValueError("append_cache requires the int8 KV cache and kv_lengths")
         ab, step = append_cache
         if s > 1 and (ab[0].shape[3] != s or step != 0):
             raise ValueError(f"verify append buffer has {ab[0].shape[3]} slots at step {step} for {s} fresh tokens")
     else:
         ab, step = None, None
-    if cold_prefill and s > 1 and (b > cache[0].shape[2] or s > t):
+    if cache is not None and cold_prefill and s > 1 and (b > cache[0].shape[2] or s > t):
         raise ValueError("cold prefill rows/slots exceed the cache")
+    _check_mlp_tree(cfg, params)
 
-    if paged and ab is None:
+    paging = None
+    if paged:
         # Warm mode: physical write slot of each fresh token (positions
         # clamp to the logical capacity, so a padded tail lands on the
         # row's last entry: an owned page's garbage tail or page 0) and
         # the flat gather index of the logical window [0, window).
-        phys_pos = paged_slots(page_table, positions.clamp(max=pages_len - 1), page_tokens)
-        page_flat = paged_window_index(page_table, window, page_tokens)
+        warm = ab is None
+        paging = (
+            page_table, page_tokens,
+            paged_slots(page_table, positions.clamp(max=pages_len - 1), page_tokens) if warm else None,
+            paged_window_index(page_table, window, page_tokens) if warm else None,
+        )
 
     x = embed(params, tokens, cfg.compute_dtype)
-    k8c, v8c, ksc, vsc = cache
+    if cfg.scale_embeddings:
+        # Gemma: sqrt(d_model) rounded to the activations' dtype first.
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.n_layers):
         lp = _layer_params(params["layers"], li)
-        h = block_norm(x, cfg, lp, "attn_norm")
-        qkv = q_dot(h, lp["wqkv"], "wqkv")
-        q = qkv[..., : n_q * hd].reshape(b, s, n_q, hd)
-        k = qkv[..., n_q * hd : (n_q + n_kv) * hd].reshape(b, s, n_kv, hd)
-        v = qkv[..., (n_q + n_kv) * hd :].reshape(b, s, n_kv, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        k8, ks = _quantize_kv(k)
-        v8, vs = _quantize_kv(v)
 
-        if ab is not None and s > 1:
-            # Verify block: (b, s, KH, ...) -> (KH, b, s, ...) into slots
-            # [0, s) of layer li; the queries attend the cache prefix and
-            # the causal buffer.
-            ab[0][li] = _heads_first(k8)
-            ab[1][li] = _heads_first(v8)
-            ab[2][li] = _heads_first(ks)
-            ab[3][li] = _heads_first(vs)
-            block = (ab[0], ab[1], ab[2], ab[3])
-            # The verify window is the whole cache, not ``kv_bucket``: the
-            # plain core's sums run over the window's length, and a bucket
-            # follows the batch's longest row, so a row's logits would
-            # depend on its batch-mates (masked slots add exact zeros).
-            if paged:
-                attn = paged_verify_gqa_attention(
-                    q, k8c, v8c, ksc, vsc, li, kv_lengths, page_table, block,
-                    window=t, page_tokens=page_tokens,
-                )
-            else:
-                attn = verify_gqa_attention(q, k8c, v8c, ksc, vsc, li, kv_lengths, block, window=t)
-        elif ab is not None:
-            # (b, 1, KH, ...) -> (KH, b, ...) into slot ``step`` of layer li.
-            ab[0][li, :, :, step] = _heads_first(k8)[:, :, 0]
-            ab[1][li, :, :, step] = _heads_first(v8)[:, :, 0]
-            ab[2][li, :, :, step] = _heads_first(ks)[:, :, 0]
-            ab[3][li, :, :, step] = _heads_first(vs)[:, :, 0]
-            append = (ab[0], ab[1], ab[2], ab[3], step + 1)
-            if paged:
-                attn = paged_decode_gqa_attention(
-                    q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths, page_table,
-                    append=append, window=window, page_tokens=page_tokens,
-                )[:, None]
-            else:
-                attn = decode_gqa_attention(
-                    q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths, append=append, window=window,
-                )[:, None]
-        elif cold_prefill and s > 1:
-            k8c[li, :, :b, :s] = _heads_first(k8)
-            v8c[li, :, :b, :s] = _heads_first(v8)
-            ksc[li, :, :b, :s] = _heads_first(ks)
-            vsc[li, :, :b, :s] = _heads_first(vs)
-            # Attend over the fresh k/v: no quantization error on the
-            # prompt pass (the cache stores int8 for later reads).
-            attn = attention(q, k, v, positions, kv_lengths)
-        elif paged:
-            # Paged warm mode: scatter the fresh KV through the table, then
-            # the contiguous warm path's attention call over the gathered
-            # logical window.
-            k8c[li][:, phys_pos] = _heads_first(k8)
-            v8c[li][:, phys_pos] = _heads_first(v8)
-            ksc[li][:, phys_pos] = _heads_first(ks)
-            vsc[li][:, phys_pos] = _heads_first(vs)
-
-            def gather(buf):
-                # (KH, P, ...) -> (b, window, KH, ...)
-                g = buf[li][:, page_flat]
-                return g.permute(1, 2, 0, *range(3, g.ndim))
-
-            attn = attention(
-                q, gather(k8c), gather(v8c), positions, kv_lengths,
-                k_scale=gather(ksc), v_scale=gather(vsc),
+        def attend(q, k, v):
+            if cache is None:
+                return attention(q, k, v, positions, kv_lengths)
+            return _cache_attention(
+                q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging
             )
-        else:
-            # Warm write.  The reference drops out-of-range writes (padded
-            # tail positions past the cache); the port clamps them onto the
-            # last slot, which lies in the tail garbage zone no live KV
-            # reaches (ops.decode_attention.flush_clip_start).
-            bidx = torch.arange(b, device=tokens.device)[:, None]
-            wpos = positions.clamp(max=t - 1)
-            k8c[li][:, bidx, wpos] = _heads_first(k8)
-            v8c[li][:, bidx, wpos] = _heads_first(v8)
-            ksc[li][:, bidx, wpos] = _heads_first(ks)
-            vsc[li][:, bidx, wpos] = _heads_first(vs)
 
-            def window_of(buf):
-                # (KH, B, window, ...) -> (B, window, KH, ...)
-                sl = buf[li, :, :b, :window]
-                return sl.permute(1, 2, 0, *range(3, sl.ndim))
-
-            attn = attention(
-                q, window_of(k8c), window_of(v8c), positions, kv_lengths,
-                k_scale=window_of(ksc), v_scale=window_of(vsc),
-            )
-        x = x + q_dot(attn.reshape(b, s, n_q * hd), lp["wo"], "wo")
-
+        x = _attention_block(x, lp, cfg, positions, attend)
         h = block_norm(x, cfg, lp, "mlp_norm")
-        gu = q_dot(h, lp["w_gu"], "w_gu")
-        gated = F.silu(gu[..., : cfg.d_ff]) * gu[..., cfg.d_ff :]
-        x = x + q_dot(gated, lp["w_down"], "w_down")
+        if "router" in lp:
+            mlp_out, layer_aux = _moe_mlp(h, lp, cfg)
+            aux = aux + layer_aux
+        else:
+            mlp_out = _mlp(h, lp, cfg)
+        x = x + mlp_out
 
     x = apply_final_norm(x, cfg, params)
     if ab is not None:
         return x, cache, ab
+    if return_aux:
+        return x, cache, aux / max(cfg.n_layers, 1)
     return x, cache
+
+
+def _cache_attention(q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging):
+    """Layer ``li``'s attention in one of :func:`forward`'s serving modes:
+    quantize the fresh K/V, write them where the mode keeps them, and
+    attend.  ``paging`` is None on the contiguous cache, else ``(table,
+    page_tokens, warm write slots, warm window index)``."""
+    b, s = q.shape[:2]
+    k8c, v8c, ksc, vsc = cache
+    ab, step = append_cache if append_cache is not None else (None, None)
+    paged = paging is not None
+    page_table, page_tokens, phys_pos, page_flat = paging if paged else (None,) * 4
+    k8, ks = _quantize_kv(k)
+    v8, vs = _quantize_kv(v)
+
+    if ab is not None and s > 1:
+        # Verify block: (b, s, KH, ...) -> (KH, b, s, ...) into slots
+        # [0, s) of layer li; the queries attend the cache prefix and
+        # the causal buffer.
+        ab[0][li] = _heads_first(k8)
+        ab[1][li] = _heads_first(v8)
+        ab[2][li] = _heads_first(ks)
+        ab[3][li] = _heads_first(vs)
+        block = (ab[0], ab[1], ab[2], ab[3])
+        # The verify window is the whole cache, not ``kv_bucket``: the
+        # plain core's sums run over the window's length, and a bucket
+        # follows the batch's longest row, so a row's logits would
+        # depend on its batch-mates (masked slots add exact zeros).
+        if paged:
+            return paged_verify_gqa_attention(
+                q, k8c, v8c, ksc, vsc, li, kv_lengths, page_table, block, window=t, page_tokens=page_tokens,
+            )
+        return verify_gqa_attention(q, k8c, v8c, ksc, vsc, li, kv_lengths, block, window=t)
+    if ab is not None:
+        # (b, 1, KH, ...) -> (KH, b, ...) into slot ``step`` of layer li.
+        ab[0][li, :, :, step] = _heads_first(k8)[:, :, 0]
+        ab[1][li, :, :, step] = _heads_first(v8)[:, :, 0]
+        ab[2][li, :, :, step] = _heads_first(ks)[:, :, 0]
+        ab[3][li, :, :, step] = _heads_first(vs)[:, :, 0]
+        append = (ab[0], ab[1], ab[2], ab[3], step + 1)
+        if paged:
+            return paged_decode_gqa_attention(
+                q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths, page_table,
+                append=append, window=window, page_tokens=page_tokens,
+            )[:, None]
+        return decode_gqa_attention(q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths, append=append, window=window)[:, None]
+    if cold_prefill and s > 1:
+        k8c[li, :, :b, :s] = _heads_first(k8)
+        v8c[li, :, :b, :s] = _heads_first(v8)
+        ksc[li, :, :b, :s] = _heads_first(ks)
+        vsc[li, :, :b, :s] = _heads_first(vs)
+        # Attend over the fresh k/v: no quantization error on the
+        # prompt pass (the cache stores int8 for later reads).
+        return attention(q, k, v, positions, kv_lengths)
+    if paged:
+        # Paged warm mode: scatter the fresh KV through the table, then
+        # the contiguous warm path's attention call over the gathered
+        # logical window.
+        k8c[li][:, phys_pos] = _heads_first(k8)
+        v8c[li][:, phys_pos] = _heads_first(v8)
+        ksc[li][:, phys_pos] = _heads_first(ks)
+        vsc[li][:, phys_pos] = _heads_first(vs)
+
+        def gather(buf):
+            # (KH, P, ...) -> (b, window, KH, ...)
+            g = buf[li][:, page_flat]
+            return g.permute(1, 2, 0, *range(3, g.ndim))
+
+        return attention(
+            q, gather(k8c), gather(v8c), positions, kv_lengths, k_scale=gather(ksc), v_scale=gather(vsc),
+        )
+    # Warm write.  The reference drops out-of-range writes (padded tail
+    # positions past the cache); the port clamps them onto the last slot,
+    # which lies in the tail garbage zone no live KV reaches
+    # (ops.decode_attention.flush_clip_start).
+    bidx = torch.arange(b, device=q.device)[:, None]
+    wpos = positions.clamp(max=t - 1)
+    k8c[li][:, bidx, wpos] = _heads_first(k8)
+    v8c[li][:, bidx, wpos] = _heads_first(v8)
+    ksc[li][:, bidx, wpos] = _heads_first(ks)
+    vsc[li][:, bidx, wpos] = _heads_first(vs)
+
+    def window_of(buf):
+        # (KH, B, window, ...) -> (B, window, KH, ...)
+        sl = buf[li, :, :b, :window]
+        return sl.permute(1, 2, 0, *range(3, sl.ndim))
+
+    return attention(
+        q, window_of(k8c), window_of(v8c), positions, kv_lengths, k_scale=window_of(ksc), v_scale=window_of(vsc),
+    )
 
 
 def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:

@@ -46,7 +46,16 @@ LAUNCHES = {name: 0 for name in SOURCES}
 # its one count in LAUNCHES.
 QMM_DESIGN_LAUNCHES = {"decode": 0, "wide": 0}
 # Launches of the prefill flash kernel at each head_dim it is built for.
-FLASH_HD_LAUNCHES = {64: 0, 128: 0}
+FLASH_HD_LAUNCHES = {64: 0, 128: 0, 256: 0}
+# The decode kernels' (head_dim, most query heads a kv head) instances, as
+# csrc/decode_tile.cuh's with_instance dispatches them: Llama-3 and Mixtral
+# (128, G 4), StarCoder2-3B (128, G 12), Gemma-2B (256, G 8) and Gemma-7B
+# (256, G 1).  Any other shape raises on the card.
+DECODE_INSTANCES = ((128, 8), (128, 16), (256, 8))
+# Launches of each decode kernel at each instance, as "128x8" and so on.
+DECODE_INSTANCE_LAUNCHES = {
+    name: {"%dx%d" % inst: 0 for inst in DECODE_INSTANCES} for name in ("decode_attention", "paged_decode_attention")
+}
 
 # name -> (seconds, ptxas report) of builds made by this process
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -57,7 +66,7 @@ _fns: dict[tuple[str, str], object] = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, QMM_DESIGN_LAUNCHES, FLASH_HD_LAUNCHES):
+    for counts in (LAUNCHES, QMM_DESIGN_LAUNCHES, FLASH_HD_LAUNCHES, *DECODE_INSTANCE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
 

@@ -23,7 +23,8 @@ versions, :func:`decode_gqa_attention_plain` and
 :func:`paged_decode_gqa_attention_plain` (the reference's
 ``decode_gqa_attention_xla`` and ``paged_decode_gqa_attention_xla``).
 Both kernels split each row's window over a cluster of blocks as
-:func:`decode_plan` says.
+:func:`decode_plan` says, at one of three ``(head_dim, max group)``
+instances (``_cuda.DECODE_INSTANCES``): (128, 8), (128, 16) and (256, 8).
 
 The speculative verify pass (S = gamma + 1 fresh tokens a row) attends
 through :func:`verify_gqa_attention` and
@@ -270,6 +271,13 @@ def _append_args(append, n_layers: int, n_kv: int, b: int, hd: int, name: str):
     return (k_ab, v_ab, ks_ab, vs_ab), c, count
 
 
+def decode_instance(hd: int, g: int) -> tuple:
+    """The kernels' ``(head_dim, max group)`` instance that serves head_dim
+    ``hd`` at ``g`` query heads a kv head (the smallest that holds it), or
+    None when none does."""
+    return next(((h, mg) for h, mg in _cuda.DECODE_INSTANCES if h == hd and 1 <= g <= mg), None)
+
+
 def _check_common(name: str, tensors, q, k8, v8, ks, vs, n_q: int, n_kv: int, hd: int, chd: int) -> None:
     g = n_q // n_kv
     for tname, x in tensors:
@@ -279,11 +287,14 @@ def _check_common(name: str, tensors, q, k8, v8, ks, vs, n_q: int, n_kv: int, hd
     _cuda.require(q.dtype == torch.bfloat16, f"{name}: q must be bf16, got {q.dtype}")
     _cuda.require(k8.dtype == torch.int8 and v8.dtype == torch.int8, f"{name}: cache values must be int8")
     _cuda.require(ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16, f"{name}: scales must be bf16")
-    _cuda.require(hd == 128 and chd == 128, f"{name}: head_dim must be 128")
-    _cuda.require(n_q % n_kv == 0 and 1 <= g <= 8, f"{name}: group size {n_q}/{n_kv} not in [1, 8]")
+    _cuda.require(
+        hd == chd and n_q % n_kv == 0 and decode_instance(hd, g) is not None,
+        f"{name}: no kernel instance for head_dim {hd} (cache {chd}) at group size {n_q}/{n_kv}; "
+        f"the instances are (head_dim, max group) {_cuda.DECODE_INSTANCES}",
+    )
 
 
-_DECODE_ARGS = [_cuda.c_ptr] * 11 + [_cuda.c_int] * 9 + [_cuda.c_float, _cuda.c_ptr]
+_DECODE_ARGS = [_cuda.c_ptr] * 11 + [_cuda.c_int] * 10 + [_cuda.c_float, _cuda.c_ptr]
 
 
 def decode_attention_cuda(q, k8, v8, ks, vs, layer: int, kv_lengths, append, window: int):
@@ -306,14 +317,16 @@ def decode_attention_cuda(q, k8, v8, ks, vs, layer: int, kv_lengths, append, win
     err = fn(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         kv_lengths.data_ptr(), ptr(k_ab), ptr(v_ab), ptr(ks_ab), ptr(vs_ab), out.data_ptr(),
-        int(layer), b, n_kv, n_q // n_kv, t, c, count, int(window), decode_plan(b, n_kv), hd**-0.5, _cuda.stream_ptr(q),
+        int(layer), b, n_kv, n_q // n_kv, hd, t, c, count, int(window), decode_plan(b, n_kv), hd**-0.5,
+        _cuda.stream_ptr(q),
     )
     _cuda.check("decode_attention", err)
     _cuda.LAUNCHES["decode_attention"] += 1
+    _cuda.DECODE_INSTANCE_LAUNCHES["decode_attention"]["%dx%d" % decode_instance(hd, n_q // n_kv)] += 1
     return out
 
 
-_PAGED_ARGS = [_cuda.c_ptr] * 12 + [_cuda.c_int] * 11 + [_cuda.c_float, _cuda.c_ptr]
+_PAGED_ARGS = [_cuda.c_ptr] * 12 + [_cuda.c_int] * 12 + [_cuda.c_float, _cuda.c_ptr]
 
 
 def paged_decode_attention_cuda(
@@ -344,11 +357,12 @@ def paged_decode_attention_cuda(
     err = fn(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         kv_lengths.data_ptr(), page_table.data_ptr(), ptr(k_ab), ptr(v_ab), ptr(ks_ab), ptr(vs_ab),
-        out.data_ptr(), int(layer), b, n_kv, n_q // n_kv, p, n_pages, pt, c, count,
+        out.data_ptr(), int(layer), b, n_kv, n_q // n_kv, hd, p, n_pages, pt, c, count,
         int(window), decode_plan(b, n_kv), hd**-0.5, _cuda.stream_ptr(q),
     )
     _cuda.check("paged_decode_attention", err)
     _cuda.LAUNCHES["paged_decode_attention"] += 1
+    _cuda.DECODE_INSTANCE_LAUNCHES["paged_decode_attention"]["%dx%d" % decode_instance(hd, n_q // n_kv)] += 1
     return out
 
 

@@ -24,9 +24,9 @@ def flash_gqa_attention_plain(q, k, v, q_positions, kv_lengths=None):
 
 
 _FLASH_ARGS = [_cuda.c_ptr] * 6 + [_cuda.c_int] * 6 + [_cuda.c_float, _cuda.c_ptr]
-# The head_dims the kernel is instantiated for (Llama-3-8B / 70B: 128;
-# Llama-3.2-1B, the speculative draft: 64).
-HEAD_DIMS = (64, 128)
+# The head_dims the kernel is instantiated for (Llama-3-8B / 70B, Mixtral,
+# StarCoder2: 128; Llama-3.2-1B, the speculative draft: 64; Gemma: 256).
+HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_cuda(q, k, v, q_positions, kv_lengths):

@@ -90,23 +90,47 @@ def _validate_q_dot(x: torch.Tensor, w: Any, name: Optional[str]) -> None:
         raise ValueError(f"{who}: activations must be floating point, got {x.dtype}")
 
 
-def q_dot(x: torch.Tensor, w: Any, name: Optional[str] = None) -> torch.Tensor:
-    """``x @ w`` for a pre-blocked W8A8 projection
-    (:class:`~generativeaiexamples_tpu_torch.ops.qmm.BlockedQuantizedMatrix`):
-    per-token-quantized W8A8 through the CUDA kernel on the card, or its
-    bit-identical plain version on the CPU (``ops.qmm.q_matmul``).
+def float_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for float operands with f32 accumulation and one rounding
+    to x's dtype (the reference's ``preferred_element_type=f32`` then
+    ``astype``).  ``w`` is (K, N), or (E, K, N) against x (E, M, K).  bf16
+    on the card multiplies with an f32 output (no bf16 partial sums);
+    elsewhere both operands go to f32, where bf16 products are exact."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        if w.ndim == 3:
+            out = torch.bmm(x, w, out_dtype=torch.float32)
+        else:
+            out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+            out = out.reshape(*x.shape[:-1], w.shape[-1])
+    else:
+        out = torch.matmul(x.float(), w.float())
+    return out.to(x.dtype)
 
-    The reference's weight-only int8 and float products are not ported:
-    other weights raise (``engine.decode.prepare_params`` lays params out).
+
+def q_dot(x: torch.Tensor, w: Any, name: Optional[str] = None) -> torch.Tensor:
+    """``x @ w`` by the weight's layout:
+
+    * a pre-blocked W8A8 projection
+      (:class:`~generativeaiexamples_tpu_torch.ops.qmm.BlockedQuantizedMatrix`):
+      per-token-quantized W8A8 through the CUDA kernel on the card, or its
+      bit-identical plain version on the CPU (``ops.qmm.q_matmul``);
+    * a float array (the MoE router, float trees): :func:`float_dot`, f32
+      accumulation cast to x's dtype.
+
+    The reference's weight-only int8 layout (a ``QuantizedMatrix`` inside
+    the product) is not served: ``engine.decode.prepare_params`` blocks
+    every int8 projection for the W8A8 kernel, and other layouts raise.
     """
     from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix, q_matmul
 
     _validate_q_dot(x, w, name)
-    if not isinstance(w, BlockedQuantizedMatrix):
-        raise TypeError(
-            f"projection {name!r}: the port serves pre-blocked W8A8 weights, got {type(w).__name__}"
-        )
-    return q_matmul(x, w)
+    if isinstance(w, BlockedQuantizedMatrix):
+        return q_matmul(x, w)
+    if isinstance(w, torch.Tensor) and w.is_floating_point():
+        return float_dot(x, w)
+    raise TypeError(
+        f"projection {name!r}: the port serves pre-blocked W8A8 or float weights, got {type(w).__name__}"
+    )
 
 
 # Per-layer projection weights that serving quantizes to int8.
@@ -125,7 +149,7 @@ def quantize_llama_params(
 
     layers = dict(params["layers"])
     for name in QUANT_TARGETS:
-        if name in layers:
+        if name in layers:  # MoE trees lack the dense MLP leaves; experts and the router stay float
             layers[name] = quant(layers[name], quantize_matrix)
     out = {**params, "layers": layers}
     if include_lm_head:

@@ -73,6 +73,45 @@ def test_plain_matches_jax(with_append, jax_fn):
         assert not out[0].any() and not ref[0].any()  # empty row: exact zeros
 
 
+# The families' decode shapes (head_dim, kv heads, group): Gemma-7B's
+# head_dim 256 at G 1, Gemma-2B's 256 at G 8 (MQA) and StarCoder2-3B's 128
+# at G 12, at a small batch and cache.
+FAMILY_SHAPES = ((256, 2, 1), (256, 1, 8), (128, 1, 12))
+
+
+@pytest.mark.parametrize("hd,kh,g", FAMILY_SHAPES)
+@pytest.mark.parametrize("jax_fn", ["interpret", "xla"])
+def test_plain_matches_jax_at_the_families_shapes(hd, kh, g, jax_fn):
+    """The plain version is shape-generic: within 1e-4 of the interpret-mode
+    Pallas kernel and the XLA twin at every family's (head_dim, group),
+    with the append buffer, an empty row and a pinned lane (batch 16: the
+    Pallas kernel tiles 16 rows)."""
+    rng = np.random.default_rng(3)
+    b, t, c, window, count, layer = 16, 256, 4, 128, 3, 1
+    q = rng.standard_normal((b, kh * g, hd), dtype=np.float32)
+    cache = [rng.integers(-127, 128, (2, kh, b, t, hd), dtype=np.int8) for _ in range(2)]
+    cache += [(rng.random((2, kh, b, t), dtype=np.float32) * 0.02) for _ in range(2)]
+    ab = [rng.integers(-127, 128, (2, kh, b, c, hd), dtype=np.int8) for _ in range(2)]
+    ab += [(rng.random((2, kh, b, c), dtype=np.float32) * 0.02) for _ in range(2)]
+    lengths = rng.integers(1, window, (b,)).astype(np.int32)
+    lengths[0], lengths[1], lengths[2] = 0, t - 1, window
+    jargs = (jnp.asarray(q), jnp.asarray(cache[0]), jnp.asarray(cache[1]), _bf16_jax(cache[2]), _bf16_jax(cache[3]),
+             jnp.int32(layer), jnp.asarray(lengths),
+             (jnp.asarray(ab[0]), jnp.asarray(ab[1]), _bf16_jax(ab[2]), _bf16_jax(ab[3]), jnp.int32(count)))
+    if jax_fn == "interpret":
+        ref = jda.decode_gqa_attention(*jargs, window=window, interpret=True)
+    else:
+        ref = jda.decode_gqa_attention_xla(*jargs, window=window)
+    out = tda.decode_gqa_attention(
+        torch.from_numpy(q), torch.from_numpy(cache[0]), torch.from_numpy(cache[1]), _bf16_torch(cache[2]),
+        _bf16_torch(cache[3]), layer, torch.from_numpy(lengths),
+        (torch.from_numpy(ab[0]), torch.from_numpy(ab[1]), _bf16_torch(ab[2]), _bf16_torch(ab[3]), count),
+        window=window,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert tda.decode_instance(hd, g) == ((hd, 8) if g <= 8 else (hd, 16))
+
+
 def test_flush_clip_start_and_flush_exact():
     for max_len, chunk in [(128, 2), (2048, 8), (512, 16)]:
         assert tda.flush_clip_start(max_len, chunk) == jda.flush_clip_start(max_len, chunk)

@@ -45,6 +45,33 @@ def test_plain_matches_jax(jax_fn):
         assert not arr[2].any()  # no visible key
 
 
+@pytest.mark.parametrize("nq,nkv", [(4, 4), (8, 1)])
+@pytest.mark.parametrize("jax_fn", ["interpret", "gqa_attention"])
+def test_plain_matches_jax_at_head_dim_256(nq, nkv, jax_fn):
+    """Gemma's head_dim 256 (Gemma-7B's group 1, Gemma-2B's MQA): the plain
+    version within 1e-4 of the interpret-mode Pallas kernel and
+    ``gqa_attention``, padded and fully masked rows exactly zero."""
+    rng = np.random.default_rng(4)
+    b, s, hd = 3, 24, 256
+    q = rng.standard_normal((b, s, nq, hd), dtype=np.float32)
+    k = rng.standard_normal((b, s, nkv, hd), dtype=np.float32)
+    v = rng.standard_normal((b, s, nkv, hd), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    pos[1, 20:] = -1
+    kv_lengths = np.array([s, 11, 0], np.int32)
+    jargs = tuple(jnp.asarray(a) for a in (q, k, v, pos, kv_lengths))
+    if jax_fn == "interpret":
+        ref = jfa.flash_gqa_attention(*jargs, block_q=8, block_k=8, interpret=True)
+    else:
+        ref = jatt.gqa_attention(*jargs)
+    ref = np.asarray(ref)
+    out = tfa.flash_gqa_attention(*(torch.from_numpy(a) for a in (q, k, v, pos, kv_lengths)))
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    for arr in (out.numpy(), ref):
+        assert not arr[1, 20:].any() and not arr[2].any()
+    assert hd in tfa.HEAD_DIMS
+
+
 def test_attention_dispatch_routes_unscaled_to_flash_plain():
     q, k, v, pos, kv_lengths = _inputs(1)
     args = tuple(torch.from_numpy(a) for a in (q, k, v, pos, kv_lengths))

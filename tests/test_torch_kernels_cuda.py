@@ -289,3 +289,93 @@ def test_logits_bf16_head_accumulates_in_f32(dev):
     ref = (hidden.double() @ q8.double()).float() * scale[0]
     assert out.dtype == torch.float32 and out.shape == (2, 3, 1000)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)
+
+
+# The decode kernels' instances beyond Llama's (128, G <= 8): Gemma-7B
+# (256, KH 16, G 1), Gemma-2B (256, KH 1, G 8), StarCoder2-3B (128, KH 2,
+# G 12), and the edges of each instance (G 16; 256 at G 5).
+INSTANCE_SHAPES = ((256, 16, 1), (256, 1, 8), (128, 2, 12), (128, 1, 16), (256, 2, 5))
+
+
+@pytest.mark.parametrize("hd,KH,G", INSTANCE_SHAPES)
+@pytest.mark.parametrize("with_append", [False, True])
+def test_decode_instances_close_and_paged_equal(dev, hd, KH, G, with_append):
+    """K2 at each new instance within tolerance of its plain version at
+    every split boundary (8 splits when KH is small), exact zeros on the
+    empty lane and the same bits on a reused output buffer; K3 through a
+    shuffled page table equals it bit for bit; each call counts under its
+    instance."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    L, C, T, pt = 2, 8, 1024, 32
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    B = lengths.numel()
+    q = torch.randn(B, KH * G, hd, device=dev, generator=g).to(torch.bfloat16)
+    cache = _int8_cache(dev, g, (L, KH, B, T, hd))
+    append = (*_int8_cache(dev, g, (L, KH, B, C, hd)), 5) if with_append else None
+    key = "%dx%d" % da.decode_instance(hd, G)
+    before = dict(_cuda.DECODE_INSTANCE_LAUNCHES["decode_attention"])
+    out = _poisoned_call(lambda: da.decode_gqa_attention(q, *cache, 1, lengths, append, window=SPLIT_WINDOW), q)
+    assert _cuda.DECODE_INSTANCE_LAUNCHES["decode_attention"][key] == before[key] + 2
+    ref = da.decode_gqa_attention_plain(q, *cache, 1, lengths, append, window=SPLIT_WINDOW)
+    torch.testing.assert_close(out, ref, atol=5e-3, rtol=2e-2)
+    if not with_append:
+        assert not out[0].any()
+    own = lengths.clamp(max=SPLIT_WINDOW).tolist()
+    leaves, table = paged_mirror(torch, cache, own, pt, torch.Generator().manual_seed(pt))
+    paged = da.paged_decode_gqa_attention(q, *leaves, 1, lengths, table, append, window=SPLIT_WINDOW, page_tokens=pt)
+    assert torch.equal(paged, out)
+
+
+@pytest.mark.parametrize("hd,KH,G", INSTANCE_SHAPES[:3])
+def test_decode_instances_do_not_move_with_the_window(dev, hd, KH, G):
+    """As for Llama's instance: rows shorter than both windows get the same
+    bits under window 192 and 576, from K2 and from K3."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    L, B, C, T, pt = 1, 32, 8, 640, 64
+    lengths = torch.randint(0, 192, (B,), dtype=torch.int32, device=dev, generator=g)
+    lengths[0], lengths[-1] = 0, 191
+    q = torch.randn(B, KH * G, hd, device=dev, generator=g).to(torch.bfloat16)
+    cache = _int8_cache(dev, g, (L, KH, B, T, hd))
+    append = (*_int8_cache(dev, g, (L, KH, B, C, hd)), 3)
+    leaves, table = paged_mirror(torch, cache, lengths.tolist(), pt, torch.Generator().manual_seed(5))
+    small, large = (da.decode_gqa_attention(q, *cache, 0, lengths, append, window=w) for w in (192, 576))
+    assert torch.equal(small, large)
+    paged_small, paged_large = (da.paged_decode_gqa_attention(q, *leaves, 0, lengths, table, append, window=w,
+                                                              page_tokens=pt) for w in (192, 576))
+    assert torch.equal(paged_small, paged_large) and torch.equal(paged_small, small)
+
+
+@pytest.mark.parametrize("hd,n_q,n_kv", [(256, 24, 2), (128, 34, 2), (192, 8, 8)])
+def test_decode_attention_raises_past_its_instances(dev, hd, n_q, n_kv):
+    """head_dim 256 at G 12, head_dim 128 at G 17, head_dim 192: no
+    instance, so the wrapper raises on the card (no plain fallback)."""
+    q = torch.zeros(2, n_q, hd, dtype=torch.bfloat16, device=dev)
+    cache = [torch.zeros(1, n_kv, 2, 64, hd, dtype=torch.int8, device=dev)] * 2
+    scales = [torch.zeros(1, n_kv, 2, 64, dtype=torch.bfloat16, device=dev)] * 2
+    lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        da.decode_gqa_attention(q, *cache, *scales, 0, lengths, window=64)
+
+
+@pytest.mark.parametrize("n_q,n_kv", [(16, 16), (8, 1), (8, 2)])
+@pytest.mark.parametrize("s", [100, 257])
+def test_flash_attention_head_dim_256(dev, n_q, n_kv, s):
+    """K4 at head_dim 256 (Gemma-7B's 16 / 16 heads, Gemma-2B's 8 / 1) with
+    the group-size cases' padded rows, empty row and warm positions: within
+    tolerance, exact zeros where nothing is visible, the same bits on a
+    reused output buffer, and counted under head_dim 256."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    b, hd = 4, 256
+    q = torch.randn(b, s, n_q, hd, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, s, n_kv, hd, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, s, n_kv, hd, device=dev, generator=g).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s).contiguous()
+    pos[1, s - 37:] = -1
+    pos[3] = torch.arange(s, dtype=torch.int32, device=dev) + 5
+    lengths = torch.tensor([s, s - 37, 0, s // 2], dtype=torch.int32, device=dev)
+    before = _cuda.FLASH_HD_LAUNCHES[256]
+    out = _poisoned_call(lambda: fa.flash_gqa_attention(q, k, v, pos, lengths), q)
+    assert _cuda.FLASH_HD_LAUNCHES[256] == before + 2
+    ref = fa.flash_gqa_attention_plain(q, k, v, pos, lengths)
+    torch.testing.assert_close(out, ref, atol=1e-2, rtol=2e-2)
+    assert not out[1, s - 37:].any() and not out[2].any()

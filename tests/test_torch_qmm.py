@@ -118,11 +118,17 @@ def test_q_dot_names_projection():
 
 
 def test_q_dot_takes_only_blocked_weights():
+    """q_dot takes pre-blocked W8A8 weights and, for the MoE router and
+    float trees, float arrays (f32 accumulation cast to x's dtype); the
+    weight-only int8 layout and integer arrays raise."""
     qm = tquant.quantize_matrix(torch.randn(48, 96))
     with pytest.raises(TypeError, match="projection 'wo'.*pre-blocked"):
         tquant.q_dot(torch.zeros(2, 48), qm, "wo")
     with pytest.raises(TypeError, match="pre-blocked"):
-        tquant.q_dot(torch.zeros(2, 48), torch.zeros(48, 96), "wo")
+        tquant.q_dot(torch.zeros(2, 48), torch.zeros(48, 96, dtype=torch.int8), "wo")
+    x, w = torch.randn(2, 48).bfloat16(), torch.randn(48, 96).bfloat16()
+    got = tquant.q_dot(x, w, "router")
+    assert got.dtype == torch.bfloat16 and torch.equal(got, (x.float() @ w.float()).bfloat16())
     out = tquant.q_dot(torch.ones(2, 48), tqmm.block_matrix(qm), "wo")
     assert out.shape == (2, 96) and out.dtype == torch.float32
 

@@ -303,3 +303,68 @@ def test_embedder_flags_of_build_server(flags, want):
         server.server_close()
         if hasattr(server.embedder, "close"):
             server.embedder.close()
+
+
+@pytest.mark.parametrize("model", ["gemma-tiny", "starcoder2-tiny", "llama-moe-tiny"])
+def test_build_server_serves_each_family_as_the_jax_scheduler(model, tmp_path, monkeypatch):
+    """``--model gemma-tiny`` / ``starcoder2-tiny`` / ``llama-moe-tiny`` on the
+    CPU: a checkpoint of the JAX package's random params (written in HF's
+    names by ``chip_smoke.write_family_checkpoint``) provisioned under
+    ``$GAIE_WEIGHTS_DIR`` is served, the MoE tree routed droplessly as
+    ``build_server`` sets it, with the greedy stream the JAX scheduler
+    emits on the same checkpoint."""
+    import jax
+    import numpy as np
+
+    from chip_smoke import write_family_checkpoint
+    from generativeaiexamples_tpu.engine import decode as jdecode
+    from generativeaiexamples_tpu.engine import scheduler as jsched
+    from generativeaiexamples_tpu.engine import weights as jweights
+    from generativeaiexamples_tpu.models import llama as jllama
+    from generativeaiexamples_tpu_torch.engine.weights import params_from_numpy
+
+    moe = {"moe_dropless": True} if "moe" in model else {}
+    jcfg = jllama.PRESETS[model](dtype="float32", max_seq_len=128, kv_dtype="int8", **moe)
+    tcfg = llama.PRESETS[model](dtype="float32", max_seq_len=128, kv_dtype="int8", **moe)
+    raw = jllama.init_params(jcfg, jax.random.PRNGKey(3))
+    path = str(tmp_path / model)
+    write_family_checkpoint(torch, path, tcfg, params_from_numpy(jax.tree.map(np.asarray, raw), tcfg, "cpu"))
+    monkeypatch.setenv("GAIE_WEIGHTS_DIR", str(tmp_path))
+    preset = llama.PRESETS[model]
+    monkeypatch.setitem(llama.PRESETS, model, lambda **kw: preset(**{"dtype": "float32", **kw}))
+    server = build_server([
+        "--device", "cpu", "--model", model, "--host", "127.0.0.1", "--port", "0", "--max-batch", "2",
+        "--max-len", "128", "--decode-chunk-size", "2", "--prefill-chunk-tokens", "8", "--embedder", "none",
+    ])
+    sched = server.scheduler
+    assert sched.cfg.moe_dropless == bool(moe) and sched.cfg.dtype == "float32"
+    sched.start()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, body = _post(f"http://127.0.0.1:{server.server_address[1]}/v1/completions",
+                             {"prompt": PROMPT * 3, "max_tokens": 6, "temperature": 0})
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=10)
+    assert status == 200
+
+    monkeypatch.setenv("GAIE_FORCE_APPEND_BUFFER", "1")
+    monkeypatch.setenv("GAIE_EXACT_SAMPLING", "1")
+    jp = jdecode.prepare_params(jcfg, jweights.load_hf_causal_lm(jcfg, path), None, quantize=True, pack=True,
+                                matmul_kernel="pallas_w8a8")
+    ref = jsched.Scheduler(jcfg, jp, matmul_kernel="pallas_w8a8", max_batch=2, max_len=128, decode_chunk_size=2,
+                           prefill_chunk_tokens=8, prefix_cache="shared")
+    tokens: list[int] = []
+    done: "queue.Queue[str]" = queue.Queue()
+    ref.start()
+    try:
+        ref.submit(jsched.Request(token_ids=ByteTokenizer().encode(PROMPT * 3),
+                                  sampling=jsched.SamplingParams(temperature=0.0, max_tokens=6),
+                                  on_token=tokens.append, on_done=done.put, eos_id=ByteTokenizer().eos_id))
+        done.get(timeout=180)
+    finally:
+        ref.stop()
+    assert tokens and json.loads(body)["choices"][0]["text"] == ByteTokenizer().decode(tokens)

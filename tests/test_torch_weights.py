@@ -197,24 +197,96 @@ def test_llama_config_from_hf_matches_and_refuses_as_the_reference(llama_ckpts, 
                 mod.llama_config_from_hf(str(path))
 
 
-def test_unported_families_raise_naming_item_6(llama_ckpts, tmp_path):
-    _, tcfg = _cfgs("bfloat16")
-    with pytest.raises(ValueError, match="item 6"):
-        tweights.resolve_model_preset("mistralai/Mixtral-8x7B-Instruct-v0.1")
-    mixtral = tmp_path / "mistralai--Mixtral-8x7B-Instruct-v0.1"
-    _write_config(mixtral, model_type="mixtral", architectures=["MixtralForCausalLM"])
-    tweights.save_safetensors({"model.layers.0.block_sparse_moe.gate.weight": np.zeros((8, 64), np.float32)},
-                              str(mixtral / "model.safetensors"))
-    for load in (tweights.load_hf_causal_lm, tweights.load_hf_llama):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            load(tcfg, str(mixtral), device="cpu")
-    # A MoE router or layernorm bias in the tensors alone is refused too.
-    for marker in ("model.layers.0.block_sparse_moe.gate.weight", "model.norm.bias"):
-        path = tmp_path / marker.split(".")[-2]
-        path.mkdir()
-        tweights.save_safetensors({marker: np.zeros((8,), np.float32)}, str(path / "model.safetensors"))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tweights.load_hf_causal_lm(tcfg, str(path), device="cpu")
+def _hf_family_models():
+    """The reference tests' tiny HF Gemma, StarCoder2 and Mixtral models
+    (``tests/test_weights.py``), at the tiny presets' geometry (vocab 512,
+    so ``build_server`` serves them by name), and the presets that map
+    them."""
+    common = dict(vocab_size=512, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+                  max_position_embeddings=512, rope_theta=10000.0)
+    return {
+        "gemma": (transformers.GemmaConfig(**common, num_key_value_heads=1, head_dim=16, rms_norm_eps=1e-6,
+                                           hidden_activation="gelu_pytorch_tanh", attention_bias=False),
+                  transformers.GemmaForCausalLM, "gemma-tiny", {}),
+        "starcoder2": (transformers.Starcoder2Config(**common, num_key_value_heads=2, norm_epsilon=1e-5,
+                                                     hidden_act="gelu_pytorch_tanh", use_bias=True,
+                                                     tie_word_embeddings=True, sliding_window=None,
+                                                     residual_dropout=0.0, embedding_dropout=0.0),
+                       transformers.Starcoder2ForCausalLM, "starcoder2-tiny", {}),
+        "mixtral": (transformers.MixtralConfig(**common, num_key_value_heads=2, rms_norm_eps=1e-5,
+                                               num_local_experts=4, num_experts_per_tok=2,
+                                               tie_word_embeddings=False),
+                    transformers.MixtralForCausalLM, "llama-moe-tiny", {"moe_dropless": True}),
+    }
+
+
+@pytest.fixture(scope="module")
+def family_ckpts(tmp_path_factory):
+    root = tmp_path_factory.mktemp("families")
+    out = {}
+    for seed, (family, (hf_cfg, cls, preset, extra)) in enumerate(_hf_family_models().items()):
+        torch.manual_seed(seed + 1)
+        model = cls(hf_cfg).eval()
+        model.save_pretrained(root / family, safe_serialization=True)
+        cfgs = tuple(mod.PRESETS[preset](dtype="float32", max_seq_len=128, kv_dtype="int8", **extra)
+                     for mod in (jllama, tllama))
+        out[family] = (str(root / family), model, cfgs)
+    return out
+
+
+FAMILIES = ("gemma", "starcoder2", "mixtral")
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_loaders_leaves_equal_reference(family_ckpts, family):
+    """The Gemma (tied head), StarCoder2 (biases, LayerNorm, tied head) and
+    Mixtral (router and experts) checkpoints load through the port's
+    ``load_hf_causal_lm`` to the JAX loader's leaves bit for bit."""
+    path, _, (jcfg, tcfg) = family_ckpts[family]
+    want = jweights.load_hf_causal_lm(jcfg, path)
+    got = tweights.load_hf_causal_lm(tcfg, path, device="cpu")
+    _assert_tree_bits_equal(got, want)
+    if family != "mixtral":
+        assert torch.equal(got["lm_head"], got["embed"].T)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_logits_equal_the_hf_model(family_ckpts, family):
+    """The loaded tree through the port's cacheless forward gives the HF
+    model's logits within the reference test's 2e-3 (f32, another order of
+    sums; Mixtral routed droplessly, as HF routes)."""
+    path, model, (_, tcfg) = family_ckpts[family]
+    params = tweights.load_hf_causal_lm(tcfg, path, device="cpu")
+    tokens = torch.tensor([[1, 5, 9, 17, 33, 2, 40, 77]], dtype=torch.long)
+    with torch.no_grad():
+        ref = model(tokens).logits.numpy()
+        hidden, _ = tllama.forward(params, tcfg, tokens, torch.arange(8, dtype=torch.int32)[None])
+        ours = tllama.logits(params, hidden).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=2e-3, atol=2e-3)
+
+
+def test_resolve_model_preset_equals_reference():
+    names = ("meta-llama/Meta-Llama-3-8B-Instruct", "meta-llama/Meta-Llama-3-70B", "llama-tiny",
+             "meta-llama/Llama-3.2-1B-Instruct", "mistralai/Mixtral-8x7B-Instruct-v0.1", "mixtral-8x7b",
+             "google/gemma-2b", "google/gemma-2b-it", "google/gemma-7b", "gemma-tiny", "bigcode/starcoder2-3b",
+             "starcoder2-tiny", "llama-moe-tiny", "acme/llama-11b", "something-else")
+    for name in names:
+        assert tweights.resolve_model_preset(name) == jweights.resolve_model_preset(name), name
+    assert tweights.resolve_model_preset("google/gemma-7b") == "gemma-7b"
+
+
+def test_family_loader_guards_raise_as_the_reference(family_ckpts):
+    """StarCoder2's loader refuses a checkpoint of another depth than the
+    config's (it would serve a truncated model), and ``load_hf_causal_lm``
+    refuses a gated MLP with LayerNorm or biases (no published family has
+    that shape), in both packages."""
+    path = family_ckpts["starcoder2"][0]
+    for mod, cfgs in ((jweights, jllama), (tweights, tllama)):
+        kw = {} if mod is jweights else {"device": "cpu"}
+        with pytest.raises(ValueError, match="checkpoint has 2 layers but config expects 3"):
+            mod.load_hf_starcoder2(cfgs.starcoder2_tiny(dtype="float32", n_layers=3), path, **kw)
+        with pytest.raises(ValueError, match="no HF converter for gated-MLP"):
+            mod.load_hf_causal_lm(cfgs.starcoder2_tiny(dtype="float32", mlp_gated=True), path, **kw)
 
 
 ST_ARRAYS = {
