@@ -215,7 +215,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    to the CPU's (``families_reference``; every comparison is read before
    the phase fails, and the error names each one beyond its bound).  Each
    served through ``build_server(["--model", <HF id>, ...])`` at full
-   width and depth (Mixtral at 16 of its 32 layers: 45 GB of bf16
+   width and depth (Mixtral at 8 of its 32 layers: 22.5 GB of bf16
    experts), random int8 from seed 0: the 20- and 650-token prompts sent
    together, then each alone, must emit the same 32 greedy ids; Gemma-2B
    and StarCoder2-3B also on the paged pool (a ``Scheduler`` on the same
@@ -228,7 +228,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``$GAIE_WEIGHTS_DIR``: int8 codes and scales against numpy's
    quantization, float leaves against the written arrays, two completions
    with K1, K2 and K4 launched (``families_checkpoint``).
-17. ``durable``: durability with ``python -m
+17. ``xla_path`` (inside the K1 shape record, after ``families``): the
+   reference engine's default serving path, bf16 weights over the bf16 KV
+   cache.  K4 in its warm regime (a 256-token chunk at positions 256 and
+   1792 against 1024 and 2048 cache slots, at head_dim 128 and 64) against
+   its plain version within ``FLASH_TOL``, beside SDPA; the bf16 decode
+   attention's ms per layer at B=32 against its byte bound, at a bucket's
+   window and at the whole cache, and whether a row's bits move with the
+   window (``xla_decode_attention``); whether a row's bf16 product moves
+   with the rows beside it, through one ``torch.mm`` and through the port's
+   fixed 128-row blocks, and what the blocks cost (``xla_row_blocks``);
+   Llama-3-8B at full width and 2
+   layers, random bf16 from seed 11, card vs CPU over a cold prefill, a
+   warm chunk, 8 decode steps and a verify block, logits and cache within
+   ``XLA_TOL``, and two planted faults that must fail it
+   (``xla_reference``); ``build_server --matmul-kernel xla`` at full depth
+   (random bf16 from seed 0, max_batch 32, max_len 2048): the ``serve``
+   requests, the 20- and 650-token prompts alone emit the batch's ids, a
+   shared-prefix graft, ``/metrics`` reports ``xla``, only K4 launches
+   (``xla_serve``); ``--kv-layout paged`` on ``xla`` logs the int8
+   override and serves through K3 and K4 (``xla_serve_paged``); the bf16
+   1B draft (``--spec-decode --draft-model llama3.2-1b``) beside a plain
+   scheduler, gated as ``spec`` is (``xla_spec_draft``); ``LlamaGenerator``
+   against the scheduler (alone prompts, and the graft against a cold
+   prefill), ``SpeculativeGenerator`` against ``LlamaGenerator``, each
+   equal or parted only at a near tie under a teacher-forced forward, and
+   a W8A8 ``LlamaGenerator`` over an int8 cache launching K1, K2 and K4
+   (``xla_generators``).
+18. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -242,7 +269,9 @@ Then the ``kernels`` summary line (each kernel's ``launches`` from its
 serving phase, ``chain_launches`` from ``chain``, ``step_launches`` from
 the steps after it, ``spec_launches`` from each ``spec`` step,
 ``hf_launches`` from each path of ``hf_checkpoint``,
-``families_launches`` from each family's paths; K4's line carries its
+``families_launches`` from each family's paths, ``xla_path_launches``
+from each part of ``xla_path``; K4's line carries its warm-regime timings
+in ``warm``, its
 head_dim-64 timing and ``spec_draft`` launches in ``hd64`` and its
 head_dim-256 timings and ``families`` launches in ``hd256``; K2's and
 K3's lines carry their new instances' timings and ``families`` launches
@@ -257,6 +286,7 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import math
 import os
 import subprocess
@@ -298,7 +328,7 @@ RANK_EPS = 1e-4
 REPLACES = {
     "qmm": "generativeaiexamples_tpu/ops/qmm.py:264",
     "decode_attention": "generativeaiexamples_tpu/ops/decode_attention.py:689",
-    "flash_attention": "generativeaiexamples_tpu/ops/flash_attention.py:126",
+    "flash_attention": "generativeaiexamples_tpu/ops/flash_attention.py:125",
     "paged_decode_attention": "generativeaiexamples_tpu/ops/decode_attention.py:1030",
 }
 
@@ -903,15 +933,15 @@ def card_vs_cpu(torch, dev, cfg, seed: int, s: int, lengths: list, tol: dict, ca
     each comparison's largest error and tolerance use; raises
     :class:`ToleranceError`, naming every comparison beyond its tolerance,
     when one is."""
-    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.engine.decode import w8a8_params
     from generativeaiexamples_tpu_torch.models import llama
 
     gen = torch.Generator().manual_seed(seed)
     if built_on == "cpu":
-        params_cpu = prepare_params(cfg, None, device="cpu", generator=gen)
+        params_cpu = w8a8_params(cfg, None, device="cpu", generator=gen)
         params_dev = _to_device(torch, params_cpu, dev)
     else:
-        params_dev = prepare_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        params_dev = w8a8_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
         params_cpu = _to_device(torch, params_dev, "cpu")
     b = len(lengths)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
@@ -2407,7 +2437,7 @@ def serve_rag(torch, base: str, rag) -> dict:
 def make_scheduler(cfg, params, dev, kv_layout):
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
 
-    return Scheduler(cfg, params, device=dev, **serve_kw(kv_layout))
+    return Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw(kv_layout))
 
 
 def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=None):
@@ -3016,7 +3046,7 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
         return fields
 
     # The baseline: a plain scheduler in the same position of the run.
-    plain = Scheduler(cfg, params, device=dev, **serve_kw("contiguous"))
+    plain = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("contiguous"))
     try:
         baseline = run("spec_plain", plain, ("batch",), spec=False)
     finally:
@@ -3028,7 +3058,7 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
     kw = spec_scheduler_kwargs(parse_args(["--spec-decode", "--gamma", str(SPEC_GAMMA)]), cfg, dev)
     if kw != {"spec_mode": "ngram", "gamma": SPEC_GAMMA}:
         raise AssertionError(f"--spec-decode mapped to {kw}")
-    ngram = Scheduler(cfg, params, device=dev, **serve_kw("contiguous"), **kw)
+    ngram = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("contiguous"), **kw)
     try:
         run("spec_ngram", ngram, baseline=baseline)
         # The fault: every tick degrades to the plain chunk (K2), so the
@@ -3057,8 +3087,9 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
     torch.cuda.empty_cache()
 
     kw = spec_scheduler_kwargs(
-        parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma", str(SPEC_GAMMA)]), cfg, dev)
-    draft = Scheduler(cfg, params, device=dev, **serve_kw("paged"), **kw)
+        parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma", str(SPEC_GAMMA),
+                    "--matmul-kernel", "pallas_w8a8"]), cfg, dev)
+    draft = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("paged"), **kw)
     try:
         fields = run("spec_draft", draft, baseline=baseline)
         hd64 = fields["flash_hd_launches"][64]
@@ -3071,7 +3102,8 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
     torch.cuda.empty_cache()
 
     dcfg, dparams = spec_decode.self_draft(cfg, params, SPEC_SELF_LAYERS)
-    selfd = Scheduler(cfg, params, device=dev, **serve_kw("contiguous"), draft_cfg=dcfg, draft_params=dparams,
+    selfd = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("contiguous"),
+                      draft_cfg=dcfg, draft_params=dparams,
                       gamma=SPEC_GAMMA)
     try:
         run("spec_self", selfd, ("batch",), baseline=baseline)
@@ -4973,7 +5005,7 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
         os.environ["GAIE_WEIGHTS_DIR"] = root
         kw = serve_kw("contiguous")
         argv = ["--model", LLAMA_HF, "--host", "127.0.0.1", "--port", "0", "--embedder", "none",
-                "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"])]
+                "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"]), "--matmul-kernel", "pallas_w8a8"]
         torch.cuda.reset_peak_memory_stats(dev)
         page = os.sysconf("SC_PAGE_SIZE")
         with open("/proc/self/statm", encoding="ascii") as fh:
@@ -5009,7 +5041,8 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            direct = Scheduler(cfg, numpy_llama_tree(torch, cfg, quantized, base, top, dev), device=dev, **kw)
+            direct = Scheduler(cfg, numpy_llama_tree(torch, cfg, quantized, base, top, dev), device=dev,
+                               matmul_kernel="pallas_w8a8", **kw)
         fields["numpy_tree_s"] = time.perf_counter() - t0
         del base, top, quantized
         direct_texts, launches["direct"] = _hf_serve(
@@ -5021,7 +5054,7 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
         del direct
         gc.collect()
         torch.cuda.empty_cache()
-        paged = Scheduler(cfg, params, device=dev, **serve_kw("paged"))
+        paged = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("paged"))
         paged_texts, launches["paged"] = _hf_serve(
             torch, _cuda, create_engine_app(paged, get_tokenizer(LLAMA_HF), LLAMA_HF, "127.0.0.1", 0), prompts,
             "paged")
@@ -5051,8 +5084,10 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
 FAMILY_MODELS = (("google/gemma-2b", "gemma-2b"), ("google/gemma-7b", "gemma-7b"),
                  ("bigcode/starcoder2-3b", "starcoder2-3b"), ("mistralai/Mixtral-8x7B-Instruct-v0.1", "mixtral-8x7b"))
 # Mixtral's bf16 experts are 2.82 GB a layer, 90 GB at its 32 layers (more
-# than the card holds; the reference keeps them bf16 too): served at 16.
-FAMILY_SERVED_LAYERS = {"mixtral-8x7b": 16}
+# than the card holds; the reference keeps them bf16 too): served at 8, to
+# keep the whole script inside its time limit beside the xla_path phase
+# (16 until then).
+FAMILY_SERVED_LAYERS = {"mixtral-8x7b": 8}
 FAMILY_PAGED = ("gemma-2b", "starcoder2-3b")
 FAMILY_CHECKPOINTS = ("gemma-7b", "starcoder2-3b", "mixtral-8x7b")
 FAMILY_VOCAB_STRIDE = 8  # rows of the embedding and head held against numpy
@@ -5195,7 +5230,8 @@ def family_serve(torch, dev, _cuda, hf_id: str, preset: str, prompts) -> dict:
     t0 = time.perf_counter()
     with _PresetDepth(preset, FAMILY_SERVED_LAYERS.get(preset)):
         server = build_server(["--model", hf_id, "--host", "127.0.0.1", "--port", "0", "--embedder", "none",
-                               "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"])])
+                               "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"]),
+                               "--matmul-kernel", "pallas_w8a8"])
     torch.cuda.synchronize()
     sched = server.scheduler
     cfg = sched.cfg
@@ -5210,7 +5246,7 @@ def family_serve(torch, dev, _cuda, hf_id: str, preset: str, prompts) -> dict:
     fields.update(alone_equal_together=True, launches={"contiguous": launches}, **timing,
                   peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     if preset in FAMILY_PAGED:
-        paged = Scheduler(cfg, sched.params, device=dev, **serve_kw("paged"))
+        paged = Scheduler(cfg, sched.params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("paged"))
         paged_streams, fields["launches"]["paged"], paged_timing = _family_requests(
             torch, _cuda, create_engine_app(paged, get_tokenizer(hf_id), hf_id, "127.0.0.1", 0), prompts, "paged",
             path)
@@ -5332,7 +5368,8 @@ def family_checkpoint(torch, np, dev, _cuda, root: str, hf_id: str, preset: str,
     t0 = time.perf_counter()
     with _PresetDepth(preset, FAMILY_REF_LAYERS):
         server = build_server(["--model", hf_id, "--host", "127.0.0.1", "--port", "0", "--embedder", "none",
-                               "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"])])
+                               "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"]),
+                               "--matmul-kernel", "pallas_w8a8"])
     torch.cuda.synchronize()
     fields["load_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5377,7 +5414,7 @@ def families_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
     each at full width and 2 layers through the kernels against the plain
     versions on the CPU (:func:`card_vs_cpu`, with the cacheless forward);
     each served through ``build_server`` by its HF id (:func:`family_serve`;
-    Mixtral at 16 of its 32 layers); then seeded checkpoints of Gemma-7B,
+    Mixtral at 8 of its 32 layers); then seeded checkpoints of Gemma-7B,
     StarCoder2-3B and Mixtral at 2 layers through ``$GAIE_WEIGHTS_DIR``
     (:func:`family_checkpoint`).  Returns the launches of each serving
     path by family."""
@@ -5415,6 +5452,684 @@ def families_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
     emit("families", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
          served_layers={p: FAMILY_SERVED_LAYERS.get(p, "all") for _, p in FAMILY_MODELS})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the xla path: bf16 weights over the bf16 KV cache (the reference default)
+# ---------------------------------------------------------------------------
+
+# K4's warm regime: a 256-token chunk at positions start..start+255 against
+# a window of t > 256 cache slots, at Llama-3-8B's heads (head_dim 128) and
+# the 1B draft's (64).  (start, t) pairs.
+XLA_WARM_CHUNKS = ((256, 1024), (1792, 2048))
+# Card vs CPU at Llama-3-8B's full width and 2 layers, bf16 weights and the
+# bf16 cache (no int8 re-quantization anywhere): the logits of each call,
+# and the cache's written slots, as a share of their own size.  On an H100
+# the sound code reads logits RMS 0.9-1.15% and cache RMS 0.57% (tolerance
+# use 0.57); the planted faults (a warm chunk reading its fresh k/v instead
+# of the cache; a decode step scattering at position + 1) read 65.6x and
+# 19.5x the bound (PERF.md §6).
+XLA_TOL = dict(rel_rms=0.02, max_abs_frac=0.1)
+XLA_FAULTS = ("fresh_kv", "scatter_plus_one")
+
+
+def check_flash_warm(torch, dev, log, hd: int, start: int, t: int, nq: int = 32, nkv: int = 8) -> dict:
+    """K4 on a warm chunk: b=8 rows of a 256-token chunk at positions
+    ``start..start + 255`` against ``t`` cache slots (``t > s``, ragged
+    valid lengths inside the chunk, so the padded tail of a row's chunk sees
+    only its valid keys), held against its plain version within
+    ``FLASH_TOL``, timed beside SDPA with the same boolean mask."""
+    import torch.nn.functional as F
+
+    from generativeaiexamples_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, s, nv = 8, 256, 3
+    qs = [torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
+    kks = [torch.randn(b, t, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
+    vvs = [torch.randn(b, t, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
+    n_valid = torch.tensor([256, 200, 131, 256, 180, 140, 256, 160], dtype=torch.int32, device=dev)
+    lengths = start + n_valid
+    pos = (start + torch.arange(s, dtype=torch.int32, device=dev)).expand(b, s).contiguous()
+    out = fa.flash_attention_cuda(qs[0], kks[0], vvs[0], pos, lengths)
+    ref = fa.flash_gqa_attention_plain(qs[0], kks[0], vvs[0], pos, lengths)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    use = tolerance_use(out, ref, **FLASH_TOL)
+    torch.testing.assert_close(out, ref, **FLASH_TOL)
+    k_ms = time_ms(lambda i: fa.flash_attention_cuda(qs[i], kks[i], vvs[i], pos, lengths), nv, 20, graph=True)
+    eager_ms = time_ms(lambda i: fa.flash_attention_cuda(qs[i], kks[i], vvs[i], pos, lengths), nv, 20)
+    p_ms = time_ms(lambda i: fa.flash_gqa_attention_plain(qs[i], kks[i], vvs[i], pos, lengths), nv, 3, 1)
+    t_idx = torch.arange(t, device=dev)
+    mask = ((t_idx[None, None, :] <= pos[:, :, None]) & (t_idx[None, None, :] < lengths[:, None, None]))[:, None]
+    qt, kt, vt = ([x.transpose(1, 2) for x in xs] for xs in (qs, kks, vvs))
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qt[i], kt[i], vt[i], attn_mask=mask, enable_gqa=True)
+
+    lib_eager_ms = time_ms(sdpa, nv, 50)
+    try:
+        lib_ms, lib_timing = time_ms(sdpa, nv, 20, graph=True), "graph"
+    except RuntimeError as exc:
+        log.append(f"SDPA graph capture failed (warm chunk), timed eagerly over 50 calls: {exc}")
+        torch.cuda.synchronize()
+        lib_ms, lib_timing = lib_eager_ms, "eager, 50 calls"
+    visible = int(mask.sum().item()) * nq
+    # Bytes: q, K/V up to each row's valid length (every key below it is
+    # visible to the chunk's last rows), the output, positions, lengths.
+    kv_slots = int(lengths.sum().item())
+    nbytes = (b * s * nq * hd + kv_slots * 2 * nkv * hd + b * s * nq * hd) * 2 + b * s * 4 + b * 4
+    b_ms, b_by = bound(nbytes, 4.0 * visible * hd, BF16_FLOPS)
+    row = dict(b=b, s=s, t=t, first_position=start, nq=nq, nkv=nkv, hd=hd, ms=k_ms, eager_ms=eager_ms,
+               plain_ms=p_ms, library_ms=lib_ms, library_timing=lib_timing, library_eager_ms=lib_eager_ms,
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms, max_abs_err=err, tolerance=FLASH_TOL,
+               tolerance_use=use)
+    emit("kernel", kernel="flash_attention", regime="warm", **row)
+    del qs, kks, vvs
+    return row
+
+
+def time_float_decode_attention(torch, dev, k2_ms: float) -> dict:
+    """The bf16 cache's decode attention (``ops.decode_attention.
+    float_cache_attention``, plain torch as in the reference) for one layer
+    at B=32, 32 / 8 heads, head_dim 128, rows valid to 600-1000 slots, at a
+    window of 1024 (a bucket) and of 2048 (the whole cache, what the port
+    reads), timed as CUDA-graph replays and eagerly beside each window's
+    byte bound and K2's time at the same shape; and whether a row's output
+    bits move with the window, at windows of 1024, 1536 and 1280 against
+    the whole cache (what decides the whole-cache read)."""
+    from generativeaiexamples_tpu_torch.ops import decode_attention as da
+
+    b, kh, g, hd, t, nv = 32, 8, 4, 128, 2048, 2
+    gen = torch.Generator(device=dev).manual_seed(9)
+    caches = [tuple(torch.randn(2, kh, b, t, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+              for _ in range(nv)]
+    qs = [torch.randn(b, 1, kh * g, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(nv)]
+    lengths = torch.randint(600, 1001, (b,), generator=gen, device=dev, dtype=torch.int32)
+    pos = (lengths - 1)[:, None]
+    out = {}
+    for window in (1024, t):
+        def fn(i, w=window):
+            kc, vc = caches[i]
+            return da.float_cache_attention(qs[i], kc[1, :, :, :w], vc[1, :, :, :w], pos, lengths)
+
+        res = fn(0)
+        if not torch.isfinite(res.float()).all():
+            raise AssertionError("float decode attention: non-finite output")
+        ms = time_ms(fn, nv, 20, graph=True)
+        eager_ms = time_ms(fn, nv, 20)
+        nbytes = b * kh * window * hd * 2 * 2 + 2 * b * kh * g * hd * 2 + b * 8
+        b_ms, b_by = bound(nbytes, 4.0 * b * kh * g * window * hd, BF16_FLOPS)
+        out[window] = dict(ms=ms, eager_ms=eager_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                           vs_k2=ms / k2_ms, result=res)
+    whole = out[t].pop("result")
+    same = {1024: torch.equal(out[1024].pop("result"), whole)}
+    for window in (1536, 1280):
+        kc, vc = caches[0]
+        same[window] = torch.equal(da.float_cache_attention(qs[0], kc[1, :, :, :window], vc[1, :, :, :window], pos,
+                                                            lengths), whole)
+    fields = dict(b=b, n_q=kh * g, n_kv=kh, hd=hd, cache_slots=t, k2_ms_window_1024=k2_ms,
+                  window_1024=out[1024], window_2048=out[t], rows_equal_to_whole_cache_by_window=same)
+    emit("xla_decode_attention", **fields)
+    del caches
+    return fields
+
+
+XLA_PROJECTIONS = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wo", 4096, 4096), ("w_gate", 4096, 14336),
+                   ("w_down", 14336, 4096))
+
+
+def check_row_blocks(torch, dev) -> dict:
+    """Whether a row's bf16 product on the card moves with the rows beside
+    it, at Llama-3-8B's unpacked projections (what the ``xla`` scheduler
+    serves): rows 0-19 of an M=2048 call against the same rows alone in an
+    M=20 call, through one ``torch.mm`` (f32 output) and through the
+    port's fixed row blocks (``ops.quant.f32_product``); and what the
+    blocks cost, at M=32 (a decode step) and M=2048 (a cold batch), timed
+    as CUDA-graph replays."""
+    from generativeaiexamples_tpu_torch.ops.quant import FLOAT_BLOCK_ROWS, f32_product
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for name, k, n in XLA_PROJECTIONS:
+        w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        x = torch.randn(2048, k, generator=gen, device=dev).to(torch.bfloat16)
+
+        def mm(a):
+            return torch.mm(a, w, out_dtype=torch.float32)
+
+        row = dict(mm_rows_equal=torch.equal(mm(x)[:20], mm(x[:20].clone())),
+                   blocked_rows_equal=torch.equal(f32_product(x, w)[:20], f32_product(x[:20].clone(), w)))
+        for m in (32, 2048):
+            xm = x[:m].contiguous()
+            row[f"mm_ms_m{m}"] = time_ms(lambda i: mm(xm), 1, 10, graph=True)
+            row[f"blocked_ms_m{m}"] = time_ms(lambda i: f32_product(xm, w), 1, 10, graph=True)
+        rows[name] = row
+        del w, x
+    fields = dict(block_rows=FLOAT_BLOCK_ROWS, projections=rows,
+                  mm_rows_equal=all(r["mm_rows_equal"] for r in rows.values()),
+                  blocked_rows_equal=all(r["blocked_rows_equal"] for r in rows.values()))
+    emit("xla_row_blocks", **fields)
+    if not fields["blocked_rows_equal"]:
+        raise AssertionError(f"xla_row_blocks: a row's bits moved with its batch inside fixed blocks: {rows}")
+    return fields
+
+
+def _f32_projections(torch, params):
+    """The params with every 2-D / 3-D float leaf held in f32 (bf16 values
+    exactly), for the CPU reference: ``float_dot`` widens bf16 operands to
+    f32 per call, so the product is the same and the widening happens
+    once.  Norm gains and the embedding stay as they are."""
+    layers = {n: (v.float() if v.ndim >= 3 else v) for n, v in params["layers"].items()}
+    return {**params, "layers": layers, "lm_head": params["lm_head"].float()}
+
+
+def _xla_calls(torch, d, cfg, params, tokens, lengths, feed):
+    """The sequence the bf16 path runs, on device ``d``: a cold prefill
+    of ``tokens[:, :s]`` (valid ``lengths``), a 32-token warm chunk at
+    each row's offset (through K4 on the card: t = 128 > s), 8 decode
+    steps fed ``feed[i]`` (None: the argmax of the previous logits, which
+    are returned), a 5-token verify block over a float append buffer, and
+    its flush.  Returns (logits by call, the cache, the fed tokens)."""
+    from generativeaiexamples_tpu_torch.engine.decode import _append_buffer, _flush_append_buffer
+    from generativeaiexamples_tpu_torch.models import llama
+
+    b, s = 2, 64
+    T = 256
+    lens = lengths.to(d)
+    cache = llama.init_kv_cache(cfg, b, T, device=d)
+    out = []
+
+    def fwd(toks, pos, kv_len, **kw):
+        hidden = llama.forward(params, cfg, toks.to(d).long(), pos.to(d), cache, kv_len.to(d), **kw)[0]
+        return llama.logits(params, hidden).float().cpu()
+
+    pos0 = torch.arange(s, dtype=torch.int32).expand(b, s).contiguous()
+    out.append(("prefill", fwd(tokens[:, :s], pos0, lengths, cold_prefill=True)))
+    wpos = lengths[:, None] + torch.arange(32, dtype=torch.int32)[None]
+    out.append(("warm_chunk", fwd(tokens[:, s:s + 32], wpos, lengths + 32, kv_bucket=128)))
+    cur = lengths + 32
+    fed = []
+    tok = out[-1][1][:, -1].argmax(-1)
+    for i in range(8):
+        tok = tok if feed is None else feed[i]
+        fed.append(tok)
+        lg = fwd(tok[:, None], cur[:, None], cur + 1, kv_bucket=128)
+        out.append((f"decode_{i}", lg))
+        tok = lg[:, -1].argmax(-1)
+        cur = cur + 1
+    vt = tokens[:, s + 32:s + 37]
+    vpos = cur[:, None] + torch.arange(5, dtype=torch.int32)[None]
+    ab = _append_buffer(cfg, b, 5, d)
+    hidden, _, ab = llama.forward(params, cfg, vt.to(d).long(), vpos.to(d), cache, cur.to(d), kv_bucket=128,
+                                  append_cache=(ab, 0))
+    out.append(("verify", llama.logits(params, hidden).float().cpu()))
+    _flush_append_buffer(cache, ab, cur.to(d), T)
+    return out, tuple(c.float().cpu() for c in cache), fed
+
+
+def _share(out, ref) -> tuple[float, float]:
+    """(RMS error / RMS of ref, max error / max |ref|)."""
+    diff = out - ref
+    return ((diff.square().mean().sqrt() / ref.square().mean().sqrt()).item(),
+            (diff.abs().max() / ref.abs().max()).item())
+
+
+def xla_vs_cpu(torch, dev, seed: int = 11) -> dict:
+    """Llama-3-8B at full width and 2 layers, random bf16 weights from
+    ``seed`` (made on the card, copied to the CPU), bf16 cache: the calls
+    of :func:`_xla_calls` through the card's kernels and through the plain
+    versions on the CPU, each call's logits and the final cache (every
+    written slot) within ``XLA_TOL``; then each planted fault of
+    ``XLA_FAULTS`` on the card's side, which must fail the same check.
+    Returns the failures (the sound run beyond the bound, a fault
+    within it)."""
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(n_layers=2)
+    with torch.inference_mode():
+        params_dev = prepare_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        params_cpu = _f32_projections(torch, _to_device(torch, params_dev, "cpu"))
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64 + 32 + 5), generator=gen)
+    lengths = torch.tensor([64, 41], dtype=torch.int32)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref, ref_cache, fed = _xla_calls(torch, "cpu", cfg, params_cpu, tokens, lengths, None)
+    cpu_s = time.perf_counter() - t0
+    written = (lengths + 32 + 8 + 5).tolist()
+
+    def compare(fault):
+        saved = llama._float_cache_attention
+        if fault is not None:
+            llama._float_cache_attention = _planted_fault(torch, llama, saved, fault)
+        try:
+            with torch.inference_mode():
+                got, cache, _ = _xla_calls(torch, dev, cfg, params_dev, tokens, lengths, fed)
+        finally:
+            llama._float_cache_attention = saved
+        readings, worst = {}, 0.0
+        for (name, out), (_, want) in zip(got, ref):
+            if name == "prefill":
+                valid = torch.arange(out.shape[1])[None, :] < lengths[:, None]
+                out, want = out[valid], want[valid]
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"xla_reference: non-finite {name} logits on the card")
+            rms, frac = _share(out, want)
+            readings[name] = dict(rel_rms=rms, max_frac=frac)
+            worst = max(worst, rms / XLA_TOL["rel_rms"], frac / XLA_TOL["max_abs_frac"])
+        for leaf, (c, w) in zip(("k", "v"), zip(cache, ref_cache)):
+            rows = [(c[:, :, r, :n], w[:, :, r, :n]) for r, n in enumerate(written)]
+            rms, frac = _share(torch.cat([x.flatten() for x, _ in rows]), torch.cat([y.flatten() for _, y in rows]))
+            readings[f"cache_{leaf}"] = dict(rel_rms=rms, max_frac=frac)
+            worst = max(worst, rms / XLA_TOL["rel_rms"], frac / XLA_TOL["max_abs_frac"])
+        return readings, worst
+
+    sound, use = compare(None)
+    fields = dict(model="llama3-8b", layers=cfg.n_layers, d_model=cfg.d_model, weights=f"random bf16, seed {seed}",
+                  kv="bf16", tolerance=XLA_TOL, cpu_s=cpu_s, calls=sound, tolerance_use=use)
+    faults = {}
+    for fault in XLA_FAULTS:
+        readings, f_use = compare(fault)
+        faults[fault] = dict(tolerance_use=f_use, worst={k: v for k, v in readings.items()
+                                                         if max(v["rel_rms"] / XLA_TOL["rel_rms"],
+                                                                v["max_frac"] / XLA_TOL["max_abs_frac"]) > 1})
+    fields["planted_faults"] = faults
+    failures = [f"xla_reference: card vs CPU beyond {XLA_TOL} (use {use:.3f})"] if use > 1 else []
+    passed = [f for f, r in faults.items() if r["tolerance_use"] <= 1]
+    if passed:
+        failures.append(f"xla_reference: planted faults {passed} pass the check")
+    emit("xla_reference", **fields, failures=failures)
+    del params_dev, params_cpu
+    return failures
+
+
+def _planted_fault(torch, llama, sound, fault: str):
+    """``models.llama._float_cache_attention`` with one fault planted:
+    ``fresh_kv``, a warm chunk attends over its own fresh k/v and not the
+    cache (which it still writes); ``scatter_plus_one``, a decode step
+    writes its k/v one slot late (and reads through it)."""
+
+    def faulty(q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset):
+        warm = ab is None and not (cold_prefill and q.shape[1] > 1)
+        if fault == "fresh_kv" and warm and q.shape[1] > 1:
+            sound(q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset)
+            return llama.attention(q, k, v, positions - positions[:, :1], None)
+        if fault == "scatter_plus_one" and warm and q.shape[1] == 1:
+            return sound(q, k, v, li, positions + 1, kv_lengths + 1, cache, ab, cold_prefill, window, t, row_offset)
+        return sound(q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset)
+
+    return faulty
+
+
+XLA_ARGV = ("--model", "llama3-8b", "--matmul-kernel", "xla", "--host", "127.0.0.1", "--port", "0",
+            "--embedder", "none", "--seed", "0")
+
+
+def _xla_front(server):
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server.scheduler.start()
+    thread.start()
+    return thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _close_front(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    server.scheduler.stop()
+    thread.join(timeout=30)
+
+
+def xla_serve(torch, dev, _cuda, prompts) -> tuple:
+    """``build_server`` on ``xla`` (Llama-3-8B at full width and depth,
+    random bf16 weights from ``--seed`` 0 made on the card, the preset's
+    bf16 cache), the engine server's serving settings: eight concurrent
+    completions and a streaming chat, then the 20- and 650-token prompts
+    alone (their ids must equal the batch's), then the 300-token shared
+    prompt and one extension (the extension takes the prefix-cache graft;
+    its ids are held against a cold prefill in :func:`xla_generators`).
+    Launch counts are zeroed after a warm-up: K4 must launch, K1/K2/K3
+    not.  Returns (params, the prompts sent alone and their ids, the
+    extension's prompt and ids, the summary with the batch's streams,
+    launches, failures)."""
+    from generativeaiexamples_tpu_torch.engine.server import build_server
+
+    from generativeaiexamples_tpu_torch.engine import decode as tdecode
+
+    kw = serve_kw("contiguous")
+    torch.cuda.reset_peak_memory_stats(dev)
+    # The random draw's share of the load, read inside build_server.
+    draw, spent = tdecode.init_random_params, {}
+
+    def timed_draw(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = draw(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent["draw_s"] = time.perf_counter() - t
+        return out
+
+    tdecode.init_random_params = timed_draw
+    t0 = time.perf_counter()
+    try:
+        server = build_server([*XLA_ARGV, "--max-batch", str(kw["max_batch"]), "--max-len", str(kw["max_len"])])
+        torch.cuda.synchronize()
+    finally:
+        tdecode.init_random_params = draw
+    load_s = time.perf_counter() - t0
+    sched = server.scheduler
+    if sched.device.type != "cuda" or sched.matmul_kernel != "xla":
+        raise AssertionError(f"xla_serve: {sched.device} {sched.matmul_kernel}")
+    if len(sched._cache) != 2 or sched._cache[0].dtype != torch.bfloat16:
+        raise AssertionError("xla_serve: the server did not build the bf16 cache")
+    fields = dict(model="llama3-8b", layers=sched.cfg.n_layers, weights="random bf16, seed 0", kv="bf16 contiguous",
+                  **kw, load_s=load_s, random_draw_s=spent.get("draw_s"),
+                  device_gb_after_load=torch.cuda.memory_allocated(dev) / 1e9,
+                  cache_gb=sum(c.numel() * c.element_size() for c in sched._cache) / 1e9)
+    tee = StreamTee(sched)
+    thread, base = _xla_front(server)
+    try:
+        _complete(base, prompts["warmup"], 4)
+        tee.records.clear()
+        n_ttft0 = len(sched.stats.ttft_recent)
+        snap0 = sched.stats.snapshot()
+        _cuda.reset_launch_counts()
+        t_wall = time.perf_counter()
+        workers, results = _concurrent(base, prompts["completions"])
+        status, body = _post(base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": prompts["chat"]}], "max_tokens": 32, "temperature": 0,
+            "stream": True})
+        for w in workers:
+            w.join(timeout=900)
+        wall = time.perf_counter() - t_wall
+        if status != 200 or len(results) != len(prompts["completions"]):
+            raise AssertionError(f"xla_serve: a batch request failed ({status})")
+        snap1 = sched.stats.snapshot()
+        n_batch = len(tee.records)
+        batch = {prompt: list(ids) for prompt, _, ids in tee.records}
+        for n in (20, 650):
+            _complete(base, prompts["completions"][prompts["lengths"].index(n)])
+        alone = {prompt: list(ids) for prompt, _, ids in tee.records[n_batch:n_batch + 2]}
+        hits0 = sched.stats.snapshot()["shared_prefix_hits"]
+        _complete(base, prompts["shared"])
+        _complete(base, prompts["extensions"][0])
+        hits = sched.stats.snapshot()["shared_prefix_hits"] - hits0
+        ext_prompt, _, ext_ids = tee.records[-1]
+        _, metrics = _get(base + "/metrics")
+        launches = dict(_cuda.LAUNCHES)
+        flash_hd = dict(_cuda.FLASH_HD_LAUNCHES)
+    finally:
+        _close_front(server, thread)
+    failures = []
+    differ = [len(p) for p, ids in alone.items() if batch.get(p) != ids]
+    if differ or len(alone) != 2:
+        failures.append(f"prompts of {differ} tokens alone emitted other ids than in the batch")
+    if hits < 1:
+        failures.append(f"the extension took no shared-prefix graft ({hits})")
+    if 'engine_matmul_kernel{kernel="xla"} 1' not in metrics:
+        failures.append("/metrics does not report engine_matmul_kernel{kernel=\"xla\"}")
+    if not launches["flash_attention"] or any(launches[k] for k in ("qmm", "decode_attention",
+                                                                     "paged_decode_attention")):
+        failures.append(f"launches {launches}: K4 only on the bf16 path")
+    ttfts = sorted(list(sched.stats.ttft_recent)[n_ttft0:])
+    decode_tokens = (snap1["tokens_total"] - snap0["tokens_total"]) - (snap1["requests_total"] - snap0["requests_total"])
+    decode_s = snap1["decode_s"] - snap0["decode_s"]
+    summary = dict(wall_s=wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None,
+                   decode_tokens_per_s=decode_tokens / decode_s if decode_s else None, streams=batch)
+    fields.update(requests=len(prompts["completions"]) + 1, wall_s=wall, ttft_p50_ms=summary["ttft_p50_ms"],
+                  ttft_max_ms=ttfts[-1] * 1e3 if ttfts else None, decode_tokens_per_s=summary["decode_tokens_per_s"],
+                  decode_chunks=snap1["decode_chunks"] - snap0["decode_chunks"],
+                  prefill_chunks=snap1["prefill_chunks"] - snap0["prefill_chunks"], alone_equal_batch=not differ,
+                  shared_prefix_hits=hits, metrics_kernel="xla", launches=launches, flash_hd_launches=flash_hd,
+                  peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9, failures=failures)
+    emit("xla_serve", **fields)
+    params = sched.params
+    sched._cache = None
+    del server, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params, alone, (ext_prompt, list(ext_ids)), summary, launches, [f"xla_serve: {f}" for f in failures]
+
+
+class _LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def xla_serve_paged(torch, dev, _cuda, prompts) -> dict:
+    """``build_server`` on ``xla`` with ``--kv-layout paged``: the preset's
+    bf16 KV must be overridden to int8 (the reference's log line), the
+    server must serve the 20- and 650-token prompts through K3 and K4
+    (no K1, no K2).  Returns (the launches, failures)."""
+    from generativeaiexamples_tpu_torch.engine import server as server_mod
+
+    kw = serve_kw("paged")
+    handler = _LogLines()
+    server_mod.logger.addHandler(handler)
+    level = server_mod.logger.level
+    server_mod.logger.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        server = server_mod.build_server([*XLA_ARGV, "--max-batch", str(kw["max_batch"]), "--max-len",
+                                          str(kw["max_len"]), "--kv-layout", "paged", "--kv-page-size", "64"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        server_mod.logger.removeHandler(handler)
+        server_mod.logger.setLevel(level)
+    sched = server.scheduler
+    override = [line for line in handler.lines if "kv_layout=paged requires int8 KV; overriding kv_dtype" in line]
+    thread, base = _xla_front(server)
+    try:
+        _complete(base, prompts["warmup"], 4)
+        _cuda.reset_launch_counts()
+        workers, results = _concurrent(base, [prompts["completions"][prompts["lengths"].index(n)] for n in (20, 650)])
+        for w in workers:
+            w.join(timeout=900)
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        _close_front(server, thread)
+    failures = []
+    if not override:
+        failures.append("no kv_dtype override logged")
+    if sched._pool is None or sched._cache[0].dtype != torch.int8 or sched.matmul_kernel != "xla":
+        failures.append("the paged server is not int8 pages on xla")
+    if (len(results) != 2 or not launches["paged_decode_attention"] or not launches["flash_attention"]
+            or launches["qmm"] or launches["decode_attention"]):
+        failures.append(f"launches {launches}: K3 and K4, no K1 or K2")
+    emit("xla_serve_paged", load_s=load_s, override_logged=override[:1], kv="int8 paged, page 64",
+         launches=launches, failures=failures)
+    sched._cache = sched._pool = None
+    del server, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, [f"xla_serve_paged: {f}" for f in failures]
+
+
+def _stream_gate(torch, cfg, params, prompt, ids, ref) -> dict:
+    """``ids`` against ``ref`` after ``prompt``: equal, or (random-weight
+    logits being flat) parted only at a near tie: every token of both
+    within ``PLAIN_TIE`` of its position's argmax under a teacher-forced
+    forward, and the first difference's two logits within ``PLAIN_TIE``."""
+    if list(ids) == list(ref):
+        return dict(equal=True)
+    lg = teacher_forced_logits(torch, cfg, params, prompt, ids)
+    lr = teacher_forced_logits(torch, cfg, params, prompt, ref)
+    deficit = 0.0
+    for logits, stream in ((lg, ids), (lr, ref)):
+        picked = logits[torch.arange(len(stream)), torch.tensor(stream, device=logits.device)]
+        deficit = max(deficit, (logits.max(dim=-1).values - picked).max().item())
+    j = next((i for i in range(min(len(ids), len(ref))) if ids[i] != ref[i]), None)
+    flip = abs(lg[j, ids[j]].item() - lg[j, ref[j]].item()) if j is not None else 0.0
+    ok = deficit <= PLAIN_TIE and flip <= PLAIN_TIE and len(ids) == len(ref)
+    return dict(equal=False, first_difference=j, logit_gap=flip, max_argmax_deficit=deficit, near_tie=ok)
+
+
+def xla_spec(torch, dev, _cuda, cfg, params, prompts, serve_summary) -> tuple:
+    """The reference's bf16 draft: ``--spec-decode --draft-model
+    llama3.2-1b`` on ``xla`` (the draft keeps its preset's bf16 KV and
+    float weights, random from the seed) over the ``xla_serve`` params,
+    beside a plain scheduler in the same position.  Gates, as ``spec``'s
+    (random logits are too flat for stream equality across the verify
+    attention and the decode attention): each greedy token within
+    ``SPEC_TIE`` of its teacher-forced argmax and streams parting from the
+    plain ones only at a near tie (:func:`check_spec_streams`); K4 at
+    head_dim 64 launched (the draft's prefill), no K1/K2/K3.  Returns
+    (the draft config and params, launches, failures)."""
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import parse_args, spec_scheduler_kwargs
+
+    out = {}
+    plain = Scheduler(cfg, params, device=dev, matmul_kernel="xla", **serve_kw("contiguous"))
+    try:
+        records, baseline = spec_step(torch, dev, _cuda, "xla_spec_plain", plain, cfg, params, prompts, serve_summary,
+                                      ("batch",))
+    finally:
+        plain._cache = None
+    plain_streams = {prompt: ids for prompt, sp, ids in records if sp.temperature <= 0.0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = spec_scheduler_kwargs(parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma",
+                                           str(SPEC_GAMMA)]), cfg, dev)
+    dcfg, dparams = kw["draft_cfg"], kw["draft_params"]
+    draft = Scheduler(cfg, params, device=dev, matmul_kernel="xla", **serve_kw("contiguous"), **kw)
+    if len(draft._dcache) != 2 or draft._dcache[0].dtype != torch.bfloat16:
+        raise AssertionError("xla_spec: the draft's cache is not bf16")
+    try:
+        t0 = time.perf_counter()
+        records, fields = spec_step(torch, dev, _cuda, "xla_spec_draft", draft, cfg, params, prompts, serve_summary,
+                                    ("batch", "alone"), baseline)
+        gates = check_spec_streams(torch, cfg, params, records, plain_streams, spec=True)
+    finally:
+        draft._cache = draft._dcache = None
+    failures = gates.pop("failures")
+    launches = fields["launches"]
+    if not fields["spec"]["spec_rounds"]:
+        failures.append("no speculation round ran")
+    if not fields["flash_hd_launches"][64] or any(launches[k] for k in ("qmm", "decode_attention",
+                                                                         "paged_decode_attention")):
+        failures.append(f"launches {launches} {fields['flash_hd_launches']}: K4 (hd 64 too), no K1/K2/K3")
+    equal = sum(plain_streams.get(prompt) == ids for prompt, sp, ids in records if sp.temperature <= 0.0)
+    emit("xla_spec_draft", draft="llama3.2-1b, random bf16 from --seed, bf16 KV", gamma_max=SPEC_GAMMA,
+         step_s=time.perf_counter() - t0, streams_equal_to_plain=equal, **gates, **fields, failures=failures)
+    out["spec_draft"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dcfg, dparams, out, [f"xla_spec_draft: {f}" for f in failures]
+
+
+def xla_generators(torch, dev, _cuda, cfg, params, dcfg, dparams, alone_streams, ext) -> dict:
+    """The offline generators at Llama-3-8B bf16 on the ``xla_serve``
+    params: ``LlamaGenerator`` (max_batch 32, as the scheduler decodes,
+    unpacked as the scheduler serves) on the 20- and 650-token prompts and
+    the graft's extension must give the scheduler's ids (a cold prefill
+    against chunked prefill and the graft); ``SpeculativeGenerator`` with
+    the bf16 1B draft must give ``LlamaGenerator``'s ids; each equal, or
+    parted only at a near tie (:func:`_stream_gate`, the form stated).
+    Then ``LlamaGenerator(quantize=True, matmul_kernel="pallas_w8a8")``
+    over an int8 cache (random int8 from seed 0) must launch K1, K2 and
+    K4.  Returns (the launches, failures)."""
+    from generativeaiexamples_tpu_torch.engine.generator import LlamaGenerator
+    from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
+    from generativeaiexamples_tpu_torch.engine.speculative import SpeculativeGenerator
+    from generativeaiexamples_tpu_torch.models import llama
+
+    greedy = SamplingParams(temperature=0.0, max_tokens=32)
+    prompts = [p for p in alone_streams] + [ext[0]]
+    want = [alone_streams[p] for p in alone_streams] + [ext[1]]
+    fields, failures, launches = {}, [], {}
+    t0 = time.perf_counter()
+    gen = LlamaGenerator(cfg, params, device=dev, max_batch=32, max_len=2048, pack=False, matmul_kernel="xla")
+    _cuda.reset_launch_counts()
+    got = [r.token_ids for r in gen.generate([list(p) for p in prompts], greedy)]
+    launches["generator"] = dict(_cuda.LAUNCHES)
+    fields["generator_s"] = time.perf_counter() - t0
+    gates = [_stream_gate(torch, cfg, params, p, g, w) for p, g, w in zip(prompts, got, want)]
+    fields["generator_vs_scheduler"] = {str(len(p)): g for p, g in zip(prompts, gates)}
+    failures += [f"generator vs scheduler, {len(p)}-token prompt: {g}" for p, g in zip(prompts, gates)
+                 if not g["equal"] and not g["near_tie"]]
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = SpeculativeGenerator(cfg, dcfg, params, dparams, device=dev, max_batch=4, max_len=2048, gamma=SPEC_GAMMA,
+                                pack=False)
+    _cuda.reset_launch_counts()
+    spec_got = spec.generate([list(p) for p in prompts], max_tokens=32)
+    launches["speculative"] = dict(_cuda.LAUNCHES)
+    fields.update(speculative_s=time.perf_counter() - t0, speculative_stats=dict(spec.stats))
+    gates = [_stream_gate(torch, cfg, params, p, s, g) for p, s, g in zip(prompts, spec_got, got)]
+    fields["speculative_vs_generator"] = {str(len(p)): g for p, g in zip(prompts, gates)}
+    failures += [f"speculative vs generator, {len(p)}-token prompt: {g}" for p, g in zip(prompts, gates)
+                 if not g["equal"] and not g["near_tie"]]
+    del spec
+    for name in ("generator", "speculative"):
+        if not launches[name]["flash_attention"] or launches[name]["qmm"] or launches[name]["decode_attention"]:
+            failures.append(f"{name} launches {launches[name]}: K4 only on the bf16 path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The W8A8 route over an int8 cache.
+    t0 = time.perf_counter()
+    w8 = LlamaGenerator(llama.llama3_8b(kv_dtype="int8"), None, device=dev, max_batch=8, max_len=2048, quantize=True,
+                        matmul_kernel="pallas_w8a8", seed=0)
+    _cuda.reset_launch_counts()
+    res = w8.generate([list(p) for p in prompts], greedy)
+    launches["w8a8_generator"] = dict(_cuda.LAUNCHES)
+    fields["w8a8_generator_s"] = time.perf_counter() - t0
+    if w8.matmul_kernel != "pallas_w8a8" or not all(len(r.token_ids) == 32 for r in res):
+        failures.append(f"the W8A8 generator: {w8.matmul_kernel}, {[len(r.token_ids) for r in res]} tokens")
+    if not all(launches["w8a8_generator"][k] for k in ("qmm", "decode_attention", "flash_attention")):
+        failures.append(f"the W8A8 generator launched {launches['w8a8_generator']}: K1, K2 and K4 wanted")
+    del w8
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("xla_generators", prompt_tokens=[len(p) for p in prompts], max_tokens=32, launches=launches,
+         failures=failures, **fields)
+    return launches, [f"xla_generators: {f}" for f in failures]
+
+
+def xla_path_phase(torch, dev, _cuda, smi: str, log, prompts, k2_ms: float) -> tuple[dict, dict]:
+    """The reference engine's default serving path: K4's warm regime at
+    both head_dims (the kernel lines), the bf16 decode attention's time,
+    card vs CPU with planted faults, the server on ``xla`` (contiguous and
+    paged), the bf16 draft, and the offline generators.  Every part is
+    read before the phase fails.  Returns (K4's warm rows, the launches of
+    each part)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    warm = {f"hd{hd}_t{t}": check_flash_warm(torch, dev, log, hd, start, t)
+            for hd in (128, 64) for start, t in XLA_WARM_CHUNKS}
+    decode_attn = time_float_decode_attention(torch, dev, k2_ms)
+    check_row_blocks(torch, dev)
+    failures = xla_vs_cpu(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    cfg = llama.llama3_8b()
+    params, alone, ext, summary, launches["serve"], found = xla_serve(torch, dev, _cuda, prompts)
+    failures += found
+    launches["serve_paged"], found = xla_serve_paged(torch, dev, _cuda, prompts)
+    failures += found
+    dcfg, dparams, spec_launches, found = xla_spec(torch, dev, _cuda, cfg, params, prompts, summary)
+    failures += found
+    launches.update(spec_launches)
+    gen_launches, found = xla_generators(torch, dev, _cuda, cfg, params, dcfg, dparams, alone, ext)
+    failures += found
+    launches.update(gen_launches)
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("xla_path", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
+         decode_attention_ms_per_layer=decode_attn["window_2048"]["ms"], failures=failures)
+    if failures:
+        raise AssertionError(f"xla_path: {failures}")
+    return warm, launches
 
 
 def main() -> int:
@@ -5500,7 +6215,7 @@ def main() -> int:
     rag = (BatchedEmbedder(embedder, max_batch=32, max_wait_ms=3.0), GPUReranker(bert.arctic_embed_l(), device=dev),
            queries)
 
-    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.engine.decode import w8a8_params
     from generativeaiexamples_tpu_torch.models import llama
 
     # Llama-3-8B at full width and depth, random int8 weights from a seed,
@@ -5508,7 +6223,7 @@ def main() -> int:
     cfg = llama.llama3_8b(kv_dtype="int8")
     t0 = time.perf_counter()
     with torch.inference_mode():
-        params = prepare_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        params = w8a8_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     emit("params", model="llama3-8b", seconds=time.perf_counter() - t0,
          device_gb=torch.cuda.memory_allocated(dev) / 1e9)
@@ -5547,6 +6262,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         family_launches = families_phase(torch, dev, _cuda, smi, prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        warm, xla_launches = xla_path_phase(torch, dev, _cuda, smi, log, prompts, summary["decode_attention"]["ms"])
     gc.collect()
     torch.cuda.empty_cache()
     kw = serve_kw("contiguous")
@@ -5564,11 +6282,14 @@ def main() -> int:
             "step_launches": {step: counts[name] for step, counts in step_launches.items()},
             "spec_launches": {step: counts[name] for step, counts in spec_launches.items()},
             "hf_launches": {path: counts[name] for path, counts in hf_launches.items()},
+            "xla_path_launches": {part: counts[name] for part, counts in xla_launches.items()},
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
         kernels[-1]["families_launches"] = {
             preset: {path: counts[name] for path, counts in paths.items()} for preset, paths in family_launches.items()}
         timed = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+        if name == "flash_attention":
+            kernels[-1]["warm"] = {k: {f: h[f] for f in timed + ("t", "first_position", "hd")} for k, h in warm.items()}
         if "hd64" in s:
             h = s["hd64"]
             kernels[-1]["hd64"] = {k: h[k] for k in timed + ("shape",)}

@@ -101,8 +101,9 @@ def _apply_stop(chunks: Iterator[str], stop: Sequence[str]) -> Iterator[str]:
 class GPUChatLLM:
     """In-process Llama generation on the port's ``Scheduler``.
 
-    By default it builds what the engine server builds: the ``model_preset``
-    model with random int8 weights (seed 0), int8 KV, the scheduler's
+    By default it builds what the engine server builds on its
+    ``pallas_w8a8`` route: the ``model_preset`` model with random int8
+    weights (seed 0) blocked for the W8A8 kernel, int8 KV, the scheduler's
     ``SERVING_DEFAULTS``, on ``device`` (None is the card; ``"cpu"`` only
     when asked), but for one setting.  An injected ``scheduler`` (and
     ``tokenizer``) is used as given.  The scheduler's tick thread starts
@@ -137,7 +138,7 @@ class GPUChatLLM:
             kw = dict(SERVING_DEFAULTS, prefill_chunk_tokens=None,
                       max_len=min(SERVING_DEFAULTS["max_len"], cfg.max_seq_len))
             logger.warning("no checkpoint loading in the port yet: serving random int8 weights (seed 0)")
-            scheduler = Scheduler(cfg, None, device=device, **kw)
+            scheduler = Scheduler(cfg, None, device=device, matmul_kernel="pallas_w8a8", **kw)
         if tokenizer is None:
             from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
 

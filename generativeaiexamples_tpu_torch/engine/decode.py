@@ -1,6 +1,7 @@
-"""Decode-path builders for the scheduler (port of ``engine/decode.py``):
-params, cache and paged-pool preparation, the append-buffer flushes, and
-the chunked decode loops (contiguous and paged)."""
+"""Decode-path builders for the scheduler and the offline generators
+(port of ``engine/decode.py``): params, cache and paged-pool preparation,
+the append-buffer flushes, and the chunked decode loops (contiguous and
+paged)."""
 
 from __future__ import annotations
 
@@ -24,38 +25,98 @@ from generativeaiexamples_tpu_torch.ops.quant import (
 logger = get_logger(__name__)
 
 
+MATMUL_KERNELS = ("xla", "pallas_w8a8")
+
+
 def prepare_params(
     cfg: llama.LlamaConfig,
     params,
     *,
     device,
+    quantize: bool = False,
+    pack: bool = False,
+    matmul_kernel: Optional[str] = None,
     generator: Optional[torch.Generator] = None,
 ):
-    """Lay params out for W8A8 serving, the one layout the port serves,
-    for every family of ``models.llama.PRESETS``.
+    """Lay params out for serving, with the reference's semantics, for
+    every family of ``models.llama.PRESETS``.
 
-    ``params=None`` builds random int8 weights from ``generator``.  Float
-    leaves are quantized (projections, head and embedding; int8 leaves
-    pass through; the MoE router and experts stay float, as in the
-    reference), qkv and gate/up are fused where the tree has no biases,
-    every projection is blocked once for the W8A8 kernel
-    (``engine.weights.preblock_llama_params``), and the int8 head is held
-    in the compute dtype for the logits product
+    ``params=None`` builds random weights from ``generator`` on
+    ``device``: int8 projections with ``quantize``, float in the compute
+    dtype otherwise.  ``quantize`` turns float projections, head and
+    embedding into weight-only int8 (int8 leaves pass through; the MoE
+    router and experts stay float, as in the reference).  ``pack`` fuses
+    qkv and gate/up where the tree has no biases.  ``matmul_kernel``
+    picks the projection path: ``"xla"`` / None serves the leaves as they
+    are (float, or weight-only int8 through ``ops.quant.q_dot``);
+    ``"pallas_w8a8"`` blocks every int8 projection once for the W8A8
+    kernel (``engine.weights.preblock_llama_params``), while float and
+    already blocked leaves pass through, so a call is idempotent.  An
+    int8 head is held in the compute dtype for the logits product
     (``engine.weights.head_for_logits``).
+
+    The port's W8A8 serving route is ``quantize=True, pack=True,
+    matmul_kernel="pallas_w8a8"`` (:func:`w8a8_params`).
     """
     from generativeaiexamples_tpu_torch.engine.weights import head_for_logits, preblock_llama_params
 
+    if matmul_kernel not in (None,) + MATMUL_KERNELS:
+        raise ValueError(f"unknown matmul_kernel {matmul_kernel!r} (expected 'xla' or 'pallas_w8a8')")
     if params is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        logger.info("initializing random int8 llama params (%s)", cfg)
-        params = init_random_int8_params(cfg, generator, device)
+        if quantize:
+            logger.info("initializing random int8 llama params (%s)", cfg)
+            params = init_random_int8_params(cfg, generator, device)
+        else:
+            logger.info("initializing random float llama params (%s)", cfg)
+            params = init_random_params(cfg, generator, device)
+    elif quantize:
+        params = quantize_llama_params(params, include_embed=True)
     # One step at a time, so each step's input is freed before the next
     # copies it (the unpacked and packed projections never both stay alive
     # through the blocking).
-    params = llama.pack_for_serving(quantize_llama_params(params, include_embed=True))
-    params = preblock_llama_params(params)
+    if pack:
+        params = llama.pack_for_serving(params)
+    if matmul_kernel == "pallas_w8a8":
+        params = preblock_llama_params(params)
     return head_for_logits(params, cfg)
+
+
+def w8a8_params(cfg: llama.LlamaConfig, params, *, device, generator: Optional[torch.Generator] = None):
+    """The port's ``pallas_w8a8`` serving layout: quantized (random int8
+    from ``generator`` when ``params`` is None), packed and blocked for
+    the W8A8 kernel."""
+    return prepare_params(cfg, params, device=device, quantize=True, pack=True, matmul_kernel="pallas_w8a8",
+                          generator=generator)
+
+
+def init_random_params(cfg: llama.LlamaConfig, generator: torch.Generator, device):
+    """Random float serving params in the compute dtype (0.02-std normal;
+    norm gains 1, biases 0), drawn on ``device`` one layer of one leaf at
+    a time, so no full-depth f32 copy of the model ever exists (Llama-3-8B:
+    16.06 GB of bf16)."""
+    shapes = llama.param_shapes(cfg)
+    dt = cfg.compute_dtype
+
+    def draw(shape):
+        return (torch.randn(shape, generator=generator, dtype=torch.float32, device=device) * 0.02).to(dt)
+
+    def leaf(name, shape, stacked):
+        if name in llama.NORM_GAINS:
+            return torch.ones(shape, dtype=dt, device=device)
+        if name in llama.BIASES:
+            return torch.zeros(shape, dtype=dt, device=device)
+        if not stacked:
+            return draw(shape)
+        out = torch.empty(shape, dtype=dt, device=device)
+        for i in range(shape[0]):
+            out[i] = draw(shape[1:])
+        return out
+
+    out = {name: leaf(name, shape, False) for name, shape in shapes.items() if name != "layers"}
+    out["layers"] = {name: leaf(name, shape, True) for name, shape in shapes["layers"].items()}
+    return out
 
 
 def init_random_int8_params(cfg: llama.LlamaConfig, generator: torch.Generator, device):
@@ -83,7 +144,8 @@ def init_random_int8_params(cfg: llama.LlamaConfig, generator: torch.Generator, 
 
 
 def prepare_cache(cfg: llama.LlamaConfig, batch: int, max_len: int, device):
-    """Allocate the slot KV cache."""
+    """Allocate the slot KV cache: the int8 4-tuple or the float 2-tuple
+    (``models.llama.init_kv_cache``)."""
     return llama.init_kv_cache(cfg, batch, max_len, device=device)
 
 
@@ -144,7 +206,14 @@ def _flush_append_buffer_paged(leaves, ab, starts: torch.Tensor, table: torch.Te
 
 
 def _append_buffer(cfg: llama.LlamaConfig, b: int, n_steps: int, dev):
+    """An append buffer of ``n_steps`` slots shaped like the cache: int8
+    values and bf16 scales, or float ``(k, v)`` (the verify pass only)."""
     ab_shape = (cfg.n_layers, cfg.n_kv_heads, b, n_steps, cfg.head_dim)
+    if cfg.kv_dtype != "int8":
+        return (
+            torch.zeros(ab_shape, dtype=cfg.compute_dtype, device=dev),
+            torch.zeros(ab_shape, dtype=cfg.compute_dtype, device=dev),
+        )
     return (
         torch.zeros(ab_shape, dtype=torch.int8, device=dev),
         torch.zeros(ab_shape, dtype=torch.int8, device=dev),
@@ -154,18 +223,40 @@ def _append_buffer(cfg: llama.LlamaConfig, b: int, n_steps: int, dev):
 
 
 def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
-    """Multi-step decode with the append-buffer protocol.
+    """Multi-step decode.
 
     ``fn(params, cache, tokens, lengths, generator, temp, top_p, top_k,
     n_steps, kv_bucket=None) -> (cache, toks)`` with toks (n_steps, b) on
-    the device.  Each step's fresh KV goes to a small (L, KH, B, n_steps,
-    HD) append buffer; attention reads the big-cache window plus the
-    buffer through the decode kernel; one scatter per leaf flushes the
-    buffer at the end of the chunk.  The big cache is read-only inside the
-    steps.  Nothing here waits for the device.
+    the device.  Nothing here waits for the device.  Two paths, by the
+    cache:
+
+    * the int8 cache, the append-buffer protocol: each step's fresh KV
+      goes to a small (L, KH, B, n_steps, HD) append buffer; attention
+      reads the big-cache window plus the buffer through the decode
+      kernel; one scatter per leaf flushes the buffer at the end of the
+      chunk.  The big cache is read-only inside the steps.
+    * the float cache (the reference's per-step path): each step scatters
+      its KV into the cache and attends over it (``models.llama.forward``'s
+      warm decode).
     """
 
+    def float_chunk(params, cache, tokens, lengths, generator, temp, top_p, top_k, n_steps, kv_bucket):
+        tok = tokens
+        toks = []
+        for step in range(n_steps):
+            live = lengths + step
+            hidden, _ = llama.forward(
+                params, cfg, tok[:, None].long(), live.clamp(max=max_len - 1)[:, None], cache,
+                (live + 1).clamp(max=max_len), kv_bucket=kv_bucket,
+            )
+            lg = llama.logits(params, hidden)[:, 0]
+            tok = sample(lg, generator, temp, top_p, top_k)
+            toks.append(tok)
+        return cache, torch.stack(toks)
+
     def decode_chunk(params, cache, tokens, lengths, generator, temp, top_p, top_k, n_steps, kv_bucket=None):
+        if len(cache) == 2:
+            return float_chunk(params, cache, tokens, lengths, generator, temp, top_p, top_k, n_steps, kv_bucket)
         b = cache[0].shape[2]
         # Valid big-cache slots per row: the current token's write position
         # (its KV lives in the append buffer this chunk).

@@ -1,8 +1,13 @@
 """Continuous-batching scheduler (port of ``engine/scheduler.py``, the
 non-speculative path, on the contiguous cache or the paged pool).
 
-* **Slot model**: the int8 KV cache holds ``max_batch`` fixed slots; a
-  request occupies a slot from prefill to finish.
+* **Slot model**: the KV cache (int8, or float in the compute dtype on
+  the contiguous layout) holds ``max_batch`` fixed slots; a request
+  occupies a slot from prefill to finish.
+* **Projection path** (``matmul_kernel``): ``"xla"`` (the default, as in
+  the reference) serves the weights as handed over or, with none, random
+  float weights; ``"pallas_w8a8"`` quantizes, packs and blocks them for
+  the W8A8 kernel.
 * **KV layout** (``kv_layout``): ``"contiguous"`` gives each slot a
   ``max_len`` row of the cache; ``"paged"`` maps each slot's tokens to
   pages of a shared pool (``engine.paged_kv``) through a page table.
@@ -14,8 +19,9 @@ non-speculative path, on the contiguous cache or the paged pool).
   private cache (cold prefill through the flash kernel), then their rows
   are copied into their slots.
 * **Chunked decode**: every decoding slot advances through one decode
-  chunk per tick (append-buffer protocol, decode kernel); idle lanes
-  compute masked garbage that is never emitted.
+  chunk per tick (int8: append-buffer protocol, decode kernel; float:
+  the per-step scatter); idle lanes compute masked garbage that is never
+  emitted.
 * **Chunked prefill**: prompts longer than ``prefill_chunk_tokens`` claim
   a slot and prefill one chunk per tick, interleaved with decode.
 * **Prefix cache**: finished slots park their KV under a host-side radix
@@ -26,7 +32,7 @@ non-speculative path, on the contiguous cache or the paged pool).
   wait for sampled tokens: no host sync between dispatch and finalize.
 
 * **Speculative decoding** (``engine.spec_decode``): with a draft model
-  (an independent W8A8 draft, or the target's first layers) or
+  (an independent draft, or the target's first layers) or
   ``spec_mode="ngram"`` (prompt lookup), every decode chunk becomes
   speculation rounds: the draft proposes up to ``gamma`` tokens and the
   target verifies them in one forward.  Greedy streams equal the plain
@@ -207,15 +213,30 @@ class Stats:
             }
 
 
+def live_matmul_kernel(params) -> str:
+    """``"pallas_w8a8"`` when any projection of ``params`` is blocked for
+    the W8A8 kernel, else ``"xla"``."""
+    from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
+
+    blocked = any(isinstance(leaf, BlockedQuantizedMatrix) for leaf in params["layers"].values())
+    return "pallas_w8a8" if blocked else "xla"
+
+
 class Scheduler:
-    """Continuous batching over a fixed-slot int8 KV cache.
+    """Continuous batching over a fixed-slot KV cache.
 
     Runs on ``device`` (default ``cuda``; pass ``device="cpu"`` for the
     plain versions of the kernels).  ``params`` are the port's params
-    (``engine.weights.params_from_numpy`` or
-    ``engine.decode.init_random_int8_params``; ``None`` builds random int8
-    weights), laid out once here for the W8A8 kernel
-    (``engine.decode.prepare_params``).
+    (``engine.weights.params_from_numpy``, a loader's, or
+    ``engine.decode.prepare_params``'s), laid out once here
+    (``engine.decode.prepare_params``) for ``matmul_kernel``: ``"xla"`` /
+    None serves them as they are (``None`` params: random float weights
+    from the scheduler's generator); ``"pallas_w8a8"`` is the port's W8A8
+    route (quantized, packed and blocked; ``None``: random int8).  Leaves
+    already blocked pass through either way.  ``matmul_kernel`` the
+    attribute names the path that is live, as the reference reports it:
+    ``"pallas_w8a8"`` when any projection is blocked, else ``"xla"``.
+    The cache follows ``cfg.kv_dtype``; the paged pool needs int8.
 
     ``kv_layout="paged"`` serves from the paged pool: ``kv_page_size``
     tokens per page (a power of two), ``kv_pool_pages`` pages (floored at
@@ -224,12 +245,14 @@ class Scheduler:
     (default: one slot's worth).
 
     Speculative decoding: ``draft_cfg`` / ``draft_params`` attach a draft
-    model (``None`` params: random int8 from the scheduler's generator),
+    model with its own contiguous cache of ``draft_cfg.kv_dtype``,
+    prepared as the target is, packed, and quantized with
+    ``draft_quantize`` (the reference's default keeps it float; the W8A8
+    route quantizes it) (``None`` params: random from the scheduler's
+    generator),
     ``spec_mode="ngram"`` prompt lookup over the last ``ngram`` tokens;
     ``gamma`` is the largest lookahead, which ``adaptive_gamma`` shrinks
-    chunk by chunk to the power of two the rows' acceptance asks for.  The
-    draft serves as the target does, W8A8 with int8 KV (the reference's
-    bf16 draft is not ported).
+    chunk by chunk to the power of two the rows' acceptance asks for.
     """
 
     # Minimum shared-prefix length for the suffix-prefill path.
@@ -262,13 +285,15 @@ class Scheduler:
         adaptive_gamma: bool = True,
         spec_mode: Optional[str] = None,
         ngram: int = 2,
+        matmul_kernel: Optional[str] = None,
+        draft_quantize: bool = False,
     ) -> None:
         self.device = resolve_device(device)
-        if cfg.kv_dtype != "int8":
-            raise ValueError("the port serves the int8 KV cache: use kv_dtype='int8' (the bf16 cache is "
-                             "ROADMAP.md Queue 1 item 6)")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout mode {kv_layout!r}")
+        if kv_layout == "paged" and cfg.kv_dtype != "int8":
+            raise ValueError(f"the paged KV pool stores int8 pages; kv_dtype={cfg.kv_dtype!r} needs the "
+                             "contiguous layout")
         if kv_page_size < 1 or (kv_page_size & (kv_page_size - 1)):
             raise ValueError(f"kv_page_size must be a power of two, got {kv_page_size}")
         if spec_mode not in (None, "ngram"):
@@ -278,9 +303,6 @@ class Scheduler:
         if draft_cfg is not None:
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocabulary")
-            if draft_cfg.kv_dtype != "int8":
-                raise ValueError("the port serves the draft's int8 KV cache: use kv_dtype='int8' (the bf16 "
-                                 "draft is ROADMAP.md Queue 1 item 6)")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len
@@ -314,8 +336,10 @@ class Scheduler:
         self._next_seg = max_batch
         self._session_segs: dict[str, int] = {}
         self._seg_sessions: dict[int, str] = {}
+        w8a8 = matmul_kernel == "pallas_w8a8"
         with torch.inference_mode():
-            self.params = prepare_params(cfg, params, device=self.device, generator=self._gen)
+            self.params = prepare_params(cfg, params, device=self.device, quantize=w8a8, pack=w8a8,
+                                         matmul_kernel=matmul_kernel, generator=self._gen)
             if kv_layout == "paged":
                 self._pool = prepare_paged_pool(
                     cfg, max_batch, self.max_len, self.kv_page_size, kv_pool_pages, device=self.device
@@ -329,13 +353,18 @@ class Scheduler:
             self._dcache = None
             self._dhist = None
             if draft_cfg is not None:
-                self.draft_params = prepare_params(draft_cfg, draft_params, device=self.device, generator=self._gen)
+                self.draft_params = prepare_params(
+                    draft_cfg, draft_params, device=self.device, quantize=draft_quantize or w8a8, pack=True,
+                    matmul_kernel=matmul_kernel, generator=self._gen,
+                )
                 self._dcache = prepare_cache(draft_cfg, max_batch, self.max_len, self.device)
             elif spec_mode == "ngram":
                 # The matcher's token history lives on the device: rows are
                 # written at admission, the chunk carries them forward.
                 self._dhist = torch.zeros((max_batch, self.max_len), dtype=torch.int32, device=self.device)
-        self.matmul_kernel = "w8a8"  # the one projection path the port serves
+        # The path that is live, not the one asked for (the reference's
+        # rule; /metrics exports it).
+        self.matmul_kernel = live_matmul_kernel(self.params)
         if self._pool is not None:
             self._decode_chunk = make_paged_decode_chunk_fn(cfg, self.max_len, self.kv_page_size)
             self._kv_low_water = (

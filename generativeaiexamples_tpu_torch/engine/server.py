@@ -9,9 +9,12 @@ per connection; tokens cross from the scheduler thread through a
 ``queue.Queue`` per request.
 
 Run: ``python -m generativeaiexamples_tpu_torch.engine.server --model llama3-8b``
-(``--kv-layout paged`` serves from the paged KV pool; ``--embedder`` picks
-the BERT embedder behind ``/v1/embeddings``; ``--spec-decode`` speculates,
-by prompt lookup or, with ``--draft-model``, with a draft model).
+(``--matmul-kernel`` picks the projection path: ``xla``, the default, serves
+the weights as loaded, or random bf16 ones, over the preset's bf16 KV cache;
+``pallas_w8a8`` is the port's W8A8 route on an int8 cache; ``--kv-layout
+paged`` serves from the paged KV pool, int8; ``--embedder`` picks the BERT
+embedder behind ``/v1/embeddings``; ``--spec-decode`` speculates, by prompt
+lookup or, with ``--draft-model``, with a draft model).
 """
 
 from __future__ import annotations
@@ -530,14 +533,21 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     parser.add_argument("--prefill-chunk-tokens", type=int, default=SERVING_DEFAULTS["prefill_chunk_tokens"])
     parser.add_argument("--prefix-cache", default=SERVING_DEFAULTS["prefix_cache"],
                         choices=["shared", "session", "off"])
+    parser.add_argument("--matmul-kernel", default=os.environ.get("GAIE_MATMUL_KERNEL", ""),
+                        choices=["", "xla", "pallas_w8a8"],
+                        help="projection path: 'xla' serves the weights as loaded (float, or random bf16 from "
+                             "--seed) over the preset's KV dtype; 'pallas_w8a8' quantizes them to int8, blocks them "
+                             "once for the W8A8 kernel and serves an int8 KV cache. Empty falls back to "
+                             "[llm].matmul_kernel in config (default xla)")
     parser.add_argument("--kv-layout", default=SERVING_DEFAULTS["kv_layout"], choices=["contiguous", "paged"],
-                        help="KV cache layout: one max_len row per slot, or pages of a shared pool")
+                        help="KV cache layout: one max_len row per slot, or pages of a shared pool (int8 KV)")
     parser.add_argument("--kv-page-size", type=int, default=64, help="tokens per KV page (a power of two)")
     parser.add_argument("--kv-pool-pages", type=int, default=None,
                         help="pages in the paged pool (default and floor: max_batch * pages per slot + 1)")
     parser.add_argument("--draft-model", default=os.environ.get("GAIE_DRAFT_MODEL", ""),
-                        help="draft model preset for speculative decoding (empty: none); the port builds it as "
-                             "random W8A8 with int8 KV from --seed")
+                        help="draft model preset for speculative decoding (empty: none); without a checkpoint, "
+                             "random from --seed; on xla it keeps its preset's KV dtype and float weights, on "
+                             "pallas_w8a8 it is W8A8 with int8 KV")
     parser.add_argument("--spec-ngram", action="store_true", default=os.environ.get("GAIE_SPEC_NGRAM", "") == "1",
                         help="prompt-lookup speculation: drafts from the request's own prompt and output (no draft "
                              "model); excludes --draft-model")
@@ -565,15 +575,45 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def spec_scheduler_kwargs(args: argparse.Namespace, cfg, device) -> dict:
+def resolve_matmul_kernel(args: argparse.Namespace) -> str:
+    """The projection path as the reference resolves it: the flag (whose
+    default is ``GAIE_MATMUL_KERNEL``), then ``[llm].matmul_kernel``, then
+    ``xla``."""
+    from generativeaiexamples_tpu_torch.core.configuration import get_config
+
+    return args.matmul_kernel or str(getattr(get_config().llm, "matmul_kernel", "") or "xla")
+
+
+def serving_config(preset: str, matmul_kernel: str, kv_layout: str = "contiguous"):
+    """The preset's config as served: its own KV dtype on ``xla`` and the
+    contiguous layout (the reference's default, bf16), int8 on the port's
+    ``pallas_w8a8`` route; the paged pool stores int8 pages, so paged
+    overrides the preset's KV dtype, as the reference does."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg = llama.PRESETS[preset]()
+    if matmul_kernel == "pallas_w8a8" and cfg.kv_dtype != "int8":
+        cfg = dataclasses.replace(cfg, kv_dtype="int8")
+    if kv_layout == "paged" and cfg.kv_dtype != "int8":
+        logger.info("kv_layout=paged requires int8 KV; overriding kv_dtype=%s", cfg.kv_dtype)
+        cfg = dataclasses.replace(cfg, kv_dtype="int8")
+    return cfg
+
+
+def spec_scheduler_kwargs(args: argparse.Namespace, cfg, device, matmul_kernel: Optional[str] = None) -> dict:
     """The ``Scheduler`` speculation kwargs from the command line, with the
     ``[llm]`` config (``spec_decode``, ``draft_model``, ``spec_gamma``)
     as fallbacks; explicit flags win.  ``--gamma`` and ``--spec-gamma``
     (the reference's two names) set one value.  ``--spec-decode`` without a draft
     model means prompt lookup.  The draft loads from ``--draft-checkpoint``
     or ``$GAIE_WEIGHTS_DIR/<draft model>`` (its preset's geometry), else is
-    random from ``--seed``; either way it serves W8A8 with int8 KV (the
-    port serves no bf16 draft).  Empty when nothing speculates."""
+    random from ``--seed``; on ``xla`` it keeps its preset's KV dtype and
+    float weights (the reference's bf16 draft), on ``pallas_w8a8`` it is
+    W8A8 with int8 KV (``matmul_kernel`` None: :func:`resolve_matmul_kernel`).
+    The draft cache is contiguous on either layout.  Empty when nothing
+    speculates."""
     from generativeaiexamples_tpu_torch.core.configuration import get_config
 
     llm_cfg = get_config().llm
@@ -591,30 +631,45 @@ def spec_scheduler_kwargs(args: argparse.Namespace, cfg, device) -> dict:
     from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset, weights_dir_for
     from generativeaiexamples_tpu_torch.models import llama
 
-    dcfg = dataclasses.replace(llama.PRESETS[resolve_model_preset(draft_model)](), kv_dtype="int8")
+    matmul_kernel = matmul_kernel or resolve_matmul_kernel(args)
+    dcfg = llama.PRESETS[resolve_model_preset(draft_model)]()
+    if matmul_kernel == "pallas_w8a8":
+        dcfg = dataclasses.replace(dcfg, kv_dtype="int8")
     if dcfg.vocab_size != cfg.vocab_size:
         raise ValueError(f"draft {draft_model!r} has vocab {dcfg.vocab_size}, the model {cfg.vocab_size}")
     dparams = load_serving_params(dcfg, args.draft_checkpoint or weights_dir_for(draft_model), device, args.seed,
-                                  what=f"draft {draft_model}")
+                                  what=f"draft {draft_model}", matmul_kernel=matmul_kernel, pack=True)
     return {"draft_cfg": dcfg, "draft_params": dparams, "gamma": gamma}
 
 
-def load_serving_params(cfg, ckpt_dir: Optional[str], device, seed: int, what: str):
-    """W8A8 serving params: the HF checkpoint in ``ckpt_dir`` (geometry from
-    ``cfg``, the preset's, as in the reference) quantized on ``device``, or
-    random int8 weights from ``seed`` when there is none."""
+def load_serving_params(cfg, ckpt_dir: Optional[str], device, seed: int, what: str, matmul_kernel: str = "xla",
+                        pack: bool = False):
+    """Serving params: the HF checkpoint in ``ckpt_dir`` (geometry from
+    ``cfg``, the preset's, as in the reference), or random weights from
+    ``seed`` when there is none, laid out on ``device`` for
+    ``matmul_kernel``: on ``xla`` as loaded (random: float in the compute
+    dtype; ``pack`` fuses qkv and gate/up, as the reference's draft is);
+    on ``pallas_w8a8`` quantized, packed and blocked for the W8A8 kernel
+    (random: int8)."""
     import torch
 
-    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params, w8a8_params
     from generativeaiexamples_tpu_torch.engine.weights import load_hf_causal_lm
 
+    w8a8 = matmul_kernel == "pallas_w8a8"
     with torch.inference_mode():
         if ckpt_dir:
             logger.info("loading %s weights from %s", what, ckpt_dir)
-            return prepare_params(cfg, load_hf_causal_lm(cfg, ckpt_dir, device=device), device=device)
-        logger.warning("no checkpoint for %s under $GAIE_WEIGHTS_DIR; serving random int8 weights (seed %d)",
-                       what, seed)
-        return prepare_params(cfg, None, device=device, generator=torch.Generator(device=device).manual_seed(seed))
+            params = load_hf_causal_lm(cfg, ckpt_dir, device=device)
+            gen = None
+        else:
+            logger.warning("no checkpoint for %s under $GAIE_WEIGHTS_DIR; serving random %s weights (seed %d)",
+                           what, "int8" if w8a8 else "float", seed)
+            params = None
+            gen = torch.Generator(device=device).manual_seed(seed)
+        if w8a8:
+            return w8a8_params(cfg, params, device=device, generator=gen)
+        return prepare_params(cfg, params, device=device, pack=pack, matmul_kernel="xla", generator=gen)
 
 
 def build_server(argv: Optional[list[str]] = None) -> EngineServer:
@@ -627,25 +682,27 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     from generativeaiexamples_tpu_torch.core.device import resolve_device
     from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
     from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset, weights_dir_for
-    from generativeaiexamples_tpu_torch.models import llama
 
     args = parse_args(argv)
     configure_logging(args.verbose)
 
     device = resolve_device(args.device)
     preset = resolve_model_preset(args.model)
-    cfg = dataclasses.replace(llama.PRESETS[preset](), kv_dtype="int8")
+    matmul_kernel = resolve_matmul_kernel(args)
+    cfg = serving_config(preset, matmul_kernel, args.kv_layout)
     if cfg.n_experts > 1:
         # Serving routes droplessly, as HF Mixtral does; capacity dropping
         # is a training trade-off.
         cfg = dataclasses.replace(cfg, moe_dropless=True)
-    params = load_serving_params(cfg, weights_dir_for(args.model), device, args.seed, what=args.model)
-    spec = spec_scheduler_kwargs(args, cfg, device)
+    params = load_serving_params(cfg, weights_dir_for(args.model), device, args.seed, what=args.model,
+                                 matmul_kernel=matmul_kernel)
+    spec = spec_scheduler_kwargs(args, cfg, device, matmul_kernel)
     engine = Scheduler(
         cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
         decode_chunk_size=args.decode_chunk_size, seed=args.seed,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None, prefix_cache=args.prefix_cache,
-        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages, **spec,
+        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages,
+        matmul_kernel=matmul_kernel, **spec,
     )
     embedder = None
     if args.embedder != "none":
@@ -672,9 +729,9 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     tokenizer = get_tokenizer(args.model)
     server = create_engine_app(engine, tokenizer, args.model, args.host, args.port, embedder=embedder)
     speculation = spec.get("spec_mode") or ("draft" if spec else "off")
-    logger.info("engine server on %s:%d (model %s, device %s, kv %s, tokenizer %s, embedder %s, speculation %s)",
-                args.host, server.server_address[1], preset, device, args.kv_layout, type(tokenizer).__name__,
-                args.embedder, speculation)
+    logger.info("engine server on %s:%d (model %s, device %s, matmul %s, kv %s %s, tokenizer %s, embedder %s, "
+                "speculation %s)", args.host, server.server_address[1], preset, device, engine.matmul_kernel,
+                cfg.kv_dtype, args.kv_layout, type(tokenizer).__name__, args.embedder, speculation)
     return server
 
 

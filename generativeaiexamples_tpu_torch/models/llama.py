@@ -8,9 +8,8 @@ reference's param trees convert leaf by leaf
 
 :func:`forward` runs cacheless (``cache=None``: scoring, and the oracle of
 the tests; attention over the fresh k/v through the flash kernel), or one
-of the serving modes of the int8 KV cache the scheduler uses, on the
-contiguous cache or on the paged pool (``engine.paged_kv``, through a page
-table):
+of the serving modes of the int8 KV cache, on the contiguous cache or on
+the paged pool (``engine.paged_kv``, through a page table):
 
 * cold prefill (``cold_prefill=True``, s > 1): the prompt's K/V are
   quantized into the cache, and attention runs over the fresh K/V through
@@ -31,12 +30,30 @@ table):
 The paged pool takes no cold prefill: the scheduler cold-prefills into a
 small contiguous cache and scatters the rows into pages.
 
-Served projections are pre-blocked int8 (``engine.decode.prepare_params``)
-and go through ``ops.quant.q_dot`` to the W8A8 kernel (``ops.qmm``):
-packed (``wqkv``, ``w_gu``) when they carry no bias, unpacked with their
-biases added after the product (StarCoder2).  The MoE router and experts
-stay float, as in the reference (``_moe_mlp``).  The cache is updated in
-place.
+The float cache (``kv_dtype`` other than int8: ``(k, v)`` in the compute
+dtype, the reference's default) is contiguous only, with the reference's
+modes:
+
+* cold prefill: the fresh k/v are written at rows ``[row_offset,
+  row_offset + b)``, and attention runs over them through the flash kernel;
+* warm multi-token (chunked or suffix prefill): the fresh k/v scatter at
+  ``positions``, and attention reads the ``kv_bucket`` window back through
+  the flash kernel (``t > s`` at offset positions);
+* warm decode (s == 1): the fresh k/v scatter, and attention reads the
+  whole cache (``ops.decode_attention.float_cache_attention``, plain
+  PyTorch as in the reference; never a bucket of the batch's longest row,
+  whose sums would follow the batch);
+* verify (``append_cache``, s > 1): the s fresh k/v fill an s-slot float
+  buffer, and attention reads the whole cache plus the causal buffer
+  (the same plain function).
+
+Projections go through ``ops.quant.q_dot`` by their layout
+(``engine.decode.prepare_params``): pre-blocked int8 to the W8A8 kernel
+(``ops.qmm``, the ``pallas_w8a8`` route), weight-only int8 or float
+(the ``xla`` route); packed (``wqkv``, ``w_gu``) when they carry no bias,
+unpacked with their biases added after the product (StarCoder2).  The
+MoE router and experts stay float, as in the reference (``_moe_mlp``).
+The cache is updated in place.
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ import torch.nn.functional as F
 from generativeaiexamples_tpu_torch.ops.attention import attention
 from generativeaiexamples_tpu_torch.ops.decode_attention import (
     decode_gqa_attention,
+    float_cache_attention,
     paged_decode_gqa_attention,
     paged_slots,
     paged_verify_gqa_attention,
@@ -57,7 +75,7 @@ from generativeaiexamples_tpu_torch.ops.decode_attention import (
     verify_gqa_attention,
 )
 from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
-from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, float_dot, int8_max_like, q_dot
+from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, f32_product, float_dot, int8_max_like, q_dot
 from generativeaiexamples_tpu_torch.ops.rope import apply_rope
 
 Params = Any  # dict of tensors / QuantizedMatrix / BlockedQuantizedMatrix
@@ -78,8 +96,9 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 8192
     dtype: str = "bfloat16"
-    # KV-cache storage.  The port serves "int8" (per-token-per-head
-    # symmetric bf16 scales); the default mirrors the reference's presets.
+    # KV-cache storage: "int8" (per-token-per-head symmetric bf16 scales),
+    # or anything else for the compute dtype (the presets' default, as in
+    # the reference).
     kv_dtype: str = "bfloat16"
     # Mixture-of-experts MLP (Mixtral): 0 = dense.  Top-k routing with
     # capacity-dropping one-hot dispatch in groups of up to 128 tokens
@@ -388,17 +407,17 @@ def _badd(x: torch.Tensor, lp, name: str) -> torch.Tensor:
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None, *, device) -> tuple:
-    """Head-major int8 KV cache ``(k8, v8, k_scale, v_scale)``: values
-    (L, KH, B, T, HD) int8, per-(token, head) bf16 scales (L, KH, B, T).
-    The reference's bf16 cache, with the bf16 speculative draft it serves,
-    is what remains of ROADMAP.md Queue 1 item 6."""
-    if cfg.kv_dtype != "int8":
-        raise ValueError(
-            f"the port serves the int8 KV cache, not kv_dtype={cfg.kv_dtype!r}: the bf16 KV cache (and the "
-            "bf16 speculative draft) is ROADMAP.md Queue 1 item 6"
-        )
+    """Head-major KV cache.  ``kv_dtype="int8"``: ``(k8, v8, k_scale,
+    v_scale)``, values (L, KH, B, T, HD) int8 and per-(token, head) bf16
+    scales (L, KH, B, T).  Otherwise ``(k, v)``, each (L, KH, B, T, HD) in
+    the compute dtype (bf16 when served; f32 in a float32 config)."""
     max_len = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, cfg.n_kv_heads, batch, max_len, cfg.head_dim)
+    if cfg.kv_dtype != "int8":
+        return (
+            torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+            torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        )
     return (
         torch.zeros(shape, dtype=torch.int8, device=device),
         torch.zeros(shape, dtype=torch.int8, device=device),
@@ -636,24 +655,27 @@ def forward(
     page_tokens: int = 0,
     pages_len: int = 0,
     return_aux: bool = False,
+    row_offset: int = 0,
 ):
-    """Run the transformer body, cacheless or against the int8 serving
-    cache.
+    """Run the transformer body, cacheless or against a serving cache.
 
     ``cache=None`` is cacheless causal self-attention over ``tokens``
     (scoring; ``kv_lengths`` optionally masks padding): nothing is
     written, attention runs over the fresh k/v.  Otherwise ``cache`` is
-    the ``(k8, v8, ks, vs)`` tuple, updated in place.
+    the int8 ``(k8, v8, ks, vs)`` or the float ``(k, v)`` tuple
+    (:func:`init_kv_cache`), updated in place.
     ``kv_bucket`` caps the cache window attention reads (not the verify
     pass's, which reads the whole cache).  ``cold_prefill``
     asserts that the cache holds nothing visible to these queries and that
-    ``positions`` is ``arange(s)`` for every row (cache rows ``[0, b)``
-    are written).  ``append_cache`` is
+    ``positions`` is ``arange(s)`` for every row (cache rows ``[row_offset,
+    row_offset + b)`` are written).  ``append_cache`` is
     ``(ab, step)`` for the decode chunk's append buffer (s == 1): the fresh
     K/V go to ``ab`` slot ``step`` and the big cache is only read.  With
     s > 1 it is the verify pass: ``ab`` has exactly s slots, ``step`` is 0,
     the fresh block fills them, and ``kv_lengths`` is each row's valid
-    cache prefix (the caller flushes the buffer after the pass).
+    cache prefix (the caller flushes the buffer after the pass).  A float
+    cache takes only the verify pass (its ``ab`` is ``(k, v)`` of s slots):
+    its decode scatters each step into the cache.
 
     ``page_table`` switches to the paged layout: ``cache`` is the 4-tuple
     of flat pool leaves (values (L, KH, P, HD), scales (L, KH, P)) and
@@ -668,15 +690,12 @@ def forward(
     ``append_cache``, or ``(hidden, cache, aux)`` with ``return_aux``
     (the MoE load-balancing loss averaged over layers; 0 for dense trees).
     """
-    if cache is not None and len(cache) != 4:
-        raise ValueError(
-            "forward serves the int8 KV cache (k8, v8, k_scale, v_scale); the bf16 cache is ROADMAP.md "
-            "Queue 1 item 6"
-        )
+    if cache is not None and len(cache) not in (2, 4):
+        raise ValueError("cache must be the int8 (k8, v8, k_scale, v_scale) or the float (k, v) tuple")
     b, s = tokens.shape
     paged = page_table is not None
     if paged:
-        if cache is None:
+        if cache is None or len(cache) != 4:
             raise ValueError("paged KV requires the int8 4-tuple of flat pool leaves")
         if cold_prefill:
             raise ValueError(
@@ -695,9 +714,14 @@ def forward(
         ab, step = append_cache
         if s > 1 and (ab[0].shape[3] != s or step != 0):
             raise ValueError(f"verify append buffer has {ab[0].shape[3]} slots at step {step} for {s} fresh tokens")
+        if len(cache) == 2 and s == 1:
+            raise ValueError("the float cache decodes by scattering each step (no append buffer); append_cache "
+                             "over it is the s > 1 verify pass")
+        if len(ab) != len(cache):
+            raise ValueError(f"append buffer of {len(ab)} leaves for a cache of {len(cache)}")
     else:
         ab, step = None, None
-    if cache is not None and cold_prefill and s > 1 and (b > cache[0].shape[2] or s > t):
+    if cache is not None and cold_prefill and s > 1 and (row_offset + b > cache[0].shape[2] or s > t):
         raise ValueError("cold prefill rows/slots exceed the cache")
     _check_mlp_tree(cfg, params)
 
@@ -725,8 +749,12 @@ def forward(
         def attend(q, k, v):
             if cache is None:
                 return attention(q, k, v, positions, kv_lengths)
+            if len(cache) == 2:
+                return _float_cache_attention(
+                    q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset
+                )
             return _cache_attention(
-                q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging
+                q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging, row_offset
             )
 
         x = _attention_block(x, lp, cfg, positions, attend)
@@ -746,7 +774,45 @@ def forward(
     return x, cache
 
 
-def _cache_attention(q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging):
+def _float_cache_attention(q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset):
+    """Layer ``li``'s attention over the float ``(k, v)`` cache in one of
+    :func:`forward`'s modes (verify, cold prefill, warm chunk, warm
+    decode), writing the fresh k/v where the mode keeps them."""
+    b, s = q.shape[:2]
+    kc, vc = cache
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    if ab is not None:
+        # Verify block: the fresh k/v fill the s-slot buffer of layer li;
+        # the queries attend the whole cache prefix and the causal buffer
+        # (a window of the batch's longest row would move a row's sums).
+        ab[0][li] = _heads_first(k)
+        ab[1][li] = _heads_first(v)
+        return float_cache_attention(q, kc[li, :, :b], vc[li, :, :b], positions, kv_lengths,
+                                     append=(ab[0][li], ab[1][li]))
+    if cold_prefill and s > 1:
+        kc[li, :, row_offset : row_offset + b, :s] = _heads_first(k)
+        vc[li, :, row_offset : row_offset + b, :s] = _heads_first(v)
+        return attention(q, k, v, positions, kv_lengths)
+    # Warm write, clamped onto the last slot as the int8 path's.
+    bidx = torch.arange(b, device=q.device)[:, None]
+    wpos = positions.clamp(max=t - 1)
+    kc[li][:, bidx, wpos] = _heads_first(k)
+    vc[li][:, bidx, wpos] = _heads_first(v)
+    if s == 1:
+        # Decode reads the whole cache: its sums then never follow the
+        # window the batch's longest row sets.
+        return float_cache_attention(q, kc[li, :, :b], vc[li, :, :b], positions, kv_lengths)
+
+    def window_of(buf):
+        # (KH, B, window, HD) -> (B, window, KH, HD)
+        return buf[li, :, :b, :window].permute(1, 2, 0, 3)
+
+    return attention(q, window_of(kc), window_of(vc), positions, kv_lengths)
+
+
+def _cache_attention(q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging,
+                     row_offset=0):
     """Layer ``li``'s attention in one of :func:`forward`'s serving modes:
     quantize the fresh K/V, write them where the mode keeps them, and
     attend.  ``paging`` is None on the contiguous cache, else ``(table,
@@ -791,10 +857,11 @@ def _cache_attention(q, k, v, li, positions, kv_lengths, cache, append_cache, co
             )[:, None]
         return decode_gqa_attention(q[:, 0], k8c, v8c, ksc, vsc, li, kv_lengths, append=append, window=window)[:, None]
     if cold_prefill and s > 1:
-        k8c[li, :, :b, :s] = _heads_first(k8)
-        v8c[li, :, :b, :s] = _heads_first(v8)
-        ksc[li, :, :b, :s] = _heads_first(ks)
-        vsc[li, :, :b, :s] = _heads_first(vs)
+        rows = slice(row_offset, row_offset + b)
+        k8c[li, :, rows, :s] = _heads_first(k8)
+        v8c[li, :, rows, :s] = _heads_first(v8)
+        ksc[li, :, rows, :s] = _heads_first(ks)
+        vsc[li, :, rows, :s] = _heads_first(vs)
         # Attend over the fresh k/v: no quantization error on the
         # prompt pass (the cache stores int8 for later reads).
         return attention(q, k, v, positions, kv_lengths)
@@ -843,12 +910,11 @@ def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     (``engine.weights.head_for_logits``, once at load): int8 -> bf16 is
     exact, so the product equals the reference's convert-in-the-dot.  On
     the card a bf16 x bf16 product runs with f32 accumulation and f32
-    output; elsewhere the operands go to f32."""
+    output, on fixed row blocks (``ops.quant.f32_product``); elsewhere the
+    operands go to f32."""
     head = params["lm_head"]
     w, scale = (head.q, head.scale[..., 0, :]) if isinstance(head, QuantizedMatrix) else (head, None)
-    if hidden.is_cuda and hidden.dtype == w.dtype == torch.bfloat16:
-        out = torch.mm(hidden.reshape(-1, hidden.shape[-1]), w, out_dtype=torch.float32)
-        out = out.reshape(*hidden.shape[:-1], w.shape[-1])
-    else:
-        out = torch.matmul(hidden.float(), w.float())
+    if hidden.dtype != w.dtype:
+        hidden, w = hidden.float(), w.float()
+    out = f32_product(hidden, w)
     return out if scale is None else out * scale

@@ -73,11 +73,13 @@ def attention(
     """Dispatch with the gqa_attention contract.
 
     int8-scaled attention (warm multi-token chunks over the quantized
-    cache) stays plain PyTorch, as it is XLA code in the reference.  Every
-    unscaled call (cold prefill over fresh bf16 k/v) goes to the flash
-    kernel on the card and to its plain version on the CPU.
+    cache) and single-query calls (s == 1) stay plain PyTorch, as they are
+    XLA code in the reference.  Every unscaled multi-token block (cold
+    prefill over fresh k/v, and warm chunks over a float cache's window,
+    ``t > s`` at offset positions) goes to the flash kernel on the card
+    and to its plain version on the CPU.
     """
-    if k_scale is not None or v_scale is not None:
+    if k_scale is not None or v_scale is not None or q.shape[1] == 1:
         return gqa_attention(q, k, v, q_positions, kv_lengths, k_scale=k_scale, v_scale=v_scale)
     from generativeaiexamples_tpu_torch.ops.flash_attention import flash_gqa_attention
 

@@ -30,6 +30,13 @@ The speculative verify pass (S = gamma + 1 fresh tokens a row) attends
 through :func:`verify_gqa_attention` and
 :func:`paged_verify_gqa_attention`: plain PyTorch on every device, on
 the same window core, as the reference computes them in XLA.
+
+A float cache (``kv_dtype`` other than int8: values ``(L, KH, B, T, HD)``
+in the compute dtype, no scales) decodes and verifies through
+:func:`float_cache_attention`, plain PyTorch on every device, as the
+reference's bf16 cache runs XLA code there.  Its callers read the whole
+cache, never a bucket of the batch's longest row, so a row's sums do not
+follow its batch-mates.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from typing import Optional
 import torch
 
 from generativeaiexamples_tpu_torch.ops import _cuda
+from generativeaiexamples_tpu_torch.ops.quant import f32_product
 
 _NEG_INF = -1e30
 
@@ -105,6 +113,65 @@ def _window_attention_plain(q, k_w, v_w, ks_w, vs_w, kv_lengths, append_w, buf_b
         out = out + torch.einsum("bngst,nbth->bngsh", w.to(q.dtype).float(), vpart.float())
         off += t
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, n_q, hd).to(q.dtype)
+
+
+def float_cache_attention(q, k_w, v_w, q_positions, kv_lengths, append=None) -> torch.Tensor:
+    """Attention of ``q`` (b, s, n_q, HD) over one layer's head-major
+    float cache window ``k_w`` / ``v_w`` (KH, b, W, HD), plus an optional
+    causal block ``append = (k_ab, v_ab)`` (KH, b, s, HD).
+
+    Window slot ``t`` is visible to query ``i`` of row ``r`` iff ``t <=
+    q_positions[r, i]`` and ``t < kv_lengths[r]``; buffer slot ``j`` iff
+    ``j <= i``.  The arithmetic is the reference's ``gqa_attention``
+    without scales: scores and the PV product accumulate in f32 over
+    operands in the cache's dtype (on the card a bf16 product with an f32
+    output, so the cache is read once and never widened), the softmax
+    weights round to q's dtype before the PV product, and a row with
+    nothing visible gives exact zeros.  Returns (b, s, n_q, HD) in q's
+    dtype.  Batched products run over (KH * b) row pairs, so a
+    ``cache[layer]`` window is read in place."""
+    b, s, n_q, hd = q.shape
+    n_kv = k_w.shape[0]
+    g = n_q // n_kv
+    scale = hd**-0.5
+    # Query rows of one kv head, (g, s)-major: (KH * b, g * s, HD).
+    qh = q.reshape(b, s, n_kv, g, hd).permute(2, 0, 3, 1, 4).reshape(n_kv * b, g * s, hd).to(k_w.dtype)
+
+    def scores_of(k):
+        kk = k.reshape(n_kv * b, k.shape[2], hd)
+        return (f32_product(qh, kk.transpose(1, 2)) * scale).reshape(n_kv, b, g, s, k.shape[2])
+
+    window = k_w.shape[2]
+    t_idx = torch.arange(window, dtype=torch.int32, device=q.device)
+    vis = (t_idx[None, None, :] <= q_positions[:, :, None]) & (t_idx[None, None, :] < kv_lengths[:, None, None])
+    vis = vis[None, :, None]  # (1, b, 1, s, W)
+    sc = scores_of(k_w)
+    parts = [torch.where(vis, sc, torch.full_like(sc, _NEG_INF))]
+    masks = [vis.expand(sc.shape)]
+    vals = [v_w]
+    if append is not None:
+        k_ab, v_ab = append
+        c = k_ab.shape[2]
+        j_idx = torch.arange(c, dtype=torch.int32, device=q.device)
+        i_idx = torch.arange(s, dtype=torch.int32, device=q.device)
+        bvis = (j_idx[None, :] <= i_idx[:, None])[None, None, None]  # (1, 1, 1, s, c)
+        sb = scores_of(k_ab)
+        parts.append(torch.where(bvis, sb, torch.full_like(sb, _NEG_INF)))
+        masks.append(bvis.expand(sb.shape))
+        vals.append(v_ab)
+    scores = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    mask = torch.cat(masks, dim=-1) if len(masks) > 1 else masks[0]
+    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
+    weights = (weights / weights.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype).to(v_w.dtype)
+    out = None
+    off = 0
+    for v in vals:
+        t = v.shape[2]
+        w = weights[..., off : off + t].reshape(n_kv * b, g * s, t)
+        part = f32_product(w, v.reshape(n_kv * b, t, hd))
+        out = part if out is None else out + part
+        off += t
+    return out.reshape(n_kv, b, g, s, hd).permute(1, 3, 0, 2, 4).reshape(b, s, n_q, hd).to(q.dtype)
 
 
 def decode_gqa_attention_plain(

@@ -88,23 +88,57 @@ def _validate_q_dot(x: torch.Tensor, w: Any, name: Optional[str]) -> None:
         )
     if not x.is_floating_point():
         raise ValueError(f"{who}: activations must be floating point, got {x.dtype}")
+    if isinstance(w, QuantizedMatrix):
+        if w.q.dtype != torch.int8:
+            raise ValueError(f"{who}: QuantizedMatrix values must be int8, got {w.q.dtype}")
+        if w.scale.ndim < 2 or w.scale.shape[-1] != w.q.shape[-1] or w.scale.shape[-2] != 1:
+            raise ValueError(
+                f"{who}: scale shape {tuple(w.scale.shape)} does not broadcast against int8 weight "
+                f"{tuple(w.q.shape)} (expected (..., 1, d_out))"
+            )
+
+
+# Rows of every (K, N) bf16 product on the card: the rows run in blocks of
+# exactly this many (the last padded with zero rows), so cuBLAS sees one
+# shape whatever the batch and a row's sums do not depend on how many rows
+# share the call (a prompt alone and in a batch, a chunk and a cold
+# prefill, give the same bits).  128 keeps a decode step (32 rows) bound
+# by the weights' bytes on an H100.
+FLOAT_BLOCK_ROWS = 128
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f32 for float operands of one dtype: ``w`` is (K, N),
+    or (E, K, N) against x (E, M, K).  bf16 on the card multiplies with
+    an f32 output (no bf16 partial sums), a (K, N) weight on blocks of
+    :data:`FLOAT_BLOCK_ROWS` rows; elsewhere both operands go to f32,
+    where bf16 products are exact."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        if w.ndim == 3:
+            return torch.bmm(x, w, out_dtype=torch.float32)
+        rows = x.reshape(-1, x.shape[-1])
+        n = rows.shape[0]
+        pad = (-n) % FLOAT_BLOCK_ROWS
+        if pad:
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+        out = torch.cat([torch.mm(blk, w, out_dtype=torch.float32) for blk in rows.split(FLOAT_BLOCK_ROWS)])
+        return out[:n].reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
 
 
 def float_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for float operands with f32 accumulation and one rounding
     to x's dtype (the reference's ``preferred_element_type=f32`` then
-    ``astype``).  ``w`` is (K, N), or (E, K, N) against x (E, M, K).  bf16
-    on the card multiplies with an f32 output (no bf16 partial sums);
-    elsewhere both operands go to f32, where bf16 products are exact."""
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        if w.ndim == 3:
-            out = torch.bmm(x, w, out_dtype=torch.float32)
-        else:
-            out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-            out = out.reshape(*x.shape[:-1], w.shape[-1])
-    else:
-        out = torch.matmul(x.float(), w.float())
-    return out.to(x.dtype)
+    ``astype``)."""
+    return f32_product(x, w).to(x.dtype)
+
+
+def weight_only_dot(x: torch.Tensor, w: QuantizedMatrix) -> torch.Tensor:
+    """The reference's weight-only int8 product (the ``xla`` path): the
+    int8 values convert to x's dtype for this call (exact), the product
+    runs with f32 accumulation, the per-column scale multiplies the f32
+    output, and the result rounds once to x's dtype."""
+    return (f32_product(x, w.q.to(x.dtype)) * w.scale[..., 0, :]).to(x.dtype)
 
 
 def q_dot(x: torch.Tensor, w: Any, name: Optional[str] = None) -> torch.Tensor:
@@ -114,22 +148,23 @@ def q_dot(x: torch.Tensor, w: Any, name: Optional[str] = None) -> torch.Tensor:
       (:class:`~generativeaiexamples_tpu_torch.ops.qmm.BlockedQuantizedMatrix`):
       per-token-quantized W8A8 through the CUDA kernel on the card, or its
       bit-identical plain version on the CPU (``ops.qmm.q_matmul``);
+    * a weight-only int8 :class:`QuantizedMatrix` (the ``xla`` path):
+      :func:`weight_only_dot`;
     * a float array (the MoE router, float trees): :func:`float_dot`, f32
       accumulation cast to x's dtype.
-
-    The reference's weight-only int8 layout (a ``QuantizedMatrix`` inside
-    the product) is not served: ``engine.decode.prepare_params`` blocks
-    every int8 projection for the W8A8 kernel, and other layouts raise.
     """
     from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix, q_matmul
 
     _validate_q_dot(x, w, name)
     if isinstance(w, BlockedQuantizedMatrix):
         return q_matmul(x, w)
+    if isinstance(w, QuantizedMatrix):
+        return weight_only_dot(x, w)
     if isinstance(w, torch.Tensor) and w.is_floating_point():
         return float_dot(x, w)
     raise TypeError(
-        f"projection {name!r}: the port serves pre-blocked W8A8 or float weights, got {type(w).__name__}"
+        f"projection {name!r}: the port serves pre-blocked W8A8, weight-only int8 or float weights, "
+        f"got {type(w).__name__}"
     )
 
 

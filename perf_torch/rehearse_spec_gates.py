@@ -44,7 +44,7 @@ import json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
-from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+from generativeaiexamples_tpu_torch.engine.decode import w8a8_params
 from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
 from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
 from generativeaiexamples_tpu_torch.models import llama
@@ -56,14 +56,15 @@ t0 = time.perf_counter()
 _cuda.build()
 cfg = llama.llama3_8b(kv_dtype="int8")
 with torch.inference_mode():
-    params = prepare_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    params = w8a8_params(cfg, None, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
 prompts = cs.make_prompts()
 serve = dict(decode_tokens_per_s=None, wall_s=None, ttft_p50_ms=None)
-plain = Scheduler(cfg, params, device=dev, **cs.serve_kw("contiguous"))
+plain = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **cs.serve_kw("contiguous"))
 records, _ = cs.spec_step(torch, dev, _cuda, "plain", plain, cfg, params, prompts, serve, ("batch",))
 plain._cache = None
 streams = {prompt: ids for prompt, _, ids in records}
-ngram = Scheduler(cfg, params, device=dev, **cs.serve_kw("contiguous"), spec_mode="ngram", gamma=cs.SPEC_GAMMA)
+ngram = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **cs.serve_kw("contiguous"), spec_mode="ngram",
+                  gamma=cs.SPEC_GAMMA)
 records, _ = cs.spec_step(torch, dev, _cuda, "ngram", ngram, cfg, params, prompts, serve, ("batch", "quote"))
 ngram._cache = ngram._dhist = None
 gates = cs.check_spec_streams(torch, cfg, params, records, streams)

@@ -61,7 +61,7 @@ def served(dev, monkeypatch, tmp_path):
     cfg = llama.LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=8, n_kv_heads=2, head_dim=128,
                             d_ff=1024, max_seq_len=1024, rope_theta=10000.0, kv_dtype="int8")
     sched = Scheduler(cfg, None, device=dev, max_batch=4, max_len=1024, decode_chunk_size=4,
-                      prefill_chunk_tokens=None, seed=3)
+                      prefill_chunk_tokens=None, seed=3, matmul_kernel="pallas_w8a8")
     llm = GPUChatLLM(scheduler=sched)
     monkeypatch.setattr(developer_rag, "get_chat_llm", lambda: llm)
     received = []

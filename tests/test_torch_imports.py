@@ -74,7 +74,7 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                    "retrieval.fabric.collections", "retrieval.fabric.metrics", "ingest.pipeline", "obs.profiler",
                    "obs.exposition", "chains.multi_turn", "chains.query_decomposition", "chains.api_catalog",
                    "engine.spec_decode", "engine.weights", "engine.tokenizer", "engine.native_tokenizer",
-                   "utils.native_build"):
+                   "utils.native_build", "engine.generator", "engine.speculative"):
         assert f"generativeaiexamples_tpu_torch.{module}" in names
     assert bad == "", f"port pulled in: {bad}"
     assert bad_after == "", f"building an HFTokenizer pulled in: {bad_after}"

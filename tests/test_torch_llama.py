@@ -137,11 +137,12 @@ def test_prepare_params_lays_out_a_float_tree_as_the_reference(both_params):
     _, tp = both_params
     raw = params_from_numpy(jax.tree.map(np.asarray, jllama.init_params(JCFG, jax.random.PRNGKey(0))), TCFG, "cpu")
     assert isinstance(raw["layers"]["wq"], torch.Tensor)
-    out = tdecode.prepare_params(TCFG, raw, device="cpu")
+    out = tdecode.prepare_params(TCFG, raw, device="cpu", quantize=True, pack=True, matmul_kernel="pallas_w8a8")
     for name in ("wqkv", "wo", "w_gu", "w_down"):
         assert torch.equal(out["layers"][name].w, tp["layers"][name].w), name
         assert torch.equal(out["layers"][name].scale, tp["layers"][name].scale), name
     for name in ("embed", "lm_head"):
         assert torch.equal(out[name].q, tp[name].q) and torch.equal(out[name].scale, tp[name].scale), name
     assert out["lm_head"].q.dtype == TCFG.compute_dtype
-    assert tdecode.prepare_params(TCFG, out, device="cpu")["layers"]["wo"] is out["layers"]["wo"]
+    again = tdecode.prepare_params(TCFG, out, device="cpu", quantize=True, pack=True, matmul_kernel="pallas_w8a8")
+    assert again["layers"]["wo"] is out["layers"]["wo"]

@@ -259,7 +259,7 @@ def test_paged_flush_equals_reference():
 
 def test_forward_paged_equals_contiguous():
     cfg = tllama.llama_tiny(dtype="float32", max_seq_len=T, kv_dtype="int8")
-    params = tdecode.prepare_params(cfg, None, device="cpu", generator=torch.Generator().manual_seed(0))
+    params = tdecode.w8a8_params(cfg, None, device="cpu", generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(4)
     b, s0, pt = 3, 24, 16
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s0))).long()

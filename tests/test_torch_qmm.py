@@ -118,13 +118,14 @@ def test_q_dot_names_projection():
 
 
 def test_q_dot_takes_only_blocked_weights():
-    """q_dot takes pre-blocked W8A8 weights and, for the MoE router and
-    float trees, float arrays (f32 accumulation cast to x's dtype); the
-    weight-only int8 layout and integer arrays raise."""
+    """q_dot takes pre-blocked W8A8 weights (the W8A8 product), the
+    weight-only int8 layout (the ``xla`` path: int8 converted to x's dtype,
+    f32 product, scale, one rounding) and float arrays (f32 accumulation
+    cast to x's dtype); integer arrays raise."""
     qm = tquant.quantize_matrix(torch.randn(48, 96))
+    x = torch.randn(2, 48)
+    assert torch.equal(tquant.q_dot(x, qm, "wo"), (x @ qm.q.float()) * qm.scale[0])
     with pytest.raises(TypeError, match="projection 'wo'.*pre-blocked"):
-        tquant.q_dot(torch.zeros(2, 48), qm, "wo")
-    with pytest.raises(TypeError, match="pre-blocked"):
         tquant.q_dot(torch.zeros(2, 48), torch.zeros(48, 96, dtype=torch.int8), "wo")
     x, w = torch.randn(2, 48).bfloat16(), torch.randn(48, 96).bfloat16()
     got = tquant.q_dot(x, w, "router")

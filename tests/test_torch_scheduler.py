@@ -71,7 +71,7 @@ def test_greedy_streams_equal_jax(monkeypatch, jax_params):
     ref = _run_paths(jsched, jax_sched)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jax_params), TCFG, "cpu")
     port = tsched.Scheduler(TCFG, tparams, device="cpu", **SCHED_KW)
-    assert port.matmul_kernel == "w8a8"
+    assert port.matmul_kernel == jax_sched.matmul_kernel == "pallas_w8a8"
     out = _run_paths(tsched, port)
     assert out == ref
     assert ref["cold"][0] and ref["chunked"][0]

@@ -15,7 +15,7 @@ import urllib.request
 import pytest
 import torch
 
-from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+from generativeaiexamples_tpu_torch.engine.decode import w8a8_params
 from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
 from generativeaiexamples_tpu_torch.engine.microbatch import BatchedEmbedder
 from generativeaiexamples_tpu_torch.engine.reranker import GPUReranker
@@ -32,7 +32,7 @@ PROMPT = "hello port"
 @pytest.fixture(scope="module")
 def served():
     gen = torch.Generator().manual_seed(1)
-    params = prepare_params(CFG, None, device="cpu", generator=gen)
+    params = w8a8_params(CFG, None, device="cpu", generator=gen)
     sched = Scheduler(
         CFG, params, device="cpu", max_batch=4, max_len=128, decode_chunk_size=2,
         prefill_chunk_tokens=8, prefix_cache="off",
@@ -79,7 +79,7 @@ def test_health_models_metrics(served):
     assert json.loads(body)["data"][0]["id"] == "llama-tiny"
     status, body = _get(base + "/metrics")
     assert status == 200 and "engine_requests_total" in body
-    assert 'engine_matmul_kernel{kernel="w8a8"} 1' in body
+    assert 'engine_matmul_kernel{kernel="pallas_w8a8"} 1' in body
 
 
 def test_completions_plain_and_stream_match_scheduler(served):
@@ -147,7 +147,7 @@ def test_paged_server_from_the_command_line():
     server = build_server([
         "--device", "cpu", "--model", "llama-tiny", "--host", "127.0.0.1", "--port", "0",
         "--max-batch", "2", "--max-len", "128", "--decode-chunk-size", "2", "--prefill-chunk-tokens", "8",
-        "--kv-layout", "paged", "--kv-page-size", "16", "--kv-pool-pages", "40",
+        "--kv-layout", "paged", "--kv-page-size", "16", "--kv-pool-pages", "40", "--matmul-kernel", "pallas_w8a8",
     ])
     sched = server.scheduler
     assert sched.kv_layout == "paged" and sched.kv_page_size == 16 and sched._pool.total_pages == 40
@@ -335,6 +335,7 @@ def test_build_server_serves_each_family_as_the_jax_scheduler(model, tmp_path, m
     server = build_server([
         "--device", "cpu", "--model", model, "--host", "127.0.0.1", "--port", "0", "--max-batch", "2",
         "--max-len", "128", "--decode-chunk-size", "2", "--prefill-chunk-tokens", "8", "--embedder", "none",
+        "--matmul-kernel", "pallas_w8a8",
     ])
     sched = server.scheduler
     assert sched.cfg.moe_dropless == bool(moe) and sched.cfg.dtype == "float32"
@@ -368,3 +369,89 @@ def test_build_server_serves_each_family_as_the_jax_scheduler(model, tmp_path, m
     finally:
         ref.stop()
     assert tokens and json.loads(body)["choices"][0]["text"] == ByteTokenizer().decode(tokens)
+
+
+def test_matmul_kernel_resolves_as_the_reference(monkeypatch):
+    """``--matmul-kernel``, then ``GAIE_MATMUL_KERNEL``, then
+    ``[llm].matmul_kernel``, then ``xla``: the JAX server's order."""
+    from generativeaiexamples_tpu_torch.core import configuration
+    from generativeaiexamples_tpu_torch.engine.server import parse_args, resolve_matmul_kernel
+
+    monkeypatch.delenv("GAIE_MATMUL_KERNEL", raising=False)
+    monkeypatch.delenv("APP_LLM_MATMULKERNEL", raising=False)
+    configuration.reset_config_cache()
+    try:
+        assert resolve_matmul_kernel(parse_args([])) == "xla"
+        assert resolve_matmul_kernel(parse_args(["--matmul-kernel", "pallas_w8a8"])) == "pallas_w8a8"
+        monkeypatch.setenv("APP_LLM_MATMULKERNEL", "pallas_w8a8")
+        configuration.reset_config_cache()
+        assert resolve_matmul_kernel(parse_args([])) == "pallas_w8a8"
+        assert resolve_matmul_kernel(parse_args(["--matmul-kernel", "xla"])) == "xla"
+        monkeypatch.setenv("GAIE_MATMUL_KERNEL", "xla")
+        assert resolve_matmul_kernel(parse_args([])) == "xla"
+        with pytest.raises(SystemExit):
+            parse_args(["--matmul-kernel", "w8a8"])
+    finally:
+        monkeypatch.undo()
+        configuration.reset_config_cache()
+
+
+def _one_completion(server, prompt, max_tokens=6):
+    sched = server.scheduler
+    sched.start()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, body = _post(f"http://127.0.0.1:{server.server_address[1]}/v1/completions",
+                             {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0})
+        _, metrics = _get(f"http://127.0.0.1:{server.server_address[1]}/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=10)
+    return status, json.loads(body), metrics
+
+
+XLA_ARGV = ["--device", "cpu", "--model", "llama-tiny", "--host", "127.0.0.1", "--port", "0", "--max-batch", "2",
+            "--max-len", "128", "--decode-chunk-size", "2", "--prefill-chunk-tokens", "8", "--embedder", "none"]
+
+
+def test_default_server_serves_float_weights_over_the_preset_cache(monkeypatch):
+    """No flag: the ``xla`` path, random float weights from ``--seed`` (no
+    blocked leaf), the preset's bf16 cache; ``/metrics`` names it."""
+    monkeypatch.delenv("GAIE_MATMUL_KERNEL", raising=False)
+    server = build_server(XLA_ARGV)
+    sched = server.scheduler
+    assert sched.matmul_kernel == "xla" and sched.cfg.kv_dtype == "bfloat16"
+    assert len(sched._cache) == 2 and sched._cache[0].dtype == torch.bfloat16
+    assert sched.params["layers"]["wq"].dtype == torch.bfloat16  # unpacked, as the reference's scheduler
+    status, out, metrics = _one_completion(server, PROMPT)
+    assert status == 200 and out["usage"]["completion_tokens"] >= 1
+    assert 'engine_matmul_kernel{kernel="xla"} 1' in metrics
+
+
+def test_paged_server_on_xla_serves_int8_pages(monkeypatch, caplog):
+    monkeypatch.delenv("GAIE_MATMUL_KERNEL", raising=False)
+    with caplog.at_level("INFO"):
+        server = build_server(XLA_ARGV + ["--kv-layout", "paged", "--kv-page-size", "16"])
+    assert "kv_layout=paged requires int8 KV; overriding kv_dtype=bfloat16" in caplog.text
+    sched = server.scheduler
+    assert sched.matmul_kernel == "xla" and sched._pool is not None and sched._cache[0].dtype == torch.int8
+    status, out, metrics = _one_completion(server, PROMPT)
+    assert status == 200 and out["usage"]["completion_tokens"] >= 1 and "engine_kv_pages_total" in metrics
+
+
+def test_float_draft_on_xla_from_the_command_line(monkeypatch):
+    """``--draft-model`` on ``xla``: the draft keeps its preset's KV dtype
+    and float weights (the reference's bf16 draft), and the server
+    speculates with it."""
+    monkeypatch.delenv("GAIE_MATMUL_KERNEL", raising=False)
+    monkeypatch.delenv("GAIE_WEIGHTS_DIR", raising=False)
+    server = build_server(XLA_ARGV + ["--spec-decode", "--draft-model", "llama-tiny", "--gamma", "2"])
+    sched = server.scheduler
+    assert sched.draft_cfg.kv_dtype == "bfloat16" and len(sched._dcache) == 2
+    assert sched.draft_params["layers"]["wqkv"].dtype == torch.bfloat16
+    status, out, _ = _one_completion(server, PROMPT)
+    assert status == 200 and out["usage"]["completion_tokens"] >= 1
+    assert sched.stats.snapshot()["spec_rounds"] > 0

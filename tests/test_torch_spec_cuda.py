@@ -72,14 +72,14 @@ def test_greedy_spec_round_on_card_matches_cpu(dev):
     REFERENCE_TOL of the CPU's from the same cache, and one prompt-lookup
     round emits the CPU round's tokens up to a first difference, where the
     CPU logits of the two tokens must lie within 2 * atol (a near tie)."""
-    from generativeaiexamples_tpu_torch.engine.decode import _append_buffer, prepare_params
+    from generativeaiexamples_tpu_torch.engine.decode import _append_buffer, w8a8_params
     from generativeaiexamples_tpu_torch.engine.spec_decode import _ngram_drafts, make_ngram_spec_chunk_fn
     from generativeaiexamples_tpu_torch.models import llama
 
     cfg = llama.LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=8, n_kv_heads=2, head_dim=128,
                             d_ff=1024, max_seq_len=256, rope_theta=10000.0, kv_dtype="int8")
     gen = torch.Generator().manual_seed(4)
-    params = {"cpu": prepare_params(cfg, None, device="cpu", generator=gen)}
+    params = {"cpu": w8a8_params(cfg, None, device="cpu", generator=gen)}
     params[dev] = _to(params["cpu"], dev)
     b, s, max_len, gamma = 4, 40, 128, 3
     # Repeating prompts, so prompt lookup proposes real continuations.

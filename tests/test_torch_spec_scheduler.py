@@ -400,8 +400,10 @@ def one_thread():
 def sampled_model():
     params = tllama.init_params(tllama.llama_tiny(dtype="float32", max_seq_len=64, kv_dtype="int8"),
                                 torch.Generator().manual_seed(4), "cpu")
+    from generativeaiexamples_tpu_torch.engine.decode import w8a8_params
+
     with torch.inference_mode():
-        return tsched.prepare_params(TCFG, params, device="cpu")
+        return w8a8_params(TCFG, params, device="cpu")
 
 
 def test_self_draft_sampled_rows_accept_everything(sampled_model, one_thread):
@@ -498,10 +500,15 @@ def test_server_spec_flags_map_to_scheduler_kwargs(monkeypatch):
     monkeypatch.setenv("GAIE_SPEC_GAMMA", "5")
     assert tserver.spec_scheduler_kwargs(tserver.parse_args([]), cfg, "cpu") == {"spec_mode": "ngram", "gamma": 5}
     monkeypatch.delenv("GAIE_SPEC_DECODE")
-    # A draft preset: random W8A8 with int8 KV, from --seed.
+    # A draft preset, random from --seed: on xla (the default) float and
+    # packed with its preset's KV dtype, on pallas_w8a8 W8A8 with int8 KV.
     kw = tserver.spec_scheduler_kwargs(tserver.parse_args(["--spec-decode", "--draft-model", "llama-tiny"]), cfg, "cpu")
-    assert kw["draft_cfg"].kv_dtype == "int8" and kw["draft_cfg"].n_layers == 2 and "spec_mode" not in kw
-    assert kw["gamma"] == 5 and kw["draft_params"]["layers"]["wqkv"].w.dtype == torch.int8
+    assert kw["draft_cfg"].kv_dtype == "bfloat16" and kw["draft_cfg"].n_layers == 2 and "spec_mode" not in kw
+    assert kw["gamma"] == 5 and kw["draft_params"]["layers"]["wqkv"].dtype == torch.bfloat16
+    kw = tserver.spec_scheduler_kwargs(
+        tserver.parse_args(["--spec-decode", "--draft-model", "llama-tiny", "--matmul-kernel", "pallas_w8a8"]), cfg,
+        "cpu")
+    assert kw["draft_cfg"].kv_dtype == "int8" and kw["draft_params"]["layers"]["wqkv"].w.dtype == torch.int8
     with pytest.raises(ValueError, match="mutually exclusive"):
         tserver.spec_scheduler_kwargs(
             tserver.parse_args(["--spec-ngram", "--draft-model", "llama-tiny"]), cfg, "cpu")

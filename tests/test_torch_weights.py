@@ -122,7 +122,7 @@ def test_prepare_params_quantizes_as_the_reference(llama_ckpts, dtype):
     jp = jdecode.prepare_params(jcfg, jweights.load_hf_llama(jcfg, llama_ckpts["untied"]), None, quantize=True,
                                 pack=True, matmul_kernel="pallas_w8a8")
     want = tweights.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
-    got = tdecode.prepare_params(tcfg, tweights.load_hf_llama(tcfg, llama_ckpts["untied"], device="cpu"), device="cpu")
+    got = tdecode.w8a8_params(tcfg, tweights.load_hf_llama(tcfg, llama_ckpts["untied"], device="cpu"), device="cpu")
     for name in ("wqkv", "wo", "w_gu", "w_down"):
         assert torch.equal(got["layers"][name].w, want["layers"][name].w), name
         assert torch.equal(got["layers"][name].scale, want["layers"][name].scale), name
@@ -169,7 +169,8 @@ PROMPTS = ([1, 2, 3, 4], list(range(5, 29)))
 def test_loaded_greedy_streams_equal_the_jax_scheduler(llama_ckpts, jax_f32_prepared, monkeypatch):
     _, tcfg = _cfgs("float32")
     params = tweights.load_hf_llama(tcfg, llama_ckpts["sharded"], device="cpu")
-    got = _streams(tsched, tsched.Scheduler(tcfg, params, device="cpu", **SCHED_KW), PROMPTS)
+    got = _streams(tsched, tsched.Scheduler(tcfg, params, device="cpu", matmul_kernel="pallas_w8a8", **SCHED_KW),
+                   PROMPTS)
     want = _jax_streams(jax_f32_prepared, PROMPTS, monkeypatch)
     assert got == want and all(tokens for tokens, _ in got)
 
@@ -437,6 +438,7 @@ def test_build_server_serves_a_provisioned_checkpoint(llama_ckpts, bert_ckpts, j
         "--device", "cpu", "--model", "llama-tiny", "--host", "127.0.0.1", "--port", "0",
         "--max-batch", "2", "--max-len", "128", "--decode-chunk-size", "2", "--prefill-chunk-tokens", "8",
         "--embedder", "arctic", "--embedder-model", "acme/embed-tiny", "--embed-max-batch", "1",
+        "--matmul-kernel", "pallas_w8a8",
     ])
     assert isinstance(server.embedder.tokenizer, WordPieceTokenizer)
     assert server.embedder.cfg.d_model == 64
@@ -476,16 +478,17 @@ def _jax_tokens(jax_prepared, ids, monkeypatch):
 
 def test_a_draft_checkpoint_loads(llama_ckpts, tmp_path, monkeypatch):
     """``--draft-checkpoint``, or ``$GAIE_WEIGHTS_DIR/<draft model>``, loads
-    the draft as ``prepare_params(load_hf_causal_lm(...))``."""
+    the draft as ``w8a8_params(load_hf_causal_lm(...))`` on the W8A8 route."""
     from generativeaiexamples_tpu_torch.engine.server import parse_args, spec_scheduler_kwargs
 
     _, tcfg = _cfgs("bfloat16")
-    want = tdecode.prepare_params(tcfg, tweights.load_hf_llama(tcfg, llama_ckpts["untied"], device="cpu"),
-                                  device="cpu")
+    want = tdecode.w8a8_params(tcfg, tweights.load_hf_llama(tcfg, llama_ckpts["untied"], device="cpu"),
+                               device="cpu")
     shutil.copytree(llama_ckpts["untied"], tmp_path / "llama-tiny")
     for argv, env in ((["--draft-checkpoint", llama_ckpts["untied"]], ""), ([], str(tmp_path))):
         monkeypatch.setenv("GAIE_WEIGHTS_DIR", env)
-        args = parse_args(["--device", "cpu", "--model", "llama-tiny", "--draft-model", "llama-tiny", *argv])
+        args = parse_args(["--device", "cpu", "--model", "llama-tiny", "--draft-model", "llama-tiny",
+                           "--matmul-kernel", "pallas_w8a8", *argv])
         spec = spec_scheduler_kwargs(args, tcfg, torch.device("cpu"))
         got = spec["draft_params"]
         for name in ("wqkv", "wo", "w_gu", "w_down"):
