@@ -85,7 +85,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    under searches (centroids kept, one ``index_swap``, the tail empty),
    then a retrain forced by growth.  ``store_crossover``: exact and IVF at
    131,072 rows and at all rows, and the factory's ``cuda`` crossover.
-   ``store_snapshot``: IVF int8 at 65,536 rows saved, loaded on the card
+   ``store_snapshot``: IVF int8 at 32,768 rows saved, loaded on the card
    (the saved store's answers) and on the CPU (the same ids wherever gaps
    exceed ``RANK_EPS``).  ``auto`` from ``APP_*`` builds the IVF store on
    the card with the ``cuda`` crossover.  Then ``stores``: peak device GB,
@@ -107,7 +107,37 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    table copies, the shared boundary page must be copied on write, the
    prompts sent alone must give the contiguous server's greedy text, and
    the pool must be all free once the parked segments are dropped.
-12. ``spec``: speculative decoding on the same params, gamma 4, each step
+12. ``pool``: the engine server as a 2-replica pool (``build_server`` with
+   ``--replicas 2 --routing-policy prefix --matmul-kernel pallas_w8a8``:
+   Llama-3-8B W8A8 from the same seed, one weight tree shared by both
+   replicas, each with its own int8 KV cache; the gray-failure layer off
+   through ``APP_CONFIG_FILE``), in six drills that each fail
+   the run: ``pool`` (serve's requests through the pool's front, launch
+   counts zeroed just before and read just after: K1 in both designs, K2
+   and K4; every stream equal to serve's bit for bit, both replicas
+   placed, the per-replica, pool and gray families on ``/metrics``, the
+   device GB the server added below one tree plus two caches plus 1 GB;
+   tokens/s, TTFT p50 and decode tokens/s beside serve's),
+   ``pool_failover`` (72 distinct prompts, more than both replicas' slots;
+   ``replica:error`` at replica 1 while it holds queued requests: the
+   token-less ones finish on the survivor with their cold streams, held
+   against a fresh scheduler without the prefix cache, every mid-flight one
+   answers 503 or ends ``finish_reason: "error"``, ``/health`` 503
+   ``degraded``), ``pool_drain_scale`` (``/admin/scale?replicas=2`` adds
+   replica 2, then ``/admin/drain`` of the replica running a generation,
+   which finishes there while new requests go to the other, then
+   ``/admin/scale?replicas=2`` again under a running stream: device GB and
+   the stream's longest gap across it, and a request on the new replica;
+   fresh prompts, each stream equal to its cold one), ``pool_debug`` (``/debug/requests`` under the
+   caller's ``X-Request-Id``, ``/debug/timeseries``'s engine series), then
+   on a second pool over the same params (2 replicas of ``max_batch`` 4 and
+   ``max_queue`` 2; the health section's windows cut to seconds through
+   ``APP_CONFIG_FILE``) ``pool_gray`` (``replica:latency`` at its replica 1
+   ejects it, disarmed it returns through probation) and ``pool_429`` (16
+   concurrent completions of distinct prompts: 429s with ``Retry-After``
+   in [1, 30], the accepted ones with their cold streams, the rejected
+   counter equal to the 429s).
+13. ``spec``: speculative decoding on the same params, gamma 4, each step
    driven over the engine front's HTTP routes with its launch counts
    zeroed just before and read just after: ``spec_plain`` (a plain
    scheduler in the same position, serve's 8 completions and streaming
@@ -138,13 +168,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    and serve's, acceptance, tokens per target forward, the final gamma;
    and the verify attention of one layer (B=32, S=5, window 1024) beside
    its byte bound and K2.
-13. ``profile`` and ``profile_paged``: the decode chunk of each layout
+14. ``profile`` and ``profile_paged``: the decode chunk of each layout
    traced with torch.profiler (device time by kernel, and the device's
    busy share of the traced call's own span); then ``profile_embed``, one
    32 x 512 arctic-embed-l forward traced the same way.  The traces come
    after every untraced measurement: a trace leaves the process's later
    host work slower.
-14. ``chain``: the chain server as ``create_app()`` builds it from the
+15. ``chain``: the chain server as ``create_app()`` builds it from the
    ``APP_*`` defaults (Llama-3-8B W8A8 behind ``GPUChatLLM``, random int8,
    seed 0; arctic-embed-l; the exact store; the result cache; no
    reranker), the earlier phases' params freed first, driven over HTTP on
@@ -182,15 +212,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``profiler``: ``/debug/profiler/start`` (a second start is 409), one
    8-token ``/generate``, ``stop``: the Chrome trace names the W8A8 and
    decode-attention kernels.
-15. ``hf_checkpoint`` (inside the K1 shape record, after ``chain``): the
+16. ``hf_checkpoint`` (inside the K1 shape record, after ``chain``): the
    quantizers held against numpy's ``amax / 127`` bit for bit
-   (``check_quantizers``); a Llama-3-8B checkpoint at full width and depth
-   written from numpy seed 0 in bf16 (four shards, the index, a
+   (``check_quantizers``); a Llama-3-8B checkpoint at full width and 16 of
+   its 32 layers written from numpy seed 0 in bf16 (four shards, the index, a
    ``LlamaForCausalLM`` ``config.json``; layer i is the base layer rolled
    by i rows) and served by ``build_server`` through ``$GAIE_WEIGHTS_DIR``
    (load seconds, device GB, the host's resident set during the load,
    which may grow by no more than 8 GB); the int8 codes and f32 scales of
-   every projection of layers 0, 16 and 31, the head and the embedding
+   every projection of layers 0, 8 and 15, the head and the embedding
    equal numpy's quantization of the written arrays bit for bit; greedy
    streams (four completions together, two alone) of the loaded server, of
    a ``Scheduler`` on the numpy-quantized tree and of a paged ``Scheduler``
@@ -202,9 +232,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    library and equal the Python path's, 256 documents and 32 queries embed
    unit-norm within ``EMBED_TOL`` of a direct ``GPUEmbedder``, and 32 x 16
    pairs rerank in two segments within ``BERT_TOL`` of a direct
-   ``score_pairs``.  The checkpoints (about 17 GB) live under the
+   ``score_pairs``.  The checkpoints (about 10 GB) live under the
    temporary directory and are deleted at the phase's end.
-16. ``families`` (inside the K1 shape record, after ``hf_checkpoint``):
+17. ``families`` (inside the K1 shape record, after ``hf_checkpoint``):
    Gemma-2B, Gemma-7B, StarCoder2-3B and Mixtral-8x7B.  Each at full width
    and 2 layers, random W8A8 from seed 5 (Mixtral's experts bf16), through
    the kernels on the card and the plain versions on the CPU: the
@@ -215,8 +245,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    to the CPU's (``families_reference``; every comparison is read before
    the phase fails, and the error names each one beyond its bound).  Each
    served through ``build_server(["--model", <HF id>, ...])`` at full
-   width and depth (Mixtral at 8 of its 32 layers: 22.5 GB of bf16
-   experts), random int8 from seed 0: the 20- and 650-token prompts sent
+   width and half its depth (Mixtral at 4 of its 32 layers: 11.3 GB of
+   bf16 experts; ``FAMILY_SERVED_LAYERS``), random int8 from seed 0: the 20- and 650-token prompts sent
    together, then each alone, must emit the same 32 greedy ids; Gemma-2B
    and StarCoder2-3B also on the paged pool (a ``Scheduler`` on the same
    params), whose ids must equal the contiguous ones; K1, the layout's
@@ -228,7 +258,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``$GAIE_WEIGHTS_DIR``: int8 codes and scales against numpy's
    quantization, float leaves against the written arrays, two completions
    with K1, K2 and K4 launched (``families_checkpoint``).
-17. ``xla_path`` (inside the K1 shape record, after ``families``): the
+18. ``xla_path`` (inside the K1 shape record, after ``families``): the
    reference engine's default serving path, bf16 weights over the bf16 KV
    cache.  K4 in its warm regime (a 256-token chunk at positions 256 and
    1792 against 1024 and 2048 cache slots, at head_dim 128 and 64) against
@@ -255,7 +285,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    equal or parted only at a near tie under a teacher-forced forward, and
    a W8A8 ``LlamaGenerator`` over an int8 cache launching K1, K2 and K4
    (``xla_generators``).
-18. ``durable``: durability with ``python -m
+19. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -266,7 +296,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    no chunk id twice).
 
 Then the ``kernels`` summary line (each kernel's ``launches`` from its
-serving phase, ``chain_launches`` from ``chain``, ``step_launches`` from
+serving phase, ``pool_launches`` from ``pool``, ``chain_launches`` from ``chain``, ``step_launches`` from
 the steps after it, ``spec_launches`` from each ``spec`` step,
 ``hf_launches`` from each path of ``hf_checkpoint``,
 ``families_launches`` from each family's paths, ``xla_path_launches``
@@ -289,6 +319,7 @@ import json
 import logging
 import math
 import os
+import queue
 import subprocess
 import sys
 import threading
@@ -1794,7 +1825,7 @@ STORE_KINDS = (
 )
 # Queries whose every returned score is held against f64 (8 planted, 8 fresh).
 STORE_CHECKED = tuple(range(8)) + tuple(range(64, 72))
-STORE_APPEND, STORE_CROSS_ROWS, STORE_SNAPSHOT_ROWS = 5000, 131072, 65536
+STORE_APPEND, STORE_CROSS_ROWS, STORE_SNAPSHOT_ROWS = 5000, 131072, 32768
 # The reference's int8 recall gate (tests/test_retrieval.py::TestQuantized).
 INT8_RECALL = 0.95
 # PQ's ADC scores on the card against the same codes and table on the CPU.
@@ -2243,7 +2274,7 @@ def stores_phase(torch, dev, exact, queries, planted) -> None:
              ivf_query_chunk=[cross["ivf"]["query_chunk"], ivf_full["query_chunk"]],
              cuda_crossover_rows=rfactory.crossover_rows(RETRIEVE_DIM, "cuda"))
 
-        # IVF with int8 at 65,536 rows: saved, loaded on the card and on the CPU.
+        # IVF with int8 at 32,768 rows: saved, loaded on the card and on the CPU.
         store = rfactory.get_vector_store(device=dev, overrides={"backend": "tpu-ivf", "quantization": "int8"})
         store.add(chunks[:STORE_SNAPSHOT_ROWS], corpus[:STORE_SNAPSHOT_ROWS])
         before = store.search_batch(queries, 10)
@@ -2552,7 +2583,7 @@ def serve(torch, dev, _cuda, cfg, params, prompts, kv_layout, expect=None, rag=N
             pool_fields["all_free_after_drain"] = True
         summary = dict(wall_s=wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None,
                        decode_tokens_per_s=decode_tokens / decode_s if decode_s else None,
-                       streams=tee.by_prompt())
+                       tokens_per_s=n_tokens / wall, streams=tee.by_prompt())
         emit(
             phase, model="llama3-8b", layers=cfg.n_layers, d_model=cfg.d_model, weights="random int8, seed 0",
             kv=f"int8 {kv_layout}" + (", page 64" if paged else ""), **serve_kw(kv_layout), cache_build_s=build_s,
@@ -2594,12 +2625,639 @@ class StreamTee:
 
             req.on_token = on_tok
             self.records.append((tuple(req.token_ids), req.sampling, ids))
-            submit(req)
+            return submit(req)
 
         sched.submit = tee
 
     def by_prompt(self) -> dict:
         return {prompt: list(ids) for prompt, _, ids in self.records}
+
+
+# ---------------------------------------------------------------------------
+# the replica pool on the serving path
+# ---------------------------------------------------------------------------
+
+# The engine server as a 2-replica pool: the serve requests' deployment
+# behind a router.  Same draw as ``serve``'s params (W8A8, seed 0).
+POOL_ARGV = ("--model", "llama3-8b", "--replicas", "2", "--routing-policy", "prefix", "--matmul-kernel",
+             "pallas_w8a8", "--max-batch", "32", "--max-len", "2048", "--embedder", "none", "--seed", "0",
+             "--host", "127.0.0.1", "--port", "0")
+# The health sections, through ``APP_CONFIG_FILE``.  The first pool runs
+# without the gray-failure layer: its scorer compares replicas with each
+# other, and the drills' own uneven load (one replica idle beside a busy
+# one, a fresh replica beside veterans) ejected healthy replicas
+# (``PERF.md`` §6).  The gray drill runs on the second, fresh pool, with windows short
+# enough that an ejection and a re-admission take seconds; tolerance and
+# thresholds stay the defaults.
+POOL_MAIN_HEALTH = dict(enabled=False)
+POOL_GRAY_HEALTH = dict(window_s=2.0, eject_after_s=1.0, readmit_after_s=1.0, probation_s=2.0, score_smoothing=1.0)
+POOL_DRILL_LATENCY_MS = 300  # per tick of replica 1, against ~50 ms idle ticks
+# The failover burst: distinct prompts (no prefix-cache hit anywhere, so each
+# stream is a cold prefill's), placed least-loaded, more than both
+# replicas' 2 x 32 slots; every 6th streams.
+POOL_BURST, POOL_BURST_TOKENS, POOL_STREAMED_EVERY = 72, 16, 6
+POOL_STREAM_TOKENS = 96  # the stream running across a scale-up
+# The 429 drill: a second pool over the same params.
+SMALL_POOL = dict(max_batch=4, max_queue=2)
+SMALL_BURST = 16
+POOL_WAIT_S = 60.0
+
+
+def _tree_bytes(torch, obj, seen=None) -> int:
+    """Bytes of every distinct tensor storage reachable from ``obj`` (dicts,
+    sequences and dataclass leaves), each storage counted once."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        storage = obj.untyped_storage()
+        if storage.data_ptr() in seen:
+            return 0
+        seen.add(storage.data_ptr())
+        return storage.nbytes()
+    if isinstance(obj, dict):
+        items = obj.values()
+    elif isinstance(obj, (list, tuple)):
+        items = obj
+    elif hasattr(obj, "__dataclass_fields__"):
+        items = [getattr(obj, f) for f in obj.__dataclass_fields__]
+    else:
+        return 0
+    return sum(_tree_bytes(torch, x, seen) for x in items)
+
+
+class ReplicaTee:
+    """Records what each replica's scheduler takes (the pool's clones for a
+    requeue or a hedge too): replica, request id, prompt ids and the ids
+    that copy emitted.  ``attach`` wraps replicas added since."""
+
+    def __init__(self):
+        self.records: list = []
+        self._lock = threading.Lock()
+
+    def attach(self, pool) -> None:
+        for r in pool.replicas:
+            if getattr(r.scheduler, "_replica_tee", None) is not self:
+                self._wrap(r.idx, r.scheduler)
+
+    def _wrap(self, idx, sched) -> None:
+        submit = sched.submit
+
+        def tee(req):
+            ids, on_token = [], req.on_token
+
+            def on_tok(tid):
+                ids.append(tid)
+                on_token(tid)
+
+            req.on_token = on_tok
+            accepted = submit(req)
+            if accepted:
+                with self._lock:
+                    self.records.append(dict(replica=idx, id=req.id, prompt=tuple(req.token_ids), ids=ids))
+            return accepted
+
+        sched.submit = tee
+        sched._replica_tee = self
+
+    def since(self, n: int) -> list:
+        with self._lock:
+            return list(self.records[n:])
+
+
+def _wait_for(pred, timeout: float, what: str, poll_s: float = 0.05):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(poll_s)
+    raise AssertionError(f"timed out after {timeout:.0f} s waiting for {what}")
+
+
+def _check_copies(recs, streams, where: str) -> dict:
+    """Group a tee's records by request id: every copy of a request (a hedge
+    adds one, its loser is cancelled part-way) emitted a prefix of
+    ``serve``'s ids for the prompt, and one copy all of them."""
+    by_id: dict = {}
+    for rec in recs:
+        by_id.setdefault(rec["id"], []).append(rec)
+    for rid, copies in by_id.items():
+        want = streams.get(copies[0]["prompt"])
+        if want is None or any(c["ids"] != want[:len(c["ids"])] for c in copies) or \
+                not any(c["ids"] == want for c in copies):
+            raise AssertionError(f"{where}: {rid} ({len(copies[0]['prompt'])}-token prompt) on replicas "
+                                 f"{[c['replica'] for c in copies]} gave {[c['ids'] for c in copies]}, serve {want}")
+    return by_id
+
+
+def _cold_streams(dev, cfg, params, requests, max_batch: int = 32) -> list:
+    """Greedy ids of each ``(prompt ids, max_tokens)``: a fresh W8A8
+    scheduler on ``params`` without the prefix cache, so every stream is a
+    cold prefill's, whatever rows share its batches (freed after).
+    ``max_batch`` must be the served scheduler's: the decode kernels'
+    split plan follows the batch's slot count."""
+    from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
+    from generativeaiexamples_tpu_torch.engine.scheduler import SERVING_DEFAULTS, Request, Scheduler
+
+    ref = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8",
+                    **dict(SERVING_DEFAULTS, prefix_cache="off", max_batch=max_batch))
+    out, dones = [], []
+    for ids, max_tokens in requests:
+        done: "queue.Queue[str]" = queue.Queue()
+        out.append([])
+        ref.submit(Request(token_ids=list(ids), sampling=SamplingParams(temperature=0.0, max_tokens=max_tokens),
+                           on_token=out[-1].append, on_done=done.put))
+        dones.append(done)
+    ref.start()
+    try:
+        if [d.get(timeout=600) for d in dones] != ["length"] * len(requests):
+            raise AssertionError("the cold reference scheduler failed a request")
+    finally:
+        ref.stop()
+        ref._cache = None
+    return out
+
+
+def _random_prompts(seed: int, n: int, lo: int, hi: int) -> list:
+    import random
+
+    rng = random.Random(seed)
+    return ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz ,.") for _ in range(rng.randint(lo, hi))) for _ in range(n)]
+
+
+def _text_of(tokenizer, ids) -> str:
+    """The text the engine front returns for ``ids`` (its incremental
+    decoder, then the final flush)."""
+    from generativeaiexamples_tpu_torch.engine.tokenizer import decode_stream
+
+    piece = decode_stream(tokenizer)
+    return "".join(piece(t) for t in ids) + piece(0, final=True)
+
+
+def _sse_result(raw: str) -> tuple:
+    """(concatenated text, last finish_reason) of a completions SSE body."""
+    events = [json.loads(line[6:]) for line in raw.splitlines() if line.startswith("data: {")]
+    return "".join(e["choices"][0].get("text") or "" for e in events), events[-1]["choices"][0]["finish_reason"]
+
+
+def _replica_states(base) -> dict:
+    _, raw = _get(base + "/admin/replicas")
+    return {r["replica"]: r["state"] for r in json.loads(raw)["replicas"]}
+
+
+def _metric_lines(base) -> list:
+    return _get(base + "/metrics")[1].splitlines()
+
+
+def _metric(lines, name: str) -> float:
+    return float(next(line.split()[1] for line in lines if line.split()[0] == name))
+
+
+class _TimedStream:
+    """A streamed completion on a thread, recording each SSE event's arrival."""
+
+    def __init__(self, base, prompt, max_tokens):
+        self.times: list = []
+        self.raw = ""
+        self.status = None
+        self.thread = threading.Thread(target=self._run, args=(base, prompt, max_tokens), daemon=True)
+        self.thread.start()
+
+    def _run(self, base, prompt, max_tokens):
+        body = json.dumps({"prompt": prompt, "max_tokens": max_tokens, "temperature": 0, "stream": True}).encode()
+        req = urllib.request.Request(base + "/v1/completions", data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            self.status = resp.status
+            chunks = []
+            for line in resp:
+                if line.startswith(b"data: "):
+                    self.times.append(time.perf_counter())
+                chunks.append(line.decode())
+            self.raw = "".join(chunks)
+
+    def join(self):
+        self.thread.join(timeout=600)
+        if self.thread.is_alive() or self.status != 200:
+            raise AssertionError(f"streamed completion failed: {self.status} {self.raw[:300]}")
+
+    def longest_gap(self, t0: float, t1: float, inside: bool = True) -> float:
+        """The longest gap between consecutive events whose span meets
+        [t0, t1] (``inside``), or the longest of the others."""
+        gaps = [b - a for a, b in zip(self.times, self.times[1:]) if (b >= t0 and a <= t1) == inside]
+        return max(gaps, default=0.0)
+
+
+def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary, alone) -> dict:
+    """The engine server as a 2-replica pool (``build_server`` with
+    ``POOL_ARGV``): Llama-3-8B W8A8 at full width and depth, one weight tree
+    shared by both replicas, each with its own int8 KV cache, the
+    gray-failure layer off (``POOL_MAIN_HEALTH``).  Six drills, each of
+    which fails the run:
+
+    1. ``pool``: ``serve``'s requests through the pool's HTTP front, launch
+       counts zeroed just before and read just after (K1 in both designs,
+       K2, K4; not K3); every stream equals ``serve``'s bit for bit; both
+       replicas placed requests; the per-replica, pool and gray families on
+       ``/metrics``; the device GB the server added below one weight tree
+       plus two caches plus 1 GB, and both replicas on the same storages.
+    2. ``pool_failover``: 72 distinct prompts (no prefix-cache hit), more
+       than both replicas' slots; ``replica:error`` at replica 1 while it
+       holds queued requests: the token-less ones finish on the survivor
+       with their cold streams (a fresh scheduler without the prefix cache
+       gives them), every mid-flight one answers 503 or a streamed
+       ``finish_reason: "error"``, ``/health`` reads 503 ``degraded``.
+    3. ``pool_drain_scale``: ``/admin/scale`` back to 2 (replica 2), then
+       ``/admin/drain`` of the replica running a generation (it finishes
+       there, new requests place on the other, the drained one detaches),
+       then ``/admin/scale`` to 2 again under a running stream (device GB
+       and the stream's longest gap across it) and a request on the new
+       replica 3; fresh prompts, each stream equal to its cold one.
+    4. ``pool_debug``: ``/debug/requests`` under the caller's
+       ``X-Request-Id``; ``/debug/timeseries`` with engine series.  The
+       pool is freed after it.
+    5. ``pool_gray``, on a second pool over the same params (2 replicas,
+       ``max_batch`` 4, ``max_queue`` 2, fresh: the scorer compares
+       replicas alike; its own TSDB): ``replica:latency`` at its replica 1
+       ejects it; disarmed, it comes back through probation; the
+       transitions on ``/metrics`` and ``/admin/replicas``.  (A fresh
+       replica beside veterans reads as their brownout on the cumulative
+       TTFT mean, and an ejection drops the router's mirror: ``PERF.md``.)
+    6. ``pool_429``: that pool under a burst of 16 distinct prompts: 429s
+       with ``Retry-After`` in [1, 30], the accepted ones with their cold
+       streams, the pool's rejected counter equal to the 429s.
+
+    Returns the launches of drill 1."""
+    import tempfile
+
+    from generativeaiexamples_tpu_torch.core.configuration import reset_config_cache
+    from generativeaiexamples_tpu_torch.engine.replica import EJECTED, HEALTHY, PROBATION, UNHEALTHY, EnginePool
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import build_server, create_engine_app
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.obs.tsdb import Tsdb
+    from generativeaiexamples_tpu_torch.resilience.faults import get_fault_injector, reset_faults
+
+    t_phase = time.perf_counter()
+    tokenizer = get_tokenizer("llama3-8b")
+    streams = serve_summary["streams"]
+    config = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+    json.dump({"health": POOL_MAIN_HEALTH}, config)
+    config.close()
+    os.environ["APP_CONFIG_FILE"] = config.name
+    reset_config_cache()
+    reset_faults()
+    gc.collect()
+    torch.cuda.synchronize()
+    gb0 = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    server = build_server(list(POOL_ARGV))
+    pool = server.scheduler
+    build_s = time.perf_counter() - t0
+    tee = ReplicaTee()
+    tee.attach(pool)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    pool.start()
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    small = small_server = small_thread = None
+    try:
+        if pool.health_cfg.enabled:
+            raise AssertionError(f"the pool did not read the phase's health section: {pool.health_cfg}")
+        # -- 1. serve's requests through the pool ------------------------------
+        warm = [threading.Thread(target=_complete, args=(base, prompts["warmup"], 4)) for _ in range(2)]
+        for w in warm:  # one on each replica: first allocations
+            w.start()
+        for w in warm:
+            w.join(timeout=600)
+        stats = [r.scheduler.stats for r in pool.replicas]
+        n_ttft0 = [len(s.ttft_recent) for s in stats]
+        snap0 = [s.snapshot() for s in stats]
+        n_rec = len(tee.records)
+        _cuda.reset_launch_counts()
+        t_wall = time.perf_counter()
+        workers, results = _concurrent(base, prompts["completions"])
+        status, body = _post(base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": prompts["chat"]}], "max_tokens": 32, "temperature": 0,
+            "stream": True})
+        for w in workers:
+            w.join(timeout=900)
+        wall = time.perf_counter() - t_wall
+        launches = dict(_cuda.LAUNCHES)
+        designs = dict(_cuda.QMM_DESIGN_LAUNCHES)
+        if status != 200 or len(results) != len(prompts["completions"]):
+            raise AssertionError(f"pool: a request failed: chat {status} {body[:300]}, {len(results)} completions")
+        snap1 = [s.snapshot() for s in stats]
+        ttfts = sorted(t for s, n in zip(stats, n_ttft0) for t in list(s.ttft_recent)[n:])
+        alone_pool = {n: _complete(base, prompts["completions"][prompts["lengths"].index(n)])["choices"][0]["text"]
+                      for n in (20, 650)}
+        if alone_pool != alone:
+            raise AssertionError(f"pool: the prompts sent alone differ from serve's:\n{alone_pool}\n{alone}")
+        checked = len(_check_copies(tee.since(n_rec), streams, "pool"))
+        rows = json.loads(_get(base + "/admin/replicas")[1])["replicas"]
+        placed = [r["requests_total"] - s["requests_total"] for r, s in zip(rows, snap0)]
+        if min(placed) < 1:
+            raise AssertionError(f"pool: a replica placed no request: {placed}")
+        lines = _metric_lines(base)
+        for name in ('engine_replica_requests_total{replica="0"}', 'engine_replica_requests_total{replica="1"}',
+                     'engine_replica_queued{replica="1"}', 'engine_replica_score{replica="0"}', "engine_pool_size",
+                     "engine_pool_desired_replicas", "engine_pool_ejected_replicas", "rag_hedge_requests_total",
+                     "engine_replica_ejections_total", "engine_router_failovers_total"):
+            if not any(line.split()[0] == name for line in lines if not line.startswith("#")):
+                raise AssertionError(f"pool: /metrics lacks {name}")
+        want_k, other = PATH_KERNELS["contiguous"]
+        missing = [k for k in want_k if launches[k] == 0] + [f"qmm {d}" for d, n in designs.items() if n == 0]
+        if missing or launches[other]:
+            raise AssertionError(f"pool path launches: {launches} {designs} (missing {missing}, {other} must be 0)")
+        torch.cuda.synchronize()
+        added_gb = torch.cuda.memory_allocated(dev) / 1e9 - gb0
+        scheds = [r.scheduler for r in pool.replicas]
+        tree_gb = _tree_bytes(torch, scheds[0].params) / 1e9
+        shared_gb = _tree_bytes(torch, [s.params for s in scheds]) / 1e9
+        cache_gb = _tree_bytes(torch, scheds[0]._cache) / 1e9
+        if shared_gb != tree_gb or not added_gb < tree_gb + 2 * cache_gb + 1.0:
+            raise AssertionError(f"pool memory: +{added_gb:.2f} GB for a {tree_gb:.2f} GB tree ({shared_gb:.2f} GB "
+                                 f"across replicas) and two {cache_gb:.2f} GB caches")
+        dec = [(b["tokens_total"] - a["tokens_total"]) - (b["requests_total"] - a["requests_total"])
+               for a, b in zip(snap0, snap1)]
+        dec_s = [b["decode_s"] - a["decode_s"] for a, b in zip(snap0, snap1)]
+        n_tokens = sum(out["usage"]["completion_tokens"] for out in results.values())
+        tokens_per_s = n_tokens / wall
+        emit("pool", nvidia_smi=smi, argv=list(POOL_ARGV), replicas=2, build_s=build_s, requests=len(results) + 1,
+             streams_checked=checked, streams_equal_to_serve=True, alone_equal_to_serve=True, placed=placed,
+             wall_s=wall, serve_wall_s=serve_summary["wall_s"], tokens_per_s=tokens_per_s,
+             serve_tokens_per_s=serve_summary["tokens_per_s"],
+             ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None, serve_ttft_p50_ms=serve_summary["ttft_p50_ms"],
+             decode_tokens_per_s=sum(dec) / max(dec_s) if max(dec_s) else None,
+             replica_decode_tokens_per_s=[d / t if t else None for d, t in zip(dec, dec_s)],
+             serve_decode_tokens_per_s=serve_summary["decode_tokens_per_s"], launches=launches,
+             qmm_design_launches=designs, device_gb_added=added_gb, weight_tree_gb=tree_gb,
+             weight_storage_gb_across_replicas=shared_gb, cache_gb_per_replica=cache_gb,
+             device_gb=torch.cuda.memory_allocated(dev) / 1e9, failovers=pool.failovers_total,
+             hedges_fired=pool.hedger.fired_total)
+        if pool.failovers_total:
+            raise AssertionError("pool: a replica failed over during the serve requests")
+
+        # -- 2. failover: replica 1 dies holding more requests than slots ------
+        burst = _random_prompts(1, POOL_BURST, 48, 160)
+        n_rec = len(tee.records)
+        answers: dict = {}
+
+        def one(i):
+            body = {"prompt": burst[i], "max_tokens": POOL_BURST_TOKENS, "temperature": 0,
+                    "stream": i % POOL_STREAMED_EVERY == 0}
+            answers[i] = _post(base + "/v1/completions", body, timeout=600)
+
+        workers = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(POOL_BURST)]
+        t_burst = time.perf_counter()
+        for w in workers:
+            w.start()
+        r1 = pool.replicas[1].scheduler
+        _wait_for(lambda: r1.stats.snapshot()["queued"] > 0 and any(
+            p.replica == 1 and p.tokens > 0 for p in list(pool._placements.values())), POOL_WAIT_S,
+            "replica 1 with a token emitted and requests queued")
+        queued_at_fault = r1.stats.snapshot()["queued"]
+        t_fault = time.perf_counter()
+        get_fault_injector().configure("replica:error=1,index=1")
+        _wait_for(lambda: pool.replicas[1].state == UNHEALTHY, POOL_WAIT_S, "the pool to fail replica 1 over")
+        failover_s = time.perf_counter() - t_fault
+        reset_faults()
+        for w in workers:
+            w.join(timeout=600)
+        burst_s = time.perf_counter() - t_burst
+        if len(answers) != POOL_BURST:
+            raise AssertionError(f"pool_failover: {POOL_BURST - len(answers)} requests did not return")
+        ids = [tuple(tokenizer.encode(t, add_bos=True)) for t in burst]
+        cold = dict(zip(ids, _cold_streams(dev, cfg, params, [(k, POOL_BURST_TOKENS) for k in ids])))
+        by_id: dict = {}
+        for rec in tee.since(n_rec):
+            by_id.setdefault(rec["id"], []).append(rec)
+        moved, failed, served = 0, {"503": 0, "stream_error": 0}, 0
+        for i, k in enumerate(ids):
+            status, raw = answers[i]
+            if i % POOL_STREAMED_EVERY == 0:
+                text, finish = _sse_result(raw) if status == 200 else ("", None)
+                ok, err = (status == 200 and finish in ("length", "stop")), (status == 200 and finish == "error")
+            else:
+                ok = status == 200
+                text = json.loads(raw)["choices"][0]["text"] if ok else ""
+                err = status == 503 and json.loads(raw)["error"]["type"] == "engine_error"
+            if ok:
+                if text != _text_of(tokenizer, cold[k]):
+                    raise AssertionError(f"pool_failover: request {i} gave other text than its cold stream")
+                served += 1
+            elif err:
+                failed["stream_error" if i % POOL_STREAMED_EVERY == 0 else "503"] += 1
+            else:
+                raise AssertionError(f"pool_failover: request {i} answered {status} {raw[:300]}")
+        mid_flight = 0
+        for rid, recs in by_id.items():
+            reps = [r["replica"] for r in recs]
+            on_dead = [r for r in recs if r["replica"] == 1]
+            if on_dead and reps[-1] != 1 and not on_dead[-1]["ids"]:
+                # Held by replica 1 without a token: it finished on the
+                # survivor with its cold stream.
+                if recs[-1]["ids"] != cold[recs[-1]["prompt"]]:
+                    raise AssertionError(f"pool_failover: {rid} moved to replica {reps[-1]} and gave {recs[-1]['ids']}")
+                moved += 1
+            elif on_dead and on_dead[-1]["ids"] and reps[-1] == 1:
+                mid_flight += 1
+        status, raw = _get(base + "/health")
+        health = json.loads(raw)
+        lines = _metric_lines(base)
+        if moved < 1 or sum(failed.values()) < 1 or sum(failed.values()) != mid_flight or status != 503 or \
+                health["status"] != "degraded" or _metric(lines, "engine_router_failovers_total") < 1:
+            raise AssertionError(f"pool_failover: moved {moved}, failed {failed} of {mid_flight} mid-flight, "
+                                 f"/health {status} {raw[:300]}")
+        snap = pool.snapshot()
+        emit("pool_failover", nvidia_smi=smi, fault="replica:error=1,index=1", requests=POOL_BURST,
+             max_tokens=POOL_BURST_TOKENS, placed_on_faulted=sum(1 for recs in by_id.values() if recs[0]["replica"] == 1),
+             queued_at_fault=queued_at_fault, served_equal_to_cold=served, moved_to_survivor_equal_to_cold=moved,
+             mid_flight_failed=failed, failover_s=failover_s, burst_s=burst_s, health_status=status,
+             health=health.get("replicas"), failovers_total=snap["router_failovers_total"],
+             requeued=snap["router_requeued_total"])
+
+        # -- 3. scale back to 2, drain a replica under a generation, scale again
+        t_scale0 = time.perf_counter()
+        status, raw = _post(base + "/admin/scale?replicas=2", {})
+        first_scale = dict(json.loads(raw), seconds=time.perf_counter() - t_scale0)
+        tee.attach(pool)
+        if status != 200 or first_scale["added"] != [2]:
+            raise AssertionError(f"pool_drain_scale: scale after the failover answered {status} {raw}")
+        # Fresh prompts (cold everywhere): a generation, two requests after
+        # the drain, a long stream, a request after the second scale-up.
+        fresh = _random_prompts(2, 5, 64, 128)
+        fresh_ids = [tuple(tokenizer.encode(t, add_bos=True)) for t in fresh]
+        n_rec = len(tee.records)
+        runner = _TimedStream(base, fresh[0], 32)
+        victim = _wait_for(lambda: [p.replica for p in list(pool._placements.values()) if p.tokens > 0], POOL_WAIT_S,
+                           "a running generation")[0]
+        survivor = 2 if victim == 0 else 0
+        status, raw = _post(base + f"/admin/drain?replica={victim}", {})
+        drained_state = json.loads(raw)["state"]
+        if status != 200 or drained_state not in ("draining", "detached"):
+            raise AssertionError(f"pool_drain_scale: drain answered {status} {raw}")
+        after = [_complete(base, fresh[i]) for i in (1, 2)]
+        runner.join()
+        _wait_for(lambda: _replica_states(base)[victim] == "detached", POOL_WAIT_S, f"replica {victim} to detach")
+        stream = _TimedStream(base, fresh[3], POOL_STREAM_TOKENS)
+        _wait_for(lambda: len(stream.times) > 4, POOL_WAIT_S, f"a running stream on replica {survivor}")
+        torch.cuda.synchronize()
+        gb_before = torch.cuda.memory_allocated(dev) / 1e9
+        t_scale0 = time.perf_counter()
+        status, raw = _post(base + "/admin/scale?replicas=2", {})
+        t_scale1 = time.perf_counter()
+        scaled = json.loads(raw)
+        gb_after = torch.cuda.memory_allocated(dev) / 1e9
+        tee.attach(pool)
+        if status != 200 or scaled != {"size": 2, "added": [3], "drained": []}:
+            raise AssertionError(f"pool_drain_scale: scale answered {status} {raw}")
+        out = _complete(base, fresh[4])
+        stream.join()
+        firsts = {}
+        for rec in tee.since(n_rec):
+            firsts.setdefault(rec["prompt"], rec)
+        placed_on = [firsts[k]["replica"] for k in fresh_ids]
+        if placed_on != [victim, survivor, survivor, survivor, 3]:
+            raise AssertionError(f"pool_drain_scale: drained {victim}; the requests ran on {placed_on}")
+        cold = _cold_streams(dev, cfg, params,
+                             [(k, POOL_STREAM_TOKENS if i == 3 else 32) for i, k in enumerate(fresh_ids)])
+        got = [_sse_result(runner.raw)[0], after[0]["choices"][0]["text"], after[1]["choices"][0]["text"],
+               _sse_result(stream.raw)[0], out["choices"][0]["text"]]
+        if got != [_text_of(tokenizer, c) for c in cold] or [firsts[k]["ids"] for k in fresh_ids] != cold:
+            raise AssertionError(f"pool_drain_scale: a stream differs from its cold one: {got}")
+        gaps = [b - a for a, b in zip(stream.times, stream.times[1:])]
+        emit("pool_drain_scale", nvidia_smi=smi, first_scale=first_scale, drained_replica=victim,
+             drain_state=drained_state, placed_on=placed_on, streams_equal_to_cold=True, scale=scaled,
+             scale_s=t_scale1 - t_scale0, device_gb_before_scale=gb_before, device_gb_after_scale=gb_after,
+             stream_longest_gap_across_scale_s=stream.longest_gap(t_scale0, t_scale1),
+             stream_longest_gap_elsewhere_s=stream.longest_gap(t_scale0, t_scale1, inside=False),
+             stream_median_gap_s=sorted(gaps)[len(gaps) // 2] if gaps else None, stream_events=len(stream.times),
+             states=_replica_states(base))
+
+        # -- 4. the engine's telemetry shell ------------------------------------
+        rid = "chip-pool-debug-1"
+        status, headers, _ = _http("POST", base + "/v1/completions",
+                                   {"prompt": prompts["warmup"], "max_tokens": 4, "temperature": 0},
+                                   headers={"X-Request-Id": rid})
+        records = json.loads(_get(base + "/debug/requests?limit=50")[1])["requests"]
+        mine = [r for r in records if r["request_id"] == rid]
+        series = json.loads(_get(base + "/debug/timeseries?series=engine.*&window=5m")[1])["series"]
+        engine_series = sorted(series)
+        if status != 200 or headers["X-Request-Id"] != rid or len(mine) != 1 or \
+                mine[0]["route"] != "/v1/completions" or mine[0]["status"] != 200 or \
+                not {"engine.tick_ms", "engine.requests./v1/completions"} <= set(series) or \
+                not any(name.startswith("engine.replica.") for name in series):
+            raise AssertionError(f"pool_debug: {status} {mine} {engine_series}")
+        emit("pool_debug", nvidia_smi=smi, request_id=rid, recorded=mine[0], engine_series=engine_series)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        pool.stop()
+        for r in pool.replicas:  # free the KV memory
+            r.scheduler._cache = None
+        server = pool = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the small pool over the same params ----------------------------------
+        from generativeaiexamples_tpu_torch.engine.scheduler import SERVING_DEFAULTS
+
+        kw = dict(SERVING_DEFAULTS, **SMALL_POOL)
+        with open(config.name, "w") as fh:
+            json.dump({"health": POOL_GRAY_HEALTH}, fh)
+        reset_config_cache()
+        # Its own TSDB: two pools in one process would feed the same
+        # per-replica series names (``engine.replica.<i>.*``).
+        small = EnginePool([Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **kw) for _ in range(2)],
+                           policy="prefix", tsdb=Tsdb())
+        if small.health_cfg.window_s != POOL_GRAY_HEALTH["window_s"] or not small.health_cfg.enabled:
+            raise AssertionError(f"the small pool did not read the gray drill's health section: {small.health_cfg}")
+        small_server = create_engine_app(small, tokenizer, "llama3-8b", "127.0.0.1", 0)
+        small_thread = threading.Thread(target=small_server.serve_forever, daemon=True)
+        small.start()
+        small_thread.start()
+        base2 = f"http://127.0.0.1:{small_server.server_address[1]}"
+        # -- 5. gray failure on the small pool: latency at its replica 1 -------
+        _wait_for(lambda: set(_replica_states(base2).values()) == {HEALTHY}, 20.0, "both replicas healthy")
+        seen = []
+
+        def note_state():
+            state = _replica_states(base2)[1]
+            if not seen or seen[-1][0] != state:
+                seen.append((state, time.perf_counter() - t_drill))
+            return state
+
+        t_drill = time.perf_counter()
+        get_fault_injector().configure(f"replica:latency={POOL_DRILL_LATENCY_MS},index=1")
+        _wait_for(lambda: note_state() == EJECTED, POOL_WAIT_S, "replica 1's ejection", poll_s=0.1)
+        eject_s = time.perf_counter() - t_drill
+        lines = _metric_lines(base2)
+        ejected_metric = _metric(lines, "engine_pool_ejected_replicas")
+        score = _metric(lines, 'engine_replica_score{replica="1"}')
+        reset_faults()
+        t_readmit = time.perf_counter()
+        _wait_for(lambda: note_state() == HEALTHY, POOL_WAIT_S, "replica 1's re-admission", poll_s=0.1)
+        restore_s = time.perf_counter() - t_readmit
+        lines = _metric_lines(base2)
+        states = [s for s, _ in seen]
+        if states[-3:] != [EJECTED, PROBATION, HEALTHY] or ejected_metric != 1 or \
+                _metric(lines, "engine_replica_ejections_total") < 1 or \
+                _metric(lines, "engine_replica_readmissions_total") < 1 or _metric(lines, "engine_pool_ejected_replicas"):
+            raise AssertionError(f"pool_gray: transitions {seen}, ejected gauge {ejected_metric}")
+        if _replica_states(base2)[0] != HEALTHY:
+            raise AssertionError("pool_gray: replica 0 left the healthy state")
+        emit("pool_gray", nvidia_smi=smi, fault=f"replica:latency={POOL_DRILL_LATENCY_MS},index=1",
+             health=POOL_GRAY_HEALTH,
+             transitions=[(s, round(t, 3)) for s, t in seen], eject_s=eject_s, score_at_ejection=score,
+             restore_s=restore_s, ejections_total=_metric(lines, "engine_replica_ejections_total"),
+             readmissions_total=_metric(lines, "engine_replica_readmissions_total"))
+
+        # -- 6. 429: a burst on the small pool ---------------------------------
+        # Distinct fresh prompts: an accepted one is a cold prefill's stream.
+        burst = _random_prompts(3, SMALL_BURST, 48, 160)
+        answers = {}
+
+        def one_small(i):
+            answers[i] = _http("POST", base2 + "/v1/completions", {"prompt": burst[i], "max_tokens": 32, "temperature": 0})
+
+        workers = [threading.Thread(target=one_small, args=(i,), daemon=True) for i in range(SMALL_BURST)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        served = [i for i, (status, _, _) in sorted(answers.items()) if status == 200]
+        cold = dict(zip(served, _cold_streams(dev, cfg, params, [(tokenizer.encode(burst[i], add_bos=True), 32)
+                                                                 for i in served], max_batch=SMALL_POOL["max_batch"])))
+        retry_after, accepted = [], 0
+        for i, (status, headers, raw) in sorted(answers.items()):
+            if status == 429:
+                retry_after.append(int(headers["Retry-After"]))
+            elif status == 200 and json.loads(raw)["choices"][0]["text"] == _text_of(tokenizer, cold[i]):
+                accepted += 1
+            else:
+                raise AssertionError(f"pool_429: request {i} answered {status} {raw[:300]}")
+        rejected = small.snapshot()["rejected_total"]
+        if not retry_after or not all(1 <= r <= 30 for r in retry_after) or rejected != len(retry_after):
+            raise AssertionError(f"pool_429: {len(retry_after)} 429s, Retry-After {retry_after}, counter {rejected}")
+        emit("pool_429", nvidia_smi=smi, pool=dict(replicas=2, **SMALL_POOL), burst=SMALL_BURST,
+             rejected=len(retry_after), rejected_counter=rejected, retry_after_s=retry_after,
+             accepted_equal_to_cold=accepted, phase_s=time.perf_counter() - t_phase)
+
+        return launches
+    finally:
+        reset_faults()
+        for srv, th in ((small_server, small_thread), (server, thread)):
+            if srv is not None:  # a drill failed before its own teardown
+                srv.shutdown()
+                srv.server_close()
+                th.join(timeout=30)
+        for engine in (small, pool):
+            if engine is not None:
+                engine.stop()
+                for r in engine.replicas:  # free the KV memory for the next phase
+                    r.scheduler._cache = None
+        os.environ.pop("APP_CONFIG_FILE", None)
+        os.unlink(config.name)
+        reset_config_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3015,6 +3673,7 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
     from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
     from generativeaiexamples_tpu_torch.engine.server import parse_args, spec_scheduler_kwargs
     from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.obs.tsdb import Tsdb
     from generativeaiexamples_tpu_torch.resilience.faults import get_fault_injector, reset_faults
 
     t_phase = time.perf_counter()
@@ -3496,7 +4155,7 @@ def chain_phase(torch, dev, _cuda, smi: str) -> tuple[dict, dict]:
     def recording_submit(req):
         on_token, got = req.on_token, ids_by_request.setdefault(req.id, [])
         req.on_token = lambda t: (got.append(int(t)), on_token(t))
-        submit(req)
+        return submit(req)
 
     sched.submit = recording_submit
 
@@ -4435,6 +5094,9 @@ def check_quantizers(torch, dev) -> dict:
 
 
 HF_SHARDS = 4
+# The seeded Llama-3-8B checkpoint's depth: 16 of its 32 layers, so the whole
+# script stays inside its time limit beside the pool phase (32 until then).
+HF_LLAMA_LAYERS = 16
 HF_SEED = 0
 LLAMA_HF = "meta-llama/Meta-Llama-3-8B-Instruct"
 EMBED_HF, RERANK_HF = "acme/arctic-embed-l-seeded", "acme/cross-encoder-seeded"
@@ -4971,8 +5633,9 @@ def hf_embed_and_rerank(torch, np, dev, root) -> dict:
 
 def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
     """Serve checkpoints written from a seed through the normal entry
-    points.  A full-width, full-depth Llama-3-8B checkpoint (bf16, four
-    shards, about 16 GB) loads through ``build_server`` and
+    points.  A full-width Llama-3-8B checkpoint at ``HF_LLAMA_LAYERS`` of
+    its 32 layers (bf16, four shards, about 9 GB) loads through
+    ``build_server`` (the preset at that depth) and
     ``$GAIE_WEIGHTS_DIR``; its int8 codes and scales equal numpy's
     quantization bit for bit (:func:`check_loaded_llama`, after
     :func:`check_quantizers`); its greedy streams equal a ``Scheduler``'s
@@ -4995,7 +5658,7 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
     fields = dict(nvidia_smi=smi, **check_quantizers(torch, dev))
     root = tempfile.mkdtemp(prefix="hf_checkpoints_")
     try:
-        cfg = llama.llama3_8b(kv_dtype="int8")
+        cfg = llama.llama3_8b(kv_dtype="int8", n_layers=HF_LLAMA_LAYERS)
         ckpt = write_llama_checkpoint(torch, np, os.path.join(root, LLAMA_HF.replace("/", "--")), cfg)
         base, top = ckpt.pop("base"), ckpt.pop("top")
         fields.update(model=LLAMA_HF, layers=cfg.n_layers, d_model=cfg.d_model, shards=HF_SHARDS,
@@ -5011,7 +5674,7 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
         with open("/proc/self/statm", encoding="ascii") as fh:
             rss_before = int(fh.read().split()[1]) * page
         t0 = time.perf_counter()
-        with _PeakRSS() as rss:
+        with _PeakRSS() as rss, _PresetDepth("llama3-8b", HF_LLAMA_LAYERS):
             server = build_server(argv)
             torch.cuda.synchronize()
         fields.update(load_s=time.perf_counter() - t0, device_gb_after_load=torch.cuda.memory_allocated(dev) / 1e9,
@@ -5084,10 +5747,11 @@ def hf_checkpoint_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
 FAMILY_MODELS = (("google/gemma-2b", "gemma-2b"), ("google/gemma-7b", "gemma-7b"),
                  ("bigcode/starcoder2-3b", "starcoder2-3b"), ("mistralai/Mixtral-8x7B-Instruct-v0.1", "mixtral-8x7b"))
 # Mixtral's bf16 experts are 2.82 GB a layer, 90 GB at its 32 layers (more
-# than the card holds; the reference keeps them bf16 too): served at 8, to
-# keep the whole script inside its time limit beside the xla_path phase
-# (16 until then).
-FAMILY_SERVED_LAYERS = {"mixtral-8x7b": 8}
+# than the card holds; the reference keeps them bf16 too).  Each family is
+# served at half its depth and Mixtral at 4 layers, so the whole script stays
+# inside its time limit beside the pool phase (all layers and Mixtral at 8
+# until then; 16 before the xla_path phase).
+FAMILY_SERVED_LAYERS = {"gemma-2b": 9, "gemma-7b": 14, "starcoder2-3b": 15, "mixtral-8x7b": 4}
 FAMILY_PAGED = ("gemma-2b", "starcoder2-3b")
 FAMILY_CHECKPOINTS = ("gemma-7b", "starcoder2-3b", "mixtral-8x7b")
 FAMILY_VOCAB_STRIDE = 8  # rows of the embedding and head held against numpy
@@ -5414,7 +6078,7 @@ def families_phase(torch, dev, _cuda, smi: str, prompts) -> dict:
     each at full width and 2 layers through the kernels against the plain
     versions on the CPU (:func:`card_vs_cpu`, with the cacheless forward);
     each served through ``build_server`` by its HF id (:func:`family_serve`;
-    Mixtral at 8 of its 32 layers); then seeded checkpoints of Gemma-7B,
+    at ``FAMILY_SERVED_LAYERS``); then seeded checkpoints of Gemma-7B,
     StarCoder2-3B and Mixtral at 2 layers through ``$GAIE_WEIGHTS_DIR``
     (:func:`family_checkpoint`).  Returns the launches of each serving
     path by family."""
@@ -6244,6 +6908,9 @@ def main() -> int:
         launches["paged_decode_attention"] = paged_launches["paged_decode_attention"]
         gc.collect()
         torch.cuda.empty_cache()
+        pool_launches = pool_phase(torch, dev, _cuda, smi, cfg, params, prompts, serve_summary, alone)
+        gc.collect()
+        torch.cuda.empty_cache()
         spec_launches, spec_hd64 = spec_phase(torch, dev, _cuda, cfg, params, prompts, serve_summary,
                                            summary["decode_attention"]["ms"])
         for kv_layout, t in (("contiguous", timing), ("paged", paged_timing)):
@@ -6278,6 +6945,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "eager_ms": s["eager_ms"], "shape": s["shape"],
+            "pool_launches": pool_launches[name],
             "chain_launches": chain_launches[name],
             "step_launches": {step: counts[name] for step, counts in step_launches.items()},
             "spec_launches": {step: counts[name] for step, counts in spec_launches.items()},

@@ -39,8 +39,14 @@ non-speculative path, on the contiguous cache or the paged pool).
   chunk's.  The draft keeps its own contiguous slot cache (or the n-gram
   matcher its token history), rebuilt along every KV-building path.
 
+* **Admission control** (``max_queue``): ``submit`` refuses a request
+  (returns False, counts ``rejected_total``) once that many wait; the
+  HTTP front answers 429.  ``replica_index`` tags a pool member's
+  ``replica`` fault site (``engine.replica.EnginePool``).
+
 The scheduler thread emits tokens through ``on_token`` / ``on_done``
-callbacks.
+callbacks, never while it holds ``stats.lock`` (the replica pool takes its
+own lock inside them).
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams, sample
 from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops.decode_attention import flush_clip_start, paged_slots
 from generativeaiexamples_tpu_torch.resilience.degrade import mark_degraded
-from generativeaiexamples_tpu_torch.resilience.faults import FaultInjected, inject
+from generativeaiexamples_tpu_torch.resilience.faults import FaultInjected, inject, inject_replica
 from generativeaiexamples_tpu_torch.utils.buckets import bucket_size
 
 logger = get_logger(__name__)
@@ -96,6 +102,10 @@ class Request:
     session_id: str = ""
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
+    # Set by the HTTP front for non-streamed requests: a replica pool may
+    # fire a second copy to another replica when this one is slow (first
+    # response wins).
+    hedgeable: bool = False
 
 
 @dataclasses.dataclass
@@ -129,6 +139,8 @@ class Stats:
         self.ttft_recent: collections.deque = collections.deque(maxlen=4096)
         self.active_slots = 0
         self.queued = 0
+        # Requests refused by a full admission queue (the 429 path).
+        self.rejected_total = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
         self.shared_prefix_hits = 0
@@ -167,6 +179,11 @@ class Stats:
         self.kv_pages_shared = 0
         self.kv_cow_breaks = 0
         self.kv_page_evictions = 0
+        # The 429 hint's page projection: pages a typical admission needs
+        # (an EWMA of the gate's need), and pages returned to the free list
+        # per second (an EWMA over the telemetry feed's interval).
+        self.kv_pages_per_admit = 0
+        self.kv_page_free_rate = 0.0
 
     def note_ttft(self, seconds: float) -> None:
         """Record one request's time to first token (caller holds lock)."""
@@ -190,6 +207,7 @@ class Stats:
                 "ttft_count": self.ttft_count,
                 "active_slots": self.active_slots,
                 "queued": self.queued,
+                "rejected_total": self.rejected_total,
                 "prefix_hits": self.prefix_hits,
                 "prefix_tokens_reused": self.prefix_tokens_reused,
                 "shared_prefix_hits": self.shared_prefix_hits,
@@ -210,6 +228,12 @@ class Stats:
                 "kv_pages_shared": self.kv_pages_shared,
                 "kv_cow_breaks": self.kv_cow_breaks,
                 "kv_page_evictions": self.kv_page_evictions,
+                "kv_pages_per_admit": self.kv_pages_per_admit,
+                "kv_page_free_rate": round(self.kv_page_free_rate, 3),
+                # Share of the pool off the free list (0.0 without a pool).
+                "kv_page_utilization": (
+                    round(1.0 - self.kv_pages_free / self.kv_pages_total, 4) if self.kv_pages_total else 0.0
+                ),
             }
 
 
@@ -287,6 +311,7 @@ class Scheduler:
         ngram: int = 2,
         matmul_kernel: Optional[str] = None,
         draft_quantize: bool = False,
+        max_queue: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         if kv_layout not in ("contiguous", "paged"):
@@ -304,6 +329,11 @@ class Scheduler:
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocabulary")
         self.cfg = cfg
+        # Pool index when an EnginePool owns this scheduler (tags the
+        # ``replica`` fault site); None when it serves alone.
+        self.replica_index: Optional[int] = None
+        # Admission queue bound (None: unbounded, for offline callers).
+        self.max_queue = max_queue
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len
         self.decode_chunk_size = decode_chunk_size
@@ -373,6 +403,12 @@ class Scheduler:
             # Pages promised to batch admissions whose allocation happens at
             # the batch's dispatch later this tick.
             self._kv_pages_reserved = 0
+            # The 429 hint's inputs: the admission need's EWMA (seeded at a
+            # whole slot) and the free-rate tracker's last reading.
+            self.stats.kv_pages_per_admit = self._pool.n_slot_pages
+            self._pages_per_admit_ewma = float(self._pool.n_slot_pages)
+            self._kv_frees_prev = 0
+            self._kv_free_rate_t = time.time()
         else:
             self._decode_chunk = make_decode_chunk_fn(cfg, self.max_len)
         if draft_cfg is not None:
@@ -419,6 +455,11 @@ class Scheduler:
         self._backlog: "collections.deque[Request]" = collections.deque()
         self._running = False
         self._thread: Optional[threading.Thread] = None
+        # Fleet telemetry: snapshot gauges and counter deltas reach the
+        # TSDB at most every 0.25 s (a snapshot takes the stats lock).
+        self._tsdb_feed_interval_s = 0.25
+        self._last_tsdb_feed = 0.0
+        self._tsdb_prev: dict = {}
 
     # -- device helpers ----------------------------------------------------
 
@@ -537,12 +578,17 @@ class Scheduler:
 
     # -- public API --------------------------------------------------------
 
-    def submit(self, request: Request) -> None:
-        """Enqueue a request (the queue is unbounded)."""
+    def submit(self, request: Request) -> bool:
+        """Enqueue a request; False (and nothing enqueued) when
+        ``max_queue`` requests already wait: the HTTP front answers 429."""
         request.submitted_at = time.perf_counter()
         with self.stats.lock:
+            if self.max_queue is not None and self.stats.queued >= self.max_queue:
+                self.stats.rejected_total += 1
+                return False
             self.stats.queued += 1
         self._pending.put(request)
+        return True
 
     def cancel(self, request_id: str) -> None:
         """Stop generating for a request; its slot frees at the next chunk
@@ -564,6 +610,11 @@ class Scheduler:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+
+    def request_stop(self) -> None:
+        """Ask the tick loop to exit without joining it (a health monitor
+        must not block on a wedged thread)."""
+        self._running = False
 
     @property
     def max_prompt_len(self) -> int:
@@ -974,6 +1025,7 @@ class Scheduler:
         pt = self._pool.page_tokens
         horizon = min(plen + self._flush_width + 1, self.max_len)
         need = max(num_slot_pages(horizon, pt) - common // pt, 1)
+        self._pages_per_admit_ewma += 0.2 * (need - self._pages_per_admit_ewma)
         ok = self._ensure_pages(need + self._kv_pages_reserved)
         if ok and reserve:
             self._kv_pages_reserved += need
@@ -1103,6 +1155,10 @@ class Scheduler:
         with torch.inference_mode():
             while self._running:
                 tick_t0 = time.perf_counter()
+                # The pool's fault site, outside the recovery below: an
+                # armed ``replica:error`` ends this thread (what failover
+                # must see), ``replica:latency`` lands in the tick time.
+                inject_replica(self.replica_index)
                 try:
                     self._tick()
                 except Exception:
@@ -1130,10 +1186,19 @@ class Scheduler:
                 self._note_tick((time.perf_counter() - tick_t0) * 1e3)
         logger.info("scheduler stopped")
 
+    # Snapshot counters mirrored into the TSDB as per-interval deltas (the
+    # reference's names; ``spec_accepted``'s series predates the scheme).
+    _TSDB_COUNTER_KEYS = ("requests_total", "tokens_total", "rejected_total", "prefix_hits", "shared_prefix_hits",
+                          "prefill_chunks", "spec_accepted", "spec_fallbacks")
+    _TSDB_SERIES_NAMES = {"spec_accepted": "engine.spec.accepted"}
+
     def _note_tick(self, dt_ms: float) -> None:
         """Tick-time EWMAs: raw, and scaled back to one token per decoding
         lane per chunk step when speculation emitted more than the plain
-        chunk would have (non-speculative ticks: the two are equal)."""
+        chunk would have (non-speculative ticks: the two are equal).  Then
+        the fleet telemetry: the tick histogram and ``engine.tick_ms`` every
+        tick, and at most every ``_tsdb_feed_interval_s`` the snapshot's
+        gauges, counter deltas and the paged pool's 429 inputs."""
         stats = self.stats
         stats.tick_ms_ewma += 0.1 * (dt_ms - stats.tick_ms_ewma)
         emitted = self._tick_tokens
@@ -1141,6 +1206,41 @@ class Scheduler:
         norm_ms = dt_ms * baseline / emitted if emitted > baseline > 0 else dt_ms
         stats.tick_ms_norm_ewma += 0.1 * (norm_ms - stats.tick_ms_norm_ewma)
         stats.tick_tokens_ewma += 0.1 * (emitted - stats.tick_tokens_ewma)
+        try:
+            from generativeaiexamples_tpu_torch.obs.metrics import observe_engine_tick
+            from generativeaiexamples_tpu_torch.obs.tsdb import get_tsdb
+
+            observe_engine_tick(dt_ms)
+            db = get_tsdb()
+            db.record("engine.tick_ms", norm_ms)
+            now = time.time()
+            if now - self._last_tsdb_feed < self._tsdb_feed_interval_s:
+                return
+            self._last_tsdb_feed = now
+            snap = stats.snapshot()
+            db.record("engine.queued", snap["queued"])
+            db.record("engine.active_slots", snap["active_slots"])
+            db.record("engine.parked_slots", sum(1 for s in self._slots if s.cached and s.request is None))
+            pool = self._pool
+            if pool is not None:
+                rate = stats.kv_page_free_rate
+                dt = now - self._kv_free_rate_t
+                if dt > 0:
+                    rate += 0.3 * ((pool.frees_total - self._kv_frees_prev) / dt - rate)
+                with stats.lock:
+                    stats.kv_pages_per_admit = max(1, int(round(self._pages_per_admit_ewma)))
+                    stats.kv_page_free_rate = rate
+                self._kv_frees_prev = pool.frees_total
+                self._kv_free_rate_t = now
+                db.record("engine.kv.free_pages", pool.pages_free)
+            prev = self._tsdb_prev
+            for key in self._TSDB_COUNTER_KEYS:
+                delta = snap.get(key, 0) - prev.get(key, 0)
+                prev[key] = snap.get(key, 0)
+                if delta > 0:
+                    db.record(self._TSDB_SERIES_NAMES.get(key, f"engine.{key}"), delta, kind="counter")
+        except Exception:  # telemetry must never take the loop down
+            logger.exception("tick telemetry feed failed")
 
     def _tick(self) -> None:
         with self.stats.lock:

@@ -1,12 +1,22 @@
-"""OpenAI-compatible serving front over the port's scheduler (port of the
-single-engine part of ``engine/server.py``).
+"""OpenAI-compatible serving front over the port's scheduler or replica pool
+(port of ``engine/server.py``).
 
 Built on the standard library (``http.server.ThreadingHTTPServer``, SSE
 written by hand), with the reference's routes and JSON:
 ``/v1/completions``, ``/v1/chat/completions``, ``/v1/embeddings``,
-``/v1/ranking``, ``/v1/models``, ``/health`` and ``/metrics``.  One thread
-per connection; tokens cross from the scheduler thread through a
-``queue.Queue`` per request.
+``/v1/ranking``, ``/v1/models``, ``/health``, ``/metrics``,
+``/admin/{replicas,drain,scale}``, ``/debug/requests``,
+``/debug/timeseries`` and, behind ``GAIE_ENABLE_PROFILER``,
+``/debug/profiler/{start,stop}``.  One thread per connection; tokens cross
+from the scheduler thread through a ``queue.Queue`` per request.  Every
+request runs inside the engine's telemetry shell: it joins the caller's
+``traceparent`` / ``X-Request-Id``, records a ``RequestTrace`` in the
+flight recorder and feeds the fleet TSDB and SLO counters (``engine.*``).
+
+A full admission queue answers 429 with ``Retry-After`` (before any SSE
+byte); a non-streamed generation that dies mid-flight (a replica's
+failover, a tick fault) answers a retryable 503, a streamed one ends with
+``finish_reason: "error"``.
 
 Run: ``python -m generativeaiexamples_tpu_torch.engine.server --model llama3-8b``
 (``--matmul-kernel`` picks the projection path: ``xla``, the default, serves
@@ -14,7 +24,10 @@ the weights as loaded, or random bf16 ones, over the preset's bf16 KV cache;
 ``pallas_w8a8`` is the port's W8A8 route on an int8 cache; ``--kv-layout
 paged`` serves from the paged KV pool, int8; ``--embedder`` picks the BERT
 embedder behind ``/v1/embeddings``; ``--spec-decode`` speculates, by prompt
-lookup or, with ``--draft-model``, with a draft model).
+lookup or, with ``--draft-model``, with a draft model; ``--replicas N
+--routing-policy prefix [--autoscale]`` serves through an
+``engine.replica.EnginePool`` of N schedulers that share one weight tree,
+each with its own KV cache, on the one device).
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ import json
 import os
 import queue
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -38,6 +52,7 @@ logger = get_logger(__name__)
 # A request that sees no token for this long is failed (a dead engine
 # must not hold a connection forever).
 TOKEN_TIMEOUT_S = 600.0
+REQUEST_ID_HEADER = "X-Request-Id"
 
 
 def _now() -> int:
@@ -66,6 +81,28 @@ class _TokenBridge:
 def _find_stop(text: str, stop: list[str]) -> Optional[int]:
     cuts = [text.find(s) for s in stop if s and text.find(s) >= 0]
     return min(cuts) if cuts else None
+
+
+def retry_after_s(snap: dict) -> int:
+    """The 429's ``Retry-After`` in seconds, from an engine's stats snapshot
+    (a scheduler's or a pool's aggregate): queued requests x the smoothed
+    tick time (token-normalized when speculating) is about how long the
+    queue needs to drain; a paged engine also projects how long until the
+    free list covers a typical admission, from the page-free rate; the
+    larger of the two, clamped to [1, 30] (the reference's
+    ``_overloaded_response``)."""
+    retry_after = 1.0
+    try:
+        tick_ms = float(snap.get("tick_ms_norm_ewma", 0.0) or snap.get("tick_ms_ewma", 0.0))
+        retry_after = 1.0 + float(snap.get("queued", 0)) * tick_ms / 1000.0
+        if float(snap.get("kv_pages_total", 0)):
+            deficit = float(snap.get("kv_pages_per_admit", 0)) - float(snap.get("kv_pages_free", 0))
+            if deficit > 0:
+                rate = float(snap.get("kv_page_free_rate", 0.0))
+                retry_after = max(retry_after, 1.0 + deficit / max(rate, 0.5))
+    except (TypeError, ValueError):
+        pass
+    return max(1, min(30, round(retry_after)))
 
 
 def _aggregate_generation(bridge: _TokenBridge, piece, stop: list[str], scheduler, request_id: str):
@@ -106,6 +143,9 @@ def _aggregate_generation(bridge: _TokenBridge, piece, stop: list[str], schedule
     return text, n_tokens, finish
 
 
+_NOT_A_POOL = {"error": {"message": "not a replica pool (started with --replicas 1)"}}
+
+
 class _Handler(BaseHTTPRequestHandler):
     server: "EngineServer"
 
@@ -114,12 +154,20 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- plumbing ---------------------------------------------------------
 
-    def _json(self, payload: dict, status: int = 200) -> None:
-        body = json.dumps(payload).encode()
+    def _start(self, status: int, content_type: str, length: Optional[int] = None, headers=None) -> None:
+        self._status = status
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(body)))
+        self.send_header("Content-Type", content_type)
+        if length is not None:
+            self.send_header("Content-Length", str(length))
+        self.send_header(REQUEST_ID_HEADER, self._request_id)
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
         self.end_headers()
+
+    def _json(self, payload: dict, status: int = 200, headers=None) -> None:
+        body = json.dumps(payload).encode()
+        self._start(status, "application/json", len(body), headers)
         self.wfile.write(body)
 
     def _body(self) -> Optional[dict]:
@@ -133,9 +181,20 @@ class _Handler(BaseHTTPRequestHandler):
             self._json({"error": {"message": str(exc)}}, 422)
             return None
 
+    def _overloaded(self) -> None:
+        """429 for a full admission queue (every replica's, for a pool),
+        with the backlog's ``Retry-After`` (:func:`retry_after_s`)."""
+        try:
+            retry = retry_after_s(self.server.scheduler.stats.snapshot())
+        except Exception:
+            retry = 1
+        self._json({"error": {"message": "engine overloaded: admission queue full", "type": "overloaded_error",
+                              "code": 429}}, 429, {"Retry-After": str(retry)})
+
     def _retryable_error(self) -> None:
+        """Nothing of the generation was delivered, so the client may retry."""
         self._json(
-            {"error": {"message": "generation failed mid-flight (engine fault); safe to retry",
+            {"error": {"message": "generation failed mid-flight (replica failover or engine fault); safe to retry",
                        "type": "engine_error", "code": 503}},
             503,
         )
@@ -146,10 +205,7 @@ class _Handler(BaseHTTPRequestHandler):
         scheduler = self.server.scheduler
         completed = False
         try:
-            self.send_response(200)
-            self.send_header("Content-Type", "text/event-stream")
-            self.send_header("Cache-Control", "no-cache")
-            self.end_headers()
+            self._start(200, "text/event-stream", headers={"Cache-Control": "no-cache"})
 
             def write(data: bytes) -> None:
                 self.wfile.write(data)
@@ -204,45 +260,163 @@ class _Handler(BaseHTTPRequestHandler):
         stop = body.get("stop") or []
         return [stop] if isinstance(stop, str) else list(stop)
 
-    # -- routes -----------------------------------------------------------
+    # -- the telemetry shell ------------------------------------------------
 
     def do_GET(self) -> None:  # noqa: N802
-        route = self.path.split("?", 1)[0]
-        if route == "/v1/models":
-            self._json({
-                "object": "list",
-                "data": [{"id": self.server.model_name, "object": "model", "created": _now(),
-                          "owned_by": "generativeaiexamples-tpu-torch"}],
-            })
-        elif route == "/health":
-            ok = bool(self.server.scheduler.healthy())
-            self._json(
-                {"message": "Service is up." if ok else "Service is degraded.",
-                 "status": "ok" if ok else "degraded"},
-                200 if ok else 503,
-            )
-        elif route == "/metrics":
-            body = metrics_text(self.server.scheduler, self.server.embedder).encode()
-            self.send_response(200)
-            self.send_header("Content-Type", "text/plain")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-        else:
-            self._json({"error": {"message": f"no route {route}"}}, 404)
+        self._dispatch("GET")
 
     def do_POST(self) -> None:  # noqa: N802
-        route = self.path.split("?", 1)[0]
-        if route == "/v1/chat/completions":
-            self._chat()
-        elif route == "/v1/completions":
-            self._completions()
-        elif route == "/v1/embeddings":
-            self._embeddings()
-        elif route == "/v1/ranking":
-            self._ranking()
-        else:
-            self._json({"error": {"message": f"no route {route}"}}, 404)
+        self._dispatch("POST")
+
+    def _dispatch(self, method: str) -> None:
+        """The engine's telemetry shell around a route: the request id
+        (the caller's ``X-Request-Id`` or ``traceparent``, else new), a
+        ``RequestTrace`` joined to the upstream span, and on finish the
+        flight recorder and the ``engine.*`` TSDB/SLO feeds, so
+        ``/debug/requests`` on the chain server and here line up."""
+        from generativeaiexamples_tpu_torch.core.tracing import extract_trace_headers
+        from generativeaiexamples_tpu_torch.obs.debug import feed_fleet_telemetry, obs_enabled
+        from generativeaiexamples_tpu_torch.obs.recorder import get_flight_recorder
+        from generativeaiexamples_tpu_torch.obs.trace import RequestTrace, new_request_id
+
+        url = urllib.parse.urlsplit(self.path)
+        route = url.path
+        self._query = {k: v[0] for k, v in urllib.parse.parse_qs(url.query, keep_blank_values=True).items()}
+        req_id, parent_span = extract_trace_headers(self.headers)
+        self._request_id = req_id or new_request_id()
+        self._status: Optional[int] = None
+        trace = None
+        if obs_enabled():
+            trace = RequestTrace(request_id=self._request_id, route=route)
+            if parent_span:
+                trace.set_attr("parent_span_id", parent_span)
+            if req_id:
+                trace.set_attr("propagated", True)
+        handler = self.server.routes.get((method, route))
+        try:
+            if handler is None:
+                self._json({"error": {"message": f"no route {route}"}}, 404)
+            else:
+                handler(self)
+        except Exception as exc:
+            logger.exception("unhandled error in %s %s", method, route)
+            if trace is not None:
+                trace.mark_error(exc)
+            if self._status is None:
+                self._json({"error": {"message": "Internal Server Error"}}, 500)
+            else:
+                self._status = 500
+        if trace is not None:
+            snap = trace.finish(status=self._status)
+            get_flight_recorder().record(snap)
+            try:
+                feed_fleet_telemetry(snap, prefix="engine")
+            except Exception:  # telemetry must never fail a request
+                logger.exception("engine fleet telemetry feed failed")
+
+    # -- routes -----------------------------------------------------------
+
+    def _models(self) -> None:
+        self._json({
+            "object": "list",
+            "data": [{"id": self.server.model_name, "object": "model", "created": _now(),
+                      "owned_by": "generativeaiexamples-tpu-torch"}],
+        })
+
+    def _health(self) -> None:
+        """Liveness that checks the engine: a dead tick thread or an
+        unhealthy replica reads ``degraded`` with 503; a firing SLO
+        fast-burn alert reads ``degraded`` at 200 (the process serves)."""
+        from generativeaiexamples_tpu_torch.obs.slo import slo_health
+
+        engine = self.server.scheduler
+        ok = bool(engine.healthy())
+        slo = slo_health()
+        degraded = (not ok) or bool(slo.get("degraded"))
+        body = {"message": "Service is degraded." if degraded else "Service is up.",
+                "status": "degraded" if degraded else "ok", "slo": slo}
+        if hasattr(engine, "replica_states"):
+            body["replicas"] = engine.replica_states()
+        self._json(body, 200 if ok else 503)
+
+    def _metrics(self) -> None:
+        srv = self.server
+        body = metrics_text(srv.scheduler, srv.embedder, srv.autoscaler).encode()
+        self._start(200, "text/plain", len(body))
+        self.wfile.write(body)
+
+    def _admin_replicas(self) -> None:
+        engine = self.server.scheduler
+        if not hasattr(engine, "replicas"):
+            self._json(_NOT_A_POOL, 501)
+            return
+        self._json({"replicas": engine.snapshot()["replicas"]})
+
+    def _admin_drain(self) -> None:
+        """``POST /admin/drain?replica=i``: stop placing on replica ``i``,
+        migrate its queued requests, let in-flight ones finish, detach."""
+        engine = self.server.scheduler
+        if not hasattr(engine, "drain"):
+            self._json(_NOT_A_POOL, 501)
+            return
+        try:
+            idx = int(self._query["replica"])
+        except (KeyError, ValueError):
+            self._json({"error": {"message": "replica=<int> query parameter required"}}, 422)
+            return
+        try:
+            state = engine.drain(idx)
+        except ValueError as exc:
+            self._json({"error": {"message": str(exc)}}, 404)
+            return
+        self._json({"replica": idx, "state": state})
+
+    def _admin_scale(self) -> None:
+        """``POST /admin/scale?replicas=n``: drive the pool to ``n`` healthy
+        replicas (scale-down drains the least loaded; scale-up builds
+        through the pool's ``scheduler_factory``)."""
+        engine = self.server.scheduler
+        if not hasattr(engine, "scale_to"):
+            self._json({"error": {"message": "not a replica pool (started with --replicas 1 and no --autoscale)"}},
+                       501)
+            return
+        try:
+            n = int(self._query["replicas"])
+            if n < 1:
+                raise ValueError
+        except (KeyError, ValueError):
+            self._json({"error": {"message": "replicas=<int >= 1> query parameter required"}}, 422)
+            return
+        try:
+            result = engine.scale_to(n)
+        except RuntimeError as exc:  # no scheduler_factory to grow with
+            self._json({"error": {"message": str(exc)}}, 409)
+            return
+        self._json(result)
+
+    def _debug_requests(self) -> None:
+        from generativeaiexamples_tpu_torch.obs.debug import debug_requests
+
+        status, body = debug_requests(self._query)
+        self._json(body, status)
+
+    def _debug_timeseries(self) -> None:
+        from generativeaiexamples_tpu_torch.obs.debug import debug_timeseries
+
+        status, body = debug_timeseries(self._query)
+        self._json(body, status)
+
+    def _profiler_start(self) -> None:
+        from generativeaiexamples_tpu_torch.obs.profiler import profiler_start
+
+        status, body = profiler_start()
+        self._json(body, status)
+
+    def _profiler_stop(self) -> None:
+        from generativeaiexamples_tpu_torch.obs.profiler import profiler_stop
+
+        status, body = profiler_stop()
+        self._json(body, status)
 
     def _chat(self) -> None:
         body = self._body()
@@ -265,8 +439,12 @@ class _Handler(BaseHTTPRequestHandler):
             eos_id=srv.tokenizer.eos_id,
             id=f"chatcmpl-{uuid.uuid4().hex[:24]}",
             session_id=str(body.get("session_id") or body.get("user") or ""),
+            # A stream must stay single-sourced; a whole answer may be hedged.
+            hedgeable=not stream,
         )
-        srv.scheduler.submit(req)
+        if not srv.scheduler.submit(req):
+            self._overloaded()
+            return
         piece = decode_stream(srv.tokenizer)
         stop = self._stops(body)
         if stream:
@@ -322,8 +500,11 @@ class _Handler(BaseHTTPRequestHandler):
             eos_id=srv.tokenizer.eos_id,
             id=f"cmpl-{uuid.uuid4().hex[:24]}",
             session_id=str(body.get("session_id") or body.get("user") or ""),
+            hedgeable=not stream,
         )
-        srv.scheduler.submit(req)
+        if not srv.scheduler.submit(req):
+            self._overloaded()
+            return
         piece = decode_stream(srv.tokenizer)
         stop = self._stops(body)
         if stream:
@@ -348,7 +529,6 @@ class _Handler(BaseHTTPRequestHandler):
             "usage": {"prompt_tokens": len(prompt_ids), "completion_tokens": n_tokens,
                       "total_tokens": len(prompt_ids) + n_tokens},
         })
-
 
     def _embeddings(self) -> None:
         body = self._body()
@@ -432,10 +612,31 @@ def rag_metrics_lines(snap: Optional[dict]) -> list[str]:
     ]
 
 
-def metrics_text(scheduler, embedder=None) -> str:
-    """Prometheus exposition of the scheduler's own stats and the embedding
-    micro-batcher's ``rag_*`` series."""
-    snap = scheduler.stats.snapshot()
+def metrics_text(engine, embedder=None, autoscaler=None) -> str:
+    """Prometheus exposition of the engine (a ``Scheduler``, or an
+    ``EnginePool``'s aggregate with the per-replica ``engine_replica_*``
+    and router families), in the reference's order: the engine's own
+    series, the embedding micro-batcher's ``rag_*`` (at zero without one,
+    the port's rule), store capacity and fabric families, the pool's sizes,
+    resilience, admission, cache, stage latency, the tick histogram, SLO,
+    durability and the gray-failure families.  Besides the reference's,
+    the engine exports ``engine_ttft_p50_ms`` and ``engine_tick_ms_ewma``."""
+    from generativeaiexamples_tpu_torch.cache.metrics import cache_metrics_lines
+    from generativeaiexamples_tpu_torch.chains.factory import peek_collection_manager, peek_store
+    from generativeaiexamples_tpu_torch.durability.metrics import durability_metrics_lines
+    from generativeaiexamples_tpu_torch.engine.autoscale import pool_metrics_lines
+    from generativeaiexamples_tpu_torch.engine.health import gray_metrics_lines
+    from generativeaiexamples_tpu_torch.obs.metrics import engine_tick_metrics_lines, obs_metrics_lines
+    from generativeaiexamples_tpu_torch.obs.slo import slo_metrics_lines
+    from generativeaiexamples_tpu_torch.resilience.admission import admission_metrics_lines
+    from generativeaiexamples_tpu_torch.resilience.metrics import resilience_metrics_lines
+    from generativeaiexamples_tpu_torch.retrieval.fabric.metrics import (
+        aggregate_capacity_stats,
+        fabric_metrics_lines,
+        store_metrics_lines,
+    )
+
+    snap = engine.stats.snapshot()
     series = [
         ("engine_requests_total", "counter", snap["requests_total"]),
         ("engine_tokens_total", "counter", snap["tokens_total"]),
@@ -443,6 +644,9 @@ def metrics_text(scheduler, embedder=None) -> str:
         ("engine_ttft_p50_ms", "gauge", f"{snap['ttft_p50_ms']:.2f}"),
         ("engine_active_slots", "gauge", snap["active_slots"]),
         ("engine_queued_requests", "gauge", snap["queued"]),
+        # The 429 path: for a pool, client-visible refusals only (every
+        # replica's queue full), not attempts a sibling absorbed.
+        ("engine_rejected_total", "counter", snap["rejected_total"]),
         ("engine_prefix_hits_total", "counter", snap["prefix_hits"]),
         ("engine_prefix_tokens_reused_total", "counter", snap["prefix_tokens_reused"]),
         ("engine_shared_prefix_hits_total", "counter", snap["shared_prefix_hits"]),
@@ -464,21 +668,79 @@ def metrics_text(scheduler, embedder=None) -> str:
         ("engine_kv_pages_free", "gauge", snap["kv_pages_free"]),
         ("engine_kv_pages_parked", "gauge", snap["kv_pages_parked"]),
         ("engine_kv_pages_shared", "gauge", snap["kv_pages_shared"]),
+        ("engine_kv_page_utilization", "gauge", snap["kv_page_utilization"]),
         ("engine_kv_cow_breaks_total", "counter", snap["kv_cow_breaks"]),
         ("engine_kv_page_evictions_total", "counter", snap["kv_page_evictions"]),
     ]
     lines = []
     for name, kind, value in series:
         lines += [f"# TYPE {name} {kind}", f"{name} {value}"]
+    # The live projection path, every known value exported (1 on the live one).
+    replicas = getattr(engine, "replicas", None)
+    active = getattr(engine, "matmul_kernel", None) or next(
+        (r.scheduler.matmul_kernel for r in replicas or () if getattr(r.scheduler, "matmul_kernel", None)), "xla")
     lines.append("# TYPE engine_matmul_kernel gauge")
-    lines.append(f'engine_matmul_kernel{{kernel="{scheduler.matmul_kernel}"}} 1')
+    for kernel in ("xla", "pallas_w8a8"):
+        lines.append(f'engine_matmul_kernel{{kernel="{kernel}"}} {1 if kernel == active else 0}')
+    rows = snap.get("replicas")
+    if rows is not None:
+        for name, key in (("engine_router_failovers_total", "router_failovers_total"),
+                          ("engine_router_requeued_total", "router_requeued_total"),
+                          ("engine_router_session_evictions_total", "session_evictions_total")):
+            lines += [f"# TYPE {name} counter", f"{name} {snap.get(key, 0)}"]
+        for name, kind, key in (("engine_replica_healthy", "gauge", "healthy"),
+                                ("engine_replica_queued", "gauge", "queued"),
+                                ("engine_replica_active_slots", "gauge", "active_slots"),
+                                ("engine_replica_requests_total", "counter", "requests_total"),
+                                ("engine_replica_rejected_total", "counter", "rejected_total"),
+                                ("engine_replica_prefix_hits_total", "counter", "prefix_hits"),
+                                ("engine_replica_shared_prefix_hits_total", "counter", "shared_prefix_hits")):
+            lines.append(f"# TYPE {name} {kind}")
+            lines += [f'{name}{{replica="{row["replica"]}"}} {row[key]}' for row in rows]
     batcher = getattr(embedder, "batcher", None)
     lines += rag_metrics_lines(batcher.stats.snapshot() if batcher is not None else None)
+    # Peek-only: a scrape builds no store or collection manager.
+    store, manager = peek_store(), peek_collection_manager()
+    lines += store_metrics_lines(aggregate_capacity_stats(store, manager),
+                                 manager.capacity_by_collection() if manager is not None else None)
+    lines += fabric_metrics_lines(store, manager)
+    lines += pool_metrics_lines(engine, autoscaler)
+    lines += resilience_metrics_lines()
+    lines += admission_metrics_lines()
+    lines += cache_metrics_lines()
+    lines += obs_metrics_lines()
+    lines += engine_tick_metrics_lines()
+    lines += slo_metrics_lines()
+    lines += durability_metrics_lines()
+    lines += gray_metrics_lines(engine)
     return "\n".join(lines) + "\n"
 
 
+# (method, path) -> handler method of ``_Handler``.
+ROUTES = {
+    ("GET", "/v1/models"): _Handler._models,
+    ("GET", "/health"): _Handler._health,
+    ("GET", "/metrics"): _Handler._metrics,
+    ("GET", "/admin/replicas"): _Handler._admin_replicas,
+    ("POST", "/admin/drain"): _Handler._admin_drain,
+    ("POST", "/admin/scale"): _Handler._admin_scale,
+    ("GET", "/debug/requests"): _Handler._debug_requests,
+    ("GET", "/debug/timeseries"): _Handler._debug_timeseries,
+    ("POST", "/v1/chat/completions"): _Handler._chat,
+    ("POST", "/v1/completions"): _Handler._completions,
+    ("POST", "/v1/embeddings"): _Handler._embeddings,
+    ("POST", "/v1/ranking"): _Handler._ranking,
+}
+# Served only when the profiler gate is open (``obs/profiler.py``).
+PROFILER_ROUTES = {
+    ("POST", "/debug/profiler/start"): _Handler._profiler_start,
+    ("POST", "/debug/profiler/stop"): _Handler._profiler_stop,
+}
+
+
 class EngineServer(ThreadingHTTPServer):
-    """HTTP server bound to one scheduler; ``serve_forever`` serves."""
+    """HTTP server bound to one engine (``scheduler``: a ``Scheduler`` or an
+    ``EnginePool``); ``serve_forever`` serves."""
 
     daemon_threads = True
     # Listen backlog (http.server's default is 5): a burst of concurrent
@@ -486,29 +748,56 @@ class EngineServer(ThreadingHTTPServer):
     # listens with 128.
     request_queue_size = 128
 
-    def __init__(self, address, scheduler, tokenizer, model_name: str, embedder=None, reranker=None) -> None:
+    def __init__(self, address, scheduler, tokenizer, model_name: str, embedder=None, reranker=None,
+                 enable_profiler: bool = False) -> None:
         super().__init__(address, _Handler)
         self.scheduler = scheduler
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.embedder = embedder
         self.reranker = reranker
+        # The autoscaler over a pool, when ``build_server`` runs one.
+        self.autoscaler = None
+        self.routes = {**ROUTES, **(PROFILER_ROUTES if enable_profiler else {})}
 
 
 def create_engine_app(
     scheduler, tokenizer, model_name: str = "llama3-8b", host: str = "127.0.0.1", port: int = 0, *,
-    embedder=None, reranker=None,
+    embedder=None, reranker=None, enable_profiler: Optional[bool] = None,
 ) -> EngineServer:
-    """Bind the OpenAI-compatible front over ``scheduler`` (which runs on
-    the device it was built for; ``Scheduler`` defaults to CUDA), with
-    ``embedder`` behind ``/v1/embeddings`` and ``reranker`` behind
-    ``/v1/ranking`` (501 without one).  Port 0 picks a free port
+    """Bind the OpenAI-compatible front over one engine: a ``Scheduler`` or
+    an ``engine.replica.EnginePool`` (both expose ``submit`` / ``cancel`` /
+    ``stats.snapshot()`` / ``healthy``; the pool also serves ``/admin/*``,
+    which answer 501 over a bare scheduler).  It runs on the device it was
+    built for (``Scheduler`` defaults to CUDA).  ``embedder`` serves
+    ``/v1/embeddings`` and ``reranker`` ``/v1/ranking`` (501 without one);
+    the profiler routes exist when ``enable_profiler`` (default: the
+    ``GAIE_ENABLE_PROFILER`` gate).  Port 0 picks a free port
     (``server.server_address``)."""
-    return EngineServer((host, port), scheduler, tokenizer, model_name, embedder, reranker)
+    from generativeaiexamples_tpu_torch.obs.profiler import profiler_enabled
+
+    enable = profiler_enabled() if enable_profiler is None else bool(enable_profiler)
+    return EngineServer((host, port), scheduler, tokenizer, model_name, embedder, reranker, enable)
 
 
 def drain_engine(engine, timeout: float = 15.0) -> None:
-    """Stop the scheduler's tick thread (single engine: nothing to migrate)."""
+    """Graceful retirement at shutdown: drain every pool replica (queued
+    requests migrate while survivors exist, in-flight generations finish),
+    wait up to ``timeout`` for them to detach, then stop the tick threads.
+    A bare ``Scheduler`` just stops."""
+    if hasattr(engine, "drain"):
+        from generativeaiexamples_tpu_torch.engine.replica import DETACHED, UNHEALTHY
+
+        for i in range(len(engine.replicas)):
+            try:
+                engine.drain(i)
+            except Exception:
+                logger.exception("shutdown drain of replica %d failed", i)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if all(s["state"] in (DETACHED, UNHEALTHY) for s in engine.replica_states()):
+                break
+            time.sleep(0.05)
     try:
         engine.stop()
     except Exception:
@@ -571,6 +860,20 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     parser.add_argument("--embed-max-wait-ms", type=float, default=3.0,
                         help="how long a query waits for batch-mates before its batch runs anyway")
     parser.add_argument("--seed", type=int, default=SERVING_DEFAULTS["seed"])
+    from generativeaiexamples_tpu_torch.engine.router import POLICIES
+
+    parser.add_argument("--replicas", type=int, default=int(os.environ.get("GAIE_REPLICAS", "1")),
+                        help="scheduler replicas behind the request router (engine.replica.EnginePool); on one card "
+                             "they share the device and one weight tree, each with its own KV cache. 1: a single "
+                             "scheduler")
+    parser.add_argument("--routing-policy", default=os.environ.get("GAIE_ROUTING_POLICY", "prefix"),
+                        choices=list(POLICIES),
+                        help="replica placement: 'prefix' (longest cached-prefix match through router-side radix "
+                             "mirrors, else least-loaded), 'session' (sticky by conversation id), 'least_loaded', "
+                             "'round_robin'. Only meaningful with --replicas > 1")
+    parser.add_argument("--autoscale", action="store_true", default=os.environ.get("GAIE_AUTOSCALE", "") == "1",
+                        help="run the SLO-driven autoscaler over the replica pool (knobs in the [autoscale] config "
+                             "section; its enabled key turns it on too); implies the pool even with --replicas 1")
     parser.add_argument("-v", "--verbose", action="count", default=None)
     return parser.parse_args(argv)
 
@@ -674,11 +977,20 @@ def load_serving_params(cfg, ckpt_dir: Optional[str], device, seed: int, what: s
 
 def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     """Parse the command line and build the engine and its HTTP front; the
-    caller starts ``server.scheduler`` and serves."""
+    caller starts ``server.scheduler`` and serves.
+
+    With ``--replicas N`` (N > 1) or ``--autoscale`` (or
+    ``[autoscale].enabled``) the engine is an ``EnginePool`` of N
+    schedulers over one weight tree, each with its own KV cache, with a
+    ``scheduler_factory`` that builds more alike (``/admin/scale``, the
+    autoscaler); the autoscaler, when asked for, runs from here
+    (``server.autoscaler``).  On a card the kernels are built before the
+    pool's stall monitor can watch a first tick wait on ``nvcc``."""
     import dataclasses
 
     import torch
 
+    from generativeaiexamples_tpu_torch.core.configuration import get_config
     from generativeaiexamples_tpu_torch.core.device import resolve_device
     from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
     from generativeaiexamples_tpu_torch.engine.weights import resolve_model_preset, weights_dir_for
@@ -697,13 +1009,30 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     params = load_serving_params(cfg, weights_dir_for(args.model), device, args.seed, what=args.model,
                                  matmul_kernel=matmul_kernel)
     spec = spec_scheduler_kwargs(args, cfg, device, matmul_kernel)
-    engine = Scheduler(
-        cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
-        decode_chunk_size=args.decode_chunk_size, seed=args.seed,
-        prefill_chunk_tokens=args.prefill_chunk_tokens or None, prefix_cache=args.prefix_cache,
-        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages,
-        matmul_kernel=matmul_kernel, **spec,
-    )
+
+    def make_scheduler() -> Scheduler:
+        # Every replica, the pool's later ones too, closes over the same
+        # params (laid out once above, so none is copied) and draft.
+        return Scheduler(
+            cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
+            decode_chunk_size=args.decode_chunk_size, seed=args.seed,
+            prefill_chunk_tokens=args.prefill_chunk_tokens or None, prefix_cache=args.prefix_cache,
+            kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages,
+            matmul_kernel=matmul_kernel, **spec,
+        )
+
+    autoscale = args.autoscale or bool(get_config().autoscale.enabled)
+    if args.replicas > 1 or autoscale:
+        from generativeaiexamples_tpu_torch.engine.replica import EnginePool
+
+        if device.type == "cuda":
+            from generativeaiexamples_tpu_torch.ops import _cuda
+
+            _cuda.build()
+        engine = EnginePool([make_scheduler() for _ in range(max(1, args.replicas))], policy=args.routing_policy,
+                            scheduler_factory=make_scheduler)
+    else:
+        engine = make_scheduler()
     embedder = None
     if args.embedder != "none":
         from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
@@ -728,10 +1057,17 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
             embedder = BatchedEmbedder(embedder, max_batch=args.embed_max_batch, max_wait_ms=args.embed_max_wait_ms)
     tokenizer = get_tokenizer(args.model)
     server = create_engine_app(engine, tokenizer, args.model, args.host, args.port, embedder=embedder)
+    if autoscale:
+        from generativeaiexamples_tpu_torch.engine.autoscale import Autoscaler
+
+        server.autoscaler = Autoscaler(engine)
+        server.autoscaler.start()
     speculation = spec.get("spec_mode") or ("draft" if spec else "off")
+    matmul = getattr(engine, "matmul_kernel", None) or engine.replicas[0].scheduler.matmul_kernel
     logger.info("engine server on %s:%d (model %s, device %s, matmul %s, kv %s %s, tokenizer %s, embedder %s, "
-                "speculation %s)", args.host, server.server_address[1], preset, device, engine.matmul_kernel,
-                cfg.kv_dtype, args.kv_layout, type(tokenizer).__name__, args.embedder, speculation)
+                "speculation %s, replicas %d, routing %s, autoscale %s)", args.host, server.server_address[1], preset,
+                device, matmul, cfg.kv_dtype, args.kv_layout, type(tokenizer).__name__, args.embedder, speculation,
+                len(getattr(engine, "replicas", [engine])), args.routing_policy, autoscale)
     return server
 
 
@@ -746,6 +1082,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         pass
     finally:
         server.server_close()
+        if server.autoscaler is not None:
+            server.autoscaler.stop()
         drain_engine(engine)
         if hasattr(server.embedder, "close"):
             server.embedder.close()

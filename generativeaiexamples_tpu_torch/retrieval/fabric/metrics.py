@@ -15,10 +15,10 @@ Three families:
   * ``rag_collection_*`` — tenancy: collection count, lifecycle
     counters, quota rejections.
 
-The per-collection ``rag_store_rows{collection=...}`` series lives in
-``server/app.py::store_metrics_lines`` (same family as the aggregate
-gauge); this module supplies its label fold
-(:func:`fold_collection_labels`, the obs/metrics 64-label rule).
+The store's capacity gauges (:func:`store_metrics_lines`, read by both
+servers' ``/metrics``) carry the per-collection
+``rag_store_rows{collection=...}`` series in the aggregate gauge's family,
+folded by :func:`fold_collection_labels` (the obs/metrics 64-label rule).
 """
 
 from __future__ import annotations
@@ -149,3 +149,22 @@ def aggregate_capacity_stats(
                 totals[key] += int(stats.get(key, 0))
             seen = True
     return totals if seen else None
+
+
+def store_metrics_lines(stats: Optional[dict], collections: Optional[dict] = None) -> list[str]:
+    """Prometheus lines for vector-store capacity (``rag_store_*``; zeros
+    before any store exists).  The unlabeled gauges are the aggregate over
+    the singleton and every named collection; ``collections`` maps a
+    collection's name to its ``capacity_stats()`` and feeds
+    ``rag_store_rows{collection=...}`` (64-label fold) inside the same
+    ``# TYPE`` block.  ``rag_store_bytes`` counts every device buffer."""
+    s = stats or {}
+    lines = ["# TYPE rag_store_rows gauge", f"rag_store_rows {s.get('rows', 0)}"]
+    for label, cstats in fold_collection_labels(collections or {}):
+        lines.append(f'rag_store_rows{{collection="{_escape(label)}"}} {cstats.get("rows", 0)}')
+    return lines + [
+        "# TYPE rag_store_bytes gauge",
+        f"rag_store_bytes {s.get('bytes', 0)}",
+        "# TYPE rag_store_tail_rows gauge",
+        f"rag_store_tail_rows {s.get('tail_rows', 0)}",
+    ]

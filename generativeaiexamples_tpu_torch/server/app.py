@@ -18,11 +18,9 @@ context that binds the deadline, degrade log, cache log and trace.  With
 ``durability.enabled``, ``create_app`` recovers the store and resumes the
 journal's interrupted jobs before it serves.
 
-Differences from the reference, on purpose: ``/metrics`` carries every
-family of the ported modules and not the engine pool's or the
-gray-failure ones (their modules are not ported); the profiler writes a
-Chrome trace, not a TensorBoard one; uploads default to a directory under
-the temporary directory.
+Differences from the reference, on purpose: the profiler writes a Chrome
+trace, not a TensorBoard one; uploads default to a directory under the
+temporary directory.
 """
 
 from __future__ import annotations
@@ -43,10 +41,12 @@ from typing import Any, Iterator, Optional, Sequence
 from generativeaiexamples_tpu_torch.cache.log import CacheLog, bind_cache_log
 from generativeaiexamples_tpu_torch.core.logging import get_logger
 from generativeaiexamples_tpu_torch.core.tracing import extract_trace_headers, get_tracer
+from generativeaiexamples_tpu_torch.obs.debug import debug_requests, debug_timeseries
+from generativeaiexamples_tpu_torch.obs.debug import feed_fleet_telemetry as _feed_fleet_telemetry
+from generativeaiexamples_tpu_torch.obs.debug import obs_enabled as _obs_enabled
 from generativeaiexamples_tpu_torch.obs.recorder import get_flight_recorder
-from generativeaiexamples_tpu_torch.obs.slo import slo_health, slo_note_request
+from generativeaiexamples_tpu_torch.obs.slo import slo_health
 from generativeaiexamples_tpu_torch.obs.trace import RequestTrace, bind_request_trace, new_request_id
-from generativeaiexamples_tpu_torch.obs.tsdb import get_tsdb, parse_window
 from generativeaiexamples_tpu_torch.resilience.breaker import CircuitOpenError, all_breakers
 from generativeaiexamples_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded, bind_deadline
 from generativeaiexamples_tpu_torch.resilience.degrade import DegradeLog, bind_degrade_log
@@ -55,6 +55,7 @@ from generativeaiexamples_tpu_torch.retrieval.fabric.collections import (
     CollectionQuotaExceeded,
     UnknownCollection,
 )
+from generativeaiexamples_tpu_torch.retrieval.fabric.metrics import store_metrics_lines  # noqa: F401 (its home)
 from generativeaiexamples_tpu_torch.server import schema
 from generativeaiexamples_tpu_torch.server.plugins import discover_example
 
@@ -145,45 +146,6 @@ def _iterate_in_context(gen: Iterator[str], ctx: contextvars.Context) -> Iterato
             yield item
     finally:
         ctx.run(gen.close)
-
-
-def _obs_enabled() -> bool:
-    try:
-        from generativeaiexamples_tpu_torch.core.configuration import get_config
-
-        return bool(get_config().observability.enabled)
-    except Exception:  # config unavailable: telemetry stays on
-        return True
-
-
-# Infrastructure routes stay out of the SLO/TSDB feeds: a scrape loop or
-# health prober must not dilute (or burn) the request error budget.
-_NON_API_PREFIXES = ("/health", "/metrics", "/debug", "/admin")
-
-
-def _feed_fleet_telemetry(snap: dict, prefix: str = "chain") -> None:
-    """One finished request → TSDB series + SLO counters (pending-list
-    appends; folding and rule evaluation happen at read time)."""
-    route = snap.get("route") or "other"
-    if route.startswith(_NON_API_PREFIXES):
-        return
-    status = snap.get("status")
-    error = bool(snap.get("error")) or bool(status and int(status) >= 500)
-    degraded = bool(snap.get("degraded"))
-    total_ms = float(snap.get("total_ms") or 0.0)
-    db = get_tsdb()
-    db.record(f"{prefix}.requests.{route}", 1.0, kind="counter")
-    db.record(f"{prefix}.request_ms.{route}", total_ms)
-    if error:
-        db.record(f"{prefix}.errors.{route}", 1.0, kind="counter")
-    attrs = snap.get("attrs") or {}
-    if attrs.get("cache_tier"):
-        db.record(f"{prefix}.cache_hits.{route}", 1.0, kind="counter")
-    for stage in snap.get("stages") or ():
-        name = stage.get("stage")
-        if name:
-            db.record(f"{prefix}.stage_ms.{name}", float(stage.get("duration_ms") or 0.0))
-    slo_note_request(route, total_ms, error=error, degraded=degraded)
 
 
 def _finalize_trace(trace: Optional[RequestTrace], status: Optional[int]) -> None:
@@ -379,33 +341,13 @@ def handle_health(req: "_Request") -> Response:
     ).to_dict())
 
 
-def store_metrics_lines(stats: Optional[dict], collections: Optional[dict] = None) -> list[str]:
-    """Prometheus lines for vector-store capacity (``rag_store_*``; zeros
-    before any store exists).  The unlabeled gauges are the aggregate over
-    the singleton and every named collection; ``collections`` maps a
-    collection's name to its ``capacity_stats()`` and feeds
-    ``rag_store_rows{collection=...}`` (64-label fold) inside the same
-    ``# TYPE`` block.  ``rag_store_bytes`` counts every device buffer."""
-    from generativeaiexamples_tpu_torch.retrieval.fabric.metrics import _escape, fold_collection_labels
-
-    s = stats or {}
-    lines = ["# TYPE rag_store_rows gauge", f"rag_store_rows {s.get('rows', 0)}"]
-    for label, cstats in fold_collection_labels(collections or {}):
-        lines.append(f'rag_store_rows{{collection="{_escape(label)}"}} {cstats.get("rows", 0)}')
-    return lines + [
-        "# TYPE rag_store_bytes gauge",
-        f"rag_store_bytes {s.get('bytes', 0)}",
-        "# TYPE rag_store_tail_rows gauge",
-        f"rag_store_tail_rows {s.get('tail_rows', 0)}",
-    ]
-
-
 def metrics_text() -> str:
     """The chain server's Prometheus exposition, in the reference's order:
     the retrieval micro-batcher's ``rag_*`` series, the bulk pipeline's
     ``ingest_*``, store capacity (aggregate and per collection), the
     fabric's shard, cold-tier and collection families, resilience,
-    admission, cache, per-stage latency, SLO and durability.  Peek-only:
+    admission, the engine pool's sizes (zeros), cache, per-stage latency,
+    SLO, durability and the gray-failure families (zeros).  Peek-only:
     a scrape builds no store, manager or pipeline."""
     from generativeaiexamples_tpu_torch.cache.metrics import cache_metrics_lines
     from generativeaiexamples_tpu_torch.chains.factory import (
@@ -415,6 +357,8 @@ def metrics_text() -> str:
         peek_store,
     )
     from generativeaiexamples_tpu_torch.durability.metrics import durability_metrics_lines
+    from generativeaiexamples_tpu_torch.engine.autoscale import pool_metrics_lines
+    from generativeaiexamples_tpu_torch.engine.health import gray_metrics_lines
     from generativeaiexamples_tpu_torch.engine.server import rag_metrics_lines
     from generativeaiexamples_tpu_torch.ingest.pipeline import ingest_metrics_lines
     from generativeaiexamples_tpu_torch.obs.metrics import obs_metrics_lines
@@ -440,10 +384,14 @@ def metrics_text() -> str:
         + fabric_metrics_lines(store, manager)
         + resilience_metrics_lines()
         + admission_metrics_lines()
+        # The chain server hosts no engine pool: the pool and gray-failure
+        # families export their zeros, so one dashboard reads both servers.
+        + pool_metrics_lines(None)
         + cache_metrics_lines()
         + obs_metrics_lines()
         + slo_metrics_lines()
         + durability_metrics_lines()
+        + gray_metrics_lines(None)
     )
     return "\n".join(lines) + "\n"
 
@@ -785,33 +733,15 @@ def handle_delete_document(req: "_Request") -> Response:
 
 
 def handle_debug_requests(req: "_Request") -> Response:
-    """``GET /debug/requests``: the flight recorder's completed request
-    traces, newest first (``?limit=N`` trims the dump)."""
-    limit: Optional[int] = None
-    raw = req.query.get("limit", "")
-    if raw:
-        try:
-            limit = int(raw)
-        except ValueError:
-            return json_response({"detail": "limit must be an integer"}, status=422)
-    records = get_flight_recorder().snapshot(limit)
-    return json_response(schema.DebugRequestsResponse(
-        requests=[schema.RequestTraceRecord(**r) for r in records], count=len(records)).to_dict())
+    """``GET /debug/requests``: the flight recorder's traces, newest first."""
+    status, body = debug_requests(req.query)
+    return json_response(body, status=status)
 
 
 def handle_debug_timeseries(req: "_Request") -> Response:
-    """``GET /debug/timeseries?series=a,b*&window=5m``: the in-process
-    TSDB's bucketed history; ``series`` filters by exact name or
-    trailing-``*`` prefix, omitted means everything."""
-    names = [p.strip() for p in req.query.get("series", "").split(",") if p.strip()]
-    try:
-        window_s = parse_window(req.query.get("window", ""), default_s=300.0)
-    except ValueError as exc:
-        return json_response({"detail": str(exc)}, status=422)
-    db = get_tsdb()
-    payload = db.query(window_s, names or None)
-    payload["names"] = db.names()
-    return json_response(schema.DebugTimeseriesResponse(**payload).to_dict())
+    """``GET /debug/timeseries?series=a,b*&window=5m``: the TSDB's history."""
+    status, body = debug_timeseries(req.query)
+    return json_response(body, status=status)
 
 
 def handle_profiler_start(req: "_Request") -> Response:
