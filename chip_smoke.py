@@ -85,11 +85,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    under searches (centroids kept, one ``index_swap``, the tail empty),
    then a retrain forced by growth.  ``store_crossover``: exact and IVF at
    131,072 rows and at all rows, and the factory's ``cuda`` crossover.
-   ``store_snapshot``: IVF int8 at 32,768 rows saved, loaded on the card
+   ``store_snapshot``: IVF int8 at 16,384 rows saved, loaded on the card
    (the saved store's answers) and on the CPU (the same ids wherever gaps
    exceed ``RANK_EPS``).  ``auto`` from ``APP_*`` builds the IVF store on
    the card with the ``cuda`` crossover.  Then ``stores``: peak device GB,
    peak host RSS, the phase's seconds.
+   Then ``fabric``: the sharded fabric over the same rows, built by the
+   factory with a collection's overrides (``fabric`` over 4 ``tpu``
+   children): the 128 queries' top-10 against the exact store's scan of
+   the same rows (how many scores differ and by how much; ids gated at
+   every rank whose gap exceeds twice that), each child's device ms and the
+   fabric's ``search_batch`` wall beside the exact store's, the merge's
+   host ms; 16 threads of 8 queries at once against each alone (scores
+   within 1e-4, ids at every rank whose gap exceeds ``RANK_EPS``), with fewer
+   fan-out batches than requests (``rag_shard_fanout_batches_total``);
+   ``delete_source("doc7")`` removes 1,000 rows and none comes back.
+   ``fabric_cold``: shards 2 and 3 demoted to host PQ (seconds each, device
+   bytes freed at least ``FREED_SHARE`` of their buffers), every score of
+   the checked queries within ``COLD_REL_TOL`` (relative) of its row's f64
+   product, planted rows on hot shards first, recall@10 overall and on the
+   cold shards' truth (reported), the cold scan's ms a query, the byte
+   split, prefetches, swaps; promoted back, the exact gate again.
+   ``native_store``: the C++ store on one CPU thread over ``NATIVE_ROWS``
+   f32 rows: exact ranks equal the port's ``MemoryVectorStore``'s except at
+   near ties, IVF (nlist 64, nprobe 16) build seconds, ms a query and
+   recall@10 against exact.
 10. ``serve``: Llama-3-8B at full width and depth (random int8 weights from
    a seed, int8 contiguous KV), served by the port's Scheduler and HTTP
    front on 127.0.0.1: eight concurrent completions, a streaming chat, two
@@ -111,7 +131,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``--replicas 2 --routing-policy prefix --matmul-kernel pallas_w8a8``:
    Llama-3-8B W8A8 from the same seed, one weight tree shared by both
    replicas, each with its own int8 KV cache; the gray-failure layer off
-   through ``APP_CONFIG_FILE``), in six drills that each fail
+   and the sharded fabric as the store through ``APP_CONFIG_FILE``), in
+   six drills that each fail
    the run: ``pool`` (serve's requests through the pool's front, launch
    counts zeroed just before and read just after: K1 in both designs, K2
    and K4; every stream equal to serve's bit for bit, both replicas
@@ -124,7 +145,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    against a fresh scheduler without the prefix cache, every mid-flight one
    answers 503 or ends ``finish_reason: "error"``, ``/health`` 503
    ``degraded``), ``pool_drain_scale`` (``/admin/scale?replicas=2`` adds
-   replica 2, then ``/admin/drain`` of the replica running a generation,
+   replica 2, whose bootstrap builds the fabric on the card and warms only
+   the shards ``shards_for_replica`` gives it, ``/metrics`` counting one
+   hydration; then ``/admin/drain`` of the replica running a generation,
    which finishes there while new requests go to the other, then
    ``/admin/scale?replicas=2`` again under a running stream: device GB and
    the stream's longest gap across it, and a request on the new replica;
@@ -145,7 +168,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    (the front's ``--spec-decode``, prompt lookup, contiguous),
    ``spec_fault`` (``spec_draft:error=1`` on that scheduler, one prompt),
    ``spec_draft`` (``--spec-decode --draft-model llama3.2-1b``: a random
-   W8A8 draft, paged, page 64) and ``spec_self`` (the target's first 4
+   W8A8 draft at full width and ``SPEC_DRAFT_LAYERS`` of its 16 layers,
+   paged, page 64) and ``spec_self`` (the target's first 4
    layers as the draft, contiguous): serve's 8 completions and streaming
    chat, the two prompts sent alone, a ~600-token quoting prompt and one
    sampled request (temperature 0.7, top_p 0.9).  Then ``spec_accept``:
@@ -214,19 +238,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    decode-attention kernels.
 16. ``hf_checkpoint`` (inside the K1 shape record, after ``chain``): the
    quantizers held against numpy's ``amax / 127`` bit for bit
-   (``check_quantizers``); a Llama-3-8B checkpoint at full width and 16 of
+   (``check_quantizers``); a Llama-3-8B checkpoint at full width and 4 of
    its 32 layers written from numpy seed 0 in bf16 (four shards, the index, a
    ``LlamaForCausalLM`` ``config.json``; layer i is the base layer rolled
    by i rows) and served by ``build_server`` through ``$GAIE_WEIGHTS_DIR``
    (load seconds, device GB, the host's resident set during the load,
    which may grow by no more than 8 GB); the int8 codes and f32 scales of
-   every projection of layers 0, 8 and 15, the head and the embedding
+   every projection of its first, middle and last layers, the head and the embedding
    equal numpy's quantization of the written arrays bit for bit; greedy
    streams (four completions together, two alone) of the loaded server, of
    a ``Scheduler`` on the numpy-quantized tree and of a paged ``Scheduler``
    on the loaded params are equal, with K1, K2 / K3 and K4 launched on each
    path; then arctic-embed-l-shaped embedder and cross-encoder checkpoints
-   (24 layers, bf16, a 30,522-entry ``vocab.txt``) through
+   (12 of 24 layers, bf16, a 30,522-entry ``vocab.txt``) through
    ``chains.factory``'s ``get_embedder`` / ``get_reranker``: their leaves
    equal the written arrays, the WordPiece ids come from the native
    library and equal the Python path's, 256 documents and 32 queries embed
@@ -245,7 +269,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    to the CPU's (``families_reference``; every comparison is read before
    the phase fails, and the error names each one beyond its bound).  Each
    served through ``build_server(["--model", <HF id>, ...])`` at full
-   width and half its depth (Mixtral at 4 of its 32 layers: 11.3 GB of
+   width and a quarter of its depth (Mixtral at 2 of its 32 layers: 5.6 GB of
    bf16 experts; ``FAMILY_SERVED_LAYERS``), random int8 from seed 0: the 20- and 650-token prompts sent
    together, then each alone, must emit the same 32 greedy ids; Gemma-2B
    and StarCoder2-3B also on the paged pool (a ``Scheduler`` on the same
@@ -272,7 +296,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    layers, random bf16 from seed 11, card vs CPU over a cold prefill, a
    warm chunk, 8 decode steps and a verify block, logits and cache within
    ``XLA_TOL``, and two planted faults that must fail it
-   (``xla_reference``); ``build_server --matmul-kernel xla`` at full depth
+   (``xla_reference``); ``build_server --matmul-kernel xla`` at full width
+   and ``XLA_SERVED_LAYERS`` of 32 layers
    (random bf16 from seed 0, max_batch 32, max_len 2048): the ``serve``
    requests, the 20- and 650-token prompts alone emit the batch's ids, a
    shared-prefix graft, ``/metrics`` reports ``xla``, only K4 launches
@@ -293,7 +318,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    SIGTERM cuts a final snapshot and the next start replays nothing (the
    same 16 searches); a bulk job killed mid-way resumes at the next start
    with every file landing once (the final snapshot's chunks by source,
-   no chunk id twice).
+   no chunk id twice).  Then ``durable_fabric``: the same with
+   ``APP_VECTORSTORE_NAME=fabric`` (4 ``tpu`` shards through the
+   ``APP_FABRIC_*`` keys), 16 documents and a snapshot every 3 WAL
+   records (one more delete if the last record falls on a snapshot), to
+   the SIGKILL restart only: it restores the snapshot and replays at least
+   one WAL record after it, the searches equal those before the kill, and
+   every shard's child is restored on the card (the recovery event's
+   ``shard_devices``).
 
 Then the ``kernels`` summary line (each kernel's ``launches`` from its
 serving phase, ``pool_launches`` from ``pool``, ``chain_launches`` from ``chain``, ``step_launches`` from
@@ -1825,7 +1857,7 @@ STORE_KINDS = (
 )
 # Queries whose every returned score is held against f64 (8 planted, 8 fresh).
 STORE_CHECKED = tuple(range(8)) + tuple(range(64, 72))
-STORE_APPEND, STORE_CROSS_ROWS, STORE_SNAPSHOT_ROWS = 5000, 131072, 32768
+STORE_APPEND, STORE_CROSS_ROWS, STORE_SNAPSHOT_ROWS = 5000, 131072, 16384
 # The reference's int8 recall gate (tests/test_retrieval.py::TestQuantized).
 INT8_RECALL = 0.95
 # PQ's ADC scores on the card against the same codes and table on the CPU.
@@ -2274,7 +2306,7 @@ def stores_phase(torch, dev, exact, queries, planted) -> None:
              ivf_query_chunk=[cross["ivf"]["query_chunk"], ivf_full["query_chunk"]],
              cuda_crossover_rows=rfactory.crossover_rows(RETRIEVE_DIM, "cuda"))
 
-        # IVF with int8 at 32,768 rows: saved, loaded on the card and on the CPU.
+        # IVF with int8 at 16,384 rows: saved, loaded on the card and on the CPU.
         store = rfactory.get_vector_store(device=dev, overrides={"backend": "tpu-ivf", "quantization": "int8"})
         store.add(chunks[:STORE_SNAPSHOT_ROWS], corpus[:STORE_SNAPSHOT_ROWS])
         before = store.search_batch(queries, 10)
@@ -2317,6 +2349,260 @@ def stores_phase(torch, dev, exact, queries, planted) -> None:
             raise AssertionError(f"stores: auto built {type(auto).__name__} on {auto.device}")
     emit("stores", rows=n, queries=len(queries), auto=f"GPUIVFVectorStore, min_train_size {auto.min_train_size}",
          peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9, peak_host_rss_gb=rss.peak / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+
+# ---------------------------------------------------------------------------
+# scale-out retrieval: the sharded fabric, its cold tier, the native store
+# ---------------------------------------------------------------------------
+
+FABRIC_SHARDS, FABRIC_COLD = 4, (2, 3)
+FABRIC_THREADS, FABRIC_PER_THREAD = 16, 8
+# Every score a cold drill returns, against the f64 product of its row.
+COLD_REL_TOL = 1e-5
+# A demotion must free at least this share of the demoted children's bytes.
+FREED_SHARE = 0.9
+# The C++ store is single-threaded: its line keeps well under 30 s by its
+# rows (65,536 took 54 s, 32,768 took 22 s on the H100 machine's CPU).
+NATIVE_ROWS = 16384
+
+
+def _rss_gb() -> float:
+    with open("/proc/self/statm", encoding="ascii") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def _against_exact(torch, np, S, results, truth_s, truth_ids, where: str) -> dict:
+    """The fabric's top-k against the single exact store's scan ``S`` (b, n
+    f32 on the card) of the same rows: how many returned scores differ from
+    the single store's score of the same row, and by how much; then the
+    returned ids at every rank whose gap to the next truth score exceeds
+    twice that difference (every rank with distinct scores when no bit
+    moved), as sets of the top ranks."""
+    ids = [[int(h.chunk.id) for h in r] for r in results]
+    got = np.array([[h.score for h in r] for r in results], dtype=np.float32)
+    want = torch.gather(S[: len(results)], 1, torch.tensor(ids, device=S.device)).cpu().numpy()
+    diff = np.abs(got - want)
+    max_diff = float(diff.max())
+    if max_diff > 1e-4:
+        raise AssertionError(f"{where}: a returned score is {max_diff} from the single store's score of its row")
+    eps = 2.0 * max_diff
+    checked = equal = 0
+    for q, r in enumerate(ids):
+        ts = list(truth_s[q][: len(r) + 1])
+        equal += r == [int(i) for i in truth_ids[q][: len(r)]]
+        for j in range(len(r)):
+            if ts[j] - ts[j + 1] > eps:
+                checked += 1
+                if set(r[: j + 1]) != {int(i) for i in truth_ids[q][: j + 1]}:
+                    raise AssertionError(f"{where}: query {q} top-{j + 1} {r} != {list(truth_ids[q][:len(r)])}")
+    return dict(scores_differing=int((diff > 0).sum()), scores_total=int(diff.size), max_score_diff=max_diff,
+                ranks_checked=checked, queries_with_the_same_ids=equal)
+
+
+def fabric_phase(torch, dev, exact, queries, planted) -> None:
+    """The sharded fabric over the ``retrieve`` corpus (its 1M rows, read
+    from the exact store's mirror), built by the port's factory as a
+    collection's overrides ask (``fabric`` over 4 ``tpu`` children), held
+    against the exact store's scan of the same rows; then the cold drill
+    (2 shards demoted to host PQ), promotion, and the fabric freed."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.retrieval import factory as rfactory
+    from generativeaiexamples_tpu_torch.retrieval.fabric import ShardedVectorStore
+    from generativeaiexamples_tpu_torch.retrieval.fabric.metrics import fabric_metrics_lines
+    from generativeaiexamples_tpu_torch.retrieval.gpu import GPUVectorStore, _top_rows, scores_f32
+
+    t_phase = time.perf_counter()
+    n = RETRIEVE_ROWS
+    corpus, chunks = exact._mirror._vecs[:n], exact._mirror._chunks[:n]
+    Q = torch.from_numpy(queries).to(dev)
+    S = scores_f32(Q.to(exact._dtype), exact._device_buf[:n])  # the single store's scan of the corpus rows
+    truth_s, truth_ids = _top_rows(S, 11)
+    exact_t = _time_store(torch, exact, queries, 10)
+    rng = np.random.default_rng(5)
+    doc7 = _clustered_rows(np, rng, corpus, np.arange(7000, 7064), 0.1)
+    with _PeakRSS() as rss:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        fab = rfactory.get_vector_store(device=dev, overrides={"backend": "fabric", "child_backend": "tpu",
+                                                               "num_shards": FABRIC_SHARDS})
+        try:
+            kids = [s.store for s in fab._shards]
+            if not isinstance(fab, ShardedVectorStore) or fab.device != dev or not all(
+                    isinstance(k, GPUVectorStore) and k.device == dev and k._dtype == torch.bfloat16 for k in kids):
+                raise AssertionError(f"fabric: the factory built {fab!r} with {[type(k).__name__ for k in kids]}")
+            t0 = time.perf_counter()
+            fab.add(chunks, corpus)
+            add_s = time.perf_counter() - t0
+            rows_per_shard = [len(k) for k in kids]
+            t0 = time.perf_counter()
+            fab.search_batch(queries[:1], 1)  # the first sync: each child's device build
+            torch.cuda.synchronize()
+            sync_s = time.perf_counter() - t0
+            device_gb = (torch.cuda.memory_allocated(dev) - mem0) / 1e9
+            vs_exact = _against_exact(torch, np, S, fab.search_batch(queries, 10), truth_s, truth_ids, "fabric")
+            # Timing: each child's device work for the batch (CUDA events, as
+            # the stores phase times a store) and the fabric's wall.
+            k_shard = fab.shard_k(10)
+            shard_t = [_time_store(torch, k, queries, k_shard) for k in kids]
+            merge0, calls0 = fab.swap_stats()["merge_s_total"], fab.stats_snapshot()["searches_total"]
+            wall_ms = _host_ms(lambda: fab.search_batch(queries, 10))
+            merge_ms = (fab.swap_stats()["merge_s_total"] - merge0) * 1e3 / (
+                fab.stats_snapshot()["searches_total"] - calls0)
+            # 16 threads of 8 queries at once, each against its queries alone.
+            parts = [queries[i * FABRIC_PER_THREAD : (i + 1) * FABRIC_PER_THREAD] for i in range(FABRIC_THREADS)]
+            alone = [fab.search_batch(p, 11) for p in parts]  # top 11: _same_ranks reads the gap after rank 10
+            before = fab.stats_snapshot()
+            together = [None] * FABRIC_THREADS
+            barrier = threading.Barrier(FABRIC_THREADS)
+
+            def call(i):
+                barrier.wait()
+                together[i] = fab.search_batch(parts[i], 10)
+
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(FABRIC_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            after = fab.stats_snapshot()
+            fanout = {k: after[k] - before[k] for k in ("requests_total", "batches_total", "batch_size_sum")}
+            concurrent_ranks = sum(_same_ranks(g, a, 10, f"fabric: thread {i} against alone")
+                                   for i, (g, a) in enumerate(zip(together, alone)))
+            bits_equal = sum([[(h.chunk.id, h.score) for h in r] for r in g] ==
+                             [[(h.chunk.id, h.score) for h in r[:10]] for r in a] for g, a in zip(together, alone))
+            metric = {line.split()[0]: float(line.split()[1]) for line in fabric_metrics_lines(fab)
+                      if not line.startswith("#")}
+            if not (0 < fanout["batches_total"] < fanout["requests_total"]) or \
+                    metric["rag_shard_fanout_batches_total"] != after["batches_total"]:
+                raise AssertionError(f"fabric: the fan-out did not coalesce: {fanout}")
+            removed = fab.delete_source("doc7")
+            gone = fab.search_batch(doc7, 10)
+            if removed != 1000 or any(h.chunk.source == "doc7" for hits in gone for h in hits):
+                raise AssertionError(f"fabric: delete_source removed {removed}, or a deleted row came back")
+            emit("fabric", rows=n, shards=FABRIC_SHARDS, child="GPUVectorStore (bf16)",
+                 rows_per_shard=rows_per_shard, shard_k=k_shard, add_s=add_s, first_sync_s=sync_s,
+                 device_gb=device_gb, capacity_stats=fab.capacity_stats(), against_exact=vs_exact,
+                 device_ms=sum(t["device_ms"] for t in shard_t), shard_device_ms=[t["device_ms"] for t in shard_t],
+                 bound_ms=sum(t["bound_ms"] for t in shard_t), search_batch_ms=wall_ms, merge_host_ms=merge_ms,
+                 exact_device_ms=exact_t["device_ms"], exact_search_batch_ms=exact_t["search_batch_ms"],
+                 concurrent=dict(threads=FABRIC_THREADS, queries_each=FABRIC_PER_THREAD, **fanout,
+                                 bits_equal_threads=bits_equal, ranks_checked=concurrent_ranks),
+                 deleted_rows=removed)
+
+            # The cold drill: two shards to host PQ, searched, promoted back.
+            S[:, 7000:8000] = float("-inf")  # doc7 is gone
+            truth_s, truth_ids = _top_rows(S, 11)
+            doomed = sum(kids[i].capacity_stats()["bytes"] for i in FABRIC_COLD)
+            del kids
+            gc.collect()
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated(dev)
+            demote_s = []
+            for i in FABRIC_COLD:
+                t0 = time.perf_counter()
+                if not fab.demote_shard(i):
+                    raise AssertionError(f"fabric_cold: shard {i} did not demote")
+                demote_s.append(time.perf_counter() - t0)
+            gc.collect()
+            freed = m0 - torch.cuda.memory_allocated(dev)
+            if fab.cold_shards() != list(FABRIC_COLD) or freed < FREED_SHARE * doomed:
+                raise AssertionError(f"fabric_cold: demotion freed {freed} of {doomed} device bytes")
+            pf0 = fab.stats_snapshot()
+            t0 = time.perf_counter()
+            cold = fab.search_batch(queries, 10)
+            cold_search_s = time.perf_counter() - t0
+            pf1 = fab.stats_snapshot()
+            # Every score of the checked queries against the f64 product of
+            # its row: the f32 row on a cold shard, the bf16 row on a hot one.
+            worst = 0.0
+            for qi in STORE_CHECKED:
+                for h in cold[qi]:
+                    r = int(h.chunk.id)
+                    if fab.route(h.chunk.id) in FABRIC_COLD:
+                        ref = float(corpus[r].astype(np.float64) @ queries[qi].astype(np.float64))
+                    else:
+                        ref = float(_bf16_f64(torch, np, corpus[r]) @ _bf16_f64(torch, np, queries[qi]))
+                    worst = max(worst, abs(h.score - ref) / abs(ref))
+            if worst > COLD_REL_TOL:
+                raise AssertionError(f"fabric_cold: a score is {worst} (relative) from the f64 product of its row")
+            hot_planted = [(qi, str(int(p))) for qi, p in enumerate(planted)
+                           if fab.route(str(int(p))) not in FABRIC_COLD and not 7000 <= p < 8000]
+            first = sum(bool(cold[qi]) and cold[qi][0].chunk.id == pid for qi, pid in hot_planted)
+            if first != len(hot_planted):
+                raise AssertionError(f"fabric_cold: {first} of {len(hot_planted)} planted hot rows first")
+            truth10 = [{str(int(i)) for i in t[:10]} for t in truth_ids]
+            recall = float(np.mean([len({h.chunk.id for h in r} & t) / 10 for r, t in zip(cold, truth10)]))
+            cold_truth = [{i for i in t if fab.route(i) in FABRIC_COLD} for t in truth10]
+            found = sum(len({h.chunk.id for h in r} & t) for r, t in zip(cold, cold_truth))
+            part = fab._shards[FABRIC_COLD[0]].cold
+            scan_ms = _host_ms(lambda: part.scan(queries[0], k_shard, k_shard * fab.rescore_multiplier,
+                                                 fab.prefetcher), n=16)
+            host_gb = _rss_gb()
+            split = fab.scanned_bytes_split(10)
+            promote_s = []
+            for i in FABRIC_COLD:
+                t0 = time.perf_counter()
+                fab.promote_shard(i)
+                promote_s.append(time.perf_counter() - t0)
+            fab.search_batch(queries[:1], 1)
+            back = _against_exact(torch, np, S, fab.search_batch(queries, 10), truth_s, truth_ids,
+                                  "fabric_cold: promoted")
+            emit("fabric_cold", cold_shards=list(FABRIC_COLD), demote_s=demote_s, device_bytes_demoted=doomed,
+                 device_bytes_freed=freed, search_batch_s=cold_search_s, cold_scan_ms_per_query=scan_ms,
+                 scanned_bytes_split=split,
+                 prefetches=pf1["prefetches_total"] - pf0["prefetches_total"],
+                 prefetch_bytes=pf1["prefetch_bytes_total"] - pf0["prefetch_bytes_total"],
+                 rescored_max_rel_err=worst, planted_hot_first=first, planted_hot=len(hot_planted),
+                 recall_at_10=recall, cold_truth_recall=found / max(1, sum(len(t) for t in cold_truth)),
+                 cold_truth_rows=sum(len(t) for t in cold_truth), swaps=fab.swap_stats(), promote_s=promote_s,
+                 promoted_against_exact=back, device_gb=(torch.cuda.memory_allocated(dev) - mem0) / 1e9,
+                 host_rss_gb_cold=host_gb, peak_host_rss_gb=rss.peak / 1e9, phase_s=time.perf_counter() - t_phase)
+        finally:
+            fab.close()
+    del fab, S
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def native_store_phase(exact, queries) -> None:
+    """The C++ CPU store on the card machine's CPU (one thread), over the
+    first ``NATIVE_ROWS`` rows of the ``retrieve`` corpus in f32: exact mode against
+    the port's ``MemoryVectorStore`` (ranks equal except at near ties), IVF
+    (nlist 64, nprobe 16) with recall@10 against exact, build seconds and
+    ms a query."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.retrieval.memory import MemoryVectorStore
+    from generativeaiexamples_tpu_torch.retrieval.native import NativeVectorStore, load_library
+
+    t_phase = time.perf_counter()
+    vecs = np.ascontiguousarray(exact._mirror._vecs[:NATIVE_ROWS])
+    chunks = exact._mirror._chunks[:NATIVE_ROWS]
+    t0 = time.perf_counter()
+    load_library()
+    lib_s = time.perf_counter() - t0
+    plain = MemoryVectorStore(RETRIEVE_DIM)
+    plain.add(chunks, vecs)
+    ex = NativeVectorStore(RETRIEVE_DIM, index_type="exact")
+    ex.add(chunks, vecs)
+    t0 = time.perf_counter()
+    got = [ex.search(q, 10) for q in queries]
+    exact_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    checked = _same_ranks(got, [plain.search(q, 11) for q in queries], 10, "native_store: exact against memory")
+    ivf = NativeVectorStore(RETRIEVE_DIM, index_type="ivf", nlist=64, nprobe=16, ivf_build_threshold=NATIVE_ROWS)
+    t0 = time.perf_counter()
+    ivf.add(chunks, vecs)  # reaches the threshold: k-means and the lists
+    build_s = time.perf_counter() - t0
+    if ivf._lib.vs_nlist(ivf._handle) != 64:
+        raise AssertionError("native_store: the IVF index was not built")
+    t0 = time.perf_counter()
+    approx = [ivf.search(q, 10) for q in queries]
+    ivf_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    recall = float(np.mean([len(set(_ids(a)) & set(_ids(e))) / 10 for a, e in zip(approx, got)]))
+    emit("native_store", rows=NATIVE_ROWS, dim=RETRIEVE_DIM, queries=len(queries), threads=1,
+         library_build_s=lib_s, exact_ms_per_query=exact_ms, exact_ranks_checked=checked, ivf_nlist=64,
+         ivf_nprobe=16, ivf_build_s=build_s, ivf_ms_per_query=ivf_ms, ivf_recall_at_10=recall,
          phase_s=time.perf_counter() - t_phase)
 
 
@@ -2846,6 +3132,26 @@ class _TimedStream:
         return max(gaps, default=0.0)
 
 
+def _pool_hydration(base, dev, new_idx: int, target: int) -> dict:
+    """After the first ``/admin/scale``: the replica bootstrap built the
+    store singleton (the sharded fabric, on the card), warmed the shards
+    ``shards_for_replica`` gives the new replica, and ``/metrics`` counts
+    one hydration."""
+    from generativeaiexamples_tpu_torch.chains.factory import peek_store
+    from generativeaiexamples_tpu_torch.retrieval.fabric import ShardedVectorStore
+
+    store = peek_store()
+    count = _metric(_metric_lines(base), "rag_shard_replica_hydrations_total")
+    if not isinstance(store, ShardedVectorStore) or store.device != dev or count != 1:
+        raise AssertionError(f"pool_drain_scale: the bootstrap built {store!r}; hydrations {count}")
+    warmed = [s.idx for s in store._shards if s.store._device_buf is not None]
+    routed = store.shards_for_replica(new_idx, max(target, new_idx + 1))
+    if warmed != routed:
+        raise AssertionError(f"pool_drain_scale: replica {new_idx} warmed shards {warmed}, not {routed}")
+    return dict(store="ShardedVectorStore", shards=store.num_shards, child=type(store._shards[0].store).__name__,
+                warmed_shards=warmed, hydrations=count, shard_devices=store.shard_devices())
+
+
 def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary, alone) -> dict:
     """The engine server as a 2-replica pool (``build_server`` with
     ``POOL_ARGV``): Llama-3-8B W8A8 at full width and depth, one weight tree
@@ -2900,7 +3206,9 @@ def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary,
     tokenizer = get_tokenizer("llama3-8b")
     streams = serve_summary["streams"]
     config = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
-    json.dump({"health": POOL_MAIN_HEALTH}, config)
+    # The sharded fabric as the store: a replica added by /admin/scale
+    # hydrates the shards routed to its index.
+    json.dump({"health": POOL_MAIN_HEALTH, "vector_store": {"name": "fabric"}}, config)
     config.close()
     os.environ["APP_CONFIG_FILE"] = config.name
     reset_config_cache()
@@ -3082,6 +3390,7 @@ def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary,
         tee.attach(pool)
         if status != 200 or first_scale["added"] != [2]:
             raise AssertionError(f"pool_drain_scale: scale after the failover answered {status} {raw}")
+        hydration = _pool_hydration(base, dev, new_idx=2, target=int(POOL_ARGV[POOL_ARGV.index("--replicas") + 1]))
         # Fresh prompts (cold everywhere): a generation, two requests after
         # the drain, a long stream, a request after the second scale-up.
         fresh = _random_prompts(2, 5, 64, 128)
@@ -3125,7 +3434,7 @@ def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary,
         if got != [_text_of(tokenizer, c) for c in cold] or [firsts[k]["ids"] for k in fresh_ids] != cold:
             raise AssertionError(f"pool_drain_scale: a stream differs from its cold one: {got}")
         gaps = [b - a for a, b in zip(stream.times, stream.times[1:])]
-        emit("pool_drain_scale", nvidia_smi=smi, first_scale=first_scale, drained_replica=victim,
+        emit("pool_drain_scale", nvidia_smi=smi, first_scale=first_scale, hydration=hydration, drained_replica=victim,
              drain_state=drained_state, placed_on=placed_on, streams_equal_to_cold=True, scale=scaled,
              scale_s=t_scale1 - t_scale0, device_gb_before_scale=gb_before, device_gb_after_scale=gb_after,
              stream_longest_gap_across_scale_s=stream.longest_gap(t_scale0, t_scale1),
@@ -3258,6 +3567,9 @@ def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary,
         os.environ.pop("APP_CONFIG_FILE", None)
         os.unlink(config.name)
         reset_config_cache()
+        from generativeaiexamples_tpu_torch.chains.factory import reset_factories
+
+        reset_factories()  # the fabric the bootstrap built
 
 
 # ---------------------------------------------------------------------------
@@ -3265,6 +3577,10 @@ def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary,
 # ---------------------------------------------------------------------------
 
 SPEC_GAMMA, SPEC_SELF_LAYERS = 4, 4
+# The random Llama-3.2-1B draft at full width and 8 of its 16 layers (its
+# W8A8 and bf16 twins), so the whole script stays inside its time limit
+# beside the scale-out retrieval phases (all 16 until then).
+SPEC_DRAFT_LAYERS = 8
 # Greedy exactness on the card: plain decode attends through K2, the verify
 # pass through plain PyTorch, and the two round differently, so a near-tie
 # argmax may flip.  Each greedy token is held to its position's argmax
@@ -3745,9 +4061,10 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
     gc.collect()
     torch.cuda.empty_cache()
 
-    kw = spec_scheduler_kwargs(
-        parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma", str(SPEC_GAMMA),
-                    "--matmul-kernel", "pallas_w8a8"]), cfg, dev)
+    with _PresetDepth("llama3.2-1b", SPEC_DRAFT_LAYERS):
+        kw = spec_scheduler_kwargs(
+            parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma", str(SPEC_GAMMA),
+                        "--matmul-kernel", "pallas_w8a8"]), cfg, dev)
     draft = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("paged"), **kw)
     try:
         fields = run("spec_draft", draft, baseline=baseline)
@@ -4379,6 +4696,14 @@ def chain_phase(torch, dev, _cuda, smi: str) -> tuple[dict, dict]:
 BULK_DOCS, BULK_SERIAL_DOCS, BULK_STREAM_TOKENS = 128, 16, 48
 TENANT_DOCS, MULTI_TURN_TOKENS, PROFILE_GEN_TOKENS = 8, CHAIN_GEN_TOKENS, 8
 DURABLE_DOCS, DURABLE_RESUME_DOCS, DURABLE_SEARCHES = 32, 16, 16
+# The durable fabric's run: the sharded fabric through the APP_* keys, a
+# snapshot cut during the ingest (every 3 WAL records; one more delete if
+# the last record would fall on a snapshot), and the SIGKILL restart, which
+# restores that snapshot onto the fabric's children and replays the WAL
+# records after it.
+DURABLE_FABRIC_DOCS = 16
+DURABLE_FABRIC_ENV = {"APP_VECTORSTORE_NAME": "fabric", "APP_FABRIC_NUMSHARDS": "4", "APP_FABRIC_CHILDBACKEND": "tpu",
+                      "APP_DURABILITY_SNAPSHOTEVERYRECORDS": "3"}
 # Files that must fail alone in a bulk job: an extension no loader takes,
 # and a .json file that is not JSON.
 BAD_FILES = (("bad.xyz", "no loader takes this extension"), ("broken.json", "{not json"))
@@ -4831,6 +5156,9 @@ def _recovery_event(base) -> dict:
     rec = events[0]["attrs"]["recovery"]
     if not rec["device"].startswith("cuda"):
         raise AssertionError(f"durable: the store was recovered on {rec['device']}")
+    # A sharded fabric: every shard's child back on the card (R1).
+    if not all(d.startswith("cuda") for d in rec.get("shard_devices", ())):
+        raise AssertionError(f"durable: the fabric's shards were recovered on {rec['shard_devices']}")
     return rec
 
 
@@ -4860,12 +5188,25 @@ def _other_search_traces(base, request_ids) -> list:
             if r["route"] == "/search" and r["request_id"] not in set(request_ids)]
 
 
-def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
+def _snapshot_seq(env):
+    """The WAL sequence number of the durable store's newest snapshot (its
+    manifest's ``wal_seq``), or None before the first."""
+    path = os.path.join(env["GAIE_DURABILITY_DIR"], "store", "MANIFEST.json")
+    if not os.path.exists(path):
+        return None
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)["wal_seq"]
+
+
+def durable_phase(smi: str, server_args=(), env_extra=None, name="durable", n_docs=DURABLE_DOCS, term=True) -> None:
     """Durability on the card with server processes: recovery after a
-    SIGKILL from the WAL, a final snapshot at SIGTERM, and a bulk job
-    killed mid-way that resumes with every file landing once.  The LLM is
-    the echo fake (none of this reaches it); the embedder (arctic-embed-l)
-    and the exact store are the card's.  The result cache keeps only its
+    SIGKILL from the WAL (and, where ``env_extra`` sets a snapshot cadence,
+    from a snapshot cut during the ingest plus at least one WAL record
+    after it), then (with ``term``) a
+    final snapshot at SIGTERM and a bulk job killed mid-way that resumes
+    with every file landing once.  The LLM is the echo fake (none of this reaches it); the
+    embedder (arctic-embed-l) and the store (``env_extra`` may name
+    another, such as the sharded fabric) are the card's.  The result cache keeps only its
     exact tier (random embeddings lie within the semantic tier's 0.98 of
     each other), which stamps each /search's trace with the store version
     it read; no query is searched twice in one process, so every gated
@@ -4888,12 +5229,16 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
                **(env_extra or {}))
     splitter = get_text_splitter(AppConfig())
     brng = np.random.default_rng(0)
-    docs = [(f"durable{i}.txt", _chain_text(brng, CHAIN_LONG_BYTES)) for i in range(DURABLE_DOCS)]
+    docs = [(f"durable{i}.txt", _chain_text(brng, CHAIN_LONG_BYTES)) for i in range(n_docs)]
     resume_docs = [(f"resume{i}.txt", _chain_text(brng, CHAIN_LONG_BYTES)) for i in range(DURABLE_RESUME_DOCS)]
     qrng = np.random.default_rng(1)
     queries = [_chain_text(qrng, int(qrng.integers(30, 60))) for _ in range(DURABLE_SEARCHES + 1)]
     queries, first_query = queries[:-1], queries[-1]
     chunks_of = {name: len(splitter.split(text)) for name, text in docs + resume_docs}
+    snapshot_every = int((env_extra or {}).get("APP_DURABILITY_SNAPSHOTEVERYRECORDS", 0))
+    fabric = env.get("APP_VECTORSTORE_NAME") == "fabric"
+    store = (f"ShardedVectorStore, {env.get('APP_FABRIC_NUMSHARDS')} shards of GPUVectorStore (bf16)" if fabric
+             else "GPUVectorStore (bf16)")
     servers = []
 
     def start(name):
@@ -4914,9 +5259,10 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
         return time.perf_counter() - srv.t0
 
     fields = dict(nvidia_smi=smi, llm="echo (APP_LLM_MODELENGINE=echo; no Llama in this phase)",
-                  embedder="arctic-embed-l, 24 layers, random bf16, seed 0", store="GPUVectorStore (bf16)",
+                  embedder="arctic-embed-l, 24 layers, random bf16, seed 0", store=store,
                   cache="exact tier only (APP_CACHE_SEMANTICENABLED=false)",
-                  durability="APP_DURABILITY_ENABLED=true, defaults")
+                  durability="APP_DURABILITY_ENABLED=true, snapshot every "
+                             f"{snapshot_every or 'default'} records")
     try:
         # 1-2. Ingest, delete a source, record 16 searches; SIGKILL.
         a, fields["start_a_s"] = start("a")
@@ -4924,103 +5270,121 @@ def durable_phase(smi: str, server_args=(), env_extra=None) -> None:
         job = _wait_job(a.base, _bulk(a.base, docs))
         fields["ingest_s"] = time.perf_counter() - t0
         added = sum(chunks_of[n] for n, _ in docs)
+        deleted = [docs[0][0]]
         status, _, raw = _http("DELETE", a.base + f"/documents?filename={docs[0][0]}")
-        if job["status"] != "done" or job["files_done"] != DURABLE_DOCS or status != 200:
+        if snapshot_every and status == 200 and _snapshot_seq(env) == _exposition(a.base).value("rag_wal_last_seq"):
+            # The delete fell on a snapshot: one more record, so the restart
+            # replays at least one after it.
+            deleted.append(docs[1][0])
+            status, _, raw = _http("DELETE", a.base + f"/documents?filename={docs[1][0]}")
+        if job["status"] != "done" or job["files_done"] != n_docs or status != 200:
             raise AssertionError(f"durable: ingest {job}, delete {status} {raw[:200]!r}")
         want = searches(a)
         exp = _exposition(a.base)
         rows, seq, wal_bytes = exp.value("rag_store_rows"), exp.value("rag_wal_last_seq"), exp.value("rag_wal_bytes_total")
         sources, versions = _documents(a.base), set(_search_store_versions(a.base, search_ids(a)))
-        if rows != added - chunks_of[docs[0][0]] or len(sources) != DURABLE_DOCS - 1 or len(versions) != 1:
+        if rows != added - sum(chunks_of[n] for n in deleted) or len(sources) != n_docs - len(deleted) or (
+                len(versions) != 1):
             raise AssertionError(f"durable: {rows} rows, {len(sources)} sources, versions {versions} before the kill")
         version = versions.pop()
         fields["other_search_traces_a"] = _other_search_traces(a.base, search_ids(a))
         a.kill()
-        # 3. Restart: the WAL replays.
+        # 3. Restart: the WAL replays (after the snapshot, if one was cut).
         b, fields["restart_after_kill_ready_s"] = start("b")
         fields["restart_after_kill_first_search_s"] = first_search_s(b)
         rec = _recovery_event(b.base)
         exp = _exposition(b.base)
         got = searches(b)
-        if rec["snapshot_restored"] or rec["replayed_records"] != seq or rec["rows"] != rows or (
+        replayed = seq - rec["base_seq"]
+        if rec["snapshot_restored"] != bool(snapshot_every) or rec["replayed_records"] != replayed or replayed < 1 or (
+                rec["rows"] != rows) or (
                 rec["version"] != version) or set(_search_store_versions(b.base, all_ids(b))) != {version} or (
-                exp.value("rag_recovery_replayed_records_total") != seq) or (
+                exp.value("rag_recovery_replayed_records_total") != replayed) or (
                 exp.value("rag_store_rows") != rows) or _documents(b.base) != sources or got != want:
             raise AssertionError(f"durable: recovery gate: {rec} (version {version} before the kill), "
                                  f"searches equal {got == want}")
-        fields.update(rows=rows, rows_added=added, wal_records=seq, wal_bytes=wal_bytes,
+        fields.update(rows=rows, rows_added=added, sources_deleted=len(deleted), wal_records=seq, wal_bytes=wal_bytes,
                       wal_bytes_per_1000_rows=wal_bytes / added * 1000, recovery_replayed_records=rec["replayed_records"],
                       recovery_s=rec["duration_ms"] / 1e3, version_before_kill=version,
                       recovery_version=rec["version"], recovery_device=rec["device"],
+                      recovery_snapshot_restored=rec["snapshot_restored"], recovery_base_seq=rec["base_seq"],
                       searches_equal_after_kill=len(got),
                       other_search_traces_b=_other_search_traces(b.base, all_ids(b)))
-        # 4. SIGTERM cuts a final snapshot.
-        rc, fields["sigterm_to_exit_s"] = b.term()
-        cut = re.findall(r"snapshot (snap-\d+): (\d+) rows in ([0-9.]+) ms", b.log_tail(200000))
-        if rc != 0 or not cut or int(cut[-1][1]) != rows:
-            raise AssertionError(f"durable: SIGTERM exit {rc}, snapshot lines {cut}:\n{b.log_tail()}")
-        fields.update(snapshot=cut[-1][0], snapshot_s=float(cut[-1][2]) / 1e3)
-        # 5. Restart: the snapshot loads and nothing replays.
-        c, fields["restart_after_term_ready_s"] = start("c")
-        fields["restart_after_term_first_search_s"] = first_search_s(c)
-        rec = _recovery_event(c.base)
-        got = searches(c)
-        if not rec["snapshot_restored"] or rec["replayed_records"] != 0 or rec["rows"] != rows or got != want or (
-                rec["version"] != version) or set(_search_store_versions(c.base, all_ids(c))) != {version} or (
-                _documents(c.base) != sources):
-            raise AssertionError(f"durable: snapshot gate: {rec} (version {version}), searches equal {got == want}")
-        fields.update(snapshot_recovery_s=rec["duration_ms"] / 1e3, snapshot_recovery_device=rec["device"],
-                      searches_equal_after_term=len(got),
-                      other_search_traces_c=_other_search_traces(c.base, all_ids(c)))
-        # 6. A bulk job killed mid-way resumes at the next start.
-        job_id = _bulk(c.base, resume_docs)
-        t0 = time.perf_counter()
-        while True:
-            snap = _job(c.base, job_id)
-            if snap["status"] != "running" or snap["files_done"] >= DURABLE_RESUME_DOCS // 4 or (
-                    time.perf_counter() - t0 > 300):
-                break
-            time.sleep(0.01)
-        c.kill()
-        if snap["status"] != "running":
-            raise AssertionError(f"durable: the job was not running at the kill: {snap}")
-        d, fields["restart_after_job_kill_ready_s"] = start("d")
-        _recovery_event(d.base)
-        t0 = time.perf_counter()
-        resumed = _wait_job(d.base, job_id)
-        fields["resume_wait_s"] = time.perf_counter() - t0
-        listed = _documents(d.base)
-        exp = _exposition(d.base)
-        rows_after = rows + sum(chunks_of[n] for n, _ in resume_docs)
-        if resumed["status"] != "done" or resumed["files_done"] != DURABLE_RESUME_DOCS or resumed["files_failed"] or (
-                listed != sorted(sources + [n for n, _ in resume_docs])) or exp.value("rag_store_rows") != rows_after or (
-                exp.value("rag_recovery_resumed_jobs_total") != 1):
-            raise AssertionError(f"durable: resume gate: {resumed}, {exp.value('rag_store_rows')} rows (want "
-                                 f"{rows_after})")
-        rc, _ = d.term()
-        # Every file landed once: the final snapshot's chunks, by source,
-        # with no chunk id twice.
-        store_dir = os.path.join(env["GAIE_DURABILITY_DIR"], "store")
-        with open(os.path.join(store_dir, "MANIFEST.json"), encoding="utf-8") as fh:
-            manifest = json.load(fh)
-        with open(os.path.join(store_dir, manifest["snapshot"], "chunks.json"), encoding="utf-8") as fh:
-            chunks = json.load(fh)["chunks"]
-        per_source: dict = {}
-        for c_ in chunks:
-            per_source[c_["source"]] = per_source.get(c_["source"], 0) + 1
-        ids = [c_["id"] for c_ in chunks]
-        if rc != 0 or len(ids) != len(set(ids)) or per_source != {n: chunks_of[n] for n in listed}:
-            raise AssertionError(f"durable: exit {rc}, {len(ids) - len(set(ids))} duplicate ids, sources off by "
-                                 f"{ {n: per_source.get(n) for n in listed if per_source.get(n) != chunks_of[n]} }")
-        fields.update(resume_killed_at_files_done=snap["files_done"], resume_files=DURABLE_RESUME_DOCS,
-                      resume_status=resumed["status"], resume_rows=rows_after, resume_duplicate_ids=0,
-                      servers_started=len(servers))
+        if "shard_devices" in rec:
+            fields["recovery_shard_devices"] = rec["shard_devices"]
+        if not term:
+            rc, _ = b.term()
+            if rc != 0:
+                raise AssertionError(f"{name}: SIGTERM exit {rc}:\n{b.log_tail()}")
+            fields["servers_started"] = len(servers)
+        else:
+            # 4. SIGTERM cuts a final snapshot.
+            rc, fields["sigterm_to_exit_s"] = b.term()
+            cut = re.findall(r"snapshot (snap-\d+): (\d+) rows in ([0-9.]+) ms", b.log_tail(200000))
+            if rc != 0 or not cut or int(cut[-1][1]) != rows:
+                raise AssertionError(f"durable: SIGTERM exit {rc}, snapshot lines {cut}:\n{b.log_tail()}")
+            fields.update(snapshot=cut[-1][0], snapshot_s=float(cut[-1][2]) / 1e3)
+            # 5. Restart: the snapshot loads and nothing replays.
+            c, fields["restart_after_term_ready_s"] = start("c")
+            fields["restart_after_term_first_search_s"] = first_search_s(c)
+            rec = _recovery_event(c.base)
+            got = searches(c)
+            if not rec["snapshot_restored"] or rec["replayed_records"] != 0 or rec["rows"] != rows or got != want or (
+                    rec["version"] != version) or set(_search_store_versions(c.base, all_ids(c))) != {version} or (
+                    _documents(c.base) != sources):
+                raise AssertionError(f"durable: snapshot gate: {rec} (version {version}), searches equal {got == want}")
+            fields.update(snapshot_recovery_s=rec["duration_ms"] / 1e3, snapshot_recovery_device=rec["device"],
+                          searches_equal_after_term=len(got),
+                          other_search_traces_c=_other_search_traces(c.base, all_ids(c)))
+            # 6. A bulk job killed mid-way resumes at the next start.
+            job_id = _bulk(c.base, resume_docs)
+            t0 = time.perf_counter()
+            while True:
+                snap = _job(c.base, job_id)
+                if snap["status"] != "running" or snap["files_done"] >= DURABLE_RESUME_DOCS // 4 or (
+                        time.perf_counter() - t0 > 300):
+                    break
+                time.sleep(0.01)
+            c.kill()
+            if snap["status"] != "running":
+                raise AssertionError(f"durable: the job was not running at the kill: {snap}")
+            d, fields["restart_after_job_kill_ready_s"] = start("d")
+            _recovery_event(d.base)
+            t0 = time.perf_counter()
+            resumed = _wait_job(d.base, job_id)
+            fields["resume_wait_s"] = time.perf_counter() - t0
+            listed = _documents(d.base)
+            exp = _exposition(d.base)
+            rows_after = rows + sum(chunks_of[n] for n, _ in resume_docs)
+            if resumed["status"] != "done" or resumed["files_done"] != DURABLE_RESUME_DOCS or resumed["files_failed"] or (
+                    listed != sorted(sources + [n for n, _ in resume_docs])) or exp.value("rag_store_rows") != rows_after or (
+                    exp.value("rag_recovery_resumed_jobs_total") != 1):
+                raise AssertionError(f"durable: resume gate: {resumed}, {exp.value('rag_store_rows')} rows (want "
+                                     f"{rows_after})")
+            rc, _ = d.term()
+            # Every file landed once: the final snapshot's chunks, by source,
+            # with no chunk id twice.
+            store_dir = os.path.join(env["GAIE_DURABILITY_DIR"], "store")
+            with open(os.path.join(store_dir, "MANIFEST.json"), encoding="utf-8") as fh:
+                manifest = json.load(fh)
+            with open(os.path.join(store_dir, manifest["snapshot"], "chunks.json"), encoding="utf-8") as fh:
+                chunks = json.load(fh)["chunks"]
+            per_source: dict = {}
+            for c_ in chunks:
+                per_source[c_["source"]] = per_source.get(c_["source"], 0) + 1
+            ids = [c_["id"] for c_ in chunks]
+            if rc != 0 or len(ids) != len(set(ids)) or per_source != {n: chunks_of[n] for n in listed}:
+                raise AssertionError(f"durable: exit {rc}, {len(ids) - len(set(ids))} duplicate ids, sources off by "
+                                     f"{ {n: per_source.get(n) for n in listed if per_source.get(n) != chunks_of[n]} }")
+            fields.update(resume_killed_at_files_done=snap["files_done"], resume_files=DURABLE_RESUME_DOCS,
+                          resume_status=resumed["status"], resume_rows=rows_after, resume_duplicate_ids=0,
+                          servers_started=len(servers))
     finally:
         for srv in servers:
             srv.close()
         shutil.rmtree(root, ignore_errors=True)
-    fields["phase_s"] = time.perf_counter() - t_phase
-    emit("durable", **fields)
+        fields["phase_s"] = time.perf_counter() - t_phase
+    emit(name, **fields)
 
 
 # ---------------------------------------------------------------------------
@@ -5094,12 +5458,17 @@ def check_quantizers(torch, dev) -> dict:
 
 
 HF_SHARDS = 4
-# The seeded Llama-3-8B checkpoint's depth: 16 of its 32 layers, so the whole
-# script stays inside its time limit beside the pool phase (32 until then).
-HF_LLAMA_LAYERS = 16
+# The seeded Llama-3-8B checkpoint's depth: 4 of its 32 layers, so the whole
+# script stays inside its time limit beside the scale-out retrieval phases
+# (16 beside the pool phase, 32 before it).
+HF_LLAMA_LAYERS = 4
 HF_SEED = 0
 LLAMA_HF = "meta-llama/Meta-Llama-3-8B-Instruct"
 EMBED_HF, RERANK_HF = "acme/arctic-embed-l-seeded", "acme/cross-encoder-seeded"
+# The seeded BERT checkpoints' depth: 12 of arctic-embed-l's 24 layers (full
+# width), so the whole script stays inside its time limit beside the
+# scale-out retrieval phases.
+HF_BERT_LAYERS = 12
 # (ours, HF name in a layer); the projections in the fused order.
 LLAMA_NORMS = (("attn_norm", "input_layernorm.weight"), ("mlp_norm", "post_attention_layernorm.weight"))
 LLAMA_PROJ = (("wq", "self_attn.q_proj.weight"), ("wk", "self_attn.k_proj.weight"),
@@ -5539,10 +5908,12 @@ def hf_embed_and_rerank(torch, np, dev, root) -> dict:
     from generativeaiexamples_tpu_torch.core.configuration import reset_config_cache
     from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
     from generativeaiexamples_tpu_torch.engine.reranker import GPUReranker
+    import dataclasses
+
     from generativeaiexamples_tpu_torch.engine.tokenizer import WordPieceTokenizer
     from generativeaiexamples_tpu_torch.models import bert
 
-    cfg = bert.arctic_embed_l()
+    cfg = dataclasses.replace(bert.arctic_embed_l(), n_layers=HF_BERT_LAYERS)
     vocab, words = wordpiece_vocab(HF_SEED, cfg.vocab_size)
     t0 = time.perf_counter()
     emb_dir, rr_dir = (os.path.join(root, n.replace("/", "--")) for n in (EMBED_HF, RERANK_HF))
@@ -5748,10 +6119,11 @@ FAMILY_MODELS = (("google/gemma-2b", "gemma-2b"), ("google/gemma-7b", "gemma-7b"
                  ("bigcode/starcoder2-3b", "starcoder2-3b"), ("mistralai/Mixtral-8x7B-Instruct-v0.1", "mixtral-8x7b"))
 # Mixtral's bf16 experts are 2.82 GB a layer, 90 GB at its 32 layers (more
 # than the card holds; the reference keeps them bf16 too).  Each family is
-# served at half its depth and Mixtral at 4 layers, so the whole script stays
-# inside its time limit beside the pool phase (all layers and Mixtral at 8
-# until then; 16 before the xla_path phase).
-FAMILY_SERVED_LAYERS = {"gemma-2b": 9, "gemma-7b": 14, "starcoder2-3b": 15, "mixtral-8x7b": 4}
+# served at a quarter of its depth and Mixtral at 2 layers, so the whole
+# script stays inside its time limit beside the scale-out retrieval phases
+# (half and 4 beside the pool phase; all layers and Mixtral at 8 before it;
+# 16 before the xla_path phase).
+FAMILY_SERVED_LAYERS = {"gemma-2b": 5, "gemma-7b": 7, "starcoder2-3b": 8, "mixtral-8x7b": 2}
 FAMILY_PAGED = ("gemma-2b", "starcoder2-3b")
 FAMILY_CHECKPOINTS = ("gemma-7b", "starcoder2-3b", "mixtral-8x7b")
 FAMILY_VOCAB_STRIDE = 8  # rows of the embedding and head held against numpy
@@ -6427,6 +6799,11 @@ def _planted_fault(torch, llama, sound, fault: str):
     return faulty
 
 
+# The xla path's Llama-3-8B at full width and 16 of its 32 layers (its
+# server, generators and the W8A8 generator), so the whole script stays
+# inside its time limit beside the scale-out retrieval phases (all 32
+# until then).
+XLA_SERVED_LAYERS = 16
 XLA_ARGV = ("--model", "llama3-8b", "--matmul-kernel", "xla", "--host", "127.0.0.1", "--port", "0",
             "--embedder", "none", "--seed", "0")
 
@@ -6658,8 +7035,9 @@ def xla_spec(torch, dev, _cuda, cfg, params, prompts, serve_summary) -> tuple:
     plain_streams = {prompt: ids for prompt, sp, ids in records if sp.temperature <= 0.0}
     gc.collect()
     torch.cuda.empty_cache()
-    kw = spec_scheduler_kwargs(parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma",
-                                           str(SPEC_GAMMA)]), cfg, dev)
+    with _PresetDepth("llama3.2-1b", SPEC_DRAFT_LAYERS):
+        kw = spec_scheduler_kwargs(parse_args(["--spec-decode", "--draft-model", "llama3.2-1b", "--gamma",
+                                               str(SPEC_GAMMA)]), cfg, dev)
     dcfg, dparams = kw["draft_cfg"], kw["draft_params"]
     draft = Scheduler(cfg, params, device=dev, matmul_kernel="xla", **serve_kw("contiguous"), **kw)
     if len(draft._dcache) != 2 or draft._dcache[0].dtype != torch.bfloat16:
@@ -6739,8 +7117,8 @@ def xla_generators(torch, dev, _cuda, cfg, params, dcfg, dparams, alone_streams,
     torch.cuda.empty_cache()
     # The W8A8 route over an int8 cache.
     t0 = time.perf_counter()
-    w8 = LlamaGenerator(llama.llama3_8b(kv_dtype="int8"), None, device=dev, max_batch=8, max_len=2048, quantize=True,
-                        matmul_kernel="pallas_w8a8", seed=0)
+    w8 = LlamaGenerator(llama.llama3_8b(kv_dtype="int8", n_layers=cfg.n_layers), None, device=dev, max_batch=8,
+                        max_len=2048, quantize=True, matmul_kernel="pallas_w8a8", seed=0)
     _cuda.reset_launch_counts()
     res = w8.generate([list(p) for p in prompts], greedy)
     launches["w8a8_generator"] = dict(_cuda.LAUNCHES)
@@ -6775,17 +7153,18 @@ def xla_path_phase(torch, dev, _cuda, smi: str, log, prompts, k2_ms: float) -> t
     gc.collect()
     torch.cuda.empty_cache()
     launches = {}
-    cfg = llama.llama3_8b()
-    params, alone, ext, summary, launches["serve"], found = xla_serve(torch, dev, _cuda, prompts)
-    failures += found
-    launches["serve_paged"], found = xla_serve_paged(torch, dev, _cuda, prompts)
-    failures += found
-    dcfg, dparams, spec_launches, found = xla_spec(torch, dev, _cuda, cfg, params, prompts, summary)
-    failures += found
-    launches.update(spec_launches)
-    gen_launches, found = xla_generators(torch, dev, _cuda, cfg, params, dcfg, dparams, alone, ext)
-    failures += found
-    launches.update(gen_launches)
+    cfg = llama.llama3_8b(n_layers=XLA_SERVED_LAYERS)
+    with _PresetDepth("llama3-8b", XLA_SERVED_LAYERS):
+        params, alone, ext, summary, launches["serve"], found = xla_serve(torch, dev, _cuda, prompts)
+        failures += found
+        launches["serve_paged"], found = xla_serve_paged(torch, dev, _cuda, prompts)
+        failures += found
+        dcfg, dparams, spec_launches, found = xla_spec(torch, dev, _cuda, cfg, params, prompts, summary)
+        failures += found
+        launches.update(spec_launches)
+        gen_launches, found = xla_generators(torch, dev, _cuda, cfg, params, dcfg, dparams, alone, ext)
+        failures += found
+        launches.update(gen_launches)
     del params, dparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -6870,6 +7249,8 @@ def main() -> int:
     store, ret_queries, planted = retrieve_phase(torch, dev)
     retriever_phase(torch, dev, store)
     stores_phase(torch, dev, store, ret_queries, planted)
+    fabric_phase(torch, dev, store, ret_queries, planted)
+    native_store_phase(store, ret_queries)
     from generativeaiexamples_tpu_torch.chains.factory import reset_factories
 
     reset_factories()  # frees the chain: the 1M-row store, its embedder, the reranker
@@ -6937,6 +7318,7 @@ def main() -> int:
     kw = serve_kw("contiguous")
     check_qmm_shapes(torch, dev, k1_shapes.seen, worst_m=kw["max_batch"] * kw["max_len"])
     durable_phase(smi)
+    durable_phase(smi, name="durable_fabric", n_docs=DURABLE_FABRIC_DOCS, term=False, env_extra=DURABLE_FABRIC_ENV)
 
     kernels = []
     for name, s in summary.items():

@@ -8,8 +8,8 @@
 embedder, one store and one micro-batcher.  Engine names are the
 reference's: ``tpu`` means this package's device implementation on the
 card (``GPUChatLLM``, ``GPUEmbedder``, ``GPUVectorStore``,
-``GPUReranker``), ``openai`` an HTTP client, and ``echo`` / ``hash`` the
-fakes.
+``GPUReranker``), ``huggingface`` sentence-transformers (``STEmbedder``),
+``openai`` an HTTP client, and ``echo`` / ``hash`` the fakes.
 
 Each factory function takes ``device`` like every other entry point of the
 port: ``None`` is the card, ``"cpu"`` the CPU; the first build of a
@@ -48,10 +48,6 @@ def _singleton(name: str, build, device):
 def _peek(name: str):
     with _LOCK:
         return _STATE.get(name)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP.md, Queue 1 {item})")
 
 
 def _checkpoint_refused(model_name: str) -> None:
@@ -123,7 +119,9 @@ def _build_embedder(device):
 
         return HashEmbedder(dimensions=cfg.embeddings.dimensions)
     if engine == "huggingface":
-        raise _not_ported("embeddings.model_engine 'huggingface' (STEmbedder)", "item 8")
+        from generativeaiexamples_tpu_torch.engine.embedder import STEmbedder
+
+        return STEmbedder(cfg.embeddings.model_name, cfg.embeddings.dimensions, device=device)
     if engine == "openai":
         from generativeaiexamples_tpu_torch.engine.embedder_client import HTTPEmbedder
 
@@ -479,14 +477,16 @@ def reset_factories(keep: Sequence[str] = ()) -> None:
     rebuilt under a new config over a store and an engine already loaded.
     What is dropped is closed as the reference closes it: the batcher's
     worker and the chat LLM's scheduler thread stop, the ingest pipeline
-    drains and its journal closes, the named collections are dropped, and
-    a durable store closes its WAL without a final snapshot (a recovery
-    test needs the WAL tail exactly as its scenario left it)."""
+    drains and its journal closes, the named collections are dropped, a
+    durable store closes its WAL without a final snapshot (a recovery
+    test needs the WAL tail exactly as its scenario left it), and a
+    sharded store stops its fan-out workers."""
     from generativeaiexamples_tpu_torch.cache.metrics import reset_cache_metrics
     from generativeaiexamples_tpu_torch.durability.metrics import reset_durability_metrics
     from generativeaiexamples_tpu_torch.durability.store import DurableVectorStore
     from generativeaiexamples_tpu_torch.obs import reset_obs
     from generativeaiexamples_tpu_torch.resilience.metrics import reset_resilience
+    from generativeaiexamples_tpu_torch.retrieval.fabric.sharded import ShardedVectorStore
 
     reset_resilience()
     reset_cache_metrics()
@@ -501,5 +501,10 @@ def reset_factories(keep: Sequence[str] = ()) -> None:
         dropped["ingest"].journal.close()
     if dropped.get("collections") is not None:
         dropped["collections"].close()
-    if isinstance(dropped.get("store"), DurableVectorStore):
-        dropped["store"].close(final_snapshot=False)
+    store = dropped.get("store")
+    if isinstance(store, DurableVectorStore):
+        store.close(final_snapshot=False)
+    # A sharded store owns fan-out worker threads: stop them.
+    inner = getattr(store, "_inner", store)
+    if isinstance(inner, ShardedVectorStore):
+        inner.close()

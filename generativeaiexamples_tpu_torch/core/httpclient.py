@@ -1,9 +1,11 @@
-"""One JSON POST over ``http.client`` (the layer ``urllib.request`` is built
-on), for the clients of external engines: ``engine/embedder_client.py`` and
-``chains/llm.py::OpenAIChatLLM``.
+"""HTTP over ``http.client`` (the layer ``urllib.request`` is built on) for
+the port's clients of external services: one JSON POST for the engines'
+clients (``engine/embedder_client.py``, ``chains/llm.py::OpenAIChatLLM``)
+and one request of any method for the Elasticsearch store
+(``retrieval/elastic_compat.py``).
 
-The reference's clients run on httpx, which the card machine does not
-have.  ``http.client`` keeps httpx's split of the two timeouts: a dead host
+The reference's clients run on httpx and requests, which the card machine
+does not have.  ``http.client`` keeps httpx's split of the two timeouts: a dead host
 fails within ``connect_timeout``, and each read of a live one within
 ``read_timeout`` (``urllib.request`` applies one timeout to both).
 """
@@ -14,7 +16,7 @@ import contextlib
 import http.client
 import json
 import urllib.parse
-from typing import Iterator, Mapping
+from typing import Iterator, Mapping, Optional
 
 
 class HTTPStatusError(OSError):
@@ -43,5 +45,24 @@ def post_json(
         if resp.status >= 400:
             raise HTTPStatusError(resp.status, resp.read(4096))
         yield resp
+    finally:
+        conn.close()
+
+
+def request(
+    method: str, url: str, body: Optional[bytes] = None, headers: Optional[Mapping[str, str]] = None, *,
+    timeout: float,
+) -> tuple[int, bytes]:
+    """One request of any method; returns ``(status, body)`` whatever the
+    status (the caller decides what is an error).  ``timeout`` bounds the
+    connect and each read."""
+    parts = urllib.parse.urlsplit(url)
+    conn_cls = http.client.HTTPSConnection if parts.scheme == "https" else http.client.HTTPConnection
+    conn = conn_cls(parts.hostname, parts.port, timeout=timeout)
+    try:
+        path = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
+        conn.request(method, path, body, dict(headers or {}))
+        resp = conn.getresponse()
+        return resp.status, resp.read()
     finally:
         conn.close()

@@ -30,9 +30,11 @@ covers, which recovery skips because the manifest names the highest
 sequence it contains.
 
 Recovery restores a snapshot onto the wrapped store's own device (a
-``GPUVectorStore`` on the card comes back on the card), and its stats
+``GPUVectorStore`` on the card comes back on the card, and a sharded
+fabric with its configured children on its device), and its stats
 also carry the recovered store's ``rows``, ``version`` and ``device``
-(``cpu`` for a host store), which the reference's do not.
+(``cpu`` for a host store), and a fabric's ``shard_devices``, which the
+reference's do not.
 """
 
 from __future__ import annotations
@@ -117,7 +119,13 @@ def _apply_record(store: VectorStore, rec: WalRecord) -> bool:
 def _default_loader(inner: VectorStore) -> Callable[[str], VectorStore]:
     """Reload a snapshot into a store like ``inner``: a store with a
     ``device`` (``GPUVectorStore``) comes back on that device with its
-    query bound, never on the loader's default."""
+    query bound, never on the loader's default; a sharded fabric comes back
+    through its ``load_like``, with its configured children on its device
+    and its fan-out knobs (the reference's ``type(inner).load`` rebuilds a
+    fabric of numpy ``MemoryVectorStore`` children)."""
+    load_like = getattr(inner, "load_like", None)
+    if callable(load_like):
+        return load_like
     device = getattr(inner, "device", None)
     if device is None:
         return type(inner).load
@@ -149,7 +157,12 @@ def _recover(
         if os.path.isdir(snap_dir):
             try:
                 load = loader or _default_loader(inner)
-                inner = load(snap_dir)
+                restored = load(snap_dir)
+                if restored is not inner and callable(getattr(inner, "close", None)):
+                    # The empty store the restore replaces: a fabric's fan-out
+                    # workers stop with it.
+                    inner.close()
+                inner = restored
                 stats["snapshot_restored"] = True
                 stats["snapshot"] = str(manifest["snapshot"])
                 stats["base_seq"] = int(manifest.get("wal_seq", 0))
@@ -177,6 +190,8 @@ def _recover(
     stats["rows"] = len(inner)
     stats["version"] = inner.version()
     stats["device"] = str(getattr(inner, "device", "cpu"))
+    if callable(getattr(inner, "shard_devices", None)):
+        stats["shard_devices"] = inner.shard_devices()
     stats["duration_ms"] = round((time.perf_counter() - t0) * 1000, 3)
     return inner, stats
 

@@ -9,9 +9,10 @@ Implementations:
     (``models.bert``) on the card, in length- and batch-bucketed forwards.
   * :class:`HashEmbedder`: deterministic, dependency-free fake for hermetic
     tests (a copy of the reference's).
-
-The reference's ``STEmbedder`` (sentence-transformers on the CPU) is not
-ported: the card machine has no sentence-transformers (``ROADMAP.md``).
+  * :class:`STEmbedder`: sentence-transformers (engine ``huggingface``),
+    imported when one is built.  Deliberate difference: it runs on the
+    card unless ``device="cpu"`` is passed, as every entry point of the
+    port does; the reference pins the CPU.
 """
 
 from __future__ import annotations
@@ -149,3 +150,26 @@ class HashEmbedder:
 
     def embed_queries(self, texts: Sequence[str]) -> list[list[float]]:
         return [self._vec(t).tolist() for t in texts]
+
+
+class STEmbedder:
+    """sentence-transformers embeddings (reference engine ``huggingface``),
+    on ``device``: the card unless ``"cpu"`` is passed."""
+
+    def __init__(self, model_name: str, dimensions: int = 1024, *, device=None) -> None:
+        from sentence_transformers import SentenceTransformer
+
+        self.device = resolve_device(device)
+        self._model = SentenceTransformer(model_name, device=str(self.device))
+        self.dimensions = self._model.get_sentence_embedding_dimension() or dimensions
+
+    def embed_documents(self, texts: Sequence[str]) -> list[list[float]]:
+        return self._model.encode(list(texts), normalize_embeddings=True).tolist()
+
+    def embed_query(self, text: str) -> list[float]:
+        return self._model.encode([text], normalize_embeddings=True)[0].tolist()
+
+    def embed_queries(self, texts: Sequence[str]) -> list[list[float]]:
+        if not texts:
+            return []
+        return self._model.encode(list(texts), normalize_embeddings=True).tolist()

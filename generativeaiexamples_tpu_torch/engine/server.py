@@ -1029,8 +1029,26 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
             from generativeaiexamples_tpu_torch.ops import _cuda
 
             _cuda.build()
+        replica_bootstrap = None
+        pool_target = args.replicas
+        if get_config().durability.enabled or get_config().vector_store.name == "fabric":
+            # Scale-up hydrates the store singleton from the latest snapshot
+            # (a no-op once live) so a fresh replica answers retrieval against
+            # the existing corpus without re-embedding.  Against a sharded
+            # fabric the grown replica warms ONLY the hot partitions routed to
+            # its index instead of syncing every shard.
+            def replica_bootstrap(scheduler, replica_idx: int = 0) -> None:
+                from generativeaiexamples_tpu_torch.chains.factory import get_store
+
+                store = get_store(device)
+                inner = getattr(store, "_inner", store)
+                hydrate = getattr(inner, "hydrate_replica", None)
+                if callable(hydrate):
+                    warmed = hydrate(replica_idx, max(pool_target, replica_idx + 1))
+                    logger.info("replica %d hydrated fabric shard(s) %s", replica_idx, warmed)
+
         engine = EnginePool([make_scheduler() for _ in range(max(1, args.replicas))], policy=args.routing_policy,
-                            scheduler_factory=make_scheduler)
+                            scheduler_factory=make_scheduler, replica_bootstrap=replica_bootstrap)
     else:
         engine = make_scheduler()
     embedder = None

@@ -1,17 +1,19 @@
 """Prometheus lines for the retrieval fabric (port of the JAX package's
 ``retrieval/fabric/metrics.py``).
 
-Same contracts as every other ``*_metrics_lines`` helper the chain server
-composes: **from-zero** (every family exports before any collection
-exists, so dashboards need no existence checks) and **peek-only**
-(scraping must never instantiate a store or a manager).
+Same contracts as every other ``*_metrics_lines`` helper both servers
+compose: **from-zero** (every family exports before any fabric or
+collection exists, so dashboards need no existence checks) and
+**peek-only** (scraping must never instantiate a store or a manager).
 
 Three families:
 
-  * ``rag_shard_*`` — scatter-gather topology and fan-out counters of a
-    sharded store.  The port has no sharded store yet (``ROADMAP.md``,
-    Queue 1 item 8), so they export their zeros;
-  * ``rag_coldtier_*`` — the host-RAM tier of that store: zeros too;
+  * ``rag_shard_*`` — scatter-gather topology and fan-out counters from
+    the process's :class:`ShardedVectorStore` (zeros when the configured
+    store is unsharded);
+  * ``rag_coldtier_*`` — host-RAM tier movement: promotions/demotions,
+    prefetch traffic, resident host bytes, and the per-query host/device
+    scan-byte split;
   * ``rag_collection_*`` — tenancy: collection count, lifecycle
     counters, quota rejections.
 
@@ -56,8 +58,15 @@ def fold_collection_labels(per_collection: dict[str, dict]) -> list[tuple[str, d
 
 
 def _unwrap_fabric(store):
-    """The sharded store behind ``store``: the port has none, so every
-    store is unsharded (reference ``_unwrap_fabric``)."""
+    """The ShardedVectorStore behind ``store``, unwrapping a durability
+    shell, or None when the backend is unsharded."""
+    from generativeaiexamples_tpu_torch.retrieval.fabric.sharded import ShardedVectorStore
+
+    if isinstance(store, ShardedVectorStore):
+        return store
+    inner = getattr(store, "_inner", None)
+    if isinstance(inner, ShardedVectorStore):
+        return inner
     return None
 
 

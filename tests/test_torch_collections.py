@@ -161,7 +161,9 @@ def test_store_overrides_follow_the_reference(config):
     assert isinstance(get_vector_store(device="cpu", collection="tenant-a"), GPUVectorStore)
     int8 = get_vector_store(device="cpu", overrides={"quantization": "int8"})
     assert isinstance(int8, GPUVectorStore) and int8.quantization == "int8" and int8.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_vector_store(device="cpu", overrides={"backend": "fabric"})
+    fabric = get_vector_store(device="cpu", overrides={"backend": "fabric", "child_backend": "tpu", "num_shards": 2})
+    assert type(fabric).__name__ == "ShardedVectorStore" and fabric.num_shards == 2
+    assert all(isinstance(s.store, GPUVectorStore) and s.store.device.type == "cpu" for s in fabric._shards)
+    fabric.close()
     with pytest.raises(ValueError):
         get_vector_store(device="cpu", overrides={"backend": "nowhere"})

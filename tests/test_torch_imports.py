@@ -1,6 +1,8 @@
 """The port imports neither JAX nor anything of the JAX package, nor the
-packages the card machine lacks (aiohttp, pydantic, httpx, PyYAML), not
-even when it builds an ``HFTokenizer`` (which imports ``transformers``).
+packages the card machine lacks (aiohttp, pydantic, httpx, PyYAML,
+requests, and the external stores' client libraries and sentence-transformers,
+which load only when such a store or embedder is built), not even when it
+builds an ``HFTokenizer`` (which imports ``transformers``).
 
 Checked in a subprocess: the test process itself has JAX loaded by
 ``tests/conftest.py``.  Note the prefix: ``generativeaiexamples_tpu_torch``
@@ -22,7 +24,8 @@ import generativeaiexamples_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-ABSENT = ("jax", "generativeaiexamples_tpu", "aiohttp", "pydantic", "httpx", "yaml")
+ABSENT = ("jax", "generativeaiexamples_tpu", "aiohttp", "pydantic", "httpx", "yaml", "requests", "pymilvus",
+          "psycopg2", "sentence_transformers")
 bad = [m for m in sys.modules if m.split(".")[0] in ABSENT]
 # transformers itself pulls in PyYAML; JAX and the JAX package stay out.
 from generativeaiexamples_tpu_torch.engine.tokenizer import HFTokenizer
@@ -74,7 +77,9 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                    "retrieval.fabric.collections", "retrieval.fabric.metrics", "ingest.pipeline", "obs.profiler",
                    "obs.exposition", "chains.multi_turn", "chains.query_decomposition", "chains.api_catalog",
                    "engine.spec_decode", "engine.weights", "engine.tokenizer", "engine.native_tokenizer",
-                   "utils.native_build", "engine.generator", "engine.speculative"):
+                   "utils.native_build", "engine.generator", "engine.speculative", "retrieval.fabric.sharded",
+                   "retrieval.fabric.coldtier", "retrieval.native", "retrieval.milvus_compat",
+                   "retrieval.elastic_compat", "retrieval.pgvector_compat"):
         assert f"generativeaiexamples_tpu_torch.{module}" in names
     assert bad == "", f"port pulled in: {bad}"
     assert bad_after == "", f"building an HFTokenizer pulled in: {bad_after}"

@@ -10,7 +10,9 @@ folds and retrains: ids equal, scores within 1e-5.  The bucket ids live on
 the host in the port, so its ``capacity_stats`` bytes are the reference's
 less nlist x cap x 4.  Snapshots of either package (none, int8 and PQ lists,
 nprobe below nlist) load into the other with the same answers, and the
-durable store recovers an IVF snapshot.
+durable store recovers an IVF snapshot.  The factory cases stub both
+packages' C++ store to compare ``auto`` on the CPU with its IVF fallback,
+then let both build it.
 """
 
 import os
@@ -24,6 +26,7 @@ import torch
 
 from generativeaiexamples_tpu.core import configuration as jconfiguration
 from generativeaiexamples_tpu.retrieval import native as jnative
+from generativeaiexamples_tpu.retrieval.native import NativeVectorStore as JNativeVectorStore
 from generativeaiexamples_tpu.retrieval import tpu as tpu_mod
 from generativeaiexamples_tpu.retrieval.base import Chunk as JChunk
 from generativeaiexamples_tpu.retrieval.factory import get_vector_store as jget_vector_store
@@ -32,6 +35,8 @@ from generativeaiexamples_tpu_torch.core import configuration as tconfiguration
 from generativeaiexamples_tpu_torch.durability.store import DurableVectorStore
 from generativeaiexamples_tpu_torch.retrieval import factory as tfactory
 from generativeaiexamples_tpu_torch.retrieval import gpu as gpu_mod
+from generativeaiexamples_tpu_torch.retrieval import native as tnative
+from generativeaiexamples_tpu_torch.retrieval.native import NativeVectorStore as TNativeVectorStore
 from generativeaiexamples_tpu_torch.retrieval.base import Chunk
 from generativeaiexamples_tpu_torch.retrieval.gpu import GPUIVFVectorStore, GPUVectorStore
 
@@ -391,11 +396,12 @@ def config(monkeypatch):
             monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("APP_EMBEDDINGS_DIMENSIONS", str(DIM))
 
-    class NoNativeLibrary:  # the reference's ``auto`` without its C++ store
+    class NoNativeLibrary:  # both packages' ``auto`` without their C++ store
         def __init__(self, *a, **k):
             raise OSError("no native library")
 
     monkeypatch.setattr(jnative, "NativeVectorStore", NoNativeLibrary)
+    monkeypatch.setattr(tnative, "NativeVectorStore", NoNativeLibrary)
     jconfiguration.reset_config_cache()
     tconfiguration.reset_config_cache()
     yield monkeypatch
@@ -430,6 +436,31 @@ def test_factory_ivf_and_auto_backends_match_the_reference(config, env, min_trai
     port, ref, ours, theirs = _built(config, env)
     assert type(port) is GPUIVFVectorStore and type(ref) is TPUIVFVectorStore
     assert ours == theirs and port.device.type == "cpu" and port.min_train_size == min_train
+
+
+@pytest.mark.parametrize("env,threshold", [
+    ({"APP_VECTORSTORE_NAME": "auto"}, 6_000),
+    ({"APP_VECTORSTORE_NAME": "auto", "APP_EMBEDDINGS_DIMENSIONS": "1024"}, 16_000),
+    ({"APP_VECTORSTORE_NAME": "auto", "GAIE_RETRIEVAL_CROSSOVER": "123000", "APP_VECTORSTORE_NLIST": "32"}, 123_000),
+], ids=["auto-narrow", "auto-wide", "auto-pinned"])
+def test_auto_on_the_cpu_builds_the_native_store_when_both_packages_can(config, env, threshold):
+    """With their C++ libraries, both packages' ``auto`` on the CPU build the
+    native IVF store with the crossover as its build threshold; the port's
+    ``tpu-ivf`` stays the IVF store."""
+    config.setattr(jnative, "NativeVectorStore", JNativeVectorStore)
+    config.setattr(tnative, "NativeVectorStore", TNativeVectorStore)
+    for key, value in env.items():
+        config.setenv(key, value)
+    jconfiguration.reset_config_cache()
+    tconfiguration.reset_config_cache()
+    port, ref = tfactory.get_vector_store(device="cpu"), jget_vector_store()
+    assert type(port) is TNativeVectorStore and type(ref) is JNativeVectorStore
+    knobs = ("index_type", "nlist", "nprobe", "ivf_build_threshold")
+    assert [getattr(port, k) for k in knobs] == [getattr(ref, k) for k in knobs]
+    assert port.index_type == "ivf" and port.ivf_build_threshold == threshold
+    config.setenv("APP_VECTORSTORE_NAME", "tpu-ivf")
+    tconfiguration.reset_config_cache()
+    assert type(tfactory.get_vector_store(device="cpu")) is GPUIVFVectorStore
 
 
 @pytest.mark.parametrize("value", ["abc", "0", "-5"])

@@ -377,6 +377,22 @@ def test_factory_chain_matches_reference(monkeypatch, tmp_path):
         assert answers["torch"][0][2][3] == "exact"
 
 
+def _chain_outcome(p, **kw):
+    """What a package's factory makes of the overlay: the store's and its
+    shards' types and the embedder's, or the error it raises (an OSError
+    by class only: the two packages' HTTP clients word a refused
+    connection differently)."""
+    try:
+        r = p.factory.get_retriever(**kw)
+    except OSError as exc:
+        return ("OSError", isinstance(exc, ConnectionError) or "connect" in str(exc).lower())
+    except Exception as exc:  # noqa: BLE001 — compared across packages
+        return (type(exc).__name__, str(exc))
+    shards = sorted({type(s.store).__name__ for s in getattr(r.store, "_shards", ())})
+    name = type(r.store).__name__.replace("TPU", "X").replace("GPU", "X")
+    return ("built", name, shards, type(r.embedder).__name__)
+
+
 @pytest.mark.parametrize("env", [
     {"APP_VECTORSTORE_NAME": "fabric"}, {"APP_VECTORSTORE_NAME": "native"},
     {"APP_VECTORSTORE_NAME": "milvus"}, {"APP_VECTORSTORE_NAME": "elasticsearch"},
@@ -384,18 +400,45 @@ def test_factory_chain_matches_reference(monkeypatch, tmp_path):
     {"APP_DURABILITY_ENABLED": "true", "APP_VECTORSTORE_NAME": "milvus"},
     {"APP_EMBEDDINGS_MODELENGINE": "huggingface"},
 ])
-def test_unported_backends_raise_with_their_roadmap_item(env, monkeypatch):
+def test_unported_backends_raise_with_their_roadmap_item(env, monkeypatch, tmp_path):
+    """The scale-out backends and ``STEmbedder`` (``ROADMAP.md``, Queue 1
+    item 8) once raised here as not ported; they are ported now, so each
+    overlay must give what the reference's factory gives: a fabric over the
+    CPU's native IVF children, the native store, the client libraries' absence or a
+    refused connection, and sentence-transformers (a stand-in module, as no
+    model may be fetched)."""
+    import sys
+
+    from generativeaiexamples_tpu_torch.retrieval.native import NativeVectorStore
+
+    class StandIn:
+        def __init__(self, name, device=None):
+            self.device = device
+
+        def get_sentence_embedding_dimension(self):
+            return 32
+
+    monkeypatch.setitem(sys.modules, "sentence_transformers", types.SimpleNamespace(SentenceTransformer=StandIn))
+    monkeypatch.setitem(sys.modules, "pymilvus", None)
+    monkeypatch.setitem(sys.modules, "psycopg2", None)
     monkeypatch.setenv("APP_EMBEDDINGS_MODELENGINE", "hash")
     monkeypatch.setenv("APP_EMBEDDINGS_DIMENSIONS", "32")
+    monkeypatch.setenv("APP_VECTORSTORE_URL", "")
+    monkeypatch.setenv("GAIE_DURABILITY_DIR", str(tmp_path))
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    tconfiguration.reset_config_cache()
-    try:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item \d"):
-            tfactory.get_retriever(device="cpu")
-    finally:
-        tconfiguration.reset_config_cache()
-        tfactory.reset_factories()
+    outcomes = {}
+    for name, p in P.items():
+        p.configuration.reset_config_cache()
+        try:
+            outcomes[name] = _chain_outcome(p, **({"device": "cpu"} if name == "torch" else {}))
+        finally:
+            _reset(p)
+            p.configuration.reset_config_cache()
+    assert outcomes["torch"] == outcomes["jax"], env
+    if env.get("APP_VECTORSTORE_NAME") in ("fabric", "native"):
+        assert outcomes["torch"][0] == "built" and NativeVectorStore.__name__ in (
+            outcomes["torch"][1], *outcomes["torch"][2])
 
 
 def test_provisioned_checkpoint_raises(monkeypatch, tmp_path):
