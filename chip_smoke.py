@@ -40,8 +40,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    (CUDA events) beside its FLOP bound, docs/s.
 7. ``retrieve``: the exact ``GPUVectorStore``, built by the port's
    ``get_store()`` from the ``AppConfig`` defaults, with 1,000,000 clustered
-   bf16 rows of 1024 (numpy, seed 0): 128 queries (64 planted on corpus rows)
-   at top_k 4 and 10, ids against an f64 brute force over the bf16 values,
+   bf16 rows of 1024 (drawn on the card from seed 0): 128 queries (64
+   planted on corpus rows) at top_k 4 and 10, ids against an f64 brute
+   force over the bf16 values (on the card),
    5,000 rows appended through the tail (no rebuild), a masked delete
    (masks only); the scan's device ms per 128-query batch beside its byte
    bound, and the share of ``torch.topk``.
@@ -100,7 +101,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    within 1e-4, ids at every rank whose gap exceeds ``RANK_EPS``), with fewer
    fan-out batches than requests (``rag_shard_fanout_batches_total``);
    ``delete_source("doc7")`` removes 1,000 rows and none comes back.
-   ``fabric_cold``: shards 2 and 3 demoted to host PQ (seconds each, device
+   ``fabric_cold``: shard 2 demoted to host PQ (its seconds, device
    bytes freed at least ``FREED_SHARE`` of their buffers), every score of
    the checked queries within ``COLD_REL_TOL`` (relative) of its row's f64
    product, planted rows on hot shards first, recall@10 overall and on the
@@ -310,7 +311,71 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    equal or parted only at a near tie under a teacher-forced forward, and
    a W8A8 ``LlamaGenerator`` over an int8 cache launching K1, K2 and K4
    (``xla_generators``).
-19. ``durable``: durability with ``python -m
+19. The model services (after the K1 shape check): K4 held against its
+   plain version at the VLM's prefill blocks (b = 1, s = 228 and 249 from
+   position 0, t = s + 96, 32 / 8 heads, head_dim 128: ``kernel`` lines,
+   ``regime`` ``vlm_prefill``), then
+   ``vision_reference``: ViT-B/16 (12 layers, every leaf from numpy seed 21)
+   on the card and on the CPU: patchify bit for bit, the bf16 features
+   within ``VIT_TOL``, the same weights in f32 within ``VIT_F32_TOL``, and
+   two planted faults (patchify with patch rows and columns swapped, tanh
+   GELU) that must fail the f32 gate; the VLM at full width (ViT-B +
+   Llama-3-8B at ``VISION_REF_LAYERS`` of 32 layers, bf16): the prefix,
+   the prefill's last logits and 8 greedy decode steps' logits (fed the
+   card's ids on both sides) within ``XLA_TOL``.
+   ``multimodal``: ``create_app()`` with ``MULTIMODAL_ENV`` (the
+   multimodal chain, the VLM on the card, the echo LLM, arctic-embed-l,
+   the exact store) and a seeded HF ``vit/`` checkpoint under
+   ``$GAIE_WEIGHTS_DIR/vlm-base``, over HTTP: a PDF (text, an aligned
+   table, a running header and footer, a FlateDecode RGB chart, a
+   FlateDecode gray photo) and a PPTX (text, notes through the rels, an
+   image where PIL imports) through ``POST /documents``.  Gates: the loaded
+   ViT leaves equal the written arrays bit for bit; the chunks' kinds are
+   text, table, chart and image; every caption chunk is the analyst's
+   decoded ids, and every id its position's argmax within ``PLAIN_TIE``
+   under one teacher-forced forward; ``/search`` on a caption equals the
+   store's own search bit for bit; a knowledge-base ``/generate`` streams;
+   ``DELETE /documents`` removes every chunk; K4 launched.  Then
+   ``vision_serve`` on that server's ``GPUVisionAnalyst(model_name=
+   "vlm-base")`` (the checkpoint's ViT-B, Llama-3-8B at 32 layers, random
+   bf16 from seed 0) and its generations for the report (the drawn chart
+   described and tabled, the drawn photo described): K4 launched 32 times
+   each, all at head_dim 128 (counts zeroed just before the report's
+   upload, read just after); a batch of the two images gives each image's
+   ids alone, or leaves them only where the two tokens' logits lie within
+   ``PLAIN_TIE``; the ViT encode's ms at batch 1 and 8 beside its FLOP
+   bound, the prefill's ms, the decode step's ms as replays of the
+   analyst's captured graph and as one eager step (CUDA events), and a
+   first decode's eager step plus capture on a line of its own (host
+   clock).  Then ``caption_beside_llm``: the same server's configuration
+   with the in-process LLM (``APP_LLM_MODELENGINE=tpu``: Llama-3-8B W8A8
+   behind ``GPUChatLLM``, its tick thread on the card) streams greedy
+   ``/generate`` requests back to back while the report is uploaded to a
+   fresh analyst, whose graphs are therefore captured beside the LLM's
+   work.  Gates: the streams ran from before the upload to after it, none
+   failed or degraded, and each one's ids equal the engine's for the same
+   prompt submitted alone; two captures; the captions' ids and every
+   chunk equal those of the echo server's upload of the same report.
+   ``speech_reference``: Conformer-S, FastSpeech-S and wav2vec2-base (f32,
+   every leaf from numpy seed 31) on the card and on the CPU: log-mel, the
+   ASR logits, the TTS mel, frame counts and durations, the wav2vec2
+   logits within ``SPEECH_TOL``, CTC ids equal wherever the top-2 gap
+   exceeds twice the tolerance, Griffin-Lim after 1 and 30 iterations
+   within ``GL_SPREAD`` times the CPU's own change under a one-ulp change
+   of its input; a planted transposed filterbank must fail the log-mel
+   gate.
+   ``speech_serve``: the speech service in process on 127.0.0.1
+   (Conformer-S, FastSpeech-S, random f32): TTS to WAV to
+   ``/v1/audio/transcriptions`` equal to a direct ``transcribe`` of the
+   same PCM; the WebSocket stream, fed in frames, equal to a direct
+   ``StreamingTranscriber`` fed the same frames; streaming TTS frames equal
+   to each segment's ``synthesize``; voices, health, the 400 on empty
+   input; then a seeded wav2vec2-base checkpoint through ``GAIE_W2V2_DIR``:
+   ``wav2vec2-ctc`` in ``/health``, its logits within 1e-5 of a forward
+   on the tree mapped from the written arrays, its transcript their
+   decode.  TTS real-time factor, ASR ms per second of audio, ms from
+   ``end`` to ``done``.
+20. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -332,8 +397,9 @@ serving phase, ``pool_launches`` from ``pool``, ``chain_launches`` from ``chain`
 the steps after it, ``spec_launches`` from each ``spec`` step,
 ``hf_launches`` from each path of ``hf_checkpoint``,
 ``families_launches`` from each family's paths, ``xla_path_launches``
-from each part of ``xla_path``; K4's line carries its warm-regime timings
-in ``warm``, its
+from each part of ``xla_path``, ``services_launches`` from ``vision_serve``
+and ``multimodal``; K4's line carries its warm-regime timings in ``warm``,
+its VLM prefill timings in ``vlm_prefill``, its
 head_dim-64 timing and ``spec_draft`` launches in ``hd64`` and its
 head_dim-256 timings and ``families`` launches in ``hd256``; K2's and
 K3's lines carry their new instances' timings and ``families`` launches
@@ -1281,20 +1347,35 @@ def _clustered_rows(np, rng, centres, assign, noise: float):
     return rows
 
 
-def _brute_top(torch, np, corpus, queries, k: int):
-    """Top k+1 of an f64 scan over the bf16-rounded corpus and queries:
-    (scores, rows) per query."""
+def _brute_top(torch, np, corpus, queries, k: int, dev):
+    """Top k+1 of an f64 scan over the bf16-rounded corpus and queries,
+    on ``dev`` (the host rows uploaded block by block): (scores, rows) per
+    query, host arrays."""
     def bf16(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).double().numpy()
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(torch.bfloat16).double()
 
     q = bf16(queries)
-    scores = np.empty((len(q), len(corpus)), dtype=np.float64)
+    scores = torch.empty((len(q), len(corpus)), dtype=torch.float64, device=dev)
     for lo in range(0, len(corpus), 65536):
         scores[:, lo:lo + 65536] = q @ bf16(corpus[lo:lo + 65536]).T
-    top = np.argpartition(-scores, k, axis=1)[:, : k + 1]
-    order = np.argsort(-np.take_along_axis(scores, top, 1), axis=1, kind="stable")
-    top = np.take_along_axis(top, order, 1)
-    return np.take_along_axis(scores, top, 1), top
+    top_s, top = torch.sort(scores, dim=1, descending=True, stable=True)
+    return top_s[:, : k + 1].cpu().numpy(), top[:, : k + 1].cpu().numpy()
+
+
+def _card_corpus(torch, dev, n: int, d: int, seed: int):
+    """(corpus (n, d) f32 host rows, centres (1000, d) host) drawn on the
+    card from ``seed``: 1,000 unit Gaussian centres, each row a centre plus
+    noise of norm ~0.8, unit norm."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centres = torch.randn((1000, d), generator=gen, device=dev)
+    centres /= centres.norm(dim=1, keepdim=True)
+    assign = torch.randint(0, 1000, (n,), generator=gen, device=dev)
+    corpus = torch.empty((n, d), dtype=torch.float32, pin_memory=dev.type == "cuda")
+    for lo in range(0, n, 65536):
+        rows = centres[assign[lo:lo + 65536]] + torch.randn((min(65536, n - lo), d), generator=gen, device=dev) * (
+            0.8 / math.sqrt(d))
+        corpus[lo:lo + 65536].copy_(rows / rows.norm(dim=1, keepdim=True))
+    return corpus.numpy(), centres.cpu().numpy()
 
 
 RETRIEVE_ROWS, RETRIEVE_DIM, RETRIEVE_QUERIES, RETRIEVE_APPEND = 1_000_000, 1024, 128, 5000
@@ -1314,12 +1395,7 @@ def retrieve_phase(torch, dev):
     n, d = RETRIEVE_ROWS, RETRIEVE_DIM
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    centres = rng.standard_normal((1000, d), dtype=np.float32)
-    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
-    assign = rng.integers(0, 1000, n)
-    corpus = np.empty((n, d), dtype=np.float32)
-    for lo in range(0, n, 65536):
-        corpus[lo:lo + 65536] = _clustered_rows(np, rng, centres, assign[lo:lo + 65536], 0.8)
+    corpus, centres = _card_corpus(torch, dev, n, d, seed=0)
     chunks = [Chunk(text=f"row {i}", source=f"doc{i // 1000}", id=str(i)) for i in range(n)]
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1352,7 +1428,7 @@ def retrieve_phase(torch, dev):
     # Ids against an f64 brute force over the same bf16 values, for 16
     # queries (8 planted): equal wherever the gap below a rank exceeds RANK_EPS.
     sel = np.r_[0:8, 64:72]
-    b_scores, b_rows = _brute_top(torch, np, corpus, queries[sel], 10)
+    b_scores, b_rows = _brute_top(torch, np, corpus, queries[sel], 10, dev)
     checked = 0
     score_err = 0.0
     for qi, bs, br in zip(sel, b_scores, b_rows):
@@ -1389,7 +1465,8 @@ def retrieve_phase(torch, dev):
         raise AssertionError("retrieve: a deleted source came back")
     if store._device_buf is not held[0] or store._tail_buf is not held[1] or store._device_valid is held[2]:
         raise AssertionError("retrieve: the delete re-uploaded more than the masks")
-    emit("retrieve", rows=n, dim=d, dtype="bfloat16", corpus="1000 Gaussian centres + noise, unit norm, numpy seed 0",
+    emit("retrieve", rows=n, dim=d, dtype="bfloat16",
+         corpus="1000 Gaussian centres + noise, unit norm, drawn on the card from seed 0",
          generate_s=gen_s, add_s=add_s, first_sync_s=build_s, capacity=cap, tail_capacity=tail_cap,
          device_gb=device_gb, store_bytes=stats["bytes"], peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          queries=RETRIEVE_QUERIES, planted_first=True, brute_force_ranks_checked=checked,
@@ -2355,7 +2432,9 @@ def stores_phase(torch, dev, exact, queries, planted) -> None:
 # scale-out retrieval: the sharded fabric, its cold tier, the native store
 # ---------------------------------------------------------------------------
 
-FABRIC_SHARDS, FABRIC_COLD = 4, (2, 3)
+# One shard goes cold in the drill: each demotion is ~16.5 s of the
+# reference's numpy k-means and encoding (PERF.md §4).
+FABRIC_SHARDS, FABRIC_COLD = 4, (2,)
 FABRIC_THREADS, FABRIC_PER_THREAD = 16, 8
 # Every score a cold drill returns, against the f64 product of its row.
 COLD_REL_TOL = 1e-5
@@ -2404,7 +2483,7 @@ def fabric_phase(torch, dev, exact, queries, planted) -> None:
     from the exact store's mirror), built by the port's factory as a
     collection's overrides ask (``fabric`` over 4 ``tpu`` children), held
     against the exact store's scan of the same rows; then the cold drill
-    (2 shards demoted to host PQ), promotion, and the fabric freed."""
+    (a shard demoted to host PQ), promotion, and the fabric freed."""
     import numpy as np
 
     from generativeaiexamples_tpu_torch.retrieval import factory as rfactory
@@ -2490,7 +2569,7 @@ def fabric_phase(torch, dev, exact, queries, planted) -> None:
                                  bits_equal_threads=bits_equal, ranks_checked=concurrent_ranks),
                  deleted_rows=removed)
 
-            # The cold drill: two shards to host PQ, searched, promoted back.
+            # The cold drill: a shard to host PQ, searched, promoted back.
             S[:, 7000:8000] = float("-inf")  # doc7 is gone
             truth_s, truth_ids = _top_rows(S, 11)
             doomed = sum(kids[i].capacity_stats()["bytes"] for i in FABRIC_COLD)
@@ -4273,14 +4352,19 @@ def _chain_text(rng, n_bytes: int) -> str:
 
 def _upload(base, name: str, text: str) -> float:
     """POST one text document as multipart/form-data; returns its ms."""
+    return _upload_bytes(base, name, text.encode())
+
+
+def _upload_bytes(base, name: str, data: bytes) -> float:
+    """POST one document's bytes as multipart/form-data; returns its ms."""
     boundary = "chainSmokeBoundary"
     body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{name}"\r\n'
-            f"Content-Type: text/plain\r\n\r\n{text}\r\n--{boundary}--\r\n").encode()
+            f"Content-Type: application/octet-stream\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
     t0 = time.perf_counter()
     status, _, raw = _http("POST", base + "/documents", body,
                            {"Content-Type": f"multipart/form-data; boundary={boundary}"})
     if status != 200:
-        raise AssertionError(f"chain: upload of {name} failed: {status} {raw[:300]!r}")
+        raise AssertionError(f"upload of {name} failed: {status} {raw[:300]!r}")
     return (time.perf_counter() - t0) * 1e3
 
 
@@ -5396,7 +5480,16 @@ def np_int8(np, x, axis: int):
     """numpy's symmetric int8 of ``x`` (f32) along ``axis``: f32 scales
     ``max(amax, 1e-8) / 127`` (a division), codes ``rint`` (half to even)
     clipped to +-127.  The reference's arithmetic, which the port's
-    quantizers must give bit for bit on the card."""
+    quantizers must give bit for bit on the card.  A large 2-D ``x`` is
+    cut across ``axis`` into blocks quantized on 8 threads (numpy releases
+    the GIL; each block's arithmetic is the same)."""
+    if x.ndim == 2 and x.size >= 1 << 24:
+        from concurrent.futures import ThreadPoolExecutor
+
+        across = 1 - axis % 2
+        with ThreadPoolExecutor(8) as pool:
+            parts = list(pool.map(lambda b: np_int8(np, b, axis), np.array_split(x, 8, axis=across)))
+        return tuple(np.concatenate(p, axis=across) for p in zip(*parts))
     amax = np.abs(x).max(axis=axis, keepdims=True)
     scale = (np.maximum(amax, 1e-8) / np.float32(127)).astype(np.float32)
     codes = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
@@ -5479,6 +5572,10 @@ LLAMA_FUSED = (("wqkv", ("wq", "wk", "wv")), ("wo", ("wo",)), ("w_gu", ("w_gate"
 
 
 def _bf16_gauss(torch, np, rng, shape, std=0.02, mean=0.0):
+    """Normal draws in bf16 from ``rng``; a large array from a seed ``rng``
+    draws, filled on 8 threads (:func:`_seeded_f32`)."""
+    if math.prod(shape) >= 1 << 24:
+        return torch.from_numpy(_seeded_f32(np, int(rng.integers(1 << 31)), shape, std, mean)).bfloat16()
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)).bfloat16()
 
 
@@ -6509,22 +6606,24 @@ XLA_TOL = dict(rel_rms=0.02, max_abs_frac=0.1)
 XLA_FAULTS = ("fresh_kv", "scatter_plus_one")
 
 
-def check_flash_warm(torch, dev, log, hd: int, start: int, t: int, nq: int = 32, nkv: int = 8) -> dict:
-    """K4 on a warm chunk: b=8 rows of a 256-token chunk at positions
-    ``start..start + 255`` against ``t`` cache slots (``t > s``, ragged
-    valid lengths inside the chunk, so the padded tail of a row's chunk sees
-    only its valid keys), held against its plain version within
-    ``FLASH_TOL``, timed beside SDPA with the same boolean mask."""
+def check_flash_warm(torch, dev, log, hd: int, start: int, t: int, nq: int = 32, nkv: int = 8, b: int = 8,
+                     s: int = 256, n_valid=(256, 200, 131, 256, 180, 140, 256, 160), regime: str = "warm") -> dict:
+    """K4 on a warm block: ``b`` rows of an ``s``-token block at positions
+    ``start..start + s - 1`` against ``t`` cache slots (``t > s``; valid
+    lengths ``start + n_valid``, ragged by default, so the padded tail of a
+    row's block sees only its valid keys), held against its plain version
+    within ``FLASH_TOL``, timed beside SDPA with the same boolean mask.
+    The VLM's prefill is such a block with b = 1 and start = 0."""
     import torch.nn.functional as F
 
     from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    b, s, nv = 8, 256, 3
+    nv = 3
     qs = [torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
     kks = [torch.randn(b, t, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
     vvs = [torch.randn(b, t, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
-    n_valid = torch.tensor([256, 200, 131, 256, 180, 140, 256, 160], dtype=torch.int32, device=dev)
+    n_valid = torch.tensor(list(n_valid), dtype=torch.int32, device=dev)
     lengths = start + n_valid
     pos = (start + torch.arange(s, dtype=torch.int32, device=dev)).expand(b, s).contiguous()
     out = fa.flash_attention_cuda(qs[0], kks[0], vvs[0], pos, lengths)
@@ -6560,7 +6659,7 @@ def check_flash_warm(torch, dev, log, hd: int, start: int, t: int, nq: int = 32,
                plain_ms=p_ms, library_ms=lib_ms, library_timing=lib_timing, library_eager_ms=lib_eager_ms,
                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms, max_abs_err=err, tolerance=FLASH_TOL,
                tolerance_use=use)
-    emit("kernel", kernel="flash_attention", regime="warm", **row)
+    emit("kernel", kernel="flash_attention", regime=regime, **row)
     del qs, kks, vvs
     return row
 
@@ -7175,6 +7274,1404 @@ def xla_path_phase(torch, dev, _cuda, smi: str, log, prompts, k2_ms: float) -> t
     return warm, launches
 
 
+# -- test documents (no PIL: numpy pixels, zlib streams, a hand-made PNG) -----
+
+
+def chart_pixels(np, size: int = 64):
+    """A bar chart as (size, size, 3) uint8: white canvas, black axes, three
+    blue bars (few colours, long flat rows: the heuristic's chart)."""
+    img = np.full((size, size, 3), 255, np.uint8)
+    img[size - 9 : size - 7, 8 : size - 3] = 0
+    img[4 : size - 7, 7:9] = 0
+    for i, h in enumerate((20, 35, 28)):
+        x = 16 + i * 14
+        img[size - 8 - h : size - 7, x : x + 9] = (0, 0, 255)
+    return img
+
+
+def photo_pixels(np, size: int = 64, seed: int = 0):
+    """A noisy gray photo as (size, size) uint8 (no flat rows: not a chart)."""
+    return np.random.default_rng(seed).integers(0, 256, (size, size), dtype=np.uint8)
+
+
+def png_bytes(np, rgb) -> bytes:
+    """(H, W, 3) uint8 as an 8-bit RGB PNG (filter 0 rows, one IDAT)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    rows = b"".join(b"\x00" + np.ascontiguousarray(rgb[r]).tobytes() for r in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def _pdf_literal(text: str) -> bytes:
+    return b"(" + text.replace("\\", "\\\\").replace("(", "\\(").replace(")", "\\)").encode("latin-1") + b")"
+
+
+def write_pdf(np, path, pages, images=()) -> None:
+    """A linear PDF: one FlateDecode content stream per page (``pages``, a
+    list of lines each), each followed by that page's image XObjects
+    (``images``: ``(page, pixels)`` with (H, W, 3) uint8 as FlateDecode
+    ``/DeviceRGB``, (H, W) uint8 as FlateDecode ``/DeviceGray``, or
+    ``(page, jpeg_bytes, (w, h))`` as DCTDecode)."""
+    import zlib
+
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>", None]
+    kids, body = [], []
+    n = 3
+    for p, lines in enumerate(pages):
+        content = b"BT /F1 12 Tf 72 720 Td " + b"".join(_pdf_literal(t) + b" Tj T* " for t in lines) + b"ET"
+        data = zlib.compress(content)
+        kids.append(n)
+        body.append((n, b"<< /Type /Page /Parent 2 0 R /Contents %d 0 R >>" % (n + 1), None))
+        body.append((n + 1, b"<< /Filter /FlateDecode /Length %d >>" % len(data), data))
+        n += 2
+        for page, *img in images:
+            if page != p:
+                continue
+            if len(img) == 2:
+                jpg, (w, h) = img
+                d = b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace /DeviceRGB " \
+                    b"/BitsPerComponent 8 /Filter /DCTDecode /Length %d >>" % (w, h, len(jpg))
+                body.append((n, d, jpg))
+            else:
+                px = np.ascontiguousarray(img[0])
+                space = b"/DeviceRGB" if px.ndim == 3 else b"/DeviceGray"
+                data = zlib.compress(px.tobytes())
+                d = b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace %s " \
+                    b"/BitsPerComponent 8 /Filter /FlateDecode /Length %d >>" % (px.shape[1], px.shape[0], space,
+                                                                                 len(data))
+                body.append((n, d, data))
+            n += 1
+    objs[1] = b"<< /Type /Pages /Kids [%s] /Count %d >>" % (b" ".join(b"%d 0 R" % k for k in kids), len(kids))
+    out = b"%PDF-1.4\n"
+    for i, d in enumerate(objs, start=1):
+        out += b"%d 0 obj %s endobj\n" % (i, d)
+    for i, d, stream in body:
+        out += b"%d 0 obj %s" % (i, d)
+        out += (b"\nstream\n" + stream + b"\nendstream\nendobj\n") if stream is not None else b" endobj\n"
+    with open(path, "wb") as fh:
+        fh.write(out + b"%%EOF\n")
+
+
+_PPTX_NS = ('xmlns:a="http://schemas.openxmlformats.org/drawingml/2006/main" '
+            'xmlns:p="http://schemas.openxmlformats.org/presentationml/2006/main" '
+            'xmlns:r="http://schemas.openxmlformats.org/officeDocument/2006/relationships"')
+_PPTX_REL = "http://schemas.openxmlformats.org/officeDocument/2006/relationships/"
+
+
+def _pptx_part(root: str, paras) -> str:
+    from xml.sax.saxutils import escape
+
+    runs = "".join(f"<a:p><a:r><a:t>{escape(t)}</a:t></a:r></a:p>" for t in paras)
+    return (f'<?xml version="1.0"?><p:{root} {_PPTX_NS}><p:cSld><p:spTree><p:sp><p:txBody>{runs}'
+            f"</p:txBody></p:sp></p:spTree></p:cSld></p:{root}>")
+
+
+def write_pptx(path, slides, image_png: bytes = b"") -> None:
+    """A deck of ``slides`` (``(paragraphs, notes)`` each).  Each slide's
+    notes live in a notes slide numbered in reverse, found only through the
+    slide's rels; ``image_png`` goes on slide 1 as ``media/image1.png``."""
+    import zipfile
+
+    n = len(slides)
+    with zipfile.ZipFile(path, "w") as zf:
+        for i, (paras, notes) in enumerate(slides, start=1):
+            zf.writestr(f"ppt/slides/slide{i}.xml", _pptx_part("sld", paras))
+            rels = []
+            if notes:
+                j = n + 1 - i
+                zf.writestr(f"ppt/notesSlides/notesSlide{j}.xml", _pptx_part("notes", [notes]))
+                rels.append(f'<Relationship Id="rId1" Type="{_PPTX_REL}notesSlide" '
+                            f'Target="../notesSlides/notesSlide{j}.xml"/>')
+            if image_png and i == 1:
+                zf.writestr("ppt/media/image1.png", image_png)
+                rels.append(f'<Relationship Id="rId2" Type="{_PPTX_REL}image" Target="../media/image1.png"/>')
+            zf.writestr(f"ppt/slides/_rels/slide{i}.xml.rels",
+                        '<?xml version="1.0"?><Relationships xmlns="http://schemas.openxmlformats.org/package/'
+                        f'2006/relationships">{"".join(rels)}</Relationships>')
+
+
+REPORT_HEADER = "ACME Quarterly Review"
+REPORT_FOOTER = "Confidential - internal use"
+
+
+def report_pages() -> list:
+    """Three pages with a running header and footer, prose and one aligned
+    table (``write_pdf``'s ``pages``)."""
+    return [
+        [REPORT_HEADER, "Hydra Inc annual report on fusion output and sales.",
+         "The chart below shows output by quarter (in GWh).", REPORT_FOOTER],
+        [REPORT_HEADER, "Regional sales were strong in the north.", "region  sales  growth",
+         "north  42  3%", "south  17  1%", "east  29  2%", "Sales (units) rose (again) on demand.", REPORT_FOOTER],
+        [REPORT_HEADER, "The photo shows the reactor hall at night.", REPORT_FOOTER],
+    ]
+
+
+# -- seeded HF checkpoints of the vision and speech models (no transformers) --
+
+
+def _gauss(np, rng, shape, std=0.05, mean=0.0):
+    return (mean + std * rng.standard_normal(shape)).astype(np.float32)
+
+
+def vit_hf_tensors(np, cfg, seed: int) -> dict:
+    """HF ``ViTModel`` tensors for ``cfg`` (numpy f32, seeded)."""
+    rng = np.random.default_rng(seed)
+    D, F_, c, p = cfg.d_model, cfg.d_ff, cfg.channels, cfg.patch_size
+    out = {
+        "embeddings.patch_embeddings.projection.weight": _gauss(np, rng, (D, c, p, p)),
+        "embeddings.patch_embeddings.projection.bias": _gauss(np, rng, (D,)),
+        "embeddings.position_embeddings": _gauss(np, rng, (1, cfg.n_patches + 1, D)),
+        "embeddings.cls_token": _gauss(np, rng, (1, 1, D)),
+        "layernorm.weight": _gauss(np, rng, (D,), 0.1, 1.0),
+        "layernorm.bias": _gauss(np, rng, (D,)),
+    }
+    for i in range(cfg.n_layers):
+        lay = f"encoder.layer.{i}."
+        for name, shape in (("attention.attention.query", (D, D)), ("attention.attention.key", (D, D)),
+                            ("attention.attention.value", (D, D)), ("attention.output.dense", (D, D)),
+                            ("intermediate.dense", (F_, D)), ("output.dense", (D, F_))):
+            out[lay + name + ".weight"] = _gauss(np, rng, shape)
+            out[lay + name + ".bias"] = _gauss(np, rng, (shape[0],))
+        for name in ("layernorm_before", "layernorm_after"):
+            out[lay + name + ".weight"] = _gauss(np, rng, (D,), 0.1, 1.0)
+            out[lay + name + ".bias"] = _gauss(np, rng, (D,))
+    return out
+
+
+def write_vit_checkpoint(torch, np, path, cfg, seed: int = 0, dtype=None) -> dict:
+    """A seeded HF ViT checkpoint (``model.safetensors`` in ``dtype``,
+    default f32, and ``config.json``) under ``path``; returns the written
+    tensors (torch, in ``dtype``)."""
+    from generativeaiexamples_tpu_torch.engine.weights import save_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    tensors = {k: torch.from_numpy(v).to(dtype or torch.float32) for k, v in vit_hf_tensors(np, cfg, seed).items()}
+    save_safetensors(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as fh:
+        json.dump({"model_type": "vit", "architectures": ["ViTModel"], "image_size": cfg.image_size,
+                   "patch_size": cfg.patch_size, "num_channels": cfg.channels, "hidden_size": cfg.d_model,
+                   "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+                   "intermediate_size": cfg.d_ff, "layer_norm_eps": cfg.norm_eps}, fh)
+    return tensors
+
+
+def vit_tree_from_hf(torch, cfg, tensors: dict, dev) -> dict:
+    """The ViT tree a loader must build from ``tensors``, built here with
+    plain reshapes (the reference's map), in ``cfg.compute_dtype``."""
+    dt = cfg.compute_dtype
+
+    def t(name):
+        return tensors[name].to(device=dev, dtype=torch.float32)
+
+    def stack(fmt, transpose):
+        return torch.stack([t(fmt.format(i)).T if transpose else t(fmt.format(i)) for i in range(cfg.n_layers)])
+
+    att = "encoder.layer.{}.attention.attention."
+    lay = "encoder.layer.{}."
+    tree = {
+        "patch_proj": t("embeddings.patch_embeddings.projection.weight").permute(2, 3, 1, 0).reshape(
+            cfg.patch_dim, cfg.d_model),
+        "patch_bias": t("embeddings.patch_embeddings.projection.bias"),
+        "pos_embed": t("embeddings.position_embeddings")[0],
+        "cls": t("embeddings.cls_token"),
+        "layers": {
+            "ln1_g": stack(lay + "layernorm_before.weight", False), "ln1_b": stack(lay + "layernorm_before.bias", False),
+            "wqkv": torch.cat([stack(att + w + ".weight", True) for w in ("query", "key", "value")], dim=2),
+            "bqkv": torch.cat([stack(att + w + ".bias", False) for w in ("query", "key", "value")], dim=1),
+            "wo": stack(lay + "attention.output.dense.weight", True),
+            "bo": stack(lay + "attention.output.dense.bias", False),
+            "ln2_g": stack(lay + "layernorm_after.weight", False), "ln2_b": stack(lay + "layernorm_after.bias", False),
+            "w1": stack(lay + "intermediate.dense.weight", True), "b1": stack(lay + "intermediate.dense.bias", False),
+            "w2": stack(lay + "output.dense.weight", True), "b2": stack(lay + "output.dense.bias", False),
+        },
+        "final_ln_g": t("layernorm.weight"),
+        "final_ln_b": t("layernorm.bias"),
+    }
+    return {k: ({n: v.to(dt) for n, v in x.items()} if isinstance(x, dict) else x.to(dt)) for k, x in tree.items()}
+
+
+def w2v2_hf_tensors(np, cfg, seed: int) -> dict:
+    """HF ``Wav2Vec2ForCTC`` tensors (group-norm variant, weight-normed
+    positional conv as ``weight_g`` / ``weight_v``) for ``cfg``, seeded."""
+    rng = np.random.default_rng(seed)
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    fe = "wav2vec2.feature_extractor.conv_layers."
+    out = {}
+    c_in = 1
+    for i, (c_out, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        out[f"{fe}{i}.conv.weight"] = _gauss(np, rng, (c_out, c_in, k), 1.0 / math.sqrt(c_in * k))
+        c_in = c_out
+    out[fe + "0.layer_norm.weight"] = _gauss(np, rng, (cfg.conv_dim[0],), 0.1, 1.0)
+    out[fe + "0.layer_norm.bias"] = _gauss(np, rng, (cfg.conv_dim[0],))
+    pre = "wav2vec2."
+    out[pre + "feature_projection.layer_norm.weight"] = _gauss(np, rng, (c_in,), 0.1, 1.0)
+    out[pre + "feature_projection.layer_norm.bias"] = _gauss(np, rng, (c_in,))
+    out[pre + "feature_projection.projection.weight"] = _gauss(np, rng, (D, c_in))
+    out[pre + "feature_projection.projection.bias"] = _gauss(np, rng, (D,))
+    pc = pre + "encoder.pos_conv_embed.conv."
+    out[pc + "weight_g"] = np.abs(_gauss(np, rng, (1, 1, cfg.pos_conv_kernel), 0.5, 1.0))
+    out[pc + "weight_v"] = _gauss(np, rng, (D, D // cfg.pos_conv_groups, cfg.pos_conv_kernel))
+    out[pc + "bias"] = _gauss(np, rng, (D,))
+    out[pre + "encoder.layer_norm.weight"] = _gauss(np, rng, (D,), 0.1, 1.0)
+    out[pre + "encoder.layer_norm.bias"] = _gauss(np, rng, (D,))
+    for i in range(cfg.n_layers):
+        lay = f"{pre}encoder.layers.{i}."
+        for name, shape in (("attention.q_proj", (D, D)), ("attention.k_proj", (D, D)), ("attention.v_proj", (D, D)),
+                            ("attention.out_proj", (D, D)), ("feed_forward.intermediate_dense", (F_, D)),
+                            ("feed_forward.output_dense", (D, F_))):
+            out[lay + name + ".weight"] = _gauss(np, rng, shape)
+            out[lay + name + ".bias"] = _gauss(np, rng, (shape[0],))
+        for name in ("layer_norm", "final_layer_norm"):
+            out[lay + name + ".weight"] = _gauss(np, rng, (D,), 0.1, 1.0)
+            out[lay + name + ".bias"] = _gauss(np, rng, (D,))
+    out["lm_head.weight"] = _gauss(np, rng, (V, D), 0.2)
+    out["lm_head.bias"] = _gauss(np, rng, (V,))
+    return out
+
+
+def write_w2v2_checkpoint(torch, np, path, cfg, seed: int = 0) -> dict:
+    """A seeded HF wav2vec2-CTC checkpoint under ``path``: f32
+    ``model.safetensors``, ``config.json`` and the base model's
+    ``vocab.json``; returns the numpy tensors."""
+    from generativeaiexamples_tpu_torch.engine.weights import save_safetensors
+    from generativeaiexamples_tpu_torch.models.speech import W2V2_VOCAB
+
+    os.makedirs(path, exist_ok=True)
+    tensors = w2v2_hf_tensors(np, cfg, seed)
+    save_safetensors(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as fh:
+        json.dump({"model_type": "wav2vec2", "architectures": ["Wav2Vec2ForCTC"], "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.d_model, "num_hidden_layers": cfg.n_layers,
+                   "num_attention_heads": cfg.n_heads, "intermediate_size": cfg.d_ff,
+                   "conv_dim": list(cfg.conv_dim), "conv_kernel": list(cfg.conv_kernel),
+                   "conv_stride": list(cfg.conv_stride), "num_conv_pos_embeddings": cfg.pos_conv_kernel,
+                   "num_conv_pos_embedding_groups": cfg.pos_conv_groups, "layer_norm_eps": cfg.norm_eps,
+                   "do_stable_layer_norm": False, "feat_extract_norm": "group"}, fh)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as fh:
+        json.dump({tok: i for i, tok in enumerate(W2V2_VOCAB[: cfg.vocab_size])}, fh)
+    return tensors
+
+
+# -- a raw-socket WebSocket client (RFC 6455) for the speech service ----------
+
+
+class WSClient:
+    """A blocking WebSocket client on a plain socket: masked frames out,
+    unmasked frames in (the framing of ``engine.speech_service``)."""
+
+    def __init__(self, host: str, port: int, path: str, timeout: float = 120.0) -> None:
+        import base64
+        import socket
+
+        from generativeaiexamples_tpu_torch.engine.speech_service import ws_accept_key
+
+        self.sock = socket.create_connection((host, port), timeout=timeout)
+        self.rfile = self.sock.makefile("rb")
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET {path} HTTP/1.1\r\nHost: {host}:{port}\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n")
+                          .encode())
+        status = self.rfile.readline()
+        headers = {}
+        while True:
+            line = self.rfile.readline().decode("latin-1").strip()
+            if not line:
+                break
+            name, _, value = line.partition(":")
+            headers[name.strip().lower()] = value.strip()
+        if b" 101 " not in status or headers.get("sec-websocket-accept") != ws_accept_key(key):
+            raise AssertionError(f"websocket handshake failed: {status!r} {headers}")
+
+    def send(self, opcode: int, payload: bytes, fin: bool = True) -> None:
+        from generativeaiexamples_tpu_torch.engine.speech_service import ws_frame
+
+        self.sock.sendall(ws_frame(opcode, payload, os.urandom(4), fin=fin))
+
+    def send_json(self, obj) -> None:
+        self.send(0x1, json.dumps(obj).encode())
+
+    def send_bytes(self, data: bytes) -> None:
+        self.send(0x2, data)
+
+    def recv(self) -> tuple[int, bytes]:
+        """(opcode, payload) of the next frame."""
+        from generativeaiexamples_tpu_torch.engine.speech_service import ws_read_frame
+
+        _, opcode, payload = ws_read_frame(self.rfile, require_mask=False)
+        return opcode, payload
+
+    def recv_json_until_done(self) -> list:
+        """Every JSON message up to and including ``done`` (or a close)."""
+        events = []
+        while True:
+            opcode, payload = self.recv()
+            if opcode != 0x1:
+                return events + [{"close": int.from_bytes(payload[:2], "big") if len(payload) >= 2 else None}]
+            events.append(json.loads(payload))
+            if events[-1]["type"] == "done":
+                return events
+
+    def close(self, code: int = 1000) -> None:
+        try:
+            self.send(0x8, code.to_bytes(2, "big"))
+            while self.recv()[0] != 0x8:
+                pass
+        except Exception:
+            pass
+        self.sock.close()
+
+
+def stream_pcm(ws, pcm16: bytes, frame_bytes: int, rate: int = 16_000) -> list:
+    """Config, ``pcm16`` in frames of ``frame_bytes``, then ``end``: every
+    message the server sends back, ``done`` last (the ms from sending
+    ``end`` to reading ``done`` in ``ws.end_to_done_ms``)."""
+    ws.send_json({"type": "config", "sample_rate": rate})
+    for i in range(0, len(pcm16), frame_bytes):
+        ws.send_bytes(pcm16[i : i + frame_bytes])
+    t0 = time.perf_counter()
+    ws.send_json({"type": "end"})
+    events = ws.recv_json_until_done()
+    ws.end_to_done_ms = (time.perf_counter() - t0) * 1e3
+    return events
+
+
+def speech_wave(np, seed: int, seconds: float, silence: float = 0.0):
+    """A voiced-looking f32 signal at 16 kHz (harmonics of a wavering pitch
+    under an envelope, a little noise), then ``silence`` seconds of
+    near-silence (energy far below the endpointer's threshold)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16_000)) / 16_000
+    f0 = 120 + 40 * np.sin(2 * np.pi * 1.5 * t)
+    voiced = sum(np.sin(2 * np.pi * k * np.cumsum(f0) / 16_000) / k for k in range(1, 6))
+    wave = 0.3 * voiced * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t) ** 2) + 0.02 * rng.normal(size=t.shape)
+    return np.concatenate([wave, 1e-4 * rng.normal(size=int(silence * 16_000))]).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the model services: vision, the multimodal chain, speech
+# ---------------------------------------------------------------------------
+
+VISION_SEED = 21
+VISION_REF_LAYERS = 2  # of Llama-3-8B's 32 in vision_reference's VLM (full width)
+VISION_DECODE_STEPS = 8
+# ViT-B/16 features in bf16, card against CPU on the same weights: cuBLAS's
+# and the CPU GEMM's bf16 roundings after sums in other orders, through 12
+# layers and the final LayerNorm (features of magnitude ~1-5).
+VIT_TOL = dict(rel_rms=0.02, max_abs_frac=0.1)
+# The same weights in f32 (IEEE f32 or better on the card, ops.f32): sums
+# in other orders only.  The planted faults must fail this gate (tanh
+# GELU moves ViT-B's f32 features by ~2.6e-4 RMS, below bf16's own noise).
+VIT_F32_TOL = dict(rel_rms=2e-5, max_abs_frac=1e-4)
+VISION_FAULTS = ("patchify_transposed", "gelu_tanh")
+VLM_PROMPTS = ("Describe this image in detail:", "Generate the underlying data table for this figure:")
+# The VLM's prefill blocks at vlm-base: 197 prefix rows + each prompt's
+# byte tokens with BOS; t = s + 96 (the analyst's max_new_tokens).
+VLM_PREFILL_S = (228, 249)
+
+
+def _seeded_f32(np, seed: int, shape, std: float = 0.02, mean: float = 0.0, threads: int = 8):
+    """f32 normal draws of ``shape`` from numpy seed ``seed``: row blocks
+    filled on ``threads`` threads, each from its own spawned stream (numpy's
+    generator releases the GIL while it fills)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    shape = tuple(shape)
+    out = np.empty(shape, np.float32)
+    bounds = np.linspace(0, shape[0], min(threads, shape[0]) + 1).astype(int)
+    seqs = np.random.SeedSequence(seed).spawn(len(bounds) - 1)
+
+    def fill(i):
+        lo, hi = bounds[i], bounds[i + 1]
+        block = np.random.default_rng(seqs[i]).standard_normal((hi - lo,) + shape[1:], dtype=np.float32)
+        out[lo:hi] = block * np.float32(std) + np.float32(mean)
+
+    with ThreadPoolExecutor(len(seqs)) as pool:
+        list(pool.map(fill, range(len(seqs))))
+    return out
+
+
+def _seeded_tree(torch, np, shapes, seed: int, dtype, gains=(), _counter=None):
+    """A tree of ``shapes`` (dicts and lists) as CPU tensors in ``dtype``
+    from numpy seed ``seed``: every leaf drawn (0.02-std normal; the names
+    in ``gains`` around 1 with 0.1 std), biases included, so a misplaced
+    bias or gain cannot hide behind zeros and ones."""
+    counter = _counter if _counter is not None else [0]
+    if isinstance(shapes, list):
+        return [_seeded_tree(torch, np, s, seed, dtype, gains, counter) for s in shapes]
+    out = {}
+    for name, shape in shapes.items():
+        if isinstance(shape, (dict, list)):
+            out[name] = _seeded_tree(torch, np, shape, seed, dtype, gains, counter)
+            continue
+        counter[0] += 1
+        mean, std = (1.0, 0.1) if name in gains else (0.0, 0.02)
+        out[name] = torch.from_numpy(_seeded_f32(np, seed * 1000 + counter[0], shape, std, mean)).to(dtype)
+    return out
+
+
+def _tree_to_dtype(tree, dtype):
+    if isinstance(tree, list):
+        return [_tree_to_dtype(t, dtype) for t in tree]
+    return {k: _tree_to_dtype(v, dtype) if isinstance(v, (dict, list)) else v.to(dtype) for k, v in tree.items()}
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, list):
+        return [_tree_to(t, dev) for t in tree]
+    return {k: _tree_to(v, dev) if isinstance(v, (dict, list)) else v.to(dev) for k, v in tree.items()}
+
+
+def _within(torch, out, ref, tol: dict, what: str) -> dict:
+    """(rel RMS, max abs / max |ref|) of ``out`` against ``ref``; fails
+    past ``tol`` (``rel_rms``, ``max_abs_frac``)."""
+    rel_rms, frac = _share(out.float().cpu(), ref.float().cpu())
+    reading = dict(rel_rms=rel_rms, max_abs_frac=frac)
+    if not (rel_rms <= tol["rel_rms"] and frac <= tol["max_abs_frac"]):
+        raise ToleranceError(f"{what}: rel RMS {rel_rms:.4g}, max {frac:.4g} of the largest (tolerance {tol})",
+                             reading)
+    return reading
+
+
+class _VisionFault:
+    """One planted fault in ``models.vision`` while entered: patchify with
+    patch rows and columns swapped, or tanh GELU in place of erf."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self):
+        import types
+
+        import torch.nn.functional as F
+
+        from generativeaiexamples_tpu_torch.models import vision
+
+        self.saved = vision.patchify, vision.F
+        if self.name == "patchify_transposed":
+            def patchify(cfg, images):
+                b, p, n = images.shape[0], cfg.patch_size, cfg.image_size // cfg.patch_size
+                x = images.reshape(b, n, p, n, p, cfg.channels).permute(0, 3, 1, 4, 2, 5)
+                return x.reshape(b, n * n, cfg.patch_dim)
+
+            vision.patchify = patchify
+        else:
+            vision.F = types.SimpleNamespace(gelu=lambda x: F.gelu(x, approximate="tanh"))
+        return self
+
+    def __exit__(self, *exc):
+        from generativeaiexamples_tpu_torch.models import vision
+
+        vision.patchify, vision.F = self.saved
+
+
+def vision_reference_phase(torch, dev, smi: str) -> dict:
+    """ViT-B/16 (12 layers, bf16, numpy seed) and the VLM at full width
+    (ViT-B + Llama-3-8B at ``VISION_REF_LAYERS`` layers) on the card and on
+    the CPU with the same weights; two planted faults must fail the ViT
+    gate.  Returns the phase's fields."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.models import llama, vision
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    vcfg = vision.vit_base()
+    gains = ("ln1_g", "ln2_g", "final_ln_g")
+    vit_cpu = _seeded_tree(torch, np, vision.vit_param_shapes(vcfg), VISION_SEED, vcfg.compute_dtype, gains)
+    vit_dev = _tree_to(vit_cpu, dev)
+    images = torch.from_numpy(np.random.default_rng(VISION_SEED).random((2, 224, 224, 3), dtype=np.float32))
+    fields = dict(nvidia_smi=smi, vit="vit-b/16, 12 layers, bf16, numpy seed", images=list(images.shape))
+    with torch.inference_mode():
+        exact = torch.equal(vision.patchify(vcfg, images.to(dev)).cpu(), vision.patchify(vcfg, images))
+        if not exact:
+            raise AssertionError("vision_reference: patchify on the card differs from the CPU's")
+        ref = vision.vit_encode(vit_cpu, vcfg, images)
+        fields["vit_features"] = _within(torch, vision.vit_encode(vit_dev, vcfg, images.to(dev)), ref, VIT_TOL,
+                                         "vision_reference: ViT features")
+        # f32: the same weights, and the gate the planted faults must fail.
+        f32cfg = vision.vit_base(dtype="float32")
+        vit32 = {"cpu": _tree_to_dtype(vit_cpu, torch.float32)}
+        vit32["card"] = _tree_to(vit32["cpu"], dev)
+        ref32 = vision.vit_encode(vit32["cpu"], f32cfg, images)
+        fields["vit_features_f32"] = _within(torch, vision.vit_encode(vit32["card"], f32cfg, images.to(dev)), ref32,
+                                             VIT_F32_TOL, "vision_reference: f32 ViT features")
+        faults = {}
+        for fault in VISION_FAULTS:
+            with _VisionFault(fault):
+                try:
+                    _within(torch, vision.vit_encode(vit32["card"], f32cfg, images.to(dev)), ref32, VIT_F32_TOL,
+                            fault)
+                except ToleranceError as exc:
+                    faults[fault] = exc.fields
+                    continue
+            raise AssertionError(f"vision_reference: the planted fault {fault} passed the f32 ViT gate")
+        fields["faults_failed_the_gate"] = faults
+        del vit32
+
+        # The VLM at full width: the prefix, the prefill's last logits, and
+        # greedy decode steps fed the card's ids on both sides.
+        lcfg = llama.llama3_8b(n_layers=VISION_REF_LAYERS)
+        cfg = vision.vlm_base(lm=lcfg)
+        lm_cpu = _seeded_tree(torch, np, llama.param_shapes(lcfg), VISION_SEED + 1, lcfg.compute_dtype,
+                              llama.NORM_GAINS)
+        proj = torch.from_numpy(_seeded_f32(np, VISION_SEED + 2, (vcfg.d_model, lcfg.d_model))).to(torch.bfloat16)
+        sides = {"card": {"vit": vit_dev, "projector": proj.to(dev), "lm": _tree_to(lm_cpu, dev)}}
+        # The CPU's projections and head held in f32 once: the same values,
+        # and the same products (on the CPU a bf16 product widens both
+        # operands to f32 on every call, the weight included).
+        proj_names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+        lm_f32 = {**lm_cpu, "lm_head": lm_cpu["lm_head"].float(),
+                  "layers": {k: v.float() if k in proj_names else v for k, v in lm_cpu["layers"].items()}}
+        sides["cpu"] = {"vit": vit_cpu, "projector": proj, "lm": lm_f32}
+        prompt = ByteTokenizer().encode(VLM_PROMPTS[0])
+        max_len = cfg.n_prefix + len(prompt) + VISION_DECODE_STEPS + 1
+        out = {}
+        for side, params in sides.items():
+            d = dev if side == "card" else cpu
+            img, tok = images[:1].to(d), torch.tensor([prompt], dtype=torch.int32, device=d)
+            out[side] = {"prefix": vision.vlm_prefix(params, cfg, img)}
+            out[side]["logits"], out[side]["cache"], out[side]["lengths"] = vision.vlm_prefill(
+                params, cfg, img, tok, max_len)
+        fields["prefix"] = _within(torch, out["card"]["prefix"], out["cpu"]["prefix"], XLA_TOL, "vision_reference: prefix")
+        fields["prefill_logits"] = _within(torch, out["card"]["logits"], out["cpu"]["logits"], XLA_TOL,
+                                           "vision_reference: prefill logits")
+        steps, same_argmax = [], 0
+        tok = out["card"]["logits"].argmax(-1).to(torch.int32)
+        pos = out["card"]["lengths"]
+        for i in range(VISION_DECODE_STEPS):
+            got = vision.vlm_decode_step(sides["card"]["lm"], lcfg, out["card"]["cache"], tok, pos)
+            want = vision.vlm_decode_step(sides["cpu"]["lm"], lcfg, out["cpu"]["cache"], tok.cpu(), pos.cpu())
+            steps.append(_within(torch, got, want, XLA_TOL, f"vision_reference: decode step {i}"))
+            same_argmax += int(got.argmax(-1).item() == want.argmax(-1).item())
+            tok, pos = got.argmax(-1).to(torch.int32), pos + 1
+        fields.update(vlm=f"vit-b/16 + llama3-8b at {VISION_REF_LAYERS} of 32 layers, bf16, numpy seed",
+                      prompt_tokens=len(prompt), prefill_s=cfg.n_prefix + len(prompt), max_len=max_len,
+                      decode_steps=steps, decode_same_argmax=same_argmax, tolerance=dict(vit=VIT_TOL, vit_f32=VIT_F32_TOL, vlm=XLA_TOL))
+    del sides, out, vit_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields["phase_s"] = time.perf_counter() - t_phase
+    emit("vision_reference", **fields)
+    return fields
+
+
+class _RecordIds:
+    """Wraps an analyst's ``generate_ids`` for a phase: each call's image,
+    prompt, ids and seconds (the analyst generates one image at a time)."""
+
+    def __init__(self, analyst) -> None:
+        self.calls: list = []
+        inner = analyst.generate_ids
+
+        def generate_ids(images, prompt):
+            t0 = time.perf_counter()
+            ids = inner(images, prompt)
+            if len(ids) != 1:
+                raise AssertionError(f"the analyst generated for {len(ids)} images at once")
+            self.calls.append(dict(images=images, prompt=prompt, ids=ids[0], seconds=time.perf_counter() - t0))
+            return ids
+
+        analyst.generate_ids = generate_ids
+
+
+def vlm_teacher_forced(torch, analyst, image, prompt: str, ids: list):
+    """f32 logits (len(ids), vocab) of each generated position, from one
+    cacheless forward over [image prefix ; prompt ; ids[:-1]]."""
+    from generativeaiexamples_tpu_torch.models import llama, vision
+
+    cfg, params, dev = analyst.cfg, analyst.params, analyst.device
+    prompt_ids = analyst.tokenizer.encode(prompt)
+    with torch.inference_mode():
+        prefix = vision.vlm_prefix(params, cfg, torch.from_numpy(image[None]).to(dev))
+        toks = torch.tensor([prompt_ids + list(ids[:-1])], dtype=torch.int32, device=dev)
+        embeds = torch.cat([prefix, llama.embed(params["lm"], toks, prefix.dtype)], dim=1)
+        total = embeds.shape[1]
+        hidden, _ = llama.forward(params["lm"], cfg.lm, torch.zeros((1, total), dtype=torch.int32, device=dev),
+                                  torch.arange(total, dtype=torch.int32, device=dev)[None], embeds=embeds)
+        return llama.logits(params["lm"], hidden[:, cfg.n_prefix + len(prompt_ids) - 1 :])[0].float()
+
+
+def _greedy_deficits(torch, logits, ids) -> list:
+    """max logit minus the emitted id's logit, per position."""
+    idx = torch.tensor(list(ids), device=logits.device)
+    return (logits.max(-1).values - logits.gather(1, idx[:, None])[:, 0]).tolist()
+
+
+def check_vlm_calls(torch, analyst, calls, where: str) -> dict:
+    """Every generated id its position's argmax within ``PLAIN_TIE`` under
+    one teacher-forced forward; returns the largest deficit and the logits
+    of each call (by index)."""
+    worst, logits = 0.0, []
+    for c in calls:
+        tf = vlm_teacher_forced(torch, analyst, c["images"][0], c["prompt"], c["ids"])
+        worst = max(worst, max(_greedy_deficits(torch, tf, c["ids"])))
+        logits.append(tf)
+    if worst > PLAIN_TIE:
+        raise AssertionError(f"{where}: a greedy id lies {worst:.4f} below its position's argmax (> PLAIN_TIE)")
+    return dict(calls=len(calls), tokens=sum(len(c["ids"]) for c in calls), max_greedy_deficit=worst,
+                tie=PLAIN_TIE, logits=logits)
+
+
+def vit_flops(cfg, b: int) -> tuple[float, float]:
+    """(bf16 product FLOPs, f32 attention FLOPs) of one ViT encode of ``b``
+    images."""
+    s, D, F_ = cfg.n_patches + 1, cfg.d_model, cfg.d_ff
+    bf16 = 2.0 * b * cfg.n_patches * cfg.patch_dim * D + cfg.n_layers * 2.0 * b * s * (4 * D * D + 2 * D * F_)
+    return bf16, cfg.n_layers * 4.0 * b * s * s * D
+
+
+def vision_serve_gates(torch, dev, smi: str, analyst, calls: list, tf_logits: list, launches: dict,
+                       hd128: int) -> None:
+    """``vision_serve``, on the ``GPUVisionAnalyst(model_name="vlm-base")``
+    that the multimodal server built from ``APP_VLM_*`` (ViT-B from the
+    phase's seeded checkpoint, Llama-3-8B at 32 layers, random bf16 from
+    seed 0) and its generations for the report PDF: the drawn chart
+    described and tabled, the drawn photo described (``calls``, with their
+    teacher-forced logits, every id already held within ``PLAIN_TIE``).
+    K4 must have launched at head_dim 128 in those calls alone; a batch of
+    the two images gives each image's ids alone, or leaves them only where
+    the two tokens' logits lie within ``PLAIN_TIE``.  Timings: the ViT
+    encode at batch 1 and 8 beside its FLOP bound, the prefill, the decode
+    step as the analyst's graph replays and as one eager step (CUDA
+    events), and the first decode of a fresh ``DecodeGraphs`` (one eager
+    step and the capture, host clock)."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine.vision_service import DESCRIBE_PROMPT, TABLE_PROMPT
+    from generativeaiexamples_tpu_torch.models import vision
+
+    t_phase = time.perf_counter()
+    cfg, params = analyst.cfg, analyst.params
+    if [c["prompt"] for c in calls] != [DESCRIBE_PROMPT, TABLE_PROMPT, DESCRIBE_PROMPT]:
+        raise AssertionError(f"vision_serve: the report's generations were {[c['prompt'] for c in calls]}")
+    if not (launches["flash_attention"] == 3 * cfg.lm.n_layers == hd128):
+        raise AssertionError(f"vision_serve: K4 launches {launches}, at head_dim 128 {hd128}")
+    # A batch of the two images.
+    both = np.stack([calls[0]["images"][0], calls[2]["images"][0]])
+    tokens = torch.tensor([analyst.tokenizer.encode(DESCRIBE_PROMPT)] * 2, dtype=torch.int32, device=dev)
+    batch = vision.vlm_generate(params, cfg, torch.from_numpy(both).to(dev), tokens, analyst.max_new_tokens,
+                                graphs=analyst.graphs)
+    departures = []
+    for row, ci in zip(batch, (0, 2)):
+        alone = calls[ci]["ids"]
+        j = next((i for i, (a, b) in enumerate(zip(alone, row)) if a != b), None)
+        if j is None:
+            continue
+        gap = abs(float(tf_logits[ci][j, alone[j]] - tf_logits[ci][j, row[j]]))
+        if gap > PLAIN_TIE:
+            raise AssertionError(f"vision_serve: batch row leaves its image's ids at {j} with a logit gap {gap:.4f}")
+        departures.append(dict(position=j, logit_gap=gap))
+    # Timings (CUDA events): the ViT encode, the prefill, the decode step.
+    timing = {}
+    with torch.inference_mode():
+        for b in (1, 8):
+            imgs = torch.from_numpy(np.repeat(both[:1], b, 0)).to(dev)
+            ms = _event_ms(torch, lambda: vision.vit_encode(params["vit"], cfg.vit, imgs), n=5)
+            bf16_ops, f32_ops = vit_flops(cfg.vit, b)
+            b_ms = (bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS) * 1e3
+            timing[f"vit_encode_b{b}"] = dict(ms=ms, bound_ms=b_ms, bound_by="operations", bound_share=b_ms / ms)
+        img, tok = torch.from_numpy(both[:1]).to(dev), tokens[:1]
+        max_len = cfg.n_prefix + tok.shape[1] + analyst.max_new_tokens
+        graphs, steps = analyst.graphs, analyst.max_new_tokens - 1
+        cache = graphs.cache(1, max_len)
+        timing["prefill_ms"] = _event_ms(
+            torch, lambda: vision.vlm_prefill(params, cfg, img, tok, max_len, cache=cache), n=3)
+        first, cache, lengths = vision.vlm_prefill(params, cfg, img, tok, max_len, cache=cache)
+        nxt = first.argmax(-1).to(torch.int32)
+        # The report's captions captured this key's graph: these are replays.
+        captures = graphs.captures
+        timing["decode_step_ms"] = _event_ms(torch, lambda: graphs.decode(cache, nxt, lengths, steps), n=3) / steps
+        if graphs.captures != captures:
+            raise AssertionError("vision_serve: the timed decode captured a graph; the captions' capture was lost")
+        timing["decode_tokens_per_s"] = 1e3 / timing["decode_step_ms"]
+        timing["decode_step_eager_ms"] = _event_ms(
+            torch, lambda: vision.vlm_decode_step(params["lm"], cfg.lm, cache, nxt, lengths), n=3)
+        fresh = vision.DecodeGraphs(params["lm"], cfg.lm, dev)
+        fresh_cache = fresh.cache(1, max_len)
+        vision.vlm_prefill(params, cfg, img, tok, max_len, cache=fresh_cache)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fresh.decode(fresh_cache, nxt, lengths, 1)
+        torch.cuda.synchronize(dev)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        del fresh, fresh_cache, cache
+    emit("vision_serve", nvidia_smi=smi,
+         model="vlm-base: vit-b/16 (the multimodal phase's seeded checkpoint) + llama3-8b, 32 layers, random bf16, "
+               "seed 0", analyst="the multimodal server's, from APP_VLM_*",
+         prompt_tokens=[len(analyst.tokenizer.encode(p)) for p in VLM_PROMPTS],
+         prefill_s=[cfg.n_prefix + len(analyst.tokenizer.encode(p)) for p in VLM_PROMPTS],
+         max_new_tokens=analyst.max_new_tokens, generations=len(calls),
+         seconds_per_generation=[c["seconds"] for c in calls], launches=launches, flash_hd128_launches=hd128,
+         teacher_forced_max_deficit=max(max(_greedy_deficits(torch, lg, c["ids"])) for lg, c in zip(tf_logits, calls)),
+         tie=PLAIN_TIE, batch_of_two_departures=departures, **timing,
+         peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9, gates_s=time.perf_counter() - t_phase)
+    emit("vision_serve_capture", nvidia_smi=smi, first_decode_eager_step_and_capture_ms=capture_ms,
+         clock="host, synchronized before and after", decode_step_eager_ms=timing["decode_step_eager_ms"],
+         what="a fresh DecodeGraphs' first decode of one step at the describe prompt's cache: its eager "
+              "warm-up step and the capture of the next")
+
+
+MULTIMODAL_ENV = {"GAIE_EXAMPLE_MODULE": "generativeaiexamples_tpu_torch.chains.multimodal",
+                  "APP_VLM_MODELENGINE": "tpu", "APP_VLM_MODELNAME": "vlm-base", "APP_LLM_MODELENGINE": "echo"}
+
+
+def _found(module: str) -> bool:
+    """Whether ``module`` is installed (found without importing it)."""
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+BESIDE_LLM_QUERY = "What does the quarterly report say about revenue?"
+
+
+def caption_beside_llm(torch, dev, smi: str, pdf: str, report_calls: list, report_chunks: list) -> dict:
+    """``caption_beside_llm``: ``MULTIMODAL_ENV`` with the in-process LLM
+    (``APP_LLM_MODELENGINE=tpu``: Llama-3-8B W8A8 behind ``GPUChatLLM``,
+    random int8 from seed 0, its tick thread on the card) and the same
+    weights directory, so the analyst is the echo server's, newly built.
+    Greedy ``/generate`` requests (no knowledge base, so every prompt is
+    the same) stream back to back on a thread while the report PDF is
+    uploaded: the analyst captures its decode graphs and replays them
+    beside the LLM's allocations and launches.  Gates: the streams ran from
+    before the upload to after it, none failed or degraded, every stream's
+    ids equal the engine's for the same prompt submitted alone (prefix
+    cache off, as in ``chain``); the analyst captured two graphs (one per
+    role prompt) during the upload; the generations' prompts and ids and
+    every chunk (kind, text, source) equal the echo server's for the same
+    report (``report_calls``, ``report_chunks``)."""
+    from generativeaiexamples_tpu_torch.chains import factory
+    from generativeaiexamples_tpu_torch.chains.llm import GPUChatLLM
+    from generativeaiexamples_tpu_torch.core.configuration import reset_config_cache
+    from generativeaiexamples_tpu_torch.engine.vision_service import get_vision_analyst, reset_vision_analyst
+    from generativeaiexamples_tpu_torch.server.app import create_app
+
+    t_phase = time.perf_counter()
+    os.environ["APP_LLM_MODELENGINE"] = "tpu"
+    reset_config_cache()
+    factory.reset_factories()
+    reset_vision_analyst()
+    server = thread = None
+    stream_method = GPUChatLLM.stream
+    try:
+        server = create_app(device=dev)
+        torch.cuda.synchronize()
+        llm, analyst, store = factory.peek_chat_llm(), get_vision_analyst(), factory.get_store()
+        if not isinstance(llm, GPUChatLLM) or llm.scheduler.device.type != dev.type or analyst.graphs is None or \
+                analyst.graphs.captures:
+            raise AssertionError(f"caption_beside_llm: create_app() built {llm!r}, {analyst!r}")
+        sched = llm.scheduler
+        rec = _RecordIds(analyst)
+        stored = []
+        add = store.add
+
+        def recording_add(chunks, embeddings):
+            stored.extend(chunks)
+            return add(chunks, embeddings)
+
+        store.add = recording_add
+        received, ids_by_request = [], {}
+
+        def recording_stream(self, messages, **kw):
+            received.append(list(messages))
+            return stream_method(self, messages, **kw)
+
+        GPUChatLLM.stream = recording_stream
+        submit = sched.submit
+
+        def recording_submit(req):
+            on_token, got = req.on_token, ids_by_request.setdefault(req.id, [])
+            req.on_token = lambda t: (got.append(int(t)), on_token(t))
+            return submit(req)
+
+        sched.submit = recording_submit
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        # Streams back to back until the upload has returned.
+        sched.prefix_cache = "off"
+        stop, results, errors = threading.Event(), [], []
+
+        def streams():
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    res = _generate(base, BESIDE_LLM_QUERY, kb=False)
+                except Exception as exc:  # noqa: BLE001 - a gate below reports it
+                    errors.append(repr(exc))
+                    return
+                results.append(dict(res, started=t0, ended=time.perf_counter()))
+
+        streamer = threading.Thread(target=streams, daemon=True)
+        streamer.start()
+        t0 = time.perf_counter()
+        while not any(ids_by_request.values()) and not errors and time.perf_counter() - t0 < 300:
+            time.sleep(0.005)
+        with open(pdf, "rb") as fh:
+            data = fh.read()
+        up0 = time.perf_counter()
+        upload_ms = _upload_bytes(base, "report.pdf", data)
+        up1 = time.perf_counter()
+        captures = analyst.graphs.captures
+        stop.set()
+        streamer.join(600)
+        sched.prefix_cache = "shared"
+        if errors or streamer.is_alive() or not results:
+            raise AssertionError(f"caption_beside_llm: the streams failed: {errors[:2]}")
+        if any(r["status"] != 200 or r["done"]["degraded"] for r in results):
+            raise AssertionError(f"caption_beside_llm: a stream failed or degraded: "
+                                 f"{[r.get('done') for r in results][:3]}")
+        if not (results[0]["started"] < up0 and results[-1]["ended"] > up1):
+            raise AssertionError("caption_beside_llm: the streams did not run through the upload")
+        streamed = [list(v) for v in ids_by_request.values()]
+        if len(streamed) != len(results) or any(m != received[0] for m in received):
+            raise AssertionError(f"caption_beside_llm: {len(streamed)} streams recorded for {len(results)} "
+                                 "requests, or the prompts differed")
+        # The engine's ids for the same prompt, submitted alone.
+        _, _, prompt_ids, alone = _same_as_engine(base, llm, sched, received, ids_by_request, BESIDE_LLM_QUERY,
+                                                  kb=False, where="caption_beside_llm")
+        if any(ids != alone for ids in streamed):
+            raise AssertionError(f"caption_beside_llm: a stream's ids differ from the engine's alone: "
+                                 f"{[ids for ids in streamed if ids != alone][:1]} != {alone}")
+        got_calls = [dict(prompt=c["prompt"], ids=c["ids"]) for c in rec.calls]
+        got_chunks = [(c.metadata["kind"], c.text, c.source) for c in stored]
+        if captures != 2 or got_calls != report_calls or got_chunks != report_chunks:
+            raise AssertionError(f"caption_beside_llm: {captures} captures; generations equal "
+                                 f"{got_calls == report_calls}, chunks equal {got_chunks == report_chunks}")
+        overlap = [min(r["ended"], up1) - max(r["started"], up0) for r in results]
+        emit("caption_beside_llm", nvidia_smi=smi, config=dict(MULTIMODAL_ENV, APP_LLM_MODELENGINE="tpu"),
+             llm=f"llama3-8b W8A8, {sched.cfg.n_layers} layers, random int8, seed 0", upload_ms=upload_ms,
+             streams=len(results), streams_open_during_upload=sum(o > 0 for o in overlap),
+             stream_tokens=[len(ids) for ids in streamed], prompt_tokens=len(prompt_ids),
+             stream_ids_equal_to_engine_alone=True, captures_during_upload=captures,
+             generations=len(got_calls), generations_equal_to_echo_server=True, chunks=len(got_chunks),
+             chunks_equal_to_echo_server=True,
+             vlm_s_per_generation=[c["seconds"] for c in rec.calls],
+             stream_wall_ms=[r["wall_ms"] for r in results], phase_s=time.perf_counter() - t_phase)
+        return {"caption_beside_llm": len(results)}
+    finally:
+        GPUChatLLM.stream = stream_method
+        if thread is not None:
+            server.shutdown()
+            thread.join(timeout=60)
+        if server is not None:
+            server.server_close()
+
+
+def multimodal_phase(torch, dev, _cuda, smi: str) -> dict:
+    """The multimodal chain served by ``create_app()`` from ``APP_*``
+    (``MULTIMODAL_ENV``: the VLM on the card, the echo LLM, arctic-embed-l,
+    the exact store) over HTTP, with a seeded HF ``vit/`` checkpoint under
+    ``$GAIE_WEIGHTS_DIR/vlm-base``: a PDF (text, a table, a header and
+    footer, a Flate RGB chart, a Flate gray photo) and a PPTX (text, notes;
+    an image where PIL imports) in through ``POST /documents``.  Gates: the
+    loaded ViT leaves equal the written arrays; the chunks' kinds; each
+    caption chunk the analyst's decoded ids (teacher-forced as in
+    ``vision_serve``); ``/search`` on a caption equal to the store's own
+    search; a knowledge-base ``/generate`` streams; ``DELETE`` removes every
+    chunk.  The server's analyst then takes ``vision_serve``'s gates
+    (:func:`vision_serve_gates`) on the report's three generations, and
+    the same report is uploaded again beside the in-process LLM
+    (:func:`caption_beside_llm`).  Returns the launches of each (the
+    report's upload; both uploads)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.chains import factory
+    from generativeaiexamples_tpu_torch.core.configuration import reset_config_cache
+    from generativeaiexamples_tpu_torch.engine.vision_service import (
+        DESCRIBE_PROMPT,
+        TABLE_PROMPT,
+        GPUVisionAnalyst,
+        HeuristicVisionAnalyst,
+        get_vision_analyst,
+        reset_vision_analyst,
+    )
+    from generativeaiexamples_tpu_torch.ingest.multimodal_pdf import parse_pdf
+    from generativeaiexamples_tpu_torch.ingest.pptx import parse_pptx
+    from generativeaiexamples_tpu_torch.models import vision
+    from generativeaiexamples_tpu_torch.server.app import UPLOAD_DIR_ENV, create_app
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    saved_env = dict(os.environ)
+    root = tempfile.mkdtemp(prefix="multimodal_")
+    server = thread = None
+    try:
+        vcfg = vision.vit_base()
+        written = write_vit_checkpoint(torch, np, os.path.join(root, "weights", "vlm-base", "vit"), vcfg,
+                                       seed=VISION_SEED + 3, dtype=torch.bfloat16)
+        os.environ.update(MULTIMODAL_ENV, GAIE_WEIGHTS_DIR=os.path.join(root, "weights"))
+        os.environ[UPLOAD_DIR_ENV] = os.path.join(root, "uploads")
+        reset_config_cache()
+        factory.reset_factories()
+        reset_vision_analyst()
+        t0 = time.perf_counter()
+        server = create_app(device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        analyst, store = get_vision_analyst(), factory.get_store()
+        if not isinstance(analyst, GPUVisionAnalyst) or analyst.device != dev or analyst.cfg.lm.n_layers != 32 or \
+                type(store).__name__ != "GPUVectorStore" or server.example_cls.__name__ != "MultimodalRAG":
+            raise AssertionError(f"multimodal: create_app() built {server.example_cls}, {analyst!r}, {store!r}")
+        bad = _tree_bits_equal(torch, analyst.params["vit"], vit_tree_from_hf(torch, vcfg, written, "cpu"))
+        if bad:
+            raise AssertionError(f"multimodal: loaded ViT leaves differ from the written checkpoint: {bad}")
+        rec = _RecordIds(analyst)
+        stored = []
+        add = store.add
+
+        def recording_add(chunks, embeddings):
+            stored.extend(chunks)
+            return add(chunks, embeddings)
+
+        store.add = recording_add
+        pdf, deck = os.path.join(root, "report.pdf"), os.path.join(root, "deck.pptx")
+        write_pdf(np, pdf, report_pages(), [(0, chart_pixels(np)), (2, photo_pixels(np))])
+        pil = _found("PIL")
+        # The deck's image is a photo (one caption; a chart would take two).
+        write_pptx(deck, [(["Fusion Update", "Ignition at 2x gain"], "Speaker: mention the gain"),
+                          (["Next steps", "Budget and risks"], "")],
+                   png_bytes(np, np.repeat(photo_pixels(np, seed=1)[..., None], 3, axis=2)) if pil else b"")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        ingest_ms, by_doc = {}, {}
+        for path in (pdf, deck):
+            _cuda.reset_launch_counts()
+            with open(path, "rb") as fh:
+                ingest_ms[os.path.basename(path)] = _upload_bytes(base, os.path.basename(path), fh.read())
+            torch.cuda.synchronize()
+            by_doc[os.path.basename(path)] = (dict(_cuda.LAUNCHES), _cuda.FLASH_HD_LAUNCHES[128], len(rec.calls))
+        launches = {k: sum(v[0][k] for v in by_doc.values()) for k in _cuda.LAUNCHES}
+        if not launches["flash_attention"]:
+            raise AssertionError(f"multimodal: K4 did not launch in the VLM's prefills: {launches}")
+        kinds = [c.metadata["kind"] for c in stored]
+        if not {"text", "table", "chart", "image"} <= set(kinds) or not all(
+                c.source in ("report.pdf", "deck.pptx") for c in stored):
+            raise AssertionError(f"multimodal: chunk kinds {kinds}")
+        # Each caption chunk, rebuilt from the recorded generations in the
+        # chain's order (describe, then the table of a chart).
+        calls, want = list(rec.calls), []
+        heuristic = HeuristicVisionAnalyst()
+        images = [(s.image, s.text) for s in parse_pdf(pdf) if s.kind == "image"]
+        images += [(img, s.text[:200]) for s in parse_pptx(deck) for img in s.images]
+
+        per_image = []
+
+        def decoded(prompt):
+            call = calls.pop(0)
+            if call["prompt"] != prompt:
+                raise AssertionError(f"multimodal: generation order {call['prompt']!r} != {prompt!r}")
+            per_image[-1] += call["seconds"]
+            return analyst.tokenizer.decode(call["ids"])
+
+        for image, caption in images:
+            per_image.append(0.0)
+            desc = decoded(DESCRIBE_PROMPT)
+            if heuristic.is_graph(image):
+                want.append(("chart", f"Chart: {caption}\n{desc}\nData table:\n{decoded(TABLE_PROMPT)}"))
+            else:
+                want.append(("image", f"Image: {caption}\n{desc}"))
+        got = [(c.metadata["kind"], c.text) for c in stored if c.metadata["kind"] in ("chart", "image")]
+        if calls or got != want:
+            raise AssertionError(f"multimodal: caption chunks {got} != the analyst's decoded ids {want}")
+        gate = check_vlm_calls(torch, analyst, rec.calls, "multimodal")
+        tf_logits = gate.pop("logits")
+        # /search on a caption: the store's own search, bit for bit.
+        retriever, cache = factory.get_retriever(), factory.get_retrieval_cache()
+        query = got[0][1]
+        if cache is not None:
+            cache.clear()
+        found = [(c["content"], c["filename"], c["score"]) for c in _search(base, query, retriever.top_k)]
+        hits = store.search_batch(retriever.embedder.embed_queries([query]), retriever.top_k)[0]
+        direct = [(h.chunk.text, h.chunk.source, h.score) for h in hits if h.score >= retriever.score_threshold]
+        if not found or found != direct:
+            raise AssertionError(f"multimodal: /search on a caption: {found[:2]} != {direct[:2]}")
+        gen = _generate(base, "What does the chart show?", kb=True, max_tokens=16)
+        if gen["status"] != 200 or not gen["pieces"]:
+            raise AssertionError(f"multimodal: a knowledge-base /generate did not stream: {gen['status']}")
+        for name in ("report.pdf", "deck.pptx"):
+            status, _, raw = _http("DELETE", base + f"/documents?filename={name}")
+            if status != 200:
+                raise AssertionError(f"multimodal: DELETE {name}: {status} {raw[:200]!r}")
+        _, _, raw = _http("GET", base + "/documents")
+        rows = store.capacity_stats()["rows"]
+        if json.loads(raw)["documents"] or rows:
+            raise AssertionError(f"multimodal: {rows} rows left after the deletes")
+        n_report = by_doc["report.pdf"][2]
+        vision_serve_gates(torch, dev, smi, analyst, rec.calls[:n_report], tf_logits[:n_report],
+                           *by_doc["report.pdf"][:2])
+        del tf_logits
+        fields = dict(nvidia_smi=smi, config=MULTIMODAL_ENV, build_s=build_s, vit_checkpoint_leaves_equal=True,
+                      pil=pil, pytesseract=_found("pytesseract"),
+                      ingest_ms=ingest_ms, chunks=len(stored),
+                      chunks_by_kind={k: kinds.count(k) for k in sorted(set(kinds))}, generations=len(rec.calls),
+                      vlm_s_per_image=per_image, teacher_forced=gate, search_on_caption_equal=True,
+                      generate_ttft_ms=gen["ttft_ms"], deleted_rows_left=rows, launches=launches,
+                      phase_s=time.perf_counter() - t_phase)
+        emit("multimodal", **fields)
+        report_calls = [dict(prompt=c["prompt"], ids=c["ids"]) for c in rec.calls[:n_report]]
+        report_chunks = [(c.metadata["kind"], c.text, c.source) for c in stored if c.source == "report.pdf"]
+        # The echo server goes before the drill builds its own.
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        server = thread = None
+        del analyst, store, add, recording_add, retriever, cache, rec, stored
+        factory.reset_factories()
+        reset_vision_analyst()
+        gc.collect()
+        torch.cuda.empty_cache()
+        caption_beside_llm(torch, dev, smi, pdf, report_calls, report_chunks)
+        return {"vision_serve": by_doc["report.pdf"][0], "multimodal": launches}
+    finally:
+        if thread is not None:
+            server.shutdown()
+            thread.join(timeout=60)
+        if server is not None:
+            server.server_close()
+        os.environ.clear()
+        os.environ.update(saved_env)
+        reset_config_cache()
+        factory.reset_factories()
+        reset_vision_analyst()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+SPEECH_SEED = 31
+# f32 card (IEEE f32 or better: ops.f32's f64 products, cuFFT) against
+# the CPU's f32 on the same weights and inputs, full width and depth.
+SPEECH_TOL = {
+    "log_mel": dict(atol=1e-3, rtol=1e-4),  # logs of power sums; quiet bins carry the error
+    "asr_logits": dict(atol=1e-3, rtol=1e-3),  # 12 conformer blocks
+    "tts_mel": dict(atol=1e-3, rtol=1e-3),  # 2 x 4 blocks over 2,048 frames
+    "tts_durations": dict(atol=1e-4, rtol=1e-5),
+    "w2v2_logits": dict(atol=1e-3, rtol=1e-3),  # 7 convs, 12 post-LN blocks
+}
+# Griffin-Lim from zero phase is chaotic on these spectra: the card's
+# waveform is held within GL_SPREAD times the CPU's own change when its
+# input moves by one ulp, after 1 and after 30 iterations.
+GL_SPREAD = 8.0
+SPEECH_SENTENCE = "the quick brown fox jumps over the lazy dog near the river bank"
+
+
+def _close_within(torch, got, want, tol: dict, what: str) -> float:
+    err = (got.float().cpu() - want.float().cpu()).abs()
+    bound = tol["atol"] + tol["rtol"] * want.float().cpu().abs()
+    if bool((err > bound).any()):
+        raise ToleranceError(f"{what}: max error {err.max().item():.4g} past {tol}", dict(max_err=err.max().item()))
+    return err.max().item()
+
+
+def _ctc_ids_checked(torch, got, want, atol: float, what: str) -> int:
+    """Frames whose CPU top-2 gap exceeds twice ``atol`` must give the same
+    argmax on the card; returns how many were checked."""
+    top2 = want.float().cpu().topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * atol
+    same = got.float().cpu().argmax(-1) == want.float().cpu().argmax(-1)
+    if bool((sure & ~same).any()):
+        raise AssertionError(f"{what}: a CTC frame's id differs where its top-2 gap exceeds {2 * atol}")
+    return int(sure.sum())
+
+
+def _rel_rms(a, b) -> float:
+    return float(((a - b) ** 2).mean().sqrt() / (b**2).mean().sqrt())
+
+
+def speech_reference_phase(torch, dev, smi: str) -> dict:
+    """Conformer-S, FastSpeech-S and wav2vec2-base at full width and depth
+    (f32, numpy seed) on the card and on the CPU: log-mel, the ASR logits
+    and CTC ids, the TTS mel and durations, Griffin-Lim, the wav2vec2
+    logits and CTC ids, within ``SPEECH_TOL`` / ``GL_SPREAD``; a planted
+    transposed filterbank must fail the log-mel gate."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.models import speech
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    fields = dict(nvidia_smi=smi)
+    acfg, tcfg, wcfg = speech.conformer_s(), speech.fastspeech_s(), speech.wav2vec2_base()
+    asr_gains = ("ffn1_norm", "attn_norm", "conv_norm", "ffn2_norm", "final_norm", "out_norm")
+    trees = {
+        "asr": _seeded_tree(torch, np, speech.asr_param_shapes(acfg), SPEECH_SEED, torch.float32, asr_gains),
+        "tts": _seeded_tree(torch, np, speech.tts_param_shapes(tcfg), SPEECH_SEED + 1, torch.float32,
+                            ("attn_norm", "mlp_norm")),
+        "w2v2": _seeded_tree(torch, np, speech.w2v2_param_shapes(wcfg), SPEECH_SEED + 2, torch.float32,
+                             ("gn_g", "fp_norm_g", "enc_norm_g", "ln1_g", "ln2_g")),
+    }
+    card = {k: _tree_to(v, dev) for k, v in trees.items()}
+    pcm = speech_wave(np, SPEECH_SEED, 2.0)
+    with torch.inference_mode():
+        mel_cpu = speech.log_mel(torch.from_numpy(pcm), 400, 160, acfg.n_mels)
+        fields["log_mel_max_err"] = _close_within(
+            torch, speech.log_mel(torch.from_numpy(pcm).to(dev), 400, 160, acfg.n_mels), mel_cpu,
+            SPEECH_TOL["log_mel"], "speech_reference: log-mel")
+        fb = speech.mel_filterbank
+        speech.mel_filterbank = lambda *a: fb(*a).T.reshape(fb(*a).shape).copy()
+        try:
+            speech_fault = None
+            _close_within(torch, speech.log_mel(torch.from_numpy(pcm).to(dev), 400, 160, acfg.n_mels), mel_cpu,
+                          SPEECH_TOL["log_mel"], "transposed filterbank")
+        except ToleranceError as exc:
+            speech_fault = exc.fields
+        finally:
+            speech.mel_filterbank = fb
+        if speech_fault is None:
+            raise AssertionError("speech_reference: the planted transposed filterbank passed the log-mel gate")
+        a_cpu = speech.asr_forward(trees["asr"], acfg, mel_cpu[None])
+        a_dev = speech.asr_forward(card["asr"], acfg, mel_cpu[None].to(dev))
+        fields["asr_logits_max_err"] = _close_within(torch, a_dev, a_cpu, SPEECH_TOL["asr_logits"],
+                                                     "speech_reference: ASR logits")
+        fields["asr_ctc_frames_checked"] = _ctc_ids_checked(torch, a_dev, a_cpu, SPEECH_TOL["asr_logits"]["atol"],
+                                                            "speech_reference: ASR")
+        ids = [speech.text_to_ids(SPEECH_SENTENCE)]
+        t_cpu, t_dev = speech.tts_forward(trees["tts"], tcfg, ids), speech.tts_forward(card["tts"], tcfg, ids)
+        if not torch.equal(t_dev[1].cpu(), t_cpu[1]):
+            raise AssertionError(f"speech_reference: TTS frame counts {t_dev[1]} != {t_cpu[1]}")
+        fields["tts_mel_max_err"] = _close_within(torch, t_dev[0], t_cpu[0], SPEECH_TOL["tts_mel"],
+                                                  "speech_reference: TTS mel")
+        fields["tts_duration_max_err"] = _close_within(torch, t_dev[2], t_cpu[2], SPEECH_TOL["tts_durations"],
+                                                       "speech_reference: TTS durations")
+        n = int(t_cpu[1][0])
+        m2l = torch.from_numpy(np.linalg.pinv(speech.mel_filterbank(tcfg.n_mels, tcfg.n_fft, tcfg.fs)).astype(
+            np.float32))
+        mag = torch.sqrt(torch.clamp(torch.exp(t_cpu[0][0, :n]) @ m2l, min=0.0))
+        nudged = torch.from_numpy(np.nextafter(mag.numpy(), np.float32(np.inf)))
+        edge = slice(tcfg.n_fft - tcfg.hop, -(tcfg.n_fft - tcfg.hop))
+        gl = {}
+        for iters in (1, 30):
+            want = speech.griffin_lim(mag, tcfg.n_fft, tcfg.hop, iters)[edge]
+            spread = _rel_rms(speech.griffin_lim(nudged, tcfg.n_fft, tcfg.hop, iters)[edge], want)
+            got = _rel_rms(speech.griffin_lim(mag.to(dev), tcfg.n_fft, tcfg.hop, iters)[edge].cpu(), want)
+            if got > GL_SPREAD * spread:
+                raise AssertionError(f"speech_reference: Griffin-Lim ({iters} iterations) {got:.4g} rel RMS from "
+                                     f"the CPU's, past {GL_SPREAD} x its one-ulp spread {spread:.4g}")
+            gl[f"iters_{iters}"] = dict(rel_rms=got, cpu_one_ulp_spread=spread)
+        fields["griffin_lim"] = gl
+        wave = speech.w2v2_normalize(speech_wave(np, SPEECH_SEED + 1, 1.0))[None]
+        w_cpu, w_dev = speech.w2v2_forward(trees["w2v2"], wcfg, wave), speech.w2v2_forward(card["w2v2"], wcfg, wave)
+        fields["w2v2_logits_max_err"] = _close_within(torch, w_dev, w_cpu, SPEECH_TOL["w2v2_logits"],
+                                                      "speech_reference: wav2vec2 logits")
+        fields["w2v2_ctc_frames_checked"] = _ctc_ids_checked(
+            torch, w_dev, w_cpu, SPEECH_TOL["w2v2_logits"]["atol"], "speech_reference: wav2vec2")
+    fields.update(models="conformer-s, fastspeech-s, wav2vec2-base; f32, every leaf from numpy seed",
+                  audio_s=len(pcm) / 16_000, tts_frames=n, tolerance=SPEECH_TOL, gl_spread=GL_SPREAD,
+                  fault_failed_the_gate=speech_fault, phase_s=time.perf_counter() - t_phase)
+    emit("speech_reference", **fields)
+    del card, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields
+
+
+def w2v2_tree_from_hf(torch, np, cfg, tensors: dict) -> dict:
+    """The wav2vec2 tree a loader must build from the HF ``tensors``
+    (numpy), mapped here as the reference maps it, as CPU f32 tensors."""
+    def t(name):
+        return torch.from_numpy(np.ascontiguousarray(tensors["wav2vec2." + name]))
+
+    def stack(fmt, transpose=True):
+        return torch.stack([t(fmt.format(i)).T if transpose else t(fmt.format(i)) for i in range(cfg.n_layers)])
+
+    fe = "feature_extractor.conv_layers."
+    convs = [{"w": t(f"{fe}{i}.conv.weight").permute(2, 1, 0).contiguous()} for i in range(len(cfg.conv_dim))]
+    convs[0].update(gn_g=t(fe + "0.layer_norm.weight"), gn_b=t(fe + "0.layer_norm.bias"))
+    pc = "encoder.pos_conv_embed.conv."
+    g, v = tensors["wav2vec2." + pc + "weight_g"], tensors["wav2vec2." + pc + "weight_v"]
+    norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True))
+    pos_w = (g * v / np.maximum(norm, 1e-12)).astype(np.float32)
+    enc = "encoder.layers.{}."
+    layers = {}
+    for ours, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+        layers["w" + ours] = stack(enc + f"attention.{hf}.weight")
+        layers["b" + ours] = stack(enc + f"attention.{hf}.bias", False)
+    for ours, hf in (("ff_in", "intermediate_dense"), ("ff_out", "output_dense")):
+        layers[ours + "_w"] = stack(enc + f"feed_forward.{hf}.weight")
+        layers[ours + "_b"] = stack(enc + f"feed_forward.{hf}.bias", False)
+    for ours, hf in (("ln1", "layer_norm"), ("ln2", "final_layer_norm")):
+        layers[ours + "_g"] = stack(enc + f"{hf}.weight", False)
+        layers[ours + "_b"] = stack(enc + f"{hf}.bias", False)
+    return {"conv_layers": convs, "fp_norm_g": t("feature_projection.layer_norm.weight"),
+            "fp_norm_b": t("feature_projection.layer_norm.bias"), "fp_w": t("feature_projection.projection.weight").T,
+            "fp_b": t("feature_projection.projection.bias"), "pos_conv_w": torch.from_numpy(pos_w).permute(2, 1, 0),
+            "pos_conv_b": t(pc + "bias"), "enc_norm_g": t("encoder.layer_norm.weight"),
+            "enc_norm_b": t("encoder.layer_norm.bias"), "layers": layers,
+            "lm_head_w": torch.from_numpy(tensors["lm_head.weight"]).T, "lm_head_b": torch.from_numpy(tensors["lm_head.bias"])}
+
+
+def _pcm16_frames_events(np, session, pcm16: bytes, frame_bytes: int) -> list:
+    """A direct session fed ``pcm16`` as the service feeds it (frames of
+    ``frame_bytes``, a dangling byte carried), then finished: the
+    service's message list."""
+    events, carry = [], b""
+    for i in range(0, len(pcm16), frame_bytes):
+        data = carry + pcm16[i : i + frame_bytes]
+        cut = len(data) & ~1
+        data, carry = data[:cut], data[cut:]
+        if data:
+            events += session.feed(np.frombuffer(data, np.int16).astype(np.float32) / 32768.0)
+    events += session.finish()
+    return [{"type": "final" if e["is_final"] else "partial", "text": e["text"]} for e in events] + [
+        {"type": "done", "transcript": session.transcript}]
+
+
+def _serve_speech(engine):
+    from generativeaiexamples_tpu_torch.engine.speech_service import create_speech_app
+
+    server = create_speech_app(engine)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, server.server_address[1]
+
+
+def _stop_speech(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=60)
+    server.engine.close()
+
+
+def _wav_multipart(data: bytes) -> tuple[bytes, dict]:
+    boundary = "speechSmokeBoundary"
+    body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="a.wav"\r\n'
+            f"Content-Type: audio/wav\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    return body, {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def speech_serve_phase(torch, dev, smi: str) -> dict:
+    """The port's speech service in process on 127.0.0.1 (Conformer-S and
+    FastSpeech-S, random f32 from seed 0, on the card): TTS to WAV to
+    ``/v1/audio/transcriptions`` against a direct ``transcribe``; the
+    WebSocket stream against a direct ``StreamingTranscriber``; streaming
+    TTS frames against each segment's ``synthesize``; voices, health, the
+    400s; then a seeded wav2vec2-base checkpoint from ``GAIE_W2V2_DIR``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import speech_service as ss
+    from generativeaiexamples_tpu_torch.models import speech
+
+    t_phase = time.perf_counter()
+    saved = os.environ.pop("GAIE_W2V2_DIR", None)
+    engine = ss.SpeechEngine(device=dev)
+    server, thread, port = _serve_speech(engine)
+    base = f"http://127.0.0.1:{port}"
+    root = tempfile.mkdtemp(prefix="speech_")
+    fields = dict(nvidia_smi=smi, asr="conformer-s, random f32, seed 0", tts="fastspeech-s, random f32, seed 1")
+    try:
+        # TTS -> WAV -> ASR.
+        t0 = time.perf_counter()
+        status, _, wav = _http("POST", base + "/v1/audio/speech", {"input": SPEECH_SENTENCE})
+        tts_s = time.perf_counter() - t0
+        pcm = ss._read_wav(wav)
+        if status != 200 or not np.array_equal(np.round(pcm * 32768).astype(np.int16),
+                                               engine.synthesize(SPEECH_SENTENCE)[1]):
+            raise AssertionError(f"speech_serve: /v1/audio/speech {status} differs from a direct synthesize")
+        body, headers = _wav_multipart(wav)
+        status, _, raw = _http("POST", base + "/v1/audio/transcriptions", body, headers)
+        direct = engine.run(engine.transcribe, pcm)
+        if status != 200 or json.loads(raw)["text"] != direct:
+            raise AssertionError(f"speech_serve: transcription {raw[:200]!r} != direct {direct!r}")
+        long = speech_wave(np, SPEECH_SEED + 2, 4.0)
+        asr_ms = _host_ms(lambda: engine.run(engine.transcribe, long), n=3)
+        # The WebSocket stream against a direct session fed the same frames.
+        audio = np.concatenate([speech_wave(np, SPEECH_SEED + 3, 1.2, silence=1.4), speech_wave(np, SPEECH_SEED + 4, 1.0)])
+        pcm16 = (audio * 32767).astype(np.int16).tobytes()
+        ws = WSClient("127.0.0.1", port, "/v1/audio/transcriptions/stream")
+        events = stream_pcm(ws, pcm16, 6401)
+        end_to_done_ms = ws.end_to_done_ms
+        ws.close()
+        want = engine.run(lambda: _pcm16_frames_events(np, engine.streaming_transcriber(), pcm16, 6401))
+        kinds = [e["type"] for e in events]
+        if events != want or "final" not in kinds or "partial" not in kinds:
+            raise AssertionError(f"speech_serve: stream events {events} != a direct session's {want}")
+        # Streaming TTS: one frame per segment, each the segment's synthesize.
+        text = (SPEECH_SENTENCE + ". ") * 6
+        status, stream_headers, raw = _http("POST", base + "/v1/audio/speech/stream", {"input": text})
+        frames, pos = [], 0
+        while pos + 4 <= len(raw):
+            n = int.from_bytes(raw[pos : pos + 4], "little")
+            frames.append(np.frombuffer(raw[pos + 4 : pos + 4 + n], np.int16))
+            pos += 4 + n
+        segments = ss.segment_text(text)
+        if status != 200 or stream_headers.get("X-Sample-Rate") != "16000" or len(frames) != len(segments) < 2 or any(
+                not np.array_equal(f, engine.synthesize(s)[1]) for f, s in zip(frames, segments)):
+            raise AssertionError(f"speech_serve: streaming TTS gave {len(frames)} frames for {len(segments)} segments")
+        checks = {"/v1/audio/voices": (200, {"voices": [{"name": "default", "language": "en-US"}]}),
+                  "/health": (200, {"message": "Service is up.", "asr_backend": "conformer-ctc"})}
+        for path, (code, body_want) in checks.items():
+            status, _, raw = _http("GET", base + path)
+            if status != code or json.loads(raw) != body_want:
+                raise AssertionError(f"speech_serve: GET {path}: {status} {raw[:200]!r}")
+        for path in ("/v1/audio/speech", "/v1/audio/speech/stream"):
+            status, _, raw = _http("POST", base + path, {"input": "   "})
+            if status != 400 or json.loads(raw) != {"message": "empty input"}:
+                raise AssertionError(f"speech_serve: {path} on empty input: {status} {raw[:200]!r}")
+        fields.update(tts_real_time_factor=tts_s / (len(pcm) / 16_000), asr_ms_per_audio_s=asr_ms / 4.0,
+                      stream_events=len(events), stream_end_to_done_ms=end_to_done_ms, tts_stream_frames=len(frames),
+                      transcript_chars=len(direct))
+        _stop_speech(server, thread)
+        server = None
+        # wav2vec2-base from a seeded HF checkpoint through GAIE_W2V2_DIR.
+        wcfg = speech.wav2vec2_base()
+        tensors = write_w2v2_checkpoint(torch, np, root, wcfg, seed=SPEECH_SEED + 5)
+        os.environ["GAIE_W2V2_DIR"] = root
+        t0 = time.perf_counter()
+        w_engine = ss.SpeechEngine(device=dev)
+        load_s = time.perf_counter() - t0
+        server, thread, port = _serve_speech(w_engine)
+        base = f"http://127.0.0.1:{port}"
+        status, _, raw = _http("GET", base + "/health")
+        if json.loads(raw).get("asr_backend") != "wav2vec2-ctc" or w_engine.asr_params is not None:
+            raise AssertionError(f"speech_serve: GAIE_W2V2_DIR gave {raw[:200]!r}")
+        _, params = w_engine.w2v2
+        direct_tree = _tree_to(w2v2_tree_from_hf(torch, np, wcfg, tensors), dev)
+        wave = speech.w2v2_normalize(pcm, pad=True)[None]
+        with torch.inference_mode():
+            served = speech.w2v2_forward(params, wcfg, wave)
+            want = speech.w2v2_forward(direct_tree, wcfg, wave)
+        w_err = (served - want).abs().max().item()
+        if w_err > 1e-5 * max(want.abs().max().item(), 1.0):
+            raise AssertionError(f"speech_serve: the served wav2vec2's logits are {w_err} from a direct forward")
+        status, _, raw = _http("POST", base + "/v1/audio/transcriptions", body, headers)
+        if status != 200 or json.loads(raw)["text"] != speech.w2v2_decode(served[0], w_engine.w2v2_vocab):
+            raise AssertionError(f"speech_serve: wav2vec2 transcription {raw[:200]!r}")
+        fields.update(w2v2="wav2vec2-base, HF safetensors from numpy seed", w2v2_load_s=load_s,
+                      w2v2_logits_max_err=w_err, w2v2_backend="wav2vec2-ctc",
+                      w2v2_asr_ms_per_audio_s=_host_ms(lambda: w_engine.run(w_engine.transcribe, long), n=3) / 4.0,
+                      phase_s=time.perf_counter() - t_phase)
+        # The port serves speech on http.server; the line records whether
+        # aiohttp (the reference's server) is installed here.
+        fields["aiohttp"] = _found("aiohttp")
+        emit("speech_serve", **fields)
+        return fields
+    finally:
+        if server is not None:
+            _stop_speech(server, thread)
+        os.environ.pop("GAIE_W2V2_DIR", None)
+        if saved is not None:
+            os.environ["GAIE_W2V2_DIR"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     # The run uses one card: only the first visible one is exposed, so the
     # device count in the last line is 1 whatever else the machine holds.
@@ -7200,7 +8697,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = nvidia_smi_line()
-    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+    emit("device", nvidia_smi=smi, python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
@@ -7317,6 +8814,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     kw = serve_kw("contiguous")
     check_qmm_shapes(torch, dev, k1_shapes.seen, worst_m=kw["max_batch"] * kw["max_len"])
+    # The model services: K4 at the VLM's prefill shapes, the vision
+    # models card vs CPU, the analyst, the multimodal chain, speech.
+    vlm_k4 = {f"s{s}_t{s + 96}": check_flash_warm(torch, dev, log, 128, 0, s + 96, b=1, s=s, n_valid=(s,),
+                                                   regime="vlm_prefill") for s in VLM_PREFILL_S}
+    vision_reference_phase(torch, dev, smi)
+    service_launches = multimodal_phase(torch, dev, _cuda, smi)
+    speech_reference_phase(torch, dev, smi)
+    speech_serve_phase(torch, dev, smi)
     durable_phase(smi)
     durable_phase(smi, name="durable_fabric", n_docs=DURABLE_FABRIC_DOCS, term=False, env_extra=DURABLE_FABRIC_ENV)
 
@@ -7338,8 +8843,11 @@ def main() -> int:
         kernels[-1]["families_launches"] = {
             preset: {path: counts[name] for path, counts in paths.items()} for preset, paths in family_launches.items()}
         timed = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+        kernels[-1]["services_launches"] = {phase: counts[name] for phase, counts in service_launches.items()}
         if name == "flash_attention":
             kernels[-1]["warm"] = {k: {f: h[f] for f in timed + ("t", "first_position", "hd")} for k, h in warm.items()}
+            kernels[-1]["vlm_prefill"] = {k: {f: h[f] for f in timed + ("s", "t", "first_position", "hd")}
+                                          for k, h in vlm_k4.items()}
         if "hd64" in s:
             h = s["hd64"]
             kernels[-1]["hd64"] = {k: h[k] for k in timed + ("shape",)}

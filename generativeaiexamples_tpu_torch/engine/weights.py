@@ -1,9 +1,10 @@
 """Weight management (port of ``engine/weights.py``): preset resolution,
 HF safetensors checkpoints (the reader and writer; Llama / Mistral,
 Mixtral, Gemma and StarCoder2 causal LMs; BERT encoders and
-cross-encoders), load-time blocking of the int8 projections, conversion
-of the reference's param trees (the Llama family and BERT, with the
-rerank head), KV caches and paged KV pools from numpy, and
+cross-encoders; ViT encoders; wav2vec2-CTC), load-time blocking of the
+int8 projections, conversion of the reference's param trees (the Llama
+family and BERT, with the rerank head; the ViT, the VLM and the speech
+models), KV caches and paged KV pools from numpy, and
 ``weights_dir_for`` (where a provisioned checkpoint is).
 
 Checkpoints keep BF16 as bf16: the reference widens it to f32 on the
@@ -596,10 +597,14 @@ def pool_from_numpy(pool, cfg, device):
     return out
 
 
-def _tree_from_numpy(tree, shapes, device, what: str) -> dict:
+def _tree_from_numpy(tree, shapes, device, what: str):
+    if isinstance(shapes, list):  # a list of subtrees (wav2vec2's conv layers)
+        if len(tree) != len(shapes):
+            raise ValueError(f"{what} tree has {len(tree)} entries; the config says {len(shapes)}")
+        return [_tree_from_numpy(t, s, device, what) for t, s in zip(tree, shapes)]
     out = {}
     for name, shape in shapes.items():
-        if isinstance(shape, dict):
+        if isinstance(shape, (dict, list)):
             out[name] = _tree_from_numpy(tree[name], shape, device, what)
             continue
         leaf = _tensor(tree[name], device)
@@ -622,3 +627,230 @@ def rerank_head_from_numpy(head, device) -> dict:
     """The reference's rerank head (``w_pool``/``b_pool`` when it has the
     pooler, ``w``/``b``) with numpy leaves, as tensors."""
     return {name: _tensor(leaf, device) for name, leaf in head.items()}
+
+
+def vit_params_from_numpy(tree, cfg, device) -> dict:
+    """The reference's ViT param tree with numpy leaves, as tensors (the
+    same names, shapes and values)."""
+    from generativeaiexamples_tpu_torch.models.vision import vit_param_shapes
+
+    return _tree_from_numpy(tree, vit_param_shapes(cfg), device, "vit param")
+
+
+def vlm_params_from_numpy(tree, cfg, device) -> dict:
+    """The reference's VLM tree (``vit``, ``projector``, ``lm``) with numpy
+    leaves: the ViT through :func:`vit_params_from_numpy`, the LM through
+    :func:`params_from_numpy`."""
+    proj = _tensor(tree["projector"], device)
+    if tuple(proj.shape) != (cfg.vit.d_model, cfg.lm.d_model):
+        raise ValueError(f"projector has shape {tuple(proj.shape)}; the config says {(cfg.vit.d_model, cfg.lm.d_model)}")
+    return {"vit": vit_params_from_numpy(tree["vit"], cfg.vit, device), "projector": proj,
+            "lm": params_from_numpy(tree["lm"], cfg.lm, device)}
+
+
+def speech_params_from_numpy(tree, shapes: dict, device, what: str = "speech param") -> dict:
+    """A reference speech tree (ASR, TTS or wav2vec2) with numpy leaves, as
+    tensors; ``shapes`` is the port's ``models.speech.*_param_shapes(cfg)``."""
+    return _tree_from_numpy(tree, shapes, device, what)
+
+
+# -- HF ViT and wav2vec2 checkpoints -------------------------------------------
+
+
+def vit_config_from_hf(ckpt_dir: str, **overrides):
+    """A ViTConfig from a HF checkpoint's ``config.json``."""
+    from generativeaiexamples_tpu_torch.models import vision
+
+    with open(os.path.join(ckpt_dir, "config.json"), encoding="utf-8") as fh:
+        c = json.load(fh)
+    kw = dict(
+        image_size=c["image_size"],
+        patch_size=c["patch_size"],
+        d_model=c["hidden_size"],
+        n_layers=c["num_hidden_layers"],
+        n_heads=c["num_attention_heads"],
+        d_ff=c["intermediate_size"],
+        norm_eps=c.get("layer_norm_eps", 1e-6),
+    )
+    kw.update(overrides)
+    return vision.ViTConfig(**kw)
+
+
+def load_hf_vit(cfg, ckpt_dir: str, *, device=None) -> dict:
+    """Convert a HF ``ViTModel`` checkpoint (or a ``vit.``-prefixed task
+    model) into the port's ViT tree, in ``cfg.compute_dtype`` on ``device``.
+
+    The conv patch embedding (D, C, p, p) becomes the (patch_dim, D) matmul
+    weight in ``vision.patchify``'s (patch row, patch column, channel)
+    order; query, key and value fuse on the output axis into ``wqkv``."""
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(device)
+    tensors = _load_safetensors_dir(ckpt_dir)
+    stripped = _prefixed(tensors, "vit.")
+    dt = cfg.compute_dtype
+
+    def t(name: str) -> torch.Tensor:
+        return _owned(stripped[name], dt, device)
+
+    def stack(fmt: str, transpose: bool) -> torch.Tensor:
+        return _stack_layers(stripped, fmt, cfg.n_layers, dt, device, transpose)
+
+    att = "encoder.layer.{}.attention.attention."
+    wqkv = torch.empty((cfg.n_layers, cfg.d_model, 3 * cfg.d_model), dtype=dt, device=device)
+    bqkv = torch.empty((cfg.n_layers, 3 * cfg.d_model), dtype=dt, device=device)
+    for i in range(cfg.n_layers):
+        for j, w in enumerate(("query", "key", "value")):
+            cols = slice(j * cfg.d_model, (j + 1) * cfg.d_model)
+            wqkv[i, :, cols] = stripped[(att + w + ".weight").format(i)].to(device).T
+            bqkv[i, cols] = stripped[(att + w + ".bias").format(i)].to(device)
+        _release(tensors)
+    conv = stripped["embeddings.patch_embeddings.projection.weight"].to(device)  # (D, C, p, p)
+    lay = "encoder.layer.{}."
+    params = {
+        "patch_proj": conv.permute(2, 3, 1, 0).reshape(cfg.patch_dim, cfg.d_model).to(dt).contiguous(),
+        "patch_bias": t("embeddings.patch_embeddings.projection.bias"),
+        "pos_embed": t("embeddings.position_embeddings")[0],
+        "cls": t("embeddings.cls_token"),
+        "layers": {
+            "ln1_g": stack(lay + "layernorm_before.weight", False),
+            "ln1_b": stack(lay + "layernorm_before.bias", False),
+            "wqkv": wqkv,
+            "bqkv": bqkv,
+            "wo": stack(lay + "attention.output.dense.weight", True),
+            "bo": stack(lay + "attention.output.dense.bias", False),
+            "ln2_g": stack(lay + "layernorm_after.weight", False),
+            "ln2_b": stack(lay + "layernorm_after.bias", False),
+            "w1": stack(lay + "intermediate.dense.weight", True),
+            "b1": stack(lay + "intermediate.dense.bias", False),
+            "w2": stack(lay + "output.dense.weight", True),
+            "b2": stack(lay + "output.dense.bias", False),
+        },
+        "final_ln_g": t("layernorm.weight"),
+        "final_ln_b": t("layernorm.bias"),
+    }
+    _release(tensors)
+    logger.info("loaded %d HF ViT tensors from %s", len(tensors), ckpt_dir)
+    return params
+
+
+def w2v2_config_from_hf(ckpt_dir: str, **overrides):
+    """A Wav2Vec2Config from a HF checkpoint's ``config.json`` (geometry
+    from the checkpoint, so custom-vocab CTC fine-tunes load with the right
+    head).  Refuses non-wav2vec2 and layer-norm-variant checkpoints, as the
+    reference does: the converter maps the group-norm family only."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.models import speech
+
+    with open(os.path.join(ckpt_dir, "config.json"), encoding="utf-8") as fh:
+        hf = json.load(fh)
+    if hf.get("model_type", "wav2vec2") != "wav2vec2":
+        raise ValueError(f"checkpoint is model_type={hf.get('model_type')!r}, not wav2vec2")
+    if hf.get("do_stable_layer_norm", False):
+        raise ValueError(
+            "layer-norm wav2vec2 variant (do_stable_layer_norm=True) is not supported; use a "
+            "wav2vec2-base-960h-class checkpoint"
+        )
+    cfg = speech.Wav2Vec2Config(
+        vocab_size=hf.get("vocab_size", 32),
+        d_model=hf.get("hidden_size", 768),
+        n_layers=hf.get("num_hidden_layers", 12),
+        n_heads=hf.get("num_attention_heads", 12),
+        d_ff=hf.get("intermediate_size", 3072),
+        conv_dim=tuple(hf.get("conv_dim", (512,) * 7)),
+        conv_kernel=tuple(hf.get("conv_kernel", (10, 3, 3, 3, 3, 2, 2))),
+        conv_stride=tuple(hf.get("conv_stride", (5, 2, 2, 2, 2, 2, 2))),
+        pos_conv_kernel=hf.get("num_conv_pos_embeddings", 128),
+        pos_conv_groups=hf.get("num_conv_pos_embedding_groups", 16),
+        norm_eps=float(hf.get("layer_norm_eps", 1e-5)),
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def load_hf_wav2vec2(cfg, ckpt_dir: str, *, device=None) -> dict:
+    """Convert a HF ``Wav2Vec2ForCTC`` checkpoint (wav2vec2-base-960h
+    class: group-norm feature extractor, post-LN encoder) into the port's
+    wav2vec2 tree, in ``cfg.compute_dtype`` on ``device``.
+
+    Conv kernels move from HF's (out, in, k) to the tree's (k, in, out).
+    The positional conv is weight-normalized (``weight_g`` / ``weight_v``,
+    or ``parametrizations.weight.original0/1``): the effective weight
+    ``g * v / ||v||`` (one norm per kernel position, in f64) is built here.
+    The layer-norm variant and a geometry other than the config's raise,
+    as in the reference."""
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(device)
+    tensors = _load_safetensors_dir(ckpt_dir)
+    fe = "wav2vec2.feature_extractor.conv_layers."
+    if fe + "1.layer_norm.weight" in tensors or fe + "0.conv.bias" in tensors:
+        raise ValueError(
+            "checkpoint is the layer-norm wav2vec2 variant (do_stable_layer_norm=True); only the group-norm "
+            "variant (wav2vec2-base-960h class) is supported"
+        )
+    n_enc = len({k.split(".")[3] for k in tensors if k.startswith("wav2vec2.encoder.layers.")})
+    n_conv = len({k.split(".")[3] for k in tensors if k.startswith(fe)})
+    if n_enc != cfg.n_layers or n_conv != len(cfg.conv_dim):
+        raise ValueError(
+            f"checkpoint geometry ({n_conv} conv / {n_enc} encoder layers) does not match config "
+            f"({len(cfg.conv_dim)} conv / {cfg.n_layers} encoder layers)"
+        )
+    dt = cfg.compute_dtype
+
+    def t(name: str) -> torch.Tensor:
+        return _owned(tensors[f"wav2vec2.{name}"], dt, device)
+
+    def stack(fmt: str, transpose: bool = True) -> torch.Tensor:
+        return _stack_layers(tensors, "wav2vec2." + fmt, cfg.n_layers, dt, device, transpose)
+
+    convs = []
+    for i in range(len(cfg.conv_dim)):
+        leaf = {"w": tensors[f"{fe}{i}.conv.weight"].to(device).permute(2, 1, 0).to(dt).contiguous()}
+        if i == 0:
+            leaf["gn_g"] = t("feature_extractor.conv_layers.0.layer_norm.weight")
+            leaf["gn_b"] = t("feature_extractor.conv_layers.0.layer_norm.bias")
+        convs.append(leaf)
+    pc = "wav2vec2.encoder.pos_conv_embed.conv"
+    if f"{pc}.weight_g" in tensors:
+        g, v = tensors[f"{pc}.weight_g"], tensors[f"{pc}.weight_v"]
+    else:
+        g, v = tensors[f"{pc}.parametrizations.weight.original0"], tensors[f"{pc}.parametrizations.weight.original1"]
+    v64 = v.to(device=device, dtype=torch.float64)
+    norm = v64.pow(2).sum(dim=tuple(d for d in range(v64.ndim) if d != 2), keepdim=True).sqrt()
+    pos_w = ((g.to(device).float() * v.to(device).float()).double() / norm.clamp_min(1e-12)).float()
+    enc = "encoder.layers.{}."
+    params = {
+        "conv_layers": convs,
+        "fp_norm_g": t("feature_projection.layer_norm.weight"),
+        "fp_norm_b": t("feature_projection.layer_norm.bias"),
+        "fp_w": _transposed(tensors["wav2vec2.feature_projection.projection.weight"], dt, device),
+        "fp_b": t("feature_projection.projection.bias"),
+        "pos_conv_w": pos_w.permute(2, 1, 0).to(dt).contiguous(),
+        "pos_conv_b": _owned(tensors[f"{pc}.bias"], dt, device),
+        "enc_norm_g": t("encoder.layer_norm.weight"),
+        "enc_norm_b": t("encoder.layer_norm.bias"),
+        "layers": {
+            "wq": stack(enc + "attention.q_proj.weight"),
+            "bq": stack(enc + "attention.q_proj.bias", False),
+            "wk": stack(enc + "attention.k_proj.weight"),
+            "bk": stack(enc + "attention.k_proj.bias", False),
+            "wv": stack(enc + "attention.v_proj.weight"),
+            "bv": stack(enc + "attention.v_proj.bias", False),
+            "wo": stack(enc + "attention.out_proj.weight"),
+            "bo": stack(enc + "attention.out_proj.bias", False),
+            "ln1_g": stack(enc + "layer_norm.weight", False),
+            "ln1_b": stack(enc + "layer_norm.bias", False),
+            "ff_in_w": stack(enc + "feed_forward.intermediate_dense.weight"),
+            "ff_in_b": stack(enc + "feed_forward.intermediate_dense.bias", False),
+            "ff_out_w": stack(enc + "feed_forward.output_dense.weight"),
+            "ff_out_b": stack(enc + "feed_forward.output_dense.bias", False),
+            "ln2_g": stack(enc + "final_layer_norm.weight", False),
+            "ln2_b": stack(enc + "final_layer_norm.bias", False),
+        },
+        "lm_head_w": _transposed(tensors["lm_head.weight"], dt, device),
+        "lm_head_b": _owned(tensors["lm_head.bias"], dt, device),
+    }
+    _release(tensors)
+    logger.info("loaded %d HF wav2vec2 tensors from %s", len(tensors), ckpt_dir)
+    return params

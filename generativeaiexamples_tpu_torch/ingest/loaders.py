@@ -5,8 +5,9 @@ through the standard library's ``html.parser`` (the reference uses
 BeautifulSoup, which the card machine lacks; the text is the same:
 every text node but those of ``<script>`` and ``<style>``, comments and
 declarations, joined by newlines), CSV as ``col: value`` lines, JSON
-re-indented.  PDF and PPTX need pypdf and python-pptx, which the card
-machine lacks: they raise ``NotImplementedError``.
+re-indented, PDF through the content-stream reader (``ingest.pdf``) and
+PPTX through the OOXML reader (``ingest.pptx``), both standard-library
+code as in the reference.
 """
 
 from __future__ import annotations
@@ -117,14 +118,16 @@ def _load_json(path: str) -> str:
     return json.dumps(data, indent=1, ensure_ascii=False)
 
 
-def _not_ported(kind: str, package: str) -> Callable[[str], str]:
-    def load(path: str) -> str:
-        raise NotImplementedError(
-            f"{kind} documents are not ported to the PyTorch package ({package} is not on the card "
-            f"machine; ROADMAP.md, Queue 1 item 5)"
-        )
+def _load_pdf(path: str) -> str:
+    from generativeaiexamples_tpu_torch.ingest.pdf import extract_pdf_text
 
-    return load
+    return extract_pdf_text(path)
+
+
+def _load_pptx(path: str) -> str:
+    from generativeaiexamples_tpu_torch.ingest.pptx import extract_pptx_text
+
+    return extract_pptx_text(path)
 
 
 _LOADERS: dict[str, Callable[[str], str]] = {
@@ -138,8 +141,8 @@ _LOADERS: dict[str, Callable[[str], str]] = {
     ".htm": _load_html,
     ".csv": _load_csv,
     ".json": _load_json,
-    ".pdf": _not_ported("PDF", "pypdf"),
-    ".pptx": _not_ported("PPTX", "python-pptx"),
+    ".pdf": _load_pdf,
+    ".pptx": _load_pptx,
 }
 
 

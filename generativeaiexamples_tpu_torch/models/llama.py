@@ -656,6 +656,7 @@ def forward(
     pages_len: int = 0,
     return_aux: bool = False,
     row_offset: int = 0,
+    embeds: Optional[torch.Tensor] = None,
 ):
     """Run the transformer body, cacheless or against a serving cache.
 
@@ -685,6 +686,10 @@ def forward(
     ``kv_bucket`` windows against.  Warm writes scatter through the table
     and reads gather the logical window, so the results equal the
     contiguous layout's on the same content.
+
+    ``embeds`` (b, s, d_model) replaces the token-embedding lookup in
+    every mode (cast to the compute dtype; Gemma's ``scale_embeddings``
+    applies to it too): the VLM's image prefix (``models.vision``).
 
     Returns ``(hidden, cache)``, ``(hidden, cache, ab)`` with
     ``append_cache``, or ``(hidden, cache, aux)`` with ``return_aux``
@@ -738,7 +743,7 @@ def forward(
             paged_window_index(page_table, window, page_tokens) if warm else None,
         )
 
-    x = embed(params, tokens, cfg.compute_dtype)
+    x = embed(params, tokens, cfg.compute_dtype) if embeds is None else embeds.to(cfg.compute_dtype)
     if cfg.scale_embeddings:
         # Gemma: sqrt(d_model) rounded to the activations' dtype first.
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)

@@ -184,13 +184,18 @@ def test_loaders_match_reference(tmp_path):
 
 
 def test_unsupported_and_unported_types(tmp_path):
+    import chip_smoke as cs
+
     odd = tmp_path / "x.exe"
     odd.write_bytes(b"MZ")
     for mod in (tloaders, jloaders):
         with pytest.raises(ValueError, match="unsupported document type"):
             mod.load_document(str(odd))
-    for ext in (".pdf", ".pptx"):
-        path = tmp_path / f"doc{ext}"
-        path.write_bytes(b"%PDF-1.4")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tloaders.load_document(str(path))
+    # PDF and PPTX read through the standard-library readers, as the
+    # reference's do.
+    pdf, deck = tmp_path / "doc.pdf", tmp_path / "doc.pptx"
+    cs.write_pdf(np, pdf, cs.report_pages(), [(0, cs.chart_pixels(np))])
+    cs.write_pptx(deck, [(["Fusion Update", "Ignition at 2x gain"], "Speaker notes")])
+    for path in (pdf, deck):
+        got = tloaders.load_document(str(path))
+        assert got and got == jloaders.load_document(str(path))
