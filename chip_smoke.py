@@ -375,7 +375,49 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    on the tree mapped from the written arrays, its transcript their
    decode.  TTS real-time factor, ASR ms per second of audio, ms from
    ``end`` to ``done``.
-20. ``durable``: durability with ``python -m
+20. Training on one card (after ``speech_serve``): ``train``: K4's
+   autograd wrapper (``ops/flash_attention.py::FlashAttentionFunction``:
+   the kernel forward, a backward by recomputing the plain attention)
+   against the plain attention's autograd at the training shape (b = 4,
+   s = 1,024, 32 / 8 heads, head_dim 128): the forward within
+   ``FLASH_TOL``, dq / dk / dv equal to its autograd bit for bit (the
+   wrapper's backward is that autograd: a plumbing check), timed beside its
+   bound and SDPA (a ``kernel`` line, ``regime`` ``train``); then
+   Llama-3-8B at full width and ``TRAIN_LAYERS`` of 32 layers (bf16, remat,
+   AdamW, random from a seed) on one seeded 4 x 1,024 batch: the first
+   step's loss, grad norm and attention projections' gradient norms with
+   K4 against the same step with the plain attention swapped in by this
+   script (``TRAIN_STEP_TOL``), every gradient finite and the attention
+   projections' non-zero (a dropped gradient through K4 fails here), K4
+   launched twice a layer (the forward and the remat recompute); three
+   planted faults (``TRAIN_FAULTS``: K4's output one bf16 ulp up, a
+   backward without the causal mask, dk dropped) must each fail those
+   gates; ``TRAIN_STEPS`` steps whose loss falls (step ms, tokens/s, peak
+   memory, TFLOP/s against 989).
+   ``lora``: LoRA SFT (rank 8 on wq wk wv wo) of the full 32-layer
+   Llama-3-8B drawn on the card (bf16, frozen), 4 x 512, ``LORA_STEPS``
+   steps: the loss falls, the base bit for bit, ``merge_lora``'s forward
+   equal to ``apply_lora``'s bit for bit (a plumbing check: the same
+   arithmetic), ``save_lora`` then ``load_lora`` bit for bit.
+   ``train_losses``: the contrastive loss (arctic-embed-l), the VLM's
+   caption loss (vlm-base, its decoder at ``TRAIN_LAYERS``) and
+   FastSpeech-S's loss: each at 2 layers card against CPU (``LOSS_TOL``),
+   planted faults on the card failing that gate (``LOSS_FAULTS``: a
+   passage mask one token short, the caption's positions restarting at 0
+   after the image prefix, transposed patches, f32 products read as
+   TF32), then ``LOSS_STEPS`` steps whose loss falls, the counts zeroed
+   just before each model's steps (K4 exactly once a decoder layer a step
+   in the VLM's, no kernel in the others).
+   ``streaming``: 10 s of seeded audio FM-modulated at 250 kHz through
+   ``streaming.dsp.FMReceiverChain`` on the card in 65,536-sample blocks
+   against the same chain on the CPU (PCM within 1 LSB, the 1 kHz test
+   tone recovered, the real-time factor), then UDP end to end
+   (``replay_iq`` -> ``UDPSource`` -> the chain -> ``ASRSink`` on
+   Conformer-S -> the streaming server -> ``StreamingChains`` on
+   arctic-embed-l and a ``GPUVectorStore`` on the card, the echo LLM):
+   the finals are stored with their timestamps in both stores and
+   ``/generate`` streams an SSE answer.
+21. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -383,7 +425,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    SIGTERM cuts a final snapshot and the next start replays nothing (the
    same 16 searches); a bulk job killed mid-way resumes at the next start
    with every file landing once (the final snapshot's chunks by source,
-   no chunk id twice).  Then ``durable_fabric``: the same with
+   no chunk id twice).  Beside it, on a thread of its own (the two share
+   only the card), ``durable_fabric``: the same with
    ``APP_VECTORSTORE_NAME=fabric`` (4 ``tpu`` shards through the
    ``APP_FABRIC_*`` keys), 16 documents and a snapshot every 3 WAL
    records (one more delete if the last record falls on a snapshot), to
@@ -398,7 +441,10 @@ the steps after it, ``spec_launches`` from each ``spec`` step,
 ``hf_launches`` from each path of ``hf_checkpoint``,
 ``families_launches`` from each family's paths, ``xla_path_launches``
 from each part of ``xla_path``, ``services_launches`` from ``vision_serve``
-and ``multimodal``; K4's line carries its warm-regime timings in ``warm``,
+and ``multimodal``, ``training_launches`` from ``train``'s steps, ``lora``'s
+steps and each model's steps in ``train_losses`` (``contrastive``,
+``vlm_caption``, ``tts``); K4's line carries its training-shape timings
+in ``train``, its warm-regime timings in ``warm``,
 its VLM prefill timings in ``vlm_prefill``, its
 head_dim-64 timing and ``spec_draft`` launches in ``hd64`` and its
 head_dim-256 timings and ``families`` launches in ``hd256``; K2's and
@@ -462,8 +508,39 @@ REPLACES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started.
+    Phases that run side by side print whole lines."""
+    line = json.dumps({"phase": phase, "at_s": round(time.perf_counter() - _T0, 1), **fields})
+    with _EMIT_LOCK:
+        print(line, flush=True)
+
+
+def side_by_side(*phases) -> None:
+    """Run each of ``phases`` (calls without arguments) on its own thread
+    and wait for all; the first failure is raised after every phase has
+    ended."""
+    errors: list = []
+
+    def run(phase):
+        try:
+            phase()
+        except BaseException as exc:  # noqa: BLE001 - raised below, after the join
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(phase,)) for phase in phases]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    if errors:
+        raise errors[0]
 
 
 def nvidia_smi_line() -> str:
@@ -5178,13 +5255,22 @@ class _ServerProcess:
     """``python -m generativeaiexamples_tpu_torch.server`` in its own process
     on a free port, its log in ``log_path``."""
 
+    _ports_lock = threading.Lock()
+    _ports_given: set = set()
+
     def __init__(self, env: dict, log_path: str, args=(), name: str = "") -> None:
         import socket
 
         self.name = name
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            self.port = sock.getsockname()[1]
+        # Servers of phases that run side by side never share a port.
+        with self._ports_lock:
+            while True:
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    self.port = sock.getsockname()[1]
+                if self.port not in self._ports_given:
+                    self._ports_given.add(self.port)
+                    break
         self.base = f"http://127.0.0.1:{self.port}"
         self.log_path = log_path
         self.t0 = time.perf_counter()
@@ -8672,6 +8758,791 @@ def speech_serve_phase(torch, dev, smi: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training on one device, and the streaming SDR -> ASR -> RAG pipeline
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 41
+TRAIN_LAYERS = 8  # of Llama-3-8B's 32, at full width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 6, 3e-4
+# One step's loss, grad norm and the attention projections' gradient norms
+# with K4 against the same step with the plain attention (8 bf16 layers;
+# relative): ~4x the sound runs' readings (5.3e-5, 1.0e-4, 1.9e-4, the same
+# in every run on the card), below what the planted faults read.  K4's
+# wrapper returns the plain attention's autograd, recomputed, so its dq /
+# dk / dv are held to that autograd bit for bit (a plumbing check).
+TRAIN_STEP_TOL = dict(loss=2e-4, grad_norm=4e-4, projection_norms=8e-4)
+# Planted in the step through K4 (``_train_fault``); each must fail
+# ``TRAIN_STEP_TOL`` or the non-zero gate.
+TRAIN_FAULTS = ("output_one_ulp_up", "noncausal_backward", "dk_dropped")
+LORA_SEED = 43
+LORA_BATCH, LORA_SEQ, LORA_STEPS, LORA_LR = 4, 512, 4, 2e-3
+# The losses' card-vs-CPU gates at 2 layers (relative): bf16 models (BERT,
+# the VLM) read cuBLAS's and the CPU's roundings, and the card's backward
+# rounds its cotangents to bf16 where the CPU's runs in f32; FastSpeech is
+# f32 with f64 products on the card.  ~5x the sound runs' largest readings
+# (contrastive 3.2e-5 / 8.6e-5, the VLM 1.1e-4 / 9.5e-4, FastSpeech 1.4e-7
+# / 0; the CPU's half moves with the host's CPU), below the planted faults'.
+LOSS_TOL = {"contrastive": dict(loss=2e-4, grad_norm=5e-4), "vlm_caption": dict(loss=5e-4, grad_norm=5e-3),
+            "tts": dict(loss=1e-6, grad_norm=1e-6)}
+# Planted in each loss's card half (``train_losses_phase``); each must fail
+# its ``LOSS_TOL``.
+LOSS_FAULTS = {"contrastive": ("passage_mask_short_by_one",),
+               "vlm_caption": ("text_positions_from_zero", "patchify_transposed"), "tts": ("tf32_products",)}
+LOSS_STEPS = 3
+STREAM_SECONDS, STREAM_FS_SOURCE, STREAM_BLOCK = 10.0, 50_000, 65_536
+STREAM_TONE_HZ = 1000.0
+STREAM_SPEED = 2.0  # the UDP replay's pace, x real time
+STREAM_QUESTION = "What was said on the radio about the weather?"
+
+
+class _SwapAttention:
+    """While entered, ``models.llama``'s attention is ``fn`` (the phase
+    swaps it in; the package has no switch)."""
+
+    def __init__(self, llama, fn) -> None:
+        self.llama, self.fn = llama, fn
+
+    def __enter__(self):
+        self.saved = self.llama.attention
+        self.llama.attention = self.fn
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.attention = self.saved
+
+
+def _train_attention(torch, path: str):
+    """The attention of one of ``train``'s step paths: ``plain`` (the
+    plain PyTorch ``gqa_attention``, no K4) or a planted fault in the step
+    through K4: ``output_one_ulp_up`` (K4's output moved one bf16 ulp away
+    from zero in every element; K4's gradient), ``noncausal_backward``
+    (K4's output; the gradient of the attention without its causal mask),
+    ``dk_dropped`` (K4's output and gradient, dk zero)."""
+    from generativeaiexamples_tpu_torch.ops.attention import attention, gqa_attention
+
+    def plain(q, k, v, pos, kv_lengths=None, **kw):
+        return gqa_attention(q, k, v, pos, kv_lengths, **kw)
+
+    def output_one_ulp_up(q, k, v, pos, kv_lengths=None, **kw):
+        out = attention(q, k, v, pos, kv_lengths, **kw)
+        bits = torch.int16 if out.element_size() == 2 else torch.int32
+        up = (out.detach().view(bits) + 1).view(out.dtype)
+        return out + (up - out.detach())
+
+    def noncausal_backward(q, k, v, pos, kv_lengths=None, **kw):
+        out = attention(q, k, v, pos, kv_lengths, **kw)
+        wrong = gqa_attention(q, k, v, torch.full_like(pos, k.shape[1] - 1), kv_lengths)
+        return out.detach() + (wrong - wrong.detach())
+
+    def dk_dropped(q, k, v, pos, kv_lengths=None, **kw):
+        return attention(q, k.detach() + 0 * k, v, pos, kv_lengths, **kw)  # k's gradient zero
+
+    return {"plain": plain, "output_one_ulp_up": output_one_ulp_up, "noncausal_backward": noncausal_backward,
+            "dk_dropped": dk_dropped}[path]
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _tensor_rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_flash_train(torch, dev, log) -> dict:
+    """K4 at the training shape (b = 4, s = 1,024, 32 / 8 heads, head_dim
+    128, causal from position 0) through its autograd wrapper against the
+    plain attention's autograd: the forward within ``FLASH_TOL``, dq / dk /
+    dv equal bit for bit (the wrapper's backward is that autograd,
+    recomputed: a plumbing check); the forward timed beside its bound, the
+    plain version and SDPA, and forward + backward beside SDPA's."""
+    import torch.nn.functional as F
+
+    from generativeaiexamples_tpu_torch.ops import flash_attention as fa
+
+    b, s, nq, nkv, hd = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    nv = copies_for(b * s * (2 * nq + 2 * nkv) * hd * 2)
+    qs = [torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
+    kks = [torch.randn(b, s, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
+    vvs = [torch.randn(b, s, nkv, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s).contiguous()
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    g = torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = (x.clone().requires_grad_() for x in (qs[0], kks[0], vvs[0]))
+    out = fa.flash_gqa_attention(q, k, v, pos, lengths)
+    if out.grad_fn is None or type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward":
+        raise AssertionError(f"train: K4 under grad gave {out.grad_fn!r}, not its autograd wrapper")
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref = fa.flash_gqa_attention_plain(q, k, v, pos, lengths)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    torch.cuda.synchronize()
+    use = tolerance_use(out.detach(), ref.detach(), **FLASH_TOL)
+    torch.testing.assert_close(out.detach(), ref.detach(), **FLASH_TOL)
+    grad_err = {name: _tensor_rel(a, w) for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+    for name, a in zip(("dq", "dk", "dv"), got):
+        if not (torch.isfinite(a).all() and a.abs().max() > 0):
+            raise AssertionError(f"train: K4's {name} is not finite and non-zero")
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        raise ToleranceError(f"train: K4's gradients are not the plain autograd's bit for bit: {grad_err}", grad_err)
+    err = (out.detach().float() - ref.detach().float()).abs().max().item()
+    del out, ref, got, want, q, k, v
+    k_ms = time_ms(lambda i: fa.flash_attention_cuda(qs[i], kks[i], vvs[i], pos, lengths), nv, 20, graph=True)
+    eager_ms = time_ms(lambda i: fa.flash_attention_cuda(qs[i], kks[i], vvs[i], pos, lengths), nv, 20)
+    p_ms = time_ms(lambda i: fa.flash_gqa_attention_plain(qs[i], kks[i], vvs[i], pos, lengths), nv, 3, 1)
+    qt, kt, vt = ([x.transpose(1, 2) for x in xs] for xs in (qs, kks, vvs))
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qt[i], kt[i], vt[i], is_causal=True, enable_gqa=True)
+
+    try:
+        lib_ms, lib_timing = time_ms(sdpa, nv, 20, graph=True), "graph"
+    except RuntimeError as exc:
+        log.append(f"train: SDPA graph capture failed, timed eagerly over 200 calls: {exc}")
+        torch.cuda.synchronize()
+        lib_ms, lib_timing = time_ms(sdpa, nv, 200), "eager, 200 calls"
+    leaves = [[x.clone().requires_grad_() for x in xs] for xs in (qs[:2], kks[:2], vvs[:2])]
+
+    def k4_fwd_bwd(i):
+        o = fa.flash_gqa_attention(leaves[0][i % 2], leaves[1][i % 2], leaves[2][i % 2], pos, lengths)
+        torch.autograd.grad(o, (leaves[0][i % 2], leaves[1][i % 2], leaves[2][i % 2]), g)
+
+    def sdpa_fwd_bwd(i):
+        xs = [leaves[j][i % 2].transpose(1, 2) for j in range(3)]
+        o = F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, [leaves[j][i % 2] for j in range(3)], g.transpose(1, 2))
+
+    fwd_bwd_ms = time_ms(k4_fwd_bwd, 2, 5, 1)
+    lib_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, 2, 5, 1)
+    visible = b * s * (s + 1) // 2 * nq
+    nbytes = (b * s * (2 * nq + 2 * nkv) * hd) * 2 + b * s * 4 + b * 4
+    b_ms, b_by = bound(nbytes, 4.0 * visible * hd, BF16_FLOPS)
+    row = dict(b=b, s=s, t=s, nq=nq, nkv=nkv, hd=hd, ms=k_ms, eager_ms=eager_ms, plain_ms=p_ms, library_ms=lib_ms,
+               library_timing=lib_timing, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms, max_abs_err=err,
+               tolerance=FLASH_TOL, tolerance_use=use, grad_err=grad_err,
+               grad_check="plumbing: dq / dk / dv equal to the plain attention's autograd bit for bit",
+               fwd_bwd_ms=fwd_bwd_ms, library_fwd_bwd_ms=lib_fwd_bwd_ms,
+               backward="plain recompute (no backward kernel in the reference)")
+    emit("kernel", kernel="flash_attention", regime="train", **row)
+    return row
+
+
+def _train_flops(cfg, b: int, s: int) -> tuple[float, float]:
+    """(model FLOPs of one training step: 6 x matmul params x tokens plus
+    the causal attention's, forward and backward; the same with the remat
+    recompute's extra forward of every layer)."""
+    d, hd, nq, nkv, f = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    layer = d * (nq + 2 * nkv) * hd + nq * hd * d + 3 * d * f
+    tokens = b * s
+    attn_fwd = 4.0 * b * nq * hd * s * (s + 1) / 2 * cfg.n_layers
+    model = 6.0 * (cfg.n_layers * layer + d * cfg.vocab_size) * tokens + 3 * attn_fwd
+    return model, model + 2.0 * cfg.n_layers * layer * tokens + attn_fwd
+
+
+def train_phase(torch, dev, _cuda, smi: str, log) -> dict:
+    """Full fine-tuning of Llama-3-8B at full width and ``TRAIN_LAYERS`` of
+    32 layers (bf16, remat, AdamW at ``TRAIN_LR``) on one seeded batch of
+    4 x 1,024 tokens: K4's wrapper against the plain autograd
+    (``check_flash_train``); the first step's loss, grad norm and
+    attention projections' gradient norms with K4 against the same step
+    with the plain attention swapped in (``TRAIN_STEP_TOL``); every
+    gradient finite and the attention projections' non-zero; each of
+    ``TRAIN_FAULTS`` planted in the step must fail those gates; then
+    ``TRAIN_STEPS`` steps whose loss falls, K4 launched."""
+    from generativeaiexamples_tpu_torch.engine import training
+    from generativeaiexamples_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    k4 = check_flash_train(torch, dev, log)
+    cfg = llama.llama3_8b(n_layers=TRAIN_LAYERS)
+    opt = training.make_optimizer(TRAIN_LR)
+    t0 = time.perf_counter()
+    state = training.init_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(TRAIN_SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in training.tree_leaves(state.params))
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": ids[:, :-1], "targets": ids[:, 1:],
+             "mask": torch.ones((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.float32, device=dev)}
+
+    def loss(p):
+        return training.loss_fn(p, cfg, batch["tokens"], batch["targets"], batch["mask"])
+
+    projections = ("wq", "wk", "wv", "wo")
+    readings = {}
+    for path in ("k4", "plain") + TRAIN_FAULTS:
+        _cuda.reset_launch_counts()
+        if path == "k4":
+            value, grads = training.value_and_grad(loss, state.params)
+        else:
+            with _SwapAttention(llama, _train_attention(torch, path)):
+                value, grads = training.value_and_grad(loss, state.params)
+        torch.cuda.synchronize()
+        names = [n for n in grads if n != "layers"] + [f"layers.{n}" for n in grads["layers"]]
+        leaves = [grads[n] for n in grads if n != "layers"] + list(grads["layers"].values())
+        readings[path] = dict(
+            loss=float(value), grad_norm=float(training.global_norm(grads)),
+            flash_launches=_cuda.LAUNCHES["flash_attention"],
+            not_finite=[n for n, g in zip(names, leaves) if not torch.isfinite(g).all()],
+            projection_norms={n: float(grads["layers"][n].float().norm()) for n in projections})
+        del value, grads, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def step_gate(r) -> tuple[dict, list]:
+        """(each reading's relative distance from the plain step, the gates
+        it fails: the non-zero projections or ``TRAIN_STEP_TOL``)."""
+        err = {key: _rel(r[key], plain[key]) for key in ("loss", "grad_norm")}
+        err["projection_norms"] = max(_rel(r["projection_norms"][n], plain["projection_norms"][n])
+                                      for n in projections)
+        failed = [key for key in TRAIN_STEP_TOL if err[key] > TRAIN_STEP_TOL[key]]
+        if r["not_finite"] or any(not v > 0 for v in r["projection_norms"].values()):
+            failed.append("finite_and_non_zero")
+        return err, failed
+
+    k4r, plain = readings["k4"], readings["plain"]
+    if k4r["flash_launches"] != 2 * cfg.n_layers or plain["flash_launches"] != 0:
+        raise AssertionError(f"train: K4 launched {k4r['flash_launches']} times in the K4 step (2 a layer: the "
+                             f"forward and the remat recompute) and {plain['flash_launches']} in the plain one")
+    step_err, failed = step_gate(k4r)
+    if failed:
+        raise ToleranceError(f"train: the K4 step against the plain one {step_err}, failing {failed} (tolerance "
+                             f"{TRAIN_STEP_TOL}; gradients not finite {k4r['not_finite']}, projections' norms "
+                             f"{k4r['projection_norms']})", step_err)
+    faults = {}
+    for path in TRAIN_FAULTS:
+        err, failed = step_gate(readings[path])
+        faults[path] = dict(rel_err=err, failed=failed, projection_norms=readings[path]["projection_norms"])
+    passed = [path for path, f in faults.items() if not f["failed"]]
+    if passed:
+        raise AssertionError(f"train: the planted faults {passed} passed the step gate: {faults}")
+
+    step = training.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+        if not math.isfinite(float(metrics["grad_norm"])):
+            raise AssertionError(f"train: step {len(losses)}'s grad norm is {float(metrics['grad_norm'])}")
+    launches = dict(_cuda.LAUNCHES)
+    if launches["flash_attention"] != 2 * cfg.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"train: K4 launched {launches['flash_attention']} times in {TRAIN_STEPS} steps")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    model_flops, hw_flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    emit("train", nvidia_smi=smi, model=f"llama3-8b width, {TRAIN_LAYERS} of 32 layers, bf16, remat, random from "
+         f"seed {TRAIN_SEED}", params=n_params, batch=[TRAIN_BATCH, TRAIN_SEQ], optimizer=f"AdamW lr {TRAIN_LR}",
+         init_s=init_s, losses=losses, step_ms=step_s * 1e3, first_step_ms=times[0] * 1e3,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         model_tflops=model_flops / step_s / 1e12, model_flops_share=model_flops / step_s / BF16_FLOPS,
+         hardware_tflops=hw_flops / step_s / 1e12, k4_step=k4r, plain_step=plain, k4_vs_plain=step_err,
+         k4_vs_plain_tolerance=TRAIN_STEP_TOL, faults_failed_the_gate=faults, launches=launches, phase_s=time.perf_counter() - t_phase)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(k4=k4, launches=launches)
+
+
+def lora_phase(torch, dev, _cuda, smi: str) -> dict:
+    """LoRA SFT of the full 32-layer Llama-3-8B (bf16, drawn on the card
+    from ``LORA_SEED``, frozen): rank 8 on wq wk wv wo, ``LORA_STEPS``
+    steps of 4 x 512 (loss on the response tokens).  Gates: the loss falls,
+    the base stays bit for bit, ``merge_lora``'s forward equals
+    ``apply_lora``'s bit for bit (a plumbing check: the same arithmetic),
+    ``save_lora`` then ``load_lora`` is bit for bit, K4 launched twice a
+    layer a step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import lora, training
+    from generativeaiexamples_tpu_torch.engine.decode import init_random_params
+    from generativeaiexamples_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    cfg = llama.llama3_8b()
+    t0 = time.perf_counter()
+    base = init_random_params(cfg, torch.Generator(device=dev).manual_seed(LORA_SEED), dev)
+    kept = training.tree_map(lambda t: t.clone(), base)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lcfg = lora.LoRAConfig()
+    opt = training.make_optimizer(LORA_LR)
+    state = lora.init_lora_train_state(cfg, lcfg, opt, torch.Generator(device=dev).manual_seed(LORA_SEED + 1),
+                                       device=dev)
+    rng = np.random.default_rng(LORA_SEED)
+    pairs = []
+    for i in range(LORA_BATCH):
+        n_prompt = 192 + 48 * i
+        ids = rng.integers(0, cfg.vocab_size, LORA_SEQ + 1)
+        pairs.append((ids[:n_prompt].tolist(), ids[n_prompt:].tolist()))
+    batch = lora.sft_batch(pairs, max_len=LORA_SEQ)
+    step = lora.make_lora_train_step(cfg, lcfg, opt, base)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(LORA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches["flash_attention"] != 2 * cfg.n_layers * LORA_STEPS:
+        raise AssertionError(f"lora: K4 launched {launches['flash_attention']} times in {LORA_STEPS} steps")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lora: the loss did not fall over {LORA_STEPS} steps: {losses}")
+    changed = [i for i, (a, b) in enumerate(zip(training.tree_leaves(base), training.tree_leaves(kept)))
+               if not torch.equal(a, b)]
+    if changed or any(t.requires_grad for t in training.tree_leaves(base)):
+        raise AssertionError(f"lora: the frozen base changed (leaves {changed})")
+    del kept
+    # The merged tree's forward against the effective tree's.
+    prompt = torch.as_tensor(np.asarray(pairs[0][0][:128]), dtype=torch.int32, device=dev)[None]
+    positions = torch.arange(prompt.shape[1], dtype=torch.int32, device=dev)[None]
+    with torch.inference_mode():
+        merged = lora.merge_lora(base, state.params, lcfg)
+        merged_logits = llama.logits(merged, llama.forward(merged, cfg, prompt, positions)[0])
+        del merged
+        eff = lora.apply_lora(base, state.params, lcfg)
+        eff_logits = llama.logits(eff, llama.forward(eff, cfg, prompt, positions)[0])
+        del eff
+    # A plumbing check: ``merge_lora`` is ``apply_lora``'s arithmetic
+    # without a gradient, so the two forwards agree bit for bit.
+    if not torch.equal(merged_logits, eff_logits):
+        raise AssertionError(f"lora: merge_lora's forward is not apply_lora's bit for bit: "
+                             f"{_within(torch, merged_logits, eff_logits, XLA_TOL, 'lora: merge_lora')}")
+    root = tempfile.mkdtemp(prefix="lora_")
+    try:
+        path = os.path.join(root, "adapters.npz")
+        lora.save_lora(state.params, path)
+        file_bytes = os.path.getsize(path)
+        loaded = lora.load_lora(path, device=dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if sorted(loaded) != sorted(state.params) or not all(
+            loaded[n][ab].dtype == state.params[n][ab].dtype and torch.equal(loaded[n][ab], state.params[n][ab])
+            for n in state.params for ab in ("a", "b")):
+        raise AssertionError("lora: save_lora then load_lora is not bit for bit")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    emit("lora", nvidia_smi=smi, base=f"llama3-8b, 32 layers, bf16, drawn on the card from seed {LORA_SEED} (no bf16 "
+         "tree of it is resident at this point)", lora=dict(rank=lcfg.rank, alpha=lcfg.alpha, targets=lcfg.targets),
+         adapter_params=sum(t.numel() for t in training.tree_leaves(state.params)), batch=[LORA_BATCH, LORA_SEQ],
+         optimizer=f"AdamW lr {LORA_LR}", init_s=init_s, losses=losses, step_ms=step_s * 1e3,
+         first_step_ms=times[0] * 1e3, tokens_per_s=LORA_BATCH * LORA_SEQ / step_s, peak_device_gb=peak_gb,
+         base_unchanged=True, merge_equals_apply_bit_for_bit=True, adapter_file_bytes=file_bytes, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    del base, state, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _to_cpu(torch, tree):
+    from generativeaiexamples_tpu_torch.engine.training import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def _loss_card_vs_cpu(torch, dev, name: str, loss, params, faults: dict) -> dict:
+    """One loss and grad norm on the card and on the CPU (the same
+    params), held to ``LOSS_TOL[name]``; then the card's under each planted
+    fault of ``faults`` (its name: the card's loss under it), each of which
+    must fail that gate."""
+    from generativeaiexamples_tpu_torch.engine import training
+
+    tol = LOSS_TOL[name]
+    readings = {}
+    for where, p, d in (("card", params, dev), ("cpu", _to_cpu(torch, params), torch.device("cpu"))):
+        t0 = time.perf_counter()
+        value, grads = training.value_and_grad(lambda q: loss(q, d), p)
+        readings[where] = dict(loss=float(value), grad_norm=float(training.global_norm(grads)),
+                               seconds=time.perf_counter() - t0)
+        del grads
+
+    def gate(r) -> tuple[dict, list]:
+        err = {k: _rel(r[k], readings["cpu"][k]) for k in ("loss", "grad_norm")}
+        return err, [k for k in err if err[k] > tol[k]]
+
+    err, failed = gate(readings["card"])
+    if failed:
+        raise ToleranceError(f"train_losses: {name} card against CPU {err} (tolerance {tol})", err)
+    planted = {}
+    for fault, fault_loss in faults.items():
+        value, grads = training.value_and_grad(fault_loss, params)
+        fault_err, fault_failed = gate(dict(loss=float(value), grad_norm=float(training.global_norm(grads))))
+        planted[fault] = dict(rel_err=fault_err, failed=fault_failed)
+        del grads
+    passed = [fault for fault, r in planted.items() if not r["failed"]]
+    if passed:
+        raise AssertionError(f"train_losses: the planted faults {passed} passed {name}'s gate: {planted}")
+    return dict(readings, rel_err=err, tolerance=tol, faults_failed_the_gate=planted)
+
+
+def _loss_steps(torch, _cuda, name: str, step, state, batch, k4_launches: int) -> dict:
+    """``LOSS_STEPS`` steps on the card whose loss must fall; the launch
+    counts are zeroed just before them and read just after: K4 exactly
+    ``k4_launches`` times, the decode kernels and K1 never."""
+    _cuda.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(LOSS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(_cuda.LAUNCHES)
+    if launches != {**{k: 0 for k in launches}, "flash_attention": k4_launches}:
+        raise AssertionError(f"train_losses: {name}'s {LOSS_STEPS} steps launched {launches}, not K4 "
+                             f"{k4_launches} times alone")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_losses: {name}'s loss did not fall over {LOSS_STEPS} steps: {losses}")
+    return dict(losses=losses, step_ms=sorted(times)[len(times) // 2] * 1e3, first_step_ms=times[0] * 1e3,
+                steps_s=sum(times), launches=launches)
+
+
+class _TF32Products:
+    """While entered, ``models.speech``'s f32 products take operands cut to
+    TF32's 10 mantissa bits (as cuBLAS reads f32 when a process allows
+    TF32): the fault ``ops/f32`` keeps out.  Gradients pass straight
+    through the cut."""
+
+    def __enter__(self):
+        import types
+
+        import torch
+
+        from generativeaiexamples_tpu_torch.models import speech
+        from generativeaiexamples_tpu_torch.ops import f32
+
+        def tf32(x):
+            cut = (x.detach().view(torch.int32) & -8192).view(torch.float32)
+            return x + (cut - x.detach())
+
+        self.saved = speech.f32
+        speech.f32 = types.SimpleNamespace(matmul=lambda a, b: f32.matmul(tf32(a), tf32(b)),
+                                           einsum=lambda eq, *ops: f32.einsum(eq, *(tf32(o) for o in ops)),
+                                           conv1d=f32.conv1d)
+        return self
+
+    def __exit__(self, *exc):
+        from generativeaiexamples_tpu_torch.models import speech
+
+        speech.f32 = self.saved
+
+
+def train_losses_phase(torch, dev, _cuda, smi: str) -> dict:
+    """The other trainers: one contrastive step of arctic-embed-l (24
+    layers, 8 queries x (1 positive + 3 negatives) x 128 tokens), the VLM's
+    caption loss (vlm-base: ViT-B and the Llama-3-8B decoder at
+    ``TRAIN_LAYERS`` layers, 2 images, 32 caption tokens) and FastSpeech-S's
+    loss (4 utterances): each at 2 layers card against CPU (loss and grad
+    norm within ``LOSS_TOL``; the CPU halves on smaller batches: 4 x (1 +
+    3) x 64 tokens, one image and 16 caption tokens) with the planted
+    faults of ``LOSS_FAULTS`` failing that gate on the card, then
+    ``LOSS_STEPS`` AdamW steps on the card whose loss falls.  Returns each
+    model's launch counts over its steps alone."""
+    import dataclasses
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import training
+    from generativeaiexamples_tpu_torch.models import bert, llama, speech, vision
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(TRAIN_SEED + 7)
+    out = {}
+
+    # Contrastive: queries, each with a positive and 3 hard negatives (the
+    # CPU half of the gate on a quarter of the steps' tokens).
+    def contrastive_batch(d, b: int, s: int):
+        def rows(shape):
+            lengths = rng.integers(s // 4, s + 1, shape)
+            toks = rng.integers(1000, 30000, shape + (s,)).astype(np.int32)
+            return toks * (np.arange(s) < lengths[..., None]), (np.arange(s) < lengths[..., None]).astype(np.int32)
+
+        (qt, qm), (pt, pm) = rows((b,)), rows((b, 4))
+        return {k: torch.as_tensor(v, device=d) for k, v in
+                (("q_tokens", qt), ("q_mask", qm), ("p_tokens", pt), ("p_mask", pm))}
+
+    gb = contrastive_batch(dev, 4, 64)
+    gb_cpu = {k: v.cpu() for k, v in gb.items()}
+    # The planted fault: the first positive's padding mask one token short.
+    short = gb["p_mask"].clone()
+    short[0, 0, int(short[0, 0].sum()) - 1] = 0
+    cfg2 = bert.arctic_embed_l(n_layers=2)
+    p2 = bert.init_params(cfg2, torch.Generator(device=dev).manual_seed(TRAIN_SEED + 8), dev)
+    gate = _loss_card_vs_cpu(
+        torch, dev, "contrastive", lambda p, d: training.contrastive_loss_fn(p, cfg2, gb if d.type == "cuda" else gb_cpu),
+        p2, {"passage_mask_short_by_one": lambda p: training.contrastive_loss_fn(p, cfg2, {**gb, "p_mask": short})})
+    del p2
+    cfg = bert.arctic_embed_l()
+    opt = training.make_optimizer(1e-4)
+    state = training.init_bert_train_state(cfg, opt, generator=torch.Generator(device=dev).manual_seed(TRAIN_SEED + 9),
+                                           device=dev)
+    out["contrastive"] = dict(model="arctic-embed-l, 24 layers, bf16", batch="8 x (1 + 3) x 128",
+                              card_vs_cpu_2_layers=dict(gate, batch="4 x (1 + 3) x 64"),
+                              **_loss_steps(torch, _cuda, "contrastive", training.make_contrastive_train_step(cfg, opt),
+                                            state, contrastive_batch(dev, 8, 128), 0))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The VLM's caption loss.
+    def vlm_batch(d, b: int, n: int):
+        images = torch.as_tensor(rng.random((b, 224, 224, 3)).astype(np.float32), device=d)
+        text = rng.integers(32, 128, (b, n)).astype(np.int32)
+        inp = np.concatenate([np.full((b, 1), 1, np.int32), text[:, :-1]], axis=1)
+        return [images, torch.as_tensor(inp, device=d), torch.as_tensor(text, device=d),
+                torch.ones((b, n), dtype=torch.float32, device=d)]
+
+    def vlm_fault_loss(fault):
+        def text_positions_from_zero(params, cfg, tokens, positions, *args, **kw):
+            shift = torch.where(positions >= vcfg2.n_prefix, vcfg2.n_prefix, 0).to(positions.dtype)
+            return forward(params, cfg, tokens, positions - shift, *args, **kw)
+
+        def fault_loss(p):
+            if fault != "text_positions_from_zero":
+                with _VisionFault(fault):
+                    return vision.vlm_caption_loss(p, vcfg2, *vb)
+            llama.forward = text_positions_from_zero
+            try:
+                return vision.vlm_caption_loss(p, vcfg2, *vb)
+            finally:
+                llama.forward = forward
+
+        return fault_loss
+
+    forward = llama.forward
+
+    vcfg2 = vision.vlm_base(lm=llama.llama3_8b(n_layers=2))
+    vp2 = vision.init_vlm_params(vcfg2, torch.Generator(device=dev).manual_seed(TRAIN_SEED + 10), dev)
+    vb = vlm_batch(dev, 1, 16)  # the CPU half of the gate: one image, 16 caption tokens
+    vb_cpu = [t.cpu() for t in vb]
+    gate = _loss_card_vs_cpu(torch, dev, "vlm_caption", lambda p, d: vision.vlm_caption_loss(
+        p, vcfg2, *(vb if d.type == "cuda" else vb_cpu)), vp2, {f: vlm_fault_loss(f) for f in LOSS_FAULTS["vlm_caption"]})
+    del vp2
+    gc.collect()
+    torch.cuda.empty_cache()
+    vcfg = vision.vlm_base(lm=llama.llama3_8b(n_layers=TRAIN_LAYERS))
+    vparams = vision.init_vlm_params(vcfg, torch.Generator(device=dev).manual_seed(TRAIN_SEED + 11), dev)
+    opt = training.make_optimizer(TRAIN_LR)
+    vstate = training.TrainState(vparams, opt.init(vparams), 0)
+
+    def vlm_step(st, batch):
+        value, grads = training.value_and_grad(lambda p: vision.vlm_caption_loss(p, vcfg, *batch), st.params)
+        return training.apply_gradients(st, opt, value, grads)
+
+    # K4 once a decoder layer a step (no remat in the caption loss).
+    out["vlm_caption"] = dict(model=f"vlm-base: ViT-B/16, the Llama-3-8B decoder at {TRAIN_LAYERS} of 32 layers, bf16",
+                              card_vs_cpu_2_layers=dict(gate, batch="1 image, 16 caption tokens"),
+                              **_loss_steps(torch, _cuda, "vlm_caption", vlm_step, vstate, vlm_batch(dev, 2, 32),
+                                            LOSS_STEPS * TRAIN_LAYERS))
+    del vstate, vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # FastSpeech-S's loss: teacher-forced durations, log-mel-like targets.
+    tcfg = speech.fastspeech_s()
+    texts = ("the quick brown fox jumps over the lazy dog", "streaming radio transcripts",
+             "retrieval augmented generation", "training on one card")
+    ids = np.zeros((4, 48), np.int32)
+    for i, text in enumerate(texts):
+        row = speech.text_to_ids(text)[:48]
+        ids[i, : len(row)] = row
+    durs = (rng.integers(2, 7, ids.shape) * (ids != 0)).astype(np.float32)
+    mel = rng.normal(size=(4, tcfg.max_frames, tcfg.n_mels)).astype(np.float32)
+    tcfg2 = dataclasses.replace(tcfg, n_layers=2)
+    tp2 = speech.tts_init_params(tcfg2, torch.Generator(device=dev).manual_seed(TRAIN_SEED + 12), dev)
+
+    def tts_tf32_loss(p):
+        with _TF32Products():
+            return speech.tts_loss(p, tcfg2, ids, mel, durs)
+
+    gate = _loss_card_vs_cpu(torch, dev, "tts", lambda p, d: speech.tts_loss(p, tcfg2, ids, mel, durs), tp2,
+                             {"tf32_products": tts_tf32_loss})
+    opt = training.make_optimizer(1e-4)
+    tparams = speech.tts_init_params(tcfg, torch.Generator(device=dev).manual_seed(TRAIN_SEED + 13), dev)
+    tstate = training.TrainState(tparams, opt.init(tparams), 0)
+
+    def tts_step(st, batch):
+        value, grads = training.value_and_grad(lambda p: speech.tts_loss(p, tcfg, *batch), st.params)
+        return training.apply_gradients(st, opt, value, grads)
+
+    out["tts"] = dict(model="fastspeech-s, f32 (f64 products on the card)", card_vs_cpu_2_layers=gate,
+                      **_loss_steps(torch, _cuda, "tts", tts_step, tstate, (ids, mel, durs), 0))
+    emit("train_losses", nvidia_smi=smi, **out, phase_s=time.perf_counter() - t_phase)
+    del tstate, tparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: out[name]["launches"] for name in ("contrastive", "vlm_caption", "tts")}
+
+
+def fm_test_audio(np, seed: int, fs: int = STREAM_FS_SOURCE, seconds: float = STREAM_SECONDS):
+    """``seconds`` of seeded broadcast audio at ``fs``: a 1 kHz test tone
+    (1 s), then voiced bursts (``speech_wave``'s signal at ``fs``), each
+    followed by 0.8 s of near-silence so the ASR endpointer closes it."""
+    rng = np.random.default_rng(seed)
+
+    def voiced(sec):
+        t = np.arange(int(sec * fs)) / fs
+        f0 = 120 + 40 * np.sin(2 * np.pi * 1.5 * t)
+        wave = sum(np.sin(2 * np.pi * k * np.cumsum(f0) / fs) / k for k in range(1, 6))
+        return 0.3 * wave * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t) ** 2) + 0.02 * rng.normal(size=t.shape)
+
+    def quiet(sec):
+        return 1e-4 * rng.normal(size=int(sec * fs))
+
+    tone = 0.5 * np.sin(2 * np.pi * STREAM_TONE_HZ * np.arange(fs) / fs)
+    parts = [tone, quiet(0.8), voiced(2.2), quiet(0.8), voiced(2.2), quiet(0.8), voiced(1.4), quiet(0.8)]
+    return np.concatenate(parts)[: int(seconds * fs)].astype(np.float32)
+
+
+def _sse_chunks(raw: bytes) -> list:
+    return [json.loads(line[6:]) for line in raw.decode().splitlines() if line.startswith("data: ")]
+
+
+def streaming_phase(torch, dev, _cuda, smi: str) -> dict:
+    """The streaming pipeline (the upstream's fm-asr-streaming-rag): 10 s of
+    seeded audio FM-modulated at 250 kHz (``replay.fm_modulate``), through
+    ``FMReceiverChain`` on the card in 65,536-sample blocks against the same
+    chain on the CPU (PCM within 1 LSB; the test tone recovered; the card's
+    real-time factor); then UDP end to end: ``replay_iq`` -> ``UDPSource``
+    -> the chain -> ``ASRSink`` (Conformer-S, seeded, on the card) -> the
+    port's streaming server -> ``TextAccumulator`` -> ``StreamingChains``
+    on arctic-embed-l and a ``GPUVectorStore`` on the card.  Gates: every
+    block arrives, the finals reach the server and are stored with their
+    timestamps in both stores, and ``/generate`` streams an SSE answer."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.chains.llm import EchoChatLLM
+    from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder
+    from generativeaiexamples_tpu_torch.models import bert, speech
+    from generativeaiexamples_tpu_torch.retrieval.gpu import GPUVectorStore
+    from generativeaiexamples_tpu_torch.streaming import dsp
+    from generativeaiexamples_tpu_torch.streaming.asr import ASRSink
+    from generativeaiexamples_tpu_torch.streaming.chains import StreamingChains
+    from generativeaiexamples_tpu_torch.streaming.graph import Operator, Pipeline, UDPSource
+    from generativeaiexamples_tpu_torch.streaming.replay import fm_modulate, replay_iq
+    from generativeaiexamples_tpu_torch.streaming.server import create_streaming_app
+    from generativeaiexamples_tpu_torch.streaming.timestamps import TimestampDatabase
+
+    t_phase = time.perf_counter()
+    cfg = dsp.FMReceiverConfig()
+    iq = fm_modulate(fm_test_audio(np, TRAIN_SEED + 20), STREAM_FS_SOURCE, cfg.fs_baseband)
+    blocks = [iq[i : i + STREAM_BLOCK] for i in range(0, len(iq) - STREAM_BLOCK + 1, STREAM_BLOCK)]
+    card, host = dsp.FMReceiverChain(cfg, device=dev), dsp.FMReceiverChain(cfg, device="cpu")
+    card(blocks[0])  # warm-up, then a fresh chain is timed
+    card = dsp.FMReceiverChain(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pcm_card = np.concatenate([card(b) for b in blocks])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcm_host = np.concatenate([host(b) for b in blocks])
+    host_s = time.perf_counter() - t0
+    lsb = int(np.abs(pcm_card.astype(np.int32) - pcm_host.astype(np.int32)).max())
+    audio_s = len(blocks) * STREAM_BLOCK / cfg.fs_baseband
+    tone = pcm_card[1600 : cfg.fs_audio - 1600].astype(np.float32)
+    peak_hz = float(np.fft.rfftfreq(len(tone), 1 / cfg.fs_audio)[np.abs(np.fft.rfft(tone)).argmax()])
+    if lsb > 1 or abs(peak_hz - STREAM_TONE_HZ) > 20:
+        raise AssertionError(f"streaming: card PCM {lsb} LSB from the CPU chain's, tone at {peak_hz} Hz")
+    receiver = dict(blocks=len(blocks), samples=len(iq), audio_s=audio_s, pcm_samples=len(pcm_card),
+                    max_lsb_vs_cpu=lsb, tone_hz=peak_hz, card_s=card_s, cpu_s=host_s,
+                    real_time_factor=card_s / audio_s, cpu_real_time_factor=host_s / audio_s)
+
+    # UDP end to end into the streaming server.
+    embedder = GPUEmbedder(bert.arctic_embed_l(), device=dev)
+    store = GPUVectorStore(embedder.cfg.d_model, device=dev)
+    chains = StreamingChains(EchoChatLLM(), embedder, store, TimestampDatabase())
+    server = create_streaming_app(chains)
+    port = server.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    partials = []
+    sink = ASRSink(asr_cfg=speech.conformer_s(), seed=TRAIN_SEED + 21, device=dev, server_url=base, source="fm",
+                   on_partial=partials.append)
+    fed = []
+
+    def asr(pcm):
+        sink(pcm)
+        fed.append(len(pcm))
+
+    pipeline = Pipeline([Operator("fm-rx", dsp.FMReceiverChain(cfg, device=dev)), Operator("asr", asr)])
+    pipeline.start()
+    src = UDPSource(pipeline, host="127.0.0.1", port=0, block_samples=STREAM_BLOCK)
+    src.start()
+    try:
+        t0 = time.perf_counter()
+        # Paced at STREAM_SPEED x real time: UDP drops what the socket's
+        # buffer cannot hold, so the blocks that arrived are counted, not
+        # assumed.
+        sent = replay_iq(iq, "127.0.0.1", src.port, cfg.fs_baseband, speed=STREAM_SPEED)
+        seen = [len(fed), time.perf_counter()]
+
+        def drained():
+            if len(fed) != seen[0]:
+                seen[:] = [len(fed), time.perf_counter()]
+            return len(fed) >= len(blocks) or time.perf_counter() - seen[1] > 2.0
+
+        _wait_for(drained, 120, "streaming: the pipeline to drain")
+        pipeline_s = time.perf_counter() - t0
+    finally:
+        src.stop()
+        pipeline.stop()
+    sink.flush()
+    status, _, raw = _http("POST", base + "/flush", {"source": "fm"})
+    flushed = json.loads(raw)["chunks_flushed"]
+    rows = chains.db.all_chunks()
+    finals = [t for t in sink.finals if t.strip()]
+    try:
+        if status != 200 or not finals or not rows or len(rows) != len(store):
+            raise AssertionError(f"streaming: {len(finals)} finals, {len(rows)} rows in the timestamp database, "
+                                 f"{len(store)} in the vector store")
+        joined = " ".join(t.strip() for t in finals)
+        if not all(r["text"].strip() in joined for r in rows):
+            raise AssertionError("streaming: a stored chunk is not the finals' text")
+        for r in rows:
+            hit = store.search(embedder.embed_query(r["text"]), 1)[0]
+            meta = hit.chunk.metadata
+            if hit.chunk.text != r["text"] or (meta["t_first"], meta["t_last"]) != (r["t_first"], r["t_last"]) \
+                    or not r["t_first"] <= r["t_last"]:
+                raise AssertionError(f"streaming: chunk {r['text'][:40]!r} not stored alike in both stores")
+        t0 = time.perf_counter()
+        status, _, raw = _http("POST", base + "/generate", {
+            "messages": [{"role": "user", "content": STREAM_QUESTION}], "use_knowledge_base": True, "max_tokens": 32})
+        generate_ms = (time.perf_counter() - t0) * 1e3
+        chunks = _sse_chunks(raw)
+        answer = "".join(c["choices"][0]["message"]["content"] for c in chunks[:-1])
+        if status != 200 or len(chunks) < 2 or chunks[-1]["choices"][0]["finish_reason"] != "[DONE]" or not answer:
+            raise AssertionError(f"streaming: /generate gave {status} {raw[:200]!r}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    emit("streaming", nvidia_smi=smi, receiver=receiver, packets=sent, speed=STREAM_SPEED, blocks_sent=len(blocks),
+         blocks_received=len(fed), pipeline_s=pipeline_s,
+         asr="conformer-s, random f32 on the card, seed " + str(TRAIN_SEED + 21), finals=len(sink.finals),
+         nonempty_finals=len(finals), partials=len(partials), stored_chunks=len(rows), flushed_at_end=flushed,
+         llm="echo (the chain phase's LLM is freed before this phase)", embedder="arctic-embed-l, random bf16",
+         generate_ms=generate_ms, answer_chunks=len(chunks) - 1, phase_s=time.perf_counter() - t_phase)
+    del embedder, store, chains, sink, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(receiver=receiver)
+
+
 def main() -> int:
     # The run uses one card: only the first visible one is exposed, so the
     # device count in the last line is 1 whatever else the machine holds.
@@ -8822,8 +9693,17 @@ def main() -> int:
     service_launches = multimodal_phase(torch, dev, _cuda, smi)
     speech_reference_phase(torch, dev, smi)
     speech_serve_phase(torch, dev, smi)
-    durable_phase(smi)
-    durable_phase(smi, name="durable_fabric", n_docs=DURABLE_FABRIC_DOCS, term=False, env_extra=DURABLE_FABRIC_ENV)
+    # Training on one card, then the streaming pipeline.
+    train = train_phase(torch, dev, _cuda, smi, log)
+    training_launches = {"train": train["launches"], "lora": lora_phase(torch, dev, _cuda, smi),
+                         **train_losses_phase(torch, dev, _cuda, smi)}
+    streaming_phase(torch, dev, _cuda, smi)
+    # The two durability runs share nothing but the card (their own server
+    # processes, directories and ports), and mostly wait on those
+    # processes: they run side by side.
+    side_by_side(lambda: durable_phase(smi),
+                 lambda: durable_phase(smi, name="durable_fabric", n_docs=DURABLE_FABRIC_DOCS, term=False,
+                                       env_extra=DURABLE_FABRIC_ENV))
 
     kernels = []
     for name, s in summary.items():
@@ -8844,7 +9724,10 @@ def main() -> int:
             preset: {path: counts[name] for path, counts in paths.items()} for preset, paths in family_launches.items()}
         timed = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
         kernels[-1]["services_launches"] = {phase: counts[name] for phase, counts in service_launches.items()}
+        kernels[-1]["training_launches"] = {phase: counts[name] for phase, counts in training_launches.items()}
         if name == "flash_attention":
+            kernels[-1]["train"] = {f: train["k4"][f] for f in timed + ("b", "s", "hd", "fwd_bwd_ms",
+                                                                         "library_fwd_bwd_ms", "grad_err")}
             kernels[-1]["warm"] = {k: {f: h[f] for f in timed + ("t", "first_position", "hd")} for k, h in warm.items()}
             kernels[-1]["vlm_prefill"] = {k: {f: h[f] for f in timed + ("s", "t", "first_position", "hd")}
                                           for k, h in vlm_k4.items()}

@@ -326,6 +326,23 @@ def _wordpiece_dir(path: str) -> Optional[WordPieceTokenizer]:
     return WordPieceTokenizer(vocab, lowercase=lowercase)
 
 
+def _may_be_local(name_or_path: str) -> bool:
+    """Whether ``transformers`` could find files for ``name_or_path``
+    without the hub: a directory, or a hub name with a folder in the local
+    hub cache (``HF_HUB_CACHE``, ``HUGGINGFACE_HUB_CACHE``, ``HF_HOME/hub``
+    or ``$XDG_CACHE_HOME/huggingface/hub``, and ``TRANSFORMERS_CACHE``).
+    A name with neither fails ``local_files_only`` whatever happens, and
+    importing ``transformers`` only to learn that costs seconds (15 s cold
+    on an H100 host)."""
+    if os.path.isdir(name_or_path):
+        return True
+    home = os.environ.get("HF_HOME") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache"), "huggingface")
+    caches = [os.environ.get(key) for key in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE", "TRANSFORMERS_CACHE")]
+    folder = "models--" + name_or_path.replace("/", "--")
+    return any(os.path.isdir(os.path.join(cache, folder)) for cache in caches + [os.path.join(home, "hub")] if cache)
+
+
 def get_tokenizer(name_or_path: Optional[str] = None):
     """The reference's order: a directory with ``vocab.txt`` is WordPiece;
     then local HF tokenizer files; then, for a name that is no engine
@@ -336,10 +353,11 @@ def get_tokenizer(name_or_path: Optional[str] = None):
             wordpiece = _wordpiece_dir(name_or_path)
             if wordpiece is not None:
                 return wordpiece
-        try:
-            return HFTokenizer(name_or_path, local_files_only=True)
-        except Exception:  # noqa: BLE001 - no transformers, or no local files
-            pass
+        if _may_be_local(name_or_path):
+            try:
+                return HFTokenizer(name_or_path, local_files_only=True)
+            except Exception:  # noqa: BLE001 - no transformers, or no local files
+                pass
         if name_or_path not in ENGINE_PRESETS and os.environ.get("HF_HUB_OFFLINE", "") not in ("1", "true"):
             try:
                 return HFTokenizer(name_or_path, local_files_only=False)

@@ -4,7 +4,8 @@ Mixtral, Gemma and StarCoder2 causal LMs; BERT encoders and
 cross-encoders; ViT encoders; wav2vec2-CTC), load-time blocking of the
 int8 projections, conversion of the reference's param trees (the Llama
 family and BERT, with the rerank head; the ViT, the VLM and the speech
-models), KV caches and paged KV pools from numpy, and
+models), KV caches and paged KV pools from numpy, training state from
+numpy (optax's Adam moments, LoRA adapters, the train states), and
 ``weights_dir_for`` (where a provisioned checkpoint is).
 
 Checkpoints keep BF16 as bf16: the reference widens it to f32 on the
@@ -652,6 +653,53 @@ def speech_params_from_numpy(tree, shapes: dict, device, what: str = "speech par
     """A reference speech tree (ASR, TTS or wav2vec2) with numpy leaves, as
     tensors; ``shapes`` is the port's ``models.speech.*_param_shapes(cfg)``."""
     return _tree_from_numpy(tree, shapes, device, what)
+
+
+# -- training state ----------------------------------------------------------------
+
+
+def _arrays_from_numpy(tree, device):
+    """A nested dict / list of numpy arrays as the same tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _arrays_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_arrays_from_numpy(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+def lora_params_from_numpy(tree, device) -> dict:
+    """The reference's adapter tree (``{name: {"a", "b"}}``, numpy leaves)
+    as tensors."""
+    return {name: {ab: _tensor(mat, device) for ab, mat in d.items()} for name, d in tree.items()}
+
+
+def adam_state_from_numpy(opt_state, device):
+    """The reference's ``optax.adam`` / ``optax.adamw`` state with numpy
+    leaves (``jax.tree.map(np.asarray, opt_state)``: a chain whose
+    ``ScaleByAdamState`` holds ``count``, ``mu`` and ``nu``) as the port's
+    :class:`~generativeaiexamples_tpu_torch.engine.training.AdamState`."""
+    from generativeaiexamples_tpu_torch.engine.training import AdamState
+
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    adam = next(p for p in parts if hasattr(p, "mu") and hasattr(p, "nu"))
+    return AdamState(count=int(np.asarray(adam.count)), mu=_arrays_from_numpy(adam.mu, device),
+                     nu=_arrays_from_numpy(adam.nu, device))
+
+
+def train_state_from_numpy(state, params, device):
+    """A reference ``TrainState`` with numpy leaves as the port's, over
+    ``params`` (its params tree already carried: :func:`params_from_numpy`,
+    :func:`bert_params_from_numpy`, :func:`lora_params_from_numpy`)."""
+    from generativeaiexamples_tpu_torch.engine.training import TrainState
+
+    return TrainState(params=params, opt_state=adam_state_from_numpy(state.opt_state, device),
+                      step=int(np.asarray(state.step)))
+
+
+def bert_train_state_from_numpy(state, cfg, device):
+    """The reference's embedder fine-tuning state (``init_bert_train_state``
+    and its steps) with numpy leaves, as the port's."""
+    return train_state_from_numpy(state, bert_params_from_numpy(state.params, cfg, device), device)
 
 
 # -- HF ViT and wav2vec2 checkpoints -------------------------------------------

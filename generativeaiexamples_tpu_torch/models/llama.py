@@ -63,6 +63,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from generativeaiexamples_tpu_torch.ops.attention import attention
 from generativeaiexamples_tpu_torch.ops.decode_attention import (
@@ -121,6 +122,9 @@ class LlamaConfig:
     norm_type: str = "rmsnorm"
     proj_bias: bool = False
     mlp_gated: bool = True
+    # Training: with ``forward(..., remat=True)`` each layer runs under
+    # gradient checkpointing (its activations recomputed in the backward).
+    remat: bool = True
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -657,6 +661,7 @@ def forward(
     return_aux: bool = False,
     row_offset: int = 0,
     embeds: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ):
     """Run the transformer body, cacheless or against a serving cache.
 
@@ -690,6 +695,10 @@ def forward(
     ``embeds`` (b, s, d_model) replaces the token-embedding lookup in
     every mode (cast to the compute dtype; Gemma's ``scale_embeddings``
     applies to it too): the VLM's image prefix (``models.vision``).
+
+    ``remat`` (training, with ``cfg.remat``) runs each layer under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes
+    the layer's activations, as the reference's ``jax.checkpoint`` does.
 
     Returns ``(hidden, cache)``, ``(hidden, cache, ab)`` with
     ``append_cache``, or ``(hidden, cache, aux)`` with ``return_aux``
@@ -748,7 +757,8 @@ def forward(
         # Gemma: sqrt(d_model) rounded to the activations' dtype first.
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li in range(cfg.n_layers):
+
+    def layer(x, li):
         lp = _layer_params(params["layers"], li)
 
         def attend(q, k, v):
@@ -766,10 +776,17 @@ def forward(
         h = block_norm(x, cfg, lp, "mlp_norm")
         if "router" in lp:
             mlp_out, layer_aux = _moe_mlp(h, lp, cfg)
-            aux = aux + layer_aux
         else:
-            mlp_out = _mlp(h, lp, cfg)
-        x = x + mlp_out
+            mlp_out, layer_aux = _mlp(h, lp, cfg), None
+        return x + mlp_out, layer_aux
+
+    for li in range(cfg.n_layers):
+        if remat and cfg.remat:
+            x, layer_aux = torch.utils.checkpoint.checkpoint(layer, x, li, use_reentrant=False)
+        else:
+            x, layer_aux = layer(x, li)
+        if layer_aux is not None:
+            aux = aux + layer_aux
 
     x = apply_final_norm(x, cfg, params)
     if ab is not None:

@@ -9,13 +9,16 @@ ASR, FastSpeech-style TTS with a Griffin-Lim vocoder, and wav2vec2-CTC.
   utterance with energy endpointing.
 * **TTS** — char encoder, duration predictor, length regulation, mel
   decoder, then Griffin-Lim (30 fixed iterations; the overlap-add is an
-  ``index_add_`` over frames that do not overlap, in a fixed order).
+  ``index_add_`` over frames that do not overlap, in a fixed order);
+  :func:`tts_loss`, the FastSpeech training objective.
 * **wav2vec2** — the HF ``Wav2Vec2ForCTC`` group-norm variant: conv
   feature extractor, grouped positional convolution, post-LN encoder.
 
-The models are f32.  Every product and convolution goes through
-``ops.f32`` (IEEE f32 or better on the card, never TF32, scoped to the
-call), so the process's TF32 switches neither apply nor change.  Params
+The serving forwards run under ``inference_mode``; each has a
+``*_train_forward`` twin that carries gradients.  The models are f32.
+Every product and convolution goes through ``ops.f32`` (IEEE f32 or
+better on the card, never TF32, scoped to the call), so the process's
+TF32 switches neither apply nor change.  Params
 are plain dicts of tensors with the reference's leaf names and shapes
 (``engine.weights.speech_params_from_numpy`` carries its trees across);
 the functions run on the params' device and take numpy or tensors.
@@ -222,7 +225,13 @@ def asr_init_params(cfg: ASRConfig, generator: torch.Generator, device) -> Param
 
 @torch.inference_mode()
 def asr_forward(params: Params, cfg: ASRConfig, mels) -> torch.Tensor:
-    """(b, t, n_mels) log-mel -> (b, t // 4, vocab) CTC logits."""
+    """(b, t, n_mels) log-mel -> (b, t // 4, vocab) CTC logits (serving:
+    under ``inference_mode``; :func:`asr_train_forward` carries gradients)."""
+    return asr_train_forward(params, cfg, mels)
+
+
+def asr_train_forward(params: Params, cfg: ASRConfig, mels) -> torch.Tensor:
+    """:func:`asr_forward` with autograd as the caller's mode leaves it."""
     mels = _as_f32(mels, _device_of(params)).to(cfg.compute_dtype)
     b, t, _ = mels.shape
     t4 = (t // 4) * 4
@@ -497,7 +506,13 @@ def tts_forward(params: Params, cfg: TTSConfig, text_ids, durations=None):
     """(b, n) char ids -> ((b, max_frames, n_mels) mel, (b,) frame counts,
     (b, n) predicted durations).  ``durations`` (b, n) teacher-forces the
     length regulation; without it the predictor's durations, rounded to
-    whole frames, drive it."""
+    whole frames, drive it.  Serving, under ``inference_mode``;
+    :func:`tts_train_forward` carries gradients."""
+    return tts_train_forward(params, cfg, text_ids, durations)
+
+
+def tts_train_forward(params: Params, cfg: TTSConfig, text_ids, durations=None):
+    """:func:`tts_forward` with autograd as the caller's mode leaves it."""
     dev = _device_of(params)
     text_ids = torch.as_tensor(text_ids, dtype=torch.long, device=dev)
     n = text_ids.shape[1]
@@ -512,6 +527,24 @@ def tts_forward(params: Params, cfg: TTSConfig, text_ids, durations=None):
     n_frames = torch.round(dur.sum(-1)).to(torch.int32).clamp(1, cfg.max_frames)
     mel = f32.matmul(dec, params["mel_head"]) + params["mel_head_b"]
     return mel, n_frames, dur_pred
+
+
+def tts_loss(params: Params, cfg: TTSConfig, text_ids, mel_target, durations) -> torch.Tensor:
+    """FastSpeech training objective: teacher-forced mel MSE over the valid
+    frames plus 0.1 x the duration MSE over the real characters
+    (durations in frames per character; ``mel_target`` (b, max_frames,
+    n_mels))."""
+    mel, _, dur_pred = tts_train_forward(params, cfg, text_ids, durations)
+    dev = mel.device
+    durations = _as_f32(durations, dev)
+    text_ids = torch.as_tensor(text_ids, dtype=torch.long, device=dev)
+    frame_idx = torch.arange(cfg.max_frames, device=dev)[None, :]
+    mask = (frame_idx < durations.sum(-1, keepdim=True))[..., None]
+    n_valid = torch.clamp(mask.sum(), min=1)
+    mel_l = (((mel - _as_f32(mel_target, dev)) ** 2) * mask).sum() / (n_valid * cfg.n_mels)
+    char_mask = text_ids != 0
+    dur_l = (((dur_pred - durations) * char_mask) ** 2).sum() / torch.clamp(char_mask.sum(), min=1)
+    return mel_l + 0.1 * dur_l
 
 
 def overlap_add(frames: torch.Tensor, hop: int, length: int) -> torch.Tensor:
@@ -672,7 +705,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 def w2v2_forward(params: Params, cfg: Wav2Vec2Config, wave) -> torch.Tensor:
     """(b, t) normalized waveform @16 kHz -> (b, frames, vocab) CTC logits,
     ``transformers.Wav2Vec2ForCTC`` (group-norm variant) op for op; the
-    caller normalizes the utterance (:func:`w2v2_transcribe`)."""
+    caller normalizes the utterance (:func:`w2v2_transcribe`).  Serving,
+    under ``inference_mode``; :func:`w2v2_train_forward` carries
+    gradients."""
+    return w2v2_train_forward(params, cfg, wave)
+
+
+def w2v2_train_forward(params: Params, cfg: Wav2Vec2Config, wave) -> torch.Tensor:
+    """:func:`w2v2_forward` with autograd as the caller's mode leaves it."""
     x = _as_f32(wave, _device_of(params)).to(cfg.compute_dtype)[:, None, :]  # (b, 1, t)
     eps = cfg.norm_eps
     for conv, stride in zip(params["conv_layers"], cfg.conv_stride):

@@ -12,7 +12,8 @@ and the VLM bridge onto the Llama decoder.
   warm multi-token block from position 0: the flash kernel on the card)
   and a greedy decode of single-token steps over it (on the card, in the
   vision analyst, one step captured as a CUDA graph per batch and cache
-  size and replayed across generations: :class:`DecodeGraphs`).
+  size and replayed across generations: :class:`DecodeGraphs`);
+  :func:`vlm_caption_loss`, the captioning fine-tune objective.
 
 Params are plain dicts of tensors with the reference's leaf names and
 shapes, so its trees carry over (``engine.weights.vlm_params_from_numpy``).
@@ -201,6 +202,27 @@ def vlm_prefix(params: Params, cfg: VLMConfig, images: torch.Tensor) -> torch.Te
     if feats.dtype != proj.dtype:
         feats, proj = feats.float(), proj.float()
     return _dot(feats, proj).to(cfg.lm.compute_dtype)
+
+
+def vlm_caption_loss(params: Params, cfg: VLMConfig, images: torch.Tensor, input_tokens: torch.Tensor,
+                     targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Next-token CE for caption / table generation conditioned on images
+    (the DePlot-style fine-tune objective).  ``input_tokens`` is the
+    teacher-forced text ``[BOS, t_0 .. t_{n-2}]`` and ``targets`` ``[t_0 ..
+    t_{n-1}]``; gradients flow through the LM, the projector and the ViT.
+    ``hidden[p]`` predicts the token at ``p + 1``: BOS sits at position
+    ``n_prefix``, so ``hidden[n_prefix + i]`` predicts ``t_i``."""
+    from generativeaiexamples_tpu_torch.engine.training import masked_cross_entropy
+
+    b, n = input_tokens.shape
+    dev = input_tokens.device
+    prefix = vlm_prefix(params, cfg, images)
+    embeds = torch.cat([prefix, llama.embed(params["lm"], input_tokens.long(), prefix.dtype)], dim=1)
+    total = cfg.n_prefix + n
+    positions = torch.arange(total, dtype=torch.int32, device=dev).expand(b, total)
+    hidden, _ = llama.forward(params["lm"], cfg.lm, torch.zeros((b, total), dtype=torch.int32, device=dev),
+                              positions, embeds=embeds)
+    return masked_cross_entropy(params["lm"], hidden[:, cfg.n_prefix : cfg.n_prefix + n], targets, mask)
 
 
 def vlm_prefill(params: Params, cfg: VLMConfig, images: torch.Tensor, prompt_tokens: torch.Tensor, max_len: int,

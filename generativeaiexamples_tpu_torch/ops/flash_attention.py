@@ -4,8 +4,9 @@ Semantics are :func:`ops.attention.gqa_attention`'s without scales: key
 slot ``t`` is visible to the query at position ``p`` iff ``t <= p`` and
 ``t < kv_length[b]``; rows with no visible key, and padded rows
 (position -1), produce exact zeros.  On a CUDA tensor the hand-written
-kernel ``csrc/flash_attention.cu`` runs; on a CPU tensor the plain
-version, :func:`flash_gqa_attention_plain`.
+kernel ``csrc/flash_attention.cu`` runs (with a gradient by
+recomputation through :class:`FlashAttentionFunction` when training); on
+a CPU tensor the plain version, :func:`flash_gqa_attention_plain`.
 """
 
 from __future__ import annotations
@@ -60,6 +61,30 @@ def flash_attention_cuda(q, k, v, q_positions, kv_lengths):
     return out
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """K4 with a gradient (training).  The forward launches the kernel as
+    serving does.  The reference has no backward kernel (XLA
+    differentiates its attention), so the backward recomputes the
+    attention with the plain version and returns its autograd gradient:
+    the gradient of the same function, from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_lengths):
+        ctx.save_for_backward(q, k, v, q_positions, kv_lengths)
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), q_positions, kv_lengths)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_positions, kv_lengths = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip((q, k, v), wanted)]
+        with torch.enable_grad():
+            out = flash_gqa_attention_plain(*inputs, q_positions, kv_lengths)
+            grads = torch.autograd.grad(out, [t for t, need in zip(inputs, wanted) if need], g)
+        it = iter(grads)
+        return (*(next(it) if need else None for need in wanted), None, None)
+
+
 def flash_gqa_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -68,10 +93,16 @@ def flash_gqa_attention(
     kv_lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q (b, s, n_q, hd), k/v (b, t, n_kv, hd), q_positions (b, s),
-    kv_lengths (b,) or None (all t slots valid) -> (b, s, n_q, hd)."""
+    kv_lengths (b,) or None (all t slots valid) -> (b, s, n_q, hd).
+
+    On the card a call that needs a gradient (grad mode on and an input
+    that requires grad) goes through :class:`FlashAttentionFunction`;
+    under ``inference_mode`` / ``no_grad`` the kernel launches directly."""
     if kv_lengths is None:
         kv_lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
     if _cuda.on_cuda(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttentionFunction.apply(q, k, v, q_positions, kv_lengths)
         # Packed-qkv slices arrive strided; the kernel reads dense rows.  On
         # the cold-prefill path q and k come fresh from rope (no copy) and
         # v is a slice of the packed projection (one copy).

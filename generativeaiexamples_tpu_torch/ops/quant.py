@@ -107,22 +107,63 @@ def _validate_q_dot(x: torch.Tensor, w: Any, name: Optional[str]) -> None:
 FLOAT_BLOCK_ROWS = 128
 
 
+def _bf16_f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 on the card with an f32 output, a (K, N) weight on
+    fixed blocks of :data:`FLOAT_BLOCK_ROWS` rows."""
+    if w.ndim == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    pad = (-n) % FLOAT_BLOCK_ROWS
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+    out = torch.cat([torch.mm(blk, w, out_dtype=torch.float32) for blk in rows.split(FLOAT_BLOCK_ROWS)])
+    return out[:n].reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _BF16F32Product(torch.autograd.Function):
+    """:func:`_bf16_f32_product` with a gradient (``torch.mm(out_dtype=)``
+    has none).  The backward is the reference's transposed products: the
+    f32 cotangent rounds to bf16, each product accumulates in f32, and
+    each gradient rounds once to its operand's dtype (bf16), as XLA's
+    transpose of a ``preferred_element_type=f32`` dot gives bf16 operands
+    bf16 gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _bf16_f32_product(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = gw = None
+        if w.ndim == 3:  # x (E, M, K) @ w (E, K, N)
+            if ctx.needs_input_grad[0]:
+                gx = torch.bmm(g, w.transpose(1, 2), out_dtype=torch.float32).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                gw = torch.bmm(x.transpose(1, 2), g, out_dtype=torch.float32).to(w.dtype)
+            return gx, gw
+        g2 = g.reshape(-1, g.shape[-1])
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g2, w.t(), out_dtype=torch.float32).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x.reshape(-1, x.shape[-1]).t(), g2, out_dtype=torch.float32).to(w.dtype)
+        return gx, gw
+
+
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in f32 for float operands of one dtype: ``w`` is (K, N),
     or (E, K, N) against x (E, M, K).  bf16 on the card multiplies with
     an f32 output (no bf16 partial sums), a (K, N) weight on blocks of
-    :data:`FLOAT_BLOCK_ROWS` rows; elsewhere both operands go to f32,
+    :data:`FLOAT_BLOCK_ROWS` rows, through :class:`_BF16F32Product` when
+    a gradient is wanted (training); elsewhere both operands go to f32,
     where bf16 products are exact."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        if w.ndim == 3:
-            return torch.bmm(x, w, out_dtype=torch.float32)
-        rows = x.reshape(-1, x.shape[-1])
-        n = rows.shape[0]
-        pad = (-n) % FLOAT_BLOCK_ROWS
-        if pad:
-            rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
-        out = torch.cat([torch.mm(blk, w, out_dtype=torch.float32) for blk in rows.split(FLOAT_BLOCK_ROWS)])
-        return out[:n].reshape(*x.shape[:-1], w.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _BF16F32Product.apply(x, w)
+        return _bf16_f32_product(x, w)
     return torch.matmul(x.float(), w.float())
 
 

@@ -14,8 +14,9 @@ Searching a cold partition is two-stage:
      rescored exactly there, so reported scores stay exact, like the hot
      tier's quantized modes.
 
-The k-means, the codebook training and the encoder are the reference's
-numpy, copied: codebooks and codes are bit for bit the reference's.
+The k-means and the codebook training are the reference's numpy, copied;
+the encoder computes the reference's expression in row blocks spread over
+threads: codebooks and codes are bit for bit the reference's.
 
 Deliberate difference: the reference's prefetch is a round trip (the rows
 go to the device with ``jax.device_put``, come back to numpy and are
@@ -32,7 +33,9 @@ through and rescores in numpy: bit for bit the reference.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
@@ -46,6 +49,7 @@ from generativeaiexamples_tpu_torch.retrieval.gpu import full_f32
 logger = get_logger(__name__)
 
 _PQ_CENTROIDS = 256  # uint8 code space, one byte per subspace
+_ENCODE_ROWS = 65536  # rows a worker encodes at a time
 
 
 def _kmeans_np(vecs: np.ndarray, k: int, iters: int, seed: int) -> np.ndarray:
@@ -106,17 +110,28 @@ def train_codebooks(
 def encode(vecs: np.ndarray, codebooks: np.ndarray) -> np.ndarray:
     """Assign every row to its nearest centroid per subspace: uint8 codes
     ``(rows, pq_m)``."""
-    pq_m, _, dsub = codebooks.shape
+    pq_m, k, dsub = codebooks.shape
     codes = np.zeros((vecs.shape[0], pq_m), dtype=np.uint8)
-    for m in range(pq_m):
-        sub = vecs[:, m * dsub : (m + 1) * dsub]
-        cb = codebooks[m]
-        d2 = (
-            (sub * sub).sum(axis=1, keepdims=True)
-            - 2.0 * (sub @ cb.T)
-            + (cb * cb).sum(axis=1)[None, :]
-        )
-        codes[:, m] = np.argmin(d2, axis=1).astype(np.uint8)
+    cb2 = [(cb * cb).sum(axis=1)[None, :] for cb in codebooks]
+
+    def encode_rows(lo: int) -> None:
+        # (x2 - 2.0 * (x @ c.T)) + c2 per subspace, in one buffer: -2.0 *
+        # dot is exact and x2 + (-2 dot) rounds as x2 - 2 dot, so each
+        # row's codes are the whole-array expression's bit for bit.
+        block = vecs[lo : lo + _ENCODE_ROWS]
+        d2 = np.empty((len(block), k), dtype=np.float32)
+        for m in range(pq_m):
+            sub = block[:, m * dsub : (m + 1) * dsub]
+            np.matmul(sub, codebooks[m].T, out=d2)
+            d2 *= -2.0
+            d2 += (sub * sub).sum(axis=1, keepdims=True)
+            d2 += cb2[m]
+            codes[lo : lo + len(block), m] = d2.argmin(axis=1)
+
+    starts = range(0, vecs.shape[0], _ENCODE_ROWS)
+    # numpy releases the interpreter lock in the products and reductions.
+    with ThreadPoolExecutor(max_workers=max(1, min(len(starts), os.cpu_count() or 1, 8))) as pool:
+        list(pool.map(encode_rows, starts))
     return codes
 
 

@@ -284,9 +284,14 @@ def _pq_encode(vecs: np.ndarray, codebooks: np.ndarray, rows: Optional[np.ndarra
     def encode(lo: int) -> None:
         block = vecs[lo : lo + _PQ_ENCODE_CHUNK] if rows is None else vecs[rows[lo : lo + _PQ_ENCODE_CHUNK]]
         chunk = np.asarray(block, dtype=np.float32).reshape(-1, pq_m, dsub)
+        d2 = np.empty((len(chunk), codebooks.shape[1]), dtype=np.float32)
         for m in range(pq_m):
-            d2 = c2[m][None, :] - 2.0 * (chunk[:, m, :] @ codebooks[m].T)
-            codes[lo : lo + len(chunk), m] = np.argmin(d2, axis=1).astype(np.uint8)
+            # The reference's c2 - 2.0 * (x @ c.T) in one buffer: -2.0 * dot
+            # is exact, and c2 + (-2 dot) rounds as c2 - 2 dot does.
+            np.matmul(chunk[:, m, :], codebooks[m].T, out=d2)
+            d2 *= -2.0
+            d2 += c2[m]
+            codes[lo : lo + len(chunk), m] = d2.argmin(axis=1)
 
     starts = range(0, n, _PQ_ENCODE_CHUNK)
     with ThreadPoolExecutor(max_workers=max(1, min(len(starts), os.cpu_count() or 1, 8))) as pool:

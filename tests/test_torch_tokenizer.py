@@ -196,6 +196,34 @@ def test_get_tokenizer_chooses_as_the_reference(bpe_dir, vocab_file, tmp_path, m
     assert ttok.ENGINE_PRESETS == jtok.ENGINE_PRESETS
 
 
+def test_hub_name_without_a_cache_folder_skips_transformers(tmp_path, monkeypatch):
+    """A hub name is tried through ``transformers`` (local files only) only
+    when the local hub cache holds a folder for it: without one the port
+    gives bytes, as the reference does after its failed lookup, without
+    building an ``HFTokenizer``; with one it builds it."""
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    for key in ("HUGGINGFACE_HUB_CACHE", "TRANSFORMERS_CACHE"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    built = []
+
+    class Stub:
+        def __init__(self, name, local_files_only=True):
+            built.append((name, local_files_only))
+            raise OSError("no local files")
+
+    monkeypatch.setattr(ttok, "HFTokenizer", Stub)
+    name = "Snowflake/snowflake-arctic-embed-l"
+    assert type(ttok.get_tokenizer(name)).__name__ == type(jtok.get_tokenizer(name)).__name__ == "ByteTokenizer"
+    assert built == [] and not ttok._may_be_local(name)
+    for folder in (tmp_path / "hub", tmp_path / "home" / "hub"):
+        (folder / "models--Snowflake--snowflake-arctic-embed-l").mkdir(parents=True)
+        assert ttok._may_be_local(name)
+        assert type(ttok.get_tokenizer(name)).__name__ == "ByteTokenizer" and built.pop() == (name, True)
+        shutil.rmtree(folder)
+
+
 def test_reranker_builds_the_references_pairs(vocab_file):
     """Two segments with a WordPiece vocab, segment 0 with bytes: the port's
     ``GPUReranker`` encodes each (query, passage) as ``TPUReranker`` does."""
