@@ -180,9 +180,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    Gates: every greedy spec token is its position's argmax within
    ``SPEC_TIE`` under a teacher-forced forward and every plain one within
    ``PLAIN_TIE``; a spec stream leaves serve's only where the two tokens'
-   logits lie within ``PLAIN_TIE``; spec steps that accepted no draft emit
-   the greedy streams of ``spec_ngram`` bit for bit (others part from them
-   only within ``SPEC_TIE``), ``spec_plain``'s are serve's; ``spec_accept``
+   logits lie within ``PLAIN_TIE``; the adaptive steps' greedy streams
+   part from ``spec_ngram``'s only within ``SPEC_TIE`` (their lookahead
+   follows when the HTTP requests arrive), and the same three steps rebuilt
+   with ``adaptive_gamma=False`` (every round at gamma 4; the first
+   ``SPEC_PINNED_PROMPTS`` completions submitted together,
+   ``SPEC_PINNED_TOKENS`` greedy tokens, :func:`pinned_streams`) emit
+   ``spec_ngram``'s greedy streams bit for bit when neither accepted a
+   draft (else within ``SPEC_TIE``); ``spec_plain``'s are serve's; ``spec_accept``
    emits gamma + 1 and 3 tokens, paged = contiguous, its verify logits
    within ``VERIFY_LOGIT_TOL`` of the teacher-forced ones; sampled tokens
    lie in their warped candidate pool; the fault's stream is serve's bit
@@ -311,7 +316,39 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    equal or parted only at a near tie under a teacher-forced forward, and
    a W8A8 ``LlamaGenerator`` over an int8 cache launching K1, K2 and K4
    (``xla_generators``).
-19. The model services (after the K1 shape check): K4 held against its
+19. The ``mesh`` group (after the K1 shape check), two ranks on this
+   card: rank 0 is this process and rank 1 a follower process spawned at
+   the script's start (``parallel.runtime``), every collective staged
+   through pinned host buffers (gloo).  ``mesh_serve``: Llama-3-8B at full
+   width and ``MESH_LAYERS`` of 32 layers, random weight-only int8 from
+   ``MESH_SEED`` with an int8 cache, ``MeshSpec(tensor=2)``: a single-device
+   scheduler on the same draw serves ``serve``'s 8 completions and
+   streaming chat through the engine front (the baseline), then the mesh
+   scheduler on the contiguous cache (K2, K4) and on the paged pool (K3,
+   K4); a probe (a cold prefill of a 140-token prompt and 8 decode steps)
+   holds the mesh's hidden states within ``MESH_HIDDEN_TOL`` and its
+   logits within ``MESH_LOGIT_TOL`` of the single device's, and two
+   planted faults (``MESH_PROBE_FAULTS``) must fail both; greedy streams
+   equal the single device's up to its first top-2 gap below twice
+   ``MESH_LOGIT_TOL`` (each stream's first near tie and the steps the gate
+   covers printed); the ranks' digests of every token they sampled are
+   equal; each rank launched K2 or K3, and K4.  Before the group, K2, K3
+   and K4 are held against their plain versions at a rank's shapes
+   (``check_mesh_rank``).
+   Printed: TTFT p50, decode tokens/s beside the single device's, a
+   decode chunk's ms, collectives, staged MB and collective ms a step,
+   each rank's device GB.  ``mesh_seq``: one attention layer at
+   Llama-3-8B's heads over ``MESH_SEQ_LEN`` tokens, ring and Ulysses at
+   ``MeshSpec(seq=2)`` against K4 over the whole sequence, each within
+   ``FLASH_TOL`` (Ulysses launches K4 on each rank, and each rank's K4
+   call is held against the plain attention on its inputs).  ``mesh_moe``:
+   Mixtral-8x7B's width at ``MESH_MOE_LAYERS`` layers over
+   ``MeshSpec(expert=2)`` against the single-device forward within
+   ``MESH_MOE_TOL`` (bit for bit); a planted missing expert must fail it.
+   ``mesh_fault``: the follower killed mid-decode; the
+   request fails with ``error`` well inside the group timeout, a later
+   one fails at once, the scheduler reads unhealthy, the script goes on.
+20. The model services (after the ``mesh`` group): K4 held against its
    plain version at the VLM's prefill blocks (b = 1, s = 228 and 249 from
    position 0, t = s + 96, 32 / 8 heads, head_dim 128: ``kernel`` lines,
    ``regime`` ``vlm_prefill``), then
@@ -375,7 +412,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    on the tree mapped from the written arrays, its transcript their
    decode.  TTS real-time factor, ASR ms per second of audio, ms from
    ``end`` to ``done``.
-20. Training on one card (after ``speech_serve``): ``train``: K4's
+21. Training on one card (after ``speech_serve``): ``train``: K4's
    autograd wrapper (``ops/flash_attention.py::FlashAttentionFunction``:
    the kernel forward, a backward by recomputing the plain attention)
    against the plain attention's autograd at the training shape (b = 4,
@@ -417,7 +454,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    arctic-embed-l and a ``GPUVectorStore`` on the card, the echo LLM):
    the finals are stored with their timestamps in both stores and
    ``/generate`` streams an SSE answer.
-21. ``durable``: durability with ``python -m
+22. ``durable``: durability with ``python -m
    generativeaiexamples_tpu_torch.server`` processes (echo LLM,
    arctic-embed-l, the exact store, cache off): 32 documents bulk-ingested
    and one deleted, 16 searches recorded, SIGKILL; the restart replays the
@@ -440,7 +477,8 @@ serving phase, ``pool_launches`` from ``pool``, ``chain_launches`` from ``chain`
 the steps after it, ``spec_launches`` from each ``spec`` step,
 ``hf_launches`` from each path of ``hf_checkpoint``,
 ``families_launches`` from each family's paths, ``xla_path_launches``
-from each part of ``xla_path``, ``services_launches`` from ``vision_serve``
+from each part of ``xla_path``, ``mesh_launches`` from each layout of
+``mesh_serve`` by rank, ``services_launches`` from ``vision_serve``
 and ``multimodal``, ``training_launches`` from ``train``'s steps, ``lora``'s
 steps and each model's steps in ``train_losses`` (``contrastive``,
 ``vlm_caption``, ``tts``); K4's line carries its training-shape timings
@@ -1040,6 +1078,19 @@ def check_flash(torch, dev, log, hd: int = 128, nq: int = 32, nkv: int = 8):
                tolerance_use=use)
     emit("kernel", kernel="flash_attention", hd=hd, **row)
     return dict(row, shape=f"b={b} s={s} n_q={nq} n_kv={nkv} hd={hd}, ragged kv lengths, padded rows")
+
+
+# K2/K3 and K4 at one rank's shapes of ``mesh_serve`` (Llama-3-8B over
+# MeshSpec(tensor=2)): 4 of the 8 KV heads, group 4; the prefill's 16 / 4.
+MESH_RANK_DECODE, MESH_RANK_FLASH = (128, 4, 4), dict(hd=128, nq=16, nkv=4)
+
+
+def check_mesh_rank(torch, dev, log) -> dict:
+    """K2, K3 and K4 against their plain versions at a tensor=2 rank's
+    local shapes (``check_decode_instance``, ``check_flash``)."""
+    rows = check_decode_instance(torch, dev, *MESH_RANK_DECODE)
+    rows["flash_attention"] = check_flash(torch, dev, log, **MESH_RANK_FLASH)
+    return rows
 
 
 # K2/K3's instances beyond Llama's (128, G <= 8), at the families' shapes:
@@ -3733,6 +3784,9 @@ def pool_phase(torch, dev, _cuda, smi: str, cfg, params, prompts, serve_summary,
 # ---------------------------------------------------------------------------
 
 SPEC_GAMMA, SPEC_SELF_LAYERS = 4, 4
+# The pinned-lookahead runs behind the bit-for-bit gate: the first prompts
+# of ``completions``, submitted together, greedy, this many tokens each.
+SPEC_PINNED_PROMPTS, SPEC_PINNED_TOKENS = 4, 16
 # The random Llama-3.2-1B draft at full width and 8 of its 16 layers (its
 # W8A8 and bf16 twins), so the whole script stays inside its time limit
 # beside the scale-out retrieval phases (all 16 until then).
@@ -3774,35 +3828,38 @@ def quote_prompt() -> str:
     return passage + "\n\nRepeat the passage above, word for word:\n" + passage[:12]
 
 
-def teacher_forced_logits(torch, cfg, params, prompt, stream, chunk: int = 256):
+def teacher_forced_logits(torch, cfg, params, prompt, stream, chunk: int = 256, mesh=None):
     """f32 logits of each emitted position of ``stream`` after ``prompt``,
     the way the scheduler builds the cache: a cold prefill of the prompt
     (in warm chunks of ``chunk`` when it is longer), then one warm forward
-    over the stream's tokens reading the int8 cache.  Returns (n, vocab)."""
+    over the stream's tokens reading the int8 cache.  Returns (n, vocab).
+    ``mesh`` (a rank's context) runs one rank's share; every rank then
+    holds the whole logits."""
     from generativeaiexamples_tpu_torch.models import llama
 
     dev = params["final_norm"].device
     n = len(prompt) + len(stream)
-    cache = llama.init_kv_cache(cfg, 1, n, device=dev)
+    cache = llama.init_kv_cache(llama.local_config(cfg, mesh), 1, n, device=dev)
     ids = torch.tensor([list(prompt) + list(stream)], device=dev)
     with torch.inference_mode():
         plen = len(prompt)
         if plen <= chunk:
             pos = torch.arange(plen, dtype=torch.int32, device=dev)[None]
             hidden, _ = llama.forward(params, cfg, ids[:, :plen], pos, cache,
-                                      torch.tensor([plen], dtype=torch.int32, device=dev), cold_prefill=True)
+                                      torch.tensor([plen], dtype=torch.int32, device=dev), cold_prefill=True,
+                                      mesh=mesh)
         else:
             for start in range(0, plen, chunk):
                 end = min(start + chunk, plen)
                 pos = torch.arange(start, end, dtype=torch.int32, device=dev)[None]
                 hidden, _ = llama.forward(params, cfg, ids[:, start:end], pos, cache,
-                                          torch.tensor([end], dtype=torch.int32, device=dev))
-        rows = [llama.logits(params, hidden[:, -1:])[0]]
+                                          torch.tensor([end], dtype=torch.int32, device=dev), mesh=mesh)
+        rows = [llama.logits(params, hidden[:, -1:], mesh)[0]]
         if len(stream) > 1:
             pos = torch.arange(plen, n - 1, dtype=torch.int32, device=dev)[None]
             hidden, _ = llama.forward(params, cfg, ids[:, plen:n - 1], pos, cache,
-                                      torch.tensor([n - 1], dtype=torch.int32, device=dev))
-            rows.append(llama.logits(params, hidden)[0])
+                                      torch.tensor([n - 1], dtype=torch.int32, device=dev), mesh=mesh)
+            rows.append(llama.logits(params, hidden, mesh)[0])
         return torch.cat(rows).float()
 
 
@@ -3898,6 +3955,31 @@ def _spec_metrics(base, sched) -> dict:
     if snap["spec_accepted"] > snap["spec_proposed"]:
         raise AssertionError(f"spec_accepted {snap['spec_accepted']} > spec_proposed {snap['spec_proposed']}")
     return series
+
+
+def pinned_streams(sched, prompts, max_tokens: int):
+    """Greedy streams of ``prompts`` (token ids) submitted to ``sched`` all
+    at once, straight to the scheduler: ``({prompt: ids}, drafts
+    accepted)``."""
+    import queue
+
+    from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
+    from generativeaiexamples_tpu_torch.engine.scheduler import Request
+
+    outs, done = {}, queue.Queue()
+    accepted0 = sched.stats.snapshot()["spec_accepted"]
+    sched.start()
+    try:
+        for ids in prompts:
+            toks = outs.setdefault(tuple(ids), [])
+            sched.submit(Request(token_ids=list(ids), sampling=SamplingParams(max_tokens=max_tokens, temperature=0.0),
+                                 on_token=toks.append, on_done=done.put))
+        reasons = [done.get(timeout=300) for _ in prompts]
+    finally:
+        sched.stop()
+    if any(r not in ("length", "stop") for r in reasons) or not all(outs.values()):
+        raise AssertionError(f"a pinned-lookahead request failed: {reasons}")
+    return outs, sched.stats.snapshot()["spec_accepted"] - accepted0
 
 
 def spec_step(torch, dev, _cuda, name, sched, cfg, params, prompts, serve, requests=("batch", "alone", "quote",
@@ -4176,6 +4258,23 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
         out[name] = launches
         return fields
 
+    # The bit-for-bit comparison runs at one pinned lookahead (F5): the
+    # adaptive runs' gamma follows the most hopeful active lane, and which
+    # lanes are active follows when the HTTP requests arrive.
+    tok = get_tokenizer("llama3-8b")
+    pinned_prompts = [tok.encode(p) for p in prompts["completions"][:SPEC_PINNED_PROMPTS]]
+    pinned, pinned_accepted, pinned_s = {}, {}, {}
+
+    def run_pinned(name, **kw):
+        t0 = time.perf_counter()
+        sched = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", gamma=SPEC_GAMMA,
+                          adaptive_gamma=False, **kw)
+        try:
+            pinned[name], pinned_accepted[name] = pinned_streams(sched, pinned_prompts, SPEC_PINNED_TOKENS)
+        finally:
+            sched._cache = sched._pool = sched._dcache = sched._dhist = None
+            pinned_s[name] = time.perf_counter() - t0
+
     # The baseline: a plain scheduler in the same position of the run.
     plain = Scheduler(cfg, params, device=dev, matmul_kernel="pallas_w8a8", **serve_kw("contiguous"))
     try:
@@ -4216,6 +4315,7 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
         ngram._cache = ngram._dhist = None
     gc.collect()
     torch.cuda.empty_cache()
+    run_pinned("spec_ngram", **serve_kw("contiguous"), spec_mode="ngram")
 
     with _PresetDepth("llama3.2-1b", SPEC_DRAFT_LAYERS):
         kw = spec_scheduler_kwargs(
@@ -4227,9 +4327,14 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
         hd64 = fields["flash_hd_launches"][64]
         if not hd64:
             raise AssertionError(f"spec_draft: K4 never launched at head_dim 64: {fields['flash_hd_launches']}")
+        draft_kw = dict(draft_cfg=draft.draft_cfg, draft_params=draft.draft_params)
+        draft._cache = draft._pool = draft._dcache = draft.draft_params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_pinned("spec_draft", **serve_kw("paged"), **draft_kw)
     finally:
         draft._cache = draft._pool = draft._dcache = draft.draft_params = None
-    del kw
+    del kw, draft_kw
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4243,35 +4348,41 @@ def spec_phase(torch, dev, _cuda, cfg, params, prompts, serve, k2_ms: float) -> 
         selfd._cache = selfd._dcache = None
     gc.collect()
     torch.cuda.empty_cache()
+    run_pinned("spec_self", **serve_kw("contiguous"), draft_cfg=dcfg, draft_params=dparams)
 
-    # One verify math, three drafts and two layouts.  Steps that accepted
-    # no draft ran every round at slot 0 with the same lookahead, so their
-    # greedy streams must be equal bit for bit; a token a step emitted from
-    # a later slot of a round (an accepted draft or its bonus) went
-    # through other shapes and may flip a near tie there.
+    # One verify math, three drafts and two layouts.  Pinned steps that
+    # accepted no draft ran every round at slot 0 with the same lookahead,
+    # so their greedy streams must be equal bit for bit; a token a step
+    # emitted from a later slot of a round (an accepted draft or its bonus)
+    # went through other shapes and may flip a near tie there.  The
+    # adaptive runs' lookahead follows the arrival order of their requests,
+    # so they part from each other only within SPEC_TIE.
     same = {}
-    for name in ("spec_draft", "spec_self"):
-        exact = not (accepted[name] or accepted["spec_ngram"])
-        common = [prompt for prompt in greedy[name] if prompt in greedy["spec_ngram"]]
-        gaps = []
-        for prompt in common:
-            ids, ref = greedy[name][prompt], greedy["spec_ngram"][prompt]
-            j = next((i for i in range(min(len(ids), len(ref))) if ids[i] != ref[i]), None)
-            if j is None:
-                continue
-            logits = teacher_forced_logits(torch, cfg, params, prompt, ids[:j + 1])
-            gaps.append(abs(logits[j, ids[j]].item() - logits[j, ref[j]].item()))
-        same[name] = dict(compared=len(common), differing=len(gaps), must_be_equal=exact,
-                          first_difference_logit_gaps=gaps, accepted=accepted[name])
-        if not common or (exact and gaps) or any(gap > SPEC_TIE for gap in gaps):
-            raise AssertionError(f"{name}: greedy streams against spec_ngram's: {same[name]}")
+    for kind, streams_of, accepted_of in (("pinned", pinned, pinned_accepted), ("adaptive", greedy, accepted)):
+        for name in ("spec_draft", "spec_self"):
+            exact = kind == "pinned" and not (accepted_of[name] or accepted_of["spec_ngram"])
+            common = [prompt for prompt in streams_of[name] if prompt in streams_of["spec_ngram"]]
+            gaps = []
+            for prompt in common:
+                ids, ref = streams_of[name][prompt], streams_of["spec_ngram"][prompt]
+                j = next((i for i in range(min(len(ids), len(ref))) if ids[i] != ref[i]), None)
+                if j is None:
+                    continue
+                logits = teacher_forced_logits(torch, cfg, params, prompt, ids[:j + 1])
+                gaps.append(abs(logits[j, ids[j]].item() - logits[j, ref[j]].item()))
+            same[f"{kind}_{name}"] = dict(compared=len(common), differing=len(gaps), must_be_equal=exact,
+                                          first_difference_logit_gaps=gaps, accepted=accepted_of[name],
+                                          ngram_accepted=accepted_of["spec_ngram"])
+            if not common or (exact and gaps) or any(gap > SPEC_TIE for gap in gaps):
+                raise AssertionError(f"{kind} {name}: greedy streams against spec_ngram's: {same[f'{kind}_{name}']}")
 
     accept = spec_accept_round(torch, dev, cfg, params, get_tokenizer("llama3-8b").encode(prompts["chat"]))
     failures = accept.pop("failures")
     emit("spec_accept", gamma=SPEC_GAMMA, spec_tie=SPEC_TIE, **accept)
     if failures:
         raise AssertionError(f"spec_accept: {failures}")
-    emit("spec", seconds=time.perf_counter() - t_phase, steps=list(out), streams_equal_to_spec_ngram=same)
+    emit("spec", seconds=time.perf_counter() - t_phase, steps=list(out), streams_equal_to_spec_ngram=same,
+         pinned_lookahead_s=pinned_s)
     return out, hd64
 
 
@@ -5251,14 +5362,29 @@ def profiler_step(base, _cuda, smi) -> dict:
     return launches
 
 
+# A standby chain server: the interpreter, torch, the package and a CUDA
+# context start ahead of time, then the server's main runs on "go".
+_STANDBY_SERVER = (
+    "import sys, torch\n"
+    "import generativeaiexamples_tpu_torch.chains.factory\n"
+    "import generativeaiexamples_tpu_torch.server.__main__ as server\n"
+    "if torch.cuda.is_available():\n"
+    "    torch.zeros(1, device='cuda')\n"
+    "if sys.stdin.readline().strip() == 'go':\n"
+    "    server.main(sys.argv[1:])\n"
+)
+
+
 class _ServerProcess:
     """``python -m generativeaiexamples_tpu_torch.server`` in its own process
-    on a free port, its log in ``log_path``."""
+    on a free port, its log in ``log_path``.  A ``standby`` process starts
+    its interpreter, imports and CUDA context now and serves from
+    :meth:`go`; its times count from there."""
 
     _ports_lock = threading.Lock()
     _ports_given: set = set()
 
-    def __init__(self, env: dict, log_path: str, args=(), name: str = "") -> None:
+    def __init__(self, env: dict, log_path: str, args=(), name: str = "", standby: bool = False) -> None:
         import socket
 
         self.name = name
@@ -5275,9 +5401,17 @@ class _ServerProcess:
         self.log_path = log_path
         self.t0 = time.perf_counter()
         self._log = open(log_path, "ab")
-        self.proc = subprocess.Popen([sys.executable, "-m", "generativeaiexamples_tpu_torch.server", "--host",
-                                      "127.0.0.1", "--port", str(self.port), "-v", *args],
-                                     cwd=ROOT, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+        entry = ["-c", _STANDBY_SERVER] if standby else ["-m", "generativeaiexamples_tpu_torch.server"]
+        self.proc = subprocess.Popen([sys.executable, *entry, "--host", "127.0.0.1", "--port", str(self.port), "-v",
+                                      *args], cwd=ROOT, env=env, stdout=self._log, stderr=subprocess.STDOUT,
+                                     stdin=subprocess.PIPE if standby else None)
+
+    def go(self) -> "_ServerProcess":
+        """Start a standby process's server now."""
+        self.t0 = time.perf_counter()
+        self.proc.stdin.write(b"go\n")
+        self.proc.stdin.flush()
+        return self
 
     def log_tail(self, n: int = 3000) -> str:
         with open(self.log_path, "rb") as fh:
@@ -5409,11 +5543,20 @@ def durable_phase(smi: str, server_args=(), env_extra=None, name="durable", n_do
     fabric = env.get("APP_VECTORSTORE_NAME") == "fabric"
     store = (f"ShardedVectorStore, {env.get('APP_FABRIC_NUMSHARDS')} shards of GPUVectorStore (bf16)" if fabric
              else "GPUVectorStore (bf16)")
-    servers = []
+    servers, standby = [], {}
 
-    def start(name):
-        servers.append(_ServerProcess(env, os.path.join(root, f"{name}.log"), server_args, name))
-        return servers[-1], servers[-1].wait_ready()
+    def start(name, then=None):
+        """Start server ``name`` (from its standby when one waits) and, once
+        it answers, a standby for ``then``, the next restart: its start-up
+        overlaps this server's work, and the restart's times count from
+        its release."""
+        srv = standby.pop(name).go() if name in standby else _ServerProcess(
+            env, os.path.join(root, f"{name}.log"), server_args, name)
+        servers.append(srv)
+        ready = srv.wait_ready()
+        if then is not None:
+            standby[then] = _ServerProcess(env, os.path.join(root, f"{then}.log"), server_args, then, standby=True)
+        return srv, ready
 
     def search_ids(srv):
         return [f"durable-{srv.name}-{i}" for i in range(len(queries))]
@@ -5432,10 +5575,12 @@ def durable_phase(smi: str, server_args=(), env_extra=None, name="durable", n_do
                   embedder="arctic-embed-l, 24 layers, random bf16, seed 0", store=store,
                   cache="exact tier only (APP_CACHE_SEMANTICENABLED=false)",
                   durability="APP_DURABILITY_ENABLED=true, snapshot every "
-                             f"{snapshot_every or 'default'} records")
+                             f"{snapshot_every or 'default'} records",
+                  restarts="standby processes (interpreter, imports, CUDA context started during the previous "
+                           "server's work); ready times count from their release")
     try:
         # 1-2. Ingest, delete a source, record 16 searches; SIGKILL.
-        a, fields["start_a_s"] = start("a")
+        a, fields["start_a_s"] = start("a", then="b")
         t0 = time.perf_counter()
         job = _wait_job(a.base, _bulk(a.base, docs))
         fields["ingest_s"] = time.perf_counter() - t0
@@ -5460,7 +5605,7 @@ def durable_phase(smi: str, server_args=(), env_extra=None, name="durable", n_do
         fields["other_search_traces_a"] = _other_search_traces(a.base, search_ids(a))
         a.kill()
         # 3. Restart: the WAL replays (after the snapshot, if one was cut).
-        b, fields["restart_after_kill_ready_s"] = start("b")
+        b, fields["restart_after_kill_ready_s"] = start("b", then="c" if term else None)
         fields["restart_after_kill_first_search_s"] = first_search_s(b)
         rec = _recovery_event(b.base)
         exp = _exposition(b.base)
@@ -5495,7 +5640,7 @@ def durable_phase(smi: str, server_args=(), env_extra=None, name="durable", n_do
                 raise AssertionError(f"durable: SIGTERM exit {rc}, snapshot lines {cut}:\n{b.log_tail()}")
             fields.update(snapshot=cut[-1][0], snapshot_s=float(cut[-1][2]) / 1e3)
             # 5. Restart: the snapshot loads and nothing replays.
-            c, fields["restart_after_term_ready_s"] = start("c")
+            c, fields["restart_after_term_ready_s"] = start("c", then="d")
             fields["restart_after_term_first_search_s"] = first_search_s(c)
             rec = _recovery_event(c.base)
             got = searches(c)
@@ -5550,7 +5695,7 @@ def durable_phase(smi: str, server_args=(), env_extra=None, name="durable", n_do
                           resume_status=resumed["status"], resume_rows=rows_after, resume_duplicate_ids=0,
                           servers_started=len(servers))
     finally:
-        for srv in servers:
+        for srv in servers + list(standby.values()):
             srv.close()
         shutil.rmtree(root, ignore_errors=True)
         fields["phase_s"] = time.perf_counter() - t_phase
@@ -9543,6 +9688,636 @@ def streaming_phase(torch, dev, _cuda, smi: str) -> dict:
     return dict(receiver=receiver)
 
 
+# ---------------------------------------------------------------------------
+# serving over a device mesh: two ranks on one card
+# ---------------------------------------------------------------------------
+
+# ``mesh_serve``: Llama-3-8B at full width and 8 of its 32 layers, random
+# weight-only int8 weights from this seed (an int8 cache), served as
+# MeshSpec(tensor=2) on [cuda:0, cuda:0] and by a single-device scheduler on
+# the same draw.
+MESH_LAYERS, MESH_SEED = 8, 0
+# A mesh collective, or a rank's answer, that takes longer raises.
+MESH_TIMEOUT_S = 120.0
+# ``mesh_seq``: one attention layer at Llama-3-8B's heads over this prompt.
+MESH_SEQ_LEN = 8192
+# ``mesh_moe``: Mixtral-8x7B's width at this depth over MeshSpec(expert=2).
+MESH_MOE_LAYERS = 2
+# The two-rank forward against the single-device one on the same weights
+# (f32 readings of bf16 values).  wo's and w_down's partial products are
+# summed in f32 and rounded once, as one device's are, but every sharded
+# product is a cuBLAS call of another shape (half the columns or rows), so
+# its f32 sums run in another order and an element may round one bf16 ulp
+# apart; random weights carry such ulps through 8 layers and the head.
+# Measured on an H100 (PERF.md): sound, the probe's hidden states
+# 1.17% RMS and 1.65% of the largest at most, its logits 0.074 apart at
+# most, and 0.1085 over every served stream teacher-forced (288 steps); the
+# subtlest planted fault (MESH_PROBE_FAULTS: wo's psum dropped in the last
+# of 8 layers) 3.38% RMS, 4.12% and 0.208; a swapped KV-head shard 128% RMS.
+# Each limit sits between the sound reading and that fault's.
+MESH_HIDDEN_TOL = dict(rel_rms=0.02, max_abs_frac=0.026)
+# The logits' largest difference allowed; a greedy stream may part from the
+# single-device one only where the single device's top-2 gap is below
+# twice this (each side within it of the other).
+MESH_LOGIT_TOL = 0.15
+# ``mesh_moe``'s hidden states against the single-device forward: bit for
+# bit.  Each expert's products run on the same fixed row blocks on a rank
+# as on one device (the same cuBLAS calls), and a token's combine is a sum
+# of its two experts' f32 terms: one rank adds both, or each rank holds one
+# and the psum adds them, the same two terms either way (measured bit for
+# bit on an H100; a planted missing expert reads 66% RMS, PERF.md).
+MESH_MOE_TOL = dict(rel_rms=0.0, max_abs_frac=0.0)
+
+
+def _rel_err(torch, got, ref) -> dict:
+    err = (got.float() - ref.float())
+    rms = ref.float().square().mean().sqrt().item()
+    return {"max_abs_err": err.abs().max().item(), "rel_rms": err.square().mean().sqrt().item() / max(rms, 1e-30),
+            "max_abs_frac": err.abs().max().item() / max(ref.float().abs().max().item(), 1e-30)}
+
+
+def _rel_within(err: dict, tol: dict) -> bool:
+    return err["rel_rms"] <= tol["rel_rms"] and err["max_abs_frac"] <= tol["max_abs_frac"]
+
+
+def _rank_reset(ctx) -> None:
+    """Zero this rank's kernel launch counts and collective counts."""
+    from generativeaiexamples_tpu_torch.ops import _cuda
+    from generativeaiexamples_tpu_torch.parallel.comm import reset_comm_stats
+
+    _cuda.reset_launch_counts()
+    reset_comm_stats()
+
+
+def _rank_counts(ctx) -> dict:
+    """This rank's launches per kernel, collectives and device memory."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.ops import _cuda
+    from generativeaiexamples_tpu_torch.parallel.comm import COMM_STATS
+
+    torch.cuda.synchronize()
+    return {"rank": ctx.rank, "launches": dict(_cuda.LAUNCHES), "flash_hd": dict(_cuda.FLASH_HD_LAUNCHES),
+            "comm": {k: COMM_STATS[k] for k in ("collectives", "staged_bytes", "payload_bytes", "ms")},
+            "by_op": dict(COMM_STATS["by_op"]), "device_gb": torch.cuda.memory_allocated() / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def probe_forward(torch, params, cfg, prompt, follow, mesh=None):
+    """f32 hidden states and logits of a cold prefill of ``prompt`` (the
+    last position) and of decode steps feeding ``follow`` one at a time
+    through the append buffer, as the decode chunk runs them (K4, then K2
+    on the int8 cache).  ``mesh`` (a rank's context) runs one rank's share;
+    every rank then holds the whole logits."""
+    from generativeaiexamples_tpu_torch.engine.decode import _append_buffer
+    from generativeaiexamples_tpu_torch.models import llama
+
+    dev = params["final_norm"].device
+    lc = llama.local_config(cfg, mesh)
+    s = len(prompt)
+    cache = llama.init_kv_cache(lc, 1, s + len(follow) + 8, device=dev)
+    hidden, _ = llama.forward(params, cfg, torch.tensor([list(prompt)], device=dev),
+                              torch.arange(s, dtype=torch.int32, device=dev)[None], cache,
+                              torch.tensor([s], dtype=torch.int32, device=dev), cold_prefill=True, mesh=mesh)
+    hs, lgs = [hidden[0, -1]], [llama.logits(params, hidden[:, -1:], mesh)[0, 0]]
+    ab = _append_buffer(lc, 1, len(follow), dev)
+    lengths0 = torch.tensor([s], dtype=torch.int32, device=dev)
+    for i, tok in enumerate(follow):
+        hidden, _, ab = llama.forward(params, cfg, torch.tensor([[tok]], device=dev),
+                                      torch.tensor([[s + i]], dtype=torch.int32, device=dev), cache, lengths0,
+                                      append_cache=(ab, i), mesh=mesh)
+        hs.append(hidden[0, 0])
+        lgs.append(llama.logits(params, hidden, mesh)[0, 0])
+    return torch.stack(hs).float(), torch.stack(lgs).float()
+
+
+def _rank_teacher_forced(ctx, key, prompt, stream):
+    """``teacher_forced_logits`` on this rank's share of a mesh scheduler's
+    engine."""
+    import torch
+
+    eng = ctx.state[key]
+    return teacher_forced_logits(torch, eng.cfg, eng.params, prompt, stream, mesh=ctx)
+
+
+# Planted faults that the probe's gates must fail, each run on the card
+# beside the sound probe: ``psum`` drops the last layer's wo psum (each rank
+# keeps its own partial product), ``kv_shard`` swaps rank 1's first two
+# local KV heads in wk and wv of every layer (a misplaced shard).
+MESH_PROBE_FAULTS = ("psum", "kv_shard")
+
+
+class _NoSum:
+    """A stand-in rank context whose psum is this rank's value alone."""
+
+    @staticmethod
+    def psum(x, axis):
+        return x
+
+
+def _swap_first_heads(torch, w, hd: int):
+    """``w`` (a projection, heads on its last axis) with its first two
+    heads' columns swapped."""
+    idx = torch.arange(w.shape[-1], device=(w.q if hasattr(w, "q") else w).device)
+    idx[:hd], idx[hd : 2 * hd] = idx[hd : 2 * hd].clone(), idx[:hd].clone()
+    if hasattr(w, "q"):
+        return type(w)(q=w.q[..., idx].contiguous(), scale=w.scale[..., idx].contiguous())
+    return w[..., idx].contiguous()
+
+
+def _rank_probe(ctx, key, prompt, follow, fault=None):
+    """``probe_forward`` on this rank's share of a mesh scheduler's engine,
+    sound or with one of MESH_PROBE_FAULTS planted."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.models import llama
+
+    eng = ctx.state[key]
+    params = eng.params
+    if fault == "kv_shard" and ctx.rank == 1:
+        layers = params["layers"]
+        params = {**params, "layers": {**layers, **{n: _swap_first_heads(torch, layers[n], eng.cfg.head_dim)
+                                                    for n in ("wk", "wv")}}}
+    real = llama.row_parallel_dot
+    if fault == "psum":
+        calls = [0]
+
+        def row_parallel_dot(x, w, name, mesh, axis="tensor"):
+            if name == "wo":
+                calls[0] += 1
+                if calls[0] % eng.cfg.n_layers == 0:  # the last layer's
+                    return real(x, w, name, _NoSum, axis)
+            return real(x, w, name, mesh, axis)
+
+        llama.row_parallel_dot = row_parallel_dot
+    try:
+        return probe_forward(torch, params, eng.cfg, prompt, follow, ctx)
+    finally:
+        llama.row_parallel_dot = real
+
+
+def _rank_seq(ctx, strategy: str, seed: int, reps: int):
+    """One attention layer at Llama-3-8B's heads over MESH_SEQ_LEN tokens
+    (q/k/v drawn alike on every rank from ``seed``), sequence-parallel;
+    rank 0's whole output and the median ms of ``reps`` runs."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.parallel.ring_attention import sequence_parallel_attention
+
+    q, k, v, pos = _seq_inputs(torch, ctx.device, seed)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sequence_parallel_attention(q, k, v, pos, None, mesh=ctx, strategy=strategy)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(times)[len(times) // 2]
+
+
+def _rank_ulysses_k4(ctx, seed: int, tokens: int) -> dict:
+    """Ulysses over ``tokens`` tokens with this rank's K4 call recorded
+    (its 16 / 4 local heads over the whole sequence): that call's output
+    against the plain attention on the same inputs (query rows in blocks of
+    1,024), within FLASH_TOL."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.ops import attention as attention_mod
+    from generativeaiexamples_tpu_torch.ops.flash_attention import flash_gqa_attention_plain
+    from generativeaiexamples_tpu_torch.parallel.ring_attention import sequence_parallel_attention
+
+    calls, inner = [], attention_mod.attention
+
+    def recording(q, k, v, pos, kv_lengths=None, **kw):
+        out = inner(q, k, v, pos, kv_lengths, **kw)
+        calls.append((q, k, v, pos, kv_lengths, out))
+        return out
+
+    q, k, v, pos = _seq_inputs(torch, ctx.device, seed, tokens)
+    attention_mod.attention = recording
+    try:
+        sequence_parallel_attention(q, k, v, pos, None, mesh=ctx, strategy="ulysses")
+    finally:
+        attention_mod.attention = inner
+    del q, k, v, pos
+    (q, k, v, pos, lengths, out), = calls
+    worst, within = 0.0, True
+    for i in range(0, q.shape[1], 1024):
+        ref = flash_gqa_attention_plain(q[:, i : i + 1024], k, v, pos[:, i : i + 1024], lengths).float()
+        got = out[:, i : i + 1024].float()
+        err = (got - ref).abs()
+        worst = max(worst, err.max().item())
+        within &= bool((err <= FLASH_TOL["atol"] + FLASH_TOL["rtol"] * ref.abs()).all())
+    return {"rank": ctx.rank, "shape": f"b=1 s={q.shape[1]} n_q={q.shape[2]} n_kv={k.shape[2]} hd={q.shape[3]}",
+            "max_abs_err": worst, "within": within}
+
+
+def _seq_inputs(torch, dev, seed: int, tokens: int = MESH_SEQ_LEN):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape_q, shape_kv = (1, tokens, 32, 128), (1, tokens, 8, 128)
+    q, k, v = (torch.randn(s, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+               for s in (shape_q, shape_kv, shape_kv))
+    pos = torch.arange(tokens, dtype=torch.int32, device=dev)[None]
+    return q, k, v, pos
+
+
+def _rank_moe(ctx, cfg, seed: int, tokens):
+    """Mixtral's width over the ``expert`` axis: this rank's shard of the
+    seeded float tree (every rank draws the whole tree alike, then slices),
+    a cacheless forward; rank 0's f32 hidden states, sound and with rank
+    1's first expert planted missing."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.models import llama
+
+    gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    params = prepare_params(cfg, None, device=ctx.device, generator=gen, mesh=ctx)
+    t = torch.tensor(tokens, device=ctx.device)
+    pos = torch.arange(t.shape[1], dtype=torch.int32, device=ctx.device).expand(t.shape)
+    hidden, _ = llama.forward(params, cfg, t, pos, mesh=ctx)
+    out = hidden.float()
+    # Planted: rank 1's first expert missing (its down projection zero).
+    if ctx.rank == 1:
+        w = params["layers"]["w_down_e"]
+        params = {**params, "layers": {**params["layers"], "w_down_e": torch.cat([torch.zeros_like(w[:, :1]),
+                                                                                    w[:, 1:]], 1)}}
+    faulted, _ = llama.forward(params, cfg, t, pos, mesh=ctx)
+    del params
+    torch.cuda.empty_cache()
+    return out, faulted.float()
+
+
+def mesh_serve_step(torch, name, sched, prompts, counts):
+    """Serve ``prompts``' 8 concurrent completions and one streaming chat
+    through the engine's HTTP front on ``sched``; ``counts()`` zeroes
+    (``True``) or reads (``False``) the launch counts of every rank.
+    Returns (records, fields)."""
+    from generativeaiexamples_tpu_torch.engine.server import create_engine_app
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+
+    tee = StreamTee(sched)
+    server = create_engine_app(sched, get_tokenizer("llama3-8b"), "llama3-8b", "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    sched.start()
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        _complete(base, prompts["warmup"], 4)
+        tee.records.clear()
+        n_ttft0 = len(sched.stats.ttft_recent)
+        snap0 = sched.stats.snapshot()
+        counts(True)
+        t_wall = time.perf_counter()
+        workers, results = _concurrent(base, prompts["completions"])
+        status, _ = _post(base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": prompts["chat"]}], "max_tokens": 32, "temperature": 0,
+            "stream": True})
+        for w in workers:
+            w.join(timeout=600)
+        wall = time.perf_counter() - t_wall
+        launches = counts(False)
+        if status != 200 or len(results) != len(prompts["completions"]):
+            raise AssertionError(f"{name}: a request failed ({status}, {len(results)} completions)")
+        snap1 = sched.stats.snapshot()
+        decode_tokens = (snap1["tokens_total"] - snap0["tokens_total"]) - (snap1["requests_total"]
+                                                                           - snap0["requests_total"])
+        decode_s = snap1["decode_s"] - snap0["decode_s"]
+        ttfts = sorted(list(sched.stats.ttft_recent)[n_ttft0:])
+        return tee.records, dict(wall_s=wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+                                 decode_tokens_per_s=decode_tokens / decode_s if decode_s else None,
+                                 decode_chunks=snap1["decode_chunks"] - snap0["decode_chunks"],
+                                 requests=len(tee.records), launches=launches)
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        thread.join(timeout=30)
+
+
+def mesh_stream_gate(torch, cfg, params, single: dict, mesh_streams: dict, gaps_of: dict,
+                     teacher=None) -> dict:
+    """The mesh's greedy streams against the single-device engine's.
+
+    Each stream must equal the single device's up to its first step where
+    the single-device run's top-2 logit gap (teacher-forced, f32) is below
+    2 * MESH_LOGIT_TOL.  ``teacher(prompt, ids)``, when given, is the mesh's
+    teacher-forced logits over the single device's stream: they must lie
+    within MESH_LOGIT_TOL of the single device's at every step (the probe's
+    logit gate over every served prompt), and the steps where their top-1
+    differs are counted.  ``gaps_of`` keeps each prompt's gaps for the next
+    layout.  Returns the readings: per stream its length, first difference,
+    first near tie, the gap at the difference and the teacher-forced
+    reading; ``steps_checked`` counts the steps the equality rule covers
+    (each stream's up to its first near tie) out of ``steps``; ``failures``
+    lists what broke a rule."""
+    out = {"compared": 0, "equal": 0, "steps": 0, "steps_checked": 0, "teacher_forced_top1_differs": 0,
+           "teacher_forced_max_abs_err": 0.0, "streams": [], "failures": []}
+    for prompt, ids in single.items():
+        got = mesh_streams.get(prompt)
+        if got is None:
+            out["failures"].append(f"the mesh never served a {len(prompt)}-token prompt")
+            continue
+        out["compared"] += 1
+        row = {"prompt_tokens": len(prompt), "tokens": len(ids)}
+        if prompt not in gaps_of or teacher is not None:
+            want = teacher_forced_logits(torch, cfg, params, prompt, ids)
+            top2 = want.topk(2, dim=-1).values
+            gaps_of[prompt] = (top2[:, 0] - top2[:, 1]).tolist()
+            if teacher is not None:
+                t0 = time.perf_counter()
+                lg = teacher(prompt, ids)
+                out["teacher_forced_s"] = out.get("teacher_forced_s", 0.0) + time.perf_counter() - t0
+                err = (lg - want).abs().amax(-1)
+                row["teacher_forced_max_abs_err"] = err.max().item()
+                row["teacher_forced_top1_differs"] = int((lg.argmax(-1) != want.argmax(-1)).sum().item())
+                out["teacher_forced_max_abs_err"] = max(out["teacher_forced_max_abs_err"], err.max().item())
+                out["teacher_forced_top1_differs"] += row["teacher_forced_top1_differs"]
+                if err.max().item() > MESH_LOGIT_TOL:
+                    out["failures"].append(f"a {len(prompt)}-token prompt's teacher-forced logits differ by "
+                                           f"{err.max().item()} (allowed {MESH_LOGIT_TOL})")
+        gaps = gaps_of[prompt]
+        near = next((i for i, g in enumerate(gaps) if g < 2 * MESH_LOGIT_TOL), len(gaps))
+        j = next((i for i in range(min(len(ids), len(got))) if ids[i] != got[i]), None)
+        if j is None and len(ids) != len(got):
+            j = min(len(ids), len(got))
+        out["equal"] += j is None
+        out["steps"] += len(ids)
+        out["steps_checked"] += min(near, len(ids))
+        gap = gaps[j] if j is not None and j < len(gaps) else None
+        out["streams"].append({**row, "first_difference": j, "first_near_tie": near, "gap_at_difference": gap})
+        if j is not None and j < near:
+            out["failures"].append(f"a {len(prompt)}-token prompt parts at step {j}, before its first near tie "
+                                   f"at {near} (gap {gap})")
+    return out
+
+
+def mesh_phases(torch, dev, _cuda, smi, prompts) -> dict:
+    """The ``mesh`` group: ``mesh_serve``, ``mesh_seq``, ``mesh_moe`` and
+    last ``mesh_fault``, on one pair of follower processes (rank 1 of every
+    mesh; rank 0 is this process), each rank on ``cuda:0``.  Returns each
+    kernel's launches per rank in ``mesh_serve``, by layout."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.engine import mesh_serving
+    from generativeaiexamples_tpu_torch.engine.decode import prepare_params
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from generativeaiexamples_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    t_group = time.perf_counter()
+    devices = [dev, dev]
+    t0 = time.perf_counter()
+    # The follower was spawned at the script's start (main): this waits
+    # for what is left of its start-up and builds the mesh's groups.
+    mesh = make_mesh(MeshSpec(tensor=2), devices, timeout_s=MESH_TIMEOUT_S)
+    runtime = mesh.runtime
+    ready_s = time.perf_counter() - t0
+    per_rank: dict = {}
+    try:
+        # --- mesh_serve -----------------------------------------------------
+        t_phase = time.perf_counter()
+        cfg = llama.llama3_8b(kv_dtype="int8", n_layers=MESH_LAYERS)
+        with torch.inference_mode():
+            ref = prepare_params(cfg, None, device=dev, quantize=True,
+                                 generator=torch.Generator(device=dev).manual_seed(MESH_SEED))
+        fields: dict = dict(nvidia_smi=smi, model=f"llama3-8b, {MESH_LAYERS} of 32 layers, full width",
+                            weights="random weight-only int8 (seed 0), int8 KV cache",
+                            mesh="MeshSpec(tensor=2) on [cuda:0, cuda:0]: two processes on one card",
+                            transport=mesh.ctx.groups["tensor"].transport, mesh_ready_s=ready_s)
+
+        def counts_all(reset):
+            if reset:
+                mesh.run(_rank_reset)
+                return None
+            return mesh.run(_rank_counts, gather=True)
+
+        def counts_local(reset):
+            if reset:
+                _cuda.reset_launch_counts()
+                return None
+            return [{"rank": 0, "launches": dict(_cuda.LAUNCHES)}]
+
+        tok = get_tokenizer("llama3-8b")
+        probe_prompt = tok.encode(prompts["completions"][2])
+        single, records = {}, {}
+        single_sched = Scheduler(cfg, ref, device=dev, **serve_kw("contiguous"))
+        try:
+            recs, fields["single_device"] = mesh_serve_step(torch, "mesh_single", single_sched, prompts, counts_local)
+            single = {p: ids for p, sp, ids in recs}
+            timing_single = _time_decode_chunk(torch, dev, single_sched)
+        finally:
+            single_sched._cache = None
+        follow = single[tuple(probe_prompt)][:8] if tuple(probe_prompt) in single else probe_prompt[:8]
+        with torch.inference_mode():
+            want_h, want_lg = probe_forward(torch, ref, cfg, probe_prompt, follow)
+        gc.collect()
+        torch.cuda.empty_cache()
+        failures, gaps_of = [], {}
+        for layout in ("contiguous", "paged"):
+            t0 = time.perf_counter()
+            sched = Scheduler(cfg, mesh_serving.RankParams("seed", quantize=True), mesh=mesh, **serve_kw(layout))
+            build_s = time.perf_counter() - t0
+            try:
+                if layout == "contiguous":
+                    got_h, got_lg = mesh.run(_rank_probe, sched._mesh_key, probe_prompt, follow)
+                    h_err, lg_err = _rel_err(torch, got_h, want_h), _rel_err(torch, got_lg, want_lg)
+                    fields["probe"] = dict(prompt_tokens=len(probe_prompt), decode_steps=len(follow),
+                                           hidden=h_err, logits=lg_err,
+                                           logits_max_abs_err_per_step=(got_lg - want_lg).abs().amax(-1).tolist(),
+                                           hidden_tolerance=MESH_HIDDEN_TOL, logit_tolerance=MESH_LOGIT_TOL)
+                    if not _rel_within(h_err, MESH_HIDDEN_TOL) or lg_err["max_abs_err"] > MESH_LOGIT_TOL:
+                        failures.append(f"probe: hidden {h_err} (tolerance {MESH_HIDDEN_TOL}), logits {lg_err} "
+                                        f"(largest difference allowed {MESH_LOGIT_TOL})")
+                    planted = {}
+                    for fault in MESH_PROBE_FAULTS:
+                        f_h, f_lg = mesh.run(_rank_probe, sched._mesh_key, probe_prompt, follow, fault)
+                        planted[fault] = {"hidden": _rel_err(torch, f_h, want_h),
+                                          "logits": _rel_err(torch, f_lg, want_lg)}
+                        if (_rel_within(planted[fault]["hidden"], MESH_HIDDEN_TOL)
+                                or planted[fault]["logits"]["max_abs_err"] <= MESH_LOGIT_TOL):
+                            failures.append(f"probe: the planted fault {fault!r} passes a gate: {planted[fault]}")
+                    fields["probe"]["planted_faults"] = planted
+                recs, step = mesh_serve_step(torch, f"mesh_{layout}", sched, prompts, counts_all)
+                records[layout] = {p: ids for p, sp, ids in recs}
+                # The mesh's teacher-forced logits over every served stream
+                # (its params are the same draw on both layouts: once).
+                teacher = None if layout != "contiguous" else (
+                    lambda prompt, ids: mesh.run(_rank_teacher_forced, sched._mesh_key, prompt, ids))
+                gate = mesh_stream_gate(torch, cfg, ref, single, records[layout], gaps_of, teacher)
+                failures += [f"{layout}: {f}" for f in gate.pop("failures")]
+                digests = mesh.run(mesh_serving.sampled_digest, sched._mesh_key, gather=True)
+                if len(set(digests)) != 1:
+                    failures.append(f"{layout}: the ranks sampled different tokens: {digests}")
+                kernel = "paged_decode_attention" if layout == "paged" else "decode_attention"
+                launches = {c["rank"]: c["launches"] for c in step["launches"]}
+                for rank, c in launches.items():
+                    if not (c[kernel] and c["flash_attention"]):
+                        failures.append(f"{layout}: rank {rank} launched {c}")
+                per_rank[layout] = launches
+                step["launches"] = launches
+                step["ranks"] = {c["rank"]: {k: c[k] for k in ("comm", "by_op", "device_gb", "peak_gb")}
+                                 for c in counts_all(False)}
+                if layout == "contiguous":
+                    step["decode_chunk"] = _time_mesh_chunk(torch, mesh, sched)
+                    step["decode_chunk"]["single_device_ms_per_step"] = timing_single
+                fields[layout] = dict(build_s=build_s, **step, streams=gate, sampled_digest_equal=len(set(digests)) == 1,
+                                      vs_single_decode_tokens_per_s=(step["decode_tokens_per_s"]
+                                                                     / fields["single_device"]["decode_tokens_per_s"]),
+                                      shard_bytes=sched.mesh_shards)
+            finally:
+                sched.release_mesh()
+        fields["phase_s"] = time.perf_counter() - t_phase
+        emit("mesh_serve", **fields)
+        if failures:
+            raise AssertionError(f"mesh_serve: {failures}")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- mesh_seq -------------------------------------------------------
+        t_phase = time.perf_counter()
+        seq = runtime.new_mesh(MeshSpec(seq=2, tensor=1).resolve(2))
+        q, k, v, pos = _seq_inputs(torch, dev, 1)
+        flash_gqa_attention(q, k, v, pos, None)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = flash_gqa_attention(q, k, v, pos, None)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out = dict(nvidia_smi=smi, tokens=MESH_SEQ_LEN, heads="32 q / 8 kv, head_dim 128 (Llama-3-8B)",
+                   mesh="MeshSpec(seq=2) on [cuda:0, cuda:0]", k4_whole_sequence_ms=sorted(times)[1],
+                   tolerance=FLASH_TOL)
+        seq_fail = []
+        for strategy in ("ring", "ulysses"):
+            mesh.run(_rank_reset)
+            got, ms = seq.run(_rank_seq, strategy, 1, 3)
+            err = (got.float() - want.float()).abs()
+            ok = bool((err <= FLASH_TOL["atol"] + FLASH_TOL["rtol"] * want.float().abs()).all())
+            c = seq.run(_rank_counts, gather=True)
+            out[strategy] = dict(ms=ms, max_abs_err=err.max().item(), within=ok,
+                                 k4_launches={r["rank"]: r["launches"]["flash_attention"] for r in c},
+                                 collectives={r["rank"]: r["by_op"] for r in c},
+                                 staged_bytes={r["rank"]: r["comm"]["staged_bytes"] for r in c})
+            if not ok:
+                seq_fail.append(f"{strategy}: max abs err {err.max().item()} past {FLASH_TOL}")
+        if not all(out["ulysses"]["k4_launches"].values()):
+            seq_fail.append(f"ulysses: K4 launched {out['ulysses']['k4_launches']}")
+        out["ulysses"]["rank_k4_vs_plain"] = seq.run(_rank_ulysses_k4, 1, MESH_SEQ_LEN, gather=True)
+        for r in out["ulysses"]["rank_k4_vs_plain"]:
+            if not r["within"]:
+                seq_fail.append(f"ulysses: rank {r['rank']}'s K4 call against the plain attention: {r}")
+        del q, k, v, want, got
+        out["phase_s"] = time.perf_counter() - t_phase
+        emit("mesh_seq", **out)
+        if seq_fail:
+            raise AssertionError(f"mesh_seq: {seq_fail}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- mesh_moe -------------------------------------------------------
+        t_phase = time.perf_counter()
+        mcfg = llama.mixtral_8x7b(n_layers=MESH_MOE_LAYERS)
+        moe = runtime.new_mesh(MeshSpec(expert=2, tensor=1).resolve(2))
+        tokens = [tok.encode(prompts["completions"][3])[:128]]
+        got, got_missing = moe.run(_rank_moe, mcfg, MESH_SEED, tokens)
+        with torch.inference_mode():
+            mparams = prepare_params(mcfg, None, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(MESH_SEED))
+            t = torch.tensor(tokens, device=dev)
+            want, _ = llama.forward(mparams, mcfg, t, torch.arange(t.shape[1], dtype=torch.int32,
+                                                                    device=dev).expand(t.shape))
+        err, missing = _rel_err(torch, got, want), _rel_err(torch, got_missing, want)
+        del mparams
+        emit("mesh_moe", nvidia_smi=smi, model=f"mixtral-8x7b width, {MESH_MOE_LAYERS} of 32 layers, random bf16 "
+             "(seed 0)", mesh="MeshSpec(expert=2) on [cuda:0, cuda:0]: 4 experts a rank", tokens=len(tokens[0]),
+             hidden=err, tolerance=MESH_MOE_TOL, planted_expert_missing=missing,
+             phase_s=time.perf_counter() - t_phase)
+        if not _rel_within(err, MESH_MOE_TOL):
+            raise AssertionError(f"mesh_moe: {err} past {MESH_MOE_TOL}")
+        if _rel_within(missing, MESH_MOE_TOL):
+            raise AssertionError(f"mesh_moe: the planted missing expert passes the gate: {missing}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- mesh_fault -----------------------------------------------------
+        t_phase = time.perf_counter()
+        sched = Scheduler(dataclasses.replace(cfg, n_layers=2), mesh_serving.RankParams("seed", quantize=True),
+                          mesh=mesh, **serve_kw("contiguous"))
+        from generativeaiexamples_tpu_torch.engine.sampler import SamplingParams
+        from generativeaiexamples_tpu_torch.engine.scheduler import Request
+
+        done, first = queue.Queue(), queue.Queue()
+        sched.start()
+        sched.submit(Request(token_ids=probe_prompt, sampling=SamplingParams(max_tokens=1500, temperature=0.0),
+                             on_token=first.put, on_done=done.put))
+        first.get(timeout=120)
+        runtime._procs[0].kill()
+        t_kill = time.perf_counter()
+        try:
+            reason = done.get(timeout=MESH_TIMEOUT_S + 30)
+        except queue.Empty:
+            reason = None
+        failed_s = time.perf_counter() - t_kill
+        late = queue.Queue()
+        sched.submit(Request(token_ids=[1, 2, 3], sampling=SamplingParams(max_tokens=4), on_token=lambda t: None,
+                             on_done=late.put))
+        late_reason = late.get(timeout=10)
+        sched.stop()
+        healthy = sched.healthy()
+        emit("mesh_fault", nvidia_smi=smi, killed="rank 1 (SIGKILL) mid-decode", request_done=reason,
+             failed_after_s=failed_s, group_timeout_s=MESH_TIMEOUT_S, late_request_done=late_reason,
+             scheduler_healthy=healthy, phase_s=time.perf_counter() - t_phase)
+        if reason != "error" or late_reason != "error" or healthy or failed_s > MESH_TIMEOUT_S:
+            raise AssertionError(f"mesh_fault: request {reason} after {failed_s:.1f} s, late {late_reason}, "
+                                 f"healthy {healthy}")
+    finally:
+        runtime.close()
+        emit("mesh", phase_s=time.perf_counter() - t_group, followers_left=[p.pid for p in runtime._procs
+                                                                              if p.is_alive()])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_rank
+
+
+def _time_decode_chunk(torch, dev, sched) -> float:
+    """ms per step of one single-device decode chunk, every lane live at
+    PROFILE_LENGTH (garbage KV: timing only)."""
+    fn = decode_chunk(torch, dev, sched)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+
+
+def _time_mesh_chunk(torch, mesh, sched) -> dict:
+    """One mesh decode chunk, every lane live at PROFILE_LENGTH: ms per
+    step and rank 0's collectives, staged bytes and staged ms per step."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import mesh_serving
+    from generativeaiexamples_tpu_torch.parallel.comm import COMM_STATS, stats_delta
+
+    b, n = sched.max_batch, sched.decode_chunk_size
+    args = (np.arange(b, dtype=np.int32) + 1000, np.full((b,), PROFILE_LENGTH, np.int32), np.zeros(b, np.float32),
+            np.ones(b, np.float32), np.zeros(b, np.int32), n, PROFILE_LENGTH + n + 1, None)
+    mesh.run(mesh_serving.decode, sched._mesh_key, *args)
+    before = dict(COMM_STATS)
+    t0 = time.perf_counter()
+    mesh.run(mesh_serving.decode, sched._mesh_key, *args)
+    ms = (time.perf_counter() - t0) * 1e3
+    delta = stats_delta(before)
+    return {"lanes": b, "length": PROFILE_LENGTH, "ms_per_step": ms / n,
+            "collectives_per_step": delta["collectives"] / n, "staged_mb_per_step": delta["staged_bytes"] / n / 1e6,
+            "collective_ms_per_step": delta["ms"] / n}
+
+
 def main() -> int:
     # The run uses one card: only the first visible one is exposed, so the
     # device count in the last line is 1 whatever else the machine holds.
@@ -9583,6 +10358,21 @@ def main() -> int:
          ptxas={name: ptxas_summary(log) for name, (_, log) in _cuda.BUILD_LOG.items()},
          qmm_dynamic_smem_bytes=qmm_smem)
 
+    # The mesh group's follower rank starts now, so that its start-up (an
+    # interpreter, torch, a CUDA context) overlaps the phases before it.
+    from generativeaiexamples_tpu_torch.parallel.runtime import get_runtime
+
+    get_runtime([dev, dev], timeout_s=MESH_TIMEOUT_S)
+    if sys.argv[1:] == ["--only", "mesh"]:
+        # The build, the kernels at a mesh rank's shapes and the mesh group
+        # alone, for work on the mesh (the whole script runs with no
+        # arguments).
+        check_mesh_rank(torch, dev, [])
+        mesh_phases(torch, dev, _cuda, smi, make_prompts())
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     log: list[str] = []
     summary = {
         "qmm": check_qmm(torch, dev, log),
@@ -9599,6 +10389,9 @@ def main() -> int:
         summary[name]["instances"] = {model: rows[name] for model, rows in instance_rows.items()}
     summary["flash_attention"]["hd256"] = {"gemma-7b": check_flash(torch, dev, log, hd=256, nq=16, nkv=16),
                                            "gemma-2b": check_flash(torch, dev, log, hd=256, nq=8, nkv=1)}
+    # A mesh rank's shapes (mesh_serve, tensor=2).
+    for name, row in check_mesh_rank(torch, dev, log).items():
+        summary[name]["mesh_rank"] = row
     if log:
         emit("notes", notes=log)
     check_reference(torch, dev)
@@ -9685,6 +10478,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kw = serve_kw("contiguous")
     check_qmm_shapes(torch, dev, k1_shapes.seen, worst_m=kw["max_batch"] * kw["max_len"])
+    # Serving over a mesh: two ranks on this card.
+    mesh_launches = mesh_phases(torch, dev, _cuda, smi, prompts)
     # The model services: K4 at the VLM's prefill shapes, the vision
     # models card vs CPU, the analyst, the multimodal chain, speech.
     vlm_k4 = {f"s{s}_t{s + 96}": check_flash_warm(torch, dev, log, 128, 0, s + 96, b=1, s=s, n_valid=(s,),
@@ -9718,6 +10513,8 @@ def main() -> int:
             "spec_launches": {step: counts[name] for step, counts in spec_launches.items()},
             "hf_launches": {path: counts[name] for path, counts in hf_launches.items()},
             "xla_path_launches": {part: counts[name] for part, counts in xla_launches.items()},
+            "mesh_launches": {layout: {f"rank{r}": c[name] for r, c in ranks.items()}
+                              for layout, ranks in mesh_launches.items()},
             **{k: s[k] for k in ("layer_ms_by_m", "layer_library_ms_by_m") if k in s},
         })
         kernels[-1]["families_launches"] = {
@@ -9731,6 +10528,12 @@ def main() -> int:
             kernels[-1]["warm"] = {k: {f: h[f] for f in timed + ("t", "first_position", "hd")} for k, h in warm.items()}
             kernels[-1]["vlm_prefill"] = {k: {f: h[f] for f in timed + ("s", "t", "first_position", "hd")}
                                           for k, h in vlm_k4.items()}
+        if "mesh_rank" in s:
+            h = s["mesh_rank"]
+            kernels[-1]["mesh_rank"] = {
+                **{k: h[k] for k in timed}, "launches": kernels[-1]["mesh_launches"],
+                "shape": h.get("shape") or (f"B={h['b']} KH={h['kv_heads']} G={h['group']} hd={h['hd']} "
+                                            f"window={h['window']} append C={h['append_c']}")}
         if "hd64" in s:
             h = s["hd64"]
             kernels[-1]["hd64"] = {k: h[k] for k in timed + ("shape",)}

@@ -37,6 +37,7 @@ def prepare_params(
     pack: bool = False,
     matmul_kernel: Optional[str] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ):
     """Lay params out for serving, with the reference's semantics, for
     every family of ``models.llama.PRESETS``.
@@ -57,6 +58,13 @@ def prepare_params(
 
     The port's W8A8 serving route is ``quantize=True, pack=True,
     matmul_kernel="pallas_w8a8"`` (:func:`w8a8_params`).
+
+    With ``mesh`` (a rank's ``parallel.runtime.RankContext``) the result
+    is this rank's shard (``engine.weights.shard_params``), as the
+    reference shards over its mesh: the whole tree is built or quantized
+    first (scales over whole columns), then sliced; ``pack`` applies only
+    when the ``tensor`` axis is 1 (a packed leaf would cross the head
+    shards) and nothing is blocked (``pallas_w8a8`` is single-device).
     """
     from generativeaiexamples_tpu_torch.engine.weights import head_for_logits, preblock_llama_params
 
@@ -73,6 +81,11 @@ def prepare_params(
             params = init_random_params(cfg, generator, device)
     elif quantize:
         params = quantize_llama_params(params, include_embed=True)
+    if mesh is not None:
+        from generativeaiexamples_tpu_torch.engine.weights import shard_params
+
+        params = shard_params(params, cfg, mesh.sizes, mesh.coords, device)
+        return llama.pack_for_serving(params) if pack and mesh.size("tensor") == 1 else params
     # One step at a time, so each step's input is freed before the next
     # copies it (the unpacked and packed projections never both stay alive
     # through the blocking).
@@ -143,9 +156,15 @@ def init_random_int8_params(cfg: llama.LlamaConfig, generator: torch.Generator, 
     return out
 
 
-def prepare_cache(cfg: llama.LlamaConfig, batch: int, max_len: int, device):
+def prepare_cache(cfg: llama.LlamaConfig, batch: int, max_len: int, device, mesh=None):
     """Allocate the slot KV cache: the int8 4-tuple or the float 2-tuple
-    (``models.llama.init_kv_cache``)."""
+    (``models.llama.init_kv_cache``).  With ``mesh`` (a rank's context):
+    this rank's shard, its KV heads of the ``tensor`` axis and its slots of
+    the ``data`` axis (``models.llama.kv_cache_specs``)."""
+    if mesh is not None:
+        if batch % mesh.size("data"):
+            raise ValueError(f"{batch} slots do not split over data={mesh.size('data')}")
+        cfg, batch = llama.local_config(cfg, mesh), batch // mesh.size("data")
     return llama.init_kv_cache(cfg, batch, max_len, device=device)
 
 
@@ -157,6 +176,7 @@ def prepare_paged_pool(
     total_pages: Optional[int] = None,
     *,
     device,
+    mesh=None,
 ):
     """Allocate the paged KV pool (``engine.paged_kv.PagedKVPool``), the
     paged counterpart of :func:`prepare_cache`; ``total_pages`` floors at
@@ -164,7 +184,7 @@ def prepare_paged_pool(
     pages."""
     from generativeaiexamples_tpu_torch.engine.paged_kv import PagedKVPool
 
-    return PagedKVPool(cfg, max_batch, max_len, page_tokens, total_pages=total_pages, device=device)
+    return PagedKVPool(cfg, max_batch, max_len, page_tokens, total_pages=total_pages, device=device, mesh=mesh)
 
 
 def _flush_append_buffer(cache, ab, starts: torch.Tensor, max_len: int):
@@ -222,7 +242,30 @@ def _append_buffer(cfg: llama.LlamaConfig, b: int, n_steps: int, dev):
     )
 
 
-def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
+def data_rows(mesh, b: int) -> slice:
+    """The rows of a ``b``-row batch that this rank of ``mesh`` holds: its
+    block of the ``data`` axis (all rows without a mesh)."""
+    n = mesh.size("data") if mesh is not None else 1
+    if n == 1:
+        return slice(None)
+    if b % n:
+        raise ValueError(f"{b} rows do not split over data={n}")
+    i = mesh.index("data")
+    return slice(i * (b // n), (i + 1) * (b // n))
+
+
+def mesh_logits(params, hidden: torch.Tensor, mesh) -> torch.Tensor:
+    """f32 logits of this rank's rows, gathered over the vocabulary shards
+    and over the ``data`` axis: every rank of ``mesh`` holds the whole
+    batch's logits, so one sampler draw from equal generators gives every
+    rank the same tokens."""
+    lg = llama.logits(params, hidden, mesh)
+    if mesh is not None and mesh.size("data") > 1:
+        lg = mesh.all_gather(lg.contiguous(), "data", dim=0)
+    return lg
+
+
+def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int, mesh=None):
     """Multi-step decode.
 
     ``fn(params, cache, tokens, lengths, generator, temp, top_p, top_k,
@@ -238,18 +281,27 @@ def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
     * the float cache (the reference's per-step path): each step scatters
       its KV into the cache and attends over it (``models.llama.forward``'s
       warm decode).
+
+    With ``mesh`` (a ``parallel.runtime.RankContext``) the chunk is one
+    rank's program: ``params`` and ``cache`` are its shards and it runs
+    the forward on its rows of the ``data`` axis (:func:`data_rows`) while
+    ``tokens``, ``lengths`` and the sampling rows cover the whole batch;
+    every step's logits are gathered (:func:`mesh_logits`) and every rank
+    samples the whole batch from its equal generator.
     """
+    lc = llama.local_config(cfg, mesh)
 
     def float_chunk(params, cache, tokens, lengths, generator, temp, top_p, top_k, n_steps, kv_bucket):
+        rows = data_rows(mesh, tokens.shape[0])
         tok = tokens
         toks = []
         for step in range(n_steps):
-            live = lengths + step
+            live = lengths[rows] + step
             hidden, _ = llama.forward(
-                params, cfg, tok[:, None].long(), live.clamp(max=max_len - 1)[:, None], cache,
-                (live + 1).clamp(max=max_len), kv_bucket=kv_bucket,
+                params, cfg, tok[rows, None].long(), live.clamp(max=max_len - 1)[:, None], cache,
+                (live + 1).clamp(max=max_len), kv_bucket=kv_bucket, mesh=mesh,
             )
-            lg = llama.logits(params, hidden)[:, 0]
+            lg = mesh_logits(params, hidden, mesh)[:, 0]
             tok = sample(lg, generator, temp, top_p, top_k)
             toks.append(tok)
         return cache, torch.stack(toks)
@@ -258,19 +310,20 @@ def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
         if len(cache) == 2:
             return float_chunk(params, cache, tokens, lengths, generator, temp, top_p, top_k, n_steps, kv_bucket)
         b = cache[0].shape[2]
+        rows = data_rows(mesh, tokens.shape[0])
         # Valid big-cache slots per row: the current token's write position
         # (its KV lives in the append buffer this chunk).
-        lengths0 = lengths.clamp(max=max_len - 1)
-        ab = _append_buffer(cfg, b, n_steps, tokens.device)
+        lengths0 = lengths[rows].clamp(max=max_len - 1)
+        ab = _append_buffer(lc, b, n_steps, tokens.device)
         tok = tokens
         toks = []
         for step in range(n_steps):
             positions = (lengths0 + step).clamp(max=max_len - 1)[:, None]
             hidden, _, ab = llama.forward(
-                params, cfg, tok[:, None].long(), positions, cache, lengths0,
-                kv_bucket=kv_bucket, append_cache=(ab, step),
+                params, cfg, tok[rows, None].long(), positions, cache, lengths0,
+                kv_bucket=kv_bucket, append_cache=(ab, step), mesh=mesh,
             )
-            lg = llama.logits(params, hidden)[:, 0]
+            lg = mesh_logits(params, hidden, mesh)[:, 0]
             tok = sample(lg, generator, temp, top_p, top_k)
             toks.append(tok)
         _flush_append_buffer(cache, ab, lengths0, max_len)
@@ -279,7 +332,7 @@ def make_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int):
     return decode_chunk
 
 
-def make_paged_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int, page_tokens: int):
+def make_paged_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int, page_tokens: int, mesh=None):
     """Paged twin of :func:`make_decode_chunk_fn`.
 
     ``fn(params, leaves, table, tokens, lengths, generator, temp, top_p,
@@ -288,15 +341,17 @@ def make_paged_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int, page_tokens
     owns it), and ``max_len`` is the logical per-slot capacity the table
     maps.  The steps mirror the contiguous chunk's (append-buffer
     protocol, paged decode kernel), so greedy decode gives the same
-    tokens in both layouts.
+    tokens in both layouts.  With ``mesh`` it is one rank's program over
+    its pool shard (its KV heads' pages; one ``data`` row block only).
     """
+    lc = llama.local_config(cfg, mesh)
 
     def paged_decode_chunk(
         params, leaves, table, tokens, lengths, generator, temp, top_p, top_k, n_steps, kv_bucket=None
     ):
         b = tokens.shape[0]
         lengths0 = lengths.clamp(max=max_len - 1)
-        ab = _append_buffer(cfg, b, n_steps, tokens.device)
+        ab = _append_buffer(lc, b, n_steps, tokens.device)
         tok = tokens
         toks = []
         for step in range(n_steps):
@@ -304,9 +359,9 @@ def make_paged_decode_chunk_fn(cfg: llama.LlamaConfig, max_len: int, page_tokens
             hidden, _, ab = llama.forward(
                 params, cfg, tok[:, None].long(), positions, leaves, lengths0,
                 kv_bucket=kv_bucket, append_cache=(ab, step),
-                page_table=table, page_tokens=page_tokens, pages_len=max_len,
+                page_table=table, page_tokens=page_tokens, pages_len=max_len, mesh=mesh,
             )
-            lg = llama.logits(params, hidden)[:, 0]
+            lg = llama.logits(params, hidden, mesh)[:, 0]
             tok = sample(lg, generator, temp, top_p, top_k)
             toks.append(tok)
         _flush_append_buffer_paged(leaves, ab, lengths0, table, max_len, page_tokens)

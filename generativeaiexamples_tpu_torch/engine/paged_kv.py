@@ -86,7 +86,13 @@ class PagedKVPool:
         total_pages: Optional[int] = None,
         *,
         device,
+        mesh=None,
     ):
+        """``mesh`` is ``(Mesh, state key)`` for a controller's pool whose
+        leaves live on the mesh's ranks, each rank holding its KV heads'
+        pages (``engine.mesh_serving``): the bookkeeping stays here, the
+        leaves are None, and the copies and resets run on every rank
+        through ``Mesh.run``."""
         if getattr(cfg, "kv_dtype", None) != "int8":
             raise ValueError(
                 "paged KV cache requires kv_dtype='int8' (per-page scale "
@@ -104,7 +110,8 @@ class PagedKVPool:
 
         p = self.total_pages * self.page_tokens
         shape = (cfg.n_layers, cfg.n_kv_heads, p, cfg.head_dim)
-        self.leaves = (
+        self.mesh = mesh
+        self.leaves = None if mesh is not None else (
             torch.zeros(shape, dtype=torch.int8, device=self.device),
             torch.zeros(shape, dtype=torch.int8, device=self.device),
             torch.zeros(shape[:-1], dtype=torch.bfloat16, device=self.device),
@@ -285,7 +292,10 @@ class PagedKVPool:
         if changed:
             self._dirty = True
         if cow_src:
-            _copy_pages(self.leaves, cow_src, cow_dst, pt)
+            if self.mesh is not None:
+                self.mesh[0].run(_rank_copy_pages, self.mesh[1], cow_src, cow_dst, pt)
+            else:
+                _copy_pages(self.leaves, cow_src, cow_dst, pt)
             PAGE_EVENTS["cow_copies"] += len(cow_src)
             PAGE_EVENTS["cow_dispatch"] += 1
             self.cow_breaks += len(cow_src)
@@ -299,6 +309,19 @@ class PagedKVPool:
         self._free = list(range(self.total_pages - 1, 0, -1))
         self.tables[:] = 0
         self._held[:] = 0
+        self._dirty = True
+        if self.mesh is not None:
+            self.mesh[0].run(_rank_zero_pool, self.mesh[1])
+            return
         for leaf in self.leaves:
             leaf.zero_()
-        self._dirty = True
+
+
+def _rank_copy_pages(ctx, key: str, src: list[int], dst: list[int], page_tokens: int) -> None:
+    """A mesh rank's half of :meth:`PagedKVPool.make_writable`'s copies."""
+    _copy_pages(ctx.state[key].cache, src, dst, page_tokens)
+
+
+def _rank_zero_pool(ctx, key: str) -> None:
+    for leaf in ctx.state[key].cache:
+        leaf.zero_()

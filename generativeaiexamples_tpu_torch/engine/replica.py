@@ -207,7 +207,13 @@ class _PoolStats:
 
 
 class EnginePool:
-    """N scheduler replicas + a router, presented as one engine."""
+    """N scheduler replicas + a router, presented as one engine.
+
+    A replica's scheduler may serve over its own mesh, a disjoint slice of
+    the host's cards (``engine.server.mesh_plans``, over
+    ``parallel.mesh.replica_device_slices``); the pool only routes, so no
+    collective spans replicas.  A replica whose mesh lost a rank reads
+    unhealthy (``Scheduler.healthy``) and fails over like any other."""
 
     def __init__(
         self,
@@ -1087,7 +1093,8 @@ class EnginePool:
             return
         replica.state = DETACHED
         scheduler = replica.scheduler
-        actions.append(scheduler.stop)  # joins the tick thread — no lock
+        # Joins the tick thread and frees a mesh's rank state — no lock.
+        actions.append(scheduler.close)
         idx = replica.idx
 
         def _drop_series() -> None:

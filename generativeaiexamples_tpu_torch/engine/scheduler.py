@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -63,7 +64,7 @@ import torch
 
 from generativeaiexamples_tpu_torch.core.device import host_to_device, resolve_device
 from generativeaiexamples_tpu_torch.core.logging import get_logger
-from generativeaiexamples_tpu_torch.engine import spec_decode
+from generativeaiexamples_tpu_torch.engine import mesh_serving, spec_decode
 from generativeaiexamples_tpu_torch.engine.decode import (
     make_decode_chunk_fn,
     make_paged_decode_chunk_fn,
@@ -237,6 +238,10 @@ class Stats:
             }
 
 
+# Keys of the mesh schedulers' state on their ranks.
+_MESH_KEYS = itertools.count(1)
+
+
 def live_matmul_kernel(params) -> str:
     """``"pallas_w8a8"`` when any projection of ``params`` is blocked for
     the W8A8 kernel, else ``"xla"``."""
@@ -312,7 +317,16 @@ class Scheduler:
         matmul_kernel: Optional[str] = None,
         draft_quantize: bool = False,
         max_queue: Optional[int] = None,
+        mesh=None,
     ) -> None:
+        if mesh is not None:
+            if draft_cfg is not None or spec_mode is not None:
+                raise NotImplementedError(f"speculative decoding over a mesh: {mesh_serving.MESH_LATER}")
+            if kv_layout == "paged" and mesh.shape["data"] > 1:
+                raise ValueError("the paged pool over a mesh shards KV heads only: data must be 1 "
+                                 "(use kv_layout='contiguous' to shard slots over data)")
+            device = mesh.devices.flat[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout mode {kv_layout!r}")
@@ -368,16 +382,19 @@ class Scheduler:
         self._seg_sessions: dict[int, str] = {}
         w8a8 = matmul_kernel == "pallas_w8a8"
         with torch.inference_mode():
-            self.params = prepare_params(cfg, params, device=self.device, quantize=w8a8, pack=w8a8,
-                                         matmul_kernel=matmul_kernel, generator=self._gen)
-            if kv_layout == "paged":
+            if mesh is not None:
+                self._init_mesh(cfg, params, seed, w8a8, kv_pool_pages)
+            else:
+                self.params = prepare_params(cfg, params, device=self.device, quantize=w8a8, pack=w8a8,
+                                             matmul_kernel=matmul_kernel, generator=self._gen)
+            if mesh is None and kv_layout == "paged":
                 self._pool = prepare_paged_pool(
                     cfg, max_batch, self.max_len, self.kv_page_size, kv_pool_pages, device=self.device
                 )
                 # The pool's leaves are updated in place (COW copies
                 # included), so this alias stays valid for the pool's life.
                 self._cache = self._pool.leaves
-            else:
+            elif mesh is None:
                 self._cache = prepare_cache(cfg, max_batch, self.max_len, self.device)
             self.draft_params = None
             self._dcache = None
@@ -393,10 +410,15 @@ class Scheduler:
                 # written at admission, the chunk carries them forward.
                 self._dhist = torch.zeros((max_batch, self.max_len), dtype=torch.int32, device=self.device)
         # The path that is live, not the one asked for (the reference's
-        # rule; /metrics exports it).
-        self.matmul_kernel = live_matmul_kernel(self.params)
-        if self._pool is not None:
+        # rule; /metrics exports it).  A mesh never blocks its projections.
+        self.matmul_kernel = "xla" if mesh is not None else live_matmul_kernel(self.params)
+        if mesh is not None:
+            self._decode_chunk = None  # each rank holds its own (engine.mesh_serving)
+        elif self._pool is not None:
             self._decode_chunk = make_paged_decode_chunk_fn(cfg, self.max_len, self.kv_page_size)
+        else:
+            self._decode_chunk = make_decode_chunk_fn(cfg, self.max_len)
+        if self._pool is not None:
             self._kv_low_water = (
                 int(kv_page_low_water) if kv_page_low_water is not None else self._pool.n_slot_pages
             )
@@ -409,8 +431,6 @@ class Scheduler:
             self._pages_per_admit_ewma = float(self._pool.n_slot_pages)
             self._kv_frees_prev = 0
             self._kv_free_rate_t = time.time()
-        else:
-            self._decode_chunk = make_decode_chunk_fn(cfg, self.max_len)
         if draft_cfg is not None:
             self._spec_chunk = (
                 spec_decode.make_paged_spec_chunk_fn(cfg, draft_cfg, self.max_len, self.kv_page_size)
@@ -461,13 +481,47 @@ class Scheduler:
         self._last_tsdb_feed = 0.0
         self._tsdb_prev: dict = {}
 
+    def _init_mesh(self, cfg, params, seed: int, quantize: bool, kv_pool_pages) -> None:
+        """Build every rank's engine (its shards of the params and the
+        cache, its generator) and, on the paged layout, the controller's
+        host-only pool whose page tables the ranks read."""
+        from generativeaiexamples_tpu_torch.engine.mesh_serving import RankParams, tree_to_host
+
+        self._mesh_key = f"sched-{next(_MESH_KEYS)}"
+        if isinstance(params, RankParams):
+            source = params
+        elif params is None:
+            source = RankParams("seed", quantize=quantize)
+        else:
+            source = RankParams("tree", tree=tree_to_host(params), quantize=quantize)
+        self.params = None
+        self._cache = None
+        self.mesh_shards = self.mesh.run(
+            mesh_serving.setup, self._mesh_key, cfg, source, self.max_batch, self.max_len, self.kv_layout,
+            self.kv_page_size, kv_pool_pages, seed, gather=True,
+        )
+        if self.kv_layout == "paged":
+            self._pool = prepare_paged_pool(cfg, self.max_batch, self.max_len, self.kv_page_size, kv_pool_pages,
+                                            device=self.device, mesh=(self.mesh, self._mesh_key))
+
+    def release_mesh(self) -> None:
+        """Free every rank's engine state (params, cache) for this scheduler;
+        a mesh that lost a rank holds nothing to free."""
+        if self.mesh is not None and self.mesh.runtime.alive:
+            self.mesh.run(mesh_serving.drop, self._mesh_key)
+
     # -- device helpers ----------------------------------------------------
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device without a host sync (pinned, non-blocking)."""
+        """Host array -> device without a host sync (pinned, non-blocking).
+        Over a mesh the array stays on the host: it is a program's input."""
+        if self.mesh is not None:
+            return np.ascontiguousarray(arr)
         return host_to_device(torch.from_numpy(np.ascontiguousarray(arr)), self.device)
 
     def _full(self, value, dtype) -> torch.Tensor:
+        if self.mesh is not None:
+            return np.full((1,), value, dtype=np.int32 if dtype == torch.int32 else np.float32)
         return torch.full((1,), value, dtype=dtype, device=self.device)
 
     # -- device ops ----------------------------------------------------------
@@ -537,6 +591,13 @@ class Scheduler:
         mode the pages covering ``[start, start + suffix_len)`` are made
         private first (a grafted boundary page is copied), and the forward
         writes and reads through the slot's table row."""
+        if self.mesh is not None:
+            table_row = None
+            if self._pool is not None:
+                self._pool.make_writable(slot, start, start + suffix_len)
+                table_row = self._pool.tables[slot : slot + 1].copy()
+            return self.mesh.run(mesh_serving.prefill_suffix, self._mesh_key, tokens, start, suffix_len, slot,
+                                 sampling, kv_bucket, table_row)
         s = tokens.shape[1]
         positions = start + torch.arange(s, dtype=torch.int32, device=self.device)[None, :]
         if self._pool is not None:
@@ -565,6 +626,9 @@ class Scheduler:
         is device work, so it counts in ``device_graft_dispatch``: a paged
         graft must leave that count flat."""
         PAGE_EVENTS["device_graft_dispatch"] += 1
+        if self.mesh is not None:
+            self.mesh.run(mesh_serving.graft_prefix, self._mesh_key, src, dst, n)
+            return
         for buf in self._cache:
             m = min(n, buf.shape[3])
             buf[:, :, dst, :m] = buf[:, :, src, :m]
@@ -582,6 +646,10 @@ class Scheduler:
         """Enqueue a request; False (and nothing enqueued) when
         ``max_queue`` requests already wait: the HTTP front answers 429."""
         request.submitted_at = time.perf_counter()
+        if self.mesh is not None and not self.mesh.runtime.alive:
+            # The mesh lost a rank: nothing will run this request.
+            request.on_done("error")
+            return True
         with self.stats.lock:
             if self.max_queue is not None and self.stats.queued >= self.max_queue:
                 self.stats.rejected_total += 1
@@ -611,6 +679,12 @@ class Scheduler:
             self._thread.join(timeout=30)
             self._thread = None
 
+    def close(self) -> None:
+        """Stop the tick loop and free what the scheduler holds on a mesh's
+        ranks (a pool detaching a drained replica calls this)."""
+        self.stop()
+        self.release_mesh()
+
     def request_stop(self) -> None:
         """Ask the tick loop to exit without joining it (a health monitor
         must not block on a wedged thread)."""
@@ -623,8 +697,28 @@ class Scheduler:
         return self._admit_limit - 1
 
     def healthy(self) -> bool:
-        """False iff the tick thread died while meant to be running."""
+        """False iff the tick thread died while meant to be running, or the
+        mesh it serves on lost a rank."""
+        if self.mesh is not None and not self.mesh.runtime.alive:
+            return False
         return self._thread is None or not self._running or self._thread.is_alive()
+
+    def _fail_waiting(self) -> None:
+        """Finish every queued and backlogged request with ``error``."""
+        waiting = list(self._backlog)
+        self._backlog.clear()
+        while True:
+            try:
+                waiting.append(self._pending.get_nowait())
+            except queue.Empty:
+                break
+        for req in waiting:
+            with self.stats.lock:
+                self.stats.queued -= 1
+            try:
+                req.on_done("error")
+            except Exception:
+                logger.exception("on_done callback failed")
 
     # -- internals ---------------------------------------------------------
 
@@ -820,6 +914,9 @@ class Scheduler:
             temp[r] = req.sampling.temperature
             top_p[r] = req.sampling.top_p
             top_k[r] = req.sampling.top_k
+        if self.mesh is not None:
+            tok = self._admit_on_mesh(slot_idxs, plens, tokens, lengths, temp, top_p, top_k)
+            return self._claim_admitted(reqs, slot_idxs, plens, tok, t_admit0)
         tokens_dev, lengths_dev = self._h2d(tokens), self._h2d(lengths)
         slots_dev = self._h2d(np.asarray(slot_idxs, dtype=np.int64))
         small, tok = self._prefill_some(
@@ -845,6 +942,24 @@ class Scheduler:
             # The draft's slot rows mirror the target's: same prompts, same
             # slots.
             self._graft_rows(self._prefill_draft(tokens_dev, lengths_dev), slots_dev, self._dcache)
+        return self._claim_admitted(reqs, slot_idxs, plens, tok, t_admit0)
+
+    def _admit_on_mesh(self, slot_idxs, plens, tokens, lengths, temp, top_p, top_k):
+        """The mesh's admission: the pool's pages first (host tables, COW
+        copies on the ranks), then one program that prefills, samples and
+        copies the rows into their slots (``engine.mesh_serving.admit``)."""
+        phys = None
+        if self._pool is not None:
+            for r, slot_idx in enumerate(slot_idxs):
+                self._pool.reset_slot(slot_idx)
+                self._pool.make_writable(slot_idx, 0, plens[r])
+            s = tokens.shape[1]
+            rows = torch.from_numpy(self._pool.tables[np.asarray(slot_idxs)])
+            phys = paged_slots(rows, torch.arange(s).expand(len(slot_idxs), s), self._pool.page_tokens).numpy()
+        return self.mesh.run(mesh_serving.admit, self._mesh_key, tokens, lengths, temp, top_p, top_k,
+                             np.asarray(slot_idxs, dtype=np.int64), phys)
+
+    def _claim_admitted(self, reqs, slot_idxs, plens, tok, t_admit0: float) -> tuple:
         for r, (req, slot_idx) in enumerate(zip(reqs, slot_idxs)):
             slot = self._slots[slot_idx]
             slot.request = req
@@ -1172,11 +1287,19 @@ class Scheduler:
                     for i, s in enumerate(self._slots):
                         if s.cached:
                             self._unpark(i)
+                    if self.mesh is not None and not self.mesh.runtime.alive:
+                        # A lost rank ends the mesh: nothing can run on it
+                        # again, so every waiting request fails now too.
+                        self._fail_waiting()
+                        self._running = False
+                        break
                     if self._pool is not None:
                         self._prefix_index.clear()
                         self._session_segs.clear()
                         self._seg_sessions.clear()
                         self._pool.reset_all()
+                    elif self.mesh is not None:
+                        self.mesh.run(mesh_serving.reset_cache, self._mesh_key)
                     else:
                         self._cache = prepare_cache(self.cfg, self.max_batch, self.max_len, self.device)
                     if self._dcache is not None:
@@ -1508,7 +1631,18 @@ class Scheduler:
                 slot = self._slots[i]
                 live = slot.length + slot.emitted
                 self._pool.make_writable(i, max(live - 1, 0), min(live + self.decode_chunk_size, self.max_len))
-            cache_args = (self._cache, self._pool.device_table())
+            if self.mesh is None:
+                cache_args = (self._cache, self._pool.device_table())
+        if self.mesh is not None:
+            # Every rank reads the host's page tables (its pool shard holds
+            # its KV heads of the same pages).
+            table = self._pool.tables.copy() if self._pool is not None else None
+            toks = self.mesh.run(
+                mesh_serving.decode, self._mesh_key, self._cur_tok.copy(),
+                np.minimum(lengths, self.max_len - 1).astype(np.int32), temp, top_p, top_k, self.decode_chunk_size,
+                kv_bucket, table,
+            )
+            return toks, active, t_dec0
         _, toks = self._decode_chunk(
             self.params,
             *cache_args,

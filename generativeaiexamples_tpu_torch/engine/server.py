@@ -860,6 +860,10 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     parser.add_argument("--embed-max-wait-ms", type=float, default=3.0,
                         help="how long a query waits for batch-mates before its batch runs anyway")
     parser.add_argument("--seed", type=int, default=SERVING_DEFAULTS["seed"])
+    parser.add_argument("--tensor-parallel", type=int, default=int(os.environ.get("GAIE_TENSOR_PARALLEL", "0")),
+                        help="ranks on the tensor mesh axis (0 = every visible card; the INFERENCE_GPU_COUNT "
+                             "equivalent). With --replicas N the bound applies within each replica's device "
+                             "slice. With --device cpu: that many CPU ranks")
     from generativeaiexamples_tpu_torch.engine.router import POLICIES
 
     parser.add_argument("--replicas", type=int, default=int(os.environ.get("GAIE_REPLICAS", "1")),
@@ -975,6 +979,45 @@ def load_serving_params(cfg, ckpt_dir: Optional[str], device, seed: int, what: s
         return prepare_params(cfg, params, device=device, pack=pack, matmul_kernel="xla", generator=gen)
 
 
+def serving_devices(args, device) -> list:
+    """The devices the engine may shard over: every visible card, or
+    ``--tensor-parallel`` CPU ranks on ``--device cpu``."""
+    import torch
+
+    if device.type == "cpu":
+        return [torch.device("cpu")] * max(args.tensor_parallel, 1)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def mesh_plans(args, devices: list, pool: bool) -> list:
+    """One ``(MeshSpec, devices)`` per scheduler to build, or None for a
+    single-device scheduler, by the reference's rules: one scheduler whose
+    mesh is ``data = n / tp, tensor = tp`` with ``tp = --tensor-parallel``
+    or every device (``tp`` must divide them); a pool of ``--replicas``
+    pins each replica to a disjoint contiguous slice when the cards split
+    evenly (``tp`` bounded by and dividing the slice), else its replicas
+    share the device.  A one-device mesh is the single-device path."""
+    from generativeaiexamples_tpu_torch.parallel.mesh import MeshSpec, replica_device_slices
+
+    n = len(devices)
+    if pool:
+        replicas = max(1, args.replicas)
+        if replicas > 1 and devices[0].type != "cpu" and n >= replicas and n % replicas == 0:
+            slices = replica_device_slices(replicas, devices)
+            per = len(slices[0])
+            tp = min(args.tensor_parallel or per, per)
+            if per % tp:
+                raise SystemExit(f"--tensor-parallel {tp} does not divide the {per}-device replica slice")
+            return [(MeshSpec(data=per // tp, tensor=tp), sl) if per > 1 else None for sl in slices]
+        return [None] * replicas
+    tp = args.tensor_parallel or n
+    if tp <= 1:
+        return [None]
+    if n % tp:
+        raise SystemExit(f"--tensor-parallel {tp} does not divide {n} devices")
+    return [(MeshSpec(data=n // tp, tensor=tp), devices)]
+
+
 def build_server(argv: Optional[list[str]] = None) -> EngineServer:
     """Parse the command line and build the engine and its HTTP front; the
     caller starts ``server.scheduler`` and serves.
@@ -1006,22 +1049,35 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
         # Serving routes droplessly, as HF Mixtral does; capacity dropping
         # is a training trade-off.
         cfg = dataclasses.replace(cfg, moe_dropless=True)
-    params = load_serving_params(cfg, weights_dir_for(args.model), device, args.seed, what=args.model,
-                                 matmul_kernel=matmul_kernel)
+    autoscale = args.autoscale or bool(get_config().autoscale.enabled)
+    plans = mesh_plans(args, serving_devices(args, device), args.replicas > 1 or autoscale)
+    ckpt_dir = weights_dir_for(args.model)
+    params = None
+    if any(plan is None for plan in plans) or autoscale:
+        params = load_serving_params(cfg, ckpt_dir, device, args.seed, what=args.model, matmul_kernel=matmul_kernel)
     spec = spec_scheduler_kwargs(args, cfg, device, matmul_kernel)
 
-    def make_scheduler() -> Scheduler:
-        # Every replica, the pool's later ones too, closes over the same
-        # params (laid out once above, so none is copied) and draft.
+    def make_scheduler(plan=None) -> Scheduler:
+        # Every single-device replica, the pool's later ones too, closes
+        # over the same params (laid out once above, so none is copied)
+        # and draft.  A mesh's ranks each build their own shard.
+        mesh, weights = None, params
+        if plan is not None:
+            from generativeaiexamples_tpu_torch.engine.mesh_serving import RankParams
+            from generativeaiexamples_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(*plan)
+            weights = RankParams("checkpoint" if ckpt_dir else "seed", path=ckpt_dir or "",
+                                 quantize=matmul_kernel == "pallas_w8a8")
+            logger.info("serving mesh %s", mesh)
         return Scheduler(
-            cfg, params, device=device, max_batch=args.max_batch, max_len=args.max_len,
+            cfg, weights, device=device, max_batch=args.max_batch, max_len=args.max_len,
             decode_chunk_size=args.decode_chunk_size, seed=args.seed,
             prefill_chunk_tokens=args.prefill_chunk_tokens or None, prefix_cache=args.prefix_cache,
             kv_layout=args.kv_layout, kv_page_size=args.kv_page_size, kv_pool_pages=args.kv_pool_pages,
-            matmul_kernel=matmul_kernel, **spec,
+            matmul_kernel=matmul_kernel, mesh=mesh, **spec,
         )
 
-    autoscale = args.autoscale or bool(get_config().autoscale.enabled)
     if args.replicas > 1 or autoscale:
         from generativeaiexamples_tpu_torch.engine.replica import EnginePool
 
@@ -1047,10 +1103,12 @@ def build_server(argv: Optional[list[str]] = None) -> EngineServer:
                     warmed = hydrate(replica_idx, max(pool_target, replica_idx + 1))
                     logger.info("replica %d hydrated fabric shard(s) %s", replica_idx, warmed)
 
-        engine = EnginePool([make_scheduler() for _ in range(max(1, args.replicas))], policy=args.routing_policy,
+        # Autoscaled replicas share the devices (no mesh): scale-up must
+        # not re-partition slices under live replicas.
+        engine = EnginePool([make_scheduler(plan) for plan in plans], policy=args.routing_policy,
                             scheduler_factory=make_scheduler, replica_bootstrap=replica_bootstrap)
     else:
-        engine = make_scheduler()
+        engine = make_scheduler(plans[0])
     embedder = None
     if args.embedder != "none":
         from generativeaiexamples_tpu_torch.engine.embedder import GPUEmbedder

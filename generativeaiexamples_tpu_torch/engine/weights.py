@@ -902,3 +902,56 @@ def load_hf_wav2vec2(cfg, ckpt_dir: str, *, device=None) -> dict:
     _release(tensors)
     logger.info("loaded %d HF wav2vec2 tensors from %s", len(tensors), ckpt_dir)
     return params
+
+
+# -- one rank's shard of a mesh-sharded tree -----------------------------------
+
+
+def _owned_slice(x, index, device) -> torch.Tensor:
+    """``x[index]`` (numpy, ml_dtypes bf16 included, or torch) as a tensor
+    of its own on ``device``: a slice never keeps the whole leaf alive."""
+    if isinstance(x, torch.Tensor):
+        return x[index].to(device).clone()
+    return _tensor(np.asarray(x)[index], device)
+
+
+def _scale_spec(q_shape, scale_shape, spec) -> tuple:
+    """A quantized leaf's scale spec: q's, with None wherever the scale has
+    size 1 (it broadcasts there), as the reference's ``_quant_spec``."""
+    parts = tuple(spec) + (None,) * (len(q_shape) - len(tuple(spec)))
+    return tuple(None if dim == 1 else part for dim, part in zip(scale_shape, parts[-len(scale_shape):]))
+
+
+def shard_params(tree, cfg, sizes, coords, device) -> dict:
+    """This rank's slice of every leaf of a llama param tree under the
+    default sharding rules (``models.llama.partition_specs``): the block
+    ``jax.sharding.NamedSharding`` places on the device at mesh position
+    ``coords`` of a mesh of ``sizes``.  Leaves may be numpy (a carried JAX
+    tree, ``QuantizedMatrix`` with ``q`` / ``scale`` attributes) or the
+    port's tensors; ``QuantizedMatrix`` scales shard as q does except
+    along their size-1 axes.  The blocked W8A8 layout is single-device
+    only (the reference never blocks on a mesh), so it is refused.  An
+    int8 head is held in the compute dtype (:func:`head_for_logits`)."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel.mesh import shard_slices
+
+    specs = llama.partition_specs(cfg)
+
+    def leaf(x, spec):
+        if isinstance(x, BlockedQuantizedMatrix) or hasattr(x, "tiles"):
+            raise ValueError("the blocked W8A8 layout is single-device; a mesh serves weight-only int8")
+        if hasattr(x, "q") and hasattr(x, "scale"):
+            q_shape, s_shape = tuple(np.shape(x.q)), tuple(np.shape(x.scale))
+            return QuantizedMatrix(
+                q=_owned_slice(x.q, shard_slices(q_shape, spec, sizes, coords), device),
+                scale=_owned_slice(x.scale, shard_slices(s_shape, _scale_spec(q_shape, s_shape, spec), sizes,
+                                                         coords), device),
+            )
+        return _owned_slice(x, shard_slices(tuple(np.shape(x)), spec, sizes, coords), device)
+
+    for packed in ("wqkv", "w_gu"):
+        if packed in tree["layers"]:
+            raise ValueError(f"a packed {packed!r} leaf crosses the head shards: shard the unpacked tree")
+    out = {k: leaf(v, specs[k]) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: leaf(v, specs["layers"][k]) for k, v in tree["layers"].items()}
+    return head_for_logits(out, cfg)

@@ -76,7 +76,14 @@ from generativeaiexamples_tpu_torch.ops.decode_attention import (
     verify_gqa_attention,
 )
 from generativeaiexamples_tpu_torch.ops.qmm import BlockedQuantizedMatrix
-from generativeaiexamples_tpu_torch.ops.quant import QuantizedMatrix, f32_product, float_dot, int8_max_like, q_dot
+from generativeaiexamples_tpu_torch.ops.quant import (
+    QuantizedMatrix,
+    _validate_q_dot,
+    f32_product,
+    float_dot,
+    int8_max_like,
+    q_dot,
+)
 from generativeaiexamples_tpu_torch.ops.rope import apply_rope
 
 Params = Any  # dict of tensors / QuantizedMatrix / BlockedQuantizedMatrix
@@ -278,40 +285,113 @@ PRESETS = {
 }
 
 
-def param_shapes(cfg: LlamaConfig) -> dict:
-    """Every parameter's shape, in :func:`init_params`' tree (the
-    reference's ``param_axes`` without the logical axes)."""
+def param_axes(cfg: LlamaConfig) -> dict:
+    """Every parameter as ``(shape, logical axes)``, in :func:`init_params`'
+    tree (the reference's ``param_axes``; ``parallel.mesh`` maps the
+    logical axes to mesh axes)."""
     L, D, H, KV, HD, FF, V = (
         cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
     )
     if cfg.n_experts > 1:
         E = cfg.n_experts
-        mlp = {"router": (L, D, E), "w_gate_e": (L, E, D, FF), "w_up_e": (L, E, D, FF), "w_down_e": (L, E, FF, D)}
+        mlp = {
+            "router": ((L, D, E), ("layers", "embed", None)),
+            "w_gate_e": ((L, E, D, FF), ("layers", "expert", "embed", "mlp")),
+            "w_up_e": ((L, E, D, FF), ("layers", "expert", "embed", "mlp")),
+            "w_down_e": ((L, E, FF, D), ("layers", "expert", "mlp", "embed")),
+        }
     elif cfg.mlp_gated:
-        mlp = {"w_gate": (L, D, FF), "w_up": (L, D, FF), "w_down": (L, FF, D)}
+        mlp = {
+            "w_gate": ((L, D, FF), ("layers", "embed", "mlp")),
+            "w_up": ((L, D, FF), ("layers", "embed", "mlp")),
+            "w_down": ((L, FF, D), ("layers", "mlp", "embed")),
+        }
     else:  # plain up -> act -> down (StarCoder2's c_fc / c_proj)
-        mlp = {"w_up": (L, D, FF), "w_down": (L, FF, D)}
+        mlp = {
+            "w_up": ((L, D, FF), ("layers", "embed", "mlp")),
+            "w_down": ((L, FF, D), ("layers", "mlp", "embed")),
+        }
     layers = {
-        "attn_norm": (L, D),
-        "wq": (L, D, H * HD),
-        "wk": (L, D, KV * HD),
-        "wv": (L, D, KV * HD),
-        "wo": (L, H * HD, D),
-        "mlp_norm": (L, D),
+        "attn_norm": ((L, D), ("layers", "embed")),
+        "wq": ((L, D, H * HD), ("layers", "embed", "heads")),
+        "wk": ((L, D, KV * HD), ("layers", "embed", "kv_heads")),
+        "wv": ((L, D, KV * HD), ("layers", "embed", "kv_heads")),
+        "wo": ((L, H * HD, D), ("layers", "heads", "embed")),
+        "mlp_norm": ((L, D), ("layers", "embed")),
         **mlp,
     }
     if cfg.proj_bias:
-        layers.update({"bq": (L, H * HD), "bk": (L, KV * HD), "bv": (L, KV * HD), "bo": (L, D), "b_up": (L, FF),
-                       "b_down": (L, D)})
+        layers.update({
+            "bq": ((L, H * HD), ("layers", "heads")),
+            "bk": ((L, KV * HD), ("layers", "kv_heads")),
+            "bv": ((L, KV * HD), ("layers", "kv_heads")),
+            "bo": ((L, D), ("layers", "embed")),
+            "b_up": ((L, FF), ("layers", "mlp")),
+            "b_down": ((L, D), ("layers", "embed")),
+        })
         if cfg.mlp_gated and cfg.n_experts <= 1:
-            layers["b_gate"] = (L, FF)
+            layers["b_gate"] = ((L, FF), ("layers", "mlp"))
     if cfg.norm_type == "layernorm":
-        layers["attn_norm_b"] = (L, D)
-        layers["mlp_norm_b"] = (L, D)
-    out = {"embed": (V, D), "layers": layers, "final_norm": (D,), "lm_head": (D, V)}
+        layers["attn_norm_b"] = ((L, D), ("layers", "embed"))
+        layers["mlp_norm_b"] = ((L, D), ("layers", "embed"))
+    out = {
+        "embed": ((V, D), ("vocab", "embed")),
+        "layers": layers,
+        "final_norm": ((D,), ("embed",)),
+        "lm_head": ((D, V), ("embed", "vocab")),
+    }
     if cfg.norm_type == "layernorm":
-        out["final_norm_b"] = (D,)
+        out["final_norm_b"] = ((D,), ("embed",))
     return out
+
+
+def param_shapes(cfg: LlamaConfig) -> dict:
+    """Every parameter's shape, in :func:`init_params`' tree."""
+    axes = param_axes(cfg)
+    out = {name: leaf[0] for name, leaf in axes.items() if name != "layers"}
+    out["layers"] = {name: leaf[0] for name, leaf in axes["layers"].items()}
+    return out
+
+
+def partition_specs(cfg: LlamaConfig, rules=None) -> dict:
+    """Each parameter's partition spec (a tuple of mesh axes or None per
+    dimension, ``parallel.mesh.logical_to_partition``), in
+    :func:`init_params`' tree."""
+    from generativeaiexamples_tpu_torch.parallel.mesh import logical_to_partition
+
+    axes = param_axes(cfg)
+    out = {name: logical_to_partition(leaf[1], rules) for name, leaf in axes.items() if name != "layers"}
+    out["layers"] = {name: logical_to_partition(leaf[1], rules) for name, leaf in axes["layers"].items()}
+    return out
+
+
+def kv_cache_specs(cfg: LlamaConfig, rules=None) -> tuple:
+    """One partition spec per cache leaf, matching :func:`init_kv_cache`."""
+    from generativeaiexamples_tpu_torch.parallel.mesh import logical_to_partition
+
+    spec = logical_to_partition(("layers", "kv_heads", "batch", None, "head_dim"), rules)
+    if cfg.kv_dtype == "int8":
+        scale_spec = logical_to_partition(("layers", "kv_heads", "batch", None), rules)
+        return spec, spec, scale_spec, scale_spec
+    return spec, spec
+
+
+def local_config(cfg: LlamaConfig, mesh) -> LlamaConfig:
+    """The geometry one rank of ``mesh`` (a ``parallel.runtime.RankContext``)
+    holds under the default rules: heads, kv heads, MLP columns and the
+    vocabulary over ``tensor`` (experts over ``expert`` stay counted
+    globally: the router routes over all of them).  Each must divide."""
+    if mesh is None:
+        return cfg
+    tp = mesh.size("tensor")
+    if tp == 1:
+        return cfg
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{what}={n} not divisible by tensor={tp}")
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                               d_ff=cfg.d_ff // tp, vocab_size=cfg.vocab_size // tp)
 
 
 # Leaves init_params starts at 1 (norm gains) and at 0 (biases).
@@ -430,9 +510,19 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None, *
     )
 
 
-def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    """Token-embedding lookup; an int8 table dequantizes only the gathered rows."""
+def embed(params: Params, tokens: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
+    """Token-embedding lookup; an int8 table dequantizes only the gathered
+    rows.  Over a mesh whose ``tensor`` axis shards the vocabulary, each
+    rank looks up the ids in its rows (others give zeros) and a ``psum``
+    over ``tensor`` assembles the rows (exact: one nonzero term each)."""
     table = params["embed"]
+    tp = mesh.size("tensor") if mesh is not None else 1
+    if tp > 1:
+        rows_here = (table.q if isinstance(table, QuantizedMatrix) else table).shape[0]
+        local = tokens - mesh.index("tensor") * rows_here
+        inside = (local >= 0) & (local < rows_here)
+        x = embed(params, local.clamp(0, rows_here - 1), dtype)
+        return mesh.psum(x * inside[..., None].to(x.dtype), "tensor")
     if isinstance(table, QuantizedMatrix):
         rows = table.q[tokens].float()
         scales = table.scale[:, 0][tokens]
@@ -497,15 +587,19 @@ def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], idx[..., :k]
 
 
-def _expert_ffn(x: torch.Tensor, lp) -> torch.Tensor:
+def _expert_ffn(x: torch.Tensor, lp, mesh=None) -> torch.Tensor:
     """Every expert's gated MLP on its rows: x (E, R, d) -> (E, R, d), each
     product with f32 accumulation and one rounding to x's dtype, as the
-    reference's ``preferred_element_type=f32`` einsums."""
+    reference's ``preferred_element_type=f32`` einsums.  With ``mesh`` the
+    experts' columns are sharded over ``tensor`` and the down products'
+    f32 partials are summed over it before their one rounding."""
     gated = F.silu(float_dot(x, lp["w_gate_e"])) * float_dot(x, lp["w_up_e"])
-    return float_dot(gated, lp["w_down_e"])
+    if mesh is None:
+        return float_dot(gated, lp["w_down_e"])
+    return mesh.psum(f32_product(gated, lp["w_down_e"]), "tensor").to(x.dtype)
 
 
-def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed mixture-of-experts MLP (the reference's GShard-style
     one-hot dispatch).  Returns ``(out, aux_loss)``.
 
@@ -522,6 +616,13 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig) -> tuple[torch.Tensor, torch
     (:data:`MOE_BLOCK_ROWS`), so a token's result does not depend on its
     batch-mates; the dispatch and combine products are exact (one and k
     nonzero terms a sum; the combine in f32).
+
+    Over a mesh (``mesh`` a ``parallel.runtime.RankContext``) the router is
+    replicated and routes over all experts; this rank holds experts
+    ``[i * E/P, (i + 1) * E/P)`` of the ``expert`` axis (and a column block
+    of each over ``tensor``), runs them on their dispatched rows, combines
+    them in f32 and a ``psum`` over ``expert`` and ``tensor`` adds the
+    other ranks' experts.
     """
     b_orig, s_orig, d = h.shape
     E, k = cfg.n_experts, cfg.n_experts_per_tok
@@ -561,27 +662,57 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig) -> tuple[torch.Tensor, torch
     disp = disp_k.sum(dim=2).to(h.dtype)
 
     x_e = torch.einsum("bsec,bsd->becd", disp, h)  # (b, E, cap, d)
-    rows = x_e.transpose(0, 1).reshape(E, b * cap, d)
-    y = _row_blocks(lambda x: _expert_ffn(x, lp), rows, 1)
-    y = y.reshape(E, b, cap, d).transpose(0, 1)
-    out = torch.einsum("bsec,becd->bsd", combine.float(), y.float()).to(h.dtype)
+    ep = mesh.size("expert") if mesh is not None else 1
+    tp = mesh.size("tensor") if mesh is not None else 1
+    if ep > 1:
+        if E % ep:
+            raise ValueError(f"n_experts={E} not divisible by expert={ep}")
+        e0 = mesh.index("expert") * (E // ep)
+        x_e, combine = x_e[:, e0 : e0 + E // ep], combine[:, :, e0 : e0 + E // ep]
+    e_here = x_e.shape[1]
+    rows = x_e.transpose(0, 1).reshape(e_here, b * cap, d)
+    y = _row_blocks(lambda x: _expert_ffn(x, lp, None if tp == 1 else mesh), rows, 1)
+    y = y.reshape(e_here, b, cap, d).transpose(0, 1)
+    out = torch.einsum("bsec,becd->bsd", combine.float(), y.float())
+    if ep > 1:
+        out = mesh.psum(out, "expert")
+    out = out.to(h.dtype)
     return out.reshape(b_orig, s_orig + pad, d)[:, :s_orig], aux_loss
 
 
-def _mlp(h: torch.Tensor, lp, cfg: LlamaConfig):
+def _mlp(h: torch.Tensor, lp, cfg: LlamaConfig, row_dot=q_dot):
     """The dense MLPs: packed gated (``w_gu``), unpacked gated with
-    optional biases, or plain up -> act -> down (StarCoder2)."""
+    optional biases, or plain up -> act -> down (StarCoder2).  ``row_dot``
+    is the down projection's product (tensor parallelism:
+    :func:`row_parallel_dot`, before the replicated bias)."""
     if "w_gu" in lp:
         gu = q_dot(h, lp["w_gu"], "w_gu")
         gated = cfg.act_fn(gu[..., : cfg.d_ff]) * gu[..., cfg.d_ff :]
-        return q_dot(gated, lp["w_down"], "w_down")
+        return row_dot(gated, lp["w_down"], "w_down")
     if "w_gate" in lp:
         gated = cfg.act_fn(_badd(q_dot(h, lp["w_gate"], "w_gate"), lp, "b_gate")) * _badd(
             q_dot(h, lp["w_up"], "w_up"), lp, "b_up"
         )
     else:
         gated = cfg.act_fn(_badd(q_dot(h, lp["w_up"], "w_up"), lp, "b_up"))
-    return _badd(q_dot(gated, lp["w_down"], "w_down"), lp, "b_down")
+    return _badd(row_dot(gated, lp["w_down"], "w_down"), lp, "b_down")
+
+
+def row_parallel_dot(x: torch.Tensor, w, name: str, mesh, axis: str = "tensor") -> torch.Tensor:
+    """``x @ w`` for a row-sharded projection (wo, w_down): this rank's
+    f32 partial product over its rows of ``w`` (weight-only int8 scaled
+    per column, or float), a ``psum`` over ``axis`` in f32, and one
+    rounding to x's dtype, as the single device's product accumulates in
+    f32 and rounds once.  Only the order of the f32 sum differs."""
+    _validate_q_dot(x, w, name)
+    if isinstance(w, QuantizedMatrix):
+        part = f32_product(x, w.q.to(x.dtype)) * w.scale[..., 0, :]
+    elif isinstance(w, torch.Tensor) and w.is_floating_point():
+        part = f32_product(x, w)
+    else:
+        raise TypeError(f"projection {name!r}: a mesh serves weight-only int8 or float weights, got "
+                        f"{type(w).__name__}")
+    return mesh.psum(part, axis).to(x.dtype)
 
 
 def _qkv(h: torch.Tensor, lp, cfg: LlamaConfig):
@@ -607,28 +738,57 @@ def dense_layer(
     cfg: LlamaConfig,
     positions: torch.Tensor,
     kv_lengths: Optional[torch.Tensor] = None,
+    mesh=None,
     tp_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """One cacheless dense layer, as :func:`forward`'s cacheless mode runs
-    it for a dense tree (the same attention block and MLP; the reference
-    forks here only for its mesh path).  ``tp_axis`` (Megatron-style
-    tensor parallelism inside a mesh) needs a mesh, which the port does
-    not have yet."""
+    it for a dense tree (the same attention block and MLP).
+
+    ``tp_axis`` is Megatron-style tensor parallelism over that axis of
+    ``mesh`` (a ``parallel.runtime.RankContext``): ``lp`` holds this rank's
+    head and MLP shards (wq/wk/wv/w_gate/w_up column-sharded, wo/w_down
+    row-sharded), attention runs over the local heads, and one ``psum``
+    of each of wo's and w_down's f32 partial products restores the full
+    residual (:func:`row_parallel_dot`).  Projection
+    biases would be added once per shard, so trees that carry them
+    (StarCoder2) are refused, as in the reference (:func:`forward` over a
+    mesh adds them after the sums)."""
+    n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+    row_dot = q_dot
     if tp_axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel dense_layer needs a device mesh: ROADMAP.md Queue 1 item 10 (parallelism)"
-        )
-    x = _attention_block(x, lp, cfg, positions, lambda q, k, v: attention(q, k, v, positions, kv_lengths))
-    return x + _mlp(block_norm(x, cfg, lp, "mlp_norm"), lp, cfg)
+        if mesh is None:
+            raise ValueError("tp_axis needs the rank's mesh context")
+        if cfg.proj_bias:
+            raise NotImplementedError("tensor-parallel dense_layer with projection biases")
+        tp = mesh.size(tp_axis)
+        if n_q % tp or n_kv % tp:
+            raise ValueError(f"heads ({n_q} q / {n_kv} kv) not divisible by tp={tp}")
+        cfg = dataclasses.replace(cfg, n_heads=n_q // tp, n_kv_heads=n_kv // tp, d_ff=cfg.d_ff // tp)
+
+        def row_dot(x, w, name):
+            return row_parallel_dot(x, w, name, mesh, tp_axis)
+
+    x = _attention_block(x, lp, cfg, positions, lambda q, k, v: attention(q, k, v, positions, kv_lengths,
+                                                                          **_mesh_kw(mesh)), row_dot)
+    return x + _mlp(block_norm(x, cfg, lp, "mlp_norm"), lp, cfg, row_dot)
 
 
-def _attention_block(x: torch.Tensor, lp, cfg: LlamaConfig, positions: torch.Tensor, attend) -> torch.Tensor:
+def _attention_block(x: torch.Tensor, lp, cfg: LlamaConfig, positions: torch.Tensor, attend,
+                     row_dot=q_dot) -> torch.Tensor:
     """``x`` plus one layer's attention: the norm, the projections, RoPE,
-    ``attend(q, k, v)`` -> (b, s, heads, hd), and the output projection."""
+    ``attend(q, k, v)`` -> (b, s, heads, hd), and the output projection
+    through ``row_dot`` (over the heads' shards: :func:`row_parallel_dot`,
+    before its replicated bias)."""
     b, s = x.shape[:2]
     q, k, v = _qkv(block_norm(x, cfg, lp, "attn_norm"), lp, cfg)
     attn = attend(apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v)
-    return x + _badd(q_dot(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp["wo"], "wo"), lp, "bo")
+    return x + _badd(row_dot(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp["wo"], "wo"), lp, "bo")
+
+
+def _mesh_kw(mesh) -> dict:
+    """``mesh=`` for the attention calls over a mesh; nothing without one,
+    so a single-device call keeps the signature it always had."""
+    return {} if mesh is None else {"mesh": mesh}
 
 
 def _check_mlp_tree(cfg: LlamaConfig, params: Params) -> None:
@@ -662,6 +822,7 @@ def forward(
     row_offset: int = 0,
     embeds: Optional[torch.Tensor] = None,
     remat: bool = False,
+    mesh=None,
 ):
     """Run the transformer body, cacheless or against a serving cache.
 
@@ -699,6 +860,20 @@ def forward(
     ``remat`` (training, with ``cfg.remat``) runs each layer under
     ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes
     the layer's activations, as the reference's ``jax.checkpoint`` does.
+
+    ``mesh`` (a ``parallel.runtime.RankContext``, inside a program every
+    rank of a mesh runs) makes this one rank's share of the forward, its
+    params and cache being its shards (``engine.weights.shard_params``,
+    :func:`local_config`): the embedding is looked up over the vocabulary
+    shards (:func:`embed`), each layer runs its local heads and MLP
+    columns with one ``psum`` over ``tensor`` after wo and one after
+    w_down (f32 partials, one rounding after the sum, biases after that:
+    :func:`row_parallel_dot`), MoE layers run the rank's
+    experts (:func:`_moe_mlp`), and self-attention over fresh k/v goes
+    sequence-parallel when the ``seq`` axis is populated
+    (``ops.attention.attention``).  The rows are the rank's share of the
+    ``data`` axis.  Every other step is the single-device code on the
+    local shapes, the port's kernels included.
 
     Returns ``(hidden, cache)``, ``(hidden, cache, ab)`` with
     ``append_cache``, or ``(hidden, cache, aux)`` with ``return_aux``
@@ -752,7 +927,14 @@ def forward(
             paged_window_index(page_table, window, page_tokens) if warm else None,
         )
 
-    x = embed(params, tokens, cfg.compute_dtype) if embeds is None else embeds.to(cfg.compute_dtype)
+    lc = local_config(cfg, mesh)
+    row_dot = q_dot
+    if mesh is not None and mesh.size("tensor") > 1:
+
+        def row_dot(x, w, name):
+            return row_parallel_dot(x, w, name, mesh)
+
+    x = embed(params, tokens, cfg.compute_dtype, mesh) if embeds is None else embeds.to(cfg.compute_dtype)
     if cfg.scale_embeddings:
         # Gemma: sqrt(d_model) rounded to the activations' dtype first.
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
@@ -763,21 +945,23 @@ def forward(
 
         def attend(q, k, v):
             if cache is None:
-                return attention(q, k, v, positions, kv_lengths)
+                return attention(q, k, v, positions, kv_lengths, **_mesh_kw(mesh))
             if len(cache) == 2:
                 return _float_cache_attention(
-                    q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset
+                    q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset,
+                    **_mesh_kw(mesh),
                 )
             return _cache_attention(
-                q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging, row_offset
+                q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging, row_offset,
+                **_mesh_kw(mesh),
             )
 
-        x = _attention_block(x, lp, cfg, positions, attend)
-        h = block_norm(x, cfg, lp, "mlp_norm")
+        x = _attention_block(x, lp, lc, positions, attend, row_dot)
+        h = block_norm(x, lc, lp, "mlp_norm")
         if "router" in lp:
-            mlp_out, layer_aux = _moe_mlp(h, lp, cfg)
+            mlp_out, layer_aux = _moe_mlp(h, lp, lc, mesh)
         else:
-            mlp_out, layer_aux = _mlp(h, lp, cfg), None
+            mlp_out, layer_aux = _mlp(h, lp, lc, row_dot), None
         return x + mlp_out, layer_aux
 
     for li in range(cfg.n_layers):
@@ -796,7 +980,8 @@ def forward(
     return x, cache
 
 
-def _float_cache_attention(q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset):
+def _float_cache_attention(q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset,
+                           mesh=None):
     """Layer ``li``'s attention over the float ``(k, v)`` cache in one of
     :func:`forward`'s modes (verify, cold prefill, warm chunk, warm
     decode), writing the fresh k/v where the mode keeps them."""
@@ -815,7 +1000,7 @@ def _float_cache_attention(q, k, v, li, positions, kv_lengths, cache, ab, cold_p
     if cold_prefill and s > 1:
         kc[li, :, row_offset : row_offset + b, :s] = _heads_first(k)
         vc[li, :, row_offset : row_offset + b, :s] = _heads_first(v)
-        return attention(q, k, v, positions, kv_lengths)
+        return attention(q, k, v, positions, kv_lengths, **_mesh_kw(mesh))
     # Warm write, clamped onto the last slot as the int8 path's.
     bidx = torch.arange(b, device=q.device)[:, None]
     wpos = positions.clamp(max=t - 1)
@@ -834,7 +1019,7 @@ def _float_cache_attention(q, k, v, li, positions, kv_lengths, cache, ab, cold_p
 
 
 def _cache_attention(q, k, v, li, positions, kv_lengths, cache, append_cache, cold_prefill, window, t, paging,
-                     row_offset=0):
+                     row_offset=0, mesh=None):
     """Layer ``li``'s attention in one of :func:`forward`'s serving modes:
     quantize the fresh K/V, write them where the mode keeps them, and
     attend.  ``paging`` is None on the contiguous cache, else ``(table,
@@ -886,7 +1071,7 @@ def _cache_attention(q, k, v, li, positions, kv_lengths, cache, append_cache, co
         vsc[li, :, rows, :s] = _heads_first(vs)
         # Attend over the fresh k/v: no quantization error on the
         # prompt pass (the cache stores int8 for later reads).
-        return attention(q, k, v, positions, kv_lengths)
+        return attention(q, k, v, positions, kv_lengths, **_mesh_kw(mesh))
     if paged:
         # Paged warm mode: scatter the fresh KV through the table, then
         # the contiguous warm path's attention call over the gathered
@@ -925,7 +1110,7 @@ def _cache_attention(q, k, v, li, positions, kv_lengths, cache, append_cache, co
     )
 
 
-def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+def logits(params: Params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
     """Project hidden states to f32 vocab logits (f32 accumulation).
 
     An int8 head is held with its values in the compute dtype
@@ -933,10 +1118,17 @@ def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     exact, so the product equals the reference's convert-in-the-dot.  On
     the card a bf16 x bf16 product runs with f32 accumulation and f32
     output, on fixed row blocks (``ops.quant.f32_product``); elsewhere the
-    operands go to f32."""
+    operands go to f32.
+
+    Over a mesh whose ``tensor`` axis shards the vocabulary, each rank
+    projects onto its columns and the shards are gathered, so every rank
+    holds the whole f32 logits (the sampler's input)."""
     head = params["lm_head"]
     w, scale = (head.q, head.scale[..., 0, :]) if isinstance(head, QuantizedMatrix) else (head, None)
     if hidden.dtype != w.dtype:
         hidden, w = hidden.float(), w.float()
     out = f32_product(hidden, w)
-    return out if scale is None else out * scale
+    out = out if scale is None else out * scale
+    if mesh is not None and mesh.size("tensor") > 1:
+        out = mesh.all_gather(out.contiguous(), "tensor", dim=-1)
+    return out

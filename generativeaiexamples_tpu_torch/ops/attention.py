@@ -69,8 +69,14 @@ def attention(
     *,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Dispatch with the gqa_attention contract.
+
+    Over a mesh (``mesh`` a ``parallel.runtime.RankContext``) with a
+    populated ``seq`` axis, unscaled self-attention (q-len == kv-len > 1,
+    dividing the axis) runs as ring attention across it
+    (``parallel.ring_attention``), as in the reference.
 
     int8-scaled attention (warm multi-token chunks over the quantized
     cache) and single-query calls (s == 1) stay plain PyTorch, as they are
@@ -81,6 +87,11 @@ def attention(
     """
     if k_scale is not None or v_scale is not None or q.shape[1] == 1:
         return gqa_attention(q, k, v, q_positions, kv_lengths, k_scale=k_scale, v_scale=v_scale)
+    if mesh is not None:
+        from generativeaiexamples_tpu_torch.parallel.ring_attention import seq_parallel_ok, sequence_parallel_attention
+
+        if seq_parallel_ok(mesh, q, k):
+            return sequence_parallel_attention(q, k, v, q_positions, kv_lengths, mesh=mesh, strategy="ring")
     from generativeaiexamples_tpu_torch.ops.flash_attention import flash_gqa_attention
 
     return flash_gqa_attention(q, k, v, q_positions, kv_lengths)
