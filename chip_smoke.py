@@ -319,7 +319,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 19. The ``mesh`` group (after the K1 shape check), two ranks on this
    card: rank 0 is this process and rank 1 a follower process spawned at
    the script's start (``parallel.runtime``), every collective staged
-   through pinned host buffers (gloo).  ``mesh_serve``: Llama-3-8B at full
+   through a host buffer both ranks map (``parallel.comm.SharedLine``).  ``mesh_serve``: Llama-3-8B at full
    width and ``MESH_LAYERS`` of 32 layers, random weight-only int8 from
    ``MESH_SEED`` with an int8 cache, ``MeshSpec(tensor=2)``: a single-device
    scheduler on the same draw serves ``serve``'s 8 completions and
@@ -345,6 +345,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    Mixtral-8x7B's width at ``MESH_MOE_LAYERS`` layers over
    ``MeshSpec(expert=2)`` against the single-device forward within
    ``MESH_MOE_TOL`` (bit for bit); a planted missing expert must fail it.
+   ``mesh_train``: Llama-3-8B's width at ``MESH_TRAIN_LAYERS`` layers, bf16,
+   remat, AdamW at ``MESH_TRAIN_LR``, one step of 4 x 1,024 tokens on one
+   device, then on ``tensor=2``, ``fsdp=2`` and ``pipe=2`` (4
+   microbatches): the loss, the grad norm and the share of each updated
+   leaf's elements more than 0.1 x lr from the single device's within
+   ``MESH_TRAIN_TOL``, a planted fault a mesh failing them
+   (``MESH_TRAIN_FAULTS``), K4 exactly ``MESH_TRAIN_K4`` times a rank;
+   printed: step ms, tokens/s, collectives, staged MB and collective ms,
+   device GB a rank.  ``mesh_train_moe``: Mixtral-8x7B's width at 1 layer
+   over ``expert=2``, capacity dispatch: loss and grad norm bit for bit
+   (``MESH_MOE_TRAIN_TOL``), each of ``MESH_MOE_TRAIN_FAULTS`` planted must
+   fail them, K4 twice a rank.  ``mesh_ckpt``: a 1-layer
+   Llama-3-8B-width train state saved by its ``tensor=2`` ranks in the
+   port's checkpoint format, loaded onto ``fsdp=2`` (each rank reading
+   only its half) and onto one device, every leaf bit for bit on both
+   ranks of both meshes; ``Scheduler(mesh=tensor=2)`` serves a chat
+   completion from it (``RankParams("sharded")``), K2 once a decode step
+   and K4 once a prefill chunk on both ranks; printed: write and read s and GB/s, each rank's host RSS.
    ``mesh_fault``: the follower killed mid-decode; the
    request fails with ``error`` well inside the group timeout, a later
    one fails at once, the scheduler reads unhealthy, the script goes on.
@@ -478,11 +496,13 @@ the steps after it, ``spec_launches`` from each ``spec`` step,
 ``hf_launches`` from each path of ``hf_checkpoint``,
 ``families_launches`` from each family's paths, ``xla_path_launches``
 from each part of ``xla_path``, ``mesh_launches`` from each layout of
-``mesh_serve`` by rank, ``services_launches`` from ``vision_serve``
+``mesh_serve``, ``mesh_train``, ``mesh_train_moe`` and ``mesh_ckpt`` by
+rank, ``services_launches`` from ``vision_serve``
 and ``multimodal``, ``training_launches`` from ``train``'s steps, ``lora``'s
 steps and each model's steps in ``train_losses`` (``contrastive``,
 ``vlm_caption``, ``tts``); K4's line carries its training-shape timings
-in ``train``, its warm-regime timings in ``warm``,
+in ``train``, at a ``tensor=2`` training rank's heads in
+``mesh_train_rank``, its warm-regime timings in ``warm``,
 its VLM prefill timings in ``vlm_prefill``, its
 head_dim-64 timing and ``spec_draft`` launches in ``hd64`` and its
 head_dim-256 timings and ``families`` launches in ``hd256``; K2's and
@@ -1083,6 +1103,8 @@ def check_flash(torch, dev, log, hd: int = 128, nq: int = 32, nkv: int = 8):
 # K2/K3 and K4 at one rank's shapes of ``mesh_serve`` (Llama-3-8B over
 # MeshSpec(tensor=2)): 4 of the 8 KV heads, group 4; the prefill's 16 / 4.
 MESH_RANK_DECODE, MESH_RANK_FLASH = (128, 4, 4), dict(hd=128, nq=16, nkv=4)
+# K4 at a tensor=2 training rank's heads (b = 4, s = 1,024, causal).
+MESH_TRAIN_RANK_FLASH = dict(nq=16, nkv=4, regime="mesh_train_rank")
 
 
 def check_mesh_rank(torch, dev, log) -> dict:
@@ -1633,10 +1655,25 @@ def _time_scan(torch, store, queries, k: int) -> dict:
                 search_batch_ms=_host_ms(lambda: store.search_batch(queries, k)))
 
 
+# A timed median takes at most this many ms of runs beyond the first
+# (at least 3 runs): slow calls (an IVF batch of ~300 ms) are timed fewer
+# times than fast ones; no check reads the extra runs.
+TIMING_BUDGET_MS = 1000.0
+
+
+def _runs_for(first_ms: float, n: int) -> int:
+    return max(3, min(n, int(TIMING_BUDGET_MS / max(first_ms, 1e-3))))
+
+
 def _event_ms(torch, fn, n: int = 12) -> float:
-    """Median of ``n`` runs of ``fn`` between two CUDA events."""
+    """Median of ``n`` runs of ``fn`` between two CUDA events (fewer where
+    one run is slow: ``TIMING_BUDGET_MS``)."""
     out = []
-    for _ in range(n):
+    for i in range(n):
+        if i == 1:
+            n = min(n, _runs_for(out[0], n))
+        if i >= n:
+            break
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -1647,9 +1684,14 @@ def _event_ms(torch, fn, n: int = 12) -> float:
 
 
 def _host_ms(fn, n: int = 10) -> float:
-    """Median of ``n`` runs of ``fn`` by the host clock."""
+    """Median of ``n`` runs of ``fn`` by the host clock (fewer where one run
+    is slow: ``TIMING_BUDGET_MS``)."""
     out = []
-    for _ in range(n):
+    for i in range(n):
+        if i == 1:
+            n = min(n, _runs_for(out[0], n))
+        if i >= n:
+            break
         t0 = time.perf_counter()
         fn()
         out.append((time.perf_counter() - t0) * 1e3)
@@ -8995,18 +9037,19 @@ def _tensor_rel(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-def check_flash_train(torch, dev, log) -> dict:
-    """K4 at the training shape (b = 4, s = 1,024, 32 / 8 heads, head_dim
-    128, causal from position 0) through its autograd wrapper against the
-    plain attention's autograd: the forward within ``FLASH_TOL``, dq / dk /
-    dv equal bit for bit (the wrapper's backward is that autograd,
+def check_flash_train(torch, dev, log, nq: int = 32, nkv: int = 8, regime: str = "train") -> dict:
+    """K4 at the training shape (b = 4, s = 1,024, ``nq`` / ``nkv`` heads:
+    32 / 8 on one device, 16 / 4 on a tensor=2 rank; head_dim 128, causal
+    from position 0) through its autograd wrapper against the plain
+    attention's autograd: the forward within ``FLASH_TOL``, dq / dk / dv
+    equal bit for bit (the wrapper's backward is that autograd,
     recomputed: a plumbing check); the forward timed beside its bound, the
     plain version and SDPA, and forward + backward beside SDPA's."""
     import torch.nn.functional as F
 
     from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 
-    b, s, nq, nkv, hd = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128
+    b, s, hd = TRAIN_BATCH, TRAIN_SEQ, 128
     gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
     nv = copies_for(b * s * (2 * nq + 2 * nkv) * hd * 2)
     qs = [torch.randn(b, s, nq, hd, device=dev, generator=gen).to(torch.bfloat16) for _ in range(nv)]
@@ -9069,7 +9112,7 @@ def check_flash_train(torch, dev, log) -> dict:
                grad_check="plumbing: dq / dk / dv equal to the plain attention's autograd bit for bit",
                fwd_bwd_ms=fwd_bwd_ms, library_fwd_bwd_ms=lib_fwd_bwd_ms,
                backward="plain recompute (no backward kernel in the reference)")
-    emit("kernel", kernel="flash_attention", regime="train", **row)
+    emit("kernel", kernel="flash_attention", regime=regime, **row)
     return row
 
 
@@ -9948,6 +9991,560 @@ def _rank_moe(ctx, cfg, seed: int, tokens):
     return out, faulted.float()
 
 
+# ``mesh_train``: Llama-3-8B width at MESH_TRAIN_LAYERS of 32 layers, bf16,
+# remat, AdamW; one step on one device, then one on each mesh of two ranks
+# on this card, from the same draw.  The learning rate sits far above a
+# bf16 parameter's ulp (1.2e-4 at 0.02), so a step's update is its
+# gradient's sign (Adam's first step), and rounding moves an updated leaf
+# by at most an ulp: an element is counted as moved apart from the single
+# device's when it differs by more than STEP_ATOL (0.1 x lr, the rule of
+# ``tests/test_torch_training.py``), i.e. its update took the other sign.
+MESH_TRAIN_SEED, MESH_TRAIN_LAYERS = 51, 8
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_LR, MESH_TRAIN_MICRO = 4, 1024, 1e-2, 4
+# tensor=2 first: its cheap steps take the followers' first-training-step
+# cost (~8-10 s on an H100, PERF.md).
+MESH_TRAIN_SPECS = (("tensor", dict(tensor=2)), ("fsdp", dict(fsdp=2)), ("pipe", dict(pipe=2)))
+# The mesh step against the single device's: the loss and the grad norm
+# (relative), and the share of each updated leaf's elements moved apart
+# (the largest over leaves).  Each limit sits between the sound and the
+# planted readings measured on an H100 (PERF.md): sound loss 0 to
+# 7.2e-6, grad norm 2.5e-6 to 5.1e-5, moved 0.12% to 2.17% (tensor=2's
+# lm_head: the vocabulary-sharded softmax rounds otherwise, and a head
+# column of a token absent from the batch has a gradient near zero);
+# planted grad norm 5.1e-5 (the norms' fsdp sum) to 13.1%, moved 8.7% to
+# 26.1%.
+MESH_TRAIN_TOL = dict(loss=1e-4, grad_norm=1e-3, moved=0.04)
+# Planted in each mesh's step (``_rank_plant``), each must fail the gates:
+# the norms' gradient sum over fsdp dropped (each rank keeps its rows'
+# share), the f op's backward sum over tensor dropped before wq / wk / wv,
+# the pipeline's last microbatch's gradient hand-off zeroed.
+MESH_TRAIN_FAULTS = {"fsdp": "norm_grad_sum", "tensor": "qkv_f_sum", "pipe": "last_microbatch_handoff"}
+# K4's launches a rank in the sound step: each layer's forward and its
+# remat recompute in the backward, so 2 x layers on tensor and fsdp, and
+# 2 x (layers / 2 stages) x MESH_TRAIN_MICRO microbatches on pipe.
+MESH_TRAIN_K4 = {"tensor": 2 * MESH_TRAIN_LAYERS, "fsdp": 2 * MESH_TRAIN_LAYERS,
+                 "pipe": 2 * (MESH_TRAIN_LAYERS // 2) * MESH_TRAIN_MICRO}
+# ``mesh_train_moe``: Mixtral width, 1 layer, expert=2, capacity-factor
+# dispatch; the loss (with the aux loss) and the grad norm against one
+# device's, bit for bit: every sound reading on an H100 was exactly the
+# one device's (PERF.md).  Planted, each must fail: the aux loss averaged
+# per rank over its own experts, and the f op's gradient sum over
+# ``expert`` dropped (on the dispatched rows and the combine weights).
+MESH_MOE_TRAIN_BATCH, MESH_MOE_TRAIN_LAYERS = 2, 1
+MESH_MOE_TRAIN_TOL = dict(loss=0.0, grad_norm=0.0)
+MESH_MOE_TRAIN_FAULTS = ("aux_per_rank", "expert_f_sum")
+
+
+class _GatherNoSum:
+    """A planted fault: fsdp gathers whose gradient is this rank's slice of
+    its own gradient (the sum over fsdp dropped)."""
+
+    @staticmethod
+    def make(torch):
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, group, dim):
+                ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+                return group.all_gather(x.contiguous(), dim)
+
+            @staticmethod
+            def backward(ctx, g):
+                return g.narrow(ctx.dim, ctx.group.index * ctx.n, ctx.n), None, None
+
+        return Fn
+
+
+class _ZeroGradient:
+    """A planted fault: identity forward, zero gradient (a hand-off whose
+    gradient is lost)."""
+
+    @staticmethod
+    def make(torch):
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                return torch.zeros_like(g)
+
+        return Fn
+
+
+_PLANTED: list = []
+
+
+def _rank_plant(ctx, fault=None) -> None:
+    """Plant ``fault`` in this rank's process (None: restore every seam).
+    Each fault wraps one of the rank context's collectives (an instance
+    attribute over the method, deleted again on restore) or one model
+    function, as the fault names:
+
+    * ``norm_grad_sum``: the fsdp gathers of the norm gains (the only 1-D
+      leaves of a Llama layer) lose their gradient's sum over ``fsdp``;
+    * ``qkv_f_sum``: the f op over ``tensor`` on q/k/v's input (the output
+      of ``block_norm(..., "attn_norm")``, tagged) is the identity both
+      ways;
+    * ``last_microbatch_handoff``: stage 0's hand-off of the last
+      microbatch (its ``MESH_TRAIN_MICRO``-th ``ppermute`` over ``pipe``)
+      passes no gradient back;
+    * ``aux_per_rank``: the MoE's aux term counts only this rank's experts
+      and is averaged over the ``expert`` axis;
+    * ``expert_f_sum``: the f op over ``expert`` (on the dispatched rows
+      and the combine weights) is the identity both ways."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.models import llama
+
+    while _PLANTED:
+        undo = _PLANTED.pop()
+        undo()
+    if fault is None:
+        return
+
+    def wrap_ctx(name, fn):
+        real = getattr(ctx, name)
+        setattr(ctx, name, lambda *a, **k: fn(real, *a, **k))
+        _PLANTED.append(lambda: delattr(ctx, name))
+
+    def patch(mod, name, fn):
+        real = getattr(mod, name)
+        setattr(mod, name, fn)
+        _PLANTED.append(lambda: setattr(mod, name, real))
+
+    if fault == "norm_grad_sum":
+        nosum = _GatherNoSum.make(torch)
+
+        def all_gather(real, x, axis, dim=0):
+            if axis == "fsdp" and x.dim() == 1:
+                return nosum.apply(x, ctx.groups["fsdp"], dim)
+            return real(x, axis, dim)
+
+        wrap_ctx("all_gather", all_gather)
+    elif fault == "qkv_f_sum":
+        real_norm = llama.block_norm
+
+        def block_norm(x, cfg, lp, name):
+            y = real_norm(x, cfg, lp, name)
+            y.planted_qkv_input = name == "attn_norm"
+            return y
+
+        patch(llama, "block_norm", block_norm)
+        wrap_ctx("copy_to", lambda real, x, axis: x if getattr(x, "planted_qkv_input", False) else real(x, axis))
+    elif fault == "last_microbatch_handoff":
+        zero, ticks = _ZeroGradient.make(torch), [0]
+
+        def ppermute(real, x, axis, perm):
+            if axis == "pipe":
+                if ctx.index("pipe") == 0 and ticks[0] == MESH_TRAIN_MICRO - 1:
+                    x = zero.apply(x)
+                ticks[0] += 1
+            return real(x, axis, perm)
+
+        wrap_ctx("ppermute", ppermute)
+    elif fault == "aux_per_rank":
+        def moe_aux_terms(frac, mean_prob, n_experts):
+            ep = ctx.size("expert")
+            e0 = ctx.index("expert") * (n_experts // ep)
+            own = slice(e0, e0 + n_experts // ep)
+            return ctx.psum(n_experts * (frac[:, own] * mean_prob[:, own]).sum(-1), "expert") / ep
+
+        patch(llama, "moe_aux_terms", moe_aux_terms)
+    elif fault == "expert_f_sum":
+        wrap_ctx("copy_to", lambda real, x, axis: x if axis == "expert" else real(x, axis))
+    else:
+        raise ValueError(f"unknown planted fault {fault!r}")
+
+
+def _rank_peak_reset(ctx) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _rank_rss(ctx) -> dict:
+    """This rank's host resident set (GB) and checkpoint byte counts."""
+    from generativeaiexamples_tpu_torch.engine import weights
+
+    with open("/proc/self/status") as fh:
+        rss = next(int(line.split()[1]) for line in fh if line.startswith("VmRSS:"))
+    return {"rank": ctx.rank, "rss_gb": rss * 1024 / 1e9, **weights.CHECKPOINT_STATS}
+
+
+def _train_batch(torch, dev, cfg, b: int, s: int, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device=dev, dtype=torch.int32)
+    return {"tokens": ids[:, :-1].cpu().numpy(), "targets": ids[:, 1:].cpu().numpy(),
+            "mask": torch.ones((b, s), dtype=torch.float32).numpy()}
+
+
+def _rank_moved(ctx, key, want: dict) -> dict:
+    """Against ``want`` (the single device's updated leaves, whole, on the
+    card: the runtime's pipe hands a follower CUDA tensors by IPC, so
+    nothing is copied), each local leaf's count of elements more than
+    STEP_ATOL (0.1 x lr) apart, its size and its largest difference."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.utils.trees import flatten
+    from generativeaiexamples_tpu_torch.parallel.mesh import shard_slices
+
+    st = ctx.state[key]
+    spec_of = dict(flatten(st.specs))
+    out = {}
+    for p, a in flatten(st.params):
+        w = want[p][shard_slices(tuple(want[p].shape), spec_of[p], ctx.sizes, ctx.coords)]
+        d = (a.float() - w.float()).abs()
+        out[p] = (int((d > 0.1 * MESH_TRAIN_LR).sum()), d.numel(), float(d.max()))
+    torch.cuda.synchronize()
+    return out
+
+
+def _moved_apart(mesh, key, want: dict) -> dict:
+    """Each leaf's share of elements more than STEP_ATOL from the single
+    device's updated leaf, and its largest difference, counted on the
+    ranks (a replicated leaf counts alike on each of its ranks)."""
+    counts = mesh.run(_rank_moved, key, want, gather=True)
+    return {p: (sum(c[p][0] for c in counts) / sum(c[p][1] for c in counts), max(c[p][2] for c in counts))
+            for p in counts[0]}
+
+
+def _train_gate(reading: dict, ref: dict, tol: dict) -> tuple[dict, list]:
+    err = {k: _rel(reading[k], ref[k]) for k in ("loss", "grad_norm")}
+    if "moved" in reading:
+        err["moved"] = max(v[0] for v in reading["moved"].values())
+    return err, [k for k in tol if k in err and err[k] > tol[k]]
+
+
+def mesh_train_phase(torch, dev, smi, runtime) -> dict:
+    """``mesh_train``: one single-device step, then a sound step and a
+    planted one on each of MESH_TRAIN_SPECS; gates on loss, grad norm and
+    the updated leaves (``MESH_TRAIN_TOL``), K4 exactly ``MESH_TRAIN_K4``
+    times a rank.  Returns each mesh's launches per rank."""
+    from generativeaiexamples_tpu_torch.engine import training
+    from generativeaiexamples_tpu_torch.utils.trees import flatten
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel.mesh import MeshSpec, fsdp_rules
+    from generativeaiexamples_tpu_torch.parallel.pipeline import make_pipeline_train_step, pipeline_rules
+
+    t_phase = time.perf_counter()
+    cfg = llama.llama3_8b(n_layers=MESH_TRAIN_LAYERS)
+    opt = training.make_optimizer(MESH_TRAIN_LR)
+    batch = _train_batch(torch, dev, cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_SEED + 1)
+    tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED)
+
+    state = training.init_train_state(cfg, opt, generator(), device=dev)
+    step = training.make_train_step(cfg, opt)
+    dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, m = step(state, dev_batch)
+    single = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    torch.cuda.synchronize()
+    single.update(step_ms=(time.perf_counter() - t0) * 1e3, peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    single["tokens_per_s"] = tokens / single["step_ms"] * 1e3
+    # The single device's updated params stay on the card for the ranks'
+    # comparisons (5.6 GB; the moments and gradients are freed).
+    want = dict(flatten(state.params))
+    del state, step, m, dev_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fields = dict(nvidia_smi=smi, model=f"llama3-8b width, {MESH_TRAIN_LAYERS} of 32 layers, bf16, remat, random "
+                  f"from seed {MESH_TRAIN_SEED}", batch=[MESH_TRAIN_BATCH, MESH_TRAIN_SEQ],
+                  optimizer=f"AdamW lr {MESH_TRAIN_LR}", tolerance=MESH_TRAIN_TOL, single_device=single)
+    failures, launches = [], {}
+    emit("mesh_train_progress", single_device=single)
+    try:
+        for name, spec in MESH_TRAIN_SPECS:
+            mesh = runtime.new_mesh(MeshSpec(**{"tensor": 1, **spec}).resolve(2))
+            pipe = name == "pipe"
+            rules = pipeline_rules() if pipe else fsdp_rules()
+
+            def one_step(fault=None):
+                st = training.init_train_state(cfg, opt, generator(), mesh=mesh, rules=rules)
+                stepper = (make_pipeline_train_step(cfg, opt, mesh, n_micro=MESH_TRAIN_MICRO) if pipe
+                           else training.make_train_step(cfg, opt, mesh=mesh))
+                mesh.run(_rank_plant, fault)
+                mesh.run(_rank_reset)
+                mesh.run(_rank_peak_reset)
+                try:
+                    t0 = time.perf_counter()
+                    st, metrics = stepper(st, batch)
+                    ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    mesh.run(_rank_plant, None)
+                counts = mesh.run(_rank_counts, gather=True)
+                emit("mesh_train_progress", layout=name, planted=fault, step_ms=ms, **metrics)
+                reading = dict(metrics, step_ms=ms, moved=_moved_apart(mesh, st.key, want))
+                st.release()
+                return reading, counts
+
+            fault = MESH_TRAIN_FAULTS[name]
+            planted, _ = one_step(fault)
+            sound, counts = one_step()
+            err, failed = _train_gate(sound, single, MESH_TRAIN_TOL)
+            f_err, f_failed = _train_gate(planted, single, MESH_TRAIN_TOL)
+            k4 = {c["rank"]: c["launches"]["flash_attention"] for c in counts}
+            if failed:
+                failures.append(f"{name}: the mesh step against one device's {err} fails {failed} ({MESH_TRAIN_TOL})")
+            if not f_failed:
+                failures.append(f"{name}: the planted {fault!r} passes every gate: {f_err}")
+            if set(k4.values()) != {MESH_TRAIN_K4[name]}:
+                failures.append(f"{name}: K4 launched {k4} times a rank, not {MESH_TRAIN_K4[name]}")
+            launches[f"train_{name}"] = {c["rank"]: c["launches"] for c in counts}
+            worst = sorted(sound["moved"].items(), key=lambda kv: -kv[1][0])[:4]
+            fields[name] = dict(
+                mesh=f"MeshSpec({', '.join(f'{k}={v}' for k, v in spec.items())}) on [cuda:0, cuda:0]"
+                + (f", n_micro {MESH_TRAIN_MICRO}" if pipe else ""),
+                loss=sound["loss"], grad_norm=sound["grad_norm"], vs_single=err, most_moved_leaves=dict(worst),
+                step_ms=sound["step_ms"], tokens_per_s=tokens / sound["step_ms"] * 1e3,
+                vs_single_tokens_per_s=single["step_ms"] / sound["step_ms"], k4_launches=k4,
+                ranks={c["rank"]: {**c["comm"], "staged_mb": c["comm"]["staged_bytes"] / 1e6,
+                                   "payload_mb": c["comm"]["payload_bytes"] / 1e6, "by_op": c["by_op"],
+                                   "device_gb": c["device_gb"], "peak_gb": c["peak_gb"]} for c in counts},
+                planted={"fault": fault, "loss": planted["loss"], "grad_norm": planted["grad_norm"], "vs_single": f_err,
+                         "fails": f_failed})
+            emit("mesh_train_step", layout=name, **fields[name])
+    finally:
+        del want
+    gc.collect()
+    fields["phase_s"] = time.perf_counter() - t_phase
+    emit("mesh_train", **{k: v for k, v in fields.items() if k not in dict(MESH_TRAIN_SPECS)})
+    if failures:
+        raise AssertionError(f"mesh_train: {failures}")
+    return launches
+
+
+def mesh_train_moe_phase(torch, dev, smi, runtime) -> dict:
+    """``mesh_train_moe``: Mixtral width at 1 layer, expert=2, capacity
+    dispatch; the loss and grad norm of one step against one device's
+    (``MESH_MOE_TRAIN_TOL``), each planted fault failing them, K4 twice a
+    rank."""
+    from generativeaiexamples_tpu_torch.engine import mesh_training, training
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel.mesh import MeshSpec
+
+    t_phase = time.perf_counter()
+    cfg = llama.mixtral_8x7b(n_layers=MESH_MOE_TRAIN_LAYERS)
+    opt = training.make_optimizer(MESH_TRAIN_LR)
+    batch = _train_batch(torch, dev, cfg, MESH_MOE_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_SEED + 2)
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED + 3)
+
+    state = training.init_train_state(cfg, opt, generator(), device=dev)
+    t0 = time.perf_counter()
+    _, m = training.make_train_step(cfg, opt)(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    single = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    torch.cuda.synchronize()
+    single["step_ms"] = (time.perf_counter() - t0) * 1e3
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = runtime.new_mesh(MeshSpec(expert=2, tensor=1).resolve(2))
+    st = training.init_train_state(cfg, opt, generator(), mesh=mesh)
+    planted = {}
+    try:
+        rows = mesh_training.rank_rows(mesh, batch)
+        for fault in MESH_MOE_TRAIN_FAULTS:
+            mesh.run(_rank_plant, fault)
+            try:
+                f_loss, f_norm = mesh.run(mesh_training.loss_and_norm, st.key, rank_args=rows)
+            finally:
+                mesh.run(_rank_plant, None)
+            f_err, f_failed = _train_gate({"loss": f_loss, "grad_norm": f_norm}, single, MESH_MOE_TRAIN_TOL)
+            planted[fault] = {"loss": f_loss, "grad_norm": f_norm, "vs_single": f_err, "fails": f_failed}
+        mesh.run(_rank_reset)
+        t0 = time.perf_counter()
+        st, metrics = training.make_train_step(cfg, opt, mesh=mesh)(st, batch)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = mesh.run(_rank_counts, gather=True)
+    finally:
+        st.release()
+    err, failed = _train_gate(metrics, single, MESH_MOE_TRAIN_TOL)
+    k4 = {c["rank"]: c["launches"]["flash_attention"] for c in counts}
+    emit("mesh_train_moe", nvidia_smi=smi, model=f"mixtral-8x7b width, {MESH_MOE_TRAIN_LAYERS} of 32 layers, bf16, "
+         f"capacity-factor dispatch, random from seed {MESH_TRAIN_SEED + 3}", batch=[MESH_MOE_TRAIN_BATCH,
+         MESH_TRAIN_SEQ], mesh="MeshSpec(expert=2) on [cuda:0, cuda:0]: 4 experts a rank", single_device=single,
+         loss=metrics["loss"], grad_norm=metrics["grad_norm"], vs_single=err, tolerance=MESH_MOE_TRAIN_TOL,
+         step_ms=ms, k4_launches=k4, ranks={c["rank"]: {**c["comm"], "by_op": c["by_op"], "peak_gb": c["peak_gb"]}
+                                            for c in counts},
+         planted=planted, phase_s=time.perf_counter() - t_phase)
+    failures = []
+    if failed:
+        failures.append(f"the mesh step against one device's {err} fails {failed}")
+    failures += [f"the planted {f!r} passes the gates: {r['vs_single']}" for f, r in planted.items() if not r["fails"]]
+    # K4 a rank: the layer's forward and its remat recompute.
+    if set(k4.values()) != {2 * MESH_MOE_TRAIN_LAYERS}:
+        failures.append(f"K4 launched {k4} times a rank, not {2 * MESH_MOE_TRAIN_LAYERS}")
+    if failures:
+        raise AssertionError(f"mesh_train_moe: {failures}")
+    return {"train_moe": {c["rank"]: c["launches"] for c in counts}}
+
+
+def _checkpoint_dir(need_bytes: int) -> tuple[str, str]:
+    """A temporary directory on tmpfs when ``/dev/shm`` has room for the
+    checkpoint (twice over), else in the default temporary directory."""
+    import shutil
+    import tempfile
+
+    if os.path.isdir("/dev/shm") and shutil.disk_usage("/dev/shm").free > 2 * need_bytes:
+        return tempfile.mkdtemp(prefix="gaie-ckpt-", dir="/dev/shm"), "/dev/shm (tmpfs)"
+    return tempfile.mkdtemp(prefix="gaie-ckpt-"), f"{tempfile.gettempdir()} (/dev/shm too small)"
+
+
+def _rank_same(ctx, key, whole: dict) -> dict:
+    """This rank's shards of the state under ``key`` against the same
+    slices of ``whole`` (a checkpoint loaded whole on one device: the
+    runtime's pipe hands a follower its CUDA tensors by IPC), leaf by leaf,
+    bit for bit; the leaves that differ."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.utils.trees import flatten
+    from generativeaiexamples_tpu_torch.parallel.mesh import shard_slices
+
+    st = ctx.state[key]
+    spec_of = dict(flatten(st.specs))
+    trees = {"params": st.params, "mu": st.opt_state.mu, "nu": st.opt_state.nu}
+    differ, checked = [], 0
+    for name, tree in trees.items():
+        full = dict(flatten(whole[name]))
+        for p, x in flatten(tree):
+            w = full[p][shard_slices(tuple(full[p].shape), spec_of[p], ctx.sizes, ctx.coords)]
+            checked += x.numel()
+            if x.dtype != w.dtype or not torch.equal(x, w):
+                differ.append(f"{name}/{p}")
+    if (whole["step"], whole["count"]) != (st.step, st.opt_state.count):
+        differ.append(f"step/count {whole['step']}/{whole['count']} against {st.step}/{st.opt_state.count}")
+    return {"rank": ctx.rank, "differ": differ, "elements_checked": checked}
+
+
+def mesh_ckpt_phase(torch, dev, smi, runtime, prompts) -> dict:
+    """``mesh_ckpt``: the tensor=2 state of a 1-layer Llama-3-8B-width
+    model (full vocabulary; params and both moments after a step) saved by
+    its ranks; loaded onto fsdp=2 (each rank reads only its slices) and
+    onto one device; every rank holds its shards of both mesh states
+    against the one-device load bit for bit (so the file holds the saved
+    state, and each load reads it back; the load reaches the follower by
+    CUDA IPC); then ``Scheduler(mesh=tensor=2)``
+    serves from it through ``RankParams("sharded")``: one chat completion
+    through the engine's HTTP front, K2 and K4 on both ranks."""
+    import dataclasses
+    import shutil
+
+    from generativeaiexamples_tpu_torch.engine import mesh_serving, mesh_training, training, weights
+    from generativeaiexamples_tpu_torch.engine.scheduler import Scheduler
+    from generativeaiexamples_tpu_torch.engine.server import create_engine_app
+    from generativeaiexamples_tpu_torch.engine.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel.mesh import MeshSpec, fsdp_rules
+
+    t_phase = time.perf_counter()
+    cfg = llama.llama3_8b(n_layers=1)
+    opt = training.make_optimizer(MESH_TRAIN_LR)
+    shapes = llama.param_shapes(cfg)
+    n_params = sum(math.prod(v) for k, v in shapes.items() if k != "layers") + sum(
+        math.prod(v) for v in shapes["layers"].values())
+    total = 3 * 2 * n_params  # bf16 params and both moments
+    path_root, where = _checkpoint_dir(total)
+    path = os.path.join(path_root, "state")
+    fields = dict(nvidia_smi=smi, model="llama3-8b width, 1 layer, full vocabulary, bf16", directory=where,
+                  tree_gb=total / 1e9)
+    failures, counts = [], []
+    tp = runtime.new_mesh(MeshSpec(tensor=2).resolve(2))
+    fs = runtime.new_mesh(MeshSpec(fsdp=2, tensor=1).resolve(2))
+    st = st2 = None
+    try:
+        st = training.init_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED + 4),
+                                       mesh=tp)
+        st, _ = training.make_train_step(cfg, opt, mesh=tp)(st, _train_batch(torch, dev, cfg, 2, 256, 7))
+        t0 = time.perf_counter()
+        written = mesh_training.save(st, path)
+        write_s = time.perf_counter() - t0
+        fields.update(written_gb=written / 1e9, write_s=write_s, write_gb_per_s=written / 1e9 / write_s)
+        emit("mesh_ckpt_progress", saved=fields)
+        before = fs.run(_rank_rss, gather=True)
+        t0 = time.perf_counter()
+        st2 = mesh_training.new_state(fs, "llama", cfg, opt, fsdp_rules(), ("checkpoint", path))
+        read_s = time.perf_counter() - t0
+        after = fs.run(_rank_rss, gather=True)
+        read = [a["read_bytes"] - b["read_bytes"] for a, b in zip(after, before)]
+        fields["fsdp2"] = dict(read_s=read_s, read_gb_per_s=sum(read) / 1e9 / read_s,
+                               read_gb_by_rank=[r / 1e9 for r in read], rss_gb_by_rank=[a["rss_gb"] for a in after])
+        if any(r > total / 2 + 1e6 for r in read):
+            failures.append(f"fsdp=2: a rank read more than its half: {read} of {total}")
+        t0 = time.perf_counter()
+        whole = weights.load_checkpoint(path, device=dev)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        fields["one_device"] = dict(read_s=one_s, read_gb_per_s=total / 1e9 / one_s)
+        emit("mesh_ckpt_progress", loaded={k: fields[k] for k in ("fsdp2", "one_device")})
+        for what, mesh, key in (("tensor=2 (saved)", tp, st.key), ("fsdp=2 (loaded)", fs, st2.key)):
+            for r in mesh.run(_rank_same, key, whole, gather=True):
+                fields.setdefault("bit_for_bit", {}).setdefault(what, []).append(r)
+                if r["differ"]:
+                    failures.append(f"{what}: rank {r['rank']}'s {r['differ'][:4]} differ from the one-device load")
+        del whole
+        st.release()
+        st2.release()
+        st = st2 = None
+
+        sched = Scheduler(dataclasses.replace(cfg, kv_dtype="int8"), mesh_serving.RankParams("sharded", path=path),
+                          mesh=tp, **serve_kw("contiguous"))
+        try:
+            tp.run(_rank_reset)
+            server = create_engine_app(sched, get_tokenizer("llama3-8b"), "llama3-8b", "127.0.0.1", 0)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            sched.start()
+            try:
+                body = {"model": "llama3-8b", "messages": [{"role": "user", "content": prompts["completions"][0]}],
+                        "max_tokens": 16, "temperature": 0.0}
+                req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/v1/chat/completions",
+                                             json.dumps(body).encode(), {"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    status, out = resp.status, json.loads(resp.read())
+            finally:
+                server.shutdown()
+                server.server_close()
+                sched.stop()
+                thread.join(timeout=10)
+            counts = tp.run(_rank_counts, gather=True)
+            rss = tp.run(_rank_rss, gather=True)
+        finally:
+            sched.release_mesh()
+        served = {c["rank"]: {k: c["launches"][k] for k in ("decode_attention", "flash_attention")} for c in counts}
+        fields["serve"] = dict(status=status, completion_tokens=out["usage"]["completion_tokens"], launches=served,
+                               rss_gb_by_rank=[r["rss_gb"] for r in rss], shard_params_gb=n_params * 2 / 2 / 1e9)
+        if status != 200 or out["usage"]["completion_tokens"] < 1:
+            failures.append(f"serve: status {status}, {out.get('usage')}")
+        # One layer: K4 once a prefill chunk of the prompt, K2 once a decode
+        # step, and the decode runs whole chunks past the prefill's token.
+        kw = serve_kw("contiguous")
+        chunk = kw["decode_chunk_size"]
+        want = {"decode_attention": chunk * math.ceil((out["usage"]["completion_tokens"] - 1) / chunk),
+                "flash_attention": math.ceil(out["usage"]["prompt_tokens"] / kw["prefill_chunk_tokens"])}
+        fields["serve"]["launches_expected"] = want
+        if any(v != want for v in served.values()):
+            failures.append(f"serve: launches {served}, not {want} a rank")
+    finally:
+        for state in (st, st2):
+            if state is not None:
+                state.release()
+        shutil.rmtree(path_root, ignore_errors=True)
+    fields["phase_s"] = time.perf_counter() - t_phase
+    emit("mesh_ckpt", **fields)
+    if failures:
+        raise AssertionError(f"mesh_ckpt: {failures}")
+    return {"ckpt_serve": {c["rank"]: c["launches"] for c in counts}}
+
+
 def mesh_serve_step(torch, name, sched, prompts, counts):
     """Serve ``prompts``' 8 concurrent completions and one streaming chat
     through the engine's HTTP front on ``sched``; ``counts()`` zeroes
@@ -10053,10 +10650,12 @@ def mesh_stream_gate(torch, cfg, params, single: dict, mesh_streams: dict, gaps_
 
 
 def mesh_phases(torch, dev, _cuda, smi, prompts) -> dict:
-    """The ``mesh`` group: ``mesh_serve``, ``mesh_seq``, ``mesh_moe`` and
-    last ``mesh_fault``, on one pair of follower processes (rank 1 of every
+    """The ``mesh`` group: ``mesh_serve``, ``mesh_seq``, ``mesh_moe``,
+    ``mesh_train``, ``mesh_train_moe``, ``mesh_ckpt`` and last
+    ``mesh_fault``, on one pair of follower processes (rank 1 of every
     mesh; rank 0 is this process), each rank on ``cuda:0``.  Returns each
-    kernel's launches per rank in ``mesh_serve``, by layout."""
+    kernel's launches per rank in ``mesh_serve`` by layout and in the
+    training phases by mesh."""
     import dataclasses
 
     from generativeaiexamples_tpu_torch.engine import mesh_serving
@@ -10086,7 +10685,8 @@ def mesh_phases(torch, dev, _cuda, smi, prompts) -> dict:
         fields: dict = dict(nvidia_smi=smi, model=f"llama3-8b, {MESH_LAYERS} of 32 layers, full width",
                             weights="random weight-only int8 (seed 0), int8 KV cache",
                             mesh="MeshSpec(tensor=2) on [cuda:0, cuda:0]: two processes on one card",
-                            transport=mesh.ctx.groups["tensor"].transport, mesh_ready_s=ready_s)
+                            transport=mesh.ctx.groups["tensor"].transport,
+                            shared_line=mesh.ctx.groups["tensor"].shared is not None, mesh_ready_s=ready_s)
 
         def counts_all(reset):
             if reset:
@@ -10244,6 +10844,17 @@ def mesh_phases(torch, dev, _cuda, smi, prompts) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
+        # --- mesh_train, mesh_train_moe, mesh_ckpt ----------------------------
+        per_rank.update(mesh_train_phase(torch, dev, smi, runtime))
+        gc.collect()
+        torch.cuda.empty_cache()
+        per_rank.update(mesh_train_moe_phase(torch, dev, smi, runtime))
+        gc.collect()
+        torch.cuda.empty_cache()
+        per_rank.update(mesh_ckpt_phase(torch, dev, smi, runtime, prompts))
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # --- mesh_fault -----------------------------------------------------
         t_phase = time.perf_counter()
         sched = Scheduler(dataclasses.replace(cfg, n_layers=2), mesh_serving.RankParams("seed", quantize=True),
@@ -10319,6 +10930,12 @@ def _time_mesh_chunk(torch, mesh, sched) -> dict:
 
 
 def main() -> int:
+    # SIGUSR1 prints every thread's stack (a stalled run is located by
+    # sending it, as ``timeout -s USR1`` does).
+    import faulthandler
+    import signal
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     # The run uses one card: only the first visible one is exposed, so the
     # device count in the last line is 1 whatever else the machine holds.
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -10368,6 +10985,7 @@ def main() -> int:
         # alone, for work on the mesh (the whole script runs with no
         # arguments).
         check_mesh_rank(torch, dev, [])
+        check_flash_train(torch, dev, [], **MESH_TRAIN_RANK_FLASH)
         mesh_phases(torch, dev, _cuda, smi, make_prompts())
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -10392,6 +11010,8 @@ def main() -> int:
     # A mesh rank's shapes (mesh_serve, tensor=2).
     for name, row in check_mesh_rank(torch, dev, log).items():
         summary[name]["mesh_rank"] = row
+    # K4 at a tensor=2 training rank's shape (mesh_train).
+    summary["flash_attention"]["mesh_train_rank"] = check_flash_train(torch, dev, log, **MESH_TRAIN_RANK_FLASH)
     if log:
         emit("notes", notes=log)
     check_reference(torch, dev)
@@ -10528,6 +11148,12 @@ def main() -> int:
             kernels[-1]["warm"] = {k: {f: h[f] for f in timed + ("t", "first_position", "hd")} for k, h in warm.items()}
             kernels[-1]["vlm_prefill"] = {k: {f: h[f] for f in timed + ("s", "t", "first_position", "hd")}
                                           for k, h in vlm_k4.items()}
+        if "mesh_train_rank" in s:
+            h = s["mesh_train_rank"]
+            kernels[-1]["mesh_train_rank"] = {
+                **{k: h[k] for k in timed + ("b", "s", "nq", "nkv", "hd")},
+                "launches": {phase: ranks for phase, ranks in kernels[-1]["mesh_launches"].items()
+                             if phase.startswith("train")}}
         if "mesh_rank" in s:
             h = s["mesh_rank"]
             kernels[-1]["mesh_rank"] = {

@@ -93,13 +93,25 @@ def _delta(a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.einsum("lir,lro->lio", a, b) * scale
 
 
-def apply_lora(params: llama.Params, lora_params: dict, lora: LoRAConfig) -> llama.Params:
+def apply_lora(params: llama.Params, lora_params: dict, lora: LoRAConfig, mesh=None) -> llama.Params:
     """Effective params: W + scale * A @ B per adapted layer weight (a pure
-    function of base and adapters; the training loss differentiates it)."""
+    function of base and adapters; the training loss differentiates it).
+
+    With ``mesh`` (a rank's context) ``params`` holds this rank's shards
+    and the adapters are whole: each rank forms only its slice of ``A @
+    B``, B's columns for a target sharded on its output axis (wq, wk, wv,
+    gate, up), A's rows for one sharded on its input axis (wo, down)."""
     layers = dict(params["layers"])
     for name, ab in lora_params.items():
         base = params["layers"][name]
-        layers[name] = base + _delta(ab["a"], ab["b"], lora.scale).to(base.dtype)
+        a, b = ab["a"], ab["b"]
+        if mesh is not None and base.shape[1] != a.shape[1]:
+            n = base.shape[1]
+            a = a[:, mesh.index("tensor") * n : (mesh.index("tensor") + 1) * n]
+        if mesh is not None and base.shape[2] != b.shape[2]:
+            n = base.shape[2]
+            b = b[:, :, mesh.index("tensor") * n : (mesh.index("tensor") + 1) * n]
+        layers[name] = base + _delta(a, b, lora.scale).to(base.dtype)
     return {**params, "layers": layers}
 
 
@@ -113,8 +125,25 @@ def make_lora_train_step(cfg: llama.LlamaConfig, lora: LoRAConfig, optimizer: tr
                          base_params: llama.Params, mesh=None):
     """``train_step(state, batch) -> (state, metrics)`` over adapter params
     only: ``state.params`` is the adapter tree, ``base_params`` a constant
-    of the loss (left bit for bit as it is)."""
-    training._no_mesh(mesh)
+    of the loss (left bit for bit as it is).
+
+    With ``mesh`` the base (a tree of tensors or numpy) is sent once and
+    sharded by the default rules, the adapters are replicated on every
+    rank (a one-device state is sent at the first step; the step returns
+    a ``MeshTrainState``), each rank adapts its slice of each target
+    (:func:`apply_lora`), and the adapters' gradients are summed over
+    ``tensor`` and over the axes that split the batch."""
+    if mesh is not None:
+        from generativeaiexamples_tpu_torch.engine import mesh_training
+
+        base_host = mesh_training.host_tree(base_params)
+
+        def mesh_step(state, batch):
+            if isinstance(state, training.TrainState):
+                state = mesh_training.upload(mesh, "lora", cfg, optimizer, None, state, base=base_host, lora=lora)
+            return mesh_training.run_step(state, batch)
+
+        return mesh_step
 
     def loss(adapters, b):
         eff = apply_lora(base_params, adapters, lora)

@@ -34,7 +34,7 @@ from generativeaiexamples_tpu_torch.engine.sampler import sample
 from generativeaiexamples_tpu_torch.models import llama
 
 # Where ``Scheduler(mesh=...)`` refuses a feature this slice does not carry.
-MESH_LATER = "ROADMAP.md Queue 1 item 10b-ii"
+MESH_LATER = "ROADMAP.md Queue 1 item 10b-iii"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +42,13 @@ class RankParams:
     """Where each rank gets its weights, so the controller never ships a
     whole tree: ``"seed"`` (random, drawn on each rank from the sampling
     generator's seed, as the single-device scheduler draws them),
-    ``"tree"`` (a small tree, numpy or CPU tensors, sent to every rank) or
-    ``"checkpoint"`` (an HF checkpoint directory every rank reads).
+    ``"tree"`` (a small tree, numpy or CPU tensors, sent to every rank),
+    ``"checkpoint"`` (an HF checkpoint directory every rank reads) or
+    ``"sharded"`` (the port's checkpoint format, ``engine.weights.
+    save_checkpoint``: each rank reads only its slice of each leaf).
     ``quantize`` turns the projections, head and embedding into
-    weight-only int8 before slicing."""
+    weight-only int8 before slicing (not for ``"sharded"``, whose slices
+    are never whole)."""
 
     kind: str = "seed"
     tree: Any = None
@@ -94,6 +97,12 @@ def setup(ctx, key: str, cfg: llama.LlamaConfig, source: RankParams, max_batch: 
 
         params = prepare_params(cfg, load_hf_causal_lm(cfg, source.path, device="cpu"), device=dev,
                                 quantize=source.quantize, mesh=ctx)
+    elif source.kind == "sharded":
+        from generativeaiexamples_tpu_torch.engine.weights import load_checkpoint_shard
+
+        if source.quantize:
+            raise ValueError("a sharded checkpoint is read slice by slice: quantize it before saving")
+        params = load_checkpoint_shard(cfg, source.path, ctx.sizes, ctx.coords, dev)
     else:
         raise ValueError(f"unknown RankParams kind {source.kind!r}")
     lc = llama.local_config(cfg, ctx)

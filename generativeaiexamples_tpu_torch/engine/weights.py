@@ -955,3 +955,240 @@ def shard_params(tree, cfg, sizes, coords, device) -> dict:
     out = {k: leaf(v, specs[k]) for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: leaf(v, specs["layers"][k]) for k, v in tree["layers"].items()}
     return head_for_logits(out, cfg)
+
+
+# -- the port's checkpoint format (one device or a mesh) ------------------------
+#
+# It replaces the reference's orbax checkpoints (``save_orbax``,
+# ``load_orbax``, ``load_orbax_sharded``), a JAX format neither machine can
+# read without tensorstore.  A checkpoint is a directory: ``index.json``
+# (each leaf's tree path, whole shape, dtype and file, the step and Adam's
+# count) and one ``.npy`` a leaf (bfloat16 stored as its uint16 bits).
+# Over a mesh the controller writes the headers, each rank writes only its
+# slice into the memory maps (a replicated slice by one rank) and reads
+# only its slice back, so a state saved on one mesh shape loads onto
+# another or onto one device, and the reverse.
+
+CHECKPOINT_FORMAT = "generativeaiexamples-torch-checkpoint/1"
+# Bytes of leaf data this process wrote and read (a rank reads only its
+# slices: the tests and ``chip_smoke.py`` read these).
+CHECKPOINT_STATS = {"written_bytes": 0, "read_bytes": 0}
+
+
+def _npy_dtype(name: str):
+    return np.dtype("<u2") if name == "bfloat16" else np.dtype(name)
+
+
+def _leaf_file(path: str) -> str:
+    return path.replace("/", ".") + ".npy"
+
+
+def create_checkpoint(path: str, leaves: dict, *, step: int = 0, count: int = 0) -> None:
+    """A checkpoint's index and the ``.npy`` header of every leaf, its data
+    still to be written (``leaves``: tree path -> (whole shape, dtype
+    name))."""
+    os.makedirs(path, exist_ok=True)
+    index = {"format": CHECKPOINT_FORMAT, "step": int(step), "count": int(count), "leaves": {}}
+    for name, (shape, dtype) in leaves.items():
+        f = _leaf_file(name)
+        np.lib.format.open_memmap(os.path.join(path, f), mode="w+", dtype=_npy_dtype(dtype),
+                                  shape=tuple(shape)).flush()
+        index["leaves"][name] = {"shape": list(shape), "dtype": dtype, "file": f}
+    with open(os.path.join(path, "index.json"), "w") as fh:
+        json.dump(index, fh, indent=1)
+
+
+def _read_index(path: str) -> dict:
+    with open(os.path.join(path, "index.json")) as fh:
+        index = json.load(fh)
+    if index.get("format") != CHECKPOINT_FORMAT:
+        raise ValueError(f"{path} is not a checkpoint of this format ({index.get('format')!r})")
+    return index
+
+
+def _host_bits(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().contiguous().cpu()
+    return x.view(torch.uint16).numpy() if x.dtype == torch.bfloat16 else x.numpy()
+
+
+def _writer(spec, sizes, coords) -> bool:
+    """Whether this rank writes its slice of a leaf: the one rank at
+    coordinate 0 of every populated axis the leaf is replicated over."""
+    return all(coords[a] == 0 for a, n in sizes.items() if n > 1 and a not in tuple(spec))
+
+
+def _data_offset(path: str) -> int:
+    """Where a ``.npy`` file's array data starts."""
+    with open(path, "rb") as fh:
+        version = np.lib.format.read_magic(fh)
+        if version == (1, 0):
+            np.lib.format.read_array_header_1_0(fh)
+        else:
+            np.lib.format.read_array_header_2_0(fh)
+        return fh.tell()
+
+
+def _runs(shape, index) -> tuple[np.ndarray, int]:
+    """The contiguous runs of the block ``index`` (a slice a dimension) of
+    a C-order array of ``shape``: each run's offset in elements, in the
+    block's own order, and the run's length."""
+    shape = tuple(shape)
+    index = tuple(index) + (slice(None),) * (len(shape) - len(tuple(index)))
+    bounds = [sl.indices(n)[:2] for sl, n in zip(index, shape)]
+    k = len(shape) - 1
+    while k >= 0 and bounds[k] == (0, shape[k]):
+        k -= 1
+    if k < 0:
+        return np.zeros(1, np.int64), int(np.prod(shape, dtype=np.int64))
+    strides = np.cumprod((1,) + shape[::-1][:-1])[::-1].astype(np.int64)
+    run = (bounds[k][1] - bounds[k][0]) * int(strides[k])
+    offsets = np.asarray(bounds[k][0] * strides[k], np.int64)
+    for d in range(k - 1, -1, -1):
+        offsets = (np.arange(*bounds[d], dtype=np.int64)[:, None] * strides[d] + offsets.reshape(1, -1)).reshape(-1)
+    return offsets.reshape(-1), run
+
+
+# Leaves a process writes or reads at once: ``pwrite`` / ``preadv`` and the
+# copies to and from the card release the GIL, and a tmpfs page cache
+# takes new pages faster from several threads than from one.
+CHECKPOINT_IO_THREADS = 4
+
+
+def _each_leaf(fn, jobs: list) -> list:
+    """``fn(job)`` for every job on CHECKPOINT_IO_THREADS threads, in
+    order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if len(jobs) <= 1:
+        return [fn(j) for j in jobs]
+    with ThreadPoolExecutor(min(CHECKPOINT_IO_THREADS, len(jobs))) as pool:
+        return list(pool.map(fn, jobs))
+
+
+def write_checkpoint_shard(path: str, trees: dict, specs, sizes, coords) -> int:
+    """Write this rank's slice of every leaf of ``trees`` (name -> a tree
+    like ``specs``) into a checkpoint whose headers exist, one ``pwrite``
+    a contiguous run of the slice; returns the bytes written."""
+    from generativeaiexamples_tpu_torch.parallel.mesh import shard_slices
+    from generativeaiexamples_tpu_torch.utils.trees import flatten
+
+    index = _read_index(path)["leaves"]
+    spec_of = dict(flatten(specs))
+    jobs = [(index[f"{name}/{leaf_path}"], spec_of[leaf_path], x) for name, tree in trees.items()
+            for leaf_path, x in flatten(tree) if _writer(spec_of[leaf_path], sizes, coords)]
+
+    def write(job) -> int:
+        meta, spec, x = job
+        file = os.path.join(path, meta["file"])
+        offsets, run = _runs(meta["shape"], shard_slices(tuple(meta["shape"]), spec, sizes, coords))
+        data = memoryview(_host_bits(x).reshape(-1)).cast("B")
+        item, start = x.element_size(), _data_offset(file)
+        fd = os.open(file, os.O_WRONLY)
+        try:
+            for i, off in enumerate(offsets.tolist()):
+                os.pwrite(fd, data[i * run * item : (i + 1) * run * item], start + off * item)
+        finally:
+            os.close(fd)
+        return x.numel() * item
+
+    written = sum(_each_leaf(write, jobs))
+    CHECKPOINT_STATS["written_bytes"] += written
+    return written
+
+
+def read_checkpoint_shard(path: str, sizes, coords, device, specs_of, trees=None) -> dict:
+    """This rank's slice of every leaf of a checkpoint, as tensors on
+    ``device``: ``{"params", "mu", "nu"}`` (the trees it holds, or those
+    named in ``trees``), ``"step"`` and ``"count"``.  ``specs_of(params)``
+    gives the spec tree from the params tree of the leaves' headers (an
+    array of the leaf's shape a leaf, its data not read).  Only the
+    slices' bytes are read, one ``preadv`` a contiguous run."""
+    from generativeaiexamples_tpu_torch.parallel.mesh import shard_slices
+    from generativeaiexamples_tpu_torch.utils.trees import flatten, unflatten
+
+    index = _read_index(path)
+    metas: dict = {}
+    for name, meta in index["leaves"].items():
+        tree, leaf_path = name.split("/", 1)
+        metas.setdefault(tree, []).append((leaf_path, meta))
+    shapes = unflatten([(p, np.broadcast_to(np.zeros((), np.uint8), tuple(m["shape"]))) for p, m in metas["params"]])
+    spec_of = dict(flatten(specs_of(shapes)))
+
+    def read(job) -> torch.Tensor:
+        leaf_path, meta = job
+        block = shard_slices(tuple(meta["shape"]), spec_of[leaf_path], sizes, coords)
+        offsets, run = _runs(meta["shape"], block)
+        dt = _npy_dtype(meta["dtype"])
+        part = np.empty(len(offsets) * run, dt)
+        file = os.path.join(path, meta["file"])
+        start, raw = _data_offset(file), memoryview(part).cast("B")
+        fd = os.open(file, os.O_RDONLY)
+        try:
+            for i, off in enumerate(offsets.tolist()):
+                chunk = raw[i * run * dt.itemsize : (i + 1) * run * dt.itemsize]
+                if os.preadv(fd, [chunk], start + off * dt.itemsize) != len(chunk):
+                    raise ValueError(f"{file} is shorter than its header says")
+        finally:
+            os.close(fd)
+        shape = tuple(sl.indices(n)[1] - sl.indices(n)[0] for sl, n in
+                      zip(tuple(block) + (slice(None),) * (len(meta["shape"]) - len(tuple(block))), meta["shape"]))
+        t = torch.from_numpy(part.reshape(shape))
+        if meta["dtype"] == "bfloat16":
+            t = t.view(torch.bfloat16)
+        return t.to(device)
+
+    out = {"step": index["step"], "count": index["count"]}
+    for tree, items in metas.items():
+        if trees is not None and tree not in trees:
+            continue
+        leaves = _each_leaf(read, items)
+        CHECKPOINT_STATS["read_bytes"] += sum(t.numel() * t.element_size() for t in leaves)
+        out[tree] = unflatten([(p, t) for (p, _), t in zip(items, leaves)])
+    return out
+
+
+def save_checkpoint(trees: dict, path: str, *, step: int = 0, count: int = 0) -> None:
+    """Save whole trees (name -> a dict tree of tensors: ``{"params": ...}``,
+    or a train state's ``params``, ``mu`` and ``nu``) from one device."""
+    from generativeaiexamples_tpu_torch.utils.trees import flatten, unflatten
+
+    leaves = {f"{name}/{p}": (list(x.shape), str(x.dtype).replace("torch.", ""))
+              for name, tree in trees.items() for p, x in flatten(tree)}
+    create_checkpoint(path, leaves, step=step, count=count)
+    for name, tree in trees.items():
+        write_checkpoint_shard(path, {name: tree}, unflatten((p, ()) for p, _ in flatten(tree)), {}, {})
+
+
+def load_checkpoint(path: str, *, device=None) -> dict:
+    """A checkpoint's whole trees on one device (``device`` defaults to the
+    card): ``{"params", ...trees, "step", "count"}``."""
+    from generativeaiexamples_tpu_torch.core.device import resolve_device
+    from generativeaiexamples_tpu_torch.utils.trees import flatten, unflatten
+
+    return read_checkpoint_shard(path, {}, {}, resolve_device(device),
+                                 lambda params: unflatten((p, ()) for p, _ in flatten(params)))
+
+
+def load_checkpoint_shard(cfg, path: str, sizes, coords, device, rules=None) -> dict:
+    """One rank's slice of a llama checkpoint's params under ``rules``
+    (default: the serving rules), as :func:`shard_params` would slice the
+    whole tree: only the slice is read.  An int8 head is held in the
+    compute dtype."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    specs = llama.partition_specs(cfg, rules)
+    return head_for_logits(read_checkpoint_shard(path, sizes, coords, device, lambda _: specs, ("params",))["params"],
+                           cfg)
+
+
+def load_checkpoint_sharded(cfg, path: str, mesh, rules=None, key: str = "params") -> str:
+    """Restore a llama checkpoint straight onto a mesh (the port of
+    ``load_orbax_sharded``): each rank reads only its slice under
+    ``rules`` (default: the serving rules) and keeps it in its context's
+    ``state[key]``; no process holds the whole tree.  Returns ``key``."""
+    mesh.run(_load_params_shard, cfg, path, rules, key)
+    return key
+
+
+def _load_params_shard(ctx, cfg, path, rules, key):
+    ctx.state[key] = load_checkpoint_shard(cfg, path, ctx.sizes, ctx.coords, ctx.device, rules)

@@ -67,35 +67,57 @@ def bert_tiny(**overrides) -> BertConfig:
 PRESETS = {"arctic-embed-l": arctic_embed_l, "bert-tiny": bert_tiny}
 
 
-def param_shapes(cfg: BertConfig) -> dict:
-    """Leaf names and shapes, those of the reference's ``param_axes``."""
+def param_axes(cfg: BertConfig) -> dict:
+    """Every parameter as ``(shape, logical axes)`` (the reference's
+    ``param_axes``; ``parallel.mesh`` maps the logical axes to mesh
+    axes)."""
     L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
     HD = cfg.n_heads * cfg.head_dim
     return {
-        "tok_embed": (V, D),
-        "pos_embed": (cfg.max_positions, D),
-        "type_embed": (cfg.type_vocab_size, D),
-        "embed_norm_g": (D,),
-        "embed_norm_b": (D,),
+        "tok_embed": ((V, D), ("vocab", "embed")),
+        "pos_embed": ((cfg.max_positions, D), (None, "embed")),
+        "type_embed": ((cfg.type_vocab_size, D), (None, "embed")),
+        "embed_norm_g": ((D,), ("embed",)),
+        "embed_norm_b": ((D,), ("embed",)),
         "layers": {
-            "wq": (L, D, HD),
-            "bq": (L, HD),
-            "wk": (L, D, HD),
-            "bk": (L, HD),
-            "wv": (L, D, HD),
-            "bv": (L, HD),
-            "wo": (L, HD, D),
-            "bo": (L, D),
-            "attn_norm_g": (L, D),
-            "attn_norm_b": (L, D),
-            "w_up": (L, D, F_),
-            "b_up": (L, F_),
-            "w_down": (L, F_, D),
-            "b_down": (L, D),
-            "mlp_norm_g": (L, D),
-            "mlp_norm_b": (L, D),
+            "wq": ((L, D, HD), ("layers", "embed", "heads")),
+            "bq": ((L, HD), ("layers", "heads")),
+            "wk": ((L, D, HD), ("layers", "embed", "heads")),
+            "bk": ((L, HD), ("layers", "heads")),
+            "wv": ((L, D, HD), ("layers", "embed", "heads")),
+            "bv": ((L, HD), ("layers", "heads")),
+            "wo": ((L, HD, D), ("layers", "heads", "embed")),
+            "bo": ((L, D), ("layers", "embed")),
+            "attn_norm_g": ((L, D), ("layers", "embed")),
+            "attn_norm_b": ((L, D), ("layers", "embed")),
+            "w_up": ((L, D, F_), ("layers", "embed", "mlp")),
+            "b_up": ((L, F_), ("layers", "mlp")),
+            "w_down": ((L, F_, D), ("layers", "mlp", "embed")),
+            "b_down": ((L, D), ("layers", "embed")),
+            "mlp_norm_g": ((L, D), ("layers", "embed")),
+            "mlp_norm_b": ((L, D), ("layers", "embed")),
         },
     }
+
+
+def param_shapes(cfg: BertConfig) -> dict:
+    """Leaf names and shapes, those of the reference's ``param_axes``."""
+    axes = param_axes(cfg)
+    out = {k: a[0] for k, a in axes.items() if k != "layers"}
+    out["layers"] = {k: a[0] for k, a in axes["layers"].items()}
+    return out
+
+
+def partition_specs(cfg: BertConfig, rules=None) -> dict:
+    """Each parameter's partition spec (a tuple of mesh axes or None per
+    dimension, ``parallel.mesh.logical_to_partition``), in
+    :func:`init_params`' tree."""
+    from generativeaiexamples_tpu_torch.parallel.mesh import logical_to_partition
+
+    axes = param_axes(cfg)
+    out = {k: logical_to_partition(a[1], rules) for k, a in axes.items() if k != "layers"}
+    out["layers"] = {k: logical_to_partition(a[1], rules) for k, a in axes["layers"].items()}
+    return out
 
 
 _NORM_GAINS = ("embed_norm_g", "attn_norm_g", "mlp_norm_g")

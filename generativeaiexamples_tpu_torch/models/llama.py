@@ -394,6 +394,40 @@ def local_config(cfg: LlamaConfig, mesh) -> LlamaConfig:
                                d_ff=cfg.d_ff // tp, vocab_size=cfg.vocab_size // tp)
 
 
+def fsdp_dims(cfg: LlamaConfig) -> dict:
+    """Each leaf's dimension that ``parallel.mesh.fsdp_rules`` shards over
+    ``fsdp`` (its ``embed`` axis; every llama leaf but the projection
+    biases of the heads and MLP columns has one), for the top-level leaves
+    and, under ``"layers"``, for one layer's leaf (the stacked axis
+    dropped)."""
+    axes = param_axes(cfg)
+    out = {n: a[1].index("embed") for n, a in axes.items() if n != "layers" and "embed" in a[1]}
+    out["layers"] = {n: a[1].index("embed") - 1 for n, a in axes["layers"].items() if "embed" in a[1]}
+    return out
+
+
+def fsdp_sharded(params: Params, cfg: LlamaConfig, mesh) -> bool:
+    """Whether ``params`` holds fsdp shards (a tree sharded with
+    ``fsdp_rules`` over a mesh whose ``fsdp`` axis is populated): the
+    final norm then holds ``d_model / fsdp`` gains."""
+    return mesh is not None and mesh.size("fsdp") > 1 and params["final_norm"].shape[-1] != cfg.d_model
+
+
+def fsdp_gather(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """A leaf's fsdp shards gathered just before use (training: inside the
+    rematerialized layer, so the whole weight is never kept for the
+    backward; its gradient is reduce-scattered back to the shard)."""
+    return mesh.all_gather(x, "fsdp", dim)
+
+
+def column_input(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The input of a product whose weight's columns are sharded over
+    ``axis`` (q/k/v, gate/up, the experts, the vocabulary-sharded head):
+    the f op, identity here and the gradient summed over the axis in a
+    training graph (``parallel.autograd``)."""
+    return x if mesh is None else mesh.copy_to(x, axis)
+
+
 # Leaves init_params starts at 1 (norm gains) and at 0 (biases).
 NORM_GAINS = ("attn_norm", "mlp_norm", "final_norm")
 BIASES = ("bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down", "attn_norm_b", "mlp_norm_b", "final_norm_b")
@@ -599,7 +633,15 @@ def _expert_ffn(x: torch.Tensor, lp, mesh=None) -> torch.Tensor:
     return mesh.psum(f32_product(gated, lp["w_down_e"]), "tensor").to(x.dtype)
 
 
-def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_aux_terms(frac: torch.Tensor, mean_prob: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each dispatch group's load-balancing term ``E * sum_e frac_e *
+    mean_prob_e`` (1 at uniform routing), over every expert: the router is
+    replicated, so each rank computes the whole term for its groups."""
+    return n_experts * (frac * mean_prob).sum(-1)
+
+
+def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None, seq_sharded: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed mixture-of-experts MLP (the reference's GShard-style
     one-hot dispatch).  Returns ``(out, aux_loss)``.
 
@@ -610,7 +652,8 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Te
     (tokens past it are dropped).  Routing is top-k over the softmax of the
     router's logits, ties to the lower expert; the gate weights renormalize
     over the k.  ``aux_loss`` is the load-balancing term ``E * sum_e
-    fraction_dispatched_e * mean_prob_e`` (1 at uniform routing).
+    fraction_dispatched_e * mean_prob_e`` (1 at uniform routing), averaged
+    over the groups.
 
     The router's and the experts' products run on fixed blocks of rows
     (:data:`MOE_BLOCK_ROWS`), so a token's result does not depend on its
@@ -622,8 +665,38 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Te
     ``[i * E/P, (i + 1) * E/P)`` of the ``expert`` axis (and a column block
     of each over ``tensor``), runs them on their dispatched rows, combines
     them in f32 and a ``psum`` over ``expert`` and ``tensor`` adds the
-    other ranks' experts.
+    other ranks' experts.  In a training graph the dispatched rows and the
+    combine weights pass the f op over the axes that split them, so the
+    router's and ``h``'s gradients are whole on every rank.  There
+    ``aux_loss`` is this rank's share of the mean over every group of the
+    global batch: its groups' terms over the count of all groups, so that
+    the sum over ``data``, ``fsdp`` and ``seq`` is the mean.
+
+    ``seq_sharded``: ``h`` is this rank's chunk of the sequence over the
+    ``seq`` axis.  The groups are the reference's, cut from the global
+    sequence: when they cross the chunks (a global sequence shorter than
+    128 tokens a rank, or not a multiple of 128 a chunk) the sequence is
+    gathered, routed whole on every rank of the axis, and each keeps its
+    chunk's rows (the groups' terms counted on the axis' first rank).
     """
+    seq = mesh.size("seq") if (mesh is not None and seq_sharded) else 1
+    split = (mesh.size("data") * mesh.size("fsdp")) if mesh is not None else 1
+    if seq > 1:
+        s_local = h.shape[1]
+        if s_local % min(s_local * seq, MOE_GROUP):
+            i = mesh.index("seq")
+            out, terms = _moe_dispatch(mesh.all_gather(h, "seq", dim=1), lp, cfg, mesh)
+            share = terms.sum() / (terms.numel() * split)
+            return out[:, i * s_local : (i + 1) * s_local], share if i == 0 else share * 0
+        split *= seq
+    out, terms = _moe_dispatch(h, lp, cfg, mesh)
+    if mesh is None:
+        return out, terms.mean()
+    return out, terms.sum() / (terms.numel() * split)
+
+
+def _moe_dispatch(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_moe_mlp` on whole groups: ``(out, each group's aux term)``."""
     b_orig, s_orig, d = h.shape
     E, k = cfg.n_experts, cfg.n_experts_per_tok
     group = min(s_orig, MOE_GROUP)
@@ -649,7 +722,7 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Te
     valid_row = valid.sum(dim=1).clamp_min(1.0)
     frac = onehot.sum(dim=(1, 2)) / (valid_row * k)[:, None]  # (b, E)
     mean_prob = (probs * valid[:, :, None]).sum(dim=1) / valid_row[:, None]
-    aux_loss = (E * (frac * mean_prob).sum(-1)).mean()
+    terms = moe_aux_terms(frac, mean_prob, E)
 
     # Slot of each (token, choice) in its expert's buffer: the count of
     # earlier choices of the same expert; past ``cap`` it is dropped.
@@ -661,13 +734,17 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Te
     combine = (disp_k * gate_w[..., None, None]).sum(dim=2).to(h.dtype)  # (b, s, E, cap)
     disp = disp_k.sum(dim=2).to(h.dtype)
 
-    x_e = torch.einsum("bsec,bsd->becd", disp, h)  # (b, E, cap, d)
     ep = mesh.size("expert") if mesh is not None else 1
     tp = mesh.size("tensor") if mesh is not None else 1
+    # Each rank's experts see only their rows of h and of the combine
+    # weights: their gradients are summed over the axes that split them.
+    h_experts = column_input(column_input(h, mesh, "expert"), mesh, "tensor")
+    x_e = torch.einsum("bsec,bsd->becd", disp, h_experts)  # (b, E, cap, d)
     if ep > 1:
         if E % ep:
             raise ValueError(f"n_experts={E} not divisible by expert={ep}")
         e0 = mesh.index("expert") * (E // ep)
+        combine = column_input(combine, mesh, "expert")
         x_e, combine = x_e[:, e0 : e0 + E // ep], combine[:, :, e0 : e0 + E // ep]
     e_here = x_e.shape[1]
     rows = x_e.transpose(0, 1).reshape(e_here, b * cap, d)
@@ -677,14 +754,15 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: LlamaConfig, mesh=None) -> tuple[torch.Te
     if ep > 1:
         out = mesh.psum(out, "expert")
     out = out.to(h.dtype)
-    return out.reshape(b_orig, s_orig + pad, d)[:, :s_orig], aux_loss
+    return out.reshape(b_orig, s_orig + pad, d)[:, :s_orig], terms
 
 
 def _mlp(h: torch.Tensor, lp, cfg: LlamaConfig, row_dot=q_dot):
     """The dense MLPs: packed gated (``w_gu``), unpacked gated with
     optional biases, or plain up -> act -> down (StarCoder2).  ``row_dot``
     is the down projection's product (tensor parallelism:
-    :func:`row_parallel_dot`, before the replicated bias)."""
+    :func:`row_parallel_dot`, before the replicated bias; ``h`` then comes
+    through :func:`column_input`)."""
     if "w_gu" in lp:
         gu = q_dot(h, lp["w_gu"], "w_gu")
         gated = cfg.act_fn(gu[..., : cfg.d_ff]) * gu[..., cfg.d_ff :]
@@ -768,19 +846,23 @@ def dense_layer(
         def row_dot(x, w, name):
             return row_parallel_dot(x, w, name, mesh, tp_axis)
 
+    col_mesh = mesh if tp_axis is not None else None
     x = _attention_block(x, lp, cfg, positions, lambda q, k, v: attention(q, k, v, positions, kv_lengths,
-                                                                          **_mesh_kw(mesh)), row_dot)
-    return x + _mlp(block_norm(x, cfg, lp, "mlp_norm"), lp, cfg, row_dot)
+                                                                          **_mesh_kw(mesh)), row_dot,
+                         col_mesh, tp_axis)
+    h = column_input(block_norm(x, cfg, lp, "mlp_norm"), col_mesh, tp_axis)
+    return x + _mlp(h, lp, cfg, row_dot)
 
 
 def _attention_block(x: torch.Tensor, lp, cfg: LlamaConfig, positions: torch.Tensor, attend,
-                     row_dot=q_dot) -> torch.Tensor:
+                     row_dot=q_dot, mesh=None, axis: str = "tensor") -> torch.Tensor:
     """``x`` plus one layer's attention: the norm, the projections, RoPE,
     ``attend(q, k, v)`` -> (b, s, heads, hd), and the output projection
     through ``row_dot`` (over the heads' shards: :func:`row_parallel_dot`,
-    before its replicated bias)."""
+    before its replicated bias; the projections' input then comes through
+    :func:`column_input` over ``axis`` of ``mesh``)."""
     b, s = x.shape[:2]
-    q, k, v = _qkv(block_norm(x, cfg, lp, "attn_norm"), lp, cfg)
+    q, k, v = _qkv(column_input(block_norm(x, cfg, lp, "attn_norm"), mesh, axis), lp, cfg)
     attn = attend(apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v)
     return x + _badd(row_dot(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp["wo"], "wo"), lp, "bo")
 
@@ -823,6 +905,7 @@ def forward(
     embeds: Optional[torch.Tensor] = None,
     remat: bool = False,
     mesh=None,
+    seq_sharded: bool = False,
 ):
     """Run the transformer body, cacheless or against a serving cache.
 
@@ -874,6 +957,19 @@ def forward(
     (``ops.attention.attention``).  The rows are the rank's share of the
     ``data`` axis.  Every other step is the single-device code on the
     local shapes, the port's kernels included.
+
+    Training over a mesh (inside a rank's graph, ``parallel.autograd``):
+    a tree sharded with ``fsdp_rules`` over a populated ``fsdp`` axis
+    (:func:`fsdp_sharded`) has each leaf gathered just before use
+    (:func:`fsdp_gather`; a layer's inside its remat block), the inputs
+    of column-sharded products pass the f op (:func:`column_input`), and
+    ``seq_sharded`` (cacheless) says that ``tokens`` and ``positions`` are
+    this rank's chunk of the sequence over the ``seq`` axis (global
+    positions): attention rings the K/V chunks around the axis
+    (``parallel.ring_attention``) and the MoE layers keep the reference's
+    groups of the global sequence (:func:`_moe_mlp`).  With
+    ``return_aux`` the aux loss is then this rank's share of the global
+    mean (its sum over ``data``, ``fsdp`` and ``seq`` is the mean).
 
     Returns ``(hidden, cache)``, ``(hidden, cache, ab)`` with
     ``append_cache``, or ``(hidden, cache, aux)`` with ``return_aux``
@@ -934,6 +1030,10 @@ def forward(
         def row_dot(x, w, name):
             return row_parallel_dot(x, w, name, mesh)
 
+    gathered = fsdp_dims(cfg) if fsdp_sharded(params, cfg, mesh) else None
+    if gathered is not None:
+        params = {**params, **{n: fsdp_gather(params[n], mesh, gathered[n]) for n in params
+                               if n in gathered and n not in ("layers", "lm_head")}}
     x = embed(params, tokens, cfg.compute_dtype, mesh) if embeds is None else embeds.to(cfg.compute_dtype)
     if cfg.scale_embeddings:
         # Gemma: sqrt(d_model) rounded to the activations' dtype first.
@@ -942,10 +1042,16 @@ def forward(
 
     def layer(x, li):
         lp = _layer_params(params["layers"], li)
+        if gathered is not None:
+            dims = gathered["layers"]
+            lp = {n: fsdp_gather(w, mesh, dims[n]) if n in dims else w for n, w in lp.items()}
 
         def attend(q, k, v):
             if cache is None:
-                return attention(q, k, v, positions, kv_lengths, **_mesh_kw(mesh))
+                kw = _mesh_kw(mesh)
+                if seq_sharded:
+                    kw["seq_sharded"] = True
+                return attention(q, k, v, positions, kv_lengths, **kw)
             if len(cache) == 2:
                 return _float_cache_attention(
                     q, k, v, li, positions, kv_lengths, cache, ab, cold_prefill, window, t, row_offset,
@@ -956,12 +1062,12 @@ def forward(
                 **_mesh_kw(mesh),
             )
 
-        x = _attention_block(x, lp, lc, positions, attend, row_dot)
+        x = _attention_block(x, lp, lc, positions, attend, row_dot, mesh)
         h = block_norm(x, lc, lp, "mlp_norm")
         if "router" in lp:
-            mlp_out, layer_aux = _moe_mlp(h, lp, lc, mesh)
+            mlp_out, layer_aux = _moe_mlp(h, lp, lc, mesh, seq_sharded)
         else:
-            mlp_out, layer_aux = _mlp(h, lp, lc, row_dot), None
+            mlp_out, layer_aux = _mlp(column_input(h, mesh, "tensor"), lp, lc, row_dot), None
         return x + mlp_out, layer_aux
 
     for li in range(cfg.n_layers):

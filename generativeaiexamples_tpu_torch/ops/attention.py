@@ -70,13 +70,16 @@ def attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     mesh=None,
+    seq_sharded: bool = False,
 ) -> torch.Tensor:
     """Dispatch with the gqa_attention contract.
 
     Over a mesh (``mesh`` a ``parallel.runtime.RankContext``) with a
     populated ``seq`` axis, unscaled self-attention (q-len == kv-len > 1,
     dividing the axis) runs as ring attention across it
-    (``parallel.ring_attention``), as in the reference.
+    (``parallel.ring_attention``), as in the reference.  With
+    ``seq_sharded`` (training) q/k/v are already this rank's chunks of the
+    sequence, at the global ``q_positions``, and the ring runs on them.
 
     int8-scaled attention (warm multi-token chunks over the quantized
     cache) and single-query calls (s == 1) stay plain PyTorch, as they are
@@ -88,8 +91,15 @@ def attention(
     if k_scale is not None or v_scale is not None or q.shape[1] == 1:
         return gqa_attention(q, k, v, q_positions, kv_lengths, k_scale=k_scale, v_scale=v_scale)
     if mesh is not None:
-        from generativeaiexamples_tpu_torch.parallel.ring_attention import seq_parallel_ok, sequence_parallel_attention
+        from generativeaiexamples_tpu_torch.parallel.ring_attention import (
+            ring_gqa_attention,
+            seq_parallel_ok,
+            sequence_parallel_attention,
+        )
 
+        if seq_sharded and mesh.size("seq") > 1:
+            return ring_gqa_attention(q, k, v, q_positions, q_positions, kv_lengths, mesh=mesh,
+                                      axis_size=mesh.size("seq"))
         if seq_parallel_ok(mesh, q, k):
             return sequence_parallel_attention(q, k, v, q_positions, kv_lengths, mesh=mesh, strategy="ring")
     from generativeaiexamples_tpu_torch.ops.flash_attention import flash_gqa_attention

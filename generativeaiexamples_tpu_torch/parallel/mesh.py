@@ -88,12 +88,19 @@ class Mesh:
         self.devices[:] = list(runtime.devices)
         self.devices = self.devices.reshape(tuple(self.shape[a] for a in MESH_AXES))
 
-    def run(self, program, *args, gather: bool = False, timeout: Optional[float] = None):
+    def run(self, program, *args, gather: bool = False, timeout: Optional[float] = None,
+            rank_args: Optional[Sequence[Any]] = None):
         """Run ``program(ctx, *args)`` on every rank (``ctx`` the rank's
         :class:`~generativeaiexamples_tpu_torch.parallel.runtime.RankContext`
-        for this mesh).  Returns rank 0's result, or every rank's in rank
-        order with ``gather``.  Raises if any rank failed or died."""
-        return self.runtime.run(self.id, program, args, gather=gather, timeout=timeout)
+        for this mesh); with ``rank_args`` rank r also gets
+        ``rank_args[r]`` as its last argument.  Returns rank 0's result, or
+        every rank's in rank order with ``gather``.  Raises if any rank
+        failed or died."""
+        return self.runtime.run(self.id, program, args, gather=gather, timeout=timeout, rank_args=rank_args)
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """The mesh coordinates of ``rank``."""
+        return rank_coords(self.shape, rank)
 
     @property
     def ctx(self):

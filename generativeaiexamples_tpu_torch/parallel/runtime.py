@@ -34,12 +34,17 @@ from typing import Any, Optional, Sequence
 import torch
 
 from generativeaiexamples_tpu_torch.core.logging import get_logger
+from generativeaiexamples_tpu_torch.parallel.autograd import collective
 
 logger = get_logger(__name__)
 
 # Seconds a collective (and a rank's answer beyond the controller's own
 # run) may take before it raises.
 DEFAULT_TIMEOUT_S = 120.0
+# Seconds a follower may take to start (an interpreter, torch, a CUDA
+# context: more on a loaded host) before the first program, which waits
+# for it; the collective timeout starts only after that.
+FOLLOWER_START_S = 300.0
 
 
 class MeshError(RuntimeError):
@@ -62,6 +67,9 @@ class RankContext:
         self.coords = rank_coords(sizes, rank)
         self.groups = build_axis_groups(self.sizes, rank, devices, store, timeout_s, mesh_id)
         self.state: dict = {}
+        # Set while this rank builds a training graph: the collectives then
+        # carry gradients, chained by this token (``parallel.autograd``).
+        self.grad_token = None
 
     def size(self, axis: str) -> int:
         return self.sizes[axis]
@@ -69,17 +77,28 @@ class RankContext:
     def index(self, axis: str) -> int:
         return self.coords[axis]
 
+    # The collectives below carry a gradient while a training graph is
+    # being built (``parallel.autograd.collective``); otherwise they are
+    # the axis group's plain calls.
+
     def psum(self, x, axis: str):
-        return self.groups[axis].psum(x)
+        return collective(self, "psum", axis, x)
+
+    def copy_to(self, x, axis: str):
+        """The f op: identity here, its gradient summed over ``axis``."""
+        return collective(self, "copy", axis, x)
 
     def all_gather(self, x, axis: str, dim: int = 0):
-        return self.groups[axis].all_gather(x, dim)
+        return collective(self, "all_gather", axis, x, dim)
+
+    def reduce_scatter(self, x, axis: str, dim: int = 0):
+        return collective(self, "reduce_scatter", axis, x, dim)
 
     def all_to_all(self, x, axis: str, split_dim: int, concat_dim: int):
-        return self.groups[axis].all_to_all(x, split_dim, concat_dim)
+        return collective(self, "all_to_all", axis, x, split_dim, concat_dim)
 
     def ppermute(self, x, axis: str, perm):
-        return self.groups[axis].ppermute(x, perm)
+        return collective(self, "ppermute", axis, x, [tuple(p) for p in perm])
 
     def broadcast(self, x, axis: str, src: int):
         return self.groups[axis].broadcast(x, src)
@@ -104,8 +123,21 @@ class _Rank:
         ctx = self.contexts[mesh_id]
         if ctx.device.type == "cuda":
             torch.cuda.set_device(ctx.device)
+        if getattr(program, "builds_graph", False):
+            # Training: tensors that autograd saves may not be inference
+            # tensors, so these programs run outside inference mode.
+            with torch.inference_mode(False), torch.enable_grad():
+                return program(ctx, *args)
         with torch.inference_mode():
             return program(ctx, *args)
+
+
+def grad_program(fn):
+    """Mark a rank program that builds autograd graphs (a training step, or
+    one that keeps tensors a later step differentiates): it runs with grad
+    mode on instead of under ``torch.inference_mode``."""
+    fn.builds_graph = True
+    return fn
 
 
 def _new_mesh(rank: _Rank, mesh_id: str, sizes: dict) -> None:
@@ -128,6 +160,7 @@ def _follower_main(rank: int, devices, store_path: str, timeout_s: float, conn) 
     if devices[rank].type == "cpu":
         torch.set_num_threads(cpu_rank_threads(len(devices)))
     me = _Rank(rank, devices, store_path, timeout_s)
+    conn.send(("ready", None))
     while True:
         try:
             msg = conn.recv()
@@ -162,6 +195,7 @@ class Runtime:
         self._lock = threading.Lock()
         self._broken: Optional[str] = None
         self._closed = False
+        self._started = False
         self._meshes = 0
         self._procs, self._conns = [], []
         ctx = mp.get_context("spawn")
@@ -190,6 +224,7 @@ class Runtime:
         return self._me.contexts[mesh_id]
 
     def new_mesh(self, sizes: dict):
+        """A mesh of ``sizes`` over these ranks."""
         from generativeaiexamples_tpu_torch.parallel.mesh import Mesh
 
         with self._lock:
@@ -198,22 +233,34 @@ class Runtime:
         self.run(mesh_id, _new_mesh, (sizes,))
         return Mesh(self, sizes, mesh_id)
 
-    def run(self, mesh_id: str, program, args, *, gather: bool = False, timeout: Optional[float] = None):
+    def run(self, mesh_id: str, program, args, *, gather: bool = False, timeout: Optional[float] = None,
+            rank_args: Optional[Sequence[Any]] = None):
+        """``program(ctx, *args)`` on every rank; with ``rank_args`` (one
+        entry per rank) rank r runs ``program(ctx, *args, rank_args[r])``,
+        so each rank is sent only its own part (a batch's rows)."""
+        if rank_args is not None and len(rank_args) != len(self.devices):
+            raise ValueError(f"rank_args has {len(rank_args)} entries for {len(self.devices)} ranks")
+
+        def args_of(r):
+            return tuple(args) if rank_args is None else (*args, rank_args[r])
+
         with self._lock:
             if self._closed:
                 raise MeshError("the mesh is closed")
             if self._broken is not None:
                 raise MeshError(f"the mesh is broken: {self._broken}")
+            if not self._started:
+                self._await_followers()
             wait = self.timeout_s if timeout is None else timeout
             try:
                 for r, conn in enumerate(self._conns, 1):
-                    conn.send(("run", mesh_id, program, args, gather))
+                    conn.send(("run", mesh_id, program, args_of(r), gather))
             except (OSError, EOFError) as e:
                 self._broken = f"rank {r} is gone ({e})"
                 raise MeshError(self._broken) from e
             local_err = None
             try:
-                local = self._me.execute(mesh_id, program, args)
+                local = self._me.execute(mesh_id, program, args_of(0))
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 local, local_err = None, e
             results, errors = [local], []
@@ -239,6 +286,22 @@ class Runtime:
                 what = "; ".join(errors) if errors else f"rank 0 failed: {local_err!r}"
                 raise MeshError(f"{getattr(program, '__name__', program)} on the mesh: {what}") from local_err
             return results if gather else local
+
+    def _await_followers(self) -> None:
+        """Each follower's start-up message (the first program waits for
+        every rank to be up, so that no group's rendezvous times out on a
+        start-up); a follower that dies or does not start breaks the
+        runtime."""
+        for r, conn in enumerate(self._conns, 1):
+            try:
+                if not conn.poll(max(self.timeout_s, FOLLOWER_START_S)):
+                    self._broken = f"rank {r} did not start within {max(self.timeout_s, FOLLOWER_START_S):.0f} s"
+                    raise MeshError(self._broken)
+                conn.recv()
+            except (EOFError, OSError) as e:
+                self._broken = f"rank {r} died while starting ({type(e).__name__})"
+                raise MeshError(self._broken) from e
+        self._started = True
 
     def close(self) -> None:
         """Stop every follower (terminate any that does not exit) and

@@ -72,7 +72,7 @@ reference keys ``jax.random`` (the seed for IVF lists, ``seed * 1_000_003 +
 m`` for PQ subspace m), so a retrain gives other centroids than the
 reference's; a persisted index (``ivf_index.npz``) loads as it was built.
 
-Not ported (``ROADMAP.md``, Queue 1 item 10): the mesh-sharded store; the
+Not ported (``ROADMAP.md``, Queue 1 item 10b-iii): the mesh-sharded store; the
 constructor raises ``NotImplementedError`` for it.
 """
 
@@ -127,7 +127,7 @@ _IVF_CHUNK_BYTES = 1 << 31
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch store yet (ROADMAP.md, Queue 1 item 10)")
+    return NotImplementedError(f"{what} is not ported to the PyTorch store yet (ROADMAP.md, Queue 1 item 10b-iii)")
 
 
 def _bucket_queries(Q: np.ndarray, maximum: Optional[int] = None) -> np.ndarray:

@@ -229,3 +229,26 @@ def test_tensor_parallel_env_default(monkeypatch):
     monkeypatch.setenv("GAIE_TENSOR_PARALLEL", "2")
     assert parse_args([]).tensor_parallel == 2
     assert mesh_plans(parse_args(["--device", "cpu"]), [torch.device("cpu")] * 2, False)[0][0].tensor == 2
+
+
+@pytest.mark.parametrize("spec", [dict(data=2, tensor=2), dict(tensor=4)], ids=["two-rank-lines", "four-rank-line"])
+def test_shared_memory_line_matches_gloo(runtime, spec):
+    """The shared-memory line (what ranks sharing a card use) against gloo
+    on the same CPU ranks: every collective's bytes equal; sums equal bit
+    for bit on two-rank lines (a + b either way) and within f32 rounding
+    on a four-rank line (gloo sums in another order); 36 MB of f32 and
+    of bf16 cross two 32 MB rounds.  The rank program attaches the line
+    to the CPU ranks' gloo group for one call."""
+    axis = "tensor"
+    sizes = tmesh.MeshSpec(**spec).resolve(4)
+    mesh = runtime.new_mesh(sizes)
+    gloo = mesh.run(progs.collectives_of, axis, gather=True)
+    shared = mesh.run(progs.collectives_of, axis, True, gather=True)
+    n = sizes[axis]
+    for a, b in zip(gloo, shared):
+        for key, want in a.items():
+            if n > 2 and key.startswith(("psum", "reduce_scatter")) and not key.startswith("big"):
+                np.testing.assert_allclose(b[key], want, rtol=1e-6, atol=1e-6, err_msg=key)
+            else:
+                assert np.array_equal(b[key], want), key
+    assert shared[0]["big_psum"].tolist() == shared[0]["big_psum_bf16"].tolist() == [n * (n + 1) / 2] * 2

@@ -117,7 +117,7 @@ def test_greedy_streams_equal_jax_mesh_and_single_device(weights, runtime, jax_s
 
 def test_speculation_over_a_mesh_is_refused(weights, runtime):
     mesh = runtime.new_mesh(MeshSpec(data=2, tensor=2).resolve(4))
-    with pytest.raises(NotImplementedError, match="10b-ii"):
+    with pytest.raises(NotImplementedError, match="10b-iii"):
         tsched.Scheduler(TCFG, None, mesh=mesh, spec_mode="ngram", **KW)
     with pytest.raises(ValueError, match="data must be 1"):
         tsched.Scheduler(TCFG, None, mesh=mesh, **KW, **PAGED)

@@ -1,10 +1,11 @@
 """Two ranks on one card: the staged transport and the mesh engine.
 
 Two processes share ``cuda:0`` (NCCL refuses two ranks on one GPU, so the
-mesh's collectives go through gloo, staged explicitly through pinned host
-buffers).  Each case holds the two-rank result against one rank on the
-same card: the collectives bit for bit, the tensor-parallel forward and
-the scheduler's greedy streams on a small bf16 model with an int8 cache.
+mesh's collectives are staged through a host buffer both ranks map,
+``parallel.comm.SharedLine``).  Each case holds the two-rank result
+against one rank on the same card: the collectives bit for bit, the
+tensor-parallel forward and the scheduler's greedy streams on a small
+bf16 model with an int8 cache.
 
 These skip without a card (the decision is made inside the fixture).  On a
 card, from the repository root:
@@ -40,6 +41,7 @@ def mesh(dev):
 def _collectives(ctx, x):
     from generativeaiexamples_tpu_torch.parallel.comm import COMM_STATS
 
+    group = ctx.groups["tensor"]
     t = torch.from_numpy(x).to(ctx.device) * (ctx.rank + 1)
     staged0 = COMM_STATS["staged_bytes"]
     out = {
@@ -49,33 +51,31 @@ def _collectives(ctx, x):
         "a2a": ctx.all_to_all(t, "tensor", 0, 1).cpu().numpy(),
         "perm": ctx.ppermute(t, "tensor", [(0, 1), (1, 0)]).cpu().numpy(),
         "bcast": ctx.broadcast(t.bfloat16(), "tensor", 1).float().cpu().numpy(),
+        "rs": ctx.reduce_scatter(t, "tensor", 0).cpu().numpy(),
     }
     out["staged_bytes"] = COMM_STATS["staged_bytes"] - staged0
-    out["transport"] = ctx.groups["tensor"].transport
-    # Staging keeps one pinned buffer a role, grown only past its size.
-    group = ctx.groups["tensor"]
-    ctx.psum(torch.ones(70000, device=ctx.device), "tensor")
-    out["pinned_after_large"] = group.pinned_bytes()
-    for n in (1000, 30000, 5):
-        ctx.psum(torch.ones(n, device=ctx.device), "tensor")
-    out["pinned"] = group.pinned_bytes()
-    out["pinned_buffers"] = sum(b is not None for b in group._pinned.values())
+    out["transport"] = group.transport
+    out["shared"] = group.shared is not None
+    # 36 MB of f32: two rounds of the shared line's 32 MB regions.
+    out["big"] = ctx.psum(torch.full((9 << 20,), float(ctx.rank + 1), device=ctx.device), "tensor")[[0, -1]].tolist()
     return out
 
 
 def test_staged_collectives_equal_their_definitions(mesh):
+    """Two ranks on one card stage every collective through their shared
+    line (registered with CUDA)."""
     x = np.arange(24, dtype=np.float32).reshape(4, 6) / 7
     got = mesh.run(_collectives, x, gather=True)
     for rank, out in enumerate(got):
-        assert out["transport"] == "staged" and out["staged_bytes"] > 0
+        assert out["transport"] == "staged" and out["shared"] and out["staged_bytes"] > 0
         np.testing.assert_array_equal(out["psum"], x * 1 + x * 2)
         np.testing.assert_array_equal(out["gather"], np.concatenate([x, 2 * x], axis=1))
         blocks = [np.split(x * (r + 1), 2, axis=0)[rank] for r in range(2)]
         np.testing.assert_array_equal(out["a2a"], np.concatenate(blocks, axis=1))
         np.testing.assert_array_equal(out["perm"], x * (2 - rank))
         np.testing.assert_array_equal(out["bcast"], torch.from_numpy(2 * x).bfloat16().float().numpy())
-        assert out["pinned_buffers"] == 2
-        assert out["pinned"] == out["pinned_after_large"] <= 2 * 70000 * 4 + 4096
+        np.testing.assert_array_equal(out["rs"], np.split(x * 1 + x * 2, 2, axis=0)[rank])
+        assert out["big"] == [3.0, 3.0]
 
 
 def _forward(ctx, tree, cfg, tokens):

@@ -259,16 +259,6 @@ def test_contrastive_batch_matches_jax():
         assert np.array_equal(got[key].numpy(), np.asarray(arr)), key
 
 
-def test_mesh_raises_naming_the_roadmap_item():
-    cfg = tl.llama_tiny(dtype="float32", n_layers=1)
-    opt = tt.make_optimizer()
-    for call in (lambda: tt.make_train_step(cfg, opt, mesh=object()),
-                 lambda: tt.init_train_state(cfg, opt, mesh=object(), device="cpu"),
-                 lambda: tt.init_bert_train_state(tbert.bert_tiny(), opt, mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
-
-
 def test_train_state_checkpoint_round_trip(tmp_path):
     cfg = tl.llama_tiny(dtype="float32", n_layers=1, max_seq_len=64)
     opt = tt.make_optimizer(LR)
